@@ -1,0 +1,412 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (``ddl25spring_tpu_torch``) on one NVIDIA H100.
+
+Phases, in order; any failure exits non-zero and prints no result:
+
+1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
+2. build: ``nvcc`` compiles ``ops/csrc/flash_attention.cu`` for sm_90a from
+   the checkout (``ptxas`` register/spill lines are printed);
+3. kernels: the forward, dq and dk/dv kernels against their plain PyTorch
+   versions on the same inputs, on the card, at the LLaMA path's shape
+   ``[3, 256, 6, 48]`` (bf16 and fp32), causal and not, a ragged L=200 hd=64
+   shape, hd 32 and 128, a non-square non-causal shape; plus both autograd
+   Functions (``with_lse`` with a nonzero lse cotangent) on the card against
+   the same Functions on the CPU, where the plain versions run;
+4. timing: each kernel at the LLaMA path's shape (bf16) with CUDA events over
+   warm launches, beside its plain version, ``scaled_dot_product_attention``
+   as the library yardstick (forward; the backward is printed for the pair),
+   and its bound;
+5. the slice: ``primer.main`` trains the full-width LLaMA (bf16, flash
+   kernels, batch 3, ctx 256) for 24 steps; every loss finite, the loss falls,
+   each kernel launched 6 times per step; then full-width fp32 logits through
+   the kernels against dense attention;
+6. profile: device time by kernel, device busy and idle share of the train
+   step, with the flash kernels and with dense attention.
+
+Tolerances (|kernel - plain| <= atol + rtol * |plain|):
+  fp32: atol 1e-4, rtol 0 (summation order only);
+  bf16: atol 2e-2, rtol 1e-2 against the plain version run in fp32 on the same
+        bf16-rounded inputs (the kernel rounds each output once to bf16).
+
+The second-to-last line is ``{"kernels": [...]}``; the last line is
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+
+Run from the repository root: ``python3 chip_smoke.py``
+"""
+
+import json
+import math
+import re
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+MAIN_SHAPE = (3, 256, 6, 48)     # [B, L, H, hd] of the primer's attention
+STEPS = 24
+TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (2e-2, 1e-2)}
+
+# H100 SXM data-sheet peaks (dense): the bound of a kernel is the larger of
+# its bytes over the memory rate and its operations over the rate of its type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+SOURCE = "ddl25spring_tpu_torch/ops/csrc/flash_attention.cu"
+REPLACES = {
+    "fwd": "ddl25spring_tpu/ops/flash_attention.py:76",   # _fwd_kernel
+    "dq": "ddl25spring_tpu/ops/flash_attention.py:165",   # _dq_kernel
+    "dkv": "ddl25spring_tpu/ops/flash_attention.py:213",  # _dkv_kernel
+}
+
+
+class PhaseError(RuntimeError):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise PhaseError(msg)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+    check(out, "nvidia-smi printed no card")
+    return out
+
+
+def print_ptxas(log: str):
+    """One line per kernel instantiation: registers and spills."""
+    name, seen = None, {}
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(flash_(?:fwd|dq|dkv)_kernel)I(13__nv_bfloat16|f)Li(\d+)E",
+                          m.group(1))
+            name = (f"{k.group(1)}<{'f32' if k.group(2) == 'f' else 'bf16'},{k.group(3)}>"
+                    if k else m.group(1))
+        elif name and ("spill" in line or "registers" in line):
+            seen.setdefault(name, []).append(line.split(":", 1)[-1].strip())
+    for name, parts in seen.items():
+        print(f"  {name}: {'; '.join(parts)}")
+
+
+def excess(a, ref, dtype):
+    """max(|a - ref| - rtol |ref|) - atol: <= 0 within tolerance."""
+    atol, rtol = TOL[dtype]
+    a, ref = a.float(), ref.float()
+    return ((a - ref).abs() - rtol * ref.abs()).max().item() - atol
+
+
+def max_err(a, ref):
+    return (a.float() - ref.float()).abs().max().item()
+
+
+def randn(gen, *shape, dtype, dev):
+    return torch.randn(*shape, generator=gen).to(device=dev, dtype=dtype)
+
+
+def kernel_case(fa, gen, dev, BH, Lq, Lk, hd, dtype, causal):
+    """Each kernel against its plain version on the same inputs; returns the
+    max abs errors ``{"fwd", "dq", "dkv"}``."""
+    q = randn(gen, BH, Lq, hd, dtype=dtype, dev=dev)
+    k = randn(gen, BH, Lk, hd, dtype=dtype, dev=dev)
+    v = randn(gen, BH, Lk, hd, dtype=dtype, dev=dev)
+    do = randn(gen, BH, Lq, hd, dtype=dtype, dev=dev)
+    # the plain versions run in fp32 on the same (possibly bf16-rounded) values
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    o, lse = fa.flash_fwd(q, k, v, causal)
+    o_ref, lse_ref = fa.flash_fwd_reference(qf, kf, vf, causal)
+    delta = (dof * o_ref).sum(-1)
+    dq = fa.flash_dq(q, k, v, lse_ref, do, delta, causal)
+    dk, dv = fa.flash_dkv(q, k, v, lse_ref, do, delta, causal)
+    dq_ref, dk_ref, dv_ref = fa.flash_bwd_reference(qf, kf, vf, lse_ref, dof, delta, causal)
+    torch.cuda.synchronize()
+    tag = f"[{BH},{Lq},{Lk},{hd}] {str(dtype)[6:]} causal={causal}"
+    pairs = {"o": (o, o_ref), "lse": (lse, lse_ref), "dq": (dq, dq_ref),
+             "dk": (dk, dk_ref), "dv": (dv, dv_ref)}
+    errs = {}
+    for name, (a, ref) in pairs.items():
+        check(torch.isfinite(a).all().item(), f"{tag}: {name} not finite")
+        # lse is float32 in both versions, whatever the inputs
+        e = excess(a, ref, torch.float32 if name == "lse" else dtype)
+        check(e <= 0, f"{tag}: {name} off its plain version by {e:.3g} past tolerance")
+        errs[name] = max_err(a, ref)
+    print(f"  kernels {tag}: " + " ".join(f"{n}={e:.2e}" for n, e in errs.items()))
+    return {"fwd": max(errs["o"], errs["lse"]), "dq": errs["dq"],
+            "dkv": max(errs["dk"], errs["dv"])}
+
+
+def autograd_case(fa, gen, dev, shape, dtype, causal, with_lse):
+    """The autograd Function on the card (kernels) against the same Function on
+    the CPU (plain versions), outputs and input gradients."""
+    B, L, H, hd = shape
+    base = [torch.randn(*shape, generator=gen).to(dtype) for _ in range(3)]
+    t_o = torch.randn(*shape, generator=gen).to(dtype)
+    t_l = torch.randn(B, H, L, generator=gen)
+
+    def run(device):
+        q, k, v = (x.to(device).requires_grad_() for x in base)
+        if with_lse:
+            o, lse = fa.flash_attention_with_lse(q, k, v, causal=causal)
+            loss = (o.float() * t_o.to(device).float()).sum() + (
+                torch.tanh(lse) * t_l.to(device)).sum()
+            outs = [o, lse]
+        else:
+            o = fa.flash_attention(q, k, v, causal=causal)
+            loss = (o.float() * t_o.to(device).float()).sum()
+            outs = [o]
+        grads = torch.autograd.grad(loss, (q, k, v))
+        return [x.detach().cpu() for x in (*outs, *grads)]
+
+    got, ref = run(dev), run("cpu")
+    names = ["o", "lse", "dq", "dk", "dv"] if with_lse else ["o", "dq", "dk", "dv"]
+    tag = f"autograd {'with_lse ' if with_lse else ''}{list(shape)} {str(dtype)[6:]} causal={causal}"
+    for name, a, r in zip(names, got, ref):
+        e = excess(a, r, torch.float32 if name == "lse" else dtype)
+        check(e <= 0, f"{tag}: {name} off the CPU plain path by {e:.3g} past tolerance")
+    print(f"  {tag}: " + " ".join(f"{n}={max_err(a, r):.2e}" for n, a, r in zip(names, got, ref)))
+
+
+def cuda_ms(fn, iters, warmup=3):
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(nbytes, ops, dtype):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_kernels(fa, gen, dev):
+    """Times at the LLaMA path's shape (bf16, causal): kernel, plain version,
+    library call, bound."""
+    B, L, H, hd = MAIN_SHAPE
+    BH, dtype, causal = B * H, torch.bfloat16, True
+    q, k, v, do = (randn(gen, BH, L, hd, dtype=dtype, dev=dev) for _ in range(4))
+    o, lse = fa.flash_fwd(q, k, v, causal)
+    delta = (do.float() * o.float()).sum(-1)
+
+    el = q.element_size()
+    act = BH * L * hd * el                # one [BH, L, hd] operand
+    rows = BH * L * 4                     # one [BH, L] float32 vector
+    pairs = BH * L * (L + 1) // 2         # causal (query, key) pairs that attend
+    work = {  # (bytes: each input read once, each output written once; operations)
+        "fwd": (4 * act + rows, 4 * hd * pairs),
+        "dq": (5 * act + 2 * rows, 6 * hd * pairs),
+        "dkv": (6 * act + 2 * rows, 8 * hd * pairs),
+    }
+    kern = {
+        "fwd": lambda: fa.flash_fwd(q, k, v, causal),
+        "dq": lambda: fa.flash_dq(q, k, v, lse, do, delta, causal),
+        "dkv": lambda: fa.flash_dkv(q, k, v, lse, do, delta, causal),
+    }
+    plain = {
+        "fwd": lambda: fa.flash_fwd_reference(q, k, v, causal),
+        "dq": lambda: fa.flash_dq_reference(q, k, v, lse, do, delta, causal),
+        "dkv": lambda: fa.flash_dkv_reference(q, k, v, lse, do, delta, causal),
+    }
+    q4, k4, v4 = (x.view(B, H, L, hd) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = {"fwd": cuda_ms(lambda: sdpa(q4, k4, v4, is_causal=True), 200),
+                  "dq": None, "dkv": None}
+    # no single library call computes dq alone or dk/dv alone; SDPA's backward
+    # computes all three and is printed beside the kernel pair
+    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q4, k4, v4))
+    o4 = sdpa(qg, kg, vg, is_causal=True)
+    do4 = do.view(B, H, L, hd)
+    sdpa_bwd_ms = cuda_ms(
+        lambda: torch.autograd.grad(o4, (qg, kg, vg), do4, retain_graph=True), 200)
+
+    rows_out = {}
+    for name in ("fwd", "dq", "dkv"):
+        b_ms, b_by = bound(*work[name], dtype)
+        rows_out[name] = {
+            "ms": cuda_ms(kern[name], 200),
+            "plain_ms": cuda_ms(plain[name], 20),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms[name],
+        }
+        r = rows_out[name]
+        print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"library {r['library_ms']} ms, bound {b_ms:.5f} ms ({b_by}; "
+              f"{work[name][0]} B, {work[name][1]} ops)")
+    print(f"  sdpa backward (dq+dk+dv, one autograd call): {sdpa_bwd_ms:.4f} ms; "
+          f"kernel pair dq+dkv: {rows_out['dq']['ms'] + rows_out['dkv']['ms']:.4f} ms")
+    return rows_out
+
+
+def profile_steps(dev, use_flash, steps=10):
+    """Device time by kernel over ``steps`` full-width bf16 train steps (after
+    warm-up), beside the host wall time of the same steps; returns the busy
+    and wall milliseconds per step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ddl25spring_tpu_torch.models.llama import Llama
+    from ddl25spring_tpu_torch.ops.losses import causal_lm_loss
+    from ddl25spring_tpu_torch.parallel.dp import make_train_step
+    from ddl25spring_tpu_torch.utils.config import LlamaConfig
+
+    cfg = LlamaConfig(dtype="bfloat16", use_flash=use_flash)
+    model = Llama(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    step = make_train_step(model, lambda m, t: causal_lm_loss(m(t), t),
+                           torch.optim.Adam(model.parameters(), lr=8e-4))
+    tokens = torch.randint(0, cfg.vocab_size, (3, cfg.ctx_size),
+                           generator=torch.Generator().manual_seed(3)).to(dev)
+    for _ in range(5):
+        step(tokens)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step(tokens)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step(tokens)
+        torch.cuda.synchronize()
+
+    # kernels only: a CPU op's entry, and a device-side user annotation such as
+    # Optimizer.step, repeat the device time of the kernels they enclose
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
+    rows = sorted(((e.self_device_time_total / steps, e.count // steps, e.key)
+                   for e in kernels), reverse=True)
+    busy_ms = sum(us for us, _, _ in rows) / 1e3
+    check(busy_ms > 0, "profiler recorded no device time")
+    flash_ms = sum(us for us, _, key in rows if "flash_" in key) / 1e3
+    tag = "flash kernels" if use_flash else "dense attention"
+    print(f"  {tag}: host wall {wall_ms:.3f} ms/step (unprofiled), device busy "
+          f"{busy_ms:.3f} ms/step in {sum(n for _, n, _ in rows)} kernels, idle share "
+          f"{1 - busy_ms / wall_ms:.3f}, flash kernels {flash_ms:.3f} ms/step")
+    for us, n, key in rows[:12]:
+        print(f"    {us / 1e3:8.4f} ms/step  x{n:<4d} {key[:90]}")
+    return busy_ms, wall_ms
+
+
+def model_check(dev):
+    """Full-width fp32 logits through the flash kernels against dense attention."""
+    from ddl25spring_tpu_torch.models.llama import Llama, llama_forward
+    from ddl25spring_tpu_torch.utils.config import LlamaConfig, replace
+
+    cfg = LlamaConfig(dtype="float32", use_flash=True)
+    model = Llama(cfg, device=dev, generator=torch.Generator().manual_seed(1))
+    tokens = torch.randint(0, cfg.vocab_size, (3, cfg.ctx_size),
+                           generator=torch.Generator().manual_seed(2)).to(dev)
+    with torch.no_grad():
+        flash = llama_forward(model, tokens, cfg)
+        dense = llama_forward(model, tokens, replace(cfg, use_flash=False))
+    err = max_err(flash, dense)
+    check(tuple(flash.shape) == (3, cfg.ctx_size, cfg.vocab_size), f"logits {flash.shape}")
+    check(torch.isfinite(flash).all().item(), "flash logits not finite")
+    check(err <= 1e-3, f"fp32 logits: flash kernels vs dense differ by {err:.3g} > 1e-3")
+    print(f"  full-width fp32 logits, flash kernels vs dense: max abs err {err:.2e}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+        return 2
+    from ddl25spring_tpu_torch import primer
+    from ddl25spring_tpu_torch.ops import _build
+    from ddl25spring_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full fp32
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+
+    print("== card")
+    card = card_line()
+    print(card)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}, sm_{''.join(map(str, torch.cuda.get_device_capability(0)))}")
+
+    print("== build")
+    t0 = time.perf_counter()
+    (lib,) = _build.build(_build.CSRC / "flash_attention.cu")
+    print(f"  {lib.name} in {time.perf_counter() - t0:.1f} s")
+    print_ptxas(lib.with_suffix(".log").read_text())
+
+    print("== kernels vs plain versions")
+    gen = torch.Generator().manual_seed(0)
+    B, L, H, hd = MAIN_SHAPE
+    main_err = kernel_case(fa, gen, dev, B * H, L, L, hd, torch.bfloat16, True)
+    for case in [
+        (B * H, L, L, hd, torch.float32, True),
+        (B * H, L, L, hd, torch.float32, False),
+        (4, 200, 200, 64, torch.float32, True),    # ragged tail
+        (4, 200, 200, 64, torch.float32, False),
+        (4, 200, 200, 64, torch.bfloat16, True),
+        (2, 130, 130, 32, torch.float32, True),
+        (2, 100, 100, 128, torch.float32, False),
+        (2, 256, 256, 128, torch.bfloat16, True),
+        (4, 256, 192, 48, torch.float32, False),   # non-square, non-causal
+    ]:
+        kernel_case(fa, gen, dev, *case)
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (True, False):
+            autograd_case(fa, gen, dev, MAIN_SHAPE, dtype, causal, with_lse=False)
+            autograd_case(fa, gen, dev, MAIN_SHAPE, dtype, causal, with_lse=True)
+    autograd_case(fa, gen, dev, (2, 200, 2, 64), torch.float32, True, with_lse=True)
+
+    print("== timing at the LLaMA path's shape, bf16 causal")
+    timing = time_kernels(fa, gen, dev)
+
+    print(f"== the slice: primer, {STEPS} steps, full width, bf16, flash kernels")
+    for name in fa.LAUNCHES:
+        fa.LAUNCHES[name] = 0
+    run = primer.main(["--iters", str(STEPS), "--batch", str(B), "--seq-len", str(L),
+                       "--seed", "0"])
+    launches = dict(fa.LAUNCHES)
+    losses = run["losses"]
+    check(len(losses) == STEPS and all(math.isfinite(x) for x in losses),
+          f"losses not all finite: {losses}")
+    check(abs(losses[0] - math.log(4096)) < 1.0,
+          f"first loss {losses[0]:.3f} far from ln(vocab) {math.log(4096):.3f}")
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    check(last < first, f"loss did not fall: first-5 mean {first:.4f}, last-5 {last:.4f}")
+    want = {name: 6 * STEPS for name in ("fwd", "dq", "dkv")}
+    check(launches == want, f"kernel launches {launches} != {want}")
+    steady = run["step_s"][4:]
+    step_ms = statistics.median(steady) * 1e3
+    print(f"  loss {first:.4f} (first 5) -> {last:.4f} (last 5); launches {launches}")
+    print(f"  step time median {step_ms:.3f} ms (steps 4..{STEPS - 1}, host clock, "
+          f"min {min(steady) * 1e3:.3f} ms), {B * L / (step_ms / 1e3):.1f} tokens/s")
+
+    print("== full-width model check")
+    model_check(dev)
+
+    print("== where the step's time goes (torch.profiler, bf16, full width)")
+    for use_flash in (True, False):
+        profile_steps(dev, use_flash)
+
+    kernels = [
+        {"name": f"flash_{name}", "route": "cuda", "source": SOURCE,
+         "replaces": REPLACES[name], "launches": launches[name],
+         "max_abs_err": main_err[name], **timing[name]}
+        for name in ("fwd", "dq", "dkv")
+    ]
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

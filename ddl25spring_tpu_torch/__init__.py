@@ -1,0 +1,14 @@
+"""PyTorch/CUDA port of ``ddl25spring_tpu`` for NVIDIA Hopper (H100).
+
+The JAX package beside it is the reference; this package mirrors its module
+paths (``utils/config.py``, ``models/llama.py``, ``ops/flash_attention.py``,
+...) so each piece has an obvious counterpart.  It imports torch and numpy,
+never jax and never the JAX package.
+
+What is ported so far is the single-card LLaMA training path
+(:mod:`ddl25spring_tpu_torch.primer`): TinyStories -> LLaMA forward ->
+causal-LM loss -> backward -> Adam, with attention through the hand-written
+sm_90a flash-attention kernels in ``ops/csrc/flash_attention.cu``.  Entry
+points run on CUDA unless the caller passes ``device="cpu"``; on the CPU each
+kernel's plain PyTorch version runs in its place.
+"""

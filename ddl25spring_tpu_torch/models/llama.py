@@ -1,0 +1,218 @@
+"""LLaMA-style decoder, the counterpart of the JAX package's ``models/llama.py``.
+
+The same arithmetic as the reference, in PyTorch: RMSNorm, rotary embeddings
+over interleaved (even, odd) pairs, causal attention with a float32 softmax,
+SwiGLU FFN, float32 logits.  Parameters are float32 and are cast to
+``cfg.dtype`` where they are used, as the reference casts them.
+
+Weights keep the reference's ``[in, out]`` layout and are applied as
+``x @ W``, so :func:`load_jax_params` / :func:`export_params` move a parameter
+pytree across without transposes.  Blocks are an ``nn.ModuleList`` applied in
+a Python loop where the reference scans a stacked ``[L, ...]`` pytree.
+
+Only the dense-FFN model is ported; switch-MoE configs raise.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ddl25spring_tpu_torch.ops.flash_attention import flash_attention
+from ddl25spring_tpu_torch.utils.config import LlamaConfig
+
+BLOCK_KEYS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "w_gate", "w_up", "w_down")
+
+
+def _dense(shape, generator: torch.Generator, device, scale=0.02) -> nn.Parameter:
+    # drawn on the CPU generator, then moved: the same seed gives the same
+    # weights on every device
+    w = scale * torch.randn(shape, generator=generator, dtype=torch.float32)
+    return nn.Parameter(w.to(device))
+
+
+def _ones(n, device) -> nn.Parameter:
+    return nn.Parameter(torch.ones(n, dtype=torch.float32, device=device))
+
+
+class LlamaBlock(nn.Module):
+    """One pre-norm block's parameters (applied by :func:`block_forward`)."""
+
+    def __init__(self, cfg: LlamaConfig, generator: torch.Generator, device):
+        super().__init__()
+        d, f = cfg.dmodel, cfg.ffn_dim
+        self.ln1 = _ones(d, device)
+        self.wq = _dense((d, d), generator, device)
+        self.wk = _dense((d, d), generator, device)
+        self.wv = _dense((d, d), generator, device)
+        self.wo = _dense((d, d), generator, device)
+        self.ln2 = _ones(d, device)
+        self.w_gate = _dense((d, f), generator, device)
+        self.w_up = _dense((d, f), generator, device)
+        self.w_down = _dense((f, d), generator, device)
+
+
+class Llama(nn.Module):
+    """Full model: ``embed [V, D]``, ``blocks``, final-norm scale ``ln_f``,
+    ``unembed [D, V]``; init ``normal(0, 0.02)`` from ``generator``."""
+
+    def __init__(self, cfg: LlamaConfig, *, device, generator: torch.Generator):
+        super().__init__()
+        if cfg.n_experts > 0:
+            raise NotImplementedError(
+                "switch-MoE LLaMA (cfg.n_experts > 0) is not ported yet"
+            )
+        self.cfg = cfg
+        self.embed = _dense((cfg.vocab_size, cfg.dmodel), generator, device)
+        self.blocks = nn.ModuleList(
+            LlamaBlock(cfg, generator, device) for _ in range(cfg.n_layers)
+        )
+        self.ln_f = _ones(cfg.dmodel, device)
+        self.unembed = _dense((cfg.dmodel, cfg.vocab_size), generator, device)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        return llama_forward(self, tokens, self.cfg)
+
+
+# ---------------------------------------------------------------- forward
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.float()
+    rms = torch.sqrt((x32 * x32).mean(-1, keepdim=True) + eps)
+    return ((x32 / rms) * scale).to(x.dtype)
+
+
+def rope_angles(seq_len: int, head_dim: int, base: float = 10_000.0,
+                pos: torch.Tensor | None = None, device=None):
+    """``(cos, sin)``, each ``[L, hd/2]`` float32.  ``pos`` overrides
+    ``arange(seq_len)``."""
+    if pos is None:
+        pos = torch.arange(seq_len, dtype=torch.float32, device=device)
+    inv = base ** (
+        -torch.arange(0, head_dim, 2, dtype=torch.float32, device=pos.device) / head_dim
+    )
+    ang = pos.float()[:, None] * inv[None, :]
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    # x: [B, L, H, hd]; rotates interleaved (even, odd) pairs, not the
+    # half-split rotate_half convention
+    x1, x2 = x[..., 0::2], x[..., 1::2]
+    c = cos[None, :, None, :]
+    s = sin[None, :, None, :]
+    out = torch.stack([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1)
+    return out.reshape(x.shape).to(x.dtype)
+
+
+def causal_attention(q, k, v, dtype: torch.dtype) -> torch.Tensor:
+    """Dense causal attention: scores in ``dtype``, float32 softmax."""
+    hd = q.shape[-1]
+    L, Lk = q.shape[1], k.shape[1]
+    scores = torch.einsum("blhd,bmhd->bhlm", q, k).float() / math.sqrt(hd)
+    mask = torch.ones((L, Lk), dtype=torch.bool, device=q.device).tril()
+    scores = scores.masked_fill(~mask, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(dtype)
+    return torch.einsum("bhlm,bmhd->blhd", probs, v)
+
+
+def _dtype(cfg: LlamaConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def block_forward(p: LlamaBlock, x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    """One pre-norm block: RMSNorm -> causal RoPE attention -> residual ->
+    RMSNorm -> SwiGLU FFN -> residual.  Attention goes through
+    :func:`flash_attention` when ``cfg.use_flash`` (its kernels on CUDA, their
+    plain versions on the CPU), else through dense :func:`causal_attention`."""
+    dtype = _dtype(cfg)
+    B, L, _ = x.shape
+    hd = cfg.head_dim
+
+    h = rms_norm(x, p.ln1)
+    q = (h @ p.wq.to(dtype)).view(B, L, -1, hd)
+    k = (h @ p.wk.to(dtype)).view(B, L, -1, hd)
+    v = (h @ p.wv.to(dtype)).view(B, L, -1, hd)
+    cos, sin = rope_angles(L, hd, device=x.device)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    if cfg.use_flash:
+        attn = flash_attention(q, k, v)
+    else:
+        attn = causal_attention(q, k, v, dtype)
+    x = x + attn.reshape(B, L, -1) @ p.wo.to(dtype)
+
+    h = rms_norm(x, p.ln2)
+    gate = F.silu(h @ p.w_gate.to(dtype))
+    up = h @ p.w_up.to(dtype)
+    return x + (gate * up) @ p.w_down.to(dtype)
+
+
+def embed(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    return model.embed.to(_dtype(cfg))[tokens]
+
+
+def unembed(model: Llama, x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    """Final norm + output projection; logits come out float32."""
+    h = rms_norm(x, model.ln_f)
+    return (h @ model.unembed.to(h.dtype)).float()
+
+
+def llama_forward(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    """``tokens [B, L]`` -> logits ``[B, L, V]`` float32."""
+    x = embed(model, tokens, cfg)
+    for block in model.blocks:
+        x = block_forward(block, x, cfg)
+    return unembed(model, x, cfg)
+
+
+# ------------------------------------------------------------ weight bridge
+
+
+@torch.no_grad()
+def load_jax_params(model: Llama, np_params: dict) -> Llama:
+    """Copy the reference's parameter pytree (numpy leaves: ``embed [V, D]``,
+    stacked ``blocks.<key> [L, ...]``, ``ln_f``, ``unembed [D, V]``) into
+    ``model``.  Shapes must match exactly."""
+
+    def put(param: nn.Parameter, value, name: str):
+        value = np.asarray(value)
+        if tuple(value.shape) != tuple(param.shape):
+            raise ValueError(f"{name}: shape {value.shape} != {tuple(param.shape)}")
+        param.copy_(torch.from_numpy(np.array(value, dtype=np.float32)))
+
+    put(model.embed, np_params["embed"], "embed")
+    put(model.ln_f, np_params["ln_f"], "ln_f")
+    put(model.unembed, np_params["unembed"], "unembed")
+    blocks = np_params["blocks"]
+    for key in BLOCK_KEYS:
+        if len(blocks[key]) != len(model.blocks):
+            raise ValueError(f"blocks.{key}: {len(blocks[key])} layers != "
+                             f"{len(model.blocks)}")
+        for i, block in enumerate(model.blocks):
+            put(getattr(block, key), blocks[key][i], f"blocks.{key}[{i}]")
+    return model
+
+
+@torch.no_grad()
+def export_params(model: Llama) -> dict:
+    """The inverse of :func:`load_jax_params`: the reference's pytree layout
+    with numpy leaves."""
+
+    def arr(t):
+        return t.detach().cpu().numpy().copy()
+
+    return {
+        "embed": arr(model.embed),
+        "blocks": {
+            key: np.stack([arr(getattr(b, key)) for b in model.blocks])
+            for key in BLOCK_KEYS
+        },
+        "ln_f": arr(model.ln_f),
+        "unembed": arr(model.unembed),
+    }

@@ -1,0 +1,133 @@
+"""The port's flash attention against the JAX package's, on the CPU.
+
+The port's autograd Functions run their plain PyTorch versions here (CPU
+tensors); the JAX side runs the Pallas kernels in interpret mode.  Same inputs
+from a seeded numpy generator, float32.  Tolerances: outputs and lse 2e-5,
+gradients 5e-5 (summation order differs: blocked online softmax on both
+sides, with different block walks).  The kernels themselves are held to the
+plain versions on the card by tests/test_torch_cuda.py and chip_smoke.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from ddl25spring_tpu.ops.flash_attention import (  # noqa: E402
+    flash_attention as jax_flash,
+    flash_attention_with_lse as jax_flash_lse,
+)
+from ddl25spring_tpu_torch.ops import flash_attention as fa  # noqa: E402
+
+FWD_ATOL, GRAD_ATOL = 2e-5, 5e-5
+
+
+def _inputs(seed, shape, lk=None, n_extra=1):
+    rng = np.random.default_rng(seed)
+    B, L, H, hd = shape
+    kv_shape = (B, lk or L, H, hd)
+    q = rng.standard_normal(shape, dtype=np.float32)
+    k = rng.standard_normal(kv_shape, dtype=np.float32)
+    v = rng.standard_normal(kv_shape, dtype=np.float32)
+    extra = [rng.standard_normal(shape, dtype=np.float32) for _ in range(n_extra)]
+    return q, k, v, *extra
+
+
+def _torch_grads(fn, arrays):
+    ts = [torch.from_numpy(a).requires_grad_() for a in arrays]
+    fn(*ts).backward()
+    return [t.grad.numpy() for t in ts]
+
+
+# shapes of tests/test_flash_attention.py:33-159 (the port has no block sizes,
+# so the reference's block variants collapse into these), plus head_dim 48
+# (the LLaMA path's), a ragged length and a single head
+@pytest.mark.parametrize("shape,causal", [
+    ((2, 128, 3, 32), True),
+    ((2, 192, 3, 32), True),
+    ((2, 256, 3, 32), True),
+    ((2, 128, 2, 32), False),
+    ((2, 256, 3, 48), True),
+    ((1, 200, 1, 48), True),
+    ((1, 200, 2, 64), False),
+])
+def test_flash_matches_jax(shape, causal):
+    q, k, v, t = _inputs(0, shape)
+    want, vjp = jax.vjp(
+        lambda q, k, v: jax_flash(q, k, v, causal=causal, interpret=True), q, k, v)
+    got = fa.flash_attention(*map(torch.from_numpy, (q, k, v)), causal=causal)
+    assert got.shape == shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=FWD_ATOL)
+
+    want_g = vjp(jnp.asarray(t))
+    got_g = _torch_grads(
+        lambda q, k, v: (fa.flash_attention(q, k, v, causal=causal)
+                         * torch.from_numpy(t)).sum(), (q, k, v))
+    for a, b in zip(got_g, want_g):
+        np.testing.assert_allclose(a, np.asarray(b), atol=GRAD_ATOL)
+
+
+@pytest.mark.parametrize("causal,lk", [(True, None), (False, None), (False, 96)])
+def test_flash_with_lse_matches_jax(causal, lk):
+    """Both outputs and the joint (do, dlse) backward, on a loss that mixes o
+    and lse as the ring-attention merge does."""
+    shape = (2, 128, 2, 32)
+    q, k, v, t_o = _inputs(5, shape, lk=lk)
+    t_l = np.random.default_rng(6).standard_normal((2, 2, 128), dtype=np.float32)
+    (o_w, lse_w), vjp = jax.vjp(
+        lambda q, k, v: jax_flash_lse(q, k, v, causal=causal, interpret=True),
+        q, k, v)
+    o_g, lse_g = fa.flash_attention_with_lse(
+        *map(torch.from_numpy, (q, k, v)), causal=causal)
+    assert lse_g.shape == (2, 2, 128)
+    np.testing.assert_allclose(o_g.numpy(), np.asarray(o_w), atol=FWD_ATOL)
+    np.testing.assert_allclose(lse_g.numpy(), np.asarray(lse_w), atol=FWD_ATOL)
+
+    def torch_loss(q, k, v):
+        o, lse = fa.flash_attention_with_lse(q, k, v, causal=causal)
+        return (o * torch.from_numpy(t_o)).sum() + (
+            torch.tanh(lse) * torch.from_numpy(t_l)).sum()
+
+    # cotangents of (o * t_o).sum() + (tanh(lse) * t_l).sum()
+    want_g = vjp((jnp.asarray(t_o), t_l * (1 - jnp.tanh(lse_w) ** 2)))
+    got_g = _torch_grads(torch_loss, (q, k, v))
+    for a, b in zip(got_g, want_g):
+        np.testing.assert_allclose(a, np.asarray(b), atol=GRAD_ATOL)
+
+
+def test_cpu_runs_plain_versions_and_counts_no_launch():
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(1, (1, 70, 2, 48)))
+    q.requires_grad_()
+    before = dict(fa.LAUNCHES)
+    fa.flash_attention(q, k, v).backward(do)
+    q3 = fa._fold(q)
+    o, lse = fa.flash_fwd(q3, q3, q3, True)
+    ref_o, ref_lse = fa.flash_fwd_reference(q3, q3, q3, True)
+    assert torch.equal(o, ref_o) and torch.equal(lse, ref_lse)
+    assert fa.LAUNCHES == before
+
+
+_X = torch.zeros(2, 64, 32)
+_Y = torch.zeros(2, 48, 32)
+_ROWS = torch.zeros(2, 64)
+
+
+@pytest.mark.parametrize("call,exc,match", [
+    (lambda: fa.flash_fwd(_X, _Y, _Y, True), ValueError, "square"),
+    (lambda: fa.flash_attention_with_lse(_X.view(1, 64, 2, 32), _Y.view(1, 48, 2, 32),
+                                         _Y.view(1, 48, 2, 32)), ValueError, "square"),
+    (lambda: fa.flash_fwd(*[torch.zeros(2, 64, 160)] * 3, True), ValueError,
+     "head_dim"),
+    (lambda: fa.flash_fwd(_X.half(), _X.half(), _X.half(), True), TypeError,
+     "float32 or bfloat16"),
+    (lambda: fa.flash_dq(_X, _X, _X, _ROWS[:, :10], _X, _ROWS, True), ValueError,
+     "lse must be"),
+    (lambda: fa.flash_dkv(_X, _X, _X, _ROWS, _X[:, :8], _ROWS, True), ValueError,
+     "do "),
+], ids=["causal-rect", "with-lse-causal-rect", "head-dim", "dtype", "lse-shape",
+        "do-shape"])
+def test_wrappers_reject_what_the_kernels_do_not_take(call, exc, match):
+    with pytest.raises(exc, match=match):
+        call()
