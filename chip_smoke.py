@@ -4,29 +4,41 @@
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build: ``nvcc`` compiles ``ops/csrc/flash_attention.cu`` for sm_90a from
-   the checkout (``ptxas`` register/spill lines are printed);
+2. build: ``nvcc`` compiles ``ops/csrc/flash_attention.cu`` (scalar kernels)
+   and ``ops/csrc/flash_attention_sm90.cu`` (tensor-core kernels) for sm_90a
+   from the checkout, in parallel; the build time and the ``ptxas``
+   registers and spills of every instantiation are printed;
 3. kernels: the forward, dq and dk/dv kernels against their plain PyTorch
    versions on the same inputs, on the card, at the LLaMA path's shape
-   ``[3, 256, 6, 48]`` (bf16 and fp32), causal and not, a ragged L=200 hd=64
-   shape, hd 32 and 128, a non-square non-causal shape; plus both autograd
-   Functions (``with_lse`` with a nonzero lse cotangent) on the card against
-   the same Functions on the CPU, where the plain versions run;
-4. timing: each kernel at the LLaMA path's shape (bf16) with CUDA events over
-   warm launches, beside its plain version, ``scaled_dot_product_attention``
-   as the library yardstick (forward; the backward is printed for the pair),
-   and its bound;
+   ``[3, 256, 6, 48]`` (bf16 and fp32), causal and not, ragged L=200 at hd
+   64, 48 and 40, L=17, hd 32 and 128, the tensor-core kernels at every
+   instruction width (hd 16, 80, 96, 112), hd 36 (bf16 on the scalar
+   variant), non-square non-causal; each case checks which variant ran.  Plus both autograd Functions (``with_lse`` with
+   a nonzero lse cotangent) on the card against the same Functions on the
+   CPU, where the plain versions run;
+4. timing at the LLaMA path's shape (bf16, causal): each kernel's device time
+   per call (torch.profiler kernel events), beside the CUDA-event time of 200
+   back-to-back Python calls (``wall_ms``, host-paced), the scalar kernel's
+   device time on the same inputs (launched directly, past the dispatch), its plain version, its bound and
+   ``scaled_dot_product_attention`` forward and backward, timed both ways;
 5. the slice: ``primer.main`` trains the full-width LLaMA (bf16, flash
    kernels, batch 3, ctx 256) for 24 steps; every loss finite, the loss falls,
-   each kernel launched 6 times per step; then full-width fp32 logits through
-   the kernels against dense attention;
+   each kernel launched 6 times per step, every fwd and dk/dv launch on the
+   tensor-core variant; then full-width fp32 logits through the kernels
+   against dense attention;
 6. profile: device time by kernel, device busy and idle share of the train
    step, with the flash kernels and with dense attention.
 
 Tolerances (|kernel - plain| <= atol + rtol * |plain|):
   fp32: atol 1e-4, rtol 0 (summation order only);
-  bf16: atol 2e-2, rtol 1e-2 against the plain version run in fp32 on the same
-        bf16-rounded inputs (the kernel rounds each output once to bf16).
+  bf16: atol 2e-2, rtol 1e-2 against the plain version on the same bf16
+        inputs (it computes in fp32 and rounds p and ds to bf16 where the
+        kernels do; the kernel rounds each output once to bf16).
+
+In the kernels line, ``ms`` and ``device_ms`` are the device time per call,
+``library_ms`` and ``library_device_ms`` SDPA forward's; ``wall_ms`` and
+``library_wall_ms`` the host-paced CUDA-event times; ``scalar_device_ms`` the
+scalar kernel's device time on the same inputs.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -53,7 +65,8 @@ TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (2e-2, 1e-2)}
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
-SOURCE = "ddl25spring_tpu_torch/ops/csrc/flash_attention.cu"
+CSRC = "ddl25spring_tpu_torch/ops/csrc/"
+SOURCE = {"wgmma": CSRC + "flash_attention_sm90.cu", "scalar": CSRC + "flash_attention.cu"}
 REPLACES = {
     "fwd": "ddl25spring_tpu/ops/flash_attention.py:76",   # _fwd_kernel
     "dq": "ddl25spring_tpu/ops/flash_attention.py:165",   # _dq_kernel
@@ -79,16 +92,24 @@ def card_line() -> str:
     return out
 
 
+def kernel_name(mangled: str) -> str:
+    """``flash_fwd_kernel<bf16,64>`` / ``flash_dkv_wgmma<48>`` from a mangled
+    name (the scalar kernels are templated on dtype and padded hd, the
+    tensor-core ones on hd rounded up to 16)."""
+    k = re.search(r"(flash_(?:fwd|dq|dkv)_kernel)I(13__nv_bfloat16|f)Li(\d+)E", mangled)
+    if k:
+        return f"{k.group(1)}<{'f32' if k.group(2) == 'f' else 'bf16'},{k.group(3)}>"
+    k = re.search(r"(flash_(?:fwd|dkv)_wgmma)ILi(\d+)E", mangled)
+    return f"{k.group(1)}<{k.group(2)}>" if k else mangled
+
+
 def print_ptxas(log: str):
-    """One line per kernel instantiation: registers and spills."""
+    """One line per kernel instantiation: registers, spills, shared memory."""
     name, seen = None, {}
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(flash_(?:fwd|dq|dkv)_kernel)I(13__nv_bfloat16|f)Li(\d+)E",
-                          m.group(1))
-            name = (f"{k.group(1)}<{'f32' if k.group(2) == 'f' else 'bf16'},{k.group(3)}>"
-                    if k else m.group(1))
+            name = kernel_name(m.group(1))
         elif name and ("spill" in line or "registers" in line):
             seen.setdefault(name, []).append(line.split(":", 1)[-1].strip())
     for name, parts in seen.items():
@@ -111,22 +132,27 @@ def randn(gen, *shape, dtype, dev):
 
 
 def kernel_case(fa, gen, dev, BH, Lq, Lk, hd, dtype, causal):
-    """Each kernel against its plain version on the same inputs; returns the
+    """Each kernel against its plain version on the same inputs (the plain
+    versions compute in fp32 and round p and ds where the kernels do); checks
+    that fwd and dk/dv ran the variant the dispatch rule names.  Returns the
     max abs errors ``{"fwd", "dq", "dkv"}``."""
     q = randn(gen, BH, Lq, hd, dtype=dtype, dev=dev)
     k = randn(gen, BH, Lk, hd, dtype=dtype, dev=dev)
     v = randn(gen, BH, Lk, hd, dtype=dtype, dev=dev)
     do = randn(gen, BH, Lq, hd, dtype=dtype, dev=dev)
-    # the plain versions run in fp32 on the same (possibly bf16-rounded) values
-    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    want = "wgmma" if dtype == torch.bfloat16 and hd % 8 == 0 else "scalar"
+    before = {n: dict(c) for n, c in fa.LAUNCHES_BY_VARIANT.items()}
     o, lse = fa.flash_fwd(q, k, v, causal)
-    o_ref, lse_ref = fa.flash_fwd_reference(qf, kf, vf, causal)
-    delta = (dof * o_ref).sum(-1)
+    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal)
+    delta = (do.float() * o_ref.float()).sum(-1)
     dq = fa.flash_dq(q, k, v, lse_ref, do, delta, causal)
     dk, dv = fa.flash_dkv(q, k, v, lse_ref, do, delta, causal)
-    dq_ref, dk_ref, dv_ref = fa.flash_bwd_reference(qf, kf, vf, lse_ref, dof, delta, causal)
+    dq_ref, dk_ref, dv_ref = fa.flash_bwd_reference(q, k, v, lse_ref, do, delta, causal)
     torch.cuda.synchronize()
-    tag = f"[{BH},{Lq},{Lk},{hd}] {str(dtype)[6:]} causal={causal}"
+    tag = f"[{BH},{Lq},{Lk},{hd}] {str(dtype)[6:]} causal={causal} {want}"
+    for name in ("fwd", "dkv"):
+        ran = {v_: n - before[name][v_] for v_, n in fa.LAUNCHES_BY_VARIANT[name].items()}
+        check(ran[want] == 1 and sum(ran.values()) == 1, f"{tag}: {name} ran {ran}")
     pairs = {"o": (o, o_ref), "lse": (lse, lse_ref), "dq": (dq, dq_ref),
              "dk": (dk, dk_ref), "dv": (dv, dv_ref)}
     errs = {}
@@ -173,7 +199,9 @@ def autograd_case(fa, gen, dev, shape, dtype, causal, with_lse):
 
 
 def cuda_ms(fn, iters, warmup=3):
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    """CUDA events around ``iters`` back-to-back Python calls of ``fn``, per
+    call: the host-paced rate, which is the device time only while the device
+    is slower than the host's dispatch."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -184,6 +212,40 @@ def cuda_ms(fn, iters, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_events(fn, calls):
+    """The kernel rows of a torch.profiler trace of ``calls`` calls of ``fn``
+    (a CPU op's entry, and a device-side user annotation such as
+    Optimizer.step, repeat the device time of the kernels they enclose, so
+    they are left out)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+
+
+def device_ms(fn, iters=50, warmup=3, tries=3):
+    """Device time per call of ``fn``: the self device time of every kernel
+    it launched over ``iters`` calls, divided by ``iters``.  Host dispatch
+    gaps between the kernels are not counted.  The profiler has dropped
+    kernel records on the H100 (one run recorded 1 of 50 launches), so the
+    count of kernel records must be a whole multiple of ``iters``; a trace
+    that fails that is taken again, up to ``tries`` times."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        events = kernel_events(fn, iters)
+        n = sum(e.count for e in events)
+        if n > 0 and n % iters == 0:
+            return sum(e.self_device_time_total for e in events) / 1e3 / iters
+        print(f"  profiler recorded {n} kernels for {iters} calls; tracing again")
+    raise PhaseError(f"profiler kept dropping kernel records ({n} for {iters} calls)")
 
 
 def bound(nbytes, ops, dtype):
@@ -209,10 +271,20 @@ def time_kernels(fa, gen, dev):
         "dq": (5 * act + 2 * rows, 6 * hd * pairs),
         "dkv": (6 * act + 2 * rows, 8 * hd * pairs),
     }
-    kern = {
+    kern = {  # the variant the dispatch rule picks at this shape
         "fwd": lambda: fa.flash_fwd(q, k, v, causal),
         "dq": lambda: fa.flash_dq(q, k, v, lse, do, delta, causal),
         "dkv": lambda: fa.flash_dkv(q, k, v, lse, do, delta, causal),
+    }
+    # the first slice's scalar kernels on the same inputs in the same run,
+    # launched past the dispatch rule (which sends these inputs to wgmma)
+    o_s, lse_s, dk_s, dv_s = (torch.empty_like(t) for t in (q, lse, k, v))
+    scalar = {
+        "fwd": lambda: fa._launch("fwd", "scalar", q, k, v, o_s, lse_s,
+                                  q3=q, Lk=L, causal=causal),
+        "dq": kern["dq"],
+        "dkv": lambda: fa._launch("dkv", "scalar", q, k, v, do, lse, delta, dk_s, dv_s,
+                                  q3=q, Lk=L, causal=causal),
     }
     plain = {
         "fwd": lambda: fa.flash_fwd_reference(q, k, v, causal),
@@ -221,31 +293,44 @@ def time_kernels(fa, gen, dev):
     }
     q4, k4, v4 = (x.view(B, H, L, hd) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = {"fwd": cuda_ms(lambda: sdpa(q4, k4, v4, is_causal=True), 200),
-                  "dq": None, "dkv": None}
     # no single library call computes dq alone or dk/dv alone; SDPA's backward
     # computes all three and is printed beside the kernel pair
     qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q4, k4, v4))
     o4 = sdpa(qg, kg, vg, is_causal=True)
     do4 = do.view(B, H, L, hd)
-    sdpa_bwd_ms = cuda_ms(
-        lambda: torch.autograd.grad(o4, (qg, kg, vg), do4, retain_graph=True), 200)
+    library = {
+        "sdpa fwd": lambda: sdpa(q4, k4, v4, is_causal=True),
+        "sdpa bwd": lambda: torch.autograd.grad(o4, (qg, kg, vg), do4, retain_graph=True),
+    }
+    lib_t = {}
+    for name, fn in library.items():
+        lib_t[name] = (device_ms(fn), cuda_ms(fn, 200))
+        print(f"  {name}: device {lib_t[name][0]:.5f} ms, wall {lib_t[name][1]:.5f} ms")
 
     rows_out = {}
     for name in ("fwd", "dq", "dkv"):
         b_ms, b_by = bound(*work[name], dtype)
+        lib_dev, lib_wall = lib_t["sdpa fwd"] if name == "fwd" else (None, None)
+        variant = fa._variant(name, (q, k, v))
+        dev_ms = device_ms(kern[name])
+        scalar_ms = dev_ms if scalar[name] is kern[name] else device_ms(scalar[name])
         rows_out[name] = {
-            "ms": cuda_ms(kern[name], 200),
+            "variant": variant,
+            "ms": dev_ms, "device_ms": dev_ms, "wall_ms": cuda_ms(kern[name], 200),
+            "scalar_device_ms": scalar_ms,
             "plain_ms": cuda_ms(plain[name], 20),
             "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": library_ms[name],
+            "library_ms": lib_dev, "library_device_ms": lib_dev,
+            "library_wall_ms": lib_wall,
         }
         r = rows_out[name]
-        print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"library {r['library_ms']} ms, bound {b_ms:.5f} ms ({b_by}; "
+        print(f"  {name} ({variant}): device {dev_ms:.5f} ms, wall {r['wall_ms']:.5f} ms, "
+              f"scalar variant device {scalar_ms:.5f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"library device {lib_dev} ms, bound {b_ms:.6f} ms ({b_by}; "
               f"{work[name][0]} B, {work[name][1]} ops)")
-    print(f"  sdpa backward (dq+dk+dv, one autograd call): {sdpa_bwd_ms:.4f} ms; "
-          f"kernel pair dq+dkv: {rows_out['dq']['ms'] + rows_out['dkv']['ms']:.4f} ms")
+    pair = rows_out["dq"]["device_ms"] + rows_out["dkv"]["device_ms"]
+    print(f"  sdpa backward (dq+dk+dv, one autograd call): device {lib_t['sdpa bwd'][0]:.5f} ms; "
+          f"kernel pair dq+dkv: device {pair:.5f} ms")
     return rows_out
 
 
@@ -253,8 +338,6 @@ def profile_steps(dev, use_flash, steps=10):
     """Device time by kernel over ``steps`` full-width bf16 train steps (after
     warm-up), beside the host wall time of the same steps; returns the busy
     and wall milliseconds per step."""
-    from torch.profiler import ProfilerActivity, profile
-
     from ddl25spring_tpu_torch.models.llama import Llama
     from ddl25spring_tpu_torch.ops.losses import causal_lm_loss
     from ddl25spring_tpu_torch.parallel.dp import make_train_step
@@ -274,20 +357,16 @@ def profile_steps(dev, use_flash, steps=10):
         step(tokens)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            step(tokens)
-        torch.cuda.synchronize()
 
-    # kernels only: a CPU op's entry, and a device-side user annotation such as
-    # Optimizer.step, repeat the device time of the kernels they enclose
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.is_user_annotation]
+    events = kernel_events(lambda: step(tokens), steps)
     rows = sorted(((e.self_device_time_total / steps, e.count // steps, e.key)
-                   for e in kernels), reverse=True)
+                   for e in events), reverse=True)
     busy_ms = sum(us for us, _, _ in rows) / 1e3
     check(busy_ms > 0, "profiler recorded no device time")
+    flash_n = {e.key: e.count for e in events if "flash_" in e.key}
+    check(len(flash_n) == (3 if use_flash else 0)
+          and all(n == 6 * steps for n in flash_n.values()),
+          f"the trace holds flash kernel records {flash_n}, not 6 of each per step")
     flash_ms = sum(us for us, _, key in rows if "flash_" in key) / 1e3
     tag = "flash kernels" if use_flash else "dense attention"
     print(f"  {tag}: host wall {wall_ms:.3f} ms/step (unprofiled), device busy "
@@ -337,13 +416,16 @@ def main() -> int:
 
     print("== build")
     t0 = time.perf_counter()
-    (lib,) = _build.build(_build.CSRC / "flash_attention.cu")
-    print(f"  {lib.name} in {time.perf_counter() - t0:.1f} s")
-    print_ptxas(lib.with_suffix(".log").read_text())
+    libs = _build.build(_build.CSRC / "flash_attention.cu",
+                        _build.CSRC / "flash_attention_sm90.cu")
+    print(f"  {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.1f} s "
+          f"(one nvcc each, in parallel)")
+    for lib in libs:
+        print_ptxas(lib.with_suffix(".log").read_text())
 
     print("== kernels vs plain versions")
-    gen = torch.Generator().manual_seed(0)
     B, L, H, hd = MAIN_SHAPE
+    gen = torch.Generator().manual_seed(0)
     main_err = kernel_case(fa, gen, dev, B * H, L, L, hd, torch.bfloat16, True)
     for case in [
         (B * H, L, L, hd, torch.float32, True),
@@ -351,10 +433,23 @@ def main() -> int:
         (4, 200, 200, 64, torch.float32, True),    # ragged tail
         (4, 200, 200, 64, torch.float32, False),
         (4, 200, 200, 64, torch.bfloat16, True),
+        (4, 200, 200, 48, torch.bfloat16, True),
+        (4, 200, 200, 40, torch.bfloat16, True),   # hd 40: wgmma N = 48
+        (2, 17, 17, 48, torch.bfloat16, True),     # shorter than one tile
         (2, 130, 130, 32, torch.float32, True),
         (2, 100, 100, 128, torch.float32, False),
         (2, 256, 256, 128, torch.bfloat16, True),
+        # every wgmma width of the second products: N = 16 (hd 16; box 1 at
+        # hd 80), 32 and 48 in box 1 (hd 96, 112)
+        (2, 256, 256, 16, torch.bfloat16, True),
+        (2, 256, 256, 80, torch.bfloat16, True),
+        (2, 256, 256, 96, torch.bfloat16, True),
+        (2, 256, 256, 112, torch.bfloat16, True),
+        (2, 256, 192, 16, torch.bfloat16, False),
+        (2, 200, 200, 112, torch.bfloat16, False),
+        (2, 100, 100, 36, torch.bfloat16, True),   # hd not a multiple of 8: scalar bf16
         (4, 256, 192, 48, torch.float32, False),   # non-square, non-causal
+        (4, 256, 192, 48, torch.bfloat16, False),
     ]:
         kernel_case(fa, gen, dev, *case)
     for dtype in (torch.float32, torch.bfloat16):
@@ -367,11 +462,11 @@ def main() -> int:
     timing = time_kernels(fa, gen, dev)
 
     print(f"== the slice: primer, {STEPS} steps, full width, bf16, flash kernels")
-    for name in fa.LAUNCHES:
-        fa.LAUNCHES[name] = 0
+    fa.reset_launches()
     run = primer.main(["--iters", str(STEPS), "--batch", str(B), "--seq-len", str(L),
                        "--seed", "0"])
     launches = dict(fa.LAUNCHES)
+    by_variant = {n: dict(c) for n, c in fa.LAUNCHES_BY_VARIANT.items()}
     losses = run["losses"]
     check(len(losses) == STEPS and all(math.isfinite(x) for x in losses),
           f"losses not all finite: {losses}")
@@ -381,9 +476,13 @@ def main() -> int:
     check(last < first, f"loss did not fall: first-5 mean {first:.4f}, last-5 {last:.4f}")
     want = {name: 6 * STEPS for name in ("fwd", "dq", "dkv")}
     check(launches == want, f"kernel launches {launches} != {want}")
+    for name in ("fwd", "dkv"):
+        check(by_variant[name]["wgmma"] == 6 * STEPS,
+              f"{name} launches by variant {by_variant[name]}: not all on the tensor cores")
     steady = run["step_s"][4:]
     step_ms = statistics.median(steady) * 1e3
-    print(f"  loss {first:.4f} (first 5) -> {last:.4f} (last 5); launches {launches}")
+    print(f"  loss {first:.4f} (first 5) -> {last:.4f} (last 5); launches {launches}, "
+          f"by variant {by_variant}")
     print(f"  step time median {step_ms:.3f} ms (steps 4..{STEPS - 1}, host clock, "
           f"min {min(steady) * 1e3:.3f} ms), {B * L / (step_ms / 1e3):.1f} tokens/s")
 
@@ -395,7 +494,7 @@ def main() -> int:
         profile_steps(dev, use_flash)
 
     kernels = [
-        {"name": f"flash_{name}", "route": "cuda", "source": SOURCE,
+        {"name": f"flash_{name}", "route": "cuda", "source": SOURCE[timing[name]["variant"]],
          "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": main_err[name], **timing[name]}
         for name in ("fwd", "dq", "dkv")

@@ -1,17 +1,18 @@
 """Build the port's CUDA sources into shared libraries and load them.
 
 Each ``csrc/*.cu`` file exposes a plain C interface and is compiled by ``nvcc``
-for ``sm_90a`` into its own shared library, loaded with ``ctypes``.  No PyTorch
-header is included, so a build takes seconds.  Libraries go to ``_build/``
-beside this file (listed in ``.gitignore``), named by a hash of the source and
-the flags: an edited source builds anew, an unchanged one is reused.
+for ``sm_90a`` into its own shared library, which the caller loads with
+``ctypes``.  No PyTorch header is included, so a build takes seconds.  The
+sources share the ``csrc/*.cuh`` headers.  Libraries go to ``_build/`` beside
+this file (listed in ``.gitignore``), named by a hash of the source, the
+headers and the flags: an edited source or header builds anew, an unchanged
+one is reused.
 
 Nothing here runs at import time; the first launch of a kernel builds it.
 """
 
 from __future__ import annotations
 
-import ctypes
 import hashlib
 import os
 import shutil
@@ -43,7 +44,8 @@ def nvcc() -> str:
 
 
 def library_path(source: Path) -> Path:
-    key = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    key = hashlib.sha256(source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{source.stem}-{key.hexdigest()[:16]}.so"
 
 
@@ -76,9 +78,3 @@ def build(*sources: Path) -> list[Path]:
         if failed:
             raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
     return libs
-
-
-def load(source: Path) -> ctypes.CDLL:
-    """Build ``source`` if needed and load its library."""
-    (lib,) = build(source)
-    return ctypes.CDLL(str(lib))

@@ -7,8 +7,12 @@
 //
 // Layout: q, k, v, o, do, dq, dk, dv are [BH, L, hd] contiguous (heads folded
 // into the batch); lse and delta are [BH, Lq] float32.  Inputs are float32 or
-// bfloat16; every product and sum is float32, outputs are rounded once, to the
-// input type, when they are stored.
+// bfloat16; every product and sum is float32, outputs are rounded to the input
+// type when they are stored, and so are p (forward, dk/dv) and ds (dk/dv)
+// before the second product, as the TPU kernels round them (a no-op for
+// float32).  The bf16 forward and dk/dv run on the tensor cores
+// (flash_attention_sm90.cu) wherever those take the shape; these kernels take
+// float32, the bf16 shapes the tensor-core kernels do not, and dq.
 //
 // Design.  The TPU kernels walk the contraction axis as the innermost,
 // sequential grid dimension and carry the online state in VMEM scratch across
@@ -27,11 +31,16 @@
 // not with the tensor cores (mma/wgmma), and launch one block per 64-row tile
 // (72 blocks on 132 SMs at the main-path shape), so they are bound by
 // shared-memory traffic and by latency, far from either roofline.  That is
-// deliberate for a first, simple and exact version; tensor-core tiles, TMA and
-// more blocks per SM are the next step.
+// deliberate: float32 stays exact to 1e-4, which TF32 tensor cores would not
+// be; the bf16 path has its tensor-core kernels in flash_attention_sm90.cu.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <atomic>
+
+#include "smem_optin.cuh"
 
 namespace {
 
@@ -50,6 +59,11 @@ template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch's .to(bfloat16)
+}
+
+// x rounded to T and back: what a TPU kernel's .astype(T) before a matmul does
+template <typename T> __device__ __forceinline__ float round_as(float x) {
+  return to_f(from_f<T>(x));
 }
 
 // Stage rows [row0, row0 + TILE) of a [L, hd] slab as float32 into dst[TILE][pitch],
@@ -133,7 +147,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < PER; ++i) {
       const float p = s[i] == NEG_INF ? 0.f : expf(s[i] - m_new);
       ls += p;
-      sS[r * SP + x + 4 * i] = p;
+      sS[r * SP + x + 4 * i] = round_as<T>(p);  // p.astype(v.dtype) before p @ v
     }
     l = l * corr + row_sum4(ls);
     m = m_new;
@@ -294,8 +308,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int rr = x + 4 * i;
       const float p = live(q0 + rr, kpos, Lq, Lk, causal)
                           ? expf(s[i] * scale - sL[rr]) : 0.f;
-      sP[c * SP + rr] = p;
-      sD[c * SP + rr] = p * (dp[i] - sDl[rr]) * scale;
+      sP[c * SP + rr] = round_as<T>(p);
+      sD[c * SP + rr] = round_as<T>(p * (dp[i] - sDl[rr]) * scale);
     }
     __syncwarp();
 
@@ -329,19 +343,14 @@ template <int HD> constexpr size_t dkv_smem() {
   return sizeof(float) * (4 * TILE * (HD + 1) + 2 * TILE * SP + 2 * TILE);
 }
 
-// Kernels above 48 KB of dynamic shared memory must opt in before they launch.
-template <typename K>
-cudaError_t launch_prep(K kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
 inline dim3 grid_of(int bh, int L) { return dim3(bh, (L + TILE - 1) / TILE); }
 
 template <typename T, int HD>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
-                int Lq, int Lk, int hd, float scale, int causal, cudaStream_t st) {
+                int Lq, int Lk, int hd, float scale, int causal, int device, cudaStream_t st) {
+  static std::atomic<uint32_t> opted{0};
   auto kern = flash_fwd_kernel<T, HD>;
-  cudaError_t e = launch_prep(kern, fwd_smem<HD>());
+  cudaError_t e = ddl::allow_smem(opted, kern, fwd_smem<HD>(), device);
   if (e != cudaSuccess) return e;
   kern<<<grid_of(bh, Lq), NT, fwd_smem<HD>(), st>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse, Lq, Lk, hd, scale, causal);
@@ -351,9 +360,10 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o, void* lse,
 template <typename T, int HD>
 cudaError_t dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                const void* delta, void* dq_, int bh, int Lq, int Lk, int hd, float scale,
-               int causal, cudaStream_t st) {
+               int causal, int device, cudaStream_t st) {
+  static std::atomic<uint32_t> opted{0};
   auto kern = flash_dq_kernel<T, HD>;
-  cudaError_t e = launch_prep(kern, dq_smem<HD>());
+  cudaError_t e = ddl::allow_smem(opted, kern, dq_smem<HD>(), device);
   if (e != cudaSuccess) return e;
   kern<<<grid_of(bh, Lq), NT, dq_smem<HD>(), st>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
@@ -364,9 +374,10 @@ cudaError_t dq(const void* q, const void* k, const void* v, const void* dout, co
 template <typename T, int HD>
 cudaError_t dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                 const void* delta, void* dk_, void* dv_, int bh, int Lq, int Lk, int hd,
-                float scale, int causal, cudaStream_t st) {
+                float scale, int causal, int device, cudaStream_t st) {
+  static std::atomic<uint32_t> opted{0};
   auto kern = flash_dkv_kernel<T, HD>;
-  cudaError_t e = launch_prep(kern, dkv_smem<HD>());
+  cudaError_t e = ddl::allow_smem(opted, kern, dkv_smem<HD>(), device);
   if (e != cudaSuccess) return e;
   kern<<<grid_of(bh, Lk), NT, dkv_smem<HD>(), st>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
@@ -403,7 +414,7 @@ int ddl_flash_fwd(const void* q, const void* k, const void* v, void* o, void* ls
                   void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  DISPATCH(dtype, hd, Lq, Lk, Lq, fwd, q, k, v, o, lse, bh, Lq, Lk, hd, scale, causal,
+  DISPATCH(dtype, hd, Lq, Lk, Lq, fwd, q, k, v, o, lse, bh, Lq, Lk, hd, scale, causal, device,
            (cudaStream_t)stream);
 }
 
@@ -413,7 +424,7 @@ int ddl_flash_dq(const void* q, const void* k, const void* v, const void* dout,
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   DISPATCH(dtype, hd, Lq, Lk, Lq, dq, q, k, v, dout, lse, delta, dq_, bh, Lq, Lk, hd, scale, causal,
-           (cudaStream_t)stream);
+           device, (cudaStream_t)stream);
 }
 
 int ddl_flash_dkv(const void* q, const void* k, const void* v, const void* dout,
@@ -423,7 +434,7 @@ int ddl_flash_dkv(const void* q, const void* k, const void* v, const void* dout,
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   DISPATCH(dtype, hd, Lq, Lk, Lk, dkv, q, k, v, dout, lse, delta, dk_, dv_, bh, Lq, Lk, hd, scale,
-           causal, (cudaStream_t)stream);
+           causal, device, (cudaStream_t)stream);
 }
 
 const char* ddl_flash_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -1,10 +1,26 @@
 """Flash attention: the counterpart of the JAX package's ``ops/flash_attention.py``.
 
-Three hand-written CUDA kernels for Hopper (``csrc/flash_attention.cu``) take
-the place of the three Pallas TPU kernels: the online-softmax forward, ``dq``
-and ``dk/dv``.  Two ``torch.autograd.Function``\\ s share them:
-:func:`flash_attention` (``o``) and :func:`flash_attention_with_lse`
-(``(o, lse)``, whose backward also takes the lse cotangent).
+Hand-written CUDA kernels for Hopper take the place of the three Pallas TPU
+kernels: the online-softmax forward, ``dq`` and ``dk/dv``.  Two
+``torch.autograd.Function``\\ s share them: :func:`flash_attention` (``o``)
+and :func:`flash_attention_with_lse` (``(o, lse)``, whose backward also takes
+the lse cotangent).
+
+Variants, chosen by dtype and shape (``LAUNCHES_BY_VARIANT`` counts each):
+
+- ``"wgmma"`` (``csrc/flash_attention_sm90.cu``): the forward and dk/dv on the
+  tensor cores, for bfloat16 operands whose head_dim is a multiple of 8 (TMA
+  needs 16-byte row strides) and whose data pointers are 16-byte aligned.
+  They round p (and ds) to bf16 before the second product of each pair, as
+  the TPU kernels round them to the input type.
+- ``"scalar"`` (``csrc/flash_attention.cu``): scalar fp32 FMAs.  float32
+  operands go here by design, not as a fallback: TF32 tensor cores would
+  break the fp32 tolerance of 1e-4.  bfloat16 operands the tensor-core
+  kernels do not take (head_dim not a multiple of 8, misaligned pointers) go
+  here too, and so does dq for every dtype (its tensor-core kernel is still
+  to come).
+
+A failed build or launch raises; nothing gives way to another variant.
 
 Inputs ``[B, L, H, hd]`` are folded to ``[B*H, L, hd]``.  On a CUDA tensor
 each wrapper launches its kernel or raises; on a CPU tensor it runs the plain
@@ -16,8 +32,9 @@ reference computes it outside Pallas.
 The TPU block sizes (``block_q``/``block_k``) are not carried over: the CUDA
 kernels tile by 64 rows and mask ragged tails themselves.
 
-``LAUNCHES`` counts kernel launches (never plain-version calls), so a run can
-show that its attention went through the kernels.
+``LAUNCHES`` counts kernel launches per kernel and ``LAUNCHES_BY_VARIANT`` per
+kernel and variant (never plain-version calls), so a run can show that its
+attention went through the kernels it expects.
 """
 
 from __future__ import annotations
@@ -34,6 +51,8 @@ TILE = 64           # the CUDA kernels' tile; the plain versions walk the same t
 MAX_HEAD_DIM = 128
 
 LAUNCHES = {"fwd": 0, "dq": 0, "dkv": 0}
+LAUNCHES_BY_VARIANT = {"fwd": {"wgmma": 0, "scalar": 0}, "dq": {"scalar": 0},
+                       "dkv": {"wgmma": 0, "scalar": 0}}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -50,10 +69,17 @@ def _live(q0, nq, k0, nk, causal, device):
     return qpos[:, None] >= kpos[None, :]
 
 
+def _round(x, dtype):
+    """``x`` rounded to ``dtype`` and back to float32 (identity for float32)."""
+    return x.to(dtype).float()
+
+
 def flash_fwd_reference(q3, k3, v3, causal: bool):
     """The forward kernel's arithmetic in plain torch: the online-softmax walk
-    over 64-row KV tiles, float32 throughout.  ``[BH, Lq, hd]`` x ``[BH, Lk, hd]``
-    -> ``(o [BH, Lq, hd] in q3's dtype, lse [BH, Lq] float32)``."""
+    over 64-row KV tiles in float32, with p rounded to the input dtype before
+    ``p @ v`` (the row sums take it unrounded), as the TPU kernel does.
+    ``[BH, Lq, hd]`` x ``[BH, Lk, hd]`` -> ``(o [BH, Lq, hd] in q3's dtype,
+    lse [BH, Lq] float32)``."""
     BH, Lq, hd = q3.shape
     Lk = k3.shape[1]
     scale = hd ** -0.5
@@ -78,7 +104,7 @@ def flash_fwd_reference(q3, k3, v3, causal: bool):
             if live is not None:
                 p = p.masked_fill(~live, 0.0)
             l = l * corr + p.sum(-1)
-            acc = acc * corr[..., None] + p @ vb
+            acc = acc * corr[..., None] + _round(p, v3.dtype) @ vb
             m = m_new
         outs.append(acc / l[..., None])
         lses.append(m + torch.log(l))
@@ -95,9 +121,10 @@ def _tile_grads(qb, kb, vb, dob, lse_b, delta_b, live, scale):
 
 
 def flash_dq_reference(q3, k3, v3, lse, do, delta, causal: bool):
-    """The dq kernel's arithmetic in plain torch, float32 throughout: for each
-    Q tile, walk the KV tiles it attends to, recomputing
-    ``p = exp(scale q k^T - lse)``.  Returns ``dq`` in ``q3``'s dtype."""
+    """The dq kernel's arithmetic in plain torch, float32 throughout (ds is not
+    rounded: the scalar dq kernel keeps it in fp32): for each Q tile, walk the
+    KV tiles it attends to, recomputing ``p = exp(scale q k^T - lse)``.
+    Returns ``dq`` in ``q3``'s dtype."""
     Lq, hd = q3.shape[1:]
     Lk = k3.shape[1]
     scale = hd ** -0.5
@@ -116,9 +143,10 @@ def flash_dq_reference(q3, k3, v3, lse, do, delta, causal: bool):
 
 
 def flash_dkv_reference(q3, k3, v3, lse, do, delta, causal: bool):
-    """The dk/dv kernel's arithmetic in plain torch, float32 throughout: for
-    each KV tile, walk the Q tiles that attend to it.  Returns ``(dk, dv)`` in
-    the dtypes of ``k3`` and ``v3``."""
+    """The dk/dv kernel's arithmetic in plain torch: for each KV tile, walk the
+    Q tiles that attend to it, in float32, with p and ds rounded to the input
+    dtype before ``p^T do`` and ``ds^T q`` as the TPU kernel rounds them.
+    Returns ``(dk, dv)`` in the dtypes of ``k3`` and ``v3``."""
     Lq, hd = q3.shape[1:]
     Lk = k3.shape[1]
     scale = hd ** -0.5
@@ -132,8 +160,8 @@ def flash_dkv_reference(q3, k3, v3, lse, do, delta, causal: bool):
             live = _live(q0, q[:, qs].shape[1], k0, kb.shape[1], causal, q.device)
             p, ds = _tile_grads(q[:, qs], kb, vb, dof[:, qs], lse[:, qs],
                                 delta[:, qs], live, scale)
-            dv[:, ks] += p.transpose(1, 2) @ dof[:, qs]
-            dk[:, ks] += ds.transpose(1, 2) @ q[:, qs]
+            dv[:, ks] += _round(p, do.dtype).transpose(1, 2) @ dof[:, qs]
+            dk[:, ks] += _round(ds, q3.dtype).transpose(1, 2) @ q[:, qs]
     return dk.to(k3.dtype), dv.to(v3.dtype)
 
 
@@ -147,18 +175,34 @@ def flash_bwd_reference(q3, k3, v3, lse, do, delta, causal: bool):
 
 
 @functools.cache
-def _kernels() -> ctypes.CDLL:
-    lib = _build.load(_build.CSRC / "flash_attention.cu")
+def _kernels():
+    """Both libraries, built together (one ``nvcc`` each, in parallel)."""
+    scalar_path, sm90_path = _build.build(_build.CSRC / "flash_attention.cu",
+                                          _build.CSRC / "flash_attention_sm90.cu")
+    scalar, sm90 = ctypes.CDLL(str(scalar_path)), ctypes.CDLL(str(sm90_path))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     tail = [i32, i32, i32, i32, f32, i32, i32, i32, ptr]  # bh Lq Lk hd scale causal dtype dev stream
-    lib.ddl_flash_fwd.argtypes = [ptr] * 5 + tail
-    lib.ddl_flash_dq.argtypes = [ptr] * 7 + tail
-    lib.ddl_flash_dkv.argtypes = [ptr] * 8 + tail
-    for fn in (lib.ddl_flash_fwd, lib.ddl_flash_dq, lib.ddl_flash_dkv):
+    scalar.ddl_flash_fwd.argtypes = [ptr] * 5 + tail
+    scalar.ddl_flash_dq.argtypes = [ptr] * 7 + tail
+    scalar.ddl_flash_dkv.argtypes = [ptr] * 8 + tail
+    tail90 = [i32, i32, i32, i32, f32, i32, i32, ptr]  # bh Lq Lk hd scale causal dev stream
+    sm90.ddl_flash_fwd_sm90.argtypes = [ptr] * 5 + tail90
+    sm90.ddl_flash_dkv_sm90.argtypes = [ptr] * 8 + tail90
+    for fn in (scalar.ddl_flash_fwd, scalar.ddl_flash_dq, scalar.ddl_flash_dkv,
+               sm90.ddl_flash_fwd_sm90, sm90.ddl_flash_dkv_sm90):
         fn.restype = ctypes.c_int
-    lib.ddl_flash_error_string.argtypes = [ctypes.c_int]
-    lib.ddl_flash_error_string.restype = ctypes.c_char_p
-    return lib
+    for fn in (scalar.ddl_flash_error_string, sm90.ddl_flash_sm90_error_string):
+        fn.argtypes = [ctypes.c_int]
+        fn.restype = ctypes.c_char_p
+    return {"scalar": {"fwd": scalar.ddl_flash_fwd, "dq": scalar.ddl_flash_dq,
+                       "dkv": scalar.ddl_flash_dkv, "error": scalar.ddl_flash_error_string},
+            "wgmma": {"fwd": sm90.ddl_flash_fwd_sm90, "dkv": sm90.ddl_flash_dkv_sm90,
+                      "error": sm90.ddl_flash_sm90_error_string}}
+
+
+@functools.cache
+def _capability(index: int) -> tuple[int, int]:
+    return torch.cuda.get_device_capability(index)
 
 
 def _check(q3, k3, v3, causal, lse=None, do=None, delta=None):
@@ -195,7 +239,7 @@ def _check(q3, k3, v3, causal, lse=None, do=None, delta=None):
     if q3.device.type == "cuda":
         if not all(t.is_contiguous() for t in tensors):
             raise ValueError("flash attention kernels need contiguous operands")
-        cap = torch.cuda.get_device_capability(q3.device)
+        cap = _capability(q3.device.index)
         if cap < (9, 0):
             raise RuntimeError(
                 f"flash attention kernels are built for sm_90a; "
@@ -203,15 +247,37 @@ def _check(q3, k3, v3, causal, lse=None, do=None, delta=None):
             )
 
 
-def _launch(name: str, fn, *args, q3, Lk, causal):
+def _variant(name, tensors):
+    """The variant that runs kernel ``name`` on ``tensors`` (q3 first), by the
+    dispatch rule of the module docstring: the tensor-core kernels take
+    bfloat16 with head_dim a multiple of 8 and every pointer 16-byte aligned."""
+    q3 = tensors[0]
+    return ("wgmma" if name != "dq" and q3.dtype == torch.bfloat16 and q3.shape[-1] % 8 == 0
+            and all(t.data_ptr() % 16 == 0 for t in tensors) else "scalar")
+
+
+def _launch(name: str, variant: str, *args, q3, Lk, causal):
     BH, Lq, hd = q3.shape
-    code = fn(*(t.data_ptr() for t in args), BH, Lq, Lk, hd, hd ** -0.5,
-              int(causal), _DTYPE_CODE[q3.dtype], q3.device.index,
-              torch.cuda.current_stream(q3.device).cuda_stream)
+    lib = _kernels()[variant]
+    ptrs = [t.data_ptr() for t in args]
+    dims = [BH, Lq, Lk, hd, hd ** -0.5, int(causal)]
+    if variant == "scalar":
+        dims.append(_DTYPE_CODE[q3.dtype])
+    code = lib[name](*ptrs, *dims, q3.device.index,
+                     torch.cuda.current_stream(q3.device).cuda_stream)
     if code != 0:
-        msg = _kernels().ddl_flash_error_string(code).decode()
-        raise RuntimeError(f"flash {name} kernel launch failed: {msg} ({code})")
+        msg = lib["error"](code).decode()
+        raise RuntimeError(f"flash {name} ({variant}) kernel launch failed: {msg} ({code})")
     LAUNCHES[name] += 1
+    LAUNCHES_BY_VARIANT[name][variant] += 1
+
+
+def reset_launches():
+    """Set every launch count to 0."""
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+        for v in LAUNCHES_BY_VARIANT[name]:
+            LAUNCHES_BY_VARIANT[name][v] = 0
 
 
 def flash_fwd(q3, k3, v3, causal: bool):
@@ -222,7 +288,8 @@ def flash_fwd(q3, k3, v3, causal: bool):
         return flash_fwd_reference(q3, k3, v3, causal)
     o = torch.empty_like(q3)
     lse = torch.empty(q3.shape[:2], dtype=torch.float32, device=q3.device)
-    _launch("fwd", _kernels().ddl_flash_fwd, q3, k3, v3, o, lse,
+    args = (q3, k3, v3, o, lse)
+    _launch("fwd", _variant("fwd", args), *args,
             q3=q3, Lk=k3.shape[1], causal=causal)
     return o, lse
 
@@ -234,7 +301,7 @@ def flash_dq(q3, k3, v3, lse, do, delta, causal: bool):
     if q3.device.type == "cpu":
         return flash_dq_reference(q3, k3, v3, lse, do, delta, causal)
     dq = torch.empty_like(q3)
-    _launch("dq", _kernels().ddl_flash_dq, q3, k3, v3, do, lse, delta, dq,
+    _launch("dq", "scalar", q3, k3, v3, do, lse, delta, dq,
             q3=q3, Lk=k3.shape[1], causal=causal)
     return dq
 
@@ -245,7 +312,8 @@ def flash_dkv(q3, k3, v3, lse, do, delta, causal: bool):
     if q3.device.type == "cpu":
         return flash_dkv_reference(q3, k3, v3, lse, do, delta, causal)
     dk, dv = torch.empty_like(k3), torch.empty_like(v3)
-    _launch("dkv", _kernels().ddl_flash_dkv, q3, k3, v3, do, lse, delta, dk, dv,
+    args = (q3, k3, v3, do, lse, delta, dk, dv)
+    _launch("dkv", _variant("dkv", args), *args,
             q3=q3, Lk=k3.shape[1], causal=causal)
     return dk, dv
 

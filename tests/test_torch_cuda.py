@@ -6,8 +6,8 @@ This file imports torch only, so it runs on a machine without JAX:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Tolerances as in chip_smoke.py: |kernel - plain| <= atol + rtol |plain| with
-fp32 (1e-4, 0) and bf16 (2e-2, 1e-2), the plain version run in fp32 on the same
-bf16-rounded inputs.
+fp32 (1e-4, 0) and bf16 (2e-2, 1e-2), the plain version run on the same inputs
+(it computes in fp32 and rounds p and ds to bf16 where the kernels do).
 """
 
 import pytest
@@ -34,31 +34,90 @@ def _close(a, ref, dtype):
     assert ((a.float() - ref.float()).abs() - rtol * ref.float().abs()).max() <= atol
 
 
-@pytest.mark.parametrize("BH,Lq,Lk,hd,dtype,causal", [
-    (18, 256, 256, 48, torch.bfloat16, True),
-    (18, 256, 256, 48, torch.float32, True),
-    (4, 200, 200, 64, torch.float32, False),
-    (2, 130, 130, 32, torch.bfloat16, True),
-    (2, 100, 70, 128, torch.float32, False),
-])
-def test_kernels_match_plain_versions(dev, BH, Lq, Lk, hd, dtype, causal):
+def _variant_runs(before):
+    return {n: {v: c - before[n][v] for v, c in counts.items() if c != before[n][v]}
+            for n, counts in fa.LAUNCHES_BY_VARIANT.items()}
+
+
+def _run_case(dev, BH, Lq, Lk, hd, dtype, causal):
+    """Each kernel against its plain version; returns the launches by variant."""
     g = torch.Generator().manual_seed(0)
     q, do = (torch.randn(BH, Lq, hd, generator=g).to(dev, dtype) for _ in range(2))
     k, v = (torch.randn(BH, Lk, hd, generator=g).to(dev, dtype) for _ in range(2))
     before = dict(fa.LAUNCHES)
+    before_v = {n: dict(c) for n, c in fa.LAUNCHES_BY_VARIANT.items()}
     o, lse = fa.flash_fwd(q, k, v, causal)
-    o_ref, lse_ref = fa.flash_fwd_reference(q.float(), k.float(), v.float(), causal)
-    delta = (do.float() * o_ref).sum(-1)
+    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal)
+    delta = (do.float() * o_ref.float()).sum(-1)
     dq = fa.flash_dq(q, k, v, lse_ref, do, delta, causal)
     dk, dv = fa.flash_dkv(q, k, v, lse_ref, do, delta, causal)
-    refs = fa.flash_bwd_reference(q.float(), k.float(), v.float(), lse_ref,
-                                  do.float(), delta, causal)
+    refs = fa.flash_bwd_reference(q, k, v, lse_ref, do, delta, causal)
     torch.cuda.synchronize()
     _close(o, o_ref, dtype)
     _close(lse, lse_ref, torch.float32)
     for a, ref in zip((dq, dk, dv), refs):
         _close(a, ref, dtype)
     assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {"fwd": 1, "dq": 1, "dkv": 1}
+    return _variant_runs(before_v)
+
+
+@pytest.mark.parametrize("BH,Lq,Lk,hd,dtype,causal", [
+    (18, 256, 256, 48, torch.bfloat16, True),
+    (18, 256, 256, 48, torch.float32, True),
+    (4, 200, 200, 64, torch.float32, False),
+    (2, 130, 130, 32, torch.bfloat16, True),
+    (2, 100, 70, 128, torch.float32, False),
+    # the tensor-core variants: head dims, a ragged tail, a length below one
+    # tile, non-causal non-square
+    (4, 256, 256, 40, torch.bfloat16, True),
+    (4, 256, 256, 64, torch.bfloat16, True),
+    (2, 256, 256, 128, torch.bfloat16, True),
+    (4, 200, 200, 48, torch.bfloat16, True),
+    (3, 17, 17, 48, torch.bfloat16, True),
+    (4, 256, 192, 48, torch.bfloat16, False),
+    # every wgmma width of the second products: N = 16 (hd 16; box 1 at hd
+    # 80), 32 and 48 in box 1 (hd 96, 112)
+    (2, 256, 256, 16, torch.bfloat16, True),
+    (2, 256, 256, 80, torch.bfloat16, True),
+    (2, 256, 256, 96, torch.bfloat16, True),
+    (2, 256, 256, 112, torch.bfloat16, True),
+    (2, 256, 192, 16, torch.bfloat16, False),
+    (2, 200, 200, 112, torch.bfloat16, False),
+    (2, 100, 100, 36, torch.bfloat16, True),  # hd not a multiple of 8: scalar bf16
+    (18, 256, 256, 36, torch.bfloat16, False),
+])
+def test_kernels_match_plain_versions(dev, BH, Lq, Lk, hd, dtype, causal):
+    runs = _run_case(dev, BH, Lq, Lk, hd, dtype, causal)
+    want = "wgmma" if dtype == torch.bfloat16 and hd % 8 == 0 else "scalar"
+    assert runs == {"fwd": {want: 1}, "dq": {"scalar": 1}, "dkv": {want: 1}}
+
+
+def test_main_shape_dispatch(dev):
+    """At the LLaMA path's shape bf16 goes to the tensor cores, fp32 to the
+    scalar kernels."""
+    for dtype, want in ((torch.bfloat16, "wgmma"), (torch.float32, "scalar")):
+        x = torch.randn(18, 256, 48, device=dev).to(dtype)
+        before = {n: dict(c) for n, c in fa.LAUNCHES_BY_VARIANT.items()}
+        o, lse = fa.flash_fwd(x, x, x, True)
+        fa.flash_dkv(x, x, x, lse, x, lse, True)
+        torch.cuda.synchronize()
+        assert _variant_runs(before) == {"fwd": {want: 1}, "dq": {}, "dkv": {want: 1}}
+
+
+def test_misaligned_bf16_runs_on_the_scalar_variant(dev):
+    """A contiguous bf16 view 2 bytes past 16-byte alignment cannot be a TMA
+    source: the dispatch sends it to the scalar kernels, which are right."""
+    g = torch.Generator().manual_seed(1)
+    n = 2 * 64 * 48
+    q, k, v = (torch.randn(n + 8, generator=g).to(dev, torch.bfloat16)[1:n + 1].view(2, 64, 48)
+               for _ in range(3))
+    before = {n_: dict(c) for n_, c in fa.LAUNCHES_BY_VARIANT.items()}
+    o, lse = fa.flash_fwd(q, k, v, True)
+    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, True)
+    torch.cuda.synchronize()
+    _close(o, o_ref, torch.bfloat16)
+    _close(lse, lse_ref, torch.float32)
+    assert _variant_runs(before)["fwd"] == {"scalar": 1}
 
 
 def test_cuda_tensors_raise_instead_of_falling_back(dev):
