@@ -13,7 +13,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``[3, 256, 6, 48]`` (bf16 and fp32), causal and not, ragged L=200 at hd
    64, 48 and 40, L=17, hd 32 and 128, the tensor-core kernels at every
    instruction width (hd 16, 80, 96, 112), hd 36 (bf16 on the scalar
-   variant), non-square non-causal; each case checks which variant ran.  Plus both autograd Functions (``with_lse`` with
+   variant), non-square non-causal, odd lengths with BH = 2; each case
+   checks which variant each kernel ran.  Plus both autograd Functions (``with_lse`` with
    a nonzero lse cotangent) on the card against the same Functions on the
    CPU, where the plain versions run;
 4. timing at the LLaMA path's shape (bf16, causal): each kernel's device time
@@ -23,8 +24,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``scaled_dot_product_attention`` forward and backward, timed both ways;
 5. the slice: ``primer.main`` trains the full-width LLaMA (bf16, flash
    kernels, batch 3, ctx 256) for 24 steps; every loss finite, the loss falls,
-   each kernel launched 6 times per step, every fwd and dk/dv launch on the
-   tensor-core variant; then full-width fp32 logits through the kernels
+   each kernel launched 6 times per step, every launch on the tensor-core
+   variant; then full-width fp32 logits through the kernels
    against dense attention;
 6. profile: device time by kernel, device busy and idle share of the train
    step, with the flash kernels and with dense attention.
@@ -93,13 +94,13 @@ def card_line() -> str:
 
 
 def kernel_name(mangled: str) -> str:
-    """``flash_fwd_kernel<bf16,64>`` / ``flash_dkv_wgmma<48>`` from a mangled
+    """``flash_fwd_kernel<bf16,64>`` / ``flash_dq_wgmma<48>`` from a mangled
     name (the scalar kernels are templated on dtype and padded hd, the
     tensor-core ones on hd rounded up to 16)."""
     k = re.search(r"(flash_(?:fwd|dq|dkv)_kernel)I(13__nv_bfloat16|f)Li(\d+)E", mangled)
     if k:
         return f"{k.group(1)}<{'f32' if k.group(2) == 'f' else 'bf16'},{k.group(3)}>"
-    k = re.search(r"(flash_(?:fwd|dkv)_wgmma)ILi(\d+)E", mangled)
+    k = re.search(r"(flash_(?:fwd|dq|dkv)_wgmma)ILi(\d+)E", mangled)
     return f"{k.group(1)}<{k.group(2)}>" if k else mangled
 
 
@@ -134,7 +135,7 @@ def randn(gen, *shape, dtype, dev):
 def kernel_case(fa, gen, dev, BH, Lq, Lk, hd, dtype, causal):
     """Each kernel against its plain version on the same inputs (the plain
     versions compute in fp32 and round p and ds where the kernels do); checks
-    that fwd and dk/dv ran the variant the dispatch rule names.  Returns the
+    that each kernel ran the variant the dispatch rule names.  Returns the
     max abs errors ``{"fwd", "dq", "dkv"}``."""
     q = randn(gen, BH, Lq, hd, dtype=dtype, dev=dev)
     k = randn(gen, BH, Lk, hd, dtype=dtype, dev=dev)
@@ -150,7 +151,7 @@ def kernel_case(fa, gen, dev, BH, Lq, Lk, hd, dtype, causal):
     dq_ref, dk_ref, dv_ref = fa.flash_bwd_reference(q, k, v, lse_ref, do, delta, causal)
     torch.cuda.synchronize()
     tag = f"[{BH},{Lq},{Lk},{hd}] {str(dtype)[6:]} causal={causal} {want}"
-    for name in ("fwd", "dkv"):
+    for name in ("fwd", "dq", "dkv"):
         ran = {v_: n - before[name][v_] for v_, n in fa.LAUNCHES_BY_VARIANT[name].items()}
         check(ran[want] == 1 and sum(ran.values()) == 1, f"{tag}: {name} ran {ran}")
     pairs = {"o": (o, o_ref), "lse": (lse, lse_ref), "dq": (dq, dq_ref),
@@ -278,11 +279,12 @@ def time_kernels(fa, gen, dev):
     }
     # the first slice's scalar kernels on the same inputs in the same run,
     # launched past the dispatch rule (which sends these inputs to wgmma)
-    o_s, lse_s, dk_s, dv_s = (torch.empty_like(t) for t in (q, lse, k, v))
+    o_s, lse_s, dq_s, dk_s, dv_s = (torch.empty_like(t) for t in (q, lse, q, k, v))
     scalar = {
         "fwd": lambda: fa._launch("fwd", "scalar", q, k, v, o_s, lse_s,
                                   q3=q, Lk=L, causal=causal),
-        "dq": kern["dq"],
+        "dq": lambda: fa._launch("dq", "scalar", q, k, v, do, lse, delta, dq_s,
+                                 q3=q, Lk=L, causal=causal),
         "dkv": lambda: fa._launch("dkv", "scalar", q, k, v, do, lse, delta, dk_s, dv_s,
                                   q3=q, Lk=L, causal=causal),
     }
@@ -313,7 +315,7 @@ def time_kernels(fa, gen, dev):
         lib_dev, lib_wall = lib_t["sdpa fwd"] if name == "fwd" else (None, None)
         variant = fa._variant(name, (q, k, v))
         dev_ms = device_ms(kern[name])
-        scalar_ms = dev_ms if scalar[name] is kern[name] else device_ms(scalar[name])
+        scalar_ms = device_ms(scalar[name])
         rows_out[name] = {
             "variant": variant,
             "ms": dev_ms, "device_ms": dev_ms, "wall_ms": cuda_ms(kern[name], 200),
@@ -325,7 +327,8 @@ def time_kernels(fa, gen, dev):
         }
         r = rows_out[name]
         print(f"  {name} ({variant}): device {dev_ms:.5f} ms, wall {r['wall_ms']:.5f} ms, "
-              f"scalar variant device {scalar_ms:.5f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"scalar variant device {scalar_ms:.5f} ms ({scalar_ms / dev_ms:.1f}x), "
+              f"plain {r['plain_ms']:.4f} ms, "
               f"library device {lib_dev} ms, bound {b_ms:.6f} ms ({b_by}; "
               f"{work[name][0]} B, {work[name][1]} ops)")
     pair = rows_out["dq"]["device_ms"] + rows_out["dkv"]["device_ms"]
@@ -450,6 +453,8 @@ def main() -> int:
         (2, 100, 100, 36, torch.bfloat16, True),   # hd not a multiple of 8: scalar bf16
         (4, 256, 192, 48, torch.float32, False),   # non-square, non-causal
         (4, 256, 192, 48, torch.bfloat16, False),
+        (2, 66, 66, 48, torch.bfloat16, False),    # odd lengths, BH = 2
+        (2, 130, 130, 48, torch.bfloat16, True),
     ]:
         kernel_case(fa, gen, dev, *case)
     for dtype in (torch.float32, torch.bfloat16):
@@ -476,7 +481,7 @@ def main() -> int:
     check(last < first, f"loss did not fall: first-5 mean {first:.4f}, last-5 {last:.4f}")
     want = {name: 6 * STEPS for name in ("fwd", "dq", "dkv")}
     check(launches == want, f"kernel launches {launches} != {want}")
-    for name in ("fwd", "dkv"):
+    for name in ("fwd", "dq", "dkv"):
         check(by_variant[name]["wgmma"] == 6 * STEPS,
               f"{name} launches by variant {by_variant[name]}: not all on the tensor cores")
     steady = run["step_s"][4:]

@@ -8,11 +8,11 @@
 // Layout: q, k, v, o, do, dq, dk, dv are [BH, L, hd] contiguous (heads folded
 // into the batch); lse and delta are [BH, Lq] float32.  Inputs are float32 or
 // bfloat16; every product and sum is float32, outputs are rounded to the input
-// type when they are stored, and so are p (forward, dk/dv) and ds (dk/dv)
+// type when they are stored, and so are p (forward, dk/dv) and ds (dq, dk/dv)
 // before the second product, as the TPU kernels round them (a no-op for
-// float32).  The bf16 forward and dk/dv run on the tensor cores
-// (flash_attention_sm90.cu) wherever those take the shape; these kernels take
-// float32, the bf16 shapes the tensor-core kernels do not, and dq.
+// float32).  The bf16 kernels run on the tensor cores (flash_attention_sm90.cu)
+// wherever those take the shape; these kernels take float32 and the bf16
+// shapes the tensor-core kernels do not.
 //
 // Design.  The TPU kernels walk the contraction axis as the innermost,
 // sequential grid dimension and carry the online state in VMEM scratch across
@@ -226,7 +226,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < PER; ++i) {
       const float p = live(qpos, k0 + x + 4 * i, Lq, Lk, causal)
                           ? expf(s[i] * scale - lse_r) : 0.f;
-      sS[r * SP + x + 4 * i] = p * (dp[i] - delta_r) * scale;
+      sS[r * SP + x + 4 * i] = round_as<T>(p * (dp[i] - delta_r) * scale);  // ds.astype(k.dtype)
     }
     __syncwarp();
 

@@ -1,13 +1,14 @@
-// Flash attention for Hopper on the tensor cores: the bf16 forward and dk/dv.
+// Flash attention for Hopper on the tensor cores: the bf16 forward, dq and dk/dv.
 //
-// Replaces, for bfloat16 inputs, two of the Pallas TPU kernels of
+// Replaces, for bfloat16 inputs, the three Pallas TPU kernels of
 // ddl25spring_tpu/ops/flash_attention.py:
 //   flash_fwd_wgmma  <- _fwd_kernel  (launched by _fwd)
+//   flash_dq_wgmma   <- _dq_kernel   (launched by _bwd_pallas)
 //   flash_dkv_wgmma  <- _dkv_kernel  (launched by _bwd_pallas)
 // float32 inputs, and bf16 shapes these kernels do not take, go to the scalar
 // kernels of flash_attention.cu; the wrapper (ops/flash_attention.py) picks.
 //
-// Layout as in flash_attention.cu: q, k, v, o, do, dk, dv are [BH, L, hd]
+// Layout as in flash_attention.cu: q, k, v, o, do, dq, dk, dv are [BH, L, hd]
 // bf16, contiguous and 16-byte aligned, hd a multiple of 8 up to 128 (TMA's
 // 16-byte stride rule); lse and delta are [BH, Lq] float32.  Causal needs
 // Lq == Lk.
@@ -16,28 +17,31 @@
 // kernel moves 1.8-2.7 MB, under a microsecond at 3.35 TB/s, and its 0.11-0.23
 // GFLOP take a quarter of a microsecond on the tensor cores: bound by bytes
 // on paper.  In practice the launch latency and the serial walk of the
-// heaviest block bound them: the last Q tile of the forward (the first KV
-// tile of dk/dv) walks four 64-row tiles, each a chain of dependent wgmma
-// groups and a softmax, with one warp per SM sub-partition to hide latency.
+// heaviest block bound them: the last Q tile of the forward and of dq (the
+// first KV tile of dk/dv) walks four 64-row tiles, each a chain of dependent
+// wgmma groups and elementwise work, with one warp per SM sub-partition to
+// hide latency.
 //
 // What the design does about that.
 // - Products on the tensor cores: wgmma.mma_async, bf16 in, fp32 accumulate,
-//   64-row tiles.  Score-shaped products take both operands K-major from
-//   shared memory; the second product of each pair takes the probabilities
-//   (or ds) from registers, rounded to bf16 as the TPU kernels round them,
-//   with the other operand read through the transposed-B descriptor from the
-//   tile already in shared memory.
+//   64-row tiles.  Score-shaped products (s, and dp in the backward) take
+//   both operands K-major from shared memory; the second product of each
+//   pair takes the probabilities (or ds) from registers, rounded to bf16 as
+//   the TPU kernels round them, with the other operand read through the
+//   transposed-B descriptor from the tile already in shared memory.
 // - Two warpgroups (256 threads) per block split the walk: each takes every
 //   other tile with its own accumulators, and they merge at the end (the
-//   forward by the log-sum-exp rule, dk/dv by a sum).  That halves the
-//   heaviest block's serial walk and gives each SM sub-partition a second
-//   warp to issue while the other waits.
+//   forward by the log-sum-exp rule, dq and dk/dv by a sum).  That halves
+//   the heaviest block's serial walk and gives each SM sub-partition a second
+//   warp to issue while the other waits.  No atomics: results are
+//   deterministic.
 // - Each warpgroup's walked tiles arrive by TMA into its own 2-stage ring of
 //   bf16 tiles (128-byte swizzle, zero fill past hd and past L) completing
 //   on mbarriers: the next tile is in flight while this one computes, and no
-//   thread spends registers or instructions on the copy.  Shared memory is
-//   ~75 KB (forward) and ~83 KB (dk/dv) per block at hd <= 64 for two
-//   warpgroups, against 66.5 and ~100 KB of fp32 tiles for one block of the
+//   thread spends registers or instructions on the copy.  The block's own
+//   tiles (q; q and do; k and v) stay resident.  Shared memory is ~75 KB
+//   (forward) and ~83 KB (dq, dk/dv) per block at hd <= 64 for two
+//   warpgroups, against 66.5 to ~100 KB of fp32 tiles for one block of the
 //   scalar kernels.
 // - Only the diagonal tile of a causal walk and the ragged last tile compute
 //   a mask; every other tile takes the unmasked path.
@@ -102,6 +106,19 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// Row tile `row` of batch bh of two [BH, L, hd] maps into tiles a and b (NB
+// 64-column boxes each), both completing on bar.
+template <int NB>
+__device__ __forceinline__ void load_pair(uint8_t* a, const CUtensorMap* ma, uint8_t* b,
+                                          const CUtensorMap* mb, uint64_t* bar, int row, int bh) {
+  mbar_expect_tx(bar, 2 * NB * BOX);
+#pragma unroll
+  for (int c = 0; c < NB; ++c) {
+    tma_load_3d(a + c * BOX, ma, bar, 64 * c, row, bh);
+    tma_load_3d(b + c * BOX, mb, bar, 64 * c, row, bh);
+  }
 }
 
 __device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -328,13 +345,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
 
   const CUtensorMap *mk = &tk, *mv = &tv;
   auto load_kv = [=](int n) {  // the n-th KV tile of this warpgroup's walk
-    const int st = n & 1, k0 = (wg + n * NW) * TILE;
-    mbar_expect_tx(&sbar[st], 2 * TB);
-#pragma unroll
-    for (int c = 0; c < NB; ++c) {
-      tma_load_3d(sK + st * TB + c * BOX, mk, &sbar[st], 64 * c, k0, bh);
-      tma_load_3d(sV + st * TB + c * BOX, mv, &sbar[st], 64 * c, k0, bh);
-    }
+    const int st = n & 1;
+    load_pair<NB>(sK + st * TB, mk, sV + st * TB, mv, &sbar[st], (wg + n * NW) * TILE, bh);
   };
   if (tid == 0) {
 #pragma unroll
@@ -464,6 +476,172 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   }
 }
 
+// ------------------------------------------------------------------------ dq
+// dq = sum_j ds k with ds = scale p (dp - delta), dp = do v^T and
+// p = exp(scale q k^T - lse), walking the KV tiles up to the diagonal (causal).
+// Shaped like the forward: grid (BH, ceil(Lq / 64)), block y = 0 takes the
+// last (heaviest causal) Q tile, whose Q and do tiles stay resident; NW
+// warpgroups split the KV walk, each with its own 2-stage K/V ring and its own
+// partial dq, and warpgroup 0 adds them up at the end.  Thread (warp, lane)
+// owns rows 16 warp + lane/4 and + 8 of the Q tile, as in the forward.
+// s (the scores) comes in as q k^T and dp as do v^T; dp leaves as ds
+// (masked: 0).  Only the diagonal tile of a causal walk and the ragged last
+// KV tile are MASKED.
+template <bool MASKED>
+__device__ __forceinline__ void dq_step(const float (&s)[32], float (&dp)[32],
+                                        const float (&lv)[2], const float (&dl)[2], int row0,
+                                        int k0, int Lk, int causal, float sl2, float scale) {
+  const int cq = 2 * (threadIdx.x & 3);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int h = (i >> 1) & 1;
+    float p = exp2f(s[i] * sl2 - lv[h]);
+    if (MASKED) {
+      const int col = k0 + 8 * (i >> 2) + cq + (i & 1);
+      if (col >= Lk || (causal && col > row0 + 8 * h)) p = 0.f;
+    }
+    dp[i] = p * (dp[i] - dl[h]) * scale;
+  }
+}
+
+template <int HDP, int NW>
+__global__ void __launch_bounds__(NW * NT)
+flash_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               __nv_bfloat16* __restrict__ dq, int Lq, int Lk, int hd, float scale, int causal) {
+  constexpr int NB = HDP > 64 ? 2 : 1;
+  constexpr int KS = HDP / 16;
+  constexpr int N0 = HDP > 64 ? 64 : HDP;
+  constexpr int N1 = HDP - N0;
+  constexpr int A1 = N1 > 0 ? N1 / 2 : 2;
+  constexpr int TB = NB * BOX;
+  constexpr int RB = 4 * TB;  // one warpgroup's ring: K and V, 2 stages each
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = align1024(smem_raw);
+  uint8_t* sO = sQ + TB;  // do
+  uint8_t* rings = sO + TB;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(rings + NW * RB);  // q/do, then 2 per warpgroup
+
+  const int tid = threadIdx.x, wg = tid / NT, wt = tid % NT, warp = wt >> 5, lane = tid & 31;
+  const int bh = blockIdx.x, q0 = (gridDim.y - 1 - blockIdx.y) * TILE;
+  const int kv_end = causal ? min(Lk, q0 + TILE) : Lk;
+  const int nkv = (kv_end + TILE - 1) / TILE;
+  const int mine = nkv > wg ? (nkv - wg + NW - 1) / NW : 0;
+  uint8_t* sK = rings + wg * RB;  // 2 stages
+  uint8_t* sV = sK + 2 * TB;      // 2 stages
+  uint64_t* sbar = bar + 1 + 2 * wg;
+
+  const CUtensorMap *mk = &tk, *mv = &tv;
+  auto load_kv = [=](int n) {  // the n-th KV tile of this warpgroup's walk
+    const int st = n & 1;
+    load_pair<NB>(sK + st * TB, mk, sV + st * TB, mv, &sbar[st], (wg + n * NW) * TILE, bh);
+  };
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < 1 + 2 * NW; ++i) mbar_init(&bar[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (wt == 0) {
+    if (wg == 0) load_pair<NB>(sQ, &tq, sO, &tdo, &bar[0], q0, bh);
+    if (mine > 0) load_kv(0);
+    if (mine > 1) load_kv(1);
+  }
+
+  const int row0 = q0 + warp * 16 + (lane >> 2);  // and row0 + 8
+  const float sl2 = scale * LOG2E;
+  // lse (in log2 units) and delta of this thread's two rows, by plain loads
+  // (a TMA box over the [BH * Lq] vectors would start unaligned for some Lq)
+  float lv[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    lv[h] = row < Lq ? lse[(size_t)bh * Lq + row] * LOG2E : 0.f;
+    dl[h] = row < Lq ? delta[(size_t)bh * Lq + row] : 0.f;
+  }
+  float acc0[N0 / 2], acc1[A1];
+#pragma unroll
+  for (int i = 0; i < N0 / 2; ++i) acc0[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < A1; ++i) acc1[i] = 0.f;
+  const uint32_t qa = smem_u32(sQ), oa = smem_u32(sO);
+  if (mine > 0) mbar_wait(&bar[0], 0);
+
+  for (int n = 0; n < mine; ++n) {
+    const int st = n & 1, k0 = (wg + n * NW) * TILE;
+    const uint32_t ka = smem_u32(sK + st * TB), va = smem_u32(sV + st * TB);
+    mbar_wait(&sbar[st], (n >> 1) & 1);
+
+    // s = q k^T and dp = do v^T, one commit group
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    pin(s);
+    pin(dp);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) wgmma_ss_n64(s, desc_k(qa, kk), desc_k(ka, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) wgmma_ss_n64(dp, desc_k(oa, kk), desc_k(va, kk), kk > 0);
+    wg_commit();
+    wg_wait_all();
+    pin(s);
+    pin(dp);
+
+    if ((causal && k0 == q0) || k0 + TILE > Lk)
+      dq_step<true>(s, dp, lv, dl, row0, k0, Lk, causal, sl2, scale);
+    else
+      dq_step<false>(s, dp, lv, dl, row0, k0, Lk, causal, sl2, scale);
+
+    // dq += ds k, ds rounded to bf16 as the TPU kernel rounds it to k's type;
+    // k read through the transposed-B descriptor, as the forward reads v
+    uint32_t da[4][4];
+    to_a_operand(dp, da);
+    pin(acc0);
+    pin(acc1);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_rs<N0>(acc0, da[kk], desc_mn(ka, 0, kk));
+      if constexpr (N1 > 0) wgmma_rs<N1>(acc1, da[kk], desc_mn(ka, 1, kk));
+    }
+    wg_commit();
+    wg_wait_all();
+    pin(acc0);
+    pin(acc1);
+
+    wg_sync(wg);  // every warp of this warpgroup is done reading the stage
+    if (wt == 0 && n + 2 < mine) load_kv(n + 2);
+  }
+
+  // warpgroups 1.. leave their partial dq in their own idle rings; warpgroup
+  // 0 adds them to its own and stores
+  if constexpr (NW > 1) {
+    if (wg > 0) {
+      float* buf = reinterpret_cast<float*>(rings + wg * RB);
+#pragma unroll
+      for (int i = 0; i < N0 / 2; ++i) buf[i * NT + wt] = acc0[i];
+#pragma unroll
+      for (int i = 0; i < A1; ++i) buf[(N0 / 2 + i) * NT + wt] = acc1[i];
+    }
+    __syncthreads();
+    if (wg > 0) return;
+#pragma unroll
+    for (int w = 1; w < NW; ++w) {
+      const float* buf = reinterpret_cast<const float*>(rings + w * RB);
+#pragma unroll
+      for (int i = 0; i < N0 / 2; ++i) acc0[i] += buf[i * NT + wt];
+#pragma unroll
+      for (int i = 0; i < A1; ++i) acc1[i] += buf[(N0 / 2 + i) * NT + wt];
+    }
+  }
+
+  __nv_bfloat16* dqb = dq + (size_t)bh * Lq * hd;
+  store_rows<N0>(acc0, dqb, row0, 0, Lq, hd, 1.f, 1.f);
+  if constexpr (N1 > 0) store_rows<N1>(acc1, dqb, row0, 64, Lq, hd, 1.f, 1.f);
+}
+
 // --------------------------------------------------------------------- dk/dv
 // dv = sum_i p^T do and dk = sum_i scale (p (dp - delta))^T q with
 // p = exp(scale q k^T - lse), walking the Q tiles from the diagonal (causal).
@@ -523,13 +701,8 @@ flash_dkv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
 
   const CUtensorMap *mq = &tq, *mo = &tdo;
   auto load_q = [=](int n) {  // the n-th Q tile of this warpgroup's walk
-    const int st = n & 1, row = (qt0 + wg + n * NW) * TILE;
-    mbar_expect_tx(&sbar[st], 2 * TB);
-#pragma unroll
-    for (int c = 0; c < NB; ++c) {
-      tma_load_3d(sQ + st * TB + c * BOX, mq, &sbar[st], 64 * c, row, bh);
-      tma_load_3d(sO + st * TB + c * BOX, mo, &sbar[st], 64 * c, row, bh);
-    }
+    const int st = n & 1;
+    load_pair<NB>(sQ + st * TB, mq, sO + st * TB, mo, &sbar[st], (qt0 + wg + n * NW) * TILE, bh);
   };
   if (tid == 0) {
 #pragma unroll
@@ -538,14 +711,7 @@ flash_dkv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   }
   __syncthreads();
   if (wt == 0) {
-    if (wg == 0) {
-      mbar_expect_tx(&bar[0], 2 * TB);
-#pragma unroll
-      for (int c = 0; c < NB; ++c) {
-        tma_load_3d(sK + c * BOX, &tk, &bar[0], 64 * c, k0, bh);
-        tma_load_3d(sV + c * BOX, &tv, &bar[0], 64 * c, k0, bh);
-      }
-    }
+    if (wg == 0) load_pair<NB>(sK, &tk, sV, &tv, &bar[0], k0, bh);
     if (mine > 0) load_q(0);
     if (mine > 1) load_q(1);
   }
@@ -720,16 +886,16 @@ int map_tiles(CUtensorMap* map, const void* ptr, int bh, int L, int hd) {
 // Two halve the heaviest block's serial walk and give each SM sub-partition a
 // second warp to issue while the first waits; one was slower on the H100, and
 // four hit the 128-register cap of a 512-thread block and spilled.
-constexpr int FWD_NW = 2, DKV_NW = 2;
+constexpr int FWD_NW = 2, DQ_NW = 2, DKV_NW = 2;
 
 constexpr size_t tile_bytes(int hdp) { return (hdp > 64 ? 2 : 1) * (size_t)BOX; }
-// 1024 for the alignment, the tiles, the mbarriers
-constexpr size_t fwd_smem(int hdp) {
-  return 1024 + (1 + 4 * FWD_NW) * tile_bytes(hdp) + (1 + 2 * FWD_NW) * 8;
+// 1024 for the alignment, the resident tiles, nw rings of 4 tiles, the mbarriers
+constexpr size_t smem_bytes(int hdp, int resident, int nw) {
+  return 1024 + (resident + 4 * nw) * tile_bytes(hdp) + (1 + 2 * nw) * 8;
 }
-constexpr size_t dkv_smem(int hdp) {
-  return 1024 + (2 + 4 * DKV_NW) * tile_bytes(hdp) + (1 + 2 * DKV_NW) * 8;
-}
+constexpr size_t fwd_smem(int hdp) { return smem_bytes(hdp, 1, FWD_NW); }  // q
+constexpr size_t dq_smem(int hdp) { return smem_bytes(hdp, 2, DQ_NW); }    // q, do
+constexpr size_t dkv_smem(int hdp) { return smem_bytes(hdp, 2, DKV_NW); }  // k, v
 
 template <int HDP>
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int Lq, int Lk,
@@ -745,6 +911,25 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
     return r;
   kern<<<dim3(bh, (Lq + TILE - 1) / TILE), FWD_NW * NT, fwd_smem(HDP), st>>>(
       tq, tk, tv, (__nv_bfloat16*)o, (float*)lse, Lq, Lk, hd, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+template <int HDP>
+int dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+       const void* delta, void* dq_, int bh, int Lq, int Lk, int hd, float scale, int causal,
+       int device, cudaStream_t st) {
+  static std::atomic<uint32_t> opted{0};
+  auto kern = flash_dq_wgmma<HDP, DQ_NW>;
+  cudaError_t e = ddl::allow_smem(opted, kern, dq_smem(HDP), device);
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap tq, tk, tv, tdo;
+  int r;
+  if ((r = map_tiles(&tq, q, bh, Lq, hd)) || (r = map_tiles(&tk, k, bh, Lk, hd)) ||
+      (r = map_tiles(&tv, v, bh, Lk, hd)) || (r = map_tiles(&tdo, dout, bh, Lq, hd)))
+    return r;
+  kern<<<dim3(bh, (Lq + TILE - 1) / TILE), DQ_NW * NT, dq_smem(HDP), st>>>(
+      tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (__nv_bfloat16*)dq_, Lq, Lk, hd,
+      scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -803,6 +988,14 @@ int ddl_flash_fwd_sm90(const void* q, const void* k, const void* v, void* o, voi
                        void* stream) {
   if (int r = refuse(bh, Lq, Lk, hd, causal, device)) return r;
   DISPATCH_HD(hd, fwd, q, k, v, o, lse, bh, Lq, Lk, hd, scale, causal, device,
+              (cudaStream_t)stream);
+}
+
+int ddl_flash_dq_sm90(const void* q, const void* k, const void* v, const void* dout,
+                      const void* lse, const void* delta, void* dq_, int bh, int Lq, int Lk,
+                      int hd, float scale, int causal, int device, void* stream) {
+  if (int r = refuse(bh, Lq, Lk, hd, causal, device)) return r;
+  DISPATCH_HD(hd, dq, q, k, v, dout, lse, delta, dq_, bh, Lq, Lk, hd, scale, causal, device,
               (cudaStream_t)stream);
 }
 

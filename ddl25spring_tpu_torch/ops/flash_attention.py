@@ -8,17 +8,16 @@ the lse cotangent).
 
 Variants, chosen by dtype and shape (``LAUNCHES_BY_VARIANT`` counts each):
 
-- ``"wgmma"`` (``csrc/flash_attention_sm90.cu``): the forward and dk/dv on the
+- ``"wgmma"`` (``csrc/flash_attention_sm90.cu``): all three kernels on the
   tensor cores, for bfloat16 operands whose head_dim is a multiple of 8 (TMA
   needs 16-byte row strides) and whose data pointers are 16-byte aligned.
-  They round p (and ds) to bf16 before the second product of each pair, as
+  They round p and ds to bf16 before the second product of each pair, as
   the TPU kernels round them to the input type.
-- ``"scalar"`` (``csrc/flash_attention.cu``): scalar fp32 FMAs.  float32
-  operands go here by design, not as a fallback: TF32 tensor cores would
-  break the fp32 tolerance of 1e-4.  bfloat16 operands the tensor-core
-  kernels do not take (head_dim not a multiple of 8, misaligned pointers) go
-  here too, and so does dq for every dtype (its tensor-core kernel is still
-  to come).
+- ``"scalar"`` (``csrc/flash_attention.cu``): scalar fp32 FMAs, with the same
+  roundings.  float32 operands go here by design, not as a fallback: TF32
+  tensor cores would break the fp32 tolerance of 1e-4.  bfloat16 operands
+  the tensor-core kernels do not take (head_dim not a multiple of 8,
+  misaligned pointers) go here too.
 
 A failed build or launch raises; nothing gives way to another variant.
 
@@ -51,8 +50,7 @@ TILE = 64           # the CUDA kernels' tile; the plain versions walk the same t
 MAX_HEAD_DIM = 128
 
 LAUNCHES = {"fwd": 0, "dq": 0, "dkv": 0}
-LAUNCHES_BY_VARIANT = {"fwd": {"wgmma": 0, "scalar": 0}, "dq": {"scalar": 0},
-                       "dkv": {"wgmma": 0, "scalar": 0}}
+LAUNCHES_BY_VARIANT = {name: {"wgmma": 0, "scalar": 0} for name in LAUNCHES}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -121,9 +119,10 @@ def _tile_grads(qb, kb, vb, dob, lse_b, delta_b, live, scale):
 
 
 def flash_dq_reference(q3, k3, v3, lse, do, delta, causal: bool):
-    """The dq kernel's arithmetic in plain torch, float32 throughout (ds is not
-    rounded: the scalar dq kernel keeps it in fp32): for each Q tile, walk the
-    KV tiles it attends to, recomputing ``p = exp(scale q k^T - lse)``.
+    """The dq kernel's arithmetic in plain torch: for each Q tile, walk the KV
+    tiles it attends to, recomputing ``p = exp(scale q k^T - lse)`` in float32,
+    with ds rounded to the input dtype before ``ds @ k`` as the TPU kernel
+    rounds it (p is never a matmul operand here, so it stays float32).
     Returns ``dq`` in ``q3``'s dtype."""
     Lq, hd = q3.shape[1:]
     Lk = k3.shape[1]
@@ -138,7 +137,7 @@ def flash_dq_reference(q3, k3, v3, lse, do, delta, causal: bool):
             live = _live(q0, nq, k0, kb.shape[1], causal, q.device)
             _, ds = _tile_grads(q[:, qs], kb, vb, dof[:, qs], lse[:, qs],
                                 delta[:, qs], live, scale)
-            dq[:, qs] += ds @ kb
+            dq[:, qs] += _round(ds, q3.dtype) @ kb
     return dq.to(q3.dtype)
 
 
@@ -187,16 +186,18 @@ def _kernels():
     scalar.ddl_flash_dkv.argtypes = [ptr] * 8 + tail
     tail90 = [i32, i32, i32, i32, f32, i32, i32, ptr]  # bh Lq Lk hd scale causal dev stream
     sm90.ddl_flash_fwd_sm90.argtypes = [ptr] * 5 + tail90
+    sm90.ddl_flash_dq_sm90.argtypes = [ptr] * 7 + tail90
     sm90.ddl_flash_dkv_sm90.argtypes = [ptr] * 8 + tail90
     for fn in (scalar.ddl_flash_fwd, scalar.ddl_flash_dq, scalar.ddl_flash_dkv,
-               sm90.ddl_flash_fwd_sm90, sm90.ddl_flash_dkv_sm90):
+               sm90.ddl_flash_fwd_sm90, sm90.ddl_flash_dq_sm90, sm90.ddl_flash_dkv_sm90):
         fn.restype = ctypes.c_int
     for fn in (scalar.ddl_flash_error_string, sm90.ddl_flash_sm90_error_string):
         fn.argtypes = [ctypes.c_int]
         fn.restype = ctypes.c_char_p
     return {"scalar": {"fwd": scalar.ddl_flash_fwd, "dq": scalar.ddl_flash_dq,
                        "dkv": scalar.ddl_flash_dkv, "error": scalar.ddl_flash_error_string},
-            "wgmma": {"fwd": sm90.ddl_flash_fwd_sm90, "dkv": sm90.ddl_flash_dkv_sm90,
+            "wgmma": {"fwd": sm90.ddl_flash_fwd_sm90, "dq": sm90.ddl_flash_dq_sm90,
+                      "dkv": sm90.ddl_flash_dkv_sm90,
                       "error": sm90.ddl_flash_sm90_error_string}}
 
 
@@ -252,7 +253,7 @@ def _variant(name, tensors):
     dispatch rule of the module docstring: the tensor-core kernels take
     bfloat16 with head_dim a multiple of 8 and every pointer 16-byte aligned."""
     q3 = tensors[0]
-    return ("wgmma" if name != "dq" and q3.dtype == torch.bfloat16 and q3.shape[-1] % 8 == 0
+    return ("wgmma" if q3.dtype == torch.bfloat16 and q3.shape[-1] % 8 == 0
             and all(t.data_ptr() % 16 == 0 for t in tensors) else "scalar")
 
 
@@ -301,7 +302,8 @@ def flash_dq(q3, k3, v3, lse, do, delta, causal: bool):
     if q3.device.type == "cpu":
         return flash_dq_reference(q3, k3, v3, lse, do, delta, causal)
     dq = torch.empty_like(q3)
-    _launch("dq", "scalar", q3, k3, v3, do, lse, delta, dq,
+    args = (q3, k3, v3, do, lse, delta, dq)
+    _launch("dq", _variant("dq", args), *args,
             q3=q3, Lk=k3.shape[1], causal=causal)
     return dq
 

@@ -85,11 +85,19 @@ def _run_case(dev, BH, Lq, Lk, hd, dtype, causal):
     (2, 200, 200, 112, torch.bfloat16, False),
     (2, 100, 100, 36, torch.bfloat16, True),  # hd not a multiple of 8: scalar bf16
     (18, 256, 256, 36, torch.bfloat16, False),
+    # odd lengths with BH = 2: a TMA box or a plain load at bh * L + row with
+    # L not a multiple of 4 (an unaligned start) must still be right
+    (2, 17, 17, 48, torch.bfloat16, True),
+    (2, 17, 17, 48, torch.bfloat16, False),
+    (2, 66, 66, 48, torch.bfloat16, True),
+    (2, 66, 66, 48, torch.bfloat16, False),
+    (2, 130, 130, 48, torch.bfloat16, True),
+    (2, 130, 130, 48, torch.bfloat16, False),
 ])
 def test_kernels_match_plain_versions(dev, BH, Lq, Lk, hd, dtype, causal):
     runs = _run_case(dev, BH, Lq, Lk, hd, dtype, causal)
     want = "wgmma" if dtype == torch.bfloat16 and hd % 8 == 0 else "scalar"
-    assert runs == {"fwd": {want: 1}, "dq": {"scalar": 1}, "dkv": {want: 1}}
+    assert runs == {"fwd": {want: 1}, "dq": {want: 1}, "dkv": {want: 1}}
 
 
 def test_main_shape_dispatch(dev):
@@ -99,9 +107,10 @@ def test_main_shape_dispatch(dev):
         x = torch.randn(18, 256, 48, device=dev).to(dtype)
         before = {n: dict(c) for n, c in fa.LAUNCHES_BY_VARIANT.items()}
         o, lse = fa.flash_fwd(x, x, x, True)
+        fa.flash_dq(x, x, x, lse, x, lse, True)
         fa.flash_dkv(x, x, x, lse, x, lse, True)
         torch.cuda.synchronize()
-        assert _variant_runs(before) == {"fwd": {want: 1}, "dq": {}, "dkv": {want: 1}}
+        assert _variant_runs(before) == {"fwd": {want: 1}, "dq": {want: 1}, "dkv": {want: 1}}
 
 
 def test_misaligned_bf16_runs_on_the_scalar_variant(dev):
@@ -109,15 +118,20 @@ def test_misaligned_bf16_runs_on_the_scalar_variant(dev):
     source: the dispatch sends it to the scalar kernels, which are right."""
     g = torch.Generator().manual_seed(1)
     n = 2 * 64 * 48
-    q, k, v = (torch.randn(n + 8, generator=g).to(dev, torch.bfloat16)[1:n + 1].view(2, 64, 48)
-               for _ in range(3))
+    q, k, v, do = (torch.randn(n + 8, generator=g).to(dev, torch.bfloat16)[1:n + 1]
+                   .view(2, 64, 48) for _ in range(4))
     before = {n_: dict(c) for n_, c in fa.LAUNCHES_BY_VARIANT.items()}
     o, lse = fa.flash_fwd(q, k, v, True)
     o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, True)
+    delta = (do.float() * o_ref.float()).sum(-1)
+    dq = fa.flash_dq(q, k, v, lse_ref, do, delta, True)
+    dq_ref = fa.flash_dq_reference(q, k, v, lse_ref, do, delta, True)
     torch.cuda.synchronize()
     _close(o, o_ref, torch.bfloat16)
     _close(lse, lse_ref, torch.float32)
-    assert _variant_runs(before)["fwd"] == {"scalar": 1}
+    _close(dq, dq_ref, torch.bfloat16)
+    runs = _variant_runs(before)
+    assert runs["fwd"] == {"scalar": 1} and runs["dq"] == {"scalar": 1}
 
 
 def test_cuda_tensors_raise_instead_of_falling_back(dev):
