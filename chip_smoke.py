@@ -28,7 +28,24 @@ Phases, in order; any failure exits non-zero and prints no result:
    variant; then full-width fp32 logits through the kernels
    against dense attention;
 6. profile: device time by kernel, device busy and idle share of the train
-   step, with the flash kernels and with dense attention.
+   step, with the flash kernels and with dense attention;
+7. DP x PP on the card: six rank processes on ``cuda:0`` (2 pipelines x 3
+   stages, 3 microbatches, 3 rows per replica; gloo through pinned host
+   buffers, since NCCL refuses two ranks on one device), spawned after phase
+   2 built the kernels:
+   (a) fp32, full width, flash kernels: one step's loss and gradients against
+       a single-process step on the batch of 6 from the same weights (loss
+       rtol 1e-5; gradients atol 2e-4 + rtol 2e-3), then 2 Adam steps (losses
+       rtol 1e-4);
+   (b) the slice, ``lab.dp_pp.main``: bf16, flash kernels, 24 steps; losses
+       finite and falling, the first within 1 of ln(4096), every rank on CUDA
+       with each kernel launched 6 times per step, all on the tensor cores;
+       the median step time, tokens/s, each stage's ``recv`` wait, the DP
+       all-reduce seconds and the bytes staged through the host per step;
+   (c) the NCCL path: ``make_dp_train_step`` over ``min(device_count, 2)``
+       ranks on cards of their own, fp32, 2 steps against a single-process
+       step (losses rtol 1e-4).
+   The backend of every run is printed.
 
 Tolerances (|kernel - plain| <= atol + rtol * |plain|):
   fp32: atol 1e-4, rtol 0 (summation order only);
@@ -59,6 +76,8 @@ import torch
 
 MAIN_SHAPE = (3, 256, 6, 48)     # [B, L, H, hd] of the primer's attention
 STEPS = 24
+DP, PP, MICRO, ROWS = 2, 3, 3, 3  # phase 7: pipelines, stages, microbatches, rows per replica
+SPAWN_TIMEOUT = 300
 TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (2e-2, 1e-2)}
 
 # H100 SXM data-sheet peaks (dense): the bound of a kernel is the larger of
@@ -117,10 +136,11 @@ def print_ptxas(log: str):
         print(f"  {name}: {'; '.join(parts)}")
 
 
-def excess(a, ref, dtype):
-    """max(|a - ref| - rtol |ref|) - atol: <= 0 within tolerance."""
-    atol, rtol = TOL[dtype]
-    a, ref = a.float(), ref.float()
+def excess(a, ref, tol):
+    """max(|a - ref| - rtol |ref|) - atol with ``tol = (atol, rtol)``, over
+    tensors, arrays or lists: <= 0 within tolerance."""
+    atol, rtol = tol
+    a, ref = torch.as_tensor(a).float(), torch.as_tensor(ref).float()
     return ((a - ref).abs() - rtol * ref.abs()).max().item() - atol
 
 
@@ -160,7 +180,7 @@ def kernel_case(fa, gen, dev, BH, Lq, Lk, hd, dtype, causal):
     for name, (a, ref) in pairs.items():
         check(torch.isfinite(a).all().item(), f"{tag}: {name} not finite")
         # lse is float32 in both versions, whatever the inputs
-        e = excess(a, ref, torch.float32 if name == "lse" else dtype)
+        e = excess(a, ref, TOL[torch.float32 if name == "lse" else dtype])
         check(e <= 0, f"{tag}: {name} off its plain version by {e:.3g} past tolerance")
         errs[name] = max_err(a, ref)
     print(f"  kernels {tag}: " + " ".join(f"{n}={e:.2e}" for n, e in errs.items()))
@@ -194,7 +214,7 @@ def autograd_case(fa, gen, dev, shape, dtype, causal, with_lse):
     names = ["o", "lse", "dq", "dk", "dv"] if with_lse else ["o", "dq", "dk", "dv"]
     tag = f"autograd {'with_lse ' if with_lse else ''}{list(shape)} {str(dtype)[6:]} causal={causal}"
     for name, a, r in zip(names, got, ref):
-        e = excess(a, r, torch.float32 if name == "lse" else dtype)
+        e = excess(a, r, TOL[torch.float32 if name == "lse" else dtype])
         check(e <= 0, f"{tag}: {name} off the CPU plain path by {e:.3g} past tolerance")
     print(f"  {tag}: " + " ".join(f"{n}={max_err(a, r):.2e}" for n, a, r in zip(names, got, ref)))
 
@@ -399,6 +419,144 @@ def model_check(dev):
     print(f"  full-width fp32 logits, flash kernels vs dense: max abs err {err:.2e}")
 
 
+def _single_process(cfg, dev, seed, batches):
+    """The single-device Adam step on the card over ``batches``, from
+    ``Llama(seed)``'s weights: the losses and the first step's gradients."""
+    from ddl25spring_tpu_torch.models.llama import Llama, export_grads
+    from ddl25spring_tpu_torch.ops.losses import causal_lm_loss
+    from ddl25spring_tpu_torch.parallel.dp import make_train_step
+
+    model = Llama(cfg, device=dev, generator=torch.Generator().manual_seed(seed))
+    step = make_train_step(model, lambda m, t: causal_lm_loss(m(t), t),
+                           torch.optim.Adam(model.parameters(), lr=8e-4))
+    losses, grads = [], []
+    for b in batches:
+        losses.append(float(step(torch.from_numpy(b).long().to(dev))))
+        grads.append(export_grads(model))
+    return losses, grads[0]
+
+
+def _token_batches(cfg, rows, n, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randint(0, cfg.vocab_size, (rows, cfg.ctx_size), generator=gen).numpy()
+            for _ in range(n)]
+
+
+def dp_pp_exactness(dev):
+    """Phase 7 (a): the 6-rank fp32 step against the single-process step."""
+    from ddl25spring_tpu_torch.lab import dp_pp
+    from ddl25spring_tpu_torch.models.llama import merge_stage_exports
+    from ddl25spring_tpu_torch.parallel.bucketing import flatten
+    from ddl25spring_tpu_torch.parallel.launch import spawn
+    from ddl25spring_tpu_torch.utils.config import LlamaConfig
+
+    cfg = LlamaConfig(dtype="float32", use_flash=True)
+    batches = _token_batches(cfg, DP * ROWS, 3, seed=11)
+    job = dp_pp.Job(cfg, DP, PP, MICRO, batch=DP * ROWS, iters=3, seed=7, device=dev.type,
+                    batches=batches, export=True, log=False)
+    t0 = time.perf_counter()
+    ranks = spawn(dp_pp.run_rank, DP * PP, job, timeout=SPAWN_TIMEOUT)
+    print(f"  (a) {DP * PP} ranks, backend {sorted({r['backend'] for r in ranks})}, devices "
+          f"{sorted({r['device'] for r in ranks})}, {time.perf_counter() - t0:.1f} s")
+    want_losses, want_grads = _single_process(cfg, dev, 7, batches)
+    last = [r for r in ranks if r["coords"][1] == PP - 1]
+    check(all(r["losses"] == last[0]["losses"] for r in last), "the replicas' losses differ")
+    got = last[0]["losses"]
+    e0 = excess(got[0], want_losses[0], (0.0, 1e-5))
+    check(e0 <= 0, f"fp32 DPxPP first loss {got[0]} vs single process {want_losses[0]}")
+    e_later = excess(got[1:], want_losses[1:], (0.0, 1e-4))
+    check(e_later <= 0, f"fp32 DPxPP Adam losses {got[1:]} vs single process {want_losses[1:]}")
+    merged = merge_stage_exports([r["grads"] for r in ranks if r["coords"][0] == 0])
+    err = 0.0
+    for (path, a), (_, b) in zip(flatten(merged), flatten(want_grads)):
+        e = excess(a, b, (2e-4, 2e-3))
+        check(e <= 0, f"fp32 DPxPP grad {path} off the single-process grad by {e:.3g} "
+                      "past tolerance")
+        err = max(err, max_err(torch.from_numpy(a), torch.from_numpy(b)))
+    print(f"  (a) fp32 losses {[round(x, 6) for x in got]} vs single process "
+          f"{[round(x, 6) for x in want_losses]}; grads max abs err {err:.2e}")
+
+
+def dp_pp_slice(dev):
+    """Phase 7 (b): ``lab.dp_pp.main``, bf16, 24 steps, and its time split."""
+    from ddl25spring_tpu_torch.lab import dp_pp
+
+    run = dp_pp.main(["--iters", str(STEPS), "--seed", "0", "--device", dev.type,
+                      "--timeout", str(SPAWN_TIMEOUT)])
+    ranks, losses = run["ranks"], run["losses"]
+    check(len(losses) == STEPS and all(math.isfinite(x) for x in losses),
+          f"DPxPP losses not all finite: {losses}")
+    check(abs(losses[0] - math.log(4096)) < 1.0,
+          f"DPxPP first loss {losses[0]:.3f} far from ln(vocab) {math.log(4096):.3f}")
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    check(last < first, f"DPxPP loss did not fall: first-5 mean {first:.4f}, last-5 {last:.4f}")
+    for r in ranks:
+        check(r["device"].startswith("cuda"), f"rank {r['rank']} ran on {r['device']}")
+        want = {name: 6 * STEPS for name in ("fwd", "dq", "dkv")}
+        check(r["launches"] == want, f"rank {r['rank']} launches {r['launches']} != {want}")
+        for name in want:
+            check(r["launches_by_variant"][name]["wgmma"] == 6 * STEPS,
+                  f"rank {r['rank']} {name} by variant {r['launches_by_variant'][name]}")
+    steady = run["step_s"][4:]
+    step_ms = statistics.median(steady) * 1e3
+    print(f"  (b) backend {sorted({r['backend'] for r in ranks})}, devices "
+          f"{sorted({r['device'] for r in ranks})}; loss {first:.4f} (first 5) -> "
+          f"{last:.4f} (last 5); every rank launched each kernel {6 * STEPS} times, "
+          "all on wgmma")
+    tokens = DP * ROWS * MAIN_SHAPE[1]
+    print(f"  (b) step time median {step_ms:.3f} ms (steps 4..{STEPS - 1}, host clock, "
+          f"min {min(steady) * 1e3:.3f} ms), {tokens / (step_ms / 1e3):.1f} tokens/s")
+    for s in range(PP):
+        mine = [r for r in ranks if r["coords"][1] == s]
+        per = {k: statistics.median(c[k] for r in mine for c in r["comm"][4:])
+               for k in ("recv_wait_s", "send_s", "allreduce_s", "bytes_staged")}
+        print(f"  (b) stage {s}: recv wait {per['recv_wait_s'] * 1e3:.3f} ms/step, send "
+              f"{per['send_s'] * 1e3:.3f} ms/step, DP all-reduce {per['allreduce_s'] * 1e3:.3f} "
+              f"ms/step, staged {int(per['bytes_staged'])} B/step per rank (medians, steps "
+              f"4..{STEPS - 1}, both replicas)")
+    staged = sum(c["bytes_staged"] for r in ranks for c in r["comm"][4:]) / len(steady)
+    print(f"  (b) bytes staged through the host, all ranks: {staged:.0f} B/step")
+
+
+def nccl_dp_rank(rdv, cfg, batches, seed, device):
+    """One rank of phase 7 (c): DP-only ``make_dp_train_step`` on its own card."""
+    from ddl25spring_tpu_torch.models.llama import Llama
+    from ddl25spring_tpu_torch.ops.losses import causal_lm_loss
+    from ddl25spring_tpu_torch.parallel.dp import make_dp_train_step
+    from ddl25spring_tpu_torch.utils.mesh import init_mesh
+
+    with init_mesh(rdv, data=rdv.world, stages=1, device=device) as mesh:
+        model = Llama(cfg, device=mesh.device, generator=torch.Generator().manual_seed(seed))
+        step = make_dp_train_step(model, lambda m, t: causal_lm_loss(m(t), t),
+                                  torch.optim.Adam(model.parameters(), lr=8e-4), mesh)
+        mesh.comm.take_stats()
+        losses = [float(step(torch.from_numpy(b).long())) for b in batches]
+        return {"backend": mesh.backend, "device": str(mesh.device), "losses": losses,
+                **mesh.comm.take_stats()}
+
+
+def nccl_dp(dev):
+    """Phase 7 (c): the bucketed all-reduce on NCCL, against one process."""
+    from ddl25spring_tpu_torch.parallel.launch import spawn
+    from ddl25spring_tpu_torch.utils.config import LlamaConfig
+
+    n = min(torch.cuda.device_count(), 2)
+    cfg = LlamaConfig(dtype="float32", use_flash=True)
+    batches = _token_batches(cfg, ROWS * n, 2, seed=13)
+    t0 = time.perf_counter()
+    ranks = spawn(nccl_dp_rank, n, cfg, batches, 5, dev.type, timeout=SPAWN_TIMEOUT)
+    spawned_s = time.perf_counter() - t0
+    want, _ = _single_process(cfg, dev, 5, batches)
+    for r in ranks:
+        check(r["backend"] == "nccl", f"DP over {n} cards ran on {r['backend']}")
+        e = excess(r["losses"], want, (0.0, 1e-4))
+        check(e <= 0, f"NCCL DP losses {r['losses']} vs single process {want}")
+    print(f"  (c) {n} rank(s), backend {ranks[0]['backend']}, devices "
+          f"{[r['device'] for r in ranks]}; losses {ranks[0]['losses']} vs single process "
+          f"{want}; all-reduce {ranks[0]['allreduce_s'] * 1e3:.3f} ms over 2 steps, "
+          f"staged {ranks[0]['bytes_staged']} B; {spawned_s:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -497,6 +655,14 @@ def main() -> int:
     print("== where the step's time goes (torch.profiler, bf16, full width)")
     for use_flash in (True, False):
         profile_steps(dev, use_flash)
+
+    print(f"== DP x PP on the card: {DP} x {PP} ranks, {MICRO} microbatches, {ROWS} rows "
+          "per replica")
+    t0 = time.perf_counter()
+    dp_pp_exactness(dev)
+    dp_pp_slice(dev)
+    nccl_dp(dev)
+    print(f"  phase 7 in {time.perf_counter() - t0:.1f} s")
 
     kernels = [
         {"name": f"flash_{name}", "route": "cuda", "source": SOURCE[timing[name]["variant"]],

@@ -8,7 +8,11 @@ never jax and never the JAX package.
 What is ported so far is the single-card LLaMA training path
 (:mod:`ddl25spring_tpu_torch.primer`): TinyStories -> LLaMA forward ->
 causal-LM loss -> backward -> Adam, with attention through the hand-written
-sm_90a flash-attention kernels in ``ops/csrc/flash_attention.cu``.  Entry
-points run on CUDA unless the caller passes ``device="cpu"``; on the CPU each
-kernel's plain PyTorch version runs in its place.
+sm_90a flash-attention kernels in ``ops/csrc/``; and its distributed forms,
+one process per rank on ``torch.distributed``: data parallelism
+(:mod:`~ddl25spring_tpu_torch.parallel.dp`), the GPipe pipeline and the
+2 x 3 DP x PP step (:mod:`~ddl25spring_tpu_torch.parallel.pipeline`,
+:mod:`~ddl25spring_tpu_torch.lab.dp_pp`).  Entry points run on CUDA unless
+the caller passes ``device="cpu"``; on the CPU each kernel's plain PyTorch
+version runs in its place.
 """

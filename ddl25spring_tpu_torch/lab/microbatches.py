@@ -1,0 +1,27 @@
+"""Homework B1 on PyTorch: the GPipe microbatch pipeline, one process per stage.
+
+The counterpart of ``lab/s01_b1_microbatches.py``: the LLaMA workload in 3
+stages, batch 3 in 3 microbatches, Adam 8e-4 (``utils/config.py``
+``PipelineConfig``), one pipeline and no DP.  It is
+:mod:`~ddl25spring_tpu_torch.lab.dp_pp` with a data axis of 1; the options
+are the same.
+
+Run: ``python -m ddl25spring_tpu_torch.lab.microbatches [--iters 20] [--device cuda]``
+"""
+
+from __future__ import annotations
+
+from ddl25spring_tpu_torch.lab import dp_pp
+from ddl25spring_tpu_torch.utils.config import DpPpConfig, PipelineConfig
+
+
+def main(argv=None) -> dict:
+    p = PipelineConfig()
+    return dp_pp.main(argv, DpPpConfig(data=1, num_stages=p.num_stages,
+                                       num_microbatches=p.num_microbatches,
+                                       per_replica_batch=p.batch_size,
+                                       learning_rate=p.learning_rate))
+
+
+if __name__ == "__main__":
+    main()

@@ -10,6 +10,11 @@ Weights keep the reference's ``[in, out]`` layout and are applied as
 pytree across without transposes.  Blocks are an ``nn.ModuleList`` applied in
 a Python loop where the reference scans a stacked ``[L, ...]`` pytree.
 
+A pipeline stage (:class:`LlamaStage`, :func:`stage_forward`) holds a
+contiguous slice of the blocks, plus the embedding on the first stage and the
+final norm and unembedding on the last; it loads its slice of the
+reference's staged pytree (blocks ``[S, L/S, ...]``) and exports it back.
+
 Only the dense-FFN model is ported; switch-MoE configs raise.
 """
 
@@ -76,6 +81,53 @@ class Llama(nn.Module):
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return llama_forward(self, tokens, self.cfg)
+
+    def param_tree(self) -> dict:
+        return _param_tree(self)
+
+
+class LlamaStage(nn.Module):
+    """Stage ``stage`` of ``num_stages``: layers ``[stage * L/S, (stage+1) * L/S)``,
+    plus ``embed`` on the first stage and ``ln_f`` / ``unembed`` on the last
+    (the reference's ``LLamaStage``, ``lab/s01_b1_microbatches.py:40-62``).
+    Applied by :func:`stage_forward`."""
+
+    def __init__(self, cfg: LlamaConfig, stage: int, num_stages: int, *, device,
+                 generator: torch.Generator):
+        super().__init__()
+        if cfg.n_experts > 0:
+            raise NotImplementedError(
+                "switch-MoE LLaMA (cfg.n_experts > 0) is not ported yet"
+            )
+        if cfg.n_layers % num_stages:
+            raise ValueError(f"{cfg.n_layers} layers not divisible by {num_stages} stages")
+        if not 0 <= stage < num_stages:
+            raise ValueError(f"stage {stage} outside 0..{num_stages - 1}")
+        self.cfg, self.stage, self.num_stages = cfg, stage, num_stages
+        self.first, self.last = stage == 0, stage == num_stages - 1
+        if self.first:
+            self.embed = _dense((cfg.vocab_size, cfg.dmodel), generator, device)
+        self.blocks = nn.ModuleList(
+            LlamaBlock(cfg, generator, device) for _ in range(cfg.n_layers // num_stages)
+        )
+        if self.last:
+            self.ln_f = _ones(cfg.dmodel, device)
+            self.unembed = _dense((cfg.dmodel, cfg.vocab_size), generator, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return stage_forward(self, x, self.cfg)
+
+    def param_tree(self) -> dict:
+        return _param_tree(self)
+
+
+def _param_tree(model: nn.Module) -> dict:
+    """The reference's pytree layout over ``model``'s parameters: ``blocks.<key>``
+    holds one parameter per layer (the stacked ``[L, ...]`` leaf); ``embed``,
+    ``ln_f`` and ``unembed`` where the model holds them."""
+    tree = {k: getattr(model, k) for k in ("embed", "ln_f", "unembed") if hasattr(model, k)}
+    tree["blocks"] = {k: [getattr(b, k) for b in model.blocks] for k in BLOCK_KEYS}
+    return tree
 
 
 # ---------------------------------------------------------------- forward
@@ -171,48 +223,111 @@ def llama_forward(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig) -> torch
     return unembed(model, x, cfg)
 
 
+def stage_forward(stage: LlamaStage, x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    """One pipeline stage: ``tokens [B, L]`` on the first stage, activations
+    ``[B, L, D]`` in ``cfg.dtype`` elsewhere; returns float32 logits on the last
+    stage, activations otherwise."""
+    if stage.first:
+        x = embed(stage, x, cfg)
+    for block in stage.blocks:
+        x = block_forward(block, x, cfg)
+    return unembed(stage, x, cfg) if stage.last else x
+
+
 # ------------------------------------------------------------ weight bridge
 
 
+def _put(param: nn.Parameter, value, name: str):
+    value = np.asarray(value)
+    if tuple(value.shape) != tuple(param.shape):
+        raise ValueError(f"{name}: shape {value.shape} != {tuple(param.shape)}")
+    param.copy_(torch.from_numpy(np.array(value, dtype=np.float32)))
+
+
 @torch.no_grad()
-def load_jax_params(model: Llama, np_params: dict) -> Llama:
+def load_jax_params(model: Llama | LlamaStage, np_params: dict):
     """Copy the reference's parameter pytree (numpy leaves: ``embed [V, D]``,
     stacked ``blocks.<key> [L, ...]``, ``ln_f``, ``unembed [D, V]``) into
-    ``model``.  Shapes must match exactly."""
-
-    def put(param: nn.Parameter, value, name: str):
-        value = np.asarray(value)
-        if tuple(value.shape) != tuple(param.shape):
-            raise ValueError(f"{name}: shape {value.shape} != {tuple(param.shape)}")
-        param.copy_(torch.from_numpy(np.array(value, dtype=np.float32)))
-
-    put(model.embed, np_params["embed"], "embed")
-    put(model.ln_f, np_params["ln_f"], "ln_f")
-    put(model.unembed, np_params["unembed"], "unembed")
+    ``model`` (a stage takes the keys it holds).  Shapes must match exactly."""
+    for name, param in model.param_tree().items():
+        if name != "blocks":
+            _put(param, np_params[name], name)
     blocks = np_params["blocks"]
     for key in BLOCK_KEYS:
         if len(blocks[key]) != len(model.blocks):
             raise ValueError(f"blocks.{key}: {len(blocks[key])} layers != "
                              f"{len(model.blocks)}")
         for i, block in enumerate(model.blocks):
-            put(getattr(block, key), blocks[key][i], f"blocks.{key}[{i}]")
+            _put(getattr(block, key), blocks[key][i], f"blocks.{key}[{i}]")
     return model
 
 
+def load_stage_params(stage: LlamaStage, staged: dict) -> LlamaStage:
+    """Copy stage ``stage.stage``'s slice of the reference's staged pytree
+    (blocks ``[S, L/S, ...]`` from :func:`split_blocks_for_stages`) into
+    ``stage``: its layers, and whichever of ``embed``, ``ln_f``, ``unembed``
+    it holds."""
+    n = len(staged["blocks"]["wq"])
+    if n != stage.num_stages:
+        raise ValueError(f"pytree split into {n} stages, the stage is one of "
+                         f"{stage.num_stages}")
+    mine = dict(staged)
+    mine["blocks"] = {k: v[stage.stage] for k, v in staged["blocks"].items()}
+    return load_jax_params(stage, mine)
+
+
+def _export(model: nn.Module, grads: bool) -> dict:
+    def arr(p):
+        return (p.grad if grads else p).detach().cpu().numpy().copy()
+
+    tree = model.param_tree()
+    out = {k: arr(v) for k, v in tree.items() if k != "blocks"}
+    out["blocks"] = {k: np.stack([arr(p) for p in ps]) for k, ps in tree["blocks"].items()}
+    return out
+
+
 @torch.no_grad()
-def export_params(model: Llama) -> dict:
+def export_params(model: Llama | LlamaStage) -> dict:
     """The inverse of :func:`load_jax_params`: the reference's pytree layout
-    with numpy leaves."""
+    with numpy leaves (a stage exports the keys it holds, blocks ``[L/S, ...]``)."""
+    return _export(model, grads=False)
 
-    def arr(t):
-        return t.detach().cpu().numpy().copy()
 
+@torch.no_grad()
+def export_grads(model: Llama | LlamaStage) -> dict:
+    """The gradients in ``.grad``, laid out as :func:`export_params` lays out
+    the parameters."""
+    return _export(model, grads=True)
+
+
+def merge_stage_exports(exports: list[dict]) -> dict:
+    """The full pytree from the exports of stages ``0..S-1``, in order: blocks
+    concatenated, ``embed`` from the first stage, ``ln_f``/``unembed`` from the
+    last."""
     return {
-        "embed": arr(model.embed),
-        "blocks": {
-            key: np.stack([arr(getattr(b, key)) for b in model.blocks])
-            for key in BLOCK_KEYS
-        },
-        "ln_f": arr(model.ln_f),
-        "unembed": arr(model.unembed),
+        "embed": exports[0]["embed"],
+        "blocks": {k: np.concatenate([e["blocks"][k] for e in exports])
+                   for k in BLOCK_KEYS},
+        "ln_f": exports[-1]["ln_f"],
+        "unembed": exports[-1]["unembed"],
     }
+
+
+def split_blocks_for_stages(params: dict, num_stages: int) -> dict:
+    """Reshape the stacked blocks ``[L, ...] -> [S, L/S, ...]`` (numpy), as the
+    JAX package's ``split_blocks_for_stages`` (``llama.py:306``)."""
+    L = len(params["blocks"]["wq"])
+    if L % num_stages:
+        raise ValueError(f"{L} layers not divisible by {num_stages} stages")
+    out = dict(params)
+    out["blocks"] = {k: np.asarray(v).reshape((num_stages, L // num_stages) + v.shape[1:])
+                     for k, v in params["blocks"].items()}
+    return out
+
+
+def merge_blocks_from_stages(params: dict) -> dict:
+    """Inverse of :func:`split_blocks_for_stages`."""
+    out = dict(params)
+    out["blocks"] = {k: np.asarray(v).reshape((-1,) + v.shape[2:])
+                     for k, v in params["blocks"].items()}
+    return out

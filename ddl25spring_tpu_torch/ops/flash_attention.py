@@ -363,8 +363,10 @@ class _FlashLse(torch.autograd.Function):
 
 
 def _fold(x: torch.Tensor) -> torch.Tensor:
+    # contiguous: at B = 1 the reshape is a strided view, which the kernels
+    # refuse (one row per replica and microbatch is the DP x PP path's shape)
     B, L, H, hd = x.shape
-    return x.transpose(1, 2).reshape(B * H, L, hd)
+    return x.transpose(1, 2).reshape(B * H, L, hd).contiguous()
 
 
 def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:

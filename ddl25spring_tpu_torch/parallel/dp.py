@@ -1,7 +1,19 @@
 """Training steps, the counterpart of the JAX package's ``parallel/dp.py``.
 
-Only the single-device step is ported so far; data parallelism follows in a
-later slice.
+The single-device step, and the two data-parallel steps of the reference
+course: gradient aggregation (``intro_DP_GA.py:53-66``: backward, all-reduce
+SUM of the gradients, divide by the world size, step) and weight aggregation
+(local step, then the mean of the weights; the reference's ``intro_DP_WA.py``
+is a silent no-op, and this implements its intent as the JAX package does).
+
+The JAX package runs DP as one SPMD program over a mesh ``data`` axis.  The
+port runs one process per replica (:mod:`~ddl25spring_tpu_torch.utils.mesh`)
+and reduces over the DP group with :class:`~ddl25spring_tpu_torch.parallel.
+comm.Comm`: one all-reduce per flat bucket of gradients
+(:mod:`~ddl25spring_tpu_torch.parallel.bucketing`), or one per tensor with
+``bucket_bytes=None``.  Each step takes the GLOBAL batch, as the JAX step
+does, and replica ``d`` of ``D`` takes rows ``[d * B/D, (d+1) * B/D)`` of
+every tensor in it, as the JAX step's ``P(data)`` spec hands them out.
 """
 
 from __future__ import annotations
@@ -10,6 +22,9 @@ from typing import Any, Callable
 
 import torch
 from torch import nn
+
+from ddl25spring_tpu_torch.parallel import bucketing
+from ddl25spring_tpu_torch.parallel.bucketing import flatten, plan_buckets
 
 # loss_fn(model, batch) -> scalar tensor
 LossFn = Callable[[nn.Module, Any], torch.Tensor]
@@ -27,5 +42,107 @@ def make_train_step(model: nn.Module, loss_fn: LossFn, optimizer: torch.optim.Op
         loss.backward()
         optimizer.step()
         return loss.detach()
+
+    return step
+
+
+def param_leaves(model: nn.Module) -> list:
+    """``model``'s parameters as bucketing leaves: in the JAX pytree's flatten
+    order when the model has a ``param_tree()`` (so both packages plan the same
+    buckets), else in registration order."""
+    if hasattr(model, "param_tree"):
+        return [leaf for _, leaf in flatten(model.param_tree())]
+    return list(model.parameters())
+
+
+def grad_leaves(leaves: list) -> list:
+    """The ``.grad`` of every parameter of ``leaves``, in the same structure."""
+    return [leaf.grad if isinstance(leaf, torch.Tensor) else [p.grad for p in leaf]
+            for leaf in leaves]
+
+
+def shard_rows(batch, d: int, n: int, device):
+    """Rows ``[d * B/n, (d+1) * B/n)`` of every tensor in ``batch`` (a tensor, or
+    a tuple, list or dict of them), moved to ``device``."""
+    if isinstance(batch, dict):
+        return {k: shard_rows(v, d, n, device) for k, v in batch.items()}
+    if isinstance(batch, (tuple, list)):
+        return type(batch)(shard_rows(v, d, n, device) for v in batch)
+    B = batch.shape[0]
+    if B % n:
+        raise ValueError(f"batch of {B} rows does not split over {n} replicas")
+    return batch[d * (B // n):(d + 1) * (B // n)].to(device)
+
+
+def _not_ported(step: str, overlap=False, instrument=None, sentinel=None):
+    if overlap:
+        raise NotImplementedError(f"{step}(overlap=True) is not ported yet "
+                                  "(ROADMAP A4: DP overlap)")
+    if instrument or sentinel:
+        raise NotImplementedError(f"{step}(instrument=, sentinel=) is not ported yet "
+                                  "(ROADMAP A11: observability)")
+
+
+def make_dp_train_step(model: nn.Module, loss_fn: LossFn, optimizer: torch.optim.Optimizer,
+                       mesh, bucket_bytes=bucketing.AUTO, overlap: bool = False,
+                       instrument: bool | None = None, sentinel: bool | None = None):
+    """Gradient-aggregation DP over ``mesh``'s DP group (the JAX package's
+    ``make_dp_train_step``, ``parallel/dp.py:78``).
+
+    ``step(batch)`` takes the global batch, computes this replica's loss and
+    gradients on its rows, replaces each gradient by its mean over the
+    replicas, steps ``optimizer`` and returns the loss's mean over the
+    replicas.  ``bucket_bytes`` (default :data:`~ddl25spring_tpu_torch.
+    parallel.bucketing.AUTO`: ``DDL25_BUCKET_BYTES``, 4 MiB when unset)
+    launches one all-reduce per flat bucket; ``None``/``0``, one per tensor.
+    The mean is elementwise, so both give the same gradients.  ``overlap``,
+    ``instrument`` and ``sentinel`` are not ported and raise."""
+    _not_ported("make_dp_train_step", overlap, instrument, sentinel)
+    bb = bucketing.resolve_bucket_bytes(bucket_bytes)
+    leaves = param_leaves(model)
+    plan = plan_buckets(leaves, bb) if bb else None
+    d, comm = mesh.coords[0], mesh.comm
+
+    def step(batch):
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn(model, shard_rows(batch, d, mesh.grid.data, mesh.device))
+        loss.backward()
+        comm.bucketed_all_reduce_mean_(grad_leaves(leaves), mesh.dp_group, plan)
+        optimizer.step()
+        loss = loss.detach().clone()
+        comm.all_reduce_mean_([loss], mesh.dp_group)
+        return loss
+
+    return step
+
+
+def make_dp_weight_avg_step(model: nn.Module, loss_fn: LossFn,
+                            optimizer: torch.optim.Optimizer, mesh,
+                            bucket_bytes=bucketing.AUTO, sentinel: bool | None = None):
+    """Weight-aggregation DP (the JAX package's ``make_dp_weight_avg_step``,
+    ``parallel/dp.py:226``): each replica steps on its own gradients with its
+    own optimizer state, then every parameter becomes its mean over the
+    replicas (every step, the reference scripts' cadence).  Returns the
+    loss's mean over the replicas.  ``bucket_bytes`` as in
+    :func:`make_dp_train_step`; ``sentinel`` is not ported and raises."""
+    _not_ported("make_dp_weight_avg_step", sentinel=sentinel)
+    bb = bucketing.resolve_bucket_bytes(bucket_bytes)
+    leaves = param_leaves(model)
+    plan = plan_buckets(leaves, bb) if bb else None
+    # detached views share the parameters' storage, so the in-place mean
+    # updates the parameters outside autograd
+    weights = [leaf.detach() if isinstance(leaf, torch.Tensor) else [p.detach() for p in leaf]
+               for leaf in leaves]
+    d, comm = mesh.coords[0], mesh.comm
+
+    def step(batch):
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn(model, shard_rows(batch, d, mesh.grid.data, mesh.device))
+        loss.backward()
+        optimizer.step()
+        comm.bucketed_all_reduce_mean_(weights, mesh.dp_group, plan)
+        loss = loss.detach().clone()
+        comm.all_reduce_mean_([loss], mesh.dp_group)
+        return loss
 
     return step

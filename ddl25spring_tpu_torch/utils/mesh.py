@@ -1,0 +1,172 @@
+"""The rank grid, the device and backend of each rank, and its process groups:
+the counterpart of the JAX package's ``utils/mesh.py`` (``make_mesh``).
+
+The JAX package runs one SPMD program over a named ``(data, stage)`` mesh.
+The port runs one process per rank, as the reference course does
+(``lab/s01_b2_dp_pp.py:22-34``): rank ``r = d * S + s`` is stage ``s`` of
+pipeline (replica) ``d``, so pipeline 0 is ranks ``0..S-1``, pipeline 1 is
+``S..2S-1``, and the DP group of stage ``s`` is ``{d * S + s}`` over ``d``
+(``[0, 3] / [1, 4] / [2, 5]`` at 2 x 3).
+
+Device: rank ``r`` computes on ``cuda:(local_rank % device_count)``, or on
+the CPU when asked.  Backend, by a fixed rule that no error ever changes:
+``nccl`` when every rank of the host has a CUDA device of its own
+(``local_world <= device_count``), else ``gloo``.  On one card a 2 x 3 run is
+six processes on ``cuda:0`` over gloo: NCCL refuses two ranks of one
+communicator on one device, so gloo moves the bytes through pinned host
+buffers (:mod:`ddl25spring_tpu_torch.parallel.comm`) while every rank
+computes on the card.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+import torch.distributed as dist
+
+from ddl25spring_tpu_torch.parallel.comm import Comm
+
+
+@dataclass(frozen=True)
+class Rendezvous:
+    """Where and as whom a rank joins its world (made by
+    :func:`ddl25spring_tpu_torch.parallel.launch.spawn`)."""
+
+    rank: int
+    world: int
+    local_rank: int
+    local_world: int
+    init_method: str        # "file://..." (spawned ranks) or "env://" (torchrun)
+
+
+@dataclass(frozen=True)
+class RankGrid:
+    """``data`` pipelines of ``stages`` stages; rank ``r = d * stages + s``."""
+
+    data: int
+    stages: int
+
+    @property
+    def world(self) -> int:
+        return self.data * self.stages
+
+    def coords(self, rank: int) -> tuple[int, int]:
+        """``(d, s)`` of ``rank``."""
+        if not 0 <= rank < self.world:
+            raise ValueError(f"rank {rank} outside a world of {self.world}")
+        return divmod(rank, self.stages)
+
+    def rank(self, d: int, s: int) -> int:
+        return d * self.stages + s
+
+    def prev_rank(self, rank: int) -> int | None:
+        """The rank of the stage before ``rank``'s in its pipeline, or None."""
+        d, s = self.coords(rank)
+        return self.rank(d, s - 1) if s > 0 else None
+
+    def next_rank(self, rank: int) -> int | None:
+        """The rank of the stage after ``rank``'s in its pipeline, or None."""
+        d, s = self.coords(rank)
+        return self.rank(d, s + 1) if s < self.stages - 1 else None
+
+    def dp_ranks(self, s: int) -> list[int]:
+        """The DP group of stage ``s``: that stage in every pipeline."""
+        return [self.rank(d, s) for d in range(self.data)]
+
+
+def rank_device(local_rank: int, kind: str = "cuda") -> torch.device:
+    """The device a rank's layout names: ``cuda:(local_rank % device_count)``,
+    or the CPU for ``kind="cpu"``.  No CUDA device raises."""
+    if kind == "cpu":
+        return torch.device("cpu")
+    if kind != "cuda":
+        raise ValueError(f"device kind {kind!r} is neither 'cuda' nor 'cpu'")
+    n = torch.cuda.device_count()
+    if n == 0:
+        raise RuntimeError("a CUDA rank was asked for but torch sees no CUDA device; "
+                           "pass device='cpu' to run on the host")
+    return torch.device("cuda", local_rank % n)
+
+
+def select_backend(kind: str, local_world: int, device_count: int) -> str:
+    """``nccl`` iff every rank of the host has a CUDA device of its own, else
+    ``gloo``.  Every rank computes the same answer from the layout."""
+    return "nccl" if kind == "cuda" and local_world <= device_count else "gloo"
+
+
+@dataclass
+class Mesh:
+    """One rank's view of the grid: its coordinates, device, backend, the DP
+    group of its stage, and its :class:`Comm`.  Close it (or use it as a
+    context manager) to leave the world."""
+
+    grid: RankGrid
+    rank: int
+    device: torch.device
+    backend: str
+    dp_group: object
+    comm: Comm
+
+    @property
+    def coords(self) -> tuple[int, int]:
+        return self.grid.coords(self.rank)
+
+    @property
+    def prev_rank(self) -> int | None:
+        return self.grid.prev_rank(self.rank)
+
+    @property
+    def next_rank(self) -> int | None:
+        return self.grid.next_rank(self.rank)
+
+    def close(self, barrier: bool = True):
+        """Leave the world; with ``barrier``, only once every rank got here, so
+        no rank closes its sockets under a message still on its way."""
+        if dist.is_initialized():
+            if barrier:
+                self.comm.barrier()
+            dist.destroy_process_group()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self.close(barrier=exc_type is None)
+
+
+def init_mesh(rdv: Rendezvous, data: int, stages: int, device: str = "cuda") -> Mesh:
+    """Join the world of ``rdv`` as one rank of a ``data x stages`` grid.
+
+    ``device`` is ``"cuda"`` (the layout's card), ``"cpu"``, or an explicit
+    device, which must be the one the layout names: a rank on another device
+    raises.  Every rank creates every stage's DP group, in the same order (a
+    rank that skipped one would deadlock the others).  A failed NCCL init
+    raises; it never switches to gloo."""
+    grid = RankGrid(data, stages)
+    if grid.world != rdv.world:
+        raise ValueError(f"a {data} x {stages} grid needs {grid.world} ranks, "
+                         f"the world has {rdv.world}")
+    asked = torch.device(device)
+    dev = rank_device(rdv.local_rank, asked.type)
+    if asked.type == "cuda" and asked.index is not None and asked != dev:
+        raise RuntimeError(f"rank {rdv.rank} was given {asked}, but its layout "
+                           f"names {dev} (local rank {rdv.local_rank})")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        if torch.cuda.current_device() != dev.index:
+            raise RuntimeError(f"rank {rdv.rank}: current device "
+                               f"{torch.cuda.current_device()} is not {dev}")
+    backend = select_backend(dev.type, rdv.local_world,
+                             torch.cuda.device_count() if dev.type == "cuda" else 0)
+    kw = {"device_id": dev} if backend == "nccl" else {}
+    dist.init_process_group(backend, init_method=rdv.init_method, rank=rdv.rank,
+                            world_size=rdv.world, **kw)
+    groups = [dist.new_group(grid.dp_ranks(s)) for s in range(stages)]
+    _, s = grid.coords(rdv.rank)
+    comm = Comm(backend, dev)
+    mesh = Mesh(grid, rdv.rank, dev, backend, groups[s], comm)
+    if backend == "nccl":
+        # build the communicator now, so a broken NCCL fails here, on every rank
+        comm.barrier()
+    return mesh

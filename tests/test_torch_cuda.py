@@ -134,9 +134,93 @@ def test_misaligned_bf16_runs_on_the_scalar_variant(dev):
     assert runs["fwd"] == {"scalar": 1} and runs["dq"] == {"scalar": 1}
 
 
+def test_one_row_batch_runs_the_kernels(dev):
+    """B = 1 (one row per replica and microbatch on the DP x PP path): the
+    folded operands are contiguous and the Function runs the kernels."""
+    g = torch.Generator().manual_seed(2)
+    q, k, v, do = (torch.randn(1, 256, 6, 48, generator=g).to(torch.bfloat16)
+                   for _ in range(4))
+    before = dict(fa.LAUNCHES)
+    got = []
+    for device in (dev, "cpu"):
+        qd, kd, vd = (x.to(device).requires_grad_() for x in (q, k, v))
+        o = fa.flash_attention(qd, kd, vd)
+        o.backward(do.to(device))
+        got.append([t.detach().cpu() for t in (o, qd.grad, kd.grad, vd.grad)])
+    torch.cuda.synchronize()
+    assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {"fwd": 1, "dq": 1, "dkv": 1}
+    for a, ref in zip(*got):
+        _close(a, ref, torch.bfloat16)
+
+
 def test_cuda_tensors_raise_instead_of_falling_back(dev):
     x = torch.zeros(2, 64, 32, device=dev)
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_fwd(x.transpose(0, 1).contiguous().transpose(0, 1), x, x, True)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fa.flash_fwd(x.half(), x.half(), x.half(), True)
+
+
+DP_CFG = dict(vocab_size=256, dmodel=64, num_heads=2, n_layers=2, ctx_size=64,
+              dtype="float32", use_flash=True)
+
+
+def _dp_batches():
+    g = torch.Generator().manual_seed(4)
+    return [torch.randint(0, 256, (4, 64), generator=g) for _ in range(2)]
+
+
+def _loss(model, tokens):
+    from ddl25spring_tpu_torch.ops.losses import causal_lm_loss
+
+    return causal_lm_loss(model(tokens), tokens)
+
+
+def dp_rank_on_the_card(rdv):
+    """One rank of a 2-rank DP world on the layout's card: 2 Adam steps of the
+    bucketed ``make_dp_train_step``; the losses, the first step's gradients."""
+    from ddl25spring_tpu_torch.models.llama import Llama, export_grads
+    from ddl25spring_tpu_torch.parallel.dp import make_dp_train_step
+    from ddl25spring_tpu_torch.utils.config import LlamaConfig
+    from ddl25spring_tpu_torch.utils.mesh import init_mesh
+
+    with init_mesh(rdv, data=2, stages=1, device="cuda") as mesh:
+        model = Llama(LlamaConfig(**DP_CFG), device=mesh.device,
+                      generator=torch.Generator().manual_seed(3))
+        step = make_dp_train_step(model, _loss, torch.optim.Adam(model.parameters(), lr=8e-4),
+                                  mesh)
+        losses, grads = [], []
+        for b in _dp_batches():
+            losses.append(step(b).item())
+            grads.append(export_grads(model))
+        return {"backend": mesh.backend, "device": str(mesh.device), "losses": losses,
+                "grads": grads[0], "launches": dict(fa.LAUNCHES)}
+
+
+def test_dp_step_of_two_ranks_equals_one_process(dev, tmp_path):
+    """2 DP ranks on the card (six-rank runs share one card the same way:
+    gloo through pinned host buffers when the ranks outnumber the cards)
+    against a single-process step on the whole batch: first loss rtol 1e-5,
+    gradients atol 2e-4 + rtol 2e-3, the second loss rtol 1e-4."""
+    from ddl25spring_tpu_torch.models.llama import Llama, export_grads
+    from ddl25spring_tpu_torch.parallel.bucketing import flatten
+    from ddl25spring_tpu_torch.parallel.dp import make_train_step
+    from ddl25spring_tpu_torch.parallel.launch import spawn
+    from ddl25spring_tpu_torch.utils.config import LlamaConfig
+    from ddl25spring_tpu_torch.utils.mesh import select_backend
+
+    ranks = spawn(dp_rank_on_the_card, 2, timeout=120, tmpdir=str(tmp_path))
+    model = Llama(LlamaConfig(**DP_CFG), device=dev, generator=torch.Generator().manual_seed(3))
+    step = make_train_step(model, _loss, torch.optim.Adam(model.parameters(), lr=8e-4))
+    losses, grads = [], []
+    for b in _dp_batches():
+        losses.append(step(b.to(dev)).item())
+        grads.append(export_grads(model))
+    backend = select_backend("cuda", 2, torch.cuda.device_count())
+    for r in ranks:
+        assert r["backend"] == backend and r["device"].startswith("cuda")
+        assert r["launches"] == {"fwd": 4, "dq": 4, "dkv": 4}  # 2 layers x 2 steps
+        assert r["losses"][0] == pytest.approx(losses[0], rel=1e-5)
+        assert r["losses"][1] == pytest.approx(losses[1], rel=1e-4)
+        for (path, a), (_, b) in zip(flatten(r["grads"]), flatten(grads[0])):
+            assert (abs(a - b) - 2e-3 * abs(b)).max() <= 2e-4, path

@@ -175,6 +175,18 @@ def test_cpu_runs_plain_versions_and_counts_no_launch():
     assert fa.LAUNCHES_BY_VARIANT == before_v
 
 
+@pytest.mark.parametrize("B", [1, 3])
+def test_fold_hands_the_kernels_contiguous_operands(B):
+    """``[B, L, H, hd]`` as the block makes it (a projection viewed as heads)
+    folds to a contiguous ``[B*H, L, hd]``, which the CUDA kernels require; at
+    B = 1 a bare reshape would be a strided view."""
+    h = torch.zeros(B, 64, 96)
+    q = (h @ torch.zeros(96, 96)).view(B, 64, 2, 48)
+    q3 = fa._fold(q)
+    assert q3.shape == (B * 2, 64, 48) and q3.is_contiguous()
+    assert torch.equal(q3, q.transpose(1, 2).reshape(B * 2, 64, 48))
+
+
 def _misaligned(shape, dtype):
     """A contiguous tensor whose data pointer is 2 bytes past 16-byte alignment."""
     n = 1

@@ -32,5 +32,7 @@ def test_port_imports_no_jax_and_no_reference_package():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert report["leaked"] == []
     for mod in ("primer", "models.llama", "ops.flash_attention", "ops._build",
-                "parallel.dp", "data.tinystories", "data.tokenizer", "utils.device"):
+                "parallel.dp", "data.tinystories", "data.tokenizer", "utils.device",
+                "utils.mesh", "parallel.comm", "parallel.bucketing", "parallel.pipeline",
+                "parallel.launch", "lab.microbatches", "lab.dp_pp"):
         assert f"ddl25spring_tpu_torch.{mod}" in report["modules"]
