@@ -45,7 +45,39 @@ Phases, in order; any failure exits non-zero and prints no result:
    (c) the NCCL path: ``make_dp_train_step`` over ``min(device_count, 2)``
        ranks on cards of their own, fp32, 2 steps against a single-process
        step (losses rtol 1e-4).
-   The backend of every run is printed.
+   The backend of every run is printed;
+8. the ResNet-18/CIFAR-10 slice on the card (cuDNN convolutions, no
+   hand-written kernel on its path), each sub-phase timed:
+   (a) fp32 exactness: full-width ``ResNet18(norm="group")``, batch 8, one
+       SGD step on CUDA (channels_last, TF32 off) and on the CPU from the
+       same weights, and a float64 step on the CPU beside them: loss and
+       logits within 1e-4 of max |ref|; each gradient leaf within 2e-2 of
+       its own max |ref| and each leaf's update within 2e-2 of its largest
+       update (a relu input at fp32 rounding of zero may branch differently
+       on the two devices); every relu input that takes the other branch
+       than in float64 lies within 1e-4 of that relu's max |input|, and
+       their count is printed, on the card and on the CPU;
+   (b) the headline, ``lab.dp_pp.main --workload resnet``: layout "dp", one
+       rank, batch 1024, bf16 over float32 parameters, the 50 000-image
+       synthetic train split on the card, SGD lr 0.002 (see ``RESNET_LR``),
+       3 warm-up and 30 timed steps through ``benchmarks.timed_run`` (cuDNN
+       autotuning on); every loss finite, the first within 1 of ln(10), the
+       last 5 below the first 5, parameters and data on CUDA, no flash
+       kernel launched; the median step, samples/s, FLOPs per step within
+       10 % of 3.41e12, TFLOP/s and MFU (peak 989.4e12) and
+       ``report_line``'s JSON;
+   (c) where the step's time goes: torch.profiler over 10 warm steps, host
+       wall against device busy, the idle share, the top kernels, and
+       convolution, normalisation, elementwise and SGD as shares of busy;
+   (d) the heterogeneous pipeline: 2 x 2 ranks sharing ``cuda:0`` over gloo
+       (M = 2, full width): an fp32 step (TF32 off, cuDNN deterministic)
+       against one process running the same stages on the same 16 rows,
+       chunk by chunk (loss rtol 1e-5, gradients atol 2e-4 + rtol 2e-3, as
+       phase 7 (a)), then ``lab.dp_pp.main --workload resnet --pp --ranks 4``,
+       bf16, batch 64, 10 timed steps: losses finite and falling, every rank
+       on CUDA, per-stage recv wait, send and all-reduce seconds, and the
+       bytes staged per step equal to the count from the boundary and
+       gradient shapes.
 
 Tolerances (|kernel - plain| <= atol + rtol * |plain|):
   fp32: atol 1e-4, rtol 0 (summation order only);
@@ -78,6 +110,14 @@ MAIN_SHAPE = (3, 256, 6, 48)     # [B, L, H, hd] of the primer's attention
 STEPS = 24
 DP, PP, MICRO, ROWS = 2, 3, 3, 3  # phase 7: pipelines, stages, microbatches, rows per replica
 SPAWN_TIMEOUT = 300
+RESNET_ITERS = 30               # phase 8 (b): timed steps at batch 1024
+# phase 8 trains at lr 0.002, not the lab's default 0.1 (the reference's): at
+# 0.1 with momentum 0.9 the loss jumps from ~2.6 to 13-15 at the second step
+# and stays there, in the JAX package's step as in the port's (batch 16 and
+# 64 on the CPU); at 0.002 both fall.  The step's time does not depend on it.
+RESNET_LR = "0.002"
+RESNET_FLOPS = 3.41e12          # one batch-1024 train step: ~3.33 GFLOP per image
+HET_ROWS = 16                   # phase 8 (d) fp32 check: 2 replicas x 2 microbatches x 4
 TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (2e-2, 1e-2)}
 
 # H100 SXM data-sheet peaks (dense): the bound of a kernel is the larger of
@@ -557,6 +597,338 @@ def nccl_dp(dev):
           f"staged {ranks[0]['bytes_staged']} B; {spawned_s:.1f} s")
 
 
+# fp32 checks: TF32 off for cuDNN and cuBLAS, cuDNN's deterministic
+# algorithms, no autotuning (so equal shapes take equal algorithms in every
+# process)
+FP32_EXACT = dict(cudnn_tf32=False, matmul_tf32=False, cudnn_deterministic=True,
+                  cudnn_benchmark=False)
+
+
+def _cifar_rows(n):
+    """The first ``n`` rows of the synthetic CIFAR-10 split, uint8 NHWC, on the
+    CPU."""
+    from ddl25spring_tpu_torch.data.cifar10 import load_cifar10_u8
+
+    d = load_cifar10_u8(n_train=64)
+    return torch.from_numpy(d["x"][:n]), torch.from_numpy(d["y"][:n])
+
+
+def _within(tag, a, ref, rel, slack=1e-7):
+    """|a - ref| <= rel * max |ref| + ``slack`` (default: a float32 ulp of
+    slack for a zero leaf); returns the max abs error."""
+    a, ref = torch.as_tensor(a).float(), torch.as_tensor(ref).float()
+    err = (a - ref).abs().max().item()
+    check(err <= rel * ref.abs().max().item() + slack,
+          f"{tag}: max abs err {err:.3g} > {rel} x max |ref| {ref.abs().max().item():.3g}")
+    return err
+
+
+class ReluInputs(torch.overrides.TorchFunctionMode):
+    """Inside the block: every ``F.relu`` input, in call order, as float64 on
+    the CPU."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func is torch.nn.functional.relu:
+            self.seen.append(args[0].detach().double().cpu())
+        return func(*args, **(kwargs or {}))
+
+
+def relu_flips(got, f64):
+    """The relu inputs of ``got`` on the other side of zero from float64's:
+    ``(count, relus with one, worst |float64 input| / that relu's max)``."""
+    n, where, worst = 0, 0, 0.0
+    for a, b in zip(got, f64):
+        flip = (a > 0) != (b > 0)
+        if flip.any():
+            n, where = n + int(flip.sum()), where + 1
+            worst = max(worst, (b[flip].abs().max() / b.abs().max()).item())
+    return n, where, worst
+
+
+def resnet_exactness(dev):
+    """Phase 8 (a): one full-width fp32 SGD step on the card against the CPU,
+    beside a float64 step on the CPU.  Loss and logits within 1e-4 of max
+    |ref|; each gradient leaf within 2e-2 of its own max |ref|, and each
+    leaf's update (new weight - old) within 2e-2 of its largest update.
+    The forward agrees to ~1e-6; the backward can differ by more, because a
+    relu input within fp32 rounding of zero can take the other branch on
+    the other device, which moves that element's contribution to the
+    gradients of every layer below it.  The relu inputs are recorded on
+    every run: the flips against float64 are counted, and each must lie
+    within 1e-4 of its relu's max |input| (a flip far from zero is a bug).
+    """
+    from ddl25spring_tpu_torch.benchmarks import _nchw
+    from ddl25spring_tpu_torch.models.resnet import ResNet18, export_grads, export_params
+    from ddl25spring_tpu_torch.ops.losses import cross_entropy_logits
+    from ddl25spring_tpu_torch.parallel.bucketing import flatten
+    from ddl25spring_tpu_torch.utils.device import backend_flags
+
+    x_u8, y = _cifar_rows(8)
+
+    def run(device, dtype=torch.float32):
+        m = ResNet18(norm="group", dtype=dtype, generator=torch.Generator().manual_seed(11))
+        m = m.to(device, dtype, memory_format=torch.channels_last if device.type == "cuda"
+                 else torch.preserve_format)
+        before = export_params(m)
+        opt = torch.optim.SGD(m.parameters(), lr=0.1, momentum=0.9)
+        with ReluInputs() as relus:
+            logits = m(_nchw(x_u8.to(device), dtype))
+        loss = cross_entropy_logits(logits, y.to(device))
+        loss.backward()
+        opt.step()
+        after = flatten(export_params(m))
+        update = [(p, w - w0, abs(w).max()) for (p, w), (_, w0) in zip(after, flatten(before))]
+        return (loss.item(), logits.detach().cpu(), flatten(export_grads(m)), update,
+                relus.seen)
+
+    with backend_flags(**FP32_EXACT):
+        got, want = run(dev), run(torch.device("cpu"))
+        f64 = run(torch.device("cpu"), torch.float64)
+    e_loss = _within("(a) fp32 loss", got[0], want[0], 1e-4)
+    e_logits = _within("(a) fp32 logits", got[1], want[1], 1e-4)
+    for (path, a), (_, b) in zip(got[2], want[2]):
+        _within(f"(a) fp32 gradient {path}", a, b, 2e-2)
+    for (path, a, _), (_, b, w_max) in zip(got[3], want[3]):
+        # the new weights are rounded to float32: one ulp of the leaf's largest
+        _within(f"(a) fp32 update {path}", a, b, 2e-2, slack=2.0**-23 * w_max)
+    worst = {what: max((abs(r[1] - w[1]).max() / abs(w[1]).max(), r[0])
+                       for r, w in zip(got[i], want[i]))
+             for i, what in ((2, "gradient"), (3, "update"))}
+    print(f"  (a) fp32 one SGD step, card vs CPU: loss {got[0]:.6f} vs {want[0]:.6f} (err "
+          f"{e_loss:.2e}), logits max abs err {e_logits:.2e}; worst gradient leaf "
+          f"{worst['gradient'][1]} {worst['gradient'][0]:.2e} and worst update "
+          f"{worst['update'][1]} {worst['update'][0]:.2e}, each of its leaf's max |CPU|")
+    for name, r in (("card", got), ("CPU", want)):
+        rel = ((r[1].double() - f64[1]).abs().max() / f64[1].abs().max()).item()
+        g_rel, g_path = max((abs(a - b).max() / abs(b).max(), p)
+                            for (p, a), (_, b) in zip(r[2], f64[2]))
+        n, where, far = relu_flips(r[4], f64[4])
+        check(far <= 1e-4, f"(a) a relu input on the {name} took the other branch than "
+                           f"float64 at {far:.2e} of its relu's max |input|")
+        print(f"  (a) fp32 {name} vs float64 (CPU): logits {rel:.2e} of max |ref|; worst "
+              f"gradient leaf {g_path} {g_rel:.2e} of its max |ref|; relu inputs on the other "
+              f"branch: {n} in {where} of {len(f64[4])} relus, the farthest from zero at "
+              f"{far:.2e} of its relu's max |input|")
+
+
+def resnet_headline(dev):
+    """Phase 8 (b): ``lab.dp_pp.main --workload resnet``, one rank, batch 1024."""
+    from ddl25spring_tpu_torch.lab import dp_pp
+    from ddl25spring_tpu_torch.ops import flash_attention as fa
+
+    fa.reset_launches()
+    run = dp_pp.main(["--workload", "resnet", "--iters", str(RESNET_ITERS), "--seed", "0",
+                      "--lr", RESNET_LR, "--device", dev.type])
+    check(not any(fa.LAUNCHES.values()), f"the ResNet path launched flash kernels: "
+                                         f"{fa.LAUNCHES}")
+    (r,) = run["ranks"]
+    losses = r["losses"]
+    check(len(losses) == dp_pp.WARMUP + RESNET_ITERS and all(math.isfinite(x) for x in losses),
+          f"resnet losses not all finite: {losses}")
+    check(abs(losses[0] - math.log(10)) < 1.0,
+          f"resnet first loss {losses[0]:.3f} far from ln(10) {math.log(10):.3f}")
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    check(last < first, f"resnet loss did not fall: first-5 mean {first:.4f}, last-5 {last:.4f}")
+    check(r["params_device"] == [str(dev)], f"parameters on {r['params_device']}")
+    check(r["data_device"] == str(dev), f"DeviceDataset.x on {r['data_device']}")
+    check(abs(run["flops"] / RESNET_FLOPS - 1) < 0.1,
+          f"FLOPs per step {run['flops']:.4g} not within 10 % of {RESNET_FLOPS:.4g}")
+    step_ms = statistics.median(r["step_s"]) * 1e3
+    print(f"  (b) loss {first:.4f} (first 5) -> {last:.4f} (last 5); parameters and data on "
+          f"{r['data_device']}; flash kernel launches {dict(fa.LAUNCHES)}")
+    print(f"  (b) {RESNET_ITERS} timed steps in {r['dt']:.4f} s: median step {step_ms:.3f} ms "
+          f"(CUDA events between steps; min {min(r['step_s']) * 1e3:.3f}, max "
+          f"{max(r['step_s']) * 1e3:.3f}), {run['samples_per_s_per_chip']:.1f} samples/s per "
+          f"card; {run['flops']:.6g} FLOP per step ({run['flops'] / RESNET_FLOPS:.4f} of "
+          f"3.41e12), {run['tflops']:.2f} TFLOP/s, MFU {run['mfu']:.4f}")
+    return run
+
+
+KERNEL_KINDS = (  # (kind, substrings of the kernel name), first match wins
+    ("copies (layout changes, dtype casts)", ("copy", "Copy", "nchwToNhwc", "nhwcToNchw")),
+    ("convolution (cuDNN) and GEMM", ("xmma", "conv", "cudnn", "implicit", "wgrad", "dgrad",
+                                      "fprop", "cutlass", "gemm", "nvjet", "sm90_")),
+    ("normalisation", ("GroupNorm", "group_norm", "Moments", "ComputeFusedParams",
+                       "ComputeInternalGradients", "GammaBeta", "batch_norm", "BatchNorm")),
+    ("SGD (multi_tensor_apply)", ("multi_tensor_apply",)),
+    ("elementwise and reductions", ("elementwise", "reduce", "Reduce", "pad", "cat")),
+)
+
+
+def kernel_kind(name: str) -> str:
+    return next((kind for kind, keys in KERNEL_KINDS if any(k in name for k in keys)), "other")
+
+
+def resnet_profile(dev, steps=10):
+    """Phase 8 (c): device time by kernel over ``steps`` warm bf16 steps."""
+    from ddl25spring_tpu_torch.benchmarks import DeviceDataset, build_resnet_step
+    from ddl25spring_tpu_torch.lab.dp_pp import RUN_FLAGS
+    from ddl25spring_tpu_torch.utils.device import backend_flags
+
+    with backend_flags(**RUN_FLAGS):
+        step, _, _, _ = build_resnet_step(None, 1, 1024, device=dev)
+        ds = DeviceDataset(1024, device=dev)
+        for _ in range(5):
+            step(ds.feed())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(ds.feed())
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        events = kernel_events(lambda: step(ds.feed()), steps)
+    rows = sorted(((e.self_device_time_total / steps, e.count / steps, e.key) for e in events),
+                  reverse=True)
+    busy_ms = sum(us for us, _, _ in rows) / 1e3
+    check(busy_ms > 0, "profiler recorded no device time")
+    print(f"  (c) host wall {wall_ms:.3f} ms/step (unprofiled), device busy {busy_ms:.3f} "
+          f"ms/step in {sum(n for _, n, _ in rows):.0f} kernels, idle share "
+          f"{1 - busy_ms / wall_ms:.3f}")
+    kinds: dict = {}
+    for us, _, key in rows:
+        kinds[kernel_kind(key)] = kinds.get(kernel_kind(key), 0.0) + us / 1e3
+    print("  (c) shares of busy: " + ", ".join(
+        f"{k} {ms:.3f} ms ({ms / busy_ms:.3f})" for k, ms in
+        sorted(kinds.items(), key=lambda kv: -kv[1])))
+    for us, n, key in rows[:15]:
+        print(f"    {us / 1e3:8.4f} ms/step  x{n:<5.1f} [{kernel_kind(key)}] {key[:100]}")
+    return busy_ms, wall_ms
+
+
+def het_exact_rank(rdv, x_u8, y, seed, device):
+    """One rank of phase 8 (d)'s fp32 check: one step of the 2 x 2 pipeline
+    on ``device``; the loss (last stage) and the stage's gradients."""
+    from ddl25spring_tpu_torch.benchmarks import build_resnet_step
+    from ddl25spring_tpu_torch.models.resnet import export_grads
+    from ddl25spring_tpu_torch.utils.device import backend_flags
+    from ddl25spring_tpu_torch.utils.mesh import init_mesh
+
+    with backend_flags(**FP32_EXACT), init_mesh(rdv, data=2, stages=2, device=device) as mesh:
+        step, module, _, _ = build_resnet_step(mesh, 2, HET_ROWS, dtype=torch.float32, seed=seed)
+        loss = step((x_u8.to(mesh.device), y.to(mesh.device)))
+        return {"coords": mesh.coords, "backend": mesh.backend, "device": str(mesh.device),
+                "loss": None if loss is None else loss.item(), "grads": export_grads(module)}
+
+
+def het_exactness(dev):
+    """Phase 8 (d), fp32: the 4-rank pipeline step against one process that
+    runs the same stages on the same rows, chunk by chunk: each replica's
+    rows of each microbatch through stage 0, the hop's contiguous copy,
+    stage 1, its loss over ``M * D``, gradients summed.  Equal shapes take
+    equal cuDNN algorithms in both, so the forward is the same arithmetic
+    and the step is held to phase 7 (a)'s band: loss rtol 1e-5, gradients
+    2e-4 + 2e-3 |ref| (the order of the gradient sums differs)."""
+    from ddl25spring_tpu_torch.benchmarks import _nchw
+    from ddl25spring_tpu_torch.models.resnet import export_grads, make_resnet_stages
+    from ddl25spring_tpu_torch.ops.losses import cross_entropy_logits
+    from ddl25spring_tpu_torch.parallel.bucketing import flatten
+    from ddl25spring_tpu_torch.parallel.launch import spawn
+    from ddl25spring_tpu_torch.utils.device import backend_flags
+
+    x_u8, y = _cifar_rows(HET_ROWS)
+    ranks = spawn(het_exact_rank, 4, x_u8, y, 21, dev.type, timeout=SPAWN_TIMEOUT)
+    fmt = torch.channels_last if dev.type == "cuda" else torch.preserve_format
+    D = M = 2
+    mb = HET_ROWS // (M * D)
+    with backend_flags(**FP32_EXACT):
+        stages = [st.to(dev, memory_format=fmt) for st in make_resnet_stages(2, seed=21)]
+        xs = x_u8.to(dev).reshape(M, D * mb, 32, 32, 3)
+        ys = y.to(dev).reshape(M, D * mb)
+        total = 0.0
+        for d in range(D):
+            for m in range(M):
+                rows = slice(d * mb, (d + 1) * mb)
+                h = stages[0](_nchw(xs[m, rows], torch.float32)).contiguous()
+                loss = cross_entropy_logits(stages[1](h), ys[m, rows]) / (M * D)
+                loss.backward()
+                total += loss.item()
+    want = [export_grads(st) for st in stages]
+    err = 0.0
+    for r in ranks:
+        d, s = r["coords"]
+        check(r["device"].startswith(dev.type), f"rank {r['coords']} ran on {r['device']}")
+        if s == 1:
+            e = excess(r["loss"], total, (0.0, 1e-5))
+            check(e <= 0, f"fp32 het pipeline loss {r['loss']} vs one process {total}")
+        for (path, a), (_, b) in zip(flatten(r["grads"]), flatten(want[s])):
+            e = excess(a, b, (2e-4, 2e-3))
+            check(e <= 0, f"fp32 het pipeline stage {s} grad {path} off by {e:.3g} past "
+                          "tolerance")
+            err = max(err, max_err(torch.from_numpy(a), torch.from_numpy(b)))
+    got = [r["loss"] for r in ranks if r["coords"][1] == 1]
+    print(f"  (d) fp32 2 x 2 ranks, backend {sorted({r['backend'] for r in ranks})}: losses "
+          f"{got} vs one process {total:.6f}; gradients max abs err {err:.2e}")
+
+
+def het_staged_bytes(r, M, D, S, batch) -> int:
+    """The bytes rank ``r`` stages through the host per step, from the shapes:
+    each hop it takes part in moves a ``[mb, *boundary]`` bf16 tensor through
+    a host buffer M times forward and M times backward; the DP all-reduce
+    moves every float32 gradient there and back, and the last stage's loss."""
+    s = r["coords"][1]
+    mb = batch // (M * D)
+    hop = [mb * math.prod(r["boundary_shapes"][h]) * 2 for h in range(S - 1)]
+    mine = ([hop[s - 1]] if s > 0 else []) + ([hop[s]] if s < S - 1 else [])
+    total = sum(2 * M * b for b in mine)
+    if D > 1:
+        total += 2 * 4 * r["n_params"] + (2 * 4 if s == S - 1 else 0)
+    return total
+
+
+def het_slice(dev, iters=10, batch=64):
+    """Phase 8 (d), bf16: ``lab.dp_pp.main --workload resnet --pp --ranks 4``."""
+    from ddl25spring_tpu_torch.lab import dp_pp
+
+    run = dp_pp.main(["--workload", "resnet", "--pp", "--ranks", "4", "--batch", str(batch),
+                      "--iters", str(iters), "--lr", RESNET_LR, "--device", dev.type,
+                      "--timeout", str(SPAWN_TIMEOUT)])
+    ranks = run["ranks"]
+    losses = next(r for r in ranks if r["coords"] == (0, 1))["losses"]
+    check(len(losses) == dp_pp.WARMUP + iters and all(math.isfinite(x) for x in losses),
+          f"het pipeline losses not all finite: {losses}")
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    check(last < first, f"het pipeline loss did not fall: first-5 {first:.4f}, last-5 {last:.4f}")
+    total = 0
+    for r in ranks:
+        check(r["device"].startswith("cuda") and r["params_device"] == [r["device"]],
+              f"rank {r['coords']} on {r['device']}, parameters on {r['params_device']}")
+        want = het_staged_bytes(r, 2, 2, 2, batch)
+        check(r["comm"]["bytes_staged"] == iters * want,
+              f"rank {r['coords']} staged {r['comm']['bytes_staged']} B over {iters} steps, "
+              f"the shapes give {iters * want}")
+        total += want
+    print(f"  (d) bf16 2 x 2, batch {batch}: backend {sorted({r['backend'] for r in ranks})}, "
+          f"devices {sorted({r['device'] for r in ranks})}; loss {first:.4f} (first 5) -> "
+          f"{last:.4f} (last 5); boundary {ranks[0]['boundary_shapes']}")
+    for s in range(2):
+        mine = [r for r in ranks if r["coords"][1] == s]
+        per = {k: statistics.mean(r["comm"][k] for r in mine) / iters
+               for k in ("recv_wait_s", "send_s", "allreduce_s")}
+        print(f"  (d) stage {s}: recv wait {per['recv_wait_s'] * 1e3:.3f} ms/step, send "
+              f"{per['send_s'] * 1e3:.3f} ms/step, DP all-reduce {per['allreduce_s'] * 1e3:.3f} "
+              f"ms/step (means over the timed steps, both replicas); staged "
+              f"{mine[0]['comm']['bytes_staged'] // iters} B/step per rank = the shapes' count; "
+              f"{mine[0]['n_params']} parameters")
+    log = next(r for r in ranks if r["coords"] == (0, 1))
+    print(f"  (d) step median {statistics.median(log['step_s']) * 1e3:.3f} ms (last stage of "
+          f"pipeline 0), {run['samples_per_s_per_chip']:.1f} samples/s per card; staged "
+          f"{total} B/step over the four ranks")
+
+
+def resnet_phase(dev):
+    """Phase 8, each sub-phase timed."""
+    for name, fn in (("(a)", resnet_exactness), ("(b)", resnet_headline),
+                     ("(c)", resnet_profile), ("(d) fp32", het_exactness),
+                     ("(d) bf16", het_slice)):
+        t0 = time.perf_counter()
+        fn(dev)
+        print(f"  {name} took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -663,6 +1035,11 @@ def main() -> int:
     dp_pp_slice(dev)
     nccl_dp(dev)
     print(f"  phase 7 in {time.perf_counter() - t0:.1f} s")
+
+    print("== ResNet-18/CIFAR-10 on the card (cuDNN; no hand-written kernel on this path)")
+    t0 = time.perf_counter()
+    resnet_phase(dev)
+    print(f"  phase 8 in {time.perf_counter() - t0:.1f} s")
 
     kernels = [
         {"name": f"flash_{name}", "route": "cuda", "source": SOURCE[timing[name]["variant"]],

@@ -12,7 +12,11 @@ sm_90a flash-attention kernels in ``ops/csrc/``; and its distributed forms,
 one process per rank on ``torch.distributed``: data parallelism
 (:mod:`~ddl25spring_tpu_torch.parallel.dp`), the GPipe pipeline and the
 2 x 3 DP x PP step (:mod:`~ddl25spring_tpu_torch.parallel.pipeline`,
-:mod:`~ddl25spring_tpu_torch.lab.dp_pp`).  Entry points run on CUDA unless
+:mod:`~ddl25spring_tpu_torch.lab.dp_pp`); and the ResNet-18/CIFAR-10
+benchmark step (:mod:`~ddl25spring_tpu_torch.benchmarks`,
+:mod:`~ddl25spring_tpu_torch.models.resnet`,
+:mod:`~ddl25spring_tpu_torch.parallel.het_pipeline`), pure DP or the
+heterogeneous DP x PP pipeline, on cuDNN.  Entry points run on CUDA unless
 the caller passes ``device="cpu"``; on the CPU each kernel's plain PyTorch
 version runs in its place.
 """

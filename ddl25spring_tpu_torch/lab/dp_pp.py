@@ -1,8 +1,10 @@
-"""Homework B2 on PyTorch: the 2 x 3 DP x PP LLaMA, one process per rank.
+"""Homework B2 on PyTorch: the 2 x 3 DP x PP LLaMA and the ResNet-18/CIFAR-10
+benchmark step, one process per rank.
 
-The counterpart of ``lab/s01_b2_dp_pp.py --workload llama`` (``run_llama``,
-:90-226): two pipelines of three stages, ranks ``0..2`` and ``3..5``, the DP
-group of each stage ``[0, 3] / [1, 4] / [2, 5]``; the workload constants
+``--workload llama`` (the default) is the counterpart of
+``lab/s01_b2_dp_pp.py --workload llama`` (``run_llama``, :90-226): two
+pipelines of three stages, ranks ``0..2`` and ``3..5``, the DP group of each
+stage ``[0, 3] / [1, 4] / [2, 5]``; the workload constants
 (vocab 4096, dmodel 288, 6 heads, 6 layers, ctx 256), 3 rows per replica in
 3 microbatches, Adam 8e-4 (``utils/config.py`` ``DpPpConfig``).  Each rank holds one
 :class:`~ddl25spring_tpu_torch.models.llama.LlamaStage` and runs the GPipe
@@ -19,7 +21,27 @@ Prints the loss of every iteration (the last stage of pipeline 0), then the
 tokens per second.  Under ``torchrun --nproc-per-node 6`` each process is one
 rank; otherwise the ranks are spawned here.
 
+``--workload resnet`` is the counterpart of ``run_resnet``
+(``lab/s01_b2_dp_pp.py:228-326``): the north-star step of
+:func:`~ddl25spring_tpu_torch.benchmarks.build_resnet_step` over ``N`` ranks
+(``--ranks``; default one per card, one on the CPU), pure DP
+(``data = N``) or, with ``--pp``, the 2-stage heterogeneous pipeline x DP
+(``data = N // 2``, 2 microbatches).  Batch 1024 per rank on CUDA (bf16) and
+4 on the CPU (float32), SGD 0.1 with momentum 0.9, the CIFAR-10 train split
+on the device (:class:`~ddl25spring_tpu_torch.benchmarks.DeviceDataset`;
+``--input fixed``: one batch re-fed).  3 warm-up steps (the first counts
+the step's FLOPs), then ``--iters`` timed ones (default 30) through
+:func:`~ddl25spring_tpu_torch.benchmarks.timed_run`; prints the loss every
+``--log-every`` steps (read after the timed window), samples/s and TFLOP/s
+per card (ranks that share a card count it once), MFU, and
+``report_line``'s JSON as its last line.  One rank runs in this process;
+more are spawned (``--ranks N`` shares the cards, or the CPU, between N
+processes: the port's form of ``--force-cpu-devices N``).  On
+CUDA the run sets ``torch.backends.cudnn.benchmark`` and turns TF32 off
+(:data:`RUN_FLAGS`), and puts both back after.
+
 Run: ``python -m ddl25spring_tpu_torch.lab.dp_pp [--iters 20] [--device cuda]``
+     ``python -m ddl25spring_tpu_torch.lab.dp_pp --workload resnet [--pp --ranks 4]``
 """
 
 from __future__ import annotations
@@ -32,6 +54,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ddl25spring_tpu_torch import benchmarks
 from ddl25spring_tpu_torch.data.tinystories import TinyStories
 from ddl25spring_tpu_torch.data.tokenizer import get_tokenizer
 from ddl25spring_tpu_torch.models.llama import Llama, export_grads, export_params
@@ -44,8 +67,9 @@ from ddl25spring_tpu_torch.parallel.pipeline import (
     shard_staged_params,
 )
 from ddl25spring_tpu_torch.utils.config import DpPpConfig, LlamaConfig
-from ddl25spring_tpu_torch.utils.device import resolve_device
-from ddl25spring_tpu_torch.utils.mesh import init_mesh
+from ddl25spring_tpu_torch.utils.device import backend_flags, resolve_device
+from ddl25spring_tpu_torch.utils.flops import count_flops, mfu
+from ddl25spring_tpu_torch.utils.mesh import cards_used, init_mesh
 
 
 @dataclass(frozen=True)
@@ -119,7 +143,8 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--workload", choices=("llama", "resnet"), default="llama")
-    ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--iters", type=int, default=0,
+                    help="0 = the workload's default (llama 20, resnet 30)")
     ap.add_argument("--schedule", choices=SCHEDULES, default="gpipe")
     ap.add_argument("--seq-len", type=int, default=256)
     ap.add_argument("--seed", type=int, default=0)
@@ -128,6 +153,19 @@ def parse_args(argv=None):
                     help="dense attention instead of the flash kernels")
     ap.add_argument("--timeout", type=float, default=600.0,
                     help="seconds before the spawned ranks are killed")
+    ap.add_argument("--pp", action="store_true",
+                    help="resnet: the 2-stage heterogeneous pipeline x DP")
+    ap.add_argument("--ranks", type=int, default=0,
+                    help="resnet: rank processes; 0 = one per card (one on the CPU)")
+    ap.add_argument("--batch", type=int, default=0,
+                    help="resnet: global batch; 0 = 1024 per rank on CUDA, 4 on the CPU")
+    ap.add_argument("--microbatches", type=int, default=0,
+                    help="resnet: microbatches under --pp; 0 = 2")
+    ap.add_argument("--lr", type=float, default=0.0, help="resnet: 0 = 0.1")
+    ap.add_argument("--input", choices=("hbm", "fixed"), default="hbm",
+                    help="resnet: 'hbm' = the train split on the device, reshuffled "
+                         "per epoch; 'fixed' = one batch re-fed")
+    ap.add_argument("--log-every", type=int, default=10)
     return ap.parse_args(argv)
 
 
@@ -138,8 +176,9 @@ def main(argv=None, layout: DpPpConfig = DpPpConfig()) -> dict:
     (only this process's under torchrun)."""
     args = parse_args(argv)
     if args.workload == "resnet":
-        raise NotImplementedError("--workload resnet is not ported yet (ROADMAP A6)")
+        return run_resnet(args)
     check_schedule(args.schedule)
+    args.iters = args.iters or 20
     device = resolve_device(args.device)
     cfg = LlamaConfig(ctx_size=args.seq_len,
                       dtype="bfloat16" if device.type == "cuda" else "float32",
@@ -161,6 +200,118 @@ def main(argv=None, layout: DpPpConfig = DpPpConfig()) -> dict:
           flush=True)
     return {"losses": log["losses"], "step_s": step_s, "tokens_per_s": tokens_per_s,
             "ranks": ranks}
+
+
+
+# ------------------------------------------------------------------ resnet
+
+WARMUP = 3
+
+
+@dataclass(frozen=True)
+class ResnetJob:
+    """What every rank of one ResNet run does."""
+
+    data: int
+    stages: int
+    microbatches: int
+    batch: int                   # global rows per step
+    iters: int                   # timed steps, after WARMUP warm-up steps
+    lr: float = 0.1
+    seed: int = 0
+    device: str = "cuda"
+    input: str = "hbm"           # "hbm": DeviceDataset.feed; "fixed": its first batch
+
+
+# the timed ResNet run: cuDNN autotunes its convolutions, TF32 off
+RUN_FLAGS = dict(cudnn_benchmark=True, cudnn_tf32=False, matmul_tf32=False)
+
+
+def train_resnet(mesh, job: ResnetJob) -> dict:
+    """One rank's ResNet run (``mesh`` None: one process alone).  Returns its
+    coordinates, device, backend, layout, boundary shapes and parameter
+    count; the losses of every step (last stage only); the timed seconds and
+    each timed step's seconds; the FLOPs of its first step; its comm counts
+    over the timed steps; and where its parameters and its dataset live."""
+    dev = mesh.device if mesh is not None else resolve_device(job.device)
+    with backend_flags(**RUN_FLAGS):
+        step, module, _, meta = benchmarks.build_resnet_step(
+            mesh, job.microbatches, job.batch, lr=job.lr, device=dev, seed=job.seed)
+        fixed = job.input == "fixed"
+        ds = benchmarks.DeviceDataset(job.batch, n_train=job.batch if fixed else None,
+                                      device=dev)
+        feed = (lambda: ds.fixed) if fixed else ds.feed
+        comm = mesh.comm if mesh is not None else None
+        first, flops = count_flops(step, feed())
+        _, warm, _ = benchmarks.timed_run(step, feed, 0, WARMUP - 1, device=dev)
+        if comm is not None:
+            comm.take_stats()
+        dt, timed, step_s = benchmarks.timed_run(step, feed, job.iters, 0, device=dev)
+        return {
+            "rank": mesh.rank if mesh is not None else 0,
+            "coords": mesh.coords if mesh is not None else (0, 0),
+            "device": str(dev), "backend": mesh.backend if mesh is not None else None,
+            "layout": meta["layout"], "topology": meta["topology"],
+            "input": "fixed-device-batch" if fixed else ds.input_mode,
+            "boundary_shapes": meta["boundary_shapes"], "n_params": meta["n_params"],
+            "losses": ([] if first is None else [float(first)]) + warm + timed,
+            "dt": dt, "step_s": step_s, "flops": flops,
+            "comm": comm.take_stats() if comm is not None else None,
+            "params_device": sorted({str(p.device) for p in module.parameters()}),
+            "data_device": str(ds.x.device),
+        }
+
+
+def resnet_rank(rdv, job: ResnetJob) -> dict:
+    """One spawned rank of a ResNet run: joins the ``data x stages`` world and
+    runs :func:`train_resnet`."""
+    with init_mesh(rdv, job.data, job.stages, job.device) as mesh:
+        return train_resnet(mesh, job)
+
+
+def run_resnet(args) -> dict:
+    """``--workload resnet``: lay out the ranks, run them, print the losses,
+    samples/s and TFLOP/s per card (ranks that share a card count as one
+    card: :func:`~ddl25spring_tpu_torch.utils.mesh.cards_used`), MFU and
+    ``report_line``.  Returns ``{"ranks", "samples_per_s_per_chip", "cards",
+    "flops", "tflops", "mfu", "line"}``; FLOPs are summed over the ranks this
+    process ran (all of them, or under torchrun its own)."""
+    device = resolve_device(args.device)
+    n = args.ranks or (torch.cuda.device_count() if device.type == "cuda" else 1)
+    dp, S = (n // 2, 2) if args.pp and n >= 2 else (n, 1)
+    n_used = dp * S
+    M = (args.microbatches or 2) if S == 2 else 1
+    batch = args.batch or (1024 if device.type == "cuda" else 4) * n_used
+    batch = batch // (dp * M) * (dp * M)
+    job = ResnetJob(dp, S, M, batch, args.iters or 30, lr=args.lr or 0.1, seed=args.seed,
+                    device=device.type, input=args.input)
+    print(f"resnet18/cifar10: mesh(data={dp}, stage={S}), microbatches={M}, global "
+          f"batch={batch}, {n_used} rank(s), input={args.input}, device={device.type}",
+          flush=True)
+    if n_used == 1:
+        ranks = [train_resnet(None, job)]
+    else:
+        ranks = spawn(resnet_rank, n_used, job, timeout=args.timeout)
+    here = [r for r in ranks if r is not None]
+    log = next((r for r in here if r["coords"] == (0, S - 1)), here[0])
+    for i, loss in enumerate(log["losses"]):
+        if args.log_every and i % args.log_every == 0:
+            print(f"iter {i:4d}  loss {loss:.4f}", flush=True)
+    dt = max(r["dt"] for r in here)
+    cards = cards_used(n_used, device.type)
+    sps_chip = job.iters * batch / dt / cards
+    flops = sum(r["flops"] for r in here)
+    tf, frac = mfu(flops, dt / job.iters, cards, device)
+    print(f"{log['topology']}: {job.iters} timed steps in {dt:.3f} s (median step "
+          f"{statistics.median(log['step_s']) * 1e3:.3f} ms), {sps_chip:.1f} samples/s per "
+          f"card, {flops / 1e12:.4f} TFLOP per step", flush=True)
+    if tf is not None:
+        print(f"achieved {tf:.2f} TFLOP/s per card" + (f" (MFU {frac:.2%})" if frac is not None
+                                                       else ""), flush=True)
+    line = benchmarks.report_line(log["layout"], sps_chip, log["input"], frac, tf)
+    print(line, flush=True)
+    return {"ranks": ranks, "samples_per_s_per_chip": sps_chip, "cards": cards, "flops": flops,
+            "tflops": tf, "mfu": frac, "line": line}
 
 
 if __name__ == "__main__":

@@ -16,6 +16,9 @@ from ddl25spring_tpu_torch.utils.config import DpPpConfig, PipelineConfig
 
 
 def main(argv=None) -> dict:
+    if dp_pp.parse_args(argv).workload != "llama":
+        raise ValueError("lab.microbatches runs homework B1's LLaMA workload only; the "
+                         "ResNet step runs through lab.dp_pp --workload resnet")
     p = PipelineConfig()
     return dp_pp.main(argv, DpPpConfig(data=1, num_stages=p.num_stages,
                                        num_microbatches=p.num_microbatches,

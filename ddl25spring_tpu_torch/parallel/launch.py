@@ -1,9 +1,10 @@
 """Starting the ranks of a world: the counterpart of the JAX package's
 single-controller launch (one process drives every device of the mesh).
 
-:func:`spawn` runs ``fn(rdv, *args)`` in ``world`` fresh processes
-(``torch.multiprocessing``, start method "spawn"), one per rank, and returns
-their results in rank order.  The ranks meet through a ``FileStore`` in a new
+:func:`spawn` runs ``fn(rdv, *args)`` in ``world`` new processes
+(``torch.multiprocessing``, start method "forkserver": each rank is forked
+from one server process that has imported :data:`PRELOAD`), one per rank,
+and returns their results in rank order.  The ranks meet through a ``FileStore`` in a new
 temporary directory, not a TCP port, so parallel runs on one host cannot
 collide.  Every child is joined within ``timeout`` seconds and killed past
 it; a rank that raises, dies or runs out of time makes :func:`spawn` raise,
@@ -19,6 +20,7 @@ returns crosses back as a pickle: return numpy arrays and plain values.
 
 from __future__ import annotations
 
+import atexit
 import os
 import pickle
 import shutil
@@ -33,6 +35,22 @@ import torch.multiprocessing as mp
 from ddl25spring_tpu_torch.utils.mesh import Rendezvous
 
 TORCHRUN_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK")
+# imported once by the fork server, not by every rank: torch itself, and
+# torch._dynamo, which the first optimizer of a process imports (~5 s a rank
+# on a CPU core between them).  Importing them initialises no CUDA, so each
+# rank still starts its CUDA context fresh after the fork.
+PRELOAD = ["torch", "torch._dynamo", __name__]
+
+
+@atexit.register
+def _stop_fork_server():
+    """Stop the fork server, if this process started one, and wait for it.
+    Left alone it outlives its parent by the moment it takes to notice, so a
+    program that ends would leave a process behind.  ``_stop`` is the
+    standard library's own way to stop it (its tests call it)."""
+    from multiprocessing import forkserver
+
+    forkserver._forkserver._stop()
 
 
 def _child(fn, rdv: Rendezvous, args, conn):
@@ -62,7 +80,8 @@ def spawn(fn, world: int, *args, timeout: float = 120.0, tmpdir: str | None = No
         out[rank] = fn(rdv, *args)
         return out
 
-    ctx = mp.get_context("spawn")
+    ctx = mp.get_context("forkserver")
+    ctx.set_forkserver_preload(PRELOAD)
     root = tempfile.mkdtemp(prefix="ddl25-rdv-", dir=tmpdir)
     init = f"file://{os.path.join(root, 'store')}"
     procs, readers = [], []

@@ -89,6 +89,12 @@ def rank_device(local_rank: int, kind: str = "cuda") -> torch.device:
     return torch.device("cuda", local_rank % n)
 
 
+def cards_used(world: int, kind: str = "cuda") -> int:
+    """How many devices a world of ``world`` ranks on this host computes on,
+    by :func:`rank_device`'s rule; the CPU counts as one."""
+    return 1 if kind == "cpu" else min(world, torch.cuda.device_count())
+
+
 def select_backend(kind: str, local_world: int, device_count: int) -> str:
     """``nccl`` iff every rank of the host has a CUDA device of its own, else
     ``gloo``.  Every rank computes the same answer from the layout."""

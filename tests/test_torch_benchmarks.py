@@ -1,0 +1,183 @@
+"""The port's ResNet benchmark pieces on the CPU: ``DeviceDataset`` held to the
+properties ``tests/test_benchmarks.py`` pins for the JAX class (its batch
+order cannot equal ``jax.random.permutation``'s), ``report_line``, the FLOP
+count against the analytic conv + fc count, the MFU table, ``build_resnet_step``,
+``timed_run``, and ``lab.dp_pp --workload resnet`` end to end (one rank in
+process; four spawned ranks with ``--pp``).
+"""
+
+import json
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from ddl25spring_tpu_torch import benchmarks  # noqa: E402
+from ddl25spring_tpu_torch.lab import dp_pp  # noqa: E402
+from ddl25spring_tpu_torch.models import resnet  # noqa: E402
+from ddl25spring_tpu_torch.utils import flops  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for this file: the suite runs its files side by side
+    on one host, and the full-width CPU steps here would take every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def ds():
+    # n=100, B=32 -> 3 batches per epoch, a 4-row drop-last tail
+    return benchmarks.DeviceDataset(32, n_train=100, device="cpu")
+
+
+def _row_ids(ds, x):
+    ref = ds.x.reshape(ds.n, -1)
+    return [int(torch.nonzero((ref == r).all(1))[0]) for r in x.reshape(x.shape[0], -1)]
+
+
+def test_epoch_batches_disjoint_and_drop_last(ds):
+    ds.cursor = 0
+    assert ds.batches_per_epoch == 3
+    seen = []
+    for _ in range(ds.batches_per_epoch):
+        x, y = ds.feed()
+        assert x.shape == (32, 32, 32, 3) and x.dtype == torch.uint8 and y.shape == (32,)
+        seen += _row_ids(ds, x)
+    assert len(set(seen)) == 96, "epoch batches must be disjoint"
+    assert ds.cursor == 3
+
+
+def test_epochs_reshuffle(ds):
+    ds.cursor = 0
+    first = [ds.feed()[1] for _ in range(ds.batches_per_epoch)]
+    second = [ds.feed()[1] for _ in range(ds.batches_per_epoch)]
+    assert any(not torch.equal(a, b) for a, b in zip(first, second))
+    # the same cursor gives the same batch (the shuffle is keyed by epoch)
+    ds.cursor = 4
+    again = ds.feed()[1]
+    assert torch.equal(again, second[1])
+
+
+def test_step_counter_survives_many_epochs(ds):
+    ds.cursor = (2**31 // 32) + 7  # would overflow an int32 i * B product
+    x, y = ds.feed()
+    assert x.shape[0] == 32 and y.shape == (32,)
+
+
+def test_batch_larger_than_dataset_rejected():
+    with pytest.raises(ValueError, match="exceeds dataset size"):
+        benchmarks.DeviceDataset(256, n_train=100, device="cpu")
+
+
+def test_cuda_entry_points_raise_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a host with no GPU")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        benchmarks.DeviceDataset(8, n_train=16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        benchmarks.build_resnet_step(None, 1, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dp_pp.main(["--workload", "resnet", "--iters", "1"])
+
+
+def test_report_line_keys_and_metric():
+    rec = json.loads(benchmarks.report_line("dppp", 12345.67, "hbm-resident-shuffle",
+                                            0.41234, 405.66, extra=1))
+    assert rec == {"metric": "cifar10_resnet18_dppp_samples_per_sec_per_chip",
+                   "value": 12345.7, "unit": "samples/sec/chip",
+                   "vs_baseline": round(12345.67 / 5000.0, 3),
+                   "input": "hbm-resident-shuffle", "mfu": 0.4123,
+                   "achieved_tflops_per_chip": 405.7, "extra": 1}
+    assert json.loads(benchmarks.report_line("dp", 1.0, "x", None, None))["mfu"] is None
+
+
+def _analytic_macs(width: int, batch: int) -> int:
+    """Conv + fc multiply-accumulates of one forward of ResNet-18 on 32x32."""
+    macs, size, cin = 3 * 3 * 3 * width * 32 * 32, 32, width  # stem
+    for filters, stride in resnet.block_plan(width):
+        out = size // stride
+        macs += 9 * cin * filters * out * out + 9 * filters * filters * out * out
+        if cin != filters or stride != 1:
+            macs += cin * filters * out * out
+        size, cin = out, filters
+    return batch * (macs + cin * 10)
+
+
+@pytest.mark.parametrize("width", [8, 64])
+def test_flop_count_equals_the_analytic_count(width):
+    m = resnet.ResNet18(norm="group", width=width, generator=torch.Generator().manual_seed(0))
+    x = torch.zeros(2, 3, 32, 32)
+    with torch.no_grad():
+        _, fl = flops.count_flops(m, x)
+    assert fl == 2 * _analytic_macs(width, 2)
+    if width == 64:  # ~555 M MACs, 1.11 GFLOP per image forward
+        assert abs(fl / 2 - 1.11e9) < 0.01e9
+
+
+def test_peak_table_and_mfu(monkeypatch):
+    assert flops.peak_bf16_flops("cpu") is None
+    assert flops.mfu(None, 1.0) == (None, None)
+    assert flops.mfu(2e12, 1.0, 2, "cpu") == (1.0, None)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda dev=None: "NVIDIA H100 80GB HBM3")
+    assert flops.peak_bf16_flops() == 989.4e12
+    tf, frac = flops.mfu(989.4e12, 1.0)
+    assert tf == pytest.approx(989.4) and frac == pytest.approx(1.0)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda dev=None: "Some Other Card")
+    assert flops.peak_bf16_flops() is None
+
+
+def test_build_resnet_step_on_the_cpu():
+    step, module, opt, meta = benchmarks.build_resnet_step(None, 1, 2, device="cpu", seed=3)
+    assert meta["layout"] == "dp" and meta["topology"] == "mesh(data=1)"
+    assert meta["n_chips"] == 1 and meta["dtype"] == torch.float32
+    assert meta["n_params"] == 11_173_962
+    assert isinstance(opt, torch.optim.SGD) and opt.defaults["momentum"] == 0.9
+    ds = benchmarks.DeviceDataset(2, n_train=16, device="cpu")
+    before = [p.detach().clone() for p in module.parameters()]
+    dt, losses, step_s = benchmarks.timed_run(step, ds.feed, 2, 1, device="cpu")
+    assert len(losses) == 3 and len(step_s) == 2 and dt > 0
+    assert all(np.isfinite(losses))
+    assert any(not torch.equal(a, p) for a, p in zip(before, module.parameters()))
+
+
+def _last_json(out: str) -> dict:
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def test_lab_resnet_dp_in_process(capsys):
+    run = dp_pp.main(["--workload", "resnet", "--device", "cpu", "--iters", "1", "--batch", "2",
+                      "--input", "fixed"])
+    rec = _last_json(capsys.readouterr().out)
+    assert rec["metric"] == "cifar10_resnet18_dp_samples_per_sec_per_chip"
+    assert rec["input"] == "fixed-device-batch" and rec["value"] > 0
+    (r,) = run["ranks"]
+    assert len(r["losses"]) == dp_pp.WARMUP + 1 and all(np.isfinite(r["losses"]))
+    # forward + backward: 3x the forward's products, less the stem's input gradient
+    assert r["flops"] == 3 * 2 * _analytic_macs(64, 2) - 2 * 3 * 3 * 3 * 64 * 32 * 32 * 2
+    assert r["params_device"] == ["cpu"] and r["data_device"] == "cpu"
+    assert run["cards"] == 1 and rec["value"] == round(2 / r["dt"], 1)
+
+
+def test_lab_resnet_pipeline_on_four_ranks(capsys):
+    run = dp_pp.main(["--workload", "resnet", "--device", "cpu", "--iters", "1", "--pp",
+                      "--ranks", "4", "--batch", "4", "--input", "fixed", "--timeout", "120"])
+    rec = _last_json(capsys.readouterr().out)
+    assert rec["metric"] == "cifar10_resnet18_dppp_samples_per_sec_per_chip"
+    assert rec["input"] == "fixed-device-batch"
+    ranks = run["ranks"]
+    assert sorted(r["coords"] for r in ranks) == [(0, 0), (0, 1), (1, 0), (1, 1)]
+    assert {r["backend"] for r in ranks} == {"gloo"}
+    last = [r for r in ranks if r["coords"][1] == 1]
+    assert last[0]["losses"] == last[1]["losses"] and len(last[0]["losses"]) == 4
+    assert [r["losses"] for r in ranks if r["coords"][1] == 0] == [[], []]
+    assert ranks[0]["boundary_shapes"] == [(128, 16, 16), (10,)]
+    # four ranks share one device (the CPU): the per-chip value is the whole
+    # world's, the global batch over the slowest rank's time
+    assert run["cards"] == 1
+    assert rec["value"] == round(4 / max(r["dt"] for r in ranks), 1)

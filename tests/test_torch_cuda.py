@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card,
+and the ResNet-18 slice's card-only checks (the on-card dataset, fp32 against
+the CPU, bf16 channels_last against fp32).
 
 Marked ``gpu``: each test skips unless an sm_90 (Hopper) device is present.
 This file imports torch only, so it runs on a machine without JAX:
@@ -224,3 +226,72 @@ def test_dp_step_of_two_ranks_equals_one_process(dev, tmp_path):
         assert r["losses"][1] == pytest.approx(losses[1], rel=1e-4)
         for (path, a), (_, b) in zip(flatten(r["grads"]), flatten(grads[0])):
             assert (abs(a - b) - 2e-3 * abs(b)).max() <= 2e-4, path
+
+
+# ------------------------------------------------------------ ResNet-18 slice
+
+
+def test_device_dataset_on_the_card(dev):
+    from ddl25spring_tpu_torch.benchmarks import DeviceDataset
+
+    ds = DeviceDataset(64, n_train=256, device=dev)
+    assert ds.x.device.type == "cuda" and ds.x.dtype == torch.uint8
+    ds.cursor = 0
+    epochs = []
+    for _ in range(2):
+        xs, ys = zip(*(ds.feed() for _ in range(ds.batches_per_epoch)))
+        assert all(x.device.type == "cuda" and x.shape == (64, 32, 32, 3) for x in xs)
+        flat = torch.cat(xs).reshape(256, -1)
+        # every row of the split once per epoch (n = 4 batches exactly)
+        assert torch.equal(flat.sort(0).values, ds.x.reshape(256, -1).sort(0).values)
+        epochs.append(torch.cat(ys))
+    assert not torch.equal(epochs[0], epochs[1])
+
+
+def test_resnet_fp32_on_the_card_matches_the_cpu(dev, monkeypatch):
+    """One SGD step of ResNet18(norm="group") at width 16 on the card (cuDNN,
+    channels_last, TF32 off) against the same step on the CPU: loss, logits
+    and updated weights within 1e-4 relative of max |ref|."""
+    from ddl25spring_tpu_torch.benchmarks import DeviceDataset, _nchw
+    from ddl25spring_tpu_torch.models.resnet import ResNet18, export_params
+    from ddl25spring_tpu_torch.ops.losses import cross_entropy_logits
+    from ddl25spring_tpu_torch.parallel.bucketing import flatten
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    x_u8, y = DeviceDataset(8, n_train=64, device="cpu").fixed
+
+    def run(device):
+        m = ResNet18(norm="group", width=16, generator=torch.Generator().manual_seed(4))
+        m = m.to(device, memory_format=torch.channels_last if device.type == "cuda"
+                 else torch.preserve_format)
+        opt = torch.optim.SGD(m.parameters(), lr=0.1, momentum=0.9)
+        logits = m(_nchw(x_u8.to(device), torch.float32))
+        loss = cross_entropy_logits(logits, y.to(device))
+        loss.backward()
+        opt.step()
+        return loss.item(), logits.detach().cpu(), export_params(m)
+
+    got, want = run(dev), run(torch.device("cpu"))
+    assert got[0] == pytest.approx(want[0], rel=1e-4)
+    assert (got[1] - want[1]).abs().max() <= 1e-4 * want[1].abs().max()
+    for (path, a), (_, b) in zip(flatten(got[2]), flatten(want[2])):
+        assert abs(a - b).max() <= 1e-4 * abs(b).max() + 1e-7, path
+
+
+def test_resnet_bf16_channels_last_logits_near_fp32(dev, monkeypatch):
+    """Full-width bf16 logits (channels_last, cuDNN) within 2e-2 + 1e-2 |ref|
+    of the float32 logits of the same weights on the card."""
+    from ddl25spring_tpu_torch.benchmarks import DeviceDataset, _nchw
+    from ddl25spring_tpu_torch.models.resnet import ResNet18
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    x_u8, _ = DeviceDataset(16, n_train=64, device="cpu").fixed
+    x_u8 = x_u8.to(dev)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        m = ResNet18(norm="group", dtype=dtype, generator=torch.Generator().manual_seed(5))
+        m = m.to(dev, memory_format=torch.channels_last)
+        with torch.no_grad():
+            out[dtype] = m(_nchw(x_u8, dtype))
+    assert out[torch.bfloat16].dtype == torch.float32  # the head computes in float32
+    _close(out[torch.bfloat16], out[torch.float32], torch.bfloat16)

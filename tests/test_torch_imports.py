@@ -34,5 +34,6 @@ def test_port_imports_no_jax_and_no_reference_package():
     for mod in ("primer", "models.llama", "ops.flash_attention", "ops._build",
                 "parallel.dp", "data.tinystories", "data.tokenizer", "utils.device",
                 "utils.mesh", "parallel.comm", "parallel.bucketing", "parallel.pipeline",
-                "parallel.launch", "lab.microbatches", "lab.dp_pp"):
+                "parallel.launch", "lab.microbatches", "lab.dp_pp", "data.cifar10",
+                "models.resnet", "parallel.het_pipeline", "utils.flops", "benchmarks"):
         assert f"ddl25spring_tpu_torch.{mod}" in report["modules"]

@@ -164,7 +164,8 @@ def test_unported_schedules_and_workloads_raise():
             dp_pp.main(["--device", "cpu", "--schedule", schedule])
     with pytest.raises(ValueError, match="unknown schedule"):
         check_schedule("zigzag")
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+    # homework B1 is LLaMA only; the ResNet step runs through lab.dp_pp
+    with pytest.raises(ValueError, match="LLaMA workload only"):
         microbatches.main(["--device", "cpu", "--workload", "resnet"])
 
 
