@@ -16,7 +16,11 @@ one process per rank on ``torch.distributed``: data parallelism
 benchmark step (:mod:`~ddl25spring_tpu_torch.benchmarks`,
 :mod:`~ddl25spring_tpu_torch.models.resnet`,
 :mod:`~ddl25spring_tpu_torch.parallel.het_pipeline`), pure DP or the
-heterogeneous DP x PP pipeline, on cuDNN.  Entry points run on CUDA unless
+heterogeneous DP x PP pipeline, on cuDNN; and the federated-learning layer
+(:mod:`~ddl25spring_tpu_torch.fl`): FedSGD and FedAvg on MNIST with the
+clients vmapped by ``torch.func``, the split-NN VFL and the tabular VAE with
+TSTR on the heart-disease table, and the bench entry that times a FedAvg
+round (:mod:`~ddl25spring_tpu_torch.bench`).  Entry points run on CUDA unless
 the caller passes ``device="cpu"``; on the CPU each kernel's plain PyTorch
 version runs in its place.
 """

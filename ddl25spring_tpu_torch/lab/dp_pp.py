@@ -19,7 +19,9 @@ runs them on the host in float32, the kernels' plain versions in their place.
 
 Prints the loss of every iteration (the last stage of pipeline 0), then the
 tokens per second.  Under ``torchrun --nproc-per-node 6`` each process is one
-rank; otherwise the ranks are spawned here.
+rank; otherwise the ranks are spawned here.  Either way one rank reports, the
+last stage of pipeline 0, with each step's seconds the slowest rank's
+(:func:`world_totals`).
 
 ``--workload resnet`` is the counterpart of ``run_resnet``
 (``lab/s01_b2_dp_pp.py:228-326``): the north-star step of
@@ -34,11 +36,14 @@ the step's FLOPs), then ``--iters`` timed ones (default 30) through
 :func:`~ddl25spring_tpu_torch.benchmarks.timed_run`; prints the loss every
 ``--log-every`` steps (read after the timed window), samples/s and TFLOP/s
 per card (ranks that share a card count it once), MFU, and
-``report_line``'s JSON as its last line.  One rank runs in this process;
-more are spawned (``--ranks N`` shares the cards, or the CPU, between N
-processes: the port's form of ``--force-cpu-devices N``).  On
-CUDA the run sets ``torch.backends.cudnn.benchmark`` and turns TF32 off
-(:data:`RUN_FLAGS`), and puts both back after.
+``report_line``'s JSON as its last line, from one rank, the last stage of
+pipeline 0: the FLOPs are the whole world's step, the seconds the slowest
+rank's (:func:`world_totals`), under ``torchrun`` as when spawned.  One
+rank runs in this process; more are spawned (``--ranks N`` shares the
+cards, or the CPU, between N processes: the port's form of
+``--force-cpu-devices N``).  On CUDA the run sets
+``torch.backends.cudnn.benchmark`` and turns TF32 off (:data:`RUN_FLAGS`),
+and puts both back after.
 
 Run: ``python -m ddl25spring_tpu_torch.lab.dp_pp [--iters 20] [--device cuda]``
      ``python -m ddl25spring_tpu_torch.lab.dp_pp --workload resnet [--pp --ranks 4]``
@@ -53,6 +58,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ddl25spring_tpu_torch import benchmarks
 from ddl25spring_tpu_torch.data.tinystories import TinyStories
@@ -91,10 +97,30 @@ class Job:
     log: bool = True
 
 
+def world_totals(mesh, flops: int, seconds: list[float]) -> tuple[int, list[float]]:
+    """``flops`` summed and each of ``seconds`` maxed over every rank of
+    ``mesh``'s world: the whole step's FLOPs (each stage counts its own
+    share), and the time of the slowest rank.  Every rank must call it."""
+    dev = mesh.device if mesh.backend == "nccl" else torch.device("cpu")
+    total = torch.tensor([flops], dtype=torch.int64, device=dev)
+    slowest = torch.tensor(seconds, dtype=torch.float64, device=dev)
+    dist.all_reduce(total, op=dist.ReduceOp.SUM)
+    dist.all_reduce(slowest, op=dist.ReduceOp.MAX)
+    return int(total.item()), slowest.tolist()
+
+
+def reporting_rank(ranks: list, stages: int) -> dict | None:
+    """The result that reports a run: the last stage of pipeline 0's, if this
+    process holds it (a spawned run holds every rank's; a rank under
+    ``torchrun`` only its own), else None."""
+    return next((r for r in ranks if r is not None and r["coords"] == (0, stages - 1)), None)
+
+
 def run_rank(rdv, job: Job) -> dict:
     """One rank of ``job``: its stage's training loop.  Returns its
     coordinates, device and backend, the losses (last stage only), each
-    step's host time (to the card's idle), its comm counts per step
+    step's host time (to the card's idle) and the slowest rank's
+    (``world_step_s``), its comm counts per step
     (:meth:`~ddl25spring_tpu_torch.parallel.comm.Comm.take_stats`), its flash
     kernel launches and, with ``job.export``, its stage's gradients after the
     first step and parameters after the last."""
@@ -136,6 +162,7 @@ def run_rank(rdv, job: Job) -> dict:
         out["launches_by_variant"] = {n: dict(c) for n, c in fa.LAUNCHES_BY_VARIANT.items()}
         if job.export:
             out["params"] = export_params(stage)
+        _, out["world_step_s"] = world_totals(mesh, 0, out["step_s"])
         return out
 
 
@@ -171,9 +198,11 @@ def parse_args(argv=None):
 
 def main(argv=None, layout: DpPpConfig = DpPpConfig()) -> dict:
     """Train ``layout`` (default: the reference's 2 x 3) and print; returns
-    ``{"losses", "step_s", "tokens_per_s", "ranks"}``: the logging rank's
-    losses and step times, and every rank's result from :func:`run_rank`
-    (only this process's under torchrun)."""
+    ``{"losses", "step_s", "tokens_per_s", "ranks"}``: the reporting rank's
+    losses and the slowest rank's step times (:func:`reporting_rank`,
+    :func:`world_totals`), and every rank's result from :func:`run_rank`
+    (only this process's under torchrun, where a rank that does not report
+    prints nothing after the header and returns ``{"ranks"}`` alone)."""
     args = parse_args(argv)
     if args.workload == "resnet":
         return run_resnet(args)
@@ -191,8 +220,10 @@ def main(argv=None, layout: DpPpConfig = DpPpConfig()) -> dict:
           f"attention={'flash' if cfg.use_flash else 'dense'}, device={device.type}",
           flush=True)
     ranks = spawn(run_rank, D * S, job, timeout=args.timeout)
-    log = ranks[S - 1] or next(r for r in ranks if r)
-    step_s = log["step_s"]
+    log = reporting_rank(ranks, S)
+    if log is None:
+        return {"ranks": ranks}
+    step_s = log["world_step_s"]
     timed = step_s[1:] or step_s  # the first step warms up (kernel loads, allocator)
     tokens_per_s = job.batch * args.seq_len * len(timed) / sum(timed)
     print(f"backend {log['backend']}; done: {len(step_s)} steps, {tokens_per_s:.1f} "
@@ -263,19 +294,24 @@ def train_resnet(mesh, job: ResnetJob) -> dict:
 
 
 def resnet_rank(rdv, job: ResnetJob) -> dict:
-    """One spawned rank of a ResNet run: joins the ``data x stages`` world and
-    runs :func:`train_resnet`."""
+    """One spawned rank of a ResNet run: joins the ``data x stages`` world,
+    runs :func:`train_resnet`, and adds the world's FLOPs per step and
+    timed seconds (:func:`world_totals`) as ``world_flops`` and
+    ``world_dt``."""
     with init_mesh(rdv, job.data, job.stages, job.device) as mesh:
-        return train_resnet(mesh, job)
+        out = train_resnet(mesh, job)
+        out["world_flops"], (out["world_dt"],) = world_totals(mesh, out["flops"], [out["dt"]])
+        return out
 
 
 def run_resnet(args) -> dict:
     """``--workload resnet``: lay out the ranks, run them, print the losses,
     samples/s and TFLOP/s per card (ranks that share a card count as one
     card: :func:`~ddl25spring_tpu_torch.utils.mesh.cards_used`), MFU and
-    ``report_line``.  Returns ``{"ranks", "samples_per_s_per_chip", "cards",
-    "flops", "tflops", "mfu", "line"}``; FLOPs are summed over the ranks this
-    process ran (all of them, or under torchrun its own)."""
+    ``report_line``, from the reporting rank (:func:`report_resnet`).
+    Returns ``{"ranks", "samples_per_s_per_chip", "cards", "flops",
+    "tflops", "mfu", "line"}``, or under torchrun, on a rank that does not
+    report, ``{"ranks"}`` alone."""
     device = resolve_device(args.device)
     n = args.ranks or (torch.cuda.device_count() if device.type == "cuda" else 1)
     dp, S = (n // 2, 2) if args.pp and n >= 2 else (n, 1)
@@ -289,18 +325,27 @@ def run_resnet(args) -> dict:
           f"batch={batch}, {n_used} rank(s), input={args.input}, device={device.type}",
           flush=True)
     if n_used == 1:
-        ranks = [train_resnet(None, job)]
+        r = train_resnet(None, job)
+        ranks = [{**r, "world_flops": r["flops"], "world_dt": r["dt"]}]
     else:
         ranks = spawn(resnet_rank, n_used, job, timeout=args.timeout)
-    here = [r for r in ranks if r is not None]
-    log = next((r for r in here if r["coords"] == (0, S - 1)), here[0])
+    report = report_resnet(ranks, job, cards_used(n_used, device.type), device, args.log_every)
+    return {"ranks": ranks, **(report or {})}
+
+
+def report_resnet(ranks: list, job: ResnetJob, cards: int, device, log_every: int = 10):
+    """Print a ResNet run's losses, rates and ``report_line`` from the
+    reporting rank (:func:`reporting_rank`) with the world's FLOPs and
+    slowest seconds (``world_flops``, ``world_dt``); returns its numbers, or
+    None (printing nothing) where this process does not hold that rank."""
+    log = reporting_rank(ranks, job.stages)
+    if log is None:
+        return None
     for i, loss in enumerate(log["losses"]):
-        if args.log_every and i % args.log_every == 0:
+        if log_every and i % log_every == 0:
             print(f"iter {i:4d}  loss {loss:.4f}", flush=True)
-    dt = max(r["dt"] for r in here)
-    cards = cards_used(n_used, device.type)
-    sps_chip = job.iters * batch / dt / cards
-    flops = sum(r["flops"] for r in here)
+    dt, flops = log["world_dt"], log["world_flops"]
+    sps_chip = job.iters * job.batch / dt / cards
     tf, frac = mfu(flops, dt / job.iters, cards, device)
     print(f"{log['topology']}: {job.iters} timed steps in {dt:.3f} s (median step "
           f"{statistics.median(log['step_s']) * 1e3:.3f} ms), {sps_chip:.1f} samples/s per "
@@ -310,8 +355,8 @@ def run_resnet(args) -> dict:
                                                        else ""), flush=True)
     line = benchmarks.report_line(log["layout"], sps_chip, log["input"], frac, tf)
     print(line, flush=True)
-    return {"ranks": ranks, "samples_per_s_per_chip": sps_chip, "cards": cards, "flops": flops,
-            "tflops": tf, "mfu": frac, "line": line}
+    return {"samples_per_s_per_chip": sps_chip, "cards": cards, "flops": flops, "tflops": tf,
+            "mfu": frac, "line": line}
 
 
 if __name__ == "__main__":

@@ -17,10 +17,11 @@ five places where torch's defaults differ are matched on purpose:
   pads explicitly there.  The 1x1 stride-2 shortcut pads nothing.
 - GroupNorm's epsilon is 1e-6 (torch's default is 1e-5); groups
   ``min(32, filters // 4)``, with scale and bias.
-- BatchNorm (:class:`BatchNorm`): flax's ``momentum=0.9`` keeps 0.9 of the
-  running statistics per step (torch's ``momentum=0.1``), and its running
-  variance takes the *biased* batch variance, where torch's
-  ``BatchNorm2d`` takes the unbiased one; epsilon 1e-5.
+- BatchNorm (:class:`~ddl25spring_tpu_torch.models.layers.BatchNorm`):
+  flax's ``momentum=0.9`` keeps 0.9 of the running statistics per step
+  (torch's ``momentum=0.1``), and its running variance takes the *biased*
+  batch variance, where torch's ``BatchNorm2d`` takes the unbiased one;
+  epsilon 1e-5.
 - dtypes: parameters are float32; the convs and norms compute in
   ``dtype`` (the casts are explicit, as in :mod:`~ddl25spring_tpu_torch.
   models.llama`; ``torch.autocast`` would keep ``group_norm`` in float32),
@@ -34,30 +35,26 @@ Submodules carry flax's names (``Conv_0``, ``GroupNorm_0``,
 :func:`export_params` move a whole-model tree, or a per-stage tree of
 :func:`make_resnet_stages`, across with only the layout changes: conv
 kernels HWIO <-> OIHW, dense ``[in, out]`` <-> ``Linear.weight [out, in]``,
-norm ``scale`` <-> ``weight``, BatchNorm ``batch_stats`` <-> buffers.
-``param_tree()`` gives the parameters in flax's flatten order, so the DP
-step plans the same gradient buckets as the JAX package.
+norm ``scale`` <-> ``weight``, BatchNorm ``batch_stats`` <-> buffers
+(:mod:`~ddl25spring_tpu_torch.models.flax_bridge`).  ``param_tree()`` gives
+the parameters in flax's flatten order, so the DP step plans the same
+gradient buckets as the JAX package.
 """
 
 from __future__ import annotations
 
-import math
-
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-# flax's lecun_normal: truncated at 2 std, rescaled so the std is sqrt(1/fan_in)
-_TRUNC_STD = 0.87962566103423978
-
-
-def _lecun_normal(shape, fan_in: int, generator: torch.Generator) -> nn.Parameter:
-    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
-    w = torch.empty(shape, dtype=torch.float32)
-    nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
-    return nn.Parameter(w)
-
+from ddl25spring_tpu_torch.models import flax_bridge
+from ddl25spring_tpu_torch.models.layers import BatchNorm, dense, lecun_normal
+from ddl25spring_tpu_torch.models.flax_bridge import (  # noqa: F401 -- the model's bridge
+    export_batch_stats,
+    export_grads,
+    export_params,
+    load_flax_params,
+)
 
 def same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
     """flax/XLA ``padding="SAME"`` along one dimension: ``(before, after)``."""
@@ -72,7 +69,7 @@ class Conv(nn.Module):
     def __init__(self, cin: int, cout: int, k: int, stride: int, generator: torch.Generator):
         super().__init__()
         self.k, self.stride = k, stride
-        self.weight = _lecun_normal((cout, cin, k, k), cin * k * k, generator)
+        self.weight = lecun_normal((cout, cin, k, k), cin * k * k, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         (top, bottom), (left, right) = (same_pads(n, self.k, self.stride) for n in x.shape[-2:])
@@ -91,35 +88,6 @@ class GroupNorm(nn.GroupNorm):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.group_norm(x, self.num_groups, self.weight.to(x.dtype),
                             self.bias.to(x.dtype), self.eps)
-
-
-class BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm(momentum=0.9)`` over N, H and W: batch statistics in
-    training, running ones otherwise; the running variance is updated with
-    the biased batch variance.  Computes in float32, returns the input's
-    dtype."""
-
-    def __init__(self, channels: int, momentum: float = 0.9, eps: float = 1e-5):
-        super().__init__()
-        self.momentum, self.eps = momentum, eps
-        self.weight = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
-        self.register_buffer("running_mean", torch.zeros(channels))
-        self.register_buffer("running_var", torch.ones(channels))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        if self.training:
-            var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.mul_(m).add_((1 - m) * mean)
-                self.running_var.mul_(m).add_((1 - m) * var)
-        else:
-            mean, var = self.running_mean, self.running_var
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
-        return y.to(x.dtype)
 
 
 def _norm(kind: str, channels: int) -> nn.Module:
@@ -196,11 +164,7 @@ class ResNet18Stage(nn.Module):
                             ResNetBlock(cin, filters, stride, norm, generator))
             cin = filters
         if last:
-            self.Dense_0 = nn.Linear(cin, num_classes)
-            with torch.no_grad():
-                self.Dense_0.weight.copy_(
-                    _lecun_normal((cin, num_classes), cin, generator).T)
-                self.Dense_0.bias.zero_()
+            self.Dense_0 = dense(cin, num_classes, generator)
         self.to(device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -216,7 +180,7 @@ class ResNet18Stage(nn.Module):
         return y
 
     def param_tree(self) -> dict:
-        return _tree(self, _param_items(self))
+        return flax_bridge.tree((flax_bridge.flax_path(n), t) for n, t in self.named_parameters())
 
 
 def ResNet18(num_classes: int = 10, norm: str = "batch", width: int = 64,
@@ -295,78 +259,3 @@ def boundary_shapes(num_stages: int, num_classes: int = 10, width: int = 64,
         shapes.append((plan[cut - 1][0], n, n))
     return shapes + [(num_classes,)]
 
-
-# ------------------------------------------------------ the flax bridge
-
-_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
-         "mean": "running_mean", "var": "running_var"}
-
-
-def _param_items(module: nn.Module, buffers: bool = False):
-    """``(flax path, tensor)`` of every parameter (or BatchNorm buffer)."""
-    named = module.named_buffers() if buffers else module.named_parameters()
-    inverse = {v: k for k, v in _LEAF.items() if k not in ("scale",)}
-    out = []
-    for name, t in named:
-        *path, leaf = name.split(".")
-        if leaf == "weight" and not path[-1].startswith(("Conv", "Dense")):
-            leaf = "scale"
-        else:
-            leaf = inverse[leaf]
-        out.append(((*path, leaf), t))
-    return out
-
-
-def _tree(module: nn.Module, items) -> dict:
-    tree: dict = {}
-    for path, value in items:
-        node = tree
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = value
-    return tree
-
-
-def _to_flax(path, t: torch.Tensor) -> np.ndarray:
-    a = t.detach().float().cpu().numpy()
-    if path[-1] == "kernel":
-        a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T  # OIHW -> HWIO; [out,in] -> [in,out]
-    return np.array(a, order="C")  # a copy: a float32 CPU tensor's numpy() shares its memory
-
-
-def export_params(module: nn.Module) -> dict:
-    """The module's ``params`` tree in flax's names and layouts, numpy float32."""
-    return _tree(module, [(p, _to_flax(p, t)) for p, t in _param_items(module)])
-
-
-def export_grads(module: nn.Module) -> dict:
-    """The ``.grad`` of every parameter as :func:`export_params` lays them out."""
-    return _tree(module, [(p, _to_flax(p, t.grad)) for p, t in _param_items(module)])
-
-
-def export_batch_stats(module: nn.Module) -> dict:
-    """BatchNorm's running statistics as flax's ``batch_stats`` tree."""
-    return _tree(module, [(p, _to_flax(p, t)) for p, t in _param_items(module, buffers=True)])
-
-
-@torch.no_grad()
-def load_flax_params(module: nn.Module, params: dict, batch_stats: dict | None = None):
-    """Copy a flax ``params`` tree (and ``batch_stats``, for BatchNorm) into
-    ``module``, in place; every parameter must be in the tree, with its
-    shape.  Returns ``module``."""
-    for items, tree in ((_param_items(module), params),
-                        (_param_items(module, buffers=True), batch_stats)):
-        if tree is None:
-            continue
-        for path, t in items:
-            node = tree
-            for key in path:
-                node = node[key]
-            a = np.array(node, dtype=np.float32)
-            if path[-1] == "kernel":
-                a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
-            if tuple(a.shape) != tuple(t.shape):
-                raise ValueError(f"{'/'.join(path)}: flax shape {a.shape} does not "
-                                 f"fit {tuple(t.shape)}")
-            t.copy_(torch.from_numpy(a))
-    return module

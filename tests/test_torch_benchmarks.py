@@ -181,3 +181,63 @@ def test_lab_resnet_pipeline_on_four_ranks(capsys):
     # world's, the global batch over the slowest rank's time
     assert run["cards"] == 1
     assert rec["value"] == round(4 / max(r["dt"] for r in ranks), 1)
+
+
+# ------------------------------------------- the torchrun report (ROADMAP C1)
+
+
+def torchrun_report_rank(rdv, per_rank: list, job):
+    """One rank of a 2-rank gloo world that reports the way ``lab.dp_pp``
+    does under torchrun: its own stub result (no model), the world's FLOPs
+    and slowest seconds through ``world_totals``, then ``report_resnet`` on
+    a list that holds only its own entry (what ``spawn`` returns there).
+    Returns what it printed and returned."""
+    import contextlib
+    import io
+
+    from ddl25spring_tpu_torch.utils.mesh import init_mesh
+
+    with init_mesh(rdv, job.data, job.stages, "cpu") as mesh:
+        mine = {**per_rank[rdv.rank], "coords": mesh.coords}
+        mine["world_flops"], (mine["world_dt"],) = dp_pp.world_totals(mesh, mine["flops"],
+                                                                      [mine["dt"]])
+        ranks = [None] * rdv.world
+        ranks[rdv.rank] = mine
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            report = dp_pp.report_resnet(ranks, job, 1, torch.device("cpu"))
+        return {"printed": out.getvalue(), "report": report}
+
+
+@pytest.mark.parametrize("stages", [1, 2], ids=["dp", "pipeline"])
+def test_torchrun_report_is_the_worlds_from_one_rank(tmp_path, stages):
+    """Each rank holds only its own result, as under torchrun: the one rank
+    that reports (the last stage of pipeline 0) prints the world's summed
+    FLOPs against the slowest rank's seconds; the other prints nothing."""
+    from ddl25spring_tpu_torch.parallel.launch import spawn
+
+    job = dp_pp.ResnetJob(data=2 // stages, stages=stages, microbatches=stages, batch=8,
+                          iters=4)
+    stub = {"losses": [2.0, 1.5, 1.25], "step_s": [0.5] * 4, "topology": "stub",
+            "layout": "dp" if stages == 1 else "dppp", "input": "fixed-device-batch"}
+    per_rank = [{**stub, "flops": 3_000_000_000, "dt": 2.0},
+                {**stub, "flops": 1_000_000_000, "dt": 4.0}]
+    out = spawn(torchrun_report_rank, 2, per_rank, job, timeout=60, tmpdir=str(tmp_path))
+    reporter = stages - 1  # rank (0, stages - 1)
+    assert out[1 - reporter] == {"printed": "", "report": None}
+    mine = out[reporter]
+    assert mine["report"]["flops"] == 4_000_000_000  # the whole step, every rank's share
+    assert mine["report"]["samples_per_s_per_chip"] == 4 * 8 / 4.0  # the slowest rank
+    line = json.loads(mine["printed"].strip().splitlines()[-1])
+    assert line["value"] == 8.0 and line["input"] == "fixed-device-batch"
+    assert "0.0040 TFLOP per step" in mine["printed"]
+
+
+def test_llama_report_rank_is_the_last_stage_of_pipeline_0():
+    ranks = [{"coords": divmod(r, 3), "rank": r} for r in range(6)]
+    assert dp_pp.reporting_rank(ranks, 3)["rank"] == 2
+    # under torchrun each process holds only its own result
+    for r in range(6):
+        mine = [x if x is not None and x["rank"] == r else None for x in ranks]
+        got = dp_pp.reporting_rank(mine, 3)
+        assert (got is not None) == (r == 2)

@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card,
-and the ResNet-18 slice's card-only checks (the on-card dataset, fp32 against
-the CPU, bf16 channels_last against fp32).
+the ResNet-18 slice's card-only checks (the on-card dataset, fp32 against
+the CPU, bf16 channels_last against fp32), and federated learning's
+(``MnistCnn`` and one FedAvg round on the card against the CPU).
 
-Marked ``gpu``: each test skips unless an sm_90 (Hopper) device is present.
+Marked ``gpu``: each test skips unless an sm_90 (Hopper) device is present,
+but for the FL entry points' refusal of a missing GPU, which runs anywhere.
 This file imports torch only, so it runs on a machine without JAX:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -12,6 +14,7 @@ fp32 (1e-4, 0) and bf16 (2e-2, 1e-2), the plain version run on the same inputs
 (it computes in fp32 and rounds p and ds to bf16 where the kernels do).
 """
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -295,3 +298,94 @@ def test_resnet_bf16_channels_last_logits_near_fp32(dev, monkeypatch):
             out[dtype] = m(_nchw(x_u8, dtype))
     assert out[torch.bfloat16].dtype == torch.float32  # the head computes in float32
     _close(out[torch.bfloat16], out[torch.float32], torch.bfloat16)
+
+
+# ------------------------------------------------------- federated learning
+
+
+def _fl_leaf_close(got: dict, want: dict, rel: float):
+    for name, a in got.items():
+        b = want[name]
+        assert a.device.type == "cuda" and b.device.type == "cpu"
+        assert (a.cpu() - b).abs().max() <= rel * b.abs().max() + 1e-7, name
+
+
+def test_mnist_cnn_forward_and_backward_on_the_card(dev, monkeypatch):
+    """MnistCnn's logits and gradients on the card (cuDNN, TF32 off), with
+    the same dropout masks, against the CPU: within 1e-4 of max |ref|."""
+    from ddl25spring_tpu_torch.data.mnist import load_mnist
+    from ddl25spring_tpu_torch.models.mnist_cnn import MnistCnn
+    from ddl25spring_tpu_torch.ops.losses import nll_loss
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    d = load_mnist(n_train=64, n_test=8)
+    x, y = torch.from_numpy(d["x_train"][:32]), torch.from_numpy(d["y_train"][:32]).long()
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        m = MnistCnn(generator=torch.Generator().manual_seed(2)).to(device)
+        masks = tuple(t.to(device) for t in m.dropout_masks(32, torch.Generator().manual_seed(3)))
+        logits = m(x.to(device), masks)
+        nll_loss(logits, y.to(device)).backward()
+        out[device.type] = (logits.detach(), {n: p.grad for n, p in m.named_parameters()})
+    (lc, gc), (lh, gh) = out["cuda"], out["cpu"]
+    assert (lc.cpu() - lh).abs().max() <= 1e-4 * lh.abs().max()
+    _fl_leaf_close(gc, gh, 1e-3)
+
+
+def test_fedavg_round_on_the_card_matches_the_cpu(dev, monkeypatch):
+    """One FedAvg round (N=4, C=0.5, B=16, E=1, dropout on) on the card and on
+    the CPU from the same weights, both drawing from CPU generators: every
+    leaf within 1e-3 of its max |CPU| (a relu or max-pool tie at fp32
+    rounding may branch the other way on the other device)."""
+    from ddl25spring_tpu_torch.data.mnist import load_mnist
+    from ddl25spring_tpu_torch.fl import FedAvgServer
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    data = load_mnist(n_train=200, n_test=50)
+    servers = [FedAvgServer(nr_clients=4, client_fraction=0.5, batch_size=16, nr_local_epochs=1,
+                            lr=0.01, seed=10, data=data, device=device, generator_device="cpu")
+               for device in (dev, "cpu")]
+    for s in servers:
+        s.round(0)
+    _fl_leaf_close(servers[0].params, servers[1].params, 1e-3)
+
+
+def test_fl_entry_points_raise_without_a_gpu_unless_asked_for_the_cpu():
+    """Runs everywhere: without a GPU the FL entry points refuse the default
+    device and run when asked for the CPU."""
+    from ddl25spring_tpu_torch import bench
+    from ddl25spring_tpu_torch.data.mnist import load_mnist
+    from ddl25spring_tpu_torch.examples import homework1_a1_equivalence, vfl_and_generative_fl
+    from ddl25spring_tpu_torch.fl import (
+        FedAvgServer,
+        FedSgdGradientServer,
+        TabularVAE,
+        VFLNetwork,
+        train_evaluator,
+    )
+
+    data = load_mnist(n_train=40, n_test=10)
+    kw = dict(nr_clients=2, client_fraction=0.5, batch_size=-1, nr_local_epochs=1, lr=0.01,
+              data=data)
+    assert FedAvgServer(**kw, device="cpu").params["Conv_0.weight"].device.type == "cpu"
+    x, y = data["x_test"].reshape(10, -1)[:, :8], data["y_test"] % 2
+    entry_points = [
+        lambda **d: FedAvgServer(**kw, **d),
+        lambda **d: FedSgdGradientServer(**kw, **d),
+        lambda **d: VFLNetwork([np.arange(4), np.arange(4, 8)], **d),
+        lambda **d: TabularVAE(8, **d),
+        lambda **d: train_evaluator(x, y, x, y, epochs=1, **d),
+    ]
+    for make in entry_points:
+        make(device="cpu")
+    if torch.cuda.is_available():
+        return
+    for make in entry_points:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench.fedavg_secondary(n_rounds=1, n_train=40)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        homework1_a1_equivalence.main(["--n-train", "40", "--rounds", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        vfl_and_generative_fl.main(["--epochs", "1", "--vae-epochs", "1"])

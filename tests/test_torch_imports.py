@@ -35,5 +35,10 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "parallel.dp", "data.tinystories", "data.tokenizer", "utils.device",
                 "utils.mesh", "parallel.comm", "parallel.bucketing", "parallel.pipeline",
                 "parallel.launch", "lab.microbatches", "lab.dp_pp", "data.cifar10",
-                "models.resnet", "parallel.het_pipeline", "utils.flops", "benchmarks"):
+                "models.resnet", "parallel.het_pipeline", "utils.flops", "benchmarks",
+                "data.mnist", "data.splitter", "data.heart", "utils.metrics", "utils.prng",
+                "models.flax_bridge", "models.layers", "models.mnist_cnn",
+                "models.heart_mlp", "fl", "fl.horizontal", "fl.vertical", "fl.generative",
+                "bench", "examples.homework1_a1_equivalence",
+                "examples.vfl_and_generative_fl"):
         assert f"ddl25spring_tpu_torch.{mod}" in report["modules"]
