@@ -107,6 +107,40 @@ Phases, in order; any failure exits non-zero and prints no result:
        test accuracy and TSTR's real and synthetic accuracies within
        ``FL_ACC_BANDS``.
 
+10. the schedules on the card (``parallel/pipeline.py``: ``gpipe``,
+    ``1f1b``, ``1f1b-stash``, ``interleaved`` and ``interleaved-1f1b``, 2
+    chunks per rank when interleaved), grad accumulation and DP overlap,
+    each sub-phase timed:
+    (a) fp32, full width, flash kernels: one Adam step of every schedule in
+        a 1 x 3 world (batch 3, M 3) and in a 2 x 3 world (3 rows per
+        replica) against GPipe's on the same weights and tokens (loss rtol
+        1e-5, gradients and updated parameters atol 2e-4 + rtol 2e-3, as
+        phase 7 (a)); ``1f1b`` against ``1f1b-stash`` as a max abs
+        difference;
+    (b) bf16, 2 x 3, 3 one-row microbatches, 12 steps of each schedule: the
+        flash launches of every rank per step exactly (fwd twice the layers
+        on the rank times M under ``1f1b`` and ``interleaved-1f1b``, which
+        recompute the forward, once under the others; dq and dk/dv once),
+        every launch on ``wgmma``; the median step (the slowest rank's,
+        steps 4..11) and per stage the recv wait, send, DP all-reduce and
+        bytes staged;
+    (c) bf16, 1 x 3, M = 12 one-row microbatches: each rank's activation peak
+        in the second step (``max_memory_allocated`` during it less
+        ``memory_allocated`` before it) and the executor's largest stash under
+        ``gpipe``, ``1f1b``, ``1f1b-stash`` and ``interleaved-1f1b``; stage
+        0 holds 12 under ``gpipe`` and 3 under both 1F1Bs, and its peak
+        under ``1f1b-stash`` is below half of ``gpipe``'s;
+    (d) ``make_grad_accum_step`` over ResNet-18 (GroupNorm): fp32, 64 rows in
+        4 microbatches against one 64-row step (each gradient and update
+        leaf within 2e-2 of its max, as phase 8 (a)); bf16 at batch 1024 in
+        4 microbatches, its median step beside the batch-1024 step's;
+    (e) DP ``overlap=True`` against the sync per-tensor step, 2 gloo ranks
+        on the card, fp32, full-width LLaMA, 2 steps: within 1e-7, the
+        difference printed, and where each bucket was issued in the backward;
+    (f) the kernels' device time at the schedules' per-microbatch shape
+        ``[6, 256, 48]`` bf16 and the fp32 (scalar) kernels' at
+        ``[18, 256, 48]``, each beside SDPA's forward and backward.
+
 Tolerances (|kernel - plain| <= atol + rtol * |plain|):
   fp32: atol 1e-4, rtol 0 (summation order only);
   bf16: atol 2e-2, rtol 1e-2 against the plain version on the same bf16
@@ -1122,6 +1156,407 @@ def fl_phase(dev):
         print(f"  {name} took {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------- phase 10
+
+SCHED = ("gpipe", "1f1b", "1f1b-stash", "interleaved", "interleaved-1f1b")
+CHUNKS = 2                      # phase 10: chunks per rank under the interleaved schedules
+SCHED_STEPS = 12                # phase 10 (b): steps per schedule, the median over 4..11
+MEM_MICRO = 12                  # phase 10 (c): microbatches of one row each, 1 x 3
+ACCUM_MICRO = 4                 # phase 10 (d): ResNet batch 1024 in 4 microbatches
+ACCUM_ITERS = 10                # phase 10 (d): timed steps of each ResNet step
+
+
+def _chunks_of(schedule):
+    return CHUNKS if schedule.startswith("interleaved") else 1
+
+
+def schedules_rank(rdv, data, runs, device):
+    """One rank of a ``data x 3`` world that runs each of ``runs`` in turn
+    from the same weights (``Llama(7)``'s): a dict with ``schedule``,
+    ``dtype``, ``M``, ``rows`` (the global batch), ``steps`` and ``key``.
+    Per run: the losses (last stage), each step's host seconds and comm
+    counts, the flash launches by kernel and variant over the steps, the
+    executor's largest stash per step, each step's activation peak (the
+    most bytes allocated during the step less those allocated just before
+    it), and the stage's gradients and parameters after the first step."""
+    from ddl25spring_tpu_torch.models.llama import Llama, export_grads, export_params
+    from ddl25spring_tpu_torch.ops import flash_attention as fa
+    from ddl25spring_tpu_torch.parallel.pipeline import (
+        make_pipeline_train_step,
+        shard_staged_params,
+    )
+    from ddl25spring_tpu_torch.utils.config import LlamaConfig
+    from ddl25spring_tpu_torch.utils.mesh import init_mesh
+
+    out = {}
+    with init_mesh(rdv, data=data, stages=PP, device=device) as mesh:
+        params = export_params(Llama(LlamaConfig(), device="cpu",
+                                     generator=torch.Generator().manual_seed(7)))
+        for run in runs:
+            cfg = LlamaConfig(dtype=run["dtype"], use_flash=True)
+            V = _chunks_of(run["schedule"])
+            stage = shard_staged_params(params, cfg, mesh, V)
+            step = make_pipeline_train_step(stage, cfg,
+                                            torch.optim.Adam(stage.parameters(), lr=8e-4),
+                                            mesh, run["M"], run["schedule"], V)
+            batches = _token_batches(cfg, run["rows"], run["steps"], seed=17)
+            r = {"losses": [], "step_s": [], "comm": [], "stash": [], "peak": []}
+            fa.reset_launches()
+            mesh.comm.take_stats()
+            cuda = mesh.device.type == "cuda"
+            for i, b in enumerate(batches):
+                tokens = torch.from_numpy(b).long()
+                if cuda:
+                    torch.cuda.synchronize(mesh.device)
+                    before = torch.cuda.memory_allocated(mesh.device)
+                    torch.cuda.reset_peak_memory_stats(mesh.device)
+                t0 = time.perf_counter()
+                loss = step(tokens)
+                if cuda:
+                    torch.cuda.synchronize(mesh.device)
+                r["step_s"].append(time.perf_counter() - t0)
+                r["peak"].append(torch.cuda.max_memory_allocated(mesh.device) - before
+                                 if cuda else 0)
+                r["comm"].append(mesh.comm.take_stats())
+                r["stash"].append(step.stats["stash_max"])
+                if loss is not None:
+                    r["losses"].append(float(loss))
+                if i == 0:
+                    r["grads"], r["updated"] = export_grads(stage), export_params(stage)
+            r["launches"] = dict(fa.LAUNCHES)
+            r["by_variant"] = {n: dict(c) for n, c in fa.LAUNCHES_BY_VARIANT.items()}
+            out[run["key"]] = r
+            del step, stage
+        out["coords"] = mesh.coords
+        out["backend"], out["device"] = mesh.backend, str(mesh.device)
+    return out
+
+
+def _schedule_runs(key, dtype, M, rows, steps, schedules=SCHED):
+    return [{"key": (key, s), "schedule": s, "dtype": dtype, "M": M, "rows": rows,
+             "steps": steps} for s in schedules]
+
+
+def _pipeline0(ranks):
+    return sorted((r for r in ranks if r["coords"][0] == 0), key=lambda r: r["coords"][1])
+
+
+def schedules_exactness(tag, ranks):
+    """Phase 10 (a): each schedule's first fp32 step against GPipe's on the
+    same weights and tokens: loss rtol 1e-5, every gradient leaf and every
+    updated leaf within phase 7 (a)'s band (atol 2e-4 + rtol 2e-3); 1f1b
+    against 1f1b-stash as a max abs difference."""
+    from ddl25spring_tpu_torch.models.llama import merge_stage_exports
+    from ddl25spring_tpu_torch.parallel.bucketing import flatten
+
+    pipe = _pipeline0(ranks)
+
+    def merged(s, key):
+        return flatten(merge_stage_exports([r[("a", s)][key] for r in pipe], _chunks_of(s)))
+
+    want_loss = pipe[-1][("a", "gpipe")]["losses"][0]
+    for s in SCHED[1:]:
+        loss = pipe[-1][("a", s)]["losses"][0]
+        check(excess(loss, want_loss, (0.0, 1e-5)) <= 0,
+              f"(a) {tag} fp32 {s} loss {loss} vs gpipe {want_loss}")
+        err = {}
+        for key in ("grads", "updated"):
+            err[key] = 0.0
+            for (path, a), (_, b) in zip(merged(s, key), merged("gpipe", key)):
+                e = excess(a, b, (2e-4, 2e-3))
+                check(e <= 0, f"(a) {tag} fp32 {s} {key} {path} off gpipe's by {e:.3g} past "
+                              "tolerance")
+                err[key] = max(err[key], max_err(torch.from_numpy(a), torch.from_numpy(b)))
+        print(f"  (a) {tag} fp32 {s}: loss {loss:.7f} vs gpipe {want_loss:.7f}; gradients "
+              f"max abs err {err['grads']:.2e}, updated parameters {err['updated']:.2e}")
+    diff = abs(pipe[-1][("a", "1f1b")]["losses"][0] - pipe[-1][("a", "1f1b-stash")]["losses"][0])
+    for key in ("grads", "updated"):
+        for (path, a), (_, b) in zip(merged("1f1b", key), merged("1f1b-stash", key)):
+            diff = max(diff, float(abs(a - b).max()))
+    print(f"  (a) {tag} 1f1b vs 1f1b-stash: max abs difference {diff:.3g} over the loss, "
+          "every gradient and every updated parameter "
+          f"({'bitwise equal' if diff == 0 else 'the recompute differs in the last bits'})")
+    for r in ranks:
+        check(r["device"].startswith("cuda"), f"rank {r['coords']} ran on {r['device']}")
+
+
+def schedules_launches_and_times(ranks):
+    """Phase 10 (b): bf16, 2 x 3, 3 one-row microbatches: the flash launches
+    of every rank per step, exactly (twice the forward under the remat
+    schedules), all on wgmma; the median step and its split."""
+    layers = 6 // PP
+    out = {}
+    for s in SCHED:
+        per = {"fwd": (2 if s in ("1f1b", "interleaved-1f1b") else 1) * layers * MICRO,
+               "dq": layers * MICRO, "dkv": layers * MICRO}
+        for r in ranks:
+            got = r[("b", s)]
+            want = {n: c * SCHED_STEPS for n, c in per.items()}
+            check(got["launches"] == want, f"(b) {s} rank {r['coords']} launches "
+                                           f"{got['launches']} != {want}")
+            for n in want:
+                check(got["by_variant"][n]["wgmma"] == want[n],
+                      f"(b) {s} rank {r['coords']} {n} by variant {got['by_variant'][n]}")
+        log = next(r for r in ranks if r["coords"] == (0, PP - 1))[("b", s)]
+        check(len(log["losses"]) == SCHED_STEPS
+              and all(math.isfinite(x) for x in log["losses"]), f"(b) {s} losses {log['losses']}")
+        steady = [max(r[("b", s)]["step_s"][i] for r in ranks)
+                  for i in range(4, SCHED_STEPS)]  # the slowest rank's
+        split = {}
+        for k in ("recv_wait_s", "send_s", "allreduce_s", "bytes_staged"):
+            split[k] = [statistics.median(c[k] for r in ranks if r["coords"][1] == st
+                                          for c in r[("b", s)]["comm"][4:]) for st in range(PP)]
+        out[s] = {"step_ms": statistics.median(steady) * 1e3, "launches": per, **split}
+        print(f"  (b) {s}: median step {out[s]['step_ms']:.3f} ms (slowest rank, steps "
+              f"4..{SCHED_STEPS - 1}, host clock; min {min(steady) * 1e3:.3f}, max "
+              f"{max(steady) * 1e3:.3f}); per rank per step fwd {per['fwd']}, dq {per['dq']}, "
+              f"dkv {per['dkv']}, all wgmma; loss {log['losses'][0]:.4f} -> "
+              f"{log['losses'][-1]:.4f}")
+        print(f"      per stage (medians): recv wait "
+              f"{[round(x * 1e3, 3) for x in split['recv_wait_s']]} ms, send "
+              f"{[round(x * 1e3, 3) for x in split['send_s']]} ms, DP all-reduce "
+              f"{[round(x * 1e3, 3) for x in split['allreduce_s']]} ms, staged "
+              f"{[int(x) for x in split['bytes_staged']]} B")
+    return out
+
+
+def schedules_memory(ranks):
+    """Phase 10 (c): bf16, 1 x 3, 12 one-row microbatches: each rank's
+    activation peak in the second step and the executor's largest stash;
+    stage 0 holds M under gpipe and min(M, S) under both 1F1Bs, and its peak
+    under 1f1b-stash is below half of gpipe's."""
+    pipe = _pipeline0(ranks)
+    mem = ("gpipe", "1f1b", "1f1b-stash", "interleaved-1f1b")
+    for s in mem:
+        peaks = [r[("c", s)]["peak"][-1] / 2**20 for r in pipe]
+        stash = [r[("c", s)]["stash"][-1] for r in pipe]
+        print(f"  (c) {s}: activation peak per stage {[round(x, 2) for x in peaks]} MiB; "
+              f"largest stash {stash} (microbatch-chunks in flight)")
+    s0 = {s: pipe[0][("c", s)] for s in mem}
+    check(s0["gpipe"]["stash"][-1] == MEM_MICRO, f"(c) gpipe stage 0 stash {s0['gpipe']['stash']}")
+    for s in ("1f1b", "1f1b-stash"):
+        check(s0[s]["stash"][-1] == min(MEM_MICRO, PP), f"(c) {s} stage 0 stash {s0[s]['stash']}")
+    ratio = s0["1f1b-stash"]["peak"][-1] / s0["gpipe"]["peak"][-1]
+    check(ratio < 0.5, f"(c) stage 0's 1f1b-stash peak is {ratio:.3f} of gpipe's, not below 0.5")
+    print(f"  (c) stage 0: 1f1b-stash peak / gpipe peak = {ratio:.4f}; 1f1b / gpipe = "
+          f"{s0['1f1b']['peak'][-1] / s0['gpipe']['peak'][-1]:.4f}")
+
+
+def schedules_worlds(dev):
+    """Phase 10 (a)-(c): one 1 x 3 world and one 2 x 3 world, each running
+    every schedule's runs in turn."""
+    from ddl25spring_tpu_torch.parallel.launch import spawn
+
+    t0 = time.perf_counter()
+    one = spawn(schedules_rank, PP, 1,
+                _schedule_runs("a", "float32", MICRO, MICRO, 1)
+                + _schedule_runs("c", "bfloat16", MEM_MICRO, MEM_MICRO, 2,
+                                 ("gpipe", "1f1b", "1f1b-stash", "interleaved-1f1b")),
+                dev.type, timeout=SPAWN_TIMEOUT)
+    print(f"  1 x 3 world: backend {one[0]['backend']}, {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    two = spawn(schedules_rank, DP * PP, DP,
+                _schedule_runs("a", "float32", MICRO, DP * ROWS, 1)
+                + _schedule_runs("b", "bfloat16", MICRO, DP * ROWS, SCHED_STEPS),
+                dev.type, timeout=SPAWN_TIMEOUT)
+    print(f"  2 x 3 world: backend {two[0]['backend']}, {time.perf_counter() - t0:.1f} s")
+    schedules_exactness("1 x 3", one)
+    schedules_exactness("2 x 3", two)
+    timing = schedules_launches_and_times(two)
+    schedules_memory(one)
+    return timing
+
+
+def grad_accum_resnet(dev):
+    """Phase 10 (d): ``make_grad_accum_step`` over ResNet-18 (GroupNorm), the
+    single-process microbatch accumulation of BASELINE's first config.  fp32
+    on 64 rows in 4 microbatches against one full-batch step from the same
+    weights: each gradient leaf and each leaf's update within phase 8 (a)'s
+    2e-2 of its own max; then bf16 at batch 1024 in 4 microbatches, its
+    median step beside the batch-1024 step's, both timed here."""
+    from ddl25spring_tpu_torch.benchmarks import DeviceDataset, _nchw, build_resnet_step, timed_run
+    from ddl25spring_tpu_torch.models.resnet import ResNet18, export_grads, export_params
+    from ddl25spring_tpu_torch.ops.losses import cross_entropy_logits
+    from ddl25spring_tpu_torch.parallel.bucketing import flatten
+    from ddl25spring_tpu_torch.parallel.dp import make_train_step
+    from ddl25spring_tpu_torch.parallel.pipeline import make_grad_accum_step
+    from ddl25spring_tpu_torch.utils.device import backend_flags
+    from ddl25spring_tpu_torch.utils.prng import seeded_generator
+
+    gens = [seeded_generator(0, 0, m) for m in range(ACCUM_MICRO)]
+
+    def model(dtype):
+        return ResNet18(norm="group", dtype=dtype, generator=torch.Generator().manual_seed(13)
+                        ).to(dev, memory_format=torch.channels_last)
+
+    def loss_fn(dtype):
+        return lambda m, raw, *gen: cross_entropy_logits(m(_nchw(raw[0], dtype)), raw[1])
+
+    x_u8, y = (t.to(dev) for t in _cifar_rows(64))
+    with backend_flags(**FP32_EXACT):
+        out = []
+        for accum in (True, False):
+            m = model(torch.float32)
+            before = export_params(m)
+            opt = torch.optim.SGD(m.parameters(), lr=0.1, momentum=0.9)
+            if accum:
+                loss = make_grad_accum_step(m, loss_fn(torch.float32), opt, ACCUM_MICRO)(
+                    (x_u8, y), gens)
+            else:
+                loss = make_train_step(m, loss_fn(torch.float32), opt)((x_u8, y))
+            after = flatten(export_params(m))
+            out.append((float(loss), flatten(export_grads(m)),
+                        [(p, w - w0) for (p, w), (_, w0) in zip(after, flatten(before))]))
+    (la, ga, ua), (lf, gf, uf) = out
+    check(excess(la, lf, (0.0, 1e-5)) <= 0, f"(d) accumulated loss {la} vs full batch {lf}")
+    worst = 0.0
+    for (path, a), (_, b) in zip(ga + ua, gf + uf):
+        worst = max(worst, _within(f"(d) grad-accum {path}", a, b, 2e-2)
+                    / max(float(abs(b).max()), 1e-30))
+    print(f"  (d) fp32, 64 rows in {ACCUM_MICRO} microbatches vs one 64-row step: loss "
+          f"{la:.6f} vs {lf:.6f}; worst gradient or update leaf {worst:.2e} of its max")
+
+    from ddl25spring_tpu_torch.lab.dp_pp import RUN_FLAGS
+
+    times = {}
+    with backend_flags(**RUN_FLAGS):
+        ds = DeviceDataset(1024, n_train=1024, device=dev)
+        m = model(torch.bfloat16)
+        opt = torch.optim.SGD(m.parameters(), lr=float(RESNET_LR), momentum=0.9)
+        accum = make_grad_accum_step(m, loss_fn(torch.bfloat16), opt, ACCUM_MICRO)
+        step, _, _, _ = build_resnet_step(None, 1, 1024, lr=float(RESNET_LR), device=dev)
+        for name, fn in (("accumulated (4 x 256)", lambda raw: accum(raw, gens)),
+                         ("batch 1024", step)):
+            _, losses, step_s = timed_run(fn, lambda: ds.fixed, ACCUM_ITERS, 3, device=dev)
+            check(all(math.isfinite(float(x)) for x in losses), f"(d) {name} losses {losses}")
+            times[name] = statistics.median(step_s) * 1e3
+            print(f"  (d) bf16 ResNet-18 {name}: median step {times[name]:.3f} ms over "
+                  f"{ACCUM_ITERS} timed steps (CUDA events between steps)")
+    return times
+
+
+def dp_overlap_rank(rdv, cfg, batches, device):
+    """One rank of phase 10 (e): 2 Adam steps of the sync per-tensor DP step
+    and of the overlapped one, from ``Llama(9)``'s weights."""
+    from ddl25spring_tpu_torch.models.llama import Llama, export_params
+    from ddl25spring_tpu_torch.ops.losses import causal_lm_loss
+    from ddl25spring_tpu_torch.parallel.dp import make_dp_train_step
+    from ddl25spring_tpu_torch.utils.mesh import init_mesh
+
+    out = {}
+    with init_mesh(rdv, data=2, stages=1, device=device) as mesh:
+        for name, kw in (("sync", {"bucket_bytes": None}), ("overlap", {"overlap": True})):
+            model = Llama(cfg, device=mesh.device, generator=torch.Generator().manual_seed(9))
+            step = make_dp_train_step(model, lambda m, t: causal_lm_loss(m(t), t),
+                                      torch.optim.Adam(model.parameters(), lr=8e-4), mesh, **kw)
+            mesh.comm.take_stats()
+            losses = [float(step(torch.from_numpy(b).long())) for b in batches]
+            out[name] = {"losses": losses, "params": export_params(model),
+                         "log": list(step.log), **mesh.comm.take_stats()}
+        out["backend"], out["device"] = mesh.backend, str(mesh.device)
+    return out
+
+
+def dp_overlap(dev):
+    """Phase 10 (e): DP ``overlap=True`` against the sync per-tensor step, 2
+    gloo ranks on the card, fp32, full-width LLaMA, after 2 steps."""
+    from ddl25spring_tpu_torch.parallel.bucketing import flatten
+    from ddl25spring_tpu_torch.parallel.launch import spawn
+    from ddl25spring_tpu_torch.utils.config import LlamaConfig
+
+    cfg = LlamaConfig(dtype="float32", use_flash=True)
+    ranks = spawn(dp_overlap_rank, 2, cfg, _token_batches(cfg, 2 * ROWS, 2, seed=19),
+                  dev.type, timeout=SPAWN_TIMEOUT)
+    diff = 0.0
+    for r in ranks:
+        check(r["device"].startswith("cuda"), f"(e) rank on {r['device']}")
+        check(r["overlap"]["losses"] == r["sync"]["losses"] or
+              excess(r["overlap"]["losses"], r["sync"]["losses"], (1e-7, 0.0)) <= 0,
+              f"(e) losses {r['overlap']['losses']} vs sync {r['sync']['losses']}")
+        for (path, a), (_, b) in zip(flatten(r["overlap"]["params"]),
+                                     flatten(r["sync"]["params"])):
+            d = float(abs(a - b).max())
+            check(d <= 1e-7, f"(e) overlap {path} off the sync step by {d:.3g}")
+            diff = max(diff, d)
+    log = ranks[0]["overlap"]["log"]
+    grads = [i for kind, i in log if kind == "grad"]
+    where = [(b, sum(1 for e in log[:log.index(("issue", b))] if e[0] == "grad"))
+             for kind, b in log if kind == "issue"]
+    print(f"  (e) backend {ranks[0]['backend']}: overlap vs sync per-tensor after 2 steps, max "
+          f"abs difference {diff:.3g} ({'bitwise' if diff == 0 else 'within 1e-7'}); losses "
+          f"{ranks[0]['overlap']['losses']}")
+    print(f"  (e) buckets issued (bucket, leaf gradients complete before it, of {len(grads)}): "
+          f"{where}; all-reduce {ranks[0]['overlap']['allreduce_s'] * 1e3:.3f} ms over 2 "
+          f"steps (sync {ranks[0]['sync']['allreduce_s'] * 1e3:.3f} ms)")
+
+
+def kernel_times_at_slice_shapes(rdv):
+    """Phase 10 (f), in a process of its own: device time per call of the
+    three kernels at the per-microbatch shape of the schedules,
+    ``[6, 256, 48]`` bf16 causal, and of the fp32 (scalar) kernels at phase
+    4's ``[18, 256, 48]``, each beside SDPA's forward and backward on the
+    same inputs.  A fresh process, because a process that has already held
+    several profiler sessions (phases 4, 6, 8 (c), 9 (d)) was seen to
+    record 35 of 50 launches in every retry.  Returns the times and the
+    lines to print."""
+    from ddl25spring_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    lines = []
+    gen = torch.Generator().manual_seed(5)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for BH, dtype in ((6, torch.bfloat16), (18, torch.float32)):
+        L, hd, H = 256, 48, 6
+        q, k, v, do = (randn(gen, BH, L, hd, dtype=dtype, dev=dev) for _ in range(4))
+        o, lse = fa.flash_fwd(q, k, v, True)
+        delta = (do.float() * o.float()).sum(-1)
+        q4, k4, v4, do4 = (x.view(BH // H, H, L, hd) for x in (q, k, v, do))
+        qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q4, k4, v4))
+        o4 = sdpa(qg, kg, vg, is_causal=True)
+        row = {n: device_ms(fn) for n, fn in (
+            ("fwd", lambda: fa.flash_fwd(q, k, v, True)),
+            ("dq", lambda: fa.flash_dq(q, k, v, lse, do, delta, True)),
+            ("dkv", lambda: fa.flash_dkv(q, k, v, lse, do, delta, True)),
+            ("sdpa fwd", lambda: sdpa(q4, k4, v4, is_causal=True)),
+            ("sdpa bwd", lambda: torch.autograd.grad(o4, (qg, kg, vg), do4,
+                                                     retain_graph=True)))}
+        variants = {n: fa._variant(n, (q, k, v)) for n in ("fwd", "dq", "dkv")}
+        act, rows = BH * L * hd * q.element_size(), BH * L * 4
+        pairs = BH * L * (L + 1) // 2
+        bounds = {n: bound(nbytes, ops, dtype) for n, (nbytes, ops) in {
+            "fwd": (4 * act + rows, 4 * hd * pairs), "dq": (5 * act + 2 * rows, 6 * hd * pairs),
+            "dkv": (6 * act + 2 * rows, 8 * hd * pairs)}.items()}
+        out[str((BH, dtype))] = row
+        lines.append(f"  (f) [{BH}, {L}, {hd}] {str(dtype)[6:]} causal, device ms per call: "
+                     + ", ".join(f"{n} {t:.5f}"
+                                 + (f" ({variants[n]}; bound {bounds[n][0]:.6f} by "
+                                    f"{bounds[n][1]})" if n in variants else "")
+                                 for n, t in row.items()))
+    return out, lines
+
+
+def slice_kernel_times(dev):
+    """Phase 10 (f): :func:`kernel_times_at_slice_shapes` in a new process."""
+    from ddl25spring_tpu_torch.parallel.launch import spawn
+
+    (out, lines), = spawn(kernel_times_at_slice_shapes, 1, timeout=SPAWN_TIMEOUT)
+    for line in lines:
+        print(line)
+    return out
+
+
+def schedules_phase(dev):
+    """Phase 10, each sub-phase timed."""
+    for name, fn in (("(a)-(c)", schedules_worlds), ("(d)", grad_accum_resnet),
+                     ("(e)", dp_overlap), ("(f)", slice_kernel_times)):
+        t0 = time.perf_counter()
+        fn(dev)
+        print(f"  {name} took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1239,6 +1674,12 @@ def main() -> int:
     t0 = time.perf_counter()
     fl_phase(dev)
     print(f"  phase 9 in {time.perf_counter() - t0:.1f} s")
+
+    print(f"== schedules on the card: {', '.join(SCHED)} ({CHUNKS} chunks per rank when "
+          "interleaved); grad accumulation; DP overlap")
+    t0 = time.perf_counter()
+    schedules_phase(dev)
+    print(f"  phase 10 in {time.perf_counter() - t0:.1f} s")
 
     kernels = [
         {"name": f"flash_{name}", "route": "cuda", "source": SOURCE[timing[name]["variant"]],

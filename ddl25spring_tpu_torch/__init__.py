@@ -10,9 +10,13 @@ What is ported so far is the single-card LLaMA training path
 causal-LM loss -> backward -> Adam, with attention through the hand-written
 sm_90a flash-attention kernels in ``ops/csrc/``; and its distributed forms,
 one process per rank on ``torch.distributed``: data parallelism
-(:mod:`~ddl25spring_tpu_torch.parallel.dp`), the GPipe pipeline and the
-2 x 3 DP x PP step (:mod:`~ddl25spring_tpu_torch.parallel.pipeline`,
-:mod:`~ddl25spring_tpu_torch.lab.dp_pp`); and the ResNet-18/CIFAR-10
+(:mod:`~ddl25spring_tpu_torch.parallel.dp`, its all-reduce optionally issued
+from the backward), the pipeline and the 2 x 3 DP x PP step under the five
+schedules of the JAX package
+(:mod:`~ddl25spring_tpu_torch.parallel.schedule`,
+:mod:`~ddl25spring_tpu_torch.parallel.pipeline`,
+:mod:`~ddl25spring_tpu_torch.lab.dp_pp`), microbatch gradient
+accumulation; and the ResNet-18/CIFAR-10
 benchmark step (:mod:`~ddl25spring_tpu_torch.benchmarks`,
 :mod:`~ddl25spring_tpu_torch.models.resnet`,
 :mod:`~ddl25spring_tpu_torch.parallel.het_pipeline`), pure DP or the

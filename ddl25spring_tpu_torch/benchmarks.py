@@ -19,8 +19,8 @@ returns the loss, or None on a pipeline rank that is not the last stage.
 
 Not ported yet (ROADMAP): the K-steps-per-dispatch
 ``build_resnet_scan_step``, the native streaming ``InputFeed``, the
-compute counterfactual, and the JAX builders' ``instrument``, ``sentinel``
-and ``overlap`` options.
+compute counterfactual, and the JAX builders' ``instrument`` and
+``sentinel`` options.
 """
 
 from __future__ import annotations
@@ -53,7 +53,7 @@ def _nchw(x_u8: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 def build_resnet_step(mesh=None, num_microbatches: int = 1, batch: int = 1024,
                       lr: float = 0.1, dtype: torch.dtype | None = None, *,
-                      device=None, seed: int = 0):
+                      device=None, seed: int = 0, overlap: bool = False):
     """The north-star train step of this rank of ``mesh``
     (:func:`~ddl25spring_tpu_torch.utils.mesh.init_mesh`; ``data x stages``
     ranks), or of this process alone on ``device`` when ``mesh`` is None (one
@@ -70,6 +70,13 @@ def build_resnet_step(mesh=None, num_microbatches: int = 1, batch: int = 1024,
     float32, and on CUDA in ``channels_last`` memory.  Weights come from
     ``seed`` (stage ``s`` from ``seed + s``).
 
+    ``overlap`` (pure DP only; ``stages > 1`` raises ``ValueError``, as in
+    the JAX function): each gradient bucket's all-reduce is issued from the
+    backward as it completes (:func:`~ddl25spring_tpu_torch.parallel.dp.
+    make_dp_train_step`'s ``overlap``), and the layout is named
+    ``"dp-overlap"``.  With one process and no mesh there is nothing to
+    reduce, and only the name changes.
+
     Returns ``(step, module, optimizer, meta)``: ``step((x_u8, y))`` updates
     ``module`` (this rank's model or stage) and ``optimizer`` in place and
     returns the loss (None off the last stage); ``meta`` carries the layout,
@@ -81,6 +88,9 @@ def build_resnet_step(mesh=None, num_microbatches: int = 1, batch: int = 1024,
     D, S = (mesh.grid.data, mesh.grid.stages) if mesh is not None else (1, 1)
     if S not in (1, 2, 3, 4):
         raise ValueError(f"resnet pipeline supports S in (1, 2, 3, 4), got {S}")
+    if overlap and S != 1:
+        raise ValueError("overlap applies to the pure-DP layout (S == 1); the DPxPP het "
+                         "pipeline owns its own gradient reduction")
     dev = mesh.device if mesh is not None else resolve_device(device)
     M = num_microbatches if S >= 2 else 1
     if batch % (D * M):
@@ -117,8 +127,8 @@ def build_resnet_step(mesh=None, num_microbatches: int = 1, batch: int = 1024,
             def step(raw):
                 return inner((raw[0].to(dev), raw[1].to(dev)))
         else:
-            step = make_dp_train_step(module, loss_fn, opt, mesh)
-        layout, topo = "dp", f"mesh(data={D})"
+            step = make_dp_train_step(module, loss_fn, opt, mesh, overlap=overlap)
+        layout, topo = "dp-overlap" if overlap else "dp", f"mesh(data={D})"
 
     meta = {
         "n_chips": cards_used(D * S, dev.type),

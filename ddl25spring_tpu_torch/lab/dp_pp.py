@@ -7,9 +7,14 @@ pipelines of three stages, ranks ``0..2`` and ``3..5``, the DP group of each
 stage ``[0, 3] / [1, 4] / [2, 5]``; the workload constants
 (vocab 4096, dmodel 288, 6 heads, 6 layers, ctx 256), 3 rows per replica in
 3 microbatches, Adam 8e-4 (``utils/config.py`` ``DpPpConfig``).  Each rank holds one
-:class:`~ddl25spring_tpu_torch.models.llama.LlamaStage` and runs the GPipe
-step of :mod:`~ddl25spring_tpu_torch.parallel.pipeline`.  Every rank reads
-the same global TinyStories stream and takes its own rows of it.
+:class:`~ddl25spring_tpu_torch.models.llama.LlamaStage` (``--chunks V``
+of them under an interleaved schedule) and runs the step of
+:mod:`~ddl25spring_tpu_torch.parallel.pipeline` under ``--schedule``
+(``gpipe``, ``1f1b``, ``1f1b-stash``, ``interleaved``,
+``interleaved-1f1b``; ``--chunks`` defaults to 2 and only the interleaved
+schedules read it).  ``--scan-steps K > 1`` (the JAX ``fuse_train_steps``)
+is not ported and raises.  Every rank reads the same global TinyStories
+stream and takes its own rows of it.
 
 On CUDA the ranks compute in bf16 over float32 parameters, attention through
 the flash-attention kernels (``--no-flash``: dense); the backend follows the
@@ -45,7 +50,8 @@ cards, or the CPU, between N processes: the port's form of
 ``torch.backends.cudnn.benchmark`` and turns TF32 off (:data:`RUN_FLAGS`),
 and puts both back after.
 
-Run: ``python -m ddl25spring_tpu_torch.lab.dp_pp [--iters 20] [--device cuda]``
+Run: ``python -m ddl25spring_tpu_torch.lab.dp_pp [--iters 20] [--device cuda]
+[--schedule interleaved-1f1b --chunks 2]``
      ``python -m ddl25spring_tpu_torch.lab.dp_pp --workload resnet [--pp --ranks 4]``
 """
 
@@ -67,8 +73,9 @@ from ddl25spring_tpu_torch.models.llama import Llama, export_grads, export_param
 from ddl25spring_tpu_torch.ops import flash_attention as fa
 from ddl25spring_tpu_torch.parallel.launch import spawn
 from ddl25spring_tpu_torch.parallel.pipeline import (
+    INTERLEAVED,
     SCHEDULES,
-    check_schedule,
+    check_layout,
     make_pipeline_train_step,
     shard_staged_params,
 )
@@ -95,6 +102,8 @@ class Job:
     batches: list | None = None  # global [batch, ctx] token batches; None: TinyStories
     export: bool = False        # return the first step's gradients and the last params
     log: bool = True
+    schedule: str = "gpipe"
+    chunks: int = 1             # layer chunks per rank (the interleaved schedules)
 
 
 def world_totals(mesh, flops: int, seconds: list[float]) -> tuple[int, list[float]]:
@@ -130,9 +139,10 @@ def run_rank(rdv, job: Job) -> dict:
         if params is None:
             params = export_params(Llama(cfg, device="cpu",
                                          generator=torch.Generator().manual_seed(job.seed)))
-        stage = shard_staged_params(params, cfg, mesh)
+        stage = shard_staged_params(params, cfg, mesh, job.chunks)
         opt = torch.optim.Adam(stage.parameters(), lr=job.lr)
-        step = make_pipeline_train_step(stage, cfg, opt, mesh, job.microbatches)
+        step = make_pipeline_train_step(stage, cfg, opt, mesh, job.microbatches,
+                                        job.schedule, job.chunks)
         if job.batches is not None:
             batches = iter(job.batches)
         else:
@@ -140,7 +150,8 @@ def run_rank(rdv, job: Job) -> dict:
                                        seq_l=cfg.ctx_size, seed=job.seed))
         d, s = mesh.coords
         out = {"rank": mesh.rank, "coords": (d, s), "device": str(mesh.device),
-               "backend": mesh.backend, "losses": [], "step_s": [], "comm": []}
+               "backend": mesh.backend, "losses": [], "step_s": [], "comm": [],
+               "stash_max": []}
         fa.reset_launches()
         mesh.comm.take_stats()
         for it in range(job.iters):
@@ -151,6 +162,7 @@ def run_rank(rdv, job: Job) -> dict:
                 torch.cuda.synchronize(mesh.device)
             out["step_s"].append(time.perf_counter() - t0)
             out["comm"].append(mesh.comm.take_stats())
+            out["stash_max"].append(step.stats["stash_max"])
             if loss is not None:
                 out["losses"].append(float(loss))
                 if job.log and d == 0:
@@ -172,7 +184,13 @@ def parse_args(argv=None):
     ap.add_argument("--workload", choices=("llama", "resnet"), default="llama")
     ap.add_argument("--iters", type=int, default=0,
                     help="0 = the workload's default (llama 20, resnet 30)")
-    ap.add_argument("--schedule", choices=SCHEDULES, default="gpipe")
+    ap.add_argument("--schedule", choices=SCHEDULES, default="gpipe",
+                    help="llama: the pipeline schedule")
+    ap.add_argument("--chunks", type=int, default=2, metavar="V",
+                    help="llama, interleaved schedules: layer chunks per rank (needs "
+                         "microbatches %% stages == 0 and n_layers %% (stages*V) == 0)")
+    ap.add_argument("--scan-steps", type=int, default=1, metavar="K",
+                    help="llama: train steps per dispatch; only 1 is ported")
     ap.add_argument("--seq-len", type=int, default=256)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
@@ -206,18 +224,28 @@ def main(argv=None, layout: DpPpConfig = DpPpConfig()) -> dict:
     args = parse_args(argv)
     if args.workload == "resnet":
         return run_resnet(args)
-    check_schedule(args.schedule)
+    if args.scan_steps > 1:
+        raise NotImplementedError(
+            f"--scan-steps {args.scan_steps}: fusing K train steps per dispatch (the JAX "
+            "fuse_train_steps; its port is a CUDA graph of the step) is not ported yet "
+            "(ROADMAP A5-next 5)")
     args.iters = args.iters or 20
+    D, S, M = layout.data, layout.num_stages, layout.num_microbatches
+    V = args.chunks if args.schedule in INTERLEAVED else 1
+    check_layout(args.schedule, S, V, M)
     device = resolve_device(args.device)
     cfg = LlamaConfig(ctx_size=args.seq_len,
                       dtype="bfloat16" if device.type == "cuda" else "float32",
                       use_flash=not args.no_flash)
-    D, S, M = layout.data, layout.num_stages, layout.num_microbatches
+    if cfg.n_layers % (S * V):
+        raise ValueError(f"{cfg.n_layers} layers not divisible by S*V = {S}*{V}")
     job = Job(cfg, D, S, M, batch=D * layout.per_replica_batch, iters=args.iters,
-              lr=layout.learning_rate, seed=args.seed, device=device.type)
+              lr=layout.learning_rate, seed=args.seed, device=device.type,
+              schedule=args.schedule, chunks=V)
     print(f"llama DPxPP: {D} x {S} ranks, {M} microbatches, {layout.per_replica_batch} rows "
           f"per replica, ctx {args.seq_len}, {cfg.dtype}, "
-          f"attention={'flash' if cfg.use_flash else 'dense'}, device={device.type}",
+          f"attention={'flash' if cfg.use_flash else 'dense'}, schedule {args.schedule}"
+          + (f" ({V} chunks per rank)" if V > 1 else "") + f", device={device.type}",
           flush=True)
     ranks = spawn(run_rank, D * S, job, timeout=args.timeout)
     log = reporting_rank(ranks, S)

@@ -1,12 +1,14 @@
-"""Homework B1 on PyTorch: the GPipe microbatch pipeline, one process per stage.
+"""Homework B1 on PyTorch: the microbatch pipeline, one process per stage.
 
 The counterpart of ``lab/s01_b1_microbatches.py``: the LLaMA workload in 3
 stages, batch 3 in 3 microbatches, Adam 8e-4 (``utils/config.py``
-``PipelineConfig``), one pipeline and no DP.  It is
+``PipelineConfig``), one pipeline and no DP, under any of the five
+schedules (``--schedule``, ``--chunks``).  It is
 :mod:`~ddl25spring_tpu_torch.lab.dp_pp` with a data axis of 1; the options
 are the same.
 
-Run: ``python -m ddl25spring_tpu_torch.lab.microbatches [--iters 20] [--device cuda]``
+Run: ``python -m ddl25spring_tpu_torch.lab.microbatches [--iters 20] [--device cuda]
+[--schedule 1f1b]``
 """
 
 from __future__ import annotations

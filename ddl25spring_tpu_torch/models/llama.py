@@ -14,6 +14,8 @@ A pipeline stage (:class:`LlamaStage`, :func:`stage_forward`) holds a
 contiguous slice of the blocks, plus the embedding on the first stage and the
 final norm and unembedding on the last; it loads its slice of the
 reference's staged pytree (blocks ``[S, L/S, ...]``) and exports it back.
+Under the interleaved schedules a rank holds ``V`` such slices
+(:class:`LlamaChunkedStage`, blocks ``[S, V, L/(S V), ...]``).
 
 Only the dense-FFN model is ported; switch-MoE configs raise.
 """
@@ -119,6 +121,44 @@ class LlamaStage(nn.Module):
 
     def param_tree(self) -> dict:
         return _param_tree(self)
+
+
+class LlamaChunkedStage(nn.Module):
+    """Rank ``stage`` of ``num_stages`` under the interleaved schedules:
+    ``num_chunks`` chunks, chunk ``v`` being the global chunk
+    ``g = v * S + stage`` of ``S * V``, a :class:`LlamaStage` of layers
+    ``[g Lc, (g+1) Lc)`` with ``Lc = L / (S V)`` (Megatron's interleaving,
+    the JAX ``split_blocks_interleaved``).  The embedding sits on chunk 0 of
+    rank 0 and ``ln_f``/``unembed`` on the last chunk of rank ``S - 1``.
+    Each chunk is applied by :func:`stage_forward`; the pipeline runs them."""
+
+    def __init__(self, cfg: LlamaConfig, stage: int, num_stages: int, num_chunks: int, *,
+                 device, generator: torch.Generator):
+        super().__init__()
+        S, V = num_stages, num_chunks
+        if cfg.n_layers % (S * V):
+            raise ValueError(f"{cfg.n_layers} layers not divisible by S*V = {S}*{V}")
+        if not 0 <= stage < S:
+            raise ValueError(f"stage {stage} outside 0..{S - 1}")
+        self.cfg, self.stage, self.num_stages, self.num_chunks = cfg, stage, S, V
+        self.first, self.last = stage == 0, stage == S - 1
+        self.chunks = nn.ModuleList(LlamaStage(cfg, v * S + stage, S * V, device=device,
+                                               generator=generator) for v in range(V))
+
+    @property
+    def blocks(self) -> list[LlamaBlock]:
+        """Every block of the rank, chunk by chunk: the order of its
+        ``[V, Lc]`` slice of the interleaved pytree, flattened."""
+        return [b for c in self.chunks for b in c.blocks]
+
+    def param_tree(self) -> dict:
+        tree = {}
+        if self.first:
+            tree["embed"] = self.chunks[0].embed
+        if self.last:
+            tree["ln_f"], tree["unembed"] = self.chunks[-1].ln_f, self.chunks[-1].unembed
+        tree["blocks"] = {k: [getattr(b, k) for b in self.blocks] for k in BLOCK_KEYS}
+        return tree
 
 
 def _param_tree(model: nn.Module) -> dict:
@@ -262,17 +302,27 @@ def load_jax_params(model: Llama | LlamaStage, np_params: dict):
     return model
 
 
-def load_stage_params(stage: LlamaStage, staged: dict) -> LlamaStage:
-    """Copy stage ``stage.stage``'s slice of the reference's staged pytree
-    (blocks ``[S, L/S, ...]`` from :func:`split_blocks_for_stages`) into
+def load_stage_params(stage: LlamaStage | LlamaChunkedStage, staged: dict):
+    """Copy stage ``stage.stage``'s slice of the reference's staged pytree into
     ``stage``: its layers, and whichever of ``embed``, ``ln_f``, ``unembed``
-    it holds."""
+    it holds.  A :class:`LlamaStage` takes blocks ``[S, L/S, ...]`` (from
+    :func:`split_blocks_for_stages`), a :class:`LlamaChunkedStage` blocks
+    ``[S, V, L/(S V), ...]`` (from :func:`split_blocks_interleaved`)."""
     n = len(staged["blocks"]["wq"])
     if n != stage.num_stages:
         raise ValueError(f"pytree split into {n} stages, the stage is one of "
                          f"{stage.num_stages}")
+    chunked = np.ndim(staged["blocks"]["wq"]) == 5
+    if chunked != isinstance(stage, LlamaChunkedStage):
+        raise ValueError("an interleaved pytree ([S, V, Lc, ...] blocks) loads into a "
+                         "LlamaChunkedStage, a staged one ([S, Lc, ...]) into a LlamaStage")
     mine = dict(staged)
-    mine["blocks"] = {k: v[stage.stage] for k, v in staged["blocks"].items()}
+    mine["blocks"] = {k: np.asarray(v[stage.stage]) for k, v in staged["blocks"].items()}
+    if chunked:
+        if len(mine["blocks"]["wq"]) != stage.num_chunks:
+            raise ValueError(f"pytree split into {len(mine['blocks']['wq'])} chunks, the "
+                             f"stage holds {stage.num_chunks}")
+        mine["blocks"] = {k: v.reshape((-1,) + v.shape[2:]) for k, v in mine["blocks"].items()}
     return load_jax_params(stage, mine)
 
 
@@ -300,17 +350,18 @@ def export_grads(model: Llama | LlamaStage) -> dict:
     return _export(model, grads=True)
 
 
-def merge_stage_exports(exports: list[dict]) -> dict:
-    """The full pytree from the exports of stages ``0..S-1``, in order: blocks
-    concatenated, ``embed`` from the first stage, ``ln_f``/``unembed`` from the
-    last."""
-    return {
-        "embed": exports[0]["embed"],
-        "blocks": {k: np.concatenate([e["blocks"][k] for e in exports])
-                   for k in BLOCK_KEYS},
-        "ln_f": exports[-1]["ln_f"],
-        "unembed": exports[-1]["unembed"],
-    }
+def merge_stage_exports(exports: list[dict], num_chunks: int = 1) -> dict:
+    """The full pytree from the exports of stages ``0..S-1``, in order:
+    blocks concatenated (with ``num_chunks > 1``, each stage's ``V Lc``
+    blocks put back in their interleaved places), ``embed`` from the first
+    stage, ``ln_f``/``unembed`` from the last."""
+    blocks = {k: np.concatenate([e["blocks"][k] for e in exports]) for k in BLOCK_KEYS}
+    if num_chunks > 1:
+        S = len(exports)
+        blocks = merge_blocks_interleaved({"blocks": {
+            k: v.reshape((S, num_chunks, -1) + v.shape[1:]) for k, v in blocks.items()}})["blocks"]
+    return {"embed": exports[0]["embed"], "blocks": blocks, "ln_f": exports[-1]["ln_f"],
+            "unembed": exports[-1]["unembed"]}
 
 
 def split_blocks_for_stages(params: dict, num_stages: int) -> dict:
@@ -329,5 +380,29 @@ def merge_blocks_from_stages(params: dict) -> dict:
     """Inverse of :func:`split_blocks_for_stages`."""
     out = dict(params)
     out["blocks"] = {k: np.asarray(v).reshape((-1,) + v.shape[2:])
+                     for k, v in params["blocks"].items()}
+    return out
+
+
+def split_blocks_interleaved(params: dict, num_stages: int, num_chunks: int) -> dict:
+    """Reshape the stacked blocks ``[L, ...] -> [S, V, L/(S V), ...]`` (numpy)
+    for the interleaved schedules, as the JAX package's
+    ``split_blocks_interleaved`` (``llama.py:322``): ``blocks[s][v]`` is the
+    global chunk ``v S + s``, layers ``[(v S + s) Lc, (v S + s + 1) Lc)``."""
+    L = len(params["blocks"]["wq"])
+    S, V = num_stages, num_chunks
+    if L % (S * V):
+        raise ValueError(f"{L} layers not divisible by S*V = {S}*{V}")
+    out = dict(params)
+    # [L] -> [V, S, Lc] (chunk-major: g = v S + s) -> [S, V, Lc]
+    out["blocks"] = {k: np.asarray(v).reshape((V, S, L // (S * V)) + v.shape[1:]).swapaxes(0, 1)
+                     for k, v in params["blocks"].items()}
+    return out
+
+
+def merge_blocks_interleaved(params: dict) -> dict:
+    """Inverse of :func:`split_blocks_interleaved`."""
+    out = dict(params)
+    out["blocks"] = {k: np.asarray(v).swapaxes(0, 1).reshape((-1,) + v.shape[3:])
                      for k, v in params["blocks"].items()}
     return out

@@ -109,8 +109,22 @@ class BucketPlan:
 
     def pack(self, leaves: Sequence[Leaf]) -> list[torch.Tensor]:
         """Leaves -> one new 1-D buffer per bucket, leaves in bucket order."""
-        return [torch.cat([t.reshape(-1) for i in idxs for t in parts(leaves[i])])
-                for idxs in self.buckets]
+        return [self.pack_bucket(b, leaves) for b in range(self.n_buckets)]
+
+    def pack_bucket(self, b: int, leaves: Sequence[Leaf]) -> torch.Tensor:
+        """Bucket ``b``'s leaves -> one new 1-D buffer."""
+        return torch.cat([t.reshape(-1) for i in self.buckets[b] for t in parts(leaves[i])])
+
+    @torch.no_grad()
+    def unpack_bucket_into(self, b: int, buf: torch.Tensor, leaves: Sequence[Leaf]):
+        """Copy bucket ``b``'s buffer back into its leaves' own tensors."""
+        for i, off in zip(self.buckets[b], self.offsets(b)):
+            value = buf[off:off + self.sizes[i]].view(self.shapes[i])
+            if isinstance(leaves[i], torch.Tensor):
+                leaves[i].copy_(value)
+            else:
+                for t, v in zip(leaves[i], value):
+                    t.copy_(v)
 
     def unpack(self, bufs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
         """Inverse of :meth:`pack`: leaf ``i`` as one tensor of ``shapes[i]``
@@ -133,12 +147,20 @@ class BucketPlan:
 
 
 def plan_buckets(leaves: Sequence[Leaf],
-                 bucket_bytes: int | float = DEFAULT_BUCKET_BYTES) -> BucketPlan:
+                 bucket_bytes: int | float = DEFAULT_BUCKET_BYTES,
+                 order: str = "forward") -> BucketPlan:
     """Greedy order-preserving packing, as the JAX planner: walk the leaves in
     order, append each to the open bucket of its dtype until adding it would
     pass ``bucket_bytes``, then seal that bucket and open a new one.  A leaf
     above the threshold gets a bucket of its own; buckets never mix dtypes (a
-    bf16 gradient packed into an fp32 buffer would be upcast on the wire)."""
+    bf16 gradient packed into an fp32 buffer would be upcast on the wire).
+
+    ``order="backward"`` walks the leaves reversed, as the JAX planner does
+    for its overlapped path: the backward produces gradients roughly in
+    reverse, so bucket 0 holds the last layers and is complete first.
+    Packing and unpacking go by index, so both orders round-trip alike."""
+    if order not in ("forward", "backward"):
+        raise ValueError(f"order must be 'forward' or 'backward', got {order!r}")
     shapes = tuple(_shape(leaf) for leaf in leaves)
     dtypes = []
     for i, leaf in enumerate(leaves):
@@ -151,7 +173,8 @@ def plan_buckets(leaves: Sequence[Leaf],
     open_by_dtype: dict = {}  # dtype -> (indices, bytes)
     buckets: list[tuple[int, ...]] = []
     seen: list = []  # dtypes in first-seen order, for determinism
-    for i, (dt, sz) in enumerate(zip(dtypes, sizes)):
+    walk = list(enumerate(zip(dtypes, sizes)))
+    for i, (dt, sz) in (walk if order == "forward" else walk[::-1]):
         nbytes = sz * dt.itemsize
         cur = open_by_dtype.get(dt)
         if cur is None:

@@ -24,7 +24,7 @@ import torch
 from torch import nn
 
 from ddl25spring_tpu_torch.parallel import bucketing
-from ddl25spring_tpu_torch.parallel.bucketing import flatten, plan_buckets
+from ddl25spring_tpu_torch.parallel.bucketing import flatten, parts, plan_buckets
 
 # loss_fn(model, batch) -> scalar tensor
 LossFn = Callable[[nn.Module, Any], torch.Tensor]
@@ -74,13 +74,71 @@ def shard_rows(batch, d: int, n: int, device):
     return batch[d * (B // n):(d + 1) * (B // n)].to(device)
 
 
-def _not_ported(step: str, overlap=False, instrument=None, sentinel=None):
-    if overlap:
-        raise NotImplementedError(f"{step}(overlap=True) is not ported yet "
-                                  "(ROADMAP A4: DP overlap)")
+def _not_ported(step: str, instrument=None, sentinel=None):
     if instrument or sentinel:
         raise NotImplementedError(f"{step}(instrument=, sentinel=) is not ported yet "
                                   "(ROADMAP A11: observability)")
+
+
+class _Overlap:
+    """The overlapped reduction of :func:`make_dp_train_step`: a
+    post-accumulate-grad hook on every parameter counts the gradients of
+    its bucket, and the last one to arrive packs the bucket and issues its
+    all-reduce without waiting (``Comm.start_all_reduce_mean_``), while the
+    backward goes on with the layers before; a bucket that completes before
+    a lower-numbered one waits for it, so every replica issues them in the
+    same order.  ``log`` records, per step,
+    ``("grad", leaf)`` as each leaf's last tensor gets its gradient and
+    ``("issue", bucket)`` as each bucket's all-reduce is issued."""
+
+    def __init__(self, leaves, plan, comm, group):
+        self.leaves, self.plan, self.comm, self.group = leaves, plan, comm, group
+        self.armed = False
+        self.log: list[tuple[str, int]] = []
+        self._bucket = {i: b for b, idxs in enumerate(plan.buckets) for i in idxs}
+        self._need = [len(idxs) for idxs in plan.buckets]
+        for i, leaf in enumerate(leaves):
+            for p in parts(leaf):
+                p.register_post_accumulate_grad_hook(lambda p, i=i: self._arrived(i))
+
+    def start(self):
+        self.armed, self.log = True, []
+        self._parts = [0] * len(self.leaves)
+        self._have = [0] * self.plan.n_buckets
+        self._issued: list[tuple] = []
+
+    def _arrived(self, i: int):
+        if not self.armed:
+            return
+        self._parts[i] += 1
+        if self._parts[i] < len(parts(self.leaves[i])):
+            return
+        self.log.append(("grad", i))
+        self._have[self._bucket[i]] += 1
+        self._issue_ready()
+
+    def _issue_ready(self, everything: bool = False):
+        # buckets go out in index order on every replica, whatever order
+        # their gradients complete in: the all-reduces of a group are
+        # matched by their order
+        while len(self._issued) < self.plan.n_buckets:
+            b = len(self._issued)
+            if not everything and self._have[b] < self._need[b]:
+                return
+            self.log.append(("issue", b))
+            buf = self.plan.pack_bucket(b, grad_leaves(self.leaves))
+            self._issued.append((buf, self.comm.start_all_reduce_mean_(buf, self.group, slot=b)))
+
+    def finish(self):
+        """Issue what the backward left (a bucket some of whose gradients came
+        from no hook), then wait for every bucket, in order, and write the
+        means back into ``.grad``."""
+        self.armed = False
+        self._issue_ready(everything=True)
+        grads = grad_leaves(self.leaves)
+        for b, (buf, done) in enumerate(self._issued):
+            done()
+            self.plan.unpack_bucket_into(b, buf, grads)
 
 
 def make_dp_train_step(model: nn.Module, loss_fn: LossFn, optimizer: torch.optim.Optimizer,
@@ -95,24 +153,51 @@ def make_dp_train_step(model: nn.Module, loss_fn: LossFn, optimizer: torch.optim
     replicas.  ``bucket_bytes`` (default :data:`~ddl25spring_tpu_torch.
     parallel.bucketing.AUTO`: ``DDL25_BUCKET_BYTES``, 4 MiB when unset)
     launches one all-reduce per flat bucket; ``None``/``0``, one per tensor.
-    The mean is elementwise, so both give the same gradients.  ``overlap``,
+    The mean is elementwise, so both give the same gradients.
+
+    ``overlap=True`` (needs buckets; without a threshold it raises
+    ``ValueError``, as the JAX step does) plans the buckets in backward
+    order (``plan_buckets(order="backward")``: bucket 0 holds the last
+    layers) and issues each bucket's all-reduce from the backward itself, as
+    soon as the last of its gradients is accumulated
+    (``register_post_accumulate_grad_hook``), so the reduction of the last
+    layers runs while the earlier layers still back-propagate; every handle
+    is waited on, and the mean unpacked into ``.grad``, before
+    ``optimizer.step()``.  The same sums reach the same gradients, so the
+    step equals the synchronous one.  ``step.log`` holds the last step's
+    hook log (:class:`_Overlap`).  On the staged transport (gloo over a
+    card's tensors) the hook's copy to the pinned host buffer waits for the
+    card, so the backward stalls at each bucket and the overlap buys little
+    there; under NCCL the all-reduce is queued on its own stream.
+
     ``instrument`` and ``sentinel`` are not ported and raise."""
-    _not_ported("make_dp_train_step", overlap, instrument, sentinel)
+    _not_ported("make_dp_train_step", instrument, sentinel)
     bb = bucketing.resolve_bucket_bytes(bucket_bytes)
+    if overlap and not bb:
+        raise ValueError("overlap=True needs the bucketed path; pass a bucket_bytes "
+                         "threshold (or leave the AUTO default)")
     leaves = param_leaves(model)
-    plan = plan_buckets(leaves, bb) if bb else None
+    plan = plan_buckets(leaves, bb, order="backward" if overlap else "forward") if bb else None
     d, comm = mesh.coords[0], mesh.comm
+    hooks = _Overlap(leaves, plan, comm, mesh.dp_group) if overlap else None
 
     def step(batch):
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(model, shard_rows(batch, d, mesh.grid.data, mesh.device))
-        loss.backward()
-        comm.bucketed_all_reduce_mean_(grad_leaves(leaves), mesh.dp_group, plan)
+        if hooks is None:
+            loss.backward()
+            comm.bucketed_all_reduce_mean_(grad_leaves(leaves), mesh.dp_group, plan)
+        else:
+            hooks.start()
+            loss.backward()
+            hooks.finish()
+            step.log = list(hooks.log)
         optimizer.step()
         loss = loss.detach().clone()
         comm.all_reduce_mean_([loss], mesh.dp_group)
         return loss
 
+    step.log = []
     return step
 
 

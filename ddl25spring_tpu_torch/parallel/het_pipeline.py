@@ -18,8 +18,9 @@ carries one shape.  The port needs neither: it runs one process per rank, as
   :func:`~ddl25spring_tpu_torch.models.resnet.boundary_shapes` works them
   out from the block plan); nothing is padded.
 
-The schedule is the LLaMA pipeline's, :func:`~ddl25spring_tpu_torch.
-parallel.pipeline.make_gpipe_train_step`: the forward streams every
+The schedule is the LLaMA pipeline's GPipe, run by the same executor,
+:func:`~ddl25spring_tpu_torch.parallel.pipeline.make_schedule_train_step`
+(the JAX package's het pipeline has no other schedule): the forward streams every
 microbatch (``recv`` from the stage before, apply, ``send`` on, tagged by
 microbatch), then the backward drains them last in, first out, sending each
 input's gradient upstream; the last stage seeds each microbatch's loss with
@@ -42,7 +43,7 @@ import torch
 from torch import nn
 
 from ddl25spring_tpu_torch.parallel import bucketing
-from ddl25spring_tpu_torch.parallel.pipeline import make_gpipe_loss, make_gpipe_train_step
+from ddl25spring_tpu_torch.parallel.pipeline import make_schedule_loss, make_schedule_train_step
 
 # loss_fn(final stage output, microbatch) -> scalar; inject_fn(microbatch) -> stage-0 input
 LossFn = Callable[[torch.Tensor, Any], torch.Tensor]
@@ -75,8 +76,8 @@ def make_het_pipeline_loss(stage: nn.Module, loss_fn: LossFn, boundary_shapes, m
     ``boundary_shapes[i]`` is stage ``i``'s output shape per sample.  Returns
     the mean over microbatches and replicas on the last stage, None on the
     others."""
-    return make_gpipe_loss(stage, mesh, num_microbatches,
-                           **_hops(boundary_shapes, mesh, inject_fn, loss_fn, compute_dtype))
+    return make_schedule_loss([stage], mesh, num_microbatches, "gpipe",
+                              **_hops(boundary_shapes, mesh, inject_fn, loss_fn, compute_dtype))
 
 
 def make_het_pipeline_train_step(stage: nn.Module, loss_fn: LossFn, boundary_shapes,
@@ -91,7 +92,7 @@ def make_het_pipeline_train_step(stage: nn.Module, loss_fn: LossFn, boundary_sha
     ``step(batch)`` runs this rank's part of the schedule, averages the
     stage's gradients over its DP group when ``D > 1``, steps ``optimizer``
     and returns the loss (last stage) or None."""
-    return make_gpipe_train_step(stage, stage, optimizer, mesh, num_microbatches,
-                                 bucket_bytes=bucket_bytes,
-                                 **_hops(boundary_shapes, mesh, inject_fn, loss_fn,
-                                         compute_dtype))
+    return make_schedule_train_step([stage], stage, optimizer, mesh, num_microbatches,
+                                    "gpipe", bucket_bytes=bucket_bytes,
+                                    **_hops(boundary_shapes, mesh, inject_fn, loss_fn,
+                                            compute_dtype))

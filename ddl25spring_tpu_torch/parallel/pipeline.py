@@ -1,37 +1,52 @@
-"""GPipe microbatch pipelining and its DP x PP hybrid: the counterpart of the
-JAX package's ``parallel/pipeline.py`` (``make_pipeline_train_step`` with
-``schedule="gpipe"``, ``shard_staged_params``).
+"""Microbatch pipelining and its DP x PP hybrid: the counterpart of the JAX
+package's ``parallel/pipeline.py`` (``make_pipeline_train_step`` with its
+five schedules, ``shard_staged_params``, ``make_grad_accum_step``).
 
 The JAX package runs the pipeline as one SPMD program: a scan of ``ppermute``
-hops over the mesh ``stage`` axis, differentiated by ``jax.grad``.  The port
-gives the mechanism back its native form, one process per rank, as the
-reference course ran it (``lab/s01_b1_microbatches.py:66-178``,
-``lab/s01_b2_dp_pp.py:93-227``):
+hops over the mesh ``stage`` axis, differentiated by ``jax.grad`` (GPipe and
+the interleaved schedule) or by a hand-rolled backward (the 1F1B family).
+The port gives the mechanism back its native form, one process per rank, as
+the reference course ran it (``lab/s01_b1_microbatches.py:66-178``,
+``lab/s01_b2_dp_pp.py:93-227``).  A schedule is then the order of each
+rank's actions (:mod:`~ddl25spring_tpu_torch.parallel.schedule`), and one
+executor (:func:`make_schedule_train_step`) runs any of them:
 
-- forward: every microbatch streams through, each stage receiving its input
-  from the stage before (``recv``), applying its layers and sending its
-  output on (``send``), tagged by the microbatch index; the first stage
-  embeds, the last takes the causal-LM loss;
-- backward: then every microbatch in reverse (the LIFO drain that the scan's
-  transpose performs), one ``torch.autograd.backward`` each; the gradient of
-  a stage's received input goes upstream with ``send``;
-- the loss: the last stage seeds each microbatch's mean cross-entropy with
-  ``1/M``, as the JAX loss divides its sum by ``M``;
+- a forward ``F(v, m)`` takes chunk ``v``'s input for microbatch ``m``
+  (stage 0's chunk 0 injects it, every other chunk receives it from the
+  global chunk before), applies the chunk, and sends its output on; the
+  last global chunk takes the causal-LM loss, seeded with ``1/M`` as the JAX
+  loss divides its sum by ``M``;
+- a backward ``B(v, m)`` receives the output's gradient (the last chunk
+  seeds its own), back-propagates it through the chunk, and sends the
+  input's gradient back;
+- what a forward keeps until its backward (the stash) is the schedule's:
+  its autograd graph under ``gpipe``, ``interleaved`` and ``1f1b-stash``
+  (PyTorch's own form of the JAX ``stash="residuals"``: the pullback's
+  residuals stay alive), or only its input under ``1f1b`` and
+  ``interleaved-1f1b``: there the forward runs under ``torch.no_grad()``
+  and the backward recomputes it under ``torch.enable_grad()`` first (the
+  remat of the JAX default ``stash="input"``: one more forward of the chunk
+  per microbatch);
+- the point-to-point traffic goes in the exchanges of
+  :func:`~ddl25spring_tpu_torch.parallel.schedule.comm_plan`, each posted
+  whole before it is waited on (:meth:`~ddl25spring_tpu_torch.parallel.
+  comm.Comm.send_recv`), whose plans the step proves deadlock-free before
+  it runs;
 - DP: the gradients of each stage are then averaged over the stage's DP
   group (one all-reduce per flat bucket), the ``pmean`` over the ``data``
   axis; then ``optimizer`` steps the stage's own parameters.
 
-The embedding lives on the first stage and ``ln_f``/``unembed`` on the last,
-where the JAX package replicates them and psums their cotangents over the
-stage axis (the other stages add zeros, so the gradients are the same).
+The embedding lives on the first chunk and ``ln_f``/``unembed`` on the
+last, where the JAX package replicates them and psums their cotangents over
+the stage axis (the other stages add zeros, so the gradients are the same).
 Replica ``d`` takes rows ``[d * mb, (d+1) * mb)`` of each microbatch of the
 global batch, the rows its device gets from the JAX step's token spec.
 
-The schedule itself (:func:`make_gpipe_train_step`) knows nothing of LLaMA:
-a stage callable, stage 0's input, the last stage's loss and each hop's
-shape are its arguments.  :func:`make_pipeline_train_step` is its LLaMA
-form; :mod:`~ddl25spring_tpu_torch.parallel.het_pipeline` is its ResNet
-form.  Only ``schedule="gpipe"`` is ported; the others raise.
+The executor knows nothing of LLaMA: the chunk callables, stage 0's input,
+the last chunk's loss and each hop's shape are its arguments.
+:func:`make_pipeline_train_step` is its LLaMA form;
+:mod:`~ddl25spring_tpu_torch.parallel.het_pipeline` is its ResNet form
+(GPipe only, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -40,38 +55,47 @@ import numpy as np
 import torch
 
 from ddl25spring_tpu_torch.models.llama import (
+    LlamaChunkedStage,
     LlamaStage,
     load_stage_params,
     split_blocks_for_stages,
+    split_blocks_interleaved,
     stage_forward,
 )
 from ddl25spring_tpu_torch.ops.losses import causal_lm_loss
 from ddl25spring_tpu_torch.parallel import bucketing
 from ddl25spring_tpu_torch.parallel.dp import grad_leaves, param_leaves
+from ddl25spring_tpu_torch.parallel.schedule import (  # noqa: F401 (re-exported)
+    INTERLEAVED,
+    REMAT,
+    SCHEDULES,
+    action_ops,
+    check_deadlock_free,
+    check_layout,
+    check_schedule,
+    comm_plan,
+    untag,
+)
 from ddl25spring_tpu_torch.utils.config import LlamaConfig
 
-SCHEDULES = ("gpipe", "1f1b", "1f1b-stash", "interleaved", "interleaved-1f1b")
 
-
-def check_schedule(schedule: str):
-    """Raise unless ``schedule`` is the ported one, ``"gpipe"``."""
-    if schedule not in SCHEDULES:
-        raise ValueError(f"unknown schedule {schedule!r}")
-    if schedule != "gpipe":
-        raise NotImplementedError(f"schedule {schedule!r} is not ported yet "
-                                  "(ROADMAP A5: 1f1b, 1f1b-stash, interleaved, "
-                                  "interleaved-1f1b)")
-
-
-def shard_staged_params(params: dict, cfg: LlamaConfig, mesh) -> LlamaStage:
-    """This rank's :class:`LlamaStage` on ``mesh.device``, loaded from the
-    reference's parameter pytree: full (blocks ``[L, ...]``) or staged by
-    ``split_blocks_for_stages`` (blocks ``[S, L/S, ...]``), numpy leaves."""
-    S = mesh.grid.stages
+def shard_staged_params(params: dict, cfg: LlamaConfig, mesh, num_chunks: int = 1):
+    """This rank's stage on ``mesh.device``, loaded from the reference's
+    parameter pytree (numpy leaves): full (blocks ``[L, ...]``), staged by
+    ``split_blocks_for_stages`` (``[S, L/S, ...]``) or by
+    ``split_blocks_interleaved`` (``[S, V, L/(S V), ...]``).  A
+    :class:`~ddl25spring_tpu_torch.models.llama.LlamaStage` for one chunk, a
+    :class:`~ddl25spring_tpu_torch.models.llama.LlamaChunkedStage` of
+    ``num_chunks`` for the interleaved schedules."""
+    S, s = mesh.grid.stages, mesh.coords[1]
     if np.ndim(params["blocks"]["wq"]) == 3:
-        params = split_blocks_for_stages(params, S)
-    stage = LlamaStage(cfg, mesh.coords[1], S, device=mesh.device,
-                       generator=torch.Generator().manual_seed(0))
+        params = (split_blocks_interleaved(params, S, num_chunks) if num_chunks > 1
+                  else split_blocks_for_stages(params, S))
+    gen = torch.Generator().manual_seed(0)
+    if num_chunks > 1:
+        stage = LlamaChunkedStage(cfg, s, S, num_chunks, device=mesh.device, generator=gen)
+    else:
+        stage = LlamaStage(cfg, s, S, device=mesh.device, generator=gen)
     return load_stage_params(stage, params)
 
 
@@ -90,122 +114,281 @@ def _microbatches(batch: dict, M: int, D: int, d: int, device) -> list[dict]:
     return [{k: v[m] for k, v in rows.items()} for m in range(M)]
 
 
-def _forward(stage_fn, batch, mesh, M, in_shape, hop_dtype, inject_fn, loss_fn, grad: bool):
-    """The forward half of the schedule on this rank: ``(ins, outs, losses)``,
-    with ``outs`` the outputs sent on, or on the last stage each microbatch's
-    loss divided by ``M``."""
-    d, s = mesh.coords
-    first, last = s == 0, s == mesh.grid.stages - 1
-    comm = mesh.comm
-    # only the first and last stages read the batch's tensors; the others
-    # take their rows' shapes from it
-    micro = _microbatches(batch, M, mesh.grid.data, d, mesh.device if first or last else None)
-    ins, outs, losses = [], [], []
-    for m in range(M):
-        if first:
-            x = inject_fn(micro[m])
+class _Run:
+    """One step of the executor on one rank: runs the plan's exchanges and
+    actions, holding what is in flight between them."""
+
+    def __init__(self, ex: "Executor", batch: dict, grad: bool, forward_only: bool):
+        self.ex, self.grad = ex, grad
+        S, V, s = ex.S, ex.V, ex.s
+        # only the ranks of the first and last chunks read the batch's
+        # tensors; the others take their rows' shapes from it
+        reads = s == 0 or s == S - 1
+        self.micro = _microbatches(batch, ex.M, ex.D, ex.d, ex.mesh.device if reads else None)
+        self.plan = ex.forward_plan if forward_only else ex.plan
+        self.inbox: dict[int, torch.Tensor] = {}   # received, by tag
+        self.outbox: dict[int, torch.Tensor] = {}  # to send in the next exchange, by tag
+        self.local: dict[int, torch.Tensor] = {}   # hops from this rank to itself
+        self.stash: dict[tuple[int, int], dict] = {}
+        self.stash_max = 0
+        self.losses: list[torch.Tensor] = []
+        self._gv = V * S - 1
+
+    def run(self):
+        for ops, unit in self.plan:
+            self._exchange(ops)
+            for kind, v, m in unit:
+                (self._forward if kind == "F" else self._backward)(v, m)
+        return self
+
+    def _peer(self, stage: int) -> int:
+        return self.ex.mesh.grid.rank(self.ex.d, stage)
+
+    def _exchange(self, ops):
+        ex = self.ex
+        sends = [(self.outbox.pop(op.tag), self._peer(op.peer), op.tag)
+                 for op in ops if op.kind == "send"]
+        recv_ops = [op for op in ops if op.kind == "recv"]
+        recvs = []
+        for op in recv_ops:
+            direction, g, m = untag(op.tag, ex.S, ex.V, ex.M)
+            if direction == "F":  # the input of chunk g + 1
+                shape = ex.in_shape(self.micro[m])
+            else:                 # the gradient of chunk g - 1's output
+                shape = self.stash[((g - 1) // ex.S, m)]["out_shape"]
+            recvs.append((shape, ex.hop_dtype, self._peer(op.peer), op.tag))
+        if sends or recvs:
+            got = ex.mesh.comm.send_recv(sends, recvs)
+            self.inbox.update((op.tag, t) for op, t in zip(recv_ops, got))
+
+    def _take(self, op) -> torch.Tensor:
+        return (self.local if op.peer == self.ex.s else self.inbox).pop(op.tag)
+
+    def _put(self, op, t: torch.Tensor):
+        t = t.detach().to(self.ex.hop_dtype)
+        if op.peer == self.ex.s:
+            self.local[op.tag] = t
         else:
-            x = comm.recv(in_shape(micro[m]), hop_dtype, mesh.prev_rank,
-                          tag=m).requires_grad_(grad)
-        with torch.set_grad_enabled(grad):
-            y = stage_fn(x)
-            if last:
-                loss = loss_fn(y, micro[m])
-                losses.append(loss.detach())
-                outs.append(loss / M)
-            else:
-                comm.send(y.to(hop_dtype), mesh.next_rank, tag=m)
-                outs.append(y)
-        ins.append(x)
-    return ins, outs, losses
+            self.outbox[op.tag] = t
+
+    def _apply(self, v, m, x):
+        """Chunk ``v`` on ``x``; on the last global chunk, microbatch ``m``'s
+        loss instead of its output."""
+        y = self.ex.chunk_fns[v](x)
+        if v * self.ex.S + self.ex.s == self._gv:
+            return self.ex.loss_fn(y, self.micro[m])
+        return y
+
+    def _forward(self, v, m):
+        ex = self.ex
+        recv, send = action_ops(("F", v, m), ex.S, ex.V, ex.M, ex.s)
+        if recv is None:
+            x = ex.inject_fn(self.micro[m])
+        else:
+            x = self._take(recv)
+        keep_graph = self.grad and not ex.remat
+        if keep_graph and x.is_floating_point():
+            x.requires_grad_(True)
+        with torch.set_grad_enabled(keep_graph):
+            y = self._apply(v, m, x)
+        if send is None:
+            self.losses.append(y.detach())
+        else:
+            self._put(send, y)
+        if self.grad:
+            entry = {"x": x, "out_shape": tuple(y.shape)}
+            if keep_graph:
+                entry["y"] = y
+            self.stash[(v, m)] = entry
+            self.stash_max = max(self.stash_max, len(self.stash))
+
+    def _backward(self, v, m):
+        ex = self.ex
+        recv, send = action_ops(("B", v, m), ex.S, ex.V, ex.M, ex.s)
+        entry = self.stash.pop((v, m))
+        x = entry["x"]
+        if ex.remat:
+            if x.is_floating_point():
+                x.requires_grad_(True)
+            with torch.enable_grad():
+                y = self._apply(v, m, x)
+        else:
+            y = entry["y"]
+        if recv is None:
+            (y / ex.M).backward()
+        else:
+            y.backward(self._take(recv).to(y.dtype))
+        if send is not None:
+            self._put(send, x.grad)
 
 
-def _mean_loss(losses, mesh):
-    loss = torch.stack(losses).mean()
-    if mesh.grid.data > 1:
-        mesh.comm.all_reduce_mean_([loss], mesh.dp_group)
-    return loss
+class Executor:
+    """The schedule of one rank, bound to its chunks and its transport (see
+    :func:`make_schedule_train_step`)."""
+
+    def __init__(self, chunk_fns, mesh, num_microbatches: int, schedule: str, *, in_shape,
+                 hop_dtype, inject_fn, loss_fn):
+        self.chunk_fns, self.mesh, self.M = list(chunk_fns), mesh, num_microbatches
+        self.S, self.V, self.D = mesh.grid.stages, len(self.chunk_fns), mesh.grid.data
+        self.d, self.s = mesh.coords
+        check_layout(schedule, self.S, self.V, self.M)
+        check_deadlock_free(schedule, self.S, self.V, self.M)
+        self.schedule, self.remat = schedule, schedule in REMAT
+        self.plan = comm_plan(schedule, self.S, self.V, self.M, self.s)
+        self.forward_plan = comm_plan(schedule, self.S, self.V, self.M, self.s,
+                                      forward_only=True)
+        self.in_shape, self.hop_dtype = in_shape, hop_dtype
+        self.inject_fn, self.loss_fn = inject_fn, loss_fn
+
+    @property
+    def holds_loss(self) -> bool:
+        return self.s == self.S - 1
+
+    def mean_loss(self, losses):
+        """The mean over microbatches and replicas, on the last stage."""
+        loss = torch.stack(losses).mean()
+        if self.D > 1:
+            self.mesh.comm.all_reduce_mean_([loss], self.mesh.dp_group)
+        return loss
 
 
-def make_gpipe_loss(stage_fn, mesh, num_microbatches: int, *, in_shape, hop_dtype,
-                    inject_fn, loss_fn):
-    """``loss(batch)``: the pipelined forward alone, no gradients, on this rank
-    of a ``D x S`` grid; the mean loss over microbatches and replicas on the
-    last stage, None on the others.  Arguments as
-    :func:`make_gpipe_train_step`."""
+def make_schedule_loss(chunk_fns, mesh, num_microbatches: int, schedule: str = "gpipe", *,
+                       in_shape, hop_dtype, inject_fn, loss_fn):
+    """``loss(batch)``: the pipelined forward alone, no gradients, in the
+    forward order of ``schedule``, on this rank of a ``D x S`` grid; the mean
+    loss over microbatches and replicas on the last stage, None on the
+    others.  Arguments as :func:`make_schedule_train_step`."""
+    ex = Executor(chunk_fns, mesh, num_microbatches, schedule, in_shape=in_shape,
+                  hop_dtype=hop_dtype, inject_fn=inject_fn, loss_fn=loss_fn)
 
     def loss(batch: dict):
-        _, _, losses = _forward(stage_fn, batch, mesh, num_microbatches, in_shape, hop_dtype,
-                                inject_fn, loss_fn, grad=False)
-        return _mean_loss(losses, mesh) if losses else None
+        with torch.no_grad():
+            run = _Run(ex, batch, grad=False, forward_only=True).run()
+        return ex.mean_loss(run.losses) if ex.holds_loss else None
 
     return loss
 
 
-def make_gpipe_train_step(stage_fn, module: torch.nn.Module, optimizer: torch.optim.Optimizer,
-                          mesh, num_microbatches: int, *, in_shape, hop_dtype, inject_fn,
-                          loss_fn, bucket_bytes=bucketing.AUTO):
-    """The GPipe train step of one rank of a ``D x S`` grid, for any model cut
-    into stages.
+def make_schedule_train_step(chunk_fns, module: torch.nn.Module,
+                             optimizer: torch.optim.Optimizer, mesh, num_microbatches: int,
+                             schedule: str = "gpipe", *, in_shape, hop_dtype, inject_fn,
+                             loss_fn, bucket_bytes=bucketing.AUTO):
+    """The train step of one rank of a ``D x S`` grid under ``schedule``, for
+    any model cut into ``S * V`` chunks.
 
-    ``stage_fn(x)`` applies this rank's stage (``module``, whose parameters
-    ``optimizer`` steps).  ``step(batch)`` takes a dict of tensors whose rows
+    ``chunk_fns[v](x)`` applies this rank's chunk ``v`` (global chunk
+    ``v * S + s``; ``V = len(chunk_fns)``, 1 but for the interleaved
+    schedules); ``module`` holds every chunk's parameters, which
+    ``optimizer`` steps.  ``step(batch)`` takes a dict of tensors whose rows
     lead with the global batch ``B = M * D * mb``; every rank is given it,
-    and only the first and last stages read its tensors.  Per microbatch
-    (a dict of ``mb`` rows): ``inject_fn(micro)`` is stage 0's input,
-    ``loss_fn(final, micro)`` the last stage's mean loss, and
-    ``in_shape(micro)`` the shape of the tensor this rank receives from the
-    stage before; every hop travels in ``hop_dtype``.  The step runs this
-    rank's part of the schedule, averages the stage's gradients over its DP
-    group when ``D > 1`` (``bucket_bytes`` as in :func:`~ddl25spring_tpu_torch.
-    parallel.dp.make_dp_train_step`), steps ``optimizer``, and returns the loss
-    (the mean over microbatches and replicas) on the last stage, None on the
-    others."""
-    M, D = num_microbatches, mesh.grid.data
-    comm = mesh.comm
-    _, s = mesh.coords
-    first, last = s == 0, s == mesh.grid.stages - 1
+    and only the first and last stages read its tensors.  Per microbatch (a
+    dict of ``mb`` rows): ``inject_fn(micro)`` is the first chunk's input,
+    ``loss_fn(final, micro)`` the last chunk's mean loss, and
+    ``in_shape(micro)`` the shape of a chunk's input hop; every hop travels
+    in ``hop_dtype``.  The step runs this rank's part of the schedule,
+    averages the stage's gradients over its DP group when ``D > 1``
+    (``bucket_bytes`` as in :func:`~ddl25spring_tpu_torch.parallel.dp.
+    make_dp_train_step`), steps ``optimizer``, and returns the loss (the
+    mean over microbatches and replicas) on the last stage, None on the
+    others.  ``step.stats["stash_max"]`` is the most microbatch-chunks the
+    last step held in flight at once."""
+    ex = Executor(chunk_fns, mesh, num_microbatches, schedule, in_shape=in_shape,
+                  hop_dtype=hop_dtype, inject_fn=inject_fn, loss_fn=loss_fn)
     leaves = param_leaves(module)
     bb = bucketing.resolve_bucket_bytes(bucket_bytes)
     plan = bucketing.plan_buckets(leaves, bb) if bb else None
 
     def step(batch: dict):
         optimizer.zero_grad(set_to_none=True)
-        ins, outs, losses = _forward(stage_fn, batch, mesh, M, in_shape, hop_dtype, inject_fn,
-                                     loss_fn, grad=True)
-        for m in reversed(range(M)):
-            if last:
-                outs[m].backward()
-            else:
-                outs[m].backward(comm.recv(outs[m].shape, hop_dtype, mesh.next_rank,
-                                           tag=M + m).to(outs[m].dtype))
-            if not first:
-                comm.send(ins[m].grad, mesh.prev_rank, tag=M + m)
-            ins[m] = outs[m] = None  # free the microbatch's graph
-        if D > 1:
-            comm.bucketed_all_reduce_mean_(grad_leaves(leaves), mesh.dp_group, plan)
+        run = _Run(ex, batch, grad=True, forward_only=False).run()
+        step.stats.update(stash_max=run.stash_max)
+        if ex.D > 1:
+            mesh.comm.bucketed_all_reduce_mean_(grad_leaves(leaves), mesh.dp_group, plan)
         optimizer.step()
-        return _mean_loss(losses, mesh) if last else None
+        return ex.mean_loss(run.losses) if ex.holds_loss else None
 
+    step.stats = {"stash_max": 0}
     return step
 
 
-def make_pipeline_train_step(stage: LlamaStage, cfg: LlamaConfig,
+def make_pipeline_train_step(stage: LlamaStage | LlamaChunkedStage, cfg: LlamaConfig,
                              optimizer: torch.optim.Optimizer, mesh,
                              num_microbatches: int, schedule: str = "gpipe",
-                             bucket_bytes=bucketing.AUTO):
-    """The GPipe train step of one LLaMA rank of a ``D x S`` grid (``D = 1``:
-    the pipeline alone; ``D > 1``: DP x PP, the JAX step with ``data_axis``):
-    :func:`make_gpipe_train_step` over :func:`~ddl25spring_tpu_torch.models.
-    llama.stage_forward`, each hop ``[mb, L, dmodel]`` in ``cfg.dtype``.
+                             num_chunks: int = 1, bucket_bytes=bucketing.AUTO):
+    """The train step of one LLaMA rank of a ``D x S`` grid (``D = 1``: the
+    pipeline alone; ``D > 1``: DP x PP, the JAX step with ``data_axis``) under
+    ``schedule``, one of :data:`SCHEDULES`:
+    :func:`make_schedule_train_step` over :func:`~ddl25spring_tpu_torch.
+    models.llama.stage_forward` of each chunk, each hop ``[mb, L, dmodel]``
+    in ``cfg.dtype``.  ``num_chunks > 1`` (a
+    :class:`~ddl25spring_tpu_torch.models.llama.LlamaChunkedStage` of that
+    many chunks) needs an interleaved schedule, ``interleaved-1f1b`` needs
+    ``num_chunks >= 2``, and the interleaved schedules need ``M % S == 0``;
+    each raises ``ValueError`` as the JAX function does (``:1325-1362``).
 
     ``step(tokens)`` takes the global ``[B, L]`` batch, ``B = M * D * mb``,
     and returns the loss on the last stage, None on the others."""
-    check_schedule(schedule)
-    step = make_gpipe_train_step(
-        lambda x: stage_forward(stage, x, cfg), stage, optimizer, mesh, num_microbatches,
+    chunks = stage.chunks if isinstance(stage, LlamaChunkedStage) else [stage]
+    if len(chunks) != num_chunks:
+        raise ValueError(f"the stage holds {len(chunks)} chunks, num_chunks={num_chunks}")
+    step = make_schedule_train_step(
+        [lambda x, c=c: stage_forward(c, x, cfg) for c in chunks], stage, optimizer, mesh,
+        num_microbatches, schedule,
         in_shape=lambda micro: (*micro["tokens"].shape, cfg.dmodel),
         hop_dtype=getattr(torch, cfg.dtype), inject_fn=lambda micro: micro["tokens"],
         loss_fn=lambda logits, micro: causal_lm_loss(logits, micro["tokens"]),
         bucket_bytes=bucket_bytes)
-    return lambda tokens: step({"tokens": tokens})
+
+    def tokens_step(tokens):
+        return step({"tokens": tokens})
+
+    tokens_step.stats = step.stats
+    return tokens_step
+
+
+def make_grad_accum_step(model: torch.nn.Module, loss_fn, optimizer: torch.optim.Optimizer,
+                         num_microbatches: int):
+    """Single-process microbatch gradient accumulation (the JAX
+    ``make_grad_accum_step``, ``pipeline.py:1576``): the capability of
+    ``s01_b1_microbatches.py``'s accumulation (the homework's unzeroed
+    ``.grad``) without the stage split.
+
+    ``step(batch, generators)``: every tensor of ``batch`` (a tensor, or a
+    tuple, list or dict of them) is chunked on dim 0 into ``M`` pieces;
+    ``loss_fn(model, microbatch, generators[m])`` and its backward run per
+    microbatch, the gradients adding up in ``.grad``; then the sum is scaled
+    by ``1/M``, ``optimizer`` takes one step, and the step returns the mean
+    loss.  The ``M`` generators stand in for ``jax.random.split(key, M)``:
+    draw them per ``(seed, step, m)`` with :func:`~ddl25spring_tpu_torch.
+    utils.prng.seeded_generator`.  With a DP mesh, give it the rows of this
+    replica (:func:`~ddl25spring_tpu_torch.parallel.dp.shard_rows`) and
+    average the gradients before the step, as ``make_dp_train_step`` does."""
+    M = num_microbatches
+
+    def chunk(x, m):
+        if isinstance(x, dict):
+            return {k: chunk(v, m) for k, v in x.items()}
+        if isinstance(x, (tuple, list)):
+            return type(x)(chunk(v, m) for v in x)
+        if x.shape[0] % M:
+            raise ValueError(f"batch of {x.shape[0]} rows not divisible by {M} microbatches")
+        n = x.shape[0] // M
+        return x[m * n:(m + 1) * n]
+
+    def step(batch, generators):
+        if len(generators) != M:
+            raise ValueError(f"{len(generators)} generators for {M} microbatches")
+        optimizer.zero_grad(set_to_none=True)
+        total = 0.0
+        for m in range(M):
+            loss = loss_fn(model, chunk(batch, m), generators[m])
+            loss.backward()
+            total = total + loss.detach()
+        with torch.no_grad():
+            for p in model.parameters():
+                if p.grad is not None:
+                    p.grad.div_(M)
+        optimizer.step()
+        return total / M
+
+    return step

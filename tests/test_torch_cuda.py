@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card,
-the ResNet-18 slice's card-only checks (the on-card dataset, fp32 against
+the launches of every pipeline schedule on the card, the ResNet-18 slice's
+card-only checks (the on-card dataset, fp32 against
 the CPU, bf16 channels_last against fp32), and federated learning's
 (``MnistCnn`` and one FedAvg round on the card against the CPU).
 
@@ -229,6 +230,71 @@ def test_dp_step_of_two_ranks_equals_one_process(dev, tmp_path):
         assert r["losses"][1] == pytest.approx(losses[1], rel=1e-4)
         for (path, a), (_, b) in zip(flatten(r["grads"]), flatten(grads[0])):
             assert (abs(a - b) - 2e-3 * abs(b)).max() <= 2e-4, path
+
+
+SCHED_CFG = dict(vocab_size=256, dmodel=64, num_heads=2, n_layers=6, ctx_size=64,
+                 dtype="bfloat16", use_flash=True)
+SCHEDULES = ("gpipe", "1f1b", "1f1b-stash", "interleaved", "interleaved-1f1b")
+
+
+def schedules_rank_on_the_card(rdv):
+    """One rank of a 1 x 3 world on the card: 2 bf16 steps of every schedule
+    (2 chunks per rank when interleaved), M = 3 one-row microbatches; the
+    flash launches by kernel and variant of each schedule and its losses."""
+    from ddl25spring_tpu_torch.models.llama import Llama, export_params
+    from ddl25spring_tpu_torch.parallel.pipeline import (
+        make_pipeline_train_step,
+        shard_staged_params,
+    )
+    from ddl25spring_tpu_torch.utils.config import LlamaConfig
+    from ddl25spring_tpu_torch.utils.mesh import init_mesh
+
+    cfg = LlamaConfig(**SCHED_CFG)
+    params = export_params(Llama(cfg, device="cpu", generator=torch.Generator().manual_seed(5)))
+    tokens = torch.randint(0, 256, (3, 64), generator=torch.Generator().manual_seed(6))
+    out = {}
+    with init_mesh(rdv, data=1, stages=3, device="cuda") as mesh:
+        for name in SCHEDULES:
+            V = 2 if name.startswith("interleaved") else 1
+            stage = shard_staged_params(params, cfg, mesh, V)
+            step = make_pipeline_train_step(stage, cfg, torch.optim.SGD(stage.parameters(),
+                                                                        lr=0.1),
+                                            mesh, 3, name, V)
+            fa.reset_launches()
+            losses = [step(tokens) for _ in range(2)]
+            torch.cuda.synchronize()
+            out[name] = {"launches": dict(fa.LAUNCHES),
+                         "by_variant": {n: dict(c) for n, c in fa.LAUNCHES_BY_VARIANT.items()},
+                         "losses": [None if x is None else x.item() for x in losses],
+                         "stash": step.stats["stash_max"]}
+    return out
+
+
+@pytest.fixture(scope="module")
+def schedule_world(tmp_path_factory):
+    if not torch.cuda.is_available() or torch.cuda.get_device_capability(0) < (9, 0):
+        pytest.skip("needs an sm_90 CUDA device")
+    from ddl25spring_tpu_torch.parallel.launch import spawn
+
+    return spawn(schedules_rank_on_the_card, 3, timeout=300,
+                 tmpdir=str(tmp_path_factory.mktemp("rdv")))
+
+
+@pytest.mark.parametrize("name", SCHEDULES)
+def test_schedule_launches_on_the_card(schedule_world, name):
+    """Per rank, 2 steps of 3 microbatches over 2 layers: dq and dk/dv 6 a
+    step, the forward 6, or 12 under the schedules that recompute it (1f1b,
+    interleaved-1f1b); every launch on the tensor cores."""
+    fwd = 12 if name in ("1f1b", "interleaved-1f1b") else 6
+    want = {"fwd": 2 * fwd, "dq": 12, "dkv": 12}
+    for r in schedule_world:
+        got = r[name]
+        assert got["launches"] == want
+        assert all(got["by_variant"][n] == {"wgmma": want[n], "scalar": 0} for n in want)
+    losses = schedule_world[-1][name]["losses"]
+    assert all(np.isfinite(losses))
+    ref = schedule_world[-1]["gpipe"]["losses"]
+    assert losses == pytest.approx(ref, rel=2e-2)  # bf16: the same step to rounding
 
 
 # ------------------------------------------------------------ ResNet-18 slice

@@ -152,8 +152,9 @@ def test_replicas_agree(world):
 def test_unported_options_raise():
     model = torch.nn.Linear(2, 2)
     opt = torch.optim.SGD(model.parameters(), lr=0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        make_dp_train_step(model, _loss, opt, None, overlap=True)
+    # overlap is ported, but only over buckets, as in the JAX step
+    with pytest.raises(ValueError, match="overlap=True needs the bucketed path"):
+        make_dp_train_step(model, _loss, opt, None, bucket_bytes=None, overlap=True)
     for kw in ({"instrument": True}, {"sentinel": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP A11"):
             make_dp_train_step(model, _loss, opt, None, **kw)

@@ -40,5 +40,7 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "models.flax_bridge", "models.layers", "models.mnist_cnn",
                 "models.heart_mlp", "fl", "fl.horizontal", "fl.vertical", "fl.generative",
                 "bench", "examples.homework1_a1_equivalence",
-                "examples.vfl_and_generative_fl"):
+                "examples.vfl_and_generative_fl", "parallel.schedule",
+                "examples.homework1_a2_a3_sweeps", "examples.tutorial_1b.intro_dp_ga",
+                "examples.tutorial_1b.intro_dp_wa", "examples.tutorial_1b.intro_pp_1f1b"):
         assert f"ddl25spring_tpu_torch.{mod}" in report["modules"]
