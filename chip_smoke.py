@@ -57,15 +57,16 @@ Phases, in order; any failure exits non-zero and prints no result:
        on the two devices); every relu input that takes the other branch
        than in float64 lies within 1e-4 of that relu's max |input|, and
        their count is printed, on the card and on the CPU;
-   (b) the headline, ``lab.dp_pp.main --workload resnet``: layout "dp", one
-       rank, batch 1024, bf16 over float32 parameters, the 50 000-image
+   (b) the headline one step per dispatch, ``lab.dp_pp.main --workload
+       resnet --input hbm`` (phase 11 (b) runs the default, 16 steps per
+       CUDA graph): layout "dp", one rank, batch 1024, bf16 over float32 parameters, the 50 000-image
        synthetic train split on the card, SGD lr 0.002 (see ``RESNET_LR``),
        3 warm-up and 30 timed steps through ``benchmarks.timed_run`` (cuDNN
        autotuning on); every loss finite, the first within 1 of ln(10), the
        last 5 below the first 5, parameters and data on CUDA, no flash
-       kernel launched; the median step, samples/s, FLOPs per step within
-       10 % of 3.41e12, TFLOP/s and MFU (peak 989.4e12) and
-       ``report_line``'s JSON;
+       kernel launched, eagerly or into a graph; the median step,
+       samples/s, FLOPs per step within 10 % of 3.41e12, TFLOP/s and MFU
+       (peak 989.4e12) and ``report_line``'s JSON;
    (c) where the step's time goes: torch.profiler over 10 warm steps, host
        wall against device busy, the idle share, the top kernels, and
        convolution, normalisation, elementwise and SGD as shares of busy;
@@ -94,7 +95,7 @@ Phases, in order; any failure exits non-zero and prints no result:
        per round; the same for FedSGD rounds (B=-1, a 6,000-row full batch
        per client); test accuracy after the rounds at least 0.9 (synthetic
        MNIST saturates), the global weights on CUDA, no flash kernel
-       launched;
+       launched, eagerly or into a graph;
    (c) the homework-A1 oracle on the card with dropout on:
        ``FedSgdGradientServer`` against ``FedAvgServer(B=-1, E=1)``, N=4,
        C=0.5, 1,000 rows, 2 rounds, CUDA generators: weights within atol
@@ -141,6 +142,42 @@ Phases, in order; any failure exits non-zero and prints no result:
         ``[6, 256, 48]`` bf16 and the fp32 (scalar) kernels' at
         ``[18, 256, 48]``, each beside SDPA's forward and backward.
 
+11. fused dispatch: K train steps as one CUDA graph
+    (``parallel/pipeline.fuse_train_steps``) and the FedAvg client axis
+    over ranks, each sub-phase timed:
+    (a) in a process of its own: full-width LLaMA (bf16, flash, batch 3,
+        Adam 8e-4 ``capturable=True``), ``fuse_train_steps(step, 16)``
+        against 16 eager steps from the same weights and tokens (losses
+        within 1e-2 of max |eager|, parameters within 16 x lr; bitwise or
+        not printed); the graph's node census (``CUDAGraph.debug_dump``)
+        holds exactly 96 nodes of each of ``flash_fwd_wgmma``,
+        ``flash_dq_wgmma`` and ``flash_dkv_wgmma``, the ``CAPTURED``
+        counters agree, the eager counters count only the warm-up steps and
+        do not move during replays;
+    (b) the same process: host wall per step, unfused and fused (median of
+        windows of 16, in turns), device busy and idle from torch.profiler
+        over one more window of each, ``max_memory_allocated``; then ResNet
+        ``lab.dp_pp --workload resnet`` with ``--input hbm-scan`` (K = 16,
+        the input field ``hbm-resident-shuffle-scan16``) and ``--input
+        hbm``: samples/s, median step, MFU, peak memory;
+    (c) ResNet fp32 (TF32 off, cuDNN deterministic): window 0 of epoch 0
+        selects the 16 batches of 16 ``feed()`` calls, bitwise; one fused
+        window of 16 steps at 64 rows against 16 eager steps (losses 1e-4,
+        each leaf's update within 2e-2 of its largest, phase 8 (a)'s band);
+    (d) ResNet grad accumulation (1024 = 4 x 256, bf16) fused K = 4 against
+        4 eager steps (each leaf within 2e-2 of its max), and both median
+        steps;
+    (e) the FedAvg round's client axis over 2 gloo ranks on the card (fp32,
+        TF32 off; ``MnistCnn``, 4 non-IID clients, B=100, E=1) against the
+        one-process form of the same arithmetic (each rank's block trained
+        apart, the sums added), within 1e-6, and against the one-process
+        round over the 4 clients, within 1e-5 (its convolutions run at
+        twice the batch, and cuDNN picks algorithms by shape);
+    (f) ``lab.microbatches --scan-steps 4`` and ``lab.dp_pp --workload
+        resnet --pp --ranks 4 --input hbm-scan`` raise ``ValueError``: their
+        ranks share the card through host buffers, which a graph cannot
+        hold.
+
 Tolerances (|kernel - plain| <= atol + rtol * |plain|):
   fp32: atol 1e-4, rtol 0 (summation order only);
   bf16: atol 2e-2, rtol 1e-2 against the plain version on the same bf16
@@ -150,7 +187,8 @@ Tolerances (|kernel - plain| <= atol + rtol * |plain|):
 In the kernels line, ``ms`` and ``device_ms`` are the device time per call,
 ``library_ms`` and ``library_device_ms`` SDPA forward's; ``wall_ms`` and
 ``library_wall_ms`` the host-paced CUDA-event times; ``scalar_device_ms`` the
-scalar kernel's device time on the same inputs.
+scalar kernel's device time on the same inputs; ``launches_per_fused_window``
+the kernel's nodes in phase 11 (a)'s graph of 16 steps.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -596,8 +634,8 @@ def dp_pp_slice(dev):
     """Phase 7 (b): ``lab.dp_pp.main``, bf16, 24 steps, and its time split."""
     from ddl25spring_tpu_torch.lab import dp_pp
 
-    run = dp_pp.main(["--iters", str(STEPS), "--seed", "0", "--device", dev.type,
-                      "--timeout", str(SPAWN_TIMEOUT)])
+    run = dp_pp.main(["--workload", "llama", "--iters", str(STEPS), "--seed", "0",
+                      "--device", dev.type, "--timeout", str(SPAWN_TIMEOUT)])
     ranks, losses = run["ranks"], run["losses"]
     check(len(losses) == STEPS and all(math.isfinite(x) for x in losses),
           f"DPxPP losses not all finite: {losses}")
@@ -796,10 +834,11 @@ def resnet_headline(dev):
     from ddl25spring_tpu_torch.ops import flash_attention as fa
 
     fa.reset_launches()
-    run = dp_pp.main(["--workload", "resnet", "--iters", str(RESNET_ITERS), "--seed", "0",
-                      "--lr", RESNET_LR, "--device", dev.type])
-    check(not any(fa.LAUNCHES.values()), f"the ResNet path launched flash kernels: "
-                                         f"{fa.LAUNCHES}")
+    run = dp_pp.main(["--workload", "resnet", "--input", "hbm", "--iters", str(RESNET_ITERS),
+                      "--seed", "0", "--lr", RESNET_LR, "--device", dev.type])
+    check(not any(fa.LAUNCHES.values()) and not any(n for c in fa.CAPTURED.values()
+                                                    for n in c.values()),
+          f"the ResNet path launched flash kernels: {fa.LAUNCHES}, captured {fa.CAPTURED}")
     (r,) = run["ranks"]
     losses = r["losses"]
     check(len(losses) == dp_pp.WARMUP + RESNET_ITERS and all(math.isfinite(x) for x in losses),
@@ -1068,7 +1107,9 @@ def fl_headline(dev):
                                device=dev)
     acc = server.test_accuracy()
     check(all(p.device == dev for p in server.params.values()), "(b) FedSGD weights off the card")
-    check(not any(fa.LAUNCHES.values()), f"(b) the FL path launched flash kernels: {fa.LAUNCHES}")
+    check(not any(fa.LAUNCHES.values()) and not any(n for c in fa.CAPTURED.values()
+                                                    for n in c.values()),
+          f"(b) the FL path launched flash kernels: {fa.LAUNCHES}, captured {fa.CAPTURED}")
     print(f"  (b) FedSGD (B=-1, {int(server.counts[0])}-row full batch per client): "
           f"{dt / FL_ROUNDS * 1e3:.3f} ms/round mean, median "
           f"{statistics.median(round_s) * 1e3:.3f} ms; test accuracy "
@@ -1557,6 +1598,414 @@ def schedules_phase(dev):
         print(f"  {name} took {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------- phase 11
+
+FUSE_K = 16                     # phase 11 (a), (b): LLaMA steps per window
+FUSE_WINDOWS = 5                # phase 11 (b): timed windows per block
+SCAN_BATCH = 64                 # phase 11 (c): fp32 rows per step, 16 batches an epoch
+FL_AXIS_BAND = 1e-6             # phase 11 (e): sharded round vs one process, absolute
+CENSUS = ("flash_fwd_wgmma", "flash_dq_wgmma", "flash_dkv_wgmma",
+          "flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
+
+
+def graph_census(dot: str) -> tuple[dict, int]:
+    """Kernel nodes of a ``CUDAGraph.debug_dump`` by the flash kernel they
+    launch, and the number of nodes: each node's definition starts a line
+    with its quoted name and ``[`` (an edge line has ``->`` after the name)."""
+    starts = [m.start() for m in re.finditer(r'^\s*"[^"]+"\s*\[', dot, re.M)]
+    blocks = [dot[a:b] for a, b in zip(starts, starts[1:] + [len(dot)])]
+    return {name: sum(name in b for b in blocks) for name in CENSUS}, len(blocks)
+
+
+def _max_diff(a, b) -> float:
+    return max((x.float() - y.float()).abs().max().item() for x, y in zip(a, b))
+
+
+def _window_ms(fn, k, n):
+    """Host wall per step of ``n`` windows of ``k`` steps, each window started
+    and ended with the card idle."""
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3 / k)
+    return out
+
+
+def fused_llama(rdv):
+    """Phase 11 (a) and (b) for LLaMA, in a process of its own (fresh
+    profiler state, as 10 (f)): ``LlamaConfig()`` bf16 flash, batch 3, Adam
+    8e-4 ``capturable=True``.  (a) ``fuse_train_steps(step, 16)`` against 16
+    eager steps from the same weights and tokens; the graph's node census;
+    the captured and eager launch counters.  (b) host wall per step, median
+    of 5 windows of 16, unfused and fused in turns (u, f, f, u), each
+    beside its device busy time from torch.profiler over one more window,
+    and the ``max_memory_allocated`` of 16 eager steps and of the fused
+    program's build.  Returns the numbers and the lines to print."""
+    import os
+    import tempfile
+
+    from ddl25spring_tpu_torch.models.llama import Llama
+    from ddl25spring_tpu_torch.ops import flash_attention as fa
+    from ddl25spring_tpu_torch.ops.losses import causal_lm_loss
+    from ddl25spring_tpu_torch.parallel.dp import make_train_step
+    from ddl25spring_tpu_torch.parallel.pipeline import WARMUP_STEPS, fuse_train_steps
+    from ddl25spring_tpu_torch.utils.config import LlamaConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev, K, lr = torch.device("cuda", 0), FUSE_K, 8e-4
+    cfg = LlamaConfig(dtype="bfloat16", use_flash=True)
+    window = torch.randint(0, cfg.vocab_size, (K, MAIN_SHAPE[0], cfg.ctx_size),
+                           generator=torch.Generator().manual_seed(7)).to(dev)
+
+    def build():
+        model = Llama(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+        opt = torch.optim.Adam(model.parameters(), lr=lr, capturable=True)
+        return model, opt, make_train_step(model, lambda m, t: causal_lm_loss(m(t), t), opt)
+
+    lines, out = [], {}
+    m_seq, _, step = build()
+    torch.cuda.reset_peak_memory_stats(dev)
+    seq = torch.stack([step(window[i]) for i in range(K)])
+    torch.cuda.synchronize()
+    peak_eager = torch.cuda.max_memory_allocated(dev)
+    m_f, opt_f, step_f = build()
+    fa.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        dump = os.path.join(tmp, "graph.dot")
+        multi = fuse_train_steps(step_f, K, module=m_f, optimizer=opt_f, device=dev,
+                                 dump_graph=dump)
+        t0 = time.perf_counter()
+        fused = multi(window)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        check(os.path.exists(dump), f"(a) CUDAGraph.debug_dump wrote no {dump}")
+        with open(dump) as f:
+            census, n_nodes = graph_census(f.read())
+    peak_fused = torch.cuda.max_memory_allocated(dev)
+    eager = dict(fa.LAUNCHES)
+    captured = {n: dict(c) for n, c in fa.CAPTURED.items()}
+    per_window = 6 * K
+    check(eager == {n: 6 * WARMUP_STEPS for n in eager},
+          f"(a) eager launches {eager}: the warm-up's {WARMUP_STEPS} steps should be the only ones")
+    check(all(c == {"wgmma": per_window, "scalar": 0} for c in captured.values()),
+          f"(a) captured launches {captured}, not {per_window} of each on wgmma")
+    want_census = {n: per_window if n.endswith("wgmma") else 0 for n in CENSUS}
+    check(census == want_census, f"(a) the graph's {n_nodes} nodes hold flash kernels "
+                                 f"{census}, not {want_census}")
+    loss_err = (fused - seq).abs().max().item()
+    param_err = _max_diff(m_f.parameters(), m_seq.parameters())
+    bitwise = torch.equal(fused, seq) and all(
+        torch.equal(a, b) for a, b in zip(m_f.parameters(), m_seq.parameters()))
+    check(torch.isfinite(fused).all().item() and loss_err <= 1e-2 * seq.abs().max().item(),
+          f"(a) fused losses {fused.tolist()} vs eager {seq.tolist()}")
+    check(param_err <= K * lr, f"(a) fused parameters off by {param_err:.3g} > {K * lr}")
+    same = "bitwise equal" if bitwise else "NOT bitwise"
+    lines.append(f"  (a) LLaMA bf16, {K} steps: fused vs eager {same} (losses max abs diff "
+                 f"{loss_err:.3g}, parameters {param_err:.3g}); losses "
+                 f"{seq[0].item():.4f} -> {seq[-1].item():.4f}")
+    lines.append(f"  (a) graph: {n_nodes} nodes, flash kernel nodes {census}; captured "
+                 f"launches {captured}; eager launches {eager} (the {WARMUP_STEPS} warm-up "
+                 f"steps); built and replayed in {build_s:.2f} s")
+    # (b): u, f, f, u blocks of windows; then one profiled window of each
+    unfused = lambda: [step(window[i]) for i in range(K)]  # noqa: E731
+    fused_fn = lambda: multi(window)  # noqa: E731
+    blocks = [("unfused", _window_ms(unfused, K, FUSE_WINDOWS)),
+              ("fused", _window_ms(fused_fn, K, FUSE_WINDOWS)),
+              ("fused", _window_ms(fused_fn, K, FUSE_WINDOWS)),
+              ("unfused", _window_ms(unfused, K, FUSE_WINDOWS))]
+    fa.reset_launches()
+    _window_ms(fused_fn, K, 2)
+    check(not any(fa.LAUNCHES.values()), f"(b) replays moved the eager counters: {fa.LAUNCHES}")
+    for name, fn in (("unfused", unfused), ("fused", fused_fn)):
+        wall = statistics.median(t for n, ts in blocks if n == name for t in ts)
+        events = kernel_events(fn, 1)
+        busy = sum(e.self_device_time_total for e in events) / 1e3 / K
+        flash = sum(e.count for e in events if "flash_" in e.key)
+        out[name] = {"wall_ms": wall, "busy_ms": busy,
+                     "blocks_ms": [statistics.median(ts) for n, ts in blocks if n == name]}
+        idle = f"{1 - busy / wall:.3f}" if busy > 0 else "not measured (no kernel records)"
+        lines.append(f"  (b) LLaMA {name}: host wall {wall:.3f} ms/step (median of "
+                     f"{2 * FUSE_WINDOWS} windows of {K}; block medians "
+                     f"{', '.join(f'{t:.3f}' for t in out[name]['blocks_ms'])}), device busy "
+                     f"{busy:.3f} ms/step ({flash} flash kernel records a window), idle {idle}")
+    out.update(peak_eager=peak_eager, peak_fused=peak_fused, census=census, bitwise=bitwise)
+    lines.append(f"  (b) max_memory_allocated: 16 eager steps {peak_eager / 2**20:.1f} MiB, the "
+                 f"fused program's warm-up, capture and first replay {peak_fused / 2**20:.1f} MiB "
+                 "(two models resident in both)")
+    return out, lines
+
+
+def resnet_scan_headline(dev):
+    """Phase 11 (b), ResNet: ``lab.dp_pp --workload resnet`` with ``--input
+    hbm-scan`` (K = 16 at batch 1024), then ``--input hbm``, each 30 asked
+    steps at phase 8 (b)'s settings; samples/s, median step, MFU, peak
+    memory, and the report line's input field."""
+    from ddl25spring_tpu_torch.lab import dp_pp
+    from ddl25spring_tpu_torch.ops import flash_attention as fa
+
+    runs = {}
+    fa.reset_launches()
+    for mode in ("hbm-scan", "hbm"):
+        run = dp_pp.main(["--workload", "resnet", "--input", mode, "--iters",
+                          str(RESNET_ITERS), "--seed", "0", "--lr", RESNET_LR, "--device",
+                          dev.type])
+        (r,) = run["ranks"]
+        K = FUSE_K if mode == "hbm-scan" else 1
+        timed = max(2, RESNET_ITERS // K) * K if K > 1 else RESNET_ITERS
+        warm = dp_pp.WARMUP - 1
+        check(len(r["losses"]) == 1 + warm * K + timed
+              and all(math.isfinite(x) for x in r["losses"]),
+              f"(b) {mode}: {len(r['losses'])} losses, not all finite or not 1 + {warm} x {K} "
+              f"+ {timed}")
+        want = "hbm-resident-shuffle" + (f"-scan{K}" if K > 1 else "")
+        check(r["input"] == want and json.loads(run["line"])["input"] == want,
+              f"(b) {mode}: input {r['input']}, want {want}")
+        check(not any(fa.LAUNCHES.values()) and not any(n for c in fa.CAPTURED.values()
+                                                        for n in c.values()),
+              f"(b) {mode}: flash kernels {fa.LAUNCHES}, captured {fa.CAPTURED}")
+        runs[mode] = run
+        print(f"  (b) ResNet-18 bf16 batch 1024, --input {mode} ({want}): median step "
+              f"{statistics.median(r['step_s']) * 1e3:.3f} ms over {timed} timed steps, "
+              f"{run['samples_per_s_per_chip']:.1f} samples/s, MFU {run['mfu']:.4f}, "
+              f"max_memory_allocated {r['peak_bytes'] / 2**30:.3f} GiB")
+    return runs
+
+
+def resnet_scan_exactness(dev):
+    """Phase 11 (c): window 0 of epoch 0 selects, bitwise, the 16 batches
+    that 16 ``feed()`` calls of a fresh dataset select; one fused fp32
+    window (TF32 off, cuDNN deterministic) against 16 eager steps from the
+    same weights: losses within 1e-4 of max |eager| and each leaf's update
+    within 2e-2 of its largest, phase 8 (a)'s band."""
+    from ddl25spring_tpu_torch.benchmarks import (
+        DeviceDataset,
+        build_resnet_scan_step,
+        build_resnet_step,
+    )
+    from ddl25spring_tpu_torch.models.resnet import export_params
+    from ddl25spring_tpu_torch.parallel.bucketing import flatten
+    from ddl25spring_tpu_torch.utils.device import backend_flags
+
+    K, B, lr = FUSE_K, SCAN_BATCH, float(RESNET_LR)
+
+    def fresh():
+        ds = DeviceDataset(B, n_train=B * K, device=dev)
+        ds.cursor = 0
+        return ds
+
+    with backend_flags(**FP32_EXACT):
+        feeds = fresh()
+        want = [feeds.feed() for _ in range(K)]
+        ds = fresh()
+        offsets = ds.scan_window(K)
+        for i in range(K):
+            got = ds.gather(offsets[i])
+            check(all(torch.equal(a, b) for a, b in zip(got, want[i])),
+                  f"(c) window 0, batch {i} differs from feed()'s")
+        ds = fresh()
+        multi, _, module, _, _ = build_resnet_scan_step(
+            None, 1, B, lr, torch.float32, scan_steps=K, dataset=ds, device=dev, seed=5)
+        before = flatten(export_params(module))
+        fused = multi(ds.scan_window(K))
+        step, ref, _, _ = build_resnet_step(None, 1, B, lr, torch.float32, device=dev, seed=5)
+        feeds = fresh()
+        seq = torch.stack([step(feeds.feed()) for _ in range(K)])
+        got, eager = flatten(export_params(module)), flatten(export_params(ref))
+    _within("(c) fp32 fused losses", fused.cpu(), seq.cpu(), 1e-4)
+    worst, bitwise = 0.0, torch.equal(fused, seq)
+    for (path, a), (_, b), (_, w0) in zip(got, eager, before):
+        bitwise = bitwise and (a == b).all()
+        upd = b - w0
+        err = _within(f"(c) fp32 fused update {path}", a - w0, upd, 2e-2,
+                      slack=2.0**-23 * abs(b).max())
+        worst = max(worst, err / max(float(abs(upd).max()), 1e-30))
+    print(f"  (c) window 0 of epoch 0 = 16 feed() batches, bitwise; fp32 one fused window vs "
+          f"16 eager steps ({B} rows each): {'bitwise equal' if bitwise else 'NOT bitwise'}, "
+          f"losses max abs diff {(fused - seq).abs().max().item():.3g}, worst leaf update "
+          f"{worst:.2e} of its largest")
+
+
+def grad_accum_fused(dev):
+    """Phase 11 (d): ``make_grad_accum_step`` (batch 1024 in 4 microbatches
+    of 256, bf16, cuDNN autotuned) fused K = 4 against 4 eager steps from
+    the same weights on the same batches (each leaf within 2e-2 of its max,
+    phase 8 (a)'s band; bitwise or not printed), then the median step of
+    each, 10 eager steps against 3 windows."""
+    from ddl25spring_tpu_torch.benchmarks import DeviceDataset, _nchw, timed_run
+    from ddl25spring_tpu_torch.lab.dp_pp import RUN_FLAGS
+    from ddl25spring_tpu_torch.models.resnet import ResNet18
+    from ddl25spring_tpu_torch.ops.losses import cross_entropy_logits
+    from ddl25spring_tpu_torch.parallel.pipeline import fuse_train_steps, make_grad_accum_step
+    from ddl25spring_tpu_torch.utils.device import backend_flags
+    from ddl25spring_tpu_torch.utils.prng import seeded_generator
+
+    K, dtype = 4, torch.bfloat16
+    gens = [seeded_generator(0, 0, m) for m in range(ACCUM_MICRO)]
+
+    def build():
+        m = ResNet18(norm="group", dtype=dtype, generator=torch.Generator().manual_seed(13)
+                     ).to(dev, memory_format=torch.channels_last)
+        opt = torch.optim.SGD(m.parameters(), lr=float(RESNET_LR), momentum=0.9)
+        accum = make_grad_accum_step(
+            m, lambda mm, raw, *g: cross_entropy_logits(mm(_nchw(raw[0], dtype)), raw[1]),
+            opt, ACCUM_MICRO)
+        return m, opt, lambda raw: accum(raw, gens)
+
+    with backend_flags(**RUN_FLAGS):
+        ds = DeviceDataset(1024, n_train=1024 * K, device=dev)
+        ds.cursor = 0
+        batches = [ds.feed() for _ in range(K)]
+        window = tuple(torch.stack(t) for t in zip(*batches))
+        m_seq, _, step = build()
+        seq = torch.stack([step(b) for b in batches])
+        m_f, opt_f, step_f = build()
+        multi = fuse_train_steps(step_f, K, module=m_f, optimizer=opt_f, device=dev)
+        fused = multi(window)
+        torch.cuda.synchronize()
+        bitwise = torch.equal(fused, seq)
+        for (name, a), b in zip(m_f.named_parameters(), m_seq.parameters()):
+            bitwise = bitwise and torch.equal(a, b)
+            _within(f"(d) fused grad-accum {name}", a, b, 2e-2)
+        param_err = _max_diff(m_f.parameters(), m_seq.parameters())
+        cycle = itertools.cycle(batches).__next__
+        _, _, eager_s = timed_run(step, cycle, ACCUM_ITERS, 2, device=dev)
+        _, _, fused_s = timed_run(multi, lambda: window, 3, 1, device=dev, k=K)
+    check(all(math.isfinite(x) for x in fused.tolist()), f"(d) fused losses {fused.tolist()}")
+    times = {"eager": statistics.median(eager_s) * 1e3, "fused": statistics.median(fused_s) * 1e3}
+    print(f"  (d) ResNet-18 grad accumulation (1024 = 4 x 256, bf16), fused K = {K} vs 4 eager "
+          f"steps: {'bitwise equal' if bitwise else 'NOT bitwise'} (losses max abs diff "
+          f"{(fused - seq).abs().max().item():.3g}, parameters {param_err:.3g}); median step "
+          f"eager {times['eager']:.3f} ms ({ACCUM_ITERS} steps), fused {times['fused']:.3f} ms "
+          "(3 windows, CUDA events between windows)")
+    return times
+
+
+def fedavg_axis_rank(rdv, device):
+    """One rank of phase 11 (e): the tutorial_1a ``MnistCnn`` FedAvg round
+    over 4 non-IID clients (2,003 synthetic rows, B=100, E=1, lr 0.01,
+    dropout masks and orders from CPU generators), its client axis over the
+    2-rank gloo world; then, on this rank alone, from the same draws, the
+    one-process round over the 4 clients and the one-process form of the
+    sharded arithmetic (each rank's block of 2 clients trained apart, the
+    weighted sums added, then divided), which runs the card's kernels at
+    the sharded round's shapes.  Returns the differences."""
+    from ddl25spring_tpu_torch.data.mnist import load_mnist
+    from ddl25spring_tpu_torch.fl.horizontal import (
+        ClientDraws,
+        FedAvgServer,
+        local_epochs,
+        make_fedavg_round,
+    )
+    from ddl25spring_tpu_torch.utils.device import backend_flags
+    from ddl25spring_tpu_torch.utils.mesh import init_mesh
+    from ddl25spring_tpu_torch.utils.prng import client_round_generator
+
+    with backend_flags(**FP32_EXACT), init_mesh(rdv, data=2, stages=1, device=device) as mesh:
+        server = FedAvgServer(nr_clients=4, client_fraction=1.0, batch_size=100,
+                              nr_local_epochs=1, lr=0.01, iid=False, seed=10,
+                              data=load_mnist(n_train=2003, n_test=100), device=mesh.device,
+                              generator_device="cpu")
+        params, cx, cy, counts = server.params, server.cx, server.cy, server.counts_dev
+
+        def draws():
+            gens = [client_round_generator(10, 0, i, "cpu") for i in range(4)]
+            d = ClientDraws(server.model, gens, server.counts, server.cx.shape[1], 100,
+                            mesh.device)
+            memo = {}
+            return (lambda e: memo.setdefault(("o", e), d.orders(e)),
+                    lambda e, i: memo.setdefault(("m", e, i), d.masks(e, i)))
+
+        sharded = make_fedavg_round(server.model, 0.01, 100, 1, comm=mesh.comm)(
+            params, cx, cy, counts, *draws())
+        one = make_fedavg_round(server.model, 0.01, 100, 1)(params, cx, cy, counts, *draws())
+        orders, masks = draws()
+        sums = {n: 0.0 for n in params}
+        for b in (slice(0, 2), slice(2, 4)):
+            with torch.no_grad():
+                client = local_epochs(server.model, params, cx[b], cy[b], counts[b],
+                                      lambda e, b=b: orders(e)[b],
+                                      lambda e, i, b=b: tuple(m[b] for m in masks(e, i)),
+                                      lr=0.01, batch_size=100, nr_epochs=1)
+            sums = {n: sums[n] + torch.tensordot(counts[b], t, dims=1) for n, t in client.items()}
+        blocks = {n: t / counts.sum() for n, t in sums.items()}
+        return {"rank": mesh.rank, "backend": mesh.backend, "device": str(mesh.device),
+                "err_blocks": _max_diff(sharded.values(), blocks.values()),
+                "err_one": _max_diff(sharded.values(), one.values()),
+                "one_vs_blocks": _max_diff(one.values(), blocks.values()),
+                "moved": _max_diff(one.values(), params.values()),
+                "counts": server.counts.tolist()}
+
+
+def fedavg_client_axis(dev):
+    """Phase 11 (e): :func:`fedavg_axis_rank` on two ranks sharing the card.
+    The sharded round against the one-process form of its own arithmetic
+    within 1e-6 (only where the two blocks' sums meet differs), and against
+    the one-process round over the 4 clients within 1e-5, the FedAvg band
+    against JAX: that round runs its convolutions at twice the batch, and
+    cuDNN picks its algorithms by shape (the difference of the two
+    one-process forms is printed)."""
+    from ddl25spring_tpu_torch.parallel.launch import spawn
+
+    ranks = spawn(fedavg_axis_rank, 2, dev.type, timeout=SPAWN_TIMEOUT)
+    for r in ranks:
+        check(r["device"].startswith(dev.type) and r["backend"] == "gloo",
+              f"(e) rank {r['rank']} on {r['device']} over {r['backend']}")
+        check(r["moved"] > 0 and r["err_blocks"] <= FL_AXIS_BAND,
+              f"(e) rank {r['rank']}: sharded round vs its one-process form "
+              f"{r['err_blocks']:.3g} > {FL_AXIS_BAND} (the round moved the weights by "
+              f"{r['moved']:.3g})")
+        check(r["err_one"] <= 1e-5, f"(e) rank {r['rank']}: sharded round vs the 4-client "
+                                    f"one-process round {r['err_one']:.3g} > 1e-5")
+    worst = {k: max(r[k] for r in ranks) for k in ("err_blocks", "err_one", "one_vs_blocks")}
+    print(f"  (e) FedAvg client axis over 2 gloo ranks on {ranks[0]['device']}, clients of "
+          f"{ranks[0]['counts']} rows: sharded vs its one-process form {worst['err_blocks']:.3g} "
+          f"(band {FL_AXIS_BAND}), vs the 4-client one-process round {worst['err_one']:.3g} "
+          f"(band 1e-5); the two one-process forms differ by {worst['one_vs_blocks']:.3g}; "
+          f"the round moved the weights by up to {ranks[0]['moved']:.3g}")
+
+
+def fused_refusals(dev):
+    """Phase 11 (f): the labs refuse to graph ranks that share the card over
+    gloo, before any rank starts."""
+    from ddl25spring_tpu_torch.lab import dp_pp, microbatches
+
+    for name, argv, run in (
+        ("lab.microbatches --scan-steps 4", ["--scan-steps", "4"], microbatches.main),
+        ("lab.dp_pp --workload resnet --pp --ranks 4 --input hbm-scan",
+         ["--workload", "resnet", "--pp", "--ranks", "4", "--input", "hbm-scan"], dp_pp.main),
+    ):
+        try:
+            run([*argv, "--device", dev.type])
+        except ValueError as e:
+            check("host copy" in str(e), f"(f) {name} raised {e}")
+            print(f"  (f) {name}: ValueError: {e}")
+        else:
+            check(False, f"(f) {name} ran instead of raising")
+
+
+def fused_phase(dev):
+    """Phase 11, each sub-phase timed; returns the LLaMA numbers."""
+    from ddl25spring_tpu_torch.parallel.launch import spawn
+
+    t0 = time.perf_counter()
+    (llama, lines), = spawn(fused_llama, 1, timeout=SPAWN_TIMEOUT)
+    for line in lines:
+        print(line)
+    print(f"  (a)-(b) LLaMA took {time.perf_counter() - t0:.1f} s", flush=True)
+    for name, fn in (("(b) ResNet", resnet_scan_headline), ("(c)", resnet_scan_exactness),
+                     ("(d)", grad_accum_fused), ("(e)", fedavg_client_axis),
+                     ("(f)", fused_refusals)):
+        t0 = time.perf_counter()
+        fn(dev)
+        print(f"  {name} took {time.perf_counter() - t0:.1f} s", flush=True)
+    return llama
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1681,9 +2130,17 @@ def main() -> int:
     schedules_phase(dev)
     print(f"  phase 10 in {time.perf_counter() - t0:.1f} s")
 
+    print(f"== fused dispatch: K train steps per CUDA graph (LLaMA K = {FUSE_K}, ResNet "
+          f"hbm-scan K = {FUSE_K}, grad accumulation K = 4); the FedAvg client axis over ranks")
+    print(card)
+    t0 = time.perf_counter()
+    fused = fused_phase(dev)
+    print(f"  phase 11 in {time.perf_counter() - t0:.1f} s")
+
     kernels = [
         {"name": f"flash_{name}", "route": "cuda", "source": SOURCE[timing[name]["variant"]],
          "replaces": REPLACES[name], "launches": launches[name],
+         "launches_per_fused_window": fused["census"][f"flash_{name}_wgmma"],
          "max_abs_err": main_err[name], **timing[name]}
         for name in ("fwd", "dq", "dkv")
     ]

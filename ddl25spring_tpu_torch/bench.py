@@ -8,11 +8,17 @@ wrapper, lineage and telemetry (ROADMAP A10, A11).
 - ``secondary``: the FedAvg round time of :func:`fedavg_secondary`, timed as
   ``bench.py:563-604`` times it.
 
-The ResNet run takes ``lab.dp_pp``'s defaults (30 timed steps, batch 1024
-per card, SGD lr 0.1), as the top-level bench takes its lab's.
+The ResNet run takes ``lab.dp_pp``'s defaults (batch 1024 per card, SGD lr
+0.1, ``--input auto``), as the top-level bench takes its lab's: on one card
+K train steps per dispatch, one CUDA graph each, with K by the JAX rule
+(``bench.py:1086-1100``: the largest divisor of the epoch's batches up to
+16, so 16 at batch 1024; 2 windows, 32 timed steps), and the line's input
+reads ``hbm-resident-shuffle-scan16``; ``--scan-steps K`` sets K, and
+``--scan-steps 1`` gives the per-step mode (30 timed steps).
 
 Run: ``python -m ddl25spring_tpu_torch.bench [--device cuda] [--rounds 10]
-[--n-train 60000]``.  The last line of the output is the record.
+[--n-train 60000] [--scan-steps K]``.  The last line of the output is the
+record.
 """
 
 from __future__ import annotations
@@ -77,8 +83,12 @@ def main(argv=None) -> dict:
     ap.add_argument("--rounds", type=int, default=10, help="FedAvg timed rounds")
     ap.add_argument("--n-train", type=int, default=0,
                     help="FedAvg train rows; 0 = the full 60,000")
+    ap.add_argument("--scan-steps", type=int, default=0, metavar="K",
+                    help="ResNet train steps per dispatch; 0 = the JAX rule (16 at batch "
+                         "1024 on the card, 1 on the CPU); 1 = one step at a time")
     args = ap.parse_args(argv)
-    run = dp_pp.main(["--workload", "resnet", "--device", args.device])
+    scan = ["--scan-steps", str(args.scan_steps)] if args.scan_steps else []
+    run = dp_pp.main(["--workload", "resnet", "--device", args.device, *scan])
     rec = json.loads(run["line"])
     rec["secondary"] = [fedavg_secondary(args.rounds, args.device, args.n_train or None)]
     print(json.dumps(rec), flush=True)

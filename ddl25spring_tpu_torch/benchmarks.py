@@ -9,18 +9,19 @@ otherwise (``"dppp"``).  The step takes a raw uint8 NHWC batch
 step, in the compute dtype; the permute to NCHW is free, because the NHWC
 bytes are ``channels_last`` memory.  :class:`DeviceDataset` keeps the whole
 train split on the device and draws each step's batch there;
-:func:`timed_run` times the steps; :func:`report_line` is the one-line JSON
-record the entry points print.
+:func:`build_resnet_scan_step` runs ``K`` steps per dispatch, the batches
+drawn inside one CUDA graph (:meth:`DeviceDataset.scan_window`);
+:func:`timed_run` times the steps or the windows; :func:`report_line` is the
+one-line JSON record the entry points print.
 
 Where the JAX step is a pure function of ``(params, opt_state, batch)``
 that returns new ones, the port's step updates its module and optimizer in
 place (as :mod:`~ddl25spring_tpu_torch.parallel.dp` does): ``step(batch)``
 returns the loss, or None on a pipeline rank that is not the last stage.
 
-Not ported yet (ROADMAP): the K-steps-per-dispatch
-``build_resnet_scan_step``, the native streaming ``InputFeed``, the
-compute counterfactual, and the JAX builders' ``instrument`` and
-``sentinel`` options.
+Not ported yet (ROADMAP): the native streaming ``InputFeed``, the compute
+counterfactual, and the ``instrument`` and ``sentinel`` options of the JAX
+functions that build the steps.
 """
 
 from __future__ import annotations
@@ -36,10 +37,12 @@ from ddl25spring_tpu_torch.ops.losses import cross_entropy_logits
 from ddl25spring_tpu_torch.parallel import bucketing
 from ddl25spring_tpu_torch.parallel.dp import make_dp_train_step, make_train_step
 from ddl25spring_tpu_torch.parallel.het_pipeline import make_het_pipeline_train_step
+from ddl25spring_tpu_torch.parallel.pipeline import fuse_train_steps
 from ddl25spring_tpu_torch.utils.device import resolve_device
 from ddl25spring_tpu_torch.utils.mesh import cards_used
 
 BASELINE_SAMPLES_PER_SEC_PER_CHIP = 5_000.0
+TRAIN_ROWS = 50_000  # CIFAR-10's train split
 
 
 def _nchw(x_u8: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -146,6 +149,47 @@ def build_resnet_step(mesh=None, num_microbatches: int = 1, batch: int = 1024,
     return step, module, opt, meta
 
 
+def build_resnet_scan_step(mesh=None, num_microbatches: int = 1, batch: int = 1024,
+                           lr: float = 0.1, dtype: torch.dtype | None = None, *,
+                           scan_steps: int, dataset: "DeviceDataset", device=None,
+                           seed: int = 0, overlap: bool = False):
+    """``scan_steps`` train steps per dispatch, each drawing its batch from
+    ``dataset`` on the device: the counterpart of the JAX
+    ``build_resnet_scan_step`` (``benchmarks.py:180-246``).
+
+    The step is :func:`build_resnet_step`'s (same arguments), and the
+    dispatch :func:`~ddl25spring_tpu_torch.parallel.pipeline.
+    fuse_train_steps` of it over a window of batch offsets
+    (:meth:`DeviceDataset.scan_window`): on CUDA one CUDA graph of the
+    ``K`` steps, each gathering its rows of the epoch's permutation with
+    device-side indexing (:meth:`DeviceDataset.gather`), so no host integer
+    enters the graph; on the CPU a loop of the same steps.  Where the JAX
+    program draws the epoch's permutation inside the scan, the port draws it
+    outside the graph, into the dataset's static permutation buffer, when
+    the epoch changes.
+
+    Returns ``(multi, step1, module, optimizer, meta)``: ``multi(window)``
+    runs the window's ``K`` steps and returns their ``[K]`` losses (the JAX
+    program returns the last); ``step1`` is the one-batch step (for the
+    FLOP count); ``meta`` is :func:`build_resnet_step`'s with
+    ``scan_steps``.  ``scan_steps`` must divide ``dataset``'s batches per
+    epoch (``ValueError``), so a window never crosses an epoch; a mesh whose
+    transport cannot be graphed raises (:func:`~ddl25spring_tpu_torch.
+    parallel.pipeline.graph_refusal`)."""
+    if dataset.batch != batch:
+        raise ValueError(f"the dataset draws batches of {dataset.batch}, the step takes {batch}")
+    dataset.check_scan(scan_steps)
+    step1, module, opt, meta = build_resnet_step(mesh, num_microbatches, batch, lr, dtype,
+                                                 device=device, seed=seed, overlap=overlap)
+
+    def scan_body(off):
+        return step1(dataset.gather(off))
+
+    multi = fuse_train_steps(scan_body, scan_steps, module=module, optimizer=opt,
+                             device=meta["device"], comm=mesh.comm if mesh is not None else None)
+    return multi, step1, module, opt, dict(meta, scan_steps=scan_steps)
+
+
 class DeviceDataset:
     """The train split resident on the device, one shuffle per epoch drawn
     there: the counterpart of the JAX package's ``DeviceDataset``.
@@ -161,7 +205,9 @@ class DeviceDataset:
     properties are the same (disjoint batches, a new order every epoch,
     epoch arithmetic on host integers).  As in the JAX class, the
     constructor draws the first batch as :attr:`fixed`, so the first
-    :meth:`feed` returns the epoch's second batch.
+    :meth:`feed` returns the epoch's second batch.  The permutation lives in
+    one buffer, rewritten in place per epoch, so a CUDA graph that gathers
+    from it (:meth:`scan_window`, :meth:`gather`) reads the current epoch's.
 
     ``device`` follows :func:`~ddl25spring_tpu_torch.utils.device.resolve_device`:
     CUDA unless ``"cpu"`` is asked for; no GPU raises."""
@@ -170,7 +216,7 @@ class DeviceDataset:
 
     def __init__(self, batch: int, n_train: int | None = None, device=None):
         self.device = resolve_device(device)
-        d = load_cifar10_u8(n_train=n_train or 50_000)
+        d = load_cifar10_u8(n_train=n_train or TRAIN_ROWS)
         self.provenance = d["provenance"]
         self.x = torch.from_numpy(d["x"]).to(self.device)  # [N, 32, 32, 3] uint8
         self.y = torch.from_numpy(d["y"]).to(self.device)
@@ -182,13 +228,15 @@ class DeviceDataset:
         self._i = 0
         self.seed = 20
         self._gen = torch.Generator(device=self.device)
-        self._epoch, self._perm = None, None
+        self._epoch = None
+        self._perm = torch.empty(self.n, dtype=torch.long, device=self.device)
+        self._rows = torch.arange(batch, device=self.device)
         self.fixed = self.feed()
 
     def _permutation(self, epoch: int) -> torch.Tensor:
         if epoch != self._epoch:
             self._gen.manual_seed((self.seed << 32) + epoch)
-            self._perm = torch.randperm(self.n, generator=self._gen, device=self.device)
+            torch.randperm(self.n, generator=self._gen, device=self.device, out=self._perm)
             self._epoch = epoch
         return self._perm
 
@@ -199,10 +247,43 @@ class DeviceDataset:
         idx = self._permutation(epoch % (2**31 - 1))[b * self.batch:(b + 1) * self.batch]
         return self.x[idx], self.y[idx]
 
+    def check_scan(self, K: int):
+        """Raise ``ValueError`` unless ``K`` divides the batches per epoch."""
+        if K < 1 or self.batches_per_epoch % K:
+            raise ValueError(f"scan_steps={K} must divide batches_per_epoch="
+                             f"{self.batches_per_epoch}: a window of K batches never crosses "
+                             "an epoch")
+
+    def scan_window(self, K: int) -> torch.Tensor:
+        """The next window of ``K`` consecutive disjoint batches of the
+        epoch's permutation, for :func:`build_resnet_scan_step`: their
+        offsets in the permutation, ``[K]`` int64 on the device, made there
+        from host integers; the permutation buffer holds the window's epoch
+        when this returns.  The counterpart of the JAX ``scan_window``: ``K``
+        must divide the batches per epoch (``ValueError``), so a window never
+        crosses an epoch, and :attr:`cursor` counts windows in this mode, so
+        window ``w`` selects the batches that :meth:`feed` selects at cursors
+        ``w * K .. w * K + K - 1``.  Do not interleave the two modes within a
+        run."""
+        self.check_scan(K)
+        epoch, w = divmod(self._i, self.batches_per_epoch // K)
+        self._i += 1
+        self._permutation(epoch % (2**31 - 1))
+        off = w * K * self.batch
+        return torch.arange(off, off + K * self.batch, self.batch, device=self.device)
+
+    def gather(self, off: torch.Tensor):
+        """The batch at offset ``off`` (a 0-d int64 tensor on the device) of
+        the current permutation, gathered on the device: ``(x, y)`` as
+        :meth:`feed` returns them, with no host integer involved."""
+        idx = self._perm.index_select(0, off + self._rows)
+        return self.x.index_select(0, idx), self.y.index_select(0, idx)
+
     @property
     def cursor(self) -> int:
-        """The position in the batch sequence (the next :meth:`feed`); with
-        :attr:`seed` it pins the batches that follow."""
+        """The position in the batch sequence (the next :meth:`feed`, or the
+        next window of :meth:`scan_window`); with :attr:`seed` it pins the
+        batches that follow."""
         return self._i
 
     @cursor.setter
@@ -230,17 +311,22 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def timed_run(step, feed, steps: int, warmup: int, device=None):
-    """``warmup`` steps, then ``steps`` timed ones: ``step(feed())`` each.
-    Returns ``(dt, losses, step_s)``: the seconds of the timed steps (from
+def timed_run(step, feed, steps: int, warmup: int, device=None, k: int = 1):
+    """``warmup`` calls, then ``steps`` timed ones: ``step(feed())`` each.
+    Returns ``(dt, losses, step_s)``: the seconds of the timed calls (from
     the host's dispatch of the first to ``device``'s idle after the last),
     the losses of every step (warm-up included; steps that return None are
-    left out), read after the clock stops, and each timed step's seconds.
+    left out), read after the clock stops, and each timed call's seconds
+    per step.
 
-    On CUDA the per-step seconds come from an event recorded after each step
-    on the stream, so the steps are not synchronized one by one (the time
-    between two events is the card's time for a step while the host stays
-    ahead of it); elsewhere they are host time."""
+    With ``k > 1`` each call is a window of ``k`` fused steps
+    (:func:`build_resnet_scan_step`) that returns their ``[k]`` losses, and
+    its seconds are divided by ``k``.
+
+    On CUDA the seconds come from an event recorded after each call on the
+    stream, so the calls are not synchronized one by one (the time between
+    two events is the card's time for a call while the host stays ahead of
+    it); elsewhere they are host time."""
     cuda = device is not None and torch.device(device).type == "cuda"
     losses = [step(feed()) for _ in range(warmup)]
     _sync(device)
@@ -262,8 +348,8 @@ def timed_run(step, feed, steps: int, warmup: int, device=None):
     _sync(device)
     dt = time.perf_counter() - t0
     if cuda:
-        step_s = [a.elapsed_time(b) / 1e3 for a, b in zip(marks, marks[1:])]
+        step_s = [a.elapsed_time(b) / 1e3 / k for a, b in zip(marks, marks[1:])]
     else:
-        step_s = [b - a for a, b in zip(marks, marks[1:])]
-    kept = [x for x in losses if x is not None]
-    return dt, (torch.stack(kept).tolist() if kept else []), step_s
+        step_s = [(b - a) / k for a, b in zip(marks, marks[1:])]
+    kept = [x.reshape(-1) for x in losses if x is not None]
+    return dt, (torch.cat(kept).tolist() if kept else []), step_s

@@ -45,6 +45,12 @@ Models.  A model takes the JAX package's NHWC batch and returns
 log-probabilities; one with dropout has ``dropout_masks(rows, generator)``
 and ``forward(x, masks)`` (:class:`~ddl25spring_tpu_torch.models.mnist_cnn.MnistCnn`).
 The server's global weights are its ``model``'s parameters.
+
+The client axis over ranks.  ``make_fedavg_round(..., comm=)`` splits the
+round's clients over the ranks of a ``torch.distributed`` world, as the JAX
+package places the client axis over a mesh (``__graft_entry__.py:281-323``,
+``P("clients")``): each rank trains its contiguous block of the clients and
+the weighted average is an all-reduce of the weighted sums and the counts.
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import functional_call, grad, vmap
 
 from ddl25spring_tpu_torch.data.mnist import load_mnist
@@ -128,18 +135,52 @@ def local_epochs(model, params: dict, cx, cy, counts, orders, masks, *, lr: floa
     return p
 
 
-def make_fedavg_round(model, lr: float, batch_size: int, nr_epochs: int):
+def make_fedavg_round(model, lr: float, batch_size: int, nr_epochs: int, comm=None):
     """One FedAvg round: :func:`local_epochs` over the client axis, then the
     sample-count-weighted average (``hfl_complete.py:370-383``).  The
     returned ``fedavg_round(params, cx, cy, counts, orders, masks)`` gives
-    the new global weights."""
+    the new global weights.
+
+    ``comm`` (a :class:`~ddl25spring_tpu_torch.parallel.comm.Comm` of an
+    initialised ``torch.distributed`` world; None: this process takes every
+    client) splits the client axis over the world's ranks, as the JAX round
+    runs with the axis sharded ``P("clients")`` (``__graft_entry__.py:
+    281-323``).  Every rank makes the same call with every client's shards,
+    counts, orders and masks, and rank ``r`` of ``W`` trains the contiguous
+    block ``[r * N/W, (r+1) * N/W)`` of the ``N`` clients; the world must
+    split the clients evenly (``ValueError``, as the JAX sharding requires).
+    Each rank sums ``counts_i * params_i`` and ``counts_i`` over its block,
+    both sums are all-reduced over the world, and their quotient is the
+    average on every rank.  The sums run in another order than the
+    one-process ``tensordot(counts / counts.sum(), params)``: expect
+    agreement to rounding (1e-6 in fp32), not bitwise.  A gloo world stages
+    a card's tensors through pinned host buffers (:class:`Comm`)."""
+
+    def block(x, rank, world):
+        n = x.shape[0] // world
+        return x[rank * n:(rank + 1) * n]
 
     @torch.no_grad()
     def fedavg_round(params, cx, cy, counts, orders, masks):
-        client = local_epochs(model, params, cx, cy, counts, orders, masks, lr=lr,
-                              batch_size=batch_size, nr_epochs=nr_epochs)
-        w = counts / counts.sum()  # hfl_complete.py:370-372
-        return {n: torch.tensordot(w, t, dims=1) for n, t in client.items()}
+        if comm is None:
+            client = local_epochs(model, params, cx, cy, counts, orders, masks, lr=lr,
+                                  batch_size=batch_size, nr_epochs=nr_epochs)
+            w = counts / counts.sum()  # hfl_complete.py:370-372
+            return {n: torch.tensordot(w, t, dims=1) for n, t in client.items()}
+        rank, world = dist.get_rank(), dist.get_world_size()
+        if cx.shape[0] % world:
+            raise ValueError(f"{cx.shape[0]} clients do not split evenly over {world} ranks: "
+                             "the client axis is sharded in equal blocks")
+        mine = block(counts, rank, world)
+        client = local_epochs(
+            model, params, block(cx, rank, world), block(cy, rank, world), mine,
+            lambda e: block(orders(e), rank, world),
+            lambda e, i: tuple(block(m, rank, world) for m in masks(e, i)),
+            lr=lr, batch_size=batch_size, nr_epochs=nr_epochs)
+        sums = {n: torch.tensordot(mine, t, dims=1) for n, t in client.items()}
+        total = mine.sum().reshape(1)
+        comm.all_reduce_sum_([*sums.values(), total])
+        return {n: t / total for n, t in sums.items()}
 
     return fedavg_round
 

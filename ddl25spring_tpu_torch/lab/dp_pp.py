@@ -1,7 +1,10 @@
 """Homework B2 on PyTorch: the 2 x 3 DP x PP LLaMA and the ResNet-18/CIFAR-10
 benchmark step, one process per rank.
 
-``--workload llama`` (the default) is the counterpart of
+``--workload resnet`` (the default, as in ``lab/s01_b2_dp_pp.py:34``: the
+BASELINE benchmark config, ``lab/run-b2.sh:7-9``) is described below.
+
+``--workload llama`` is the counterpart of
 ``lab/s01_b2_dp_pp.py --workload llama`` (``run_llama``, :90-226): two
 pipelines of three stages, ranks ``0..2`` and ``3..5``, the DP group of each
 stage ``[0, 3] / [1, 4] / [2, 5]``; the workload constants
@@ -12,8 +15,16 @@ of them under an interleaved schedule) and runs the step of
 :mod:`~ddl25spring_tpu_torch.parallel.pipeline` under ``--schedule``
 (``gpipe``, ``1f1b``, ``1f1b-stash``, ``interleaved``,
 ``interleaved-1f1b``; ``--chunks`` defaults to 2 and only the interleaved
-schedules read it).  ``--scan-steps K > 1`` (the JAX ``fuse_train_steps``)
-is not ported and raises.  Every rank reads the same global TinyStories
+schedules read it).  ``--scan-steps K`` fuses K train steps per dispatch
+(:func:`~ddl25spring_tpu_torch.parallel.pipeline.fuse_train_steps`, the
+rule of ``lab/s01_b1_microbatches.py:147-160``): ``--iters`` becomes a
+multiple of K, and the first dispatch, which builds the fused program,
+stays out of the rate.  On the CPU it is a loop of K steps; on the card it
+is one CUDA graph, which these ranks cannot be: they share the card over
+gloo through host buffers (or talk over NCCL, whose capture is not ported),
+so the default (0: 16 on the card, 1 on the CPU, as in JAX) resolves to 1
+there, the header says why, and an explicit K > 1 raises
+(:func:`llama_scan_steps`).  Every rank reads the same global TinyStories
 stream and takes its own rows of it.
 
 On CUDA the ranks compute in bf16 over float32 parameters, attention through
@@ -36,8 +47,18 @@ last stage of pipeline 0, with each step's seconds the slowest rank's
 (``data = N // 2``, 2 microbatches).  Batch 1024 per rank on CUDA (bf16) and
 4 on the CPU (float32), SGD 0.1 with momentum 0.9, the CIFAR-10 train split
 on the device (:class:`~ddl25spring_tpu_torch.benchmarks.DeviceDataset`;
-``--input fixed``: one batch re-fed).  3 warm-up steps (the first counts
-the step's FLOPs), then ``--iters`` timed ones (default 30) through
+``--input``, :func:`resnet_input`: ``hbm`` feeds one step at a time,
+``hbm-scan`` runs K steps per dispatch, their batches drawn on the card
+inside one CUDA graph (:func:`~ddl25spring_tpu_torch.benchmarks.
+build_resnet_scan_step`; K = ``--scan-steps``, else the largest divisor of
+the epoch's batches up to 16, the JAX rule: 16 at batch 1024), ``fixed``
+re-feeds one batch, and ``auto`` (the default, as in JAX) takes
+``hbm-scan`` on CUDA where one rank has the card to itself and ``hbm``
+otherwise; the header and the report line's input field name what was
+taken (``hbm-resident-shuffle-scan16``).  The first step counts the step's
+FLOPs; then 2 warm-up steps (windows under ``hbm-scan``), then ``--iters``
+timed ones (default 30; under ``hbm-scan`` ``max(2, iters // K)`` windows,
+as in JAX) through
 :func:`~ddl25spring_tpu_torch.benchmarks.timed_run`; prints the loss every
 ``--log-every`` steps (read after the timed window), samples/s and TFLOP/s
 per card (ranks that share a card count it once), MFU, and
@@ -50,9 +71,9 @@ cards, or the CPU, between N processes: the port's form of
 ``torch.backends.cudnn.benchmark`` and turns TF32 off (:data:`RUN_FLAGS`),
 and puts both back after.
 
-Run: ``python -m ddl25spring_tpu_torch.lab.dp_pp [--iters 20] [--device cuda]
-[--schedule interleaved-1f1b --chunks 2]``
-     ``python -m ddl25spring_tpu_torch.lab.dp_pp --workload resnet [--pp --ranks 4]``
+Run: ``python -m ddl25spring_tpu_torch.lab.dp_pp [--pp --ranks 4] [--input hbm]``
+     ``python -m ddl25spring_tpu_torch.lab.dp_pp --workload llama [--iters 20]
+[--device cuda] [--schedule interleaved-1f1b --chunks 2]``
 """
 
 from __future__ import annotations
@@ -71,18 +92,21 @@ from ddl25spring_tpu_torch.data.tinystories import TinyStories
 from ddl25spring_tpu_torch.data.tokenizer import get_tokenizer
 from ddl25spring_tpu_torch.models.llama import Llama, export_grads, export_params
 from ddl25spring_tpu_torch.ops import flash_attention as fa
+from ddl25spring_tpu_torch.parallel.comm import Comm
 from ddl25spring_tpu_torch.parallel.launch import spawn
 from ddl25spring_tpu_torch.parallel.pipeline import (
     INTERLEAVED,
     SCHEDULES,
     check_layout,
+    fuse_train_steps,
+    graph_refusal,
     make_pipeline_train_step,
     shard_staged_params,
 )
 from ddl25spring_tpu_torch.utils.config import DpPpConfig, LlamaConfig
 from ddl25spring_tpu_torch.utils.device import backend_flags, resolve_device
 from ddl25spring_tpu_torch.utils.flops import count_flops, mfu
-from ddl25spring_tpu_torch.utils.mesh import cards_used, init_mesh
+from ddl25spring_tpu_torch.utils.mesh import cards_used, init_mesh, select_backend
 
 
 @dataclass(frozen=True)
@@ -94,7 +118,7 @@ class Job:
     stages: int
     microbatches: int
     batch: int                  # global rows per step: microbatches x data x rows
-    iters: int
+    iters: int                  # dispatches, each of scan_steps steps
     lr: float = 8e-4
     seed: int = 0
     device: str = "cuda"
@@ -104,6 +128,7 @@ class Job:
     log: bool = True
     schedule: str = "gpipe"
     chunks: int = 1             # layer chunks per rank (the interleaved schedules)
+    scan_steps: int = 1         # train steps per dispatch (fuse_train_steps)
 
 
 def world_totals(mesh, flops: int, seconds: list[float]) -> tuple[int, list[float]]:
@@ -126,10 +151,11 @@ def reporting_rank(ranks: list, stages: int) -> dict | None:
 
 
 def run_rank(rdv, job: Job) -> dict:
-    """One rank of ``job``: its stage's training loop.  Returns its
-    coordinates, device and backend, the losses (last stage only), each
-    step's host time (to the card's idle) and the slowest rank's
-    (``world_step_s``), its comm counts per step
+    """One rank of ``job``: its stage's training loop, ``job.iters``
+    dispatches of ``job.scan_steps`` steps.  Returns its coordinates, device
+    and backend, the losses (last stage only, every step), each dispatch's
+    host time (to the card's idle) per step and the slowest rank's
+    (``world_step_s``), its comm counts per dispatch
     (:meth:`~ddl25spring_tpu_torch.parallel.comm.Comm.take_stats`), its flash
     kernel launches and, with ``job.export``, its stage's gradients after the
     first step and parameters after the last."""
@@ -143,6 +169,10 @@ def run_rank(rdv, job: Job) -> dict:
         opt = torch.optim.Adam(stage.parameters(), lr=job.lr)
         step = make_pipeline_train_step(stage, cfg, opt, mesh, job.microbatches,
                                         job.schedule, job.chunks)
+        stats, K = step.stats, job.scan_steps
+        if K > 1:
+            step = fuse_train_steps(step, K, module=stage, optimizer=opt, device=mesh.device,
+                                    comm=mesh.comm)
         if job.batches is not None:
             batches = iter(job.batches)
         else:
@@ -155,18 +185,19 @@ def run_rank(rdv, job: Job) -> dict:
         fa.reset_launches()
         mesh.comm.take_stats()
         for it in range(job.iters):
-            tokens = torch.from_numpy(np.asarray(next(batches))).long()
+            tokens = np.stack([np.asarray(next(batches)) for _ in range(K)])
+            tokens = torch.from_numpy(tokens if K > 1 else tokens[0]).long()
             t0 = time.perf_counter()
             loss = step(tokens)
             if mesh.device.type == "cuda":
                 torch.cuda.synchronize(mesh.device)
-            out["step_s"].append(time.perf_counter() - t0)
+            out["step_s"].append((time.perf_counter() - t0) / K)
             out["comm"].append(mesh.comm.take_stats())
-            out["stash_max"].append(step.stats["stash_max"])
-            if loss is not None:
-                out["losses"].append(float(loss))
+            out["stash_max"].append(stats["stash_max"])
+            for j, x in enumerate([] if loss is None else loss.reshape(-1).tolist()):
+                out["losses"].append(x)
                 if job.log and d == 0:
-                    print(f"iter {it:3d}  loss {out['losses'][-1]:.4f}  "
+                    print(f"iter {it * K + j:3d}  loss {x:.4f}  "
                           f"step {out['step_s'][-1] * 1e3:.2f} ms", flush=True)
             if job.export and it == 0:
                 out["grads"] = export_grads(stage)
@@ -181,7 +212,7 @@ def run_rank(rdv, job: Job) -> dict:
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--workload", choices=("llama", "resnet"), default="llama")
+    ap.add_argument("--workload", choices=("resnet", "llama"), default="resnet")
     ap.add_argument("--iters", type=int, default=0,
                     help="0 = the workload's default (llama 20, resnet 30)")
     ap.add_argument("--schedule", choices=SCHEDULES, default="gpipe",
@@ -189,8 +220,11 @@ def parse_args(argv=None):
     ap.add_argument("--chunks", type=int, default=2, metavar="V",
                     help="llama, interleaved schedules: layer chunks per rank (needs "
                          "microbatches %% stages == 0 and n_layers %% (stages*V) == 0)")
-    ap.add_argument("--scan-steps", type=int, default=1, metavar="K",
-                    help="llama: train steps per dispatch; only 1 is ported")
+    ap.add_argument("--scan-steps", type=int, default=0, metavar="K",
+                    help="train steps per dispatch, one CUDA graph on the card; 0 = auto: "
+                         "llama 16 on the card where its ranks can be graphed (else 1), 1 on "
+                         "the CPU; resnet under hbm-scan the largest divisor of the epoch's "
+                         "batches up to 16")
     ap.add_argument("--seq-len", type=int, default=256)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
@@ -207,9 +241,12 @@ def parse_args(argv=None):
     ap.add_argument("--microbatches", type=int, default=0,
                     help="resnet: microbatches under --pp; 0 = 2")
     ap.add_argument("--lr", type=float, default=0.0, help="resnet: 0 = 0.1")
-    ap.add_argument("--input", choices=("hbm", "fixed"), default="hbm",
+    ap.add_argument("--input", choices=("auto", "hbm-scan", "hbm", "fixed"), default="auto",
                     help="resnet: 'hbm' = the train split on the device, reshuffled "
-                         "per epoch; 'fixed' = one batch re-fed")
+                         "per epoch; 'hbm-scan' = the same, K steps per dispatch with the "
+                         "batches drawn inside one CUDA graph; 'fixed' = one batch re-fed; "
+                         "'auto' = hbm-scan on CUDA where one rank has the card to itself, "
+                         "else hbm")
     ap.add_argument("--log-every", type=int, default=10)
     return ap.parse_args(argv)
 
@@ -224,42 +261,70 @@ def main(argv=None, layout: DpPpConfig = DpPpConfig()) -> dict:
     args = parse_args(argv)
     if args.workload == "resnet":
         return run_resnet(args)
-    if args.scan_steps > 1:
-        raise NotImplementedError(
-            f"--scan-steps {args.scan_steps}: fusing K train steps per dispatch (the JAX "
-            "fuse_train_steps; its port is a CUDA graph of the step) is not ported yet "
-            "(ROADMAP A5-next 5)")
-    args.iters = args.iters or 20
     D, S, M = layout.data, layout.num_stages, layout.num_microbatches
     V = args.chunks if args.schedule in INTERLEAVED else 1
     check_layout(args.schedule, S, V, M)
     device = resolve_device(args.device)
+    K, why = llama_scan_steps(args.scan_steps, device, D * S)
+    asked = args.iters or 20
+    iters = max(1, asked // K)  # dispatches
+    if iters * K != asked:
+        print(f"note: --iters {asked} adjusted to {iters * K} (a dispatch runs {K} fused "
+              "steps; use --scan-steps to change the granularity)", flush=True)
     cfg = LlamaConfig(ctx_size=args.seq_len,
                       dtype="bfloat16" if device.type == "cuda" else "float32",
                       use_flash=not args.no_flash)
     if cfg.n_layers % (S * V):
         raise ValueError(f"{cfg.n_layers} layers not divisible by S*V = {S}*{V}")
-    job = Job(cfg, D, S, M, batch=D * layout.per_replica_batch, iters=args.iters,
+    job = Job(cfg, D, S, M, batch=D * layout.per_replica_batch, iters=iters,
               lr=layout.learning_rate, seed=args.seed, device=device.type,
-              schedule=args.schedule, chunks=V)
+              schedule=args.schedule, chunks=V, scan_steps=K)
     print(f"llama DPxPP: {D} x {S} ranks, {M} microbatches, {layout.per_replica_batch} rows "
           f"per replica, ctx {args.seq_len}, {cfg.dtype}, "
           f"attention={'flash' if cfg.use_flash else 'dense'}, schedule {args.schedule}"
-          + (f" ({V} chunks per rank)" if V > 1 else "") + f", device={device.type}",
-          flush=True)
+          + (f" ({V} chunks per rank)" if V > 1 else "") + f", device={device.type}, "
+          f"{K} step(s) per dispatch" + (f" ({why})" if why else ""), flush=True)
     ranks = spawn(run_rank, D * S, job, timeout=args.timeout)
     log = reporting_rank(ranks, S)
     if log is None:
         return {"ranks": ranks}
     step_s = log["world_step_s"]
-    timed = step_s[1:] or step_s  # the first step warms up (kernel loads, allocator)
+    # the first dispatch warms up (kernel loads, allocator, a fused program's build)
+    timed = step_s[1:] or step_s
     tokens_per_s = job.batch * args.seq_len * len(timed) / sum(timed)
-    print(f"backend {log['backend']}; done: {len(step_s)} steps, {tokens_per_s:.1f} "
-          f"tokens/s after the first (median step {statistics.median(timed) * 1e3:.2f} ms)",
-          flush=True)
+    print(f"backend {log['backend']}; done: {len(step_s) * K} steps, {tokens_per_s:.1f} "
+          f"tokens/s after the first dispatch (median step "
+          f"{statistics.median(timed) * 1e3:.2f} ms)", flush=True)
     return {"losses": log["losses"], "step_s": step_s, "tokens_per_s": tokens_per_s,
             "ranks": ranks}
 
+
+def _layout_refusal(device, world: int) -> Exception | None:
+    """:func:`~ddl25spring_tpu_torch.parallel.pipeline.graph_refusal` for a
+    world of ``world`` ranks on this host, from the backend its layout
+    selects, before any rank starts (None for one rank alone)."""
+    if world == 1:
+        return None
+    n_cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    return graph_refusal(device, Comm(select_backend(device.type, world, n_cards), device))
+
+
+def llama_scan_steps(asked: int, device, world: int) -> tuple[int, str]:
+    """The LLaMA run's train steps per dispatch and the header's reason for
+    a default that fell to 1.  ``asked`` 0 is the JAX default: 16 on the
+    card, 1 on the CPU; on the card a world whose ranks cannot be graphed
+    (:func:`_layout_refusal`: every layout of these labs) takes 1, and an
+    explicit ``asked > 1`` raises the refusal."""
+    refusal = _layout_refusal(device, world)
+    if asked > 1 and refusal is not None:
+        raise refusal
+    if asked:
+        return asked, ""
+    if device.type != "cuda":
+        return 1, ""
+    if refusal is not None:
+        return 1, f"not 16: {refusal}"
+    return 16, ""
 
 
 # ------------------------------------------------------------------ resnet
@@ -275,11 +340,13 @@ class ResnetJob:
     stages: int
     microbatches: int
     batch: int                   # global rows per step
-    iters: int                   # timed steps, after WARMUP warm-up steps
+    iters: int                   # timed steps (a multiple of scan_steps), after the warm-up
     lr: float = 0.1
     seed: int = 0
     device: str = "cuda"
-    input: str = "hbm"           # "hbm": DeviceDataset.feed; "fixed": its first batch
+    input: str = "hbm"           # "hbm": DeviceDataset.feed; "hbm-scan": its windows;
+                                 # "fixed": its first batch
+    scan_steps: int = 1          # steps per dispatch under "hbm-scan"
 
 
 # the timed ResNet run: cuDNN autotunes its convolutions, TF32 off
@@ -289,35 +356,49 @@ RUN_FLAGS = dict(cudnn_benchmark=True, cudnn_tf32=False, matmul_tf32=False)
 def train_resnet(mesh, job: ResnetJob) -> dict:
     """One rank's ResNet run (``mesh`` None: one process alone).  Returns its
     coordinates, device, backend, layout, boundary shapes and parameter
-    count; the losses of every step (last stage only); the timed seconds and
-    each timed step's seconds; the FLOPs of its first step; its comm counts
-    over the timed steps; and where its parameters and its dataset live."""
+    count; the input mode; the losses of every step (last stage only); the
+    timed seconds and each timed dispatch's seconds per step; the FLOPs of
+    its first step; its comm counts over the timed steps; where its
+    parameters and its dataset live; and on CUDA the peak of
+    ``max_memory_allocated`` over the run (the dataset included)."""
     dev = mesh.device if mesh is not None else resolve_device(job.device)
+    cuda = dev.type == "cuda"
     with backend_flags(**RUN_FLAGS):
-        step, module, _, meta = benchmarks.build_resnet_step(
-            mesh, job.microbatches, job.batch, lr=job.lr, device=dev, seed=job.seed)
-        fixed = job.input == "fixed"
+        fixed, K = job.input == "fixed", job.scan_steps
         ds = benchmarks.DeviceDataset(job.batch, n_train=job.batch if fixed else None,
                                       device=dev)
-        feed = (lambda: ds.fixed) if fixed else ds.feed
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        if job.input == "hbm-scan":
+            call, step, module, _, meta = benchmarks.build_resnet_scan_step(
+                mesh, job.microbatches, job.batch, lr=job.lr, device=dev, seed=job.seed,
+                scan_steps=K, dataset=ds)
+            feed, input_mode = (lambda: ds.scan_window(K)), f"{ds.input_mode}-scan{K}"
+            first, flops = count_flops(step, ds.fixed)
+        else:
+            step, module, _, meta = benchmarks.build_resnet_step(
+                mesh, job.microbatches, job.batch, lr=job.lr, device=dev, seed=job.seed)
+            call, feed = step, (lambda: ds.fixed) if fixed else ds.feed
+            input_mode = "fixed-device-batch" if fixed else ds.input_mode
+            first, flops = count_flops(step, feed())
         comm = mesh.comm if mesh is not None else None
-        first, flops = count_flops(step, feed())
-        _, warm, _ = benchmarks.timed_run(step, feed, 0, WARMUP - 1, device=dev)
+        _, warm, _ = benchmarks.timed_run(call, feed, 0, WARMUP - 1, device=dev, k=K)
         if comm is not None:
             comm.take_stats()
-        dt, timed, step_s = benchmarks.timed_run(step, feed, job.iters, 0, device=dev)
+        dt, timed, step_s = benchmarks.timed_run(call, feed, job.iters // K, 0, device=dev,
+                                                 k=K)
         return {
             "rank": mesh.rank if mesh is not None else 0,
             "coords": mesh.coords if mesh is not None else (0, 0),
             "device": str(dev), "backend": mesh.backend if mesh is not None else None,
-            "layout": meta["layout"], "topology": meta["topology"],
-            "input": "fixed-device-batch" if fixed else ds.input_mode,
+            "layout": meta["layout"], "topology": meta["topology"], "input": input_mode,
             "boundary_shapes": meta["boundary_shapes"], "n_params": meta["n_params"],
             "losses": ([] if first is None else [float(first)]) + warm + timed,
             "dt": dt, "step_s": step_s, "flops": flops,
             "comm": comm.take_stats() if comm is not None else None,
             "params_device": sorted({str(p.device) for p in module.parameters()}),
             "data_device": str(ds.x.device),
+            "peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda else None,
         }
 
 
@@ -347,11 +428,16 @@ def run_resnet(args) -> dict:
     M = (args.microbatches or 2) if S == 2 else 1
     batch = args.batch or (1024 if device.type == "cuda" else 4) * n_used
     batch = batch // (dp * M) * (dp * M)
-    job = ResnetJob(dp, S, M, batch, args.iters or 30, lr=args.lr or 0.1, seed=args.seed,
-                    device=device.type, input=args.input)
+    mode, K, why = resnet_input(args.input, args.scan_steps, device, n_used, batch)
+    iters = args.iters or 30
+    if K > 1:  # the JAX lab's dispatch count: max(2, iters // K) windows
+        iters = max(2, iters // K) * K
+    job = ResnetJob(dp, S, M, batch, iters, lr=args.lr or 0.1, seed=args.seed,
+                    device=device.type, input=mode, scan_steps=K)
     print(f"resnet18/cifar10: mesh(data={dp}, stage={S}), microbatches={M}, global "
-          f"batch={batch}, {n_used} rank(s), input={args.input}, device={device.type}",
-          flush=True)
+          f"batch={batch}, {n_used} rank(s), input={mode}"
+          + (f" ({K} steps per dispatch, {iters} timed steps)" if K > 1 else "")
+          + (f" ({why})" if why else "") + f", device={device.type}", flush=True)
     if n_used == 1:
         r = train_resnet(None, job)
         ranks = [{**r, "world_flops": r["flops"], "world_dt": r["dt"]}]
@@ -359,6 +445,31 @@ def run_resnet(args) -> dict:
         ranks = spawn(resnet_rank, n_used, job, timeout=args.timeout)
     report = report_resnet(ranks, job, cards_used(n_used, device.type), device, args.log_every)
     return {"ranks": ranks, **(report or {})}
+
+
+def resnet_input(asked: str, scan_steps: int, device, n_used: int,
+                 batch: int) -> tuple[str, int, str]:
+    """The ResNet run's input mode, its steps per dispatch and the header's
+    reason for an ``auto`` that took ``hbm`` on CUDA.  ``auto`` takes
+    ``hbm-scan`` on CUDA where one rank has the card to itself (the JAX
+    lab's ``auto`` takes it on the accelerator), unless ``scan_steps`` is 1,
+    and ``hbm`` otherwise; several ranks cannot be graphed
+    (:func:`_layout_refusal`), and an explicit ``hbm-scan`` of theirs on
+    CUDA raises the refusal.  Under ``hbm-scan`` K is ``scan_steps``, else
+    the largest divisor of the epoch's batches up to 16."""
+    refusal = _layout_refusal(device, n_used)
+    mode, why = asked, ""
+    if asked == "auto":
+        graphable = device.type == "cuda" and refusal is None
+        mode = "hbm-scan" if graphable and scan_steps != 1 else "hbm"
+        if device.type == "cuda" and refusal is not None:
+            why = f"auto: hbm, since {refusal}"
+    if mode != "hbm-scan":
+        return mode, 1, why
+    if refusal is not None:
+        raise refusal
+    per_epoch = benchmarks.TRAIN_ROWS // batch
+    return mode, scan_steps or max(k for k in range(1, 17) if per_epoch % k == 0), why
 
 
 def report_resnet(ranks: list, job: ResnetJob, cards: int, device, log_every: int = 10):
@@ -375,16 +486,18 @@ def report_resnet(ranks: list, job: ResnetJob, cards: int, device, log_every: in
     dt, flops = log["world_dt"], log["world_flops"]
     sps_chip = job.iters * job.batch / dt / cards
     tf, frac = mfu(flops, dt / job.iters, cards, device)
+    peak = log.get("peak_bytes")
     print(f"{log['topology']}: {job.iters} timed steps in {dt:.3f} s (median step "
           f"{statistics.median(log['step_s']) * 1e3:.3f} ms), {sps_chip:.1f} samples/s per "
-          f"card, {flops / 1e12:.4f} TFLOP per step", flush=True)
+          f"card, {flops / 1e12:.4f} TFLOP per step"
+          + (f", peak {peak / 2**30:.3f} GiB allocated" if peak else ""), flush=True)
     if tf is not None:
         print(f"achieved {tf:.2f} TFLOP/s per card" + (f" (MFU {frac:.2%})" if frac is not None
                                                        else ""), flush=True)
     line = benchmarks.report_line(log["layout"], sps_chip, log["input"], frac, tf)
     print(line, flush=True)
     return {"samples_per_s_per_chip": sps_chip, "cards": cards, "flops": flops, "tflops": tf,
-            "mfu": frac, "line": line}
+            "mfu": frac, "peak_bytes": peak, "line": line}
 
 
 if __name__ == "__main__":

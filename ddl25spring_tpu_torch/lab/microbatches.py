@@ -4,8 +4,12 @@ The counterpart of ``lab/s01_b1_microbatches.py``: the LLaMA workload in 3
 stages, batch 3 in 3 microbatches, Adam 8e-4 (``utils/config.py``
 ``PipelineConfig``), one pipeline and no DP, under any of the five
 schedules (``--schedule``, ``--chunks``).  It is
-:mod:`~ddl25spring_tpu_torch.lab.dp_pp` with a data axis of 1; the options
-are the same.
+:mod:`~ddl25spring_tpu_torch.lab.dp_pp` with ``--workload llama`` and a
+data axis of 1; the options are the same.  ``--scan-steps`` follows
+``lab/s01_b1_microbatches.py:147-160``: the three ranks share the card over
+gloo, so on the card the default resolves to 1 and an explicit K > 1 raises
+(:func:`~ddl25spring_tpu_torch.lab.dp_pp.llama_scan_steps`); on the CPU K
+steps run as a loop.
 
 Run: ``python -m ddl25spring_tpu_torch.lab.microbatches [--iters 20] [--device cuda]
 [--schedule 1f1b]``
@@ -13,11 +17,16 @@ Run: ``python -m ddl25spring_tpu_torch.lab.microbatches [--iters 20] [--device c
 
 from __future__ import annotations
 
+import sys
+
 from ddl25spring_tpu_torch.lab import dp_pp
 from ddl25spring_tpu_torch.utils.config import DpPpConfig, PipelineConfig
 
 
 def main(argv=None) -> dict:
+    # B1 is LLaMA's, whatever lab.dp_pp's default workload; an explicit
+    # --workload comes after this one and wins, and anything but llama raises
+    argv = ["--workload", "llama", *(sys.argv[1:] if argv is None else argv)]
     if dp_pp.parse_args(argv).workload != "llama":
         raise ValueError("lab.microbatches runs homework B1's LLaMA workload only; the "
                          "ResNet step runs through lab.dp_pp --workload resnet")

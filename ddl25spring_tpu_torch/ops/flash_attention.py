@@ -33,7 +33,13 @@ kernels tile by 64 rows and mask ragged tails themselves.
 
 ``LAUNCHES`` counts kernel launches per kernel and ``LAUNCHES_BY_VARIANT`` per
 kernel and variant (never plain-version calls), so a run can show that its
-attention went through the kernels it expects.
+attention went through the kernels it expects.  Both count eager launches
+only: a launch made while the current stream is capturing a CUDA graph
+(:func:`~ddl25spring_tpu_torch.parallel.pipeline.fuse_train_steps`) records
+a node of the graph and runs nothing, and a replay of the graph runs its
+kernels without calling back into Python.  ``CAPTURED`` counts those
+recorded launches, per kernel and variant: the kernel nodes the graphs
+captured in this process hold, once each, whatever the number of replays.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ MAX_HEAD_DIM = 128
 
 LAUNCHES = {"fwd": 0, "dq": 0, "dkv": 0}
 LAUNCHES_BY_VARIANT = {name: {"wgmma": 0, "scalar": 0} for name in LAUNCHES}
+CAPTURED = {name: {"wgmma": 0, "scalar": 0} for name in LAUNCHES}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -269,16 +276,20 @@ def _launch(name: str, variant: str, *args, q3, Lk, causal):
     if code != 0:
         msg = lib["error"](code).decode()
         raise RuntimeError(f"flash {name} ({variant}) kernel launch failed: {msg} ({code})")
-    LAUNCHES[name] += 1
-    LAUNCHES_BY_VARIANT[name][variant] += 1
+    if torch.cuda.is_current_stream_capturing():
+        CAPTURED[name][variant] += 1
+    else:
+        LAUNCHES[name] += 1
+        LAUNCHES_BY_VARIANT[name][variant] += 1
 
 
 def reset_launches():
-    """Set every launch count to 0."""
+    """Set every launch count, eager and captured, to 0."""
     for name in LAUNCHES:
         LAUNCHES[name] = 0
         for v in LAUNCHES_BY_VARIANT[name]:
             LAUNCHES_BY_VARIANT[name][v] = 0
+            CAPTURED[name][v] = 0
 
 
 def flash_fwd(q3, k3, v3, causal: bool):

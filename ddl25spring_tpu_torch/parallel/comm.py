@@ -133,6 +133,13 @@ class Comm:
         """Each tensor, in place, becomes the mean over ``group``: the
         all-reduce SUM, then a division by the group's size (the reference's
         own arithmetic, ``intro_DP_GA.py:63-66``)."""
+        self._all_reduce_(tensors, group, mean=True)
+
+    def all_reduce_sum_(self, tensors, group=None):
+        """Each tensor, in place, becomes its sum over ``group``."""
+        self._all_reduce_(tensors, group, mean=False)
+
+    def _all_reduce_(self, tensors, group, mean: bool):
         self._settle()
         t0 = time.perf_counter()
         n = dist.get_world_size(group)
@@ -143,7 +150,8 @@ class Comm:
                 self._from_host(buf, t)
             else:
                 dist.all_reduce(t, group=group)
-            t.div_(n)
+            if mean:
+                t.div_(n)
         self.allreduce_s += time.perf_counter() - t0
 
     def bucketed_all_reduce_mean_(self, leaves, group=None, plan: BucketPlan | None = None):

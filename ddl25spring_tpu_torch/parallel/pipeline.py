@@ -1,6 +1,7 @@
 """Microbatch pipelining and its DP x PP hybrid: the counterpart of the JAX
 package's ``parallel/pipeline.py`` (``make_pipeline_train_step`` with its
-five schedules, ``shard_staged_params``, ``make_grad_accum_step``).
+five schedules, ``shard_staged_params``, ``make_grad_accum_step``,
+``fuse_train_steps``).
 
 The JAX package runs the pipeline as one SPMD program: a scan of ``ppermute``
 hops over the mesh ``stage`` axis, differentiated by ``jax.grad`` (GPipe and
@@ -392,3 +393,189 @@ def make_grad_accum_step(model: torch.nn.Module, loss_fn, optimizer: torch.optim
         return total / M
 
     return step
+
+
+WARMUP_STEPS = 2  # eager steps before a capture: builds, cuDNN's search, optimizer state
+
+
+def graph_refusal(device, comm=None) -> Exception | None:
+    """Why the train steps of a rank on ``device`` whose transport is
+    ``comm`` (None: a process alone, nothing to exchange) cannot be captured
+    as one CUDA graph: the exception :func:`fuse_train_steps` raises, or
+    None.  On the CPU there is nothing to capture (fusion is a loop there),
+    so nothing is refused."""
+    if torch.device(device).type != "cuda" or comm is None:
+        return None
+    if comm.staged:
+        return ValueError(
+            "K train steps per dispatch are one CUDA graph on the card, and this rank's "
+            "transport stages through the host (gloo over a card's tensors: pinned host "
+            "buffers, Comm.staged); a CUDA graph cannot hold a host copy")
+    return NotImplementedError(
+        f"capturing a multi-rank step over {comm.backend} (its collectives inside a CUDA "
+        "graph) is not ported yet (ROADMAP A14, the multi-card items)")
+
+
+def _map(fn, window, *like):
+    """``fn`` over the tensors of a window (a tensor, or a dict, tuple or list
+    of them), with the matching tensors of windows ``like`` it."""
+    if isinstance(window, dict):
+        return {key: _map(fn, window[key], *(w[key] for w in like)) for key in window}
+    if isinstance(window, (tuple, list)):
+        return type(window)(_map(fn, *parts) for parts in zip(window, *like))
+    return fn(window, *like)
+
+
+def _leading(window) -> int:
+    sizes = set()
+    _map(lambda t: sizes.add(t.shape[0]), window)
+    if len(sizes) != 1:
+        raise ValueError(f"window tensors lead with different sizes {sorted(sizes)}")
+    return sizes.pop()
+
+
+def _row(window, i: int):
+    """Batch ``i`` of a window: row ``i`` of every tensor in it."""
+    return _map(lambda t: t[i], window)
+
+
+def _copy_in(static: torch.Tensor, t: torch.Tensor):
+    if t.shape != static.shape or t.dtype != static.dtype:
+        raise ValueError(f"the graph was captured for a window tensor of "
+                         f"{tuple(static.shape)} {static.dtype}, got {tuple(t.shape)} {t.dtype}")
+    static.copy_(t)
+
+
+def _losses(outs: list):
+    """The ``[k]`` losses of ``k`` steps, or None where the steps return None
+    (a pipeline rank that does not hold the loss)."""
+    return None if outs[0] is None else torch.stack(outs)
+
+
+class _Snapshot:
+    """``module``'s parameters and buffers and ``optimizer``'s state, kept
+    so that the warm-up steps before a capture leave no trace.  Restoring
+    writes in place, so every tensor keeps its address (a captured graph
+    reads and writes them there).  State that the warm-up created is set to
+    zeros: a fresh Adam state (step 0, zero moments) and a zero SGD
+    momentum (``0.9 * 0 + g`` is ``g``, the first step's buffer) both take
+    the first step the optimizer would take from nothing."""
+
+    def __init__(self, module: torch.nn.Module, optimizer: torch.optim.Optimizer):
+        self.module, self.optimizer = module, optimizer
+        self.tensors = [t.detach().clone() for t in module.state_dict().values()]
+        self.state = {p: {key: v.detach().clone() if torch.is_tensor(v) else v
+                          for key, v in st.items()}
+                      for p, st in optimizer.state.items()}
+
+    @torch.no_grad()
+    def restore(self):
+        for t, saved in zip(self.module.state_dict().values(), self.tensors):
+            t.copy_(saved)
+        for p, st in self.optimizer.state.items():
+            before = self.state.get(p)
+            for key, v in st.items():
+                if torch.is_tensor(v) and before:
+                    v.copy_(before[key])
+                elif torch.is_tensor(v):
+                    v.zero_()
+                elif before:
+                    st[key] = before[key]
+
+
+class FusedSteps:
+    """``k`` train steps per call: see :func:`fuse_train_steps`."""
+
+    def __init__(self, step_fn, k: int, module, optimizer, device, comm=None,
+                 dump_graph: str | None = None):
+        if k < 1:
+            raise ValueError(f"fusing needs k >= 1 steps, got {k}")
+        refusal = graph_refusal(device, comm)
+        if refusal is not None:
+            raise refusal
+        self.step_fn, self.k, self.module, self.optimizer = step_fn, k, module, optimizer
+        self.device, self.dump_graph = torch.device(device), dump_graph
+        self.name = getattr(step_fn, "__qualname__", repr(step_fn))
+        self.graph = None
+
+    def __call__(self, window):
+        n = _leading(window)
+        if n != self.k:
+            raise ValueError(f"fused for {self.k} steps but got a window of {n} batches: "
+                             "the caller's step accounting would silently drift")
+        if self.device.type != "cuda":
+            return _losses([self.step_fn(_row(window, i)) for i in range(self.k)])
+        if self.graph is None:
+            self._capture(window)
+        _map(_copy_in, self.static, window)
+        self.graph.replay()
+        return None if self.out is None else self.out.clone()
+
+    def _capture(self, window):
+        dev = self.device
+        self.static = _map(lambda t: torch.empty(t.shape, dtype=t.dtype, device=dev), window)
+        _map(_copy_in, self.static, window)
+        snapshot = _Snapshot(self.module, self.optimizer)
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            for i in range(min(WARMUP_STEPS, self.k)):
+                self.step_fn(_row(self.static, i))
+            snapshot.restore()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        # a graph kept past its instantiation, for the dump
+        graph = torch.cuda.CUDAGraph(keep_graph=bool(self.dump_graph))
+        if self.dump_graph:
+            graph.enable_debug_mode()
+        try:
+            with torch.cuda.graph(graph, stream=stream):
+                self.out = _losses([self.step_fn(_row(self.static, i))
+                                    for i in range(self.k)])
+        except Exception as e:  # a host sync, a host copy, a non-capturable optimizer
+            raise RuntimeError(f"capturing {self.k} steps of {self.name} as one CUDA graph "
+                               f"failed: {e}") from e
+        if self.dump_graph:
+            graph.debug_dump(self.dump_graph)
+            graph.instantiate()
+        self.graph = graph
+
+
+def fuse_train_steps(step_fn, k: int, *, module: torch.nn.Module,
+                     optimizer: torch.optim.Optimizer, device, comm=None,
+                     dump_graph: str | None = None) -> FusedSteps:
+    """Fuse ``k`` train steps into one dispatch: the counterpart of the JAX
+    ``fuse_train_steps`` (``pipeline.py:1379``), whose ``lax.scan`` of ``k``
+    steps is one compiled program.
+
+    ``step_fn(batch)`` is one of the port's steps, which update ``module``
+    and ``optimizer`` in place and return the loss (``make_train_step``,
+    ``make_grad_accum_step`` with its generators bound,
+    ``build_resnet_step``'s step).  The result ``multi(window)`` takes ``k``
+    stacked batches (a ``[k, B, ...]`` tensor, or a dict, tuple or list of
+    them) and returns the ``[k]`` losses on the device (None where the step
+    returns None); a window that does not lead with ``k`` raises
+    ``ValueError``, as in JAX.
+
+    On CUDA (``device``) the ``k`` steps are one ``torch.cuda.CUDAGraph``
+    that reads a static ``[k, ...]`` input buffer: each call copies the
+    window in and replays the graph once.  The first call builds it: a
+    snapshot of ``module`` and ``optimizer``, :data:`WARMUP_STEPS` eager
+    steps on a side stream on the window's first batches (they build the
+    kernels, set their shared-memory attributes, run cuDNN's algorithm
+    search and create the optimizer state), the snapshot restored in place,
+    then the capture, which runs nothing; so every replay, the first
+    included, takes ``k`` real steps from where the caller left the model.
+    One graph holds the whole window, as one dispatch holds ``k`` steps in
+    JAX; within a capture the memory a step frees returns to the graph's
+    pool for the next, so the graph needs about one step's memory.  A
+    capture that fails raises ``RuntimeError`` naming the step; nothing
+    falls back to eager steps.  An optimizer that keeps host state per step
+    cannot be captured: Adam needs ``capturable=True``.  A step whose
+    transport stages through the host raises ``ValueError``, and a
+    multi-rank step over NCCL ``NotImplementedError``, here, before anything
+    runs (:func:`graph_refusal`).  ``dump_graph``: a path to write the
+    captured graph to (``CUDAGraph.debug_dump``), to count its nodes.
+
+    On the CPU ``multi`` is a loop of ``k`` calls of ``step_fn``.  Nothing
+    on CUDA takes that loop."""
+    return FusedSteps(step_fn, k, module, optimizer, device, comm, dump_graph)

@@ -53,7 +53,10 @@ def main(argv=None) -> dict:
     )
     model = Llama(cfg, device=device,
                   generator=torch.Generator().manual_seed(args.seed))
-    opt = torch.optim.Adam(model.parameters(), lr=args.lr)
+    # capturable: the step count lives on the card, so the step can be one
+    # CUDA graph (parallel/pipeline.fuse_train_steps); the CPU has no such mode
+    opt = torch.optim.Adam(model.parameters(), lr=args.lr,
+                           capturable=device.type == "cuda")
 
     def loss_fn(m, tokens):
         return causal_lm_loss(m(tokens), tokens)

@@ -85,6 +85,48 @@ def test_cuda_entry_points_raise_without_a_gpu():
         dp_pp.main(["--workload", "resnet", "--iters", "1"])
 
 
+def test_dp_pp_defaults_match_the_jax_lab():
+    """``lab.dp_pp`` run with no arguments trains what ``lab/s01_b2_dp_pp.py``
+    trains: ResNet-18, the BASELINE benchmark config (``lab/run-b2.sh:7-9``).
+    The JAX lab's module level imports the standard library only, so it is
+    loaded from its path.  ``iters`` is 0 on both sides, the workload's
+    default, which for LLaMA is 20 steps in the port against 200 in JAX (the
+    port's LLaMA labs run six ranks on one card through host buffers, ~0.1 s
+    a step); for ResNet both take 30."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "lab" / "s01_b2_dp_pp.py"
+    spec = importlib.util.spec_from_file_location("jax_lab_s01_b2_dp_pp", path)
+    jax_lab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jax_lab)
+    want, got = vars(jax_lab.parse_args([])), vars(dp_pp.parse_args([]))
+    shared = ("workload", "iters", "input", "schedule", "chunks", "microbatches", "batch",
+              "lr", "log_every", "pp", "no_flash")
+    assert {k: got[k] for k in shared} == {k: want[k] for k in shared}
+    assert got["workload"] == "resnet" and got["input"] == "auto"
+
+
+def test_auto_input_resolves_by_device_and_ranks():
+    """``--input auto`` is ``hbm`` on the CPU; ``hbm-scan`` takes the JAX K
+    rule (the largest divisor of the epoch's batches up to 16: 16 at batch
+    1024, 48 batches an epoch); ranks that share a card over gloo cannot be
+    graphed, so ``auto`` is ``hbm`` for them and an explicit ``hbm-scan``
+    raises (the check alone: no card needed)."""
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    assert dp_pp.resnet_input("auto", 0, cpu, 1, 4) == ("hbm", 1, "")
+    assert dp_pp.resnet_input("hbm-scan", 0, cpu, 1, 1024) == ("hbm-scan", 16, "")
+    assert dp_pp.resnet_input("hbm-scan", 0, cpu, 1, 4096) == ("hbm-scan", 12, "")
+    assert dp_pp.resnet_input("hbm-scan", 3, cpu, 4, 64) == ("hbm-scan", 3, "")
+    assert dp_pp.resnet_input("fixed", 0, cuda, 1, 1024) == ("fixed", 1, "")
+    assert dp_pp.resnet_input("auto", 0, cuda, 1, 1024) == ("hbm-scan", 16, "")
+    assert dp_pp.resnet_input("auto", 1, cuda, 1, 1024) == ("hbm", 1, "")
+    mode, K, why = dp_pp.resnet_input("auto", 0, cuda, 4, 256)
+    assert (mode, K) == ("hbm", 1) and "host copy" in why
+    with pytest.raises(ValueError, match="host copy"):
+        dp_pp.resnet_input("hbm-scan", 0, cuda, 4, 256)
+
+
 def test_report_line_keys_and_metric():
     rec = json.loads(benchmarks.report_line("dppp", 12345.67, "hbm-resident-shuffle",
                                             0.41234, 405.66, extra=1))

@@ -455,3 +455,63 @@ def test_fl_entry_points_raise_without_a_gpu_unless_asked_for_the_cpu():
         homework1_a1_equivalence.main(["--n-train", "40", "--rounds", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         vfl_and_generative_fl.main(["--epochs", "1", "--vae-epochs", "1"])
+
+
+# ------------------------------------------------------- K steps per dispatch
+
+
+def _fused_llama(dev, bf16):
+    from ddl25spring_tpu_torch.models.llama import Llama
+    from ddl25spring_tpu_torch.parallel.dp import make_train_step
+    from ddl25spring_tpu_torch.utils.config import LlamaConfig
+
+    cfg = LlamaConfig(**{**DP_CFG, "dtype": "bfloat16" if bf16 else "float32"})
+    model = Llama(cfg, device=dev, generator=torch.Generator().manual_seed(6))
+    opt = torch.optim.Adam(model.parameters(), lr=8e-4, capturable=True)
+    return model, opt, make_train_step(model, _loss, opt)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_fused_graph_equals_sequential_steps(dev, bf16):
+    """``fuse_train_steps(step, 3)`` on the card is one CUDA graph: its
+    replay runs the same kernels on the same inputs as 3 eager steps from the
+    same weights (capturable Adam on both sides), so losses and parameters
+    agree to 1e-6; the graph holds 3 steps x 2 layers of each flash kernel
+    (``CAPTURED``), and its replays move no eager counter."""
+    from ddl25spring_tpu_torch.parallel.pipeline import fuse_train_steps
+
+    g = torch.Generator().manual_seed(8)
+    window = torch.randint(0, 256, (3, 4, 64), generator=g).to(dev)
+    model, _, step = _fused_llama(dev, bf16)
+    seq = torch.stack([step(window[i]) for i in range(3)])
+    fmodel, fopt, fstep = _fused_llama(dev, bf16)
+    fa.reset_launches()
+    multi = fuse_train_steps(fstep, 3, module=fmodel, optimizer=fopt, device=dev)
+    fused = multi(window)
+    eager = dict(fa.LAUNCHES)
+    assert multi.graph is not None
+    variant = "wgmma" if bf16 else "scalar"
+    assert {n: c[variant] for n, c in fa.CAPTURED.items()} == {"fwd": 6, "dq": 6, "dkv": 6}
+    torch.cuda.synchronize()
+    assert (fused - seq).abs().max().item() <= 1e-6
+    for a, b in zip(model.parameters(), fmodel.parameters()):
+        assert (a - b).abs().max().item() <= 1e-6
+    multi(window)  # a second replay
+    torch.cuda.synchronize()
+    assert dict(fa.LAUNCHES) == eager  # only the warm-up launched eagerly
+    with pytest.raises(ValueError, match="window of 2"):
+        multi(window[:2])
+    with pytest.raises(ValueError, match="captured for a window tensor"):
+        multi(window[:, :2])
+
+
+def test_explicit_hbm_scan_on_ranks_sharing_the_card_raises(dev):
+    """Four ResNet ranks on one card talk over gloo through host buffers,
+    which a CUDA graph cannot hold: an explicit ``--input hbm-scan`` raises
+    before any rank starts, and ``auto`` takes ``hbm``."""
+    from ddl25spring_tpu_torch.lab import dp_pp
+
+    with pytest.raises(ValueError, match="host copy"):
+        dp_pp.main(["--workload", "resnet", "--pp", "--ranks", "4", "--input", "hbm-scan"])
+    assert dp_pp.resnet_input("auto", 0, dev, 4, 256)[:2] == ("hbm", 1)
+    assert dp_pp.resnet_input("auto", 0, dev, 1, 1024)[:2] == ("hbm-scan", 16)

@@ -161,11 +161,16 @@ def test_unported_schedules_and_workloads_raise():
         check_schedule(schedule)
     with pytest.raises(ValueError, match="unknown schedule"):
         check_schedule("zigzag")
-    # K train steps per dispatch (the JAX fuse_train_steps)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5-next 5"):
-        dp_pp.main(["--device", "cpu", "--scan-steps", "4"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A5-next 5"):
-        microbatches.main(["--device", "cpu", "--scan-steps", "4"])
+    # K train steps per dispatch (the JAX fuse_train_steps) are one CUDA
+    # graph on the card, which B1's three ranks sharing a card over gloo
+    # cannot be (the check alone, no card needed): an explicit K > 1 raises
+    # and the default falls to 1, saying why; on the CPU K steps are a loop
+    with pytest.raises(ValueError, match="host copy"):
+        dp_pp.llama_scan_steps(4, torch.device("cuda"), S)
+    K, why = dp_pp.llama_scan_steps(0, torch.device("cuda"), S)
+    assert K == 1 and "host copy" in why
+    assert dp_pp.llama_scan_steps(4, torch.device("cpu"), S) == (4, "")
+    assert dp_pp.llama_scan_steps(0, torch.device("cpu"), S) == (1, "")
     # switch-MoE LLaMA
     for make in (lambda cfg: llama.Llama(cfg, device="cpu", generator=torch.Generator()),
                  lambda cfg: llama.LlamaStage(cfg, 0, S, device="cpu",

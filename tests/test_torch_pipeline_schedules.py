@@ -282,11 +282,12 @@ def test_guards_raise_as_in_jax(params):
         make_pipeline_train_step(stage, cfg, opt, FakeMesh, M, schedule="interleaved",
                                  num_chunks=V)
     with pytest.raises(ValueError, match="divisible"):
-        dp_pp.main(["--device", "cpu", "--schedule", "interleaved", "--chunks", "4"])
+        dp_pp.main(["--workload", "llama", "--device", "cpu", "--schedule", "interleaved",
+                    "--chunks", "4"])
 
 
 def test_lab_runs_interleaved_1f1b_on_dp_pp():
-    run = dp_pp.main(["--device", "cpu", "--iters", "2", "--seq-len", "16",
-                      "--schedule", "interleaved-1f1b", "--chunks", "2", "--timeout", "120"])
+    run = dp_pp.main(["--workload", "llama", "--device", "cpu", "--iters", "2", "--seq-len",
+                      "16", "--schedule", "interleaved-1f1b", "--chunks", "2", "--timeout", "120"])
     assert len(run["losses"]) == 2 and all(math.isfinite(x) for x in run["losses"])
     assert [r["stash_max"] for r in run["ranks"]] == [[6, 6], [6, 6], [4, 4]] * 2
