@@ -178,6 +178,35 @@ Phases, in order; any failure exits non-zero and prints no result:
         ranks share the card through host buffers, which a graph cannot
         hold.
 
+12. sequence and tensor parallelism on the card (``parallel/sp.py``,
+    ``parallel/tp.py``): one world of 4 ranks on ``cuda:0`` over gloo,
+    spawned after phase 2 built the kernels, taking each layout in turn
+    (``Mesh.regrid``); full width, 3 rows per replica, flash kernels:
+    (a) fp32: one Adam step of the flash ring on 1 x 4 (seq = 4, three
+        hops), Ulysses on 2 x 2 (data x seq) and TP with the vocab-sharded
+        embedding and loss on 2 x 2 (data x model), each against the
+        single-process step on the same batch from the same weights (loss
+        rtol 1e-5; gradients atol 2e-4 + rtol 2e-3, as phase 7 (a); a TP
+        replica's slices joined first);
+    (b) bf16, the flash ring, Ulysses and TP on 2 x 2, 10 Adam steps at 8e-4
+        on TinyStories batches each: losses finite and falling, the first
+        within 1 of ln(4096), every rank on CUDA, each kernel launched per
+        rank per step 6 times (Ulysses, TP) or 6 (1 + s) (the ring's index s,
+        which skips the blocks it cannot see), all on the tensor cores (the
+        counts set to 0 just before each run and read just after); the bytes
+        staged through the host per rank per step equal to the count from
+        the shapes (``sp_tp_staged_bytes``); the median step (slowest rank)
+        and each rank's exchange seconds;
+    (c) the kernels at this slice's shapes, ``[18, 128, 48]`` causal and
+        non-causal (the ring's own and received blocks) and ``[9, 256, 48]``
+        causal (Ulysses and TP over 3 heads), bf16: each kernel against its
+        plain version on the same inputs, on the tensor cores, and the
+        autograd Functions (``flash_attention_with_lse`` with a nonzero lse
+        cotangent, and ``flash_attention``) on the card against the CPU's
+        plain path, in the bf16 band below; then, in a process of its own,
+        each kernel's device time beside its bound and SDPA's forward and
+        backward.
+
 Tolerances (|kernel - plain| <= atol + rtol * |plain|):
   fp32: atol 1e-4, rtol 0 (summation order only);
   bf16: atol 2e-2, rtol 1e-2 against the plain version on the same bf16
@@ -188,7 +217,10 @@ In the kernels line, ``ms`` and ``device_ms`` are the device time per call,
 ``library_ms`` and ``library_device_ms`` SDPA forward's; ``wall_ms`` and
 ``library_wall_ms`` the host-paced CUDA-event times; ``scalar_device_ms`` the
 scalar kernel's device time on the same inputs; ``launches_per_fused_window``
-the kernel's nodes in phase 11 (a)'s graph of 16 steps.
+the kernel's nodes in phase 11 (a)'s graph of 16 steps;
+``launches_sp_tp_per_rank`` each rank's launches over phase 12 (b)'s run of
+each layout; ``max_abs_err_sp_tp`` the largest error of phase 12 (c)'s
+checks.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -1531,15 +1563,14 @@ def dp_overlap(dev):
           f"steps (sync {ranks[0]['sync']['allreduce_s'] * 1e3:.3f} ms)")
 
 
-def kernel_times_at_slice_shapes(rdv):
-    """Phase 10 (f), in a process of its own: device time per call of the
-    three kernels at the per-microbatch shape of the schedules,
-    ``[6, 256, 48]`` bf16 causal, and of the fp32 (scalar) kernels at phase
-    4's ``[18, 256, 48]``, each beside SDPA's forward and backward on the
-    same inputs.  A fresh process, because a process that has already held
-    several profiler sessions (phases 4, 6, 8 (c), 9 (d)) was seen to
-    record 35 of 50 launches in every retry.  Returns the times and the
-    lines to print."""
+def kernel_times_at(rdv, cases, tag):
+    """Device time per call of the three kernels on bf16 or fp32 inputs at
+    each case ``(B, H, L, dtype, causal)`` (folded ``[B H, L, 48]``), each
+    beside its bound and SDPA's forward and backward on the same inputs and
+    causality.  Run in a process of its own (phases 10 (f), 12 (c)), because
+    a process that has already held several profiler sessions (phases 4, 6,
+    8 (c), 9 (d)) was seen to record 35 of 50 launches in every retry.
+    Returns the times and the lines to print."""
     from ddl25spring_tpu_torch.ops import flash_attention as fa
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1549,29 +1580,32 @@ def kernel_times_at_slice_shapes(rdv):
     gen = torch.Generator().manual_seed(5)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = {}
-    for BH, dtype in ((6, torch.bfloat16), (18, torch.float32)):
-        L, hd, H = 256, 48, 6
+    for B, H, L, dtype, causal in cases:
+        BH, hd = B * H, 48
         q, k, v, do = (randn(gen, BH, L, hd, dtype=dtype, dev=dev) for _ in range(4))
-        o, lse = fa.flash_fwd(q, k, v, True)
+        o, lse = fa.flash_fwd(q, k, v, causal)
         delta = (do.float() * o.float()).sum(-1)
-        q4, k4, v4, do4 = (x.view(BH // H, H, L, hd) for x in (q, k, v, do))
+        q4, k4, v4, do4 = (x.view(B, H, L, hd) for x in (q, k, v, do))
         qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q4, k4, v4))
-        o4 = sdpa(qg, kg, vg, is_causal=True)
+        o4 = sdpa(qg, kg, vg, is_causal=causal)
         row = {n: device_ms(fn) for n, fn in (
-            ("fwd", lambda: fa.flash_fwd(q, k, v, True)),
-            ("dq", lambda: fa.flash_dq(q, k, v, lse, do, delta, True)),
-            ("dkv", lambda: fa.flash_dkv(q, k, v, lse, do, delta, True)),
-            ("sdpa fwd", lambda: sdpa(q4, k4, v4, is_causal=True)),
+            ("fwd", lambda: fa.flash_fwd(q, k, v, causal)),
+            ("dq", lambda: fa.flash_dq(q, k, v, lse, do, delta, causal)),
+            ("dkv", lambda: fa.flash_dkv(q, k, v, lse, do, delta, causal)),
+            ("sdpa fwd", lambda: sdpa(q4, k4, v4, is_causal=causal)),
             ("sdpa bwd", lambda: torch.autograd.grad(o4, (qg, kg, vg), do4,
                                                      retain_graph=True)))}
         variants = {n: fa._variant(n, (q, k, v)) for n in ("fwd", "dq", "dkv")}
         act, rows = BH * L * hd * q.element_size(), BH * L * 4
-        pairs = BH * L * (L + 1) // 2
+        # the (query, key) pairs that attend
+        pairs = BH * L * (L + 1) // 2 if causal else BH * L * L
         bounds = {n: bound(nbytes, ops, dtype) for n, (nbytes, ops) in {
             "fwd": (4 * act + rows, 4 * hd * pairs), "dq": (5 * act + 2 * rows, 6 * hd * pairs),
             "dkv": (6 * act + 2 * rows, 8 * hd * pairs)}.items()}
-        out[str((BH, dtype))] = row
-        lines.append(f"  (f) [{BH}, {L}, {hd}] {str(dtype)[6:]} causal, device ms per call: "
+        key = f"[{BH}, {L}, {hd}] {str(dtype)[6:]} {'causal' if causal else 'non-causal'}"
+        out[key] = {"ms": row, "variants": variants,
+                    "bound_ms": {n: b[0] for n, b in bounds.items()}}
+        lines.append(f"  {tag} {key}, device ms per call: "
                      + ", ".join(f"{n} {t:.5f}"
                                  + (f" ({variants[n]}; bound {bounds[n][0]:.6f} by "
                                     f"{bounds[n][1]})" if n in variants else "")
@@ -1580,10 +1614,13 @@ def kernel_times_at_slice_shapes(rdv):
 
 
 def slice_kernel_times(dev):
-    """Phase 10 (f): :func:`kernel_times_at_slice_shapes` in a new process."""
+    """Phase 10 (f): :func:`kernel_times_at` the schedules' per-microbatch
+    shape ``[6, 256, 48]`` bf16 causal and phase 4's ``[18, 256, 48]`` in
+    fp32 (the scalar kernels), in a new process."""
     from ddl25spring_tpu_torch.parallel.launch import spawn
 
-    (out, lines), = spawn(kernel_times_at_slice_shapes, 1, timeout=SPAWN_TIMEOUT)
+    cases = [(1, 6, 256, torch.bfloat16, True), (3, 6, 256, torch.float32, True)]
+    (out, lines), = spawn(kernel_times_at, 1, cases, "(f)", timeout=SPAWN_TIMEOUT)
     for line in lines:
         print(line)
     return out
@@ -2006,6 +2043,244 @@ def fused_phase(dev):
     return llama
 
 
+# ---------------------------------------------------------------- phase 12
+
+SPTP_ROWS = 3                   # phase 12: rows per replica, as phases 5 and 7
+SPTP_STEPS = 10                 # phase 12 (b): bf16 Adam steps per layout
+# name -> (data, second axis, its size, SP mode); (a) in fp32, (b) in bf16
+SPTP_EXACT = {"ring 1x4": (1, "seq", 4, "ring"), "ulysses 2x2": (2, "seq", 2, "ulysses"),
+              "tp 2x2": (2, "model", 2, None)}
+SPTP_SLICE = {"ring": (2, "seq", 2, "ring"), "ulysses": (2, "seq", 2, "ulysses"),
+              "tp": (2, "model", 2, None)}
+# phase 12 (c): (B, H, L, causal) of the kernels' calls in (b), folded to
+# [B H, L, 48]: the ring's own and received blocks, Ulysses and TP over 3 heads
+SPTP_KERNEL_CASES = [(3, 6, 128, True), (3, 6, 128, False), (3, 3, 256, True)]
+
+
+def _sptp_step(layout, world, cfg, seed):
+    """The model and train step of ``layout`` on a regrid of ``world``:
+    ``LlamaConfig``'s weights from ``seed`` (a TP rank keeps its slices),
+    Adam 8e-4, the rows of the data axis."""
+    from ddl25spring_tpu_torch.models.llama import Llama, export_params
+    from ddl25spring_tpu_torch.parallel import sp, tp
+
+    data, axis, size, mode = layout
+    mesh = world.regrid(data, **{axis: size})
+    model = Llama(cfg, device=mesh.device, generator=torch.Generator().manual_seed(seed))
+    if axis == "model":
+        tp.load_tp_params(model, tp.shard_tp_params(export_params(model), size,
+                                                    mesh.axis("model").index))
+        opt = torch.optim.Adam(model.parameters(), lr=8e-4)
+        return mesh, model, tp.make_tp_train_step(model, cfg, opt, mesh, data_axis="data")
+    opt = torch.optim.Adam(model.parameters(), lr=8e-4)
+    return mesh, model, sp.make_sp_train_step(model, cfg, opt, mesh, data_axis="data", mode=mode)
+
+
+def sp_tp_rank(rdv, exact_tokens, slice_batches, device):
+    """One rank of phase 12's world of 4 ranks on the card (gloo through
+    pinned host buffers), which takes each layout in turn
+    (``Mesh.regrid``): (a) one fp32 step of each of ``SPTP_EXACT``, its loss
+    and synced gradients (a TP rank's are its slices); (b) ``SPTP_STEPS``
+    bf16 steps of each of ``SPTP_SLICE``: losses, host time per step to the
+    card's idle, comm counts per step, the flash launches of the run (the
+    counts set to 0 just before it and read just after) and the rank's
+    parameter count."""
+    from ddl25spring_tpu_torch.models.llama import export_grads
+    from ddl25spring_tpu_torch.ops import flash_attention as fa
+    from ddl25spring_tpu_torch.utils.config import LlamaConfig
+    from ddl25spring_tpu_torch.utils.device import backend_flags
+    from ddl25spring_tpu_torch.utils.mesh import init_mesh
+
+    out = {"exact": {}, "slice": {}}
+    with init_mesh(rdv, 1, seq=4, device=device) as world:
+        cfg32 = LlamaConfig(dtype="float32", use_flash=True)
+        with backend_flags(**FP32_EXACT):
+            for name, layout in SPTP_EXACT.items():
+                mesh, model, step = _sptp_step(layout, world, cfg32, 7)
+                tokens = torch.from_numpy(exact_tokens[:layout[0] * SPTP_ROWS]).long()
+                loss = float(step(tokens))
+                out["exact"][name] = {"coords": mesh.coords, "loss": loss,
+                                      "grads": export_grads(model)}
+        cfg = LlamaConfig(dtype="bfloat16", use_flash=True)
+        for name, layout in SPTP_SLICE.items():
+            mesh, model, step = _sptp_step(layout, world, cfg, 0)
+            r = {"coords": mesh.coords, "device": str(mesh.device), "backend": mesh.backend,
+                 "n_params": sum(p.numel() for p in model.parameters()), "losses": [],
+                 "step_s": [], "comm": []}
+            world.comm.take_stats()
+            fa.reset_launches()
+            for b in slice_batches:
+                t0 = time.perf_counter()
+                loss = step(torch.from_numpy(b).long())
+                if mesh.device.type == "cuda":
+                    torch.cuda.synchronize(mesh.device)
+                r["step_s"].append(time.perf_counter() - t0)
+                r["comm"].append(world.comm.take_stats())
+                r["losses"].append(float(loss))
+            r["launches"] = dict(fa.LAUNCHES)
+            r["by_variant"] = {n: dict(c) for n, c in fa.LAUNCHES_BY_VARIANT.items()}
+            out["slice"][name] = r
+    return out
+
+
+def sp_tp_launches(name, index):
+    """Flash launches of each kernel per rank per step: index ``s`` of the
+    flash ring skips the blocks it cannot see, so runs ``1 + s`` forwards
+    (and as many dq and dk/dv) per layer; Ulysses and TP run one."""
+    return 6 * (1 + index if name == "ring" else 1)
+
+
+def sp_tp_staged_bytes(name, n_params, n=2, rows=SPTP_ROWS, L=256, D=288, layers=6):
+    """Bytes one rank stages through the host per bf16 step of 2 x ``n``
+    (every staged tensor counts twice, to the host and back): the fp32
+    gradients and the loss averaged, plus, SP: the one-token target hop
+    (int64) and per layer, forward and backward, the ring's ``n - 1`` hops
+    of k and v, or Ulysses' all-to-alls of q/k/v and of the output (each
+    ``[rows, L/n, D]`` bf16); TP: per layer two all-reduces forward
+    (``reduce_out``) and two backward (``copy_in``) of ``[rows, L, D]`` bf16,
+    one more each for the vocab-sharded embedding and head, and the loss's
+    all-gather of ``[rows, L-1]`` fp32 log-sum-exps and sum of picks."""
+    common = 2 * 4 * n_params + 2 * 4
+    if name == "tp":
+        act, lse = rows * L * D * 2, rows * (L - 1) * 4
+        return common + (4 * layers + 2) * 2 * act + (1 + n) * lse + 2 * lse
+    blk = rows * (L // n) * D * 2
+    per_layer = 2 * (n - 1) * 2 * 2 * blk if name == "ring" else 2 * (3 + 1) * 2 * blk
+    return common + 2 * 8 * rows + layers * per_layer
+
+
+def sp_tp_exactness(ranks, dev):
+    """Phase 12 (a): each fp32 layout against the single-process step on its
+    batch from the same weights: loss rtol 1e-5, gradients atol 2e-4 + rtol
+    2e-3 (phase 7 (a)'s bands); a TP replica's slices joined first."""
+    from ddl25spring_tpu_torch.parallel import tp
+    from ddl25spring_tpu_torch.parallel.bucketing import flatten
+    from ddl25spring_tpu_torch.utils.config import LlamaConfig
+
+    cfg = LlamaConfig(dtype="float32", use_flash=True)
+    tokens = _token_batches(cfg, 2 * SPTP_ROWS, 1, seed=17)[0]
+    for name, (data, axis, size, _) in SPTP_EXACT.items():
+        want_losses, want_grads = _single_process(cfg, dev, 7, [tokens[:data * SPTP_ROWS]])
+        got = [r["exact"][name] for r in ranks]
+        for r in got:
+            check(excess(r["loss"], want_losses[0], (0.0, 1e-5)) <= 0,
+                  f"(a) {name}: loss {r['loss']} vs single process {want_losses[0]}")
+        replica0 = [r for r in got if r["coords"][0] == 0]
+        grads = (tp.merge_tp_params([r["grads"] for r in replica0]) if axis == "model"
+                 else replica0[0]["grads"])
+        err = 0.0
+        for (path, a), (_, b) in zip(flatten(grads), flatten(want_grads)):
+            e = excess(a, b, (2e-4, 2e-3))
+            check(e <= 0, f"(a) {name}: grad {path} off the single process by {e:.3g} "
+                          "past tolerance")
+            err = max(err, max_err(torch.from_numpy(a), torch.from_numpy(b)))
+        print(f"  (a) fp32 {name} ({data} x {size} {axis}): loss {got[0]['loss']:.6f} vs "
+              f"single process {want_losses[0]:.6f}; grads max abs err {err:.2e}")
+
+
+def sp_tp_slices(ranks):
+    """Phase 12 (b): the bf16 layouts' losses, launches, staged bytes, step
+    time and exchange seconds."""
+    out = {}
+    for name in SPTP_SLICE:
+        runs = [r["slice"][name] for r in ranks]
+        losses = runs[0]["losses"]
+        check(all(r["losses"] == losses for r in runs), f"(b) {name}: the ranks' losses differ")
+        check(len(losses) == SPTP_STEPS and all(math.isfinite(x) for x in losses),
+              f"(b) {name}: losses not all finite: {losses}")
+        check(abs(losses[0] - math.log(4096)) < 1.0,
+              f"(b) {name}: first loss {losses[0]:.3f} far from ln(vocab) {math.log(4096):.3f}")
+        first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+        check(last < first,
+              f"(b) {name}: loss did not fall: first 3 {first:.4f}, last 3 {last:.4f}")
+        out[name] = []
+        for r in runs:
+            check(r["device"].startswith("cuda"),
+                  f"(b) {name}: rank {r['coords']} on {r['device']}")
+            n = sp_tp_launches(name, r["coords"][1]) * SPTP_STEPS
+            want = {k: n for k in ("fwd", "dq", "dkv")}
+            check(r["launches"] == want, f"(b) {name}: rank {r['coords']} launches "
+                                         f"{r['launches']} != {want}")
+            for k in want:
+                check(r["by_variant"][k]["wgmma"] == n,
+                      f"(b) {name}: rank {r['coords']} {k} by variant {r['by_variant'][k]}")
+            staged = {c["bytes_staged"] for c in r["comm"]}
+            expect = sp_tp_staged_bytes(name, r["n_params"])
+            check(staged == {expect}, f"(b) {name}: rank {r['coords']} staged {staged} B per "
+                                      f"step, the shapes give {expect}")
+            out[name].append(r["launches"])
+        steady = [max(r["step_s"][i] for r in runs) for i in range(1, SPTP_STEPS)]
+        step_ms = statistics.median(steady) * 1e3
+        print(f"  (b) {name}: backend {runs[0]['backend']}, devices "
+              f"{sorted({r['device'] for r in runs})}; loss {first:.4f} (first 3) -> "
+              f"{last:.4f} (last 3); flash launches per rank per step "
+              f"{[sp_tp_launches(name, r['coords'][1]) for r in runs]} each kernel, all wgmma; "
+              f"staged per rank per step "
+              f"{[sorted({c['bytes_staged'] for c in r['comm']}) for r in runs]} B, the shapes "
+              f"give {[sp_tp_staged_bytes(name, r['n_params']) for r in runs]}")
+        exch = {k: [statistics.median(c[k] for c in r["comm"][1:]) * 1e3 for r in runs]
+                for k in ("send_s", "recv_wait_s", "allreduce_s", "collective_s")}
+        print(f"  (b) {name}: step median {step_ms:.3f} ms (slowest rank, steps "
+              f"1..{SPTP_STEPS - 1}, host clock), "
+              f"{2 * SPTP_ROWS * 256 / (step_ms / 1e3):.1f} tokens/s; exchange ms per "
+              "step per rank (median): " + "; ".join(
+                  f"{k} {[round(x, 3) for x in v]}" for k, v in exch.items()))
+    return out
+
+
+def sp_tp_kernel_checks(dev):
+    """Phase 12 (c): each bf16 kernel against its plain version at
+    ``SPTP_KERNEL_CASES``, on the ``wgmma`` variant (:func:`kernel_case`), and
+    the autograd Functions on the card against the CPU's plain path at the
+    same shapes (:func:`autograd_case`), ``flash_attention_with_lse`` with a
+    nonzero lse cotangent as the ring's merge gives it and
+    ``flash_attention`` as Ulysses and TP call it; the bf16 band throughout.
+    Returns the kernels' max abs errors over the cases."""
+    from ddl25spring_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(12)
+    errs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    for B, H, L, causal in SPTP_KERNEL_CASES:
+        e = kernel_case(fa, gen, dev, B * H, L, L, 48, torch.bfloat16, causal)
+        errs = {n: max(errs[n], e[n]) for n in errs}
+        for with_lse in (True, False):
+            autograd_case(fa, gen, dev, (B, L, H, 48), torch.bfloat16, causal, with_lse)
+    return errs
+
+
+def sp_tp_phase(dev):
+    """Phase 12: sequence and tensor parallelism on the card, each sub-phase
+    timed; returns each layout's flash launches per rank over the run."""
+    import numpy as np
+
+    from ddl25spring_tpu_torch.data.tinystories import TinyStories
+    from ddl25spring_tpu_torch.data.tokenizer import get_tokenizer
+    from ddl25spring_tpu_torch.ops import _build
+    from ddl25spring_tpu_torch.parallel.launch import spawn
+    from ddl25spring_tpu_torch.utils.config import LlamaConfig
+
+    _build.build(_build.CSRC / "flash_attention.cu", _build.CSRC / "flash_attention_sm90.cu")
+    t0 = time.perf_counter()
+    exact = _token_batches(LlamaConfig(), 2 * SPTP_ROWS, 1, seed=17)[0]
+    ds = iter(TinyStories(get_tokenizer(), batch_size=2 * SPTP_ROWS, seq_l=256, seed=0))
+    batches = [np.asarray(next(ds)) for _ in range(SPTP_STEPS)]
+    ranks = spawn(sp_tp_rank, 4, exact, batches, dev.type, timeout=SPAWN_TIMEOUT)
+    print(f"  4 ranks, backend {sorted({r['slice']['tp']['backend'] for r in ranks})}: "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sp_tp_exactness(ranks, dev)
+    launches = sp_tp_slices(ranks)
+    print(f"  (a)-(b) checks took {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    errs = sp_tp_kernel_checks(dev)
+    cases = [(B, H, L, torch.bfloat16, causal) for B, H, L, causal in SPTP_KERNEL_CASES]
+    (times, lines), = spawn(kernel_times_at, 1, cases, "(c)", timeout=SPAWN_TIMEOUT)
+    for line in lines:
+        print(line)
+    print(f"  (c) took {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"launches": launches, "times": times, "max_abs_err": errs}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2137,11 +2412,21 @@ def main() -> int:
     fused = fused_phase(dev)
     print(f"  phase 11 in {time.perf_counter() - t0:.1f} s")
 
+    print("== sequence and tensor parallelism on the card: the flash ring, Ulysses and "
+          "Megatron TP with the vocab-sharded embedding and loss (4 ranks on cuda:0)")
+    print(card)
+    t0 = time.perf_counter()
+    sptp = sp_tp_phase(dev)
+    print(f"  phase 12 in {time.perf_counter() - t0:.1f} s")
+
     kernels = [
         {"name": f"flash_{name}", "route": "cuda", "source": SOURCE[timing[name]["variant"]],
          "replaces": REPLACES[name], "launches": launches[name],
          "launches_per_fused_window": fused["census"][f"flash_{name}_wgmma"],
-         "max_abs_err": main_err[name], **timing[name]}
+         "launches_sp_tp_per_rank": {layout: [c[name] for c in per_rank]
+                                     for layout, per_rank in sptp["launches"].items()},
+         "max_abs_err": main_err[name], "max_abs_err_sp_tp": sptp["max_abs_err"][name],
+         **timing[name]}
         for name in ("fwd", "dq", "dkv")
     ]
     print(card)

@@ -88,7 +88,7 @@ def build_resnet_step(mesh=None, num_microbatches: int = 1, batch: int = 1024,
     and this rank's parameter count.  The JAX function's ``donate`` has no
     counterpart: the update is in place, so parameters and momentum exist
     once anyway."""
-    D, S = (mesh.grid.data, mesh.grid.stages) if mesh is not None else (1, 1)
+    D, S = (mesh.grid.data, mesh.grid.size) if mesh is not None else (1, 1)
     if S not in (1, 2, 3, 4):
         raise ValueError(f"resnet pipeline supports S in (1, 2, 3, 4), got {S}")
     if overlap and S != 1:

@@ -17,6 +17,14 @@ reference's staged pytree (blocks ``[S, L/S, ...]``) and exports it back.
 Under the interleaved schedules a rank holds ``V`` such slices
 (:class:`LlamaChunkedStage`, blocks ``[S, V, L/(S V), ...]``).
 
+:func:`block_forward` carries the JAX block's parallel hooks: ``tp_axis``
+(Megatron tensor parallelism: this rank's column slices of
+``wq``/``wk``/``wv``/``w_gate``/``w_up`` and row slices of ``wo``/``w_down``,
+the head count read off the slice), ``pos`` (the global positions of a
+sequence shard, for RoPE) and ``attn_fn`` (the attention of a sequence-
+parallel ring or all-to-all); :mod:`~ddl25spring_tpu_torch.parallel.tp` and
+:mod:`~ddl25spring_tpu_torch.parallel.sp` use them.
+
 Only the dense-FFN model is ported; switch-MoE configs raise.
 """
 
@@ -30,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ddl25spring_tpu_torch.ops.flash_attention import flash_attention
+from ddl25spring_tpu_torch.parallel.comm import Axis, copy_in, reduce_out
 from ddl25spring_tpu_torch.utils.config import LlamaConfig
 
 BLOCK_KEYS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "w_gate", "w_up", "w_down")
@@ -217,49 +226,77 @@ def _dtype(cfg: LlamaConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def block_forward(p: LlamaBlock, x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+def _flash(q, k, v, dtype):
+    return flash_attention(q, k, v)
+
+
+def block_forward(p: LlamaBlock, x: torch.Tensor, cfg: LlamaConfig, *,
+                  tp_axis: Axis | None = None, pos: torch.Tensor | None = None,
+                  attn_fn=None) -> torch.Tensor:
     """One pre-norm block: RMSNorm -> causal RoPE attention -> residual ->
-    RMSNorm -> SwiGLU FFN -> residual.  Attention goes through
-    :func:`flash_attention` when ``cfg.use_flash`` (its kernels on CUDA, their
-    plain versions on the CPU), else through dense :func:`causal_attention`."""
+    RMSNorm -> SwiGLU FFN -> residual.  Attention goes through ``attn_fn(q,
+    k, v, dtype)`` when given, else through :func:`flash_attention` when
+    ``cfg.use_flash`` (its kernels on CUDA, their plain versions on the CPU),
+    else through dense :func:`causal_attention`.
+
+    Parallel hooks (both off by default, the serial block): ``tp_axis``, the
+    model axis of Megatron tensor parallelism: ``p`` holds this rank's slices,
+    each normed input enters the column-parallel products through
+    :func:`~ddl25spring_tpu_torch.parallel.comm.copy_in` and each
+    row-parallel product leaves through
+    :func:`~ddl25spring_tpu_torch.parallel.comm.reduce_out`; ``pos``/
+    ``attn_fn``: a sequence shard's global RoPE positions and its
+    attention."""
     dtype = _dtype(cfg)
     B, L, _ = x.shape
     hd = cfg.head_dim
 
-    h = rms_norm(x, p.ln1)
+    def col_in(h):
+        return h if tp_axis is None else copy_in(h, tp_axis)
+
+    def row_out(y):
+        return y if tp_axis is None else reduce_out(y, tp_axis)
+
+    h = col_in(rms_norm(x, p.ln1))
     q = (h @ p.wq.to(dtype)).view(B, L, -1, hd)
     k = (h @ p.wk.to(dtype)).view(B, L, -1, hd)
     v = (h @ p.wv.to(dtype)).view(B, L, -1, hd)
-    cos, sin = rope_angles(L, hd, device=x.device)
+    cos, sin = rope_angles(L, hd, pos=pos, device=x.device)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    if cfg.use_flash:
-        attn = flash_attention(q, k, v)
-    else:
-        attn = causal_attention(q, k, v, dtype)
-    x = x + attn.reshape(B, L, -1) @ p.wo.to(dtype)
+    if attn_fn is None:
+        attn_fn = _flash if cfg.use_flash else causal_attention
+    attn = attn_fn(q, k, v, dtype)
+    x = x + row_out(attn.reshape(B, L, -1) @ p.wo.to(dtype))
 
-    h = rms_norm(x, p.ln2)
+    h = col_in(rms_norm(x, p.ln2))
     gate = F.silu(h @ p.w_gate.to(dtype))
     up = h @ p.w_up.to(dtype)
-    return x + (gate * up) @ p.w_down.to(dtype)
+    return x + row_out((gate * up) @ p.w_down.to(dtype))
 
 
 def embed(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
     return model.embed.to(_dtype(cfg))[tokens]
 
 
-def unembed(model: Llama, x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
-    """Final norm + output projection; logits come out float32."""
+def unembed(model: Llama, x: torch.Tensor, cfg: LlamaConfig,
+            tp_axis: Axis | None = None) -> torch.Tensor:
+    """Final norm + output projection; logits come out float32.  With
+    ``tp_axis``, ``model.unembed`` is this rank's column slice of a
+    vocab-sharded head: the normed input enters it through ``copy_in``."""
     h = rms_norm(x, model.ln_f)
+    if tp_axis is not None:
+        h = copy_in(h, tp_axis)
     return (h @ model.unembed.to(h.dtype)).float()
 
 
-def llama_forward(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
-    """``tokens [B, L]`` -> logits ``[B, L, V]`` float32."""
+def llama_forward(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
+                  **block_kw) -> torch.Tensor:
+    """``tokens [B, L]`` -> logits ``[B, L, V]`` float32; ``block_kw``
+    (``pos``, ``attn_fn``) go to every :func:`block_forward`."""
     x = embed(model, tokens, cfg)
     for block in model.blocks:
-        x = block_forward(block, x, cfg)
+        x = block_forward(block, x, cfg, **block_kw)
     return unembed(model, x, cfg)
 
 

@@ -1,6 +1,7 @@
-"""Point-to-point and all-reduce transport between ranks: the counterpart of
-the collectives the JAX package leaves to XLA (``lax.ppermute`` between
-stages, ``lax.pmean`` over the data axis).
+"""Transport between ranks, and the differentiable collectives built on it:
+the counterpart of the collectives the JAX package leaves to XLA
+(``lax.ppermute``, ``lax.psum``/``pmean``, ``lax.all_gather``,
+``lax.all_to_all``) and of the transposes JAX derives for them.
 
 Under NCCL (every rank on a card of its own) tensors go as they are, the
 point-to-point ones through ``batch_isend_irecv``.  Under gloo, which takes
@@ -14,16 +15,46 @@ one-card run, not a way around the card; every byte it moves is counted.
 A :class:`Comm` counts, until :meth:`Comm.take_stats` resets them, the bytes
 it staged through the host, the seconds it spent posting sends (and waiting
 for an exchange that only sends) and waiting for exchanges that receive,
-and the seconds of its all-reduces (staging included).  A staged exchange
+the seconds of its all-reduces and those of its all-gathers and
+all-to-alls (``collective_s``), staging included.  A staged exchange
 or all-reduce first waits for the card to finish the work queued before it,
 outside the clock, so its seconds are transport only; a receive counts the
 wait for the peer.  Under NCCL the calls return once the transfer
 is queued on the stream, so its seconds are host time only.
+
+Differentiable collectives over one :class:`Axis` of the rank grid, each a
+``torch.autograd.Function`` whose backward is the transpose JAX derives
+inside ``shard_map``:
+
+- :func:`ring_pass` (``lax.ppermute`` to the next index, ``n - 1`` times):
+  every hop sends to ``(i + 1) % n`` and receives from ``(i - 1) % n`` in one
+  exchange; the backward runs the hops in reverse, each the reverse shift;
+- :func:`all_to_all` (``lax.all_to_all(split_axis=a, concat_axis=b,
+  tiled=True)``), whose backward is the all-to-all with ``a`` and ``b``
+  swapped;
+- :func:`copy_in` (identity forward, all-reduce-sum backward) and
+  :func:`reduce_out` (all-reduce-sum forward, identity backward): Megatron's
+  ``f`` and ``g``.  A replicated value entering a rank-local product goes
+  through ``copy_in``, a sum of rank-local partial products through
+  ``reduce_out``: under JAX's VMA typing the first is the implicit ``pcast``
+  to varying, whose transpose is a ``psum``, the second the ``psum``;
+- :func:`all_gather` of a value every rank then uses identically (the loss
+  is replicated over the axis): its backward is this rank's own slot of the
+  cotangent, not a sum over the ranks, which would count the loss ``n``
+  times.
+
+A collective's backward runs only if autograd reaches it, and every rank
+of the axis must run it, in the same order.  :func:`ring_pass` is therefore
+one node for all ``n - 1`` hops: a block that a rank receives but does not
+use still has its cotangent (zeros) passed on, where a chain of one node
+per hop would let autograd prune that rank's unused hops and leave its
+peers waiting.
 """
 
 from __future__ import annotations
 
 import time
+from dataclasses import dataclass
 
 import torch
 import torch.distributed as dist
@@ -44,8 +75,9 @@ class Comm:
     def take_stats(self) -> dict:
         """The counts since the last call, which sets them to 0."""
         out = {k: getattr(self, k, 0) for k in
-               ("bytes_staged", "send_s", "recv_wait_s", "allreduce_s")}
-        self.bytes_staged, self.send_s, self.recv_wait_s, self.allreduce_s = 0, 0.0, 0.0, 0.0
+               ("bytes_staged", "send_s", "recv_wait_s", "allreduce_s", "collective_s")}
+        self.bytes_staged = 0
+        self.send_s = self.recv_wait_s = self.allreduce_s = self.collective_s = 0.0
         return out
 
     def _buffer(self, shape, dtype, slot=None) -> torch.Tensor:
@@ -188,8 +220,186 @@ class Comm:
 
         return finish
 
+    def all_gather(self, t: torch.Tensor, group) -> torch.Tensor:
+        """``[n, *t.shape]``: slot ``j`` holds ``t`` of the group's rank ``j``."""
+        n = dist.get_world_size(group)
+        self._settle()
+        t0 = time.perf_counter()
+        out = torch.empty((n, *t.shape), dtype=t.dtype, device=self.device)
+        if self.staged:
+            buf = self._buffer(out.shape, out.dtype, "gather")
+            dist.all_gather(list(buf.unbind(0)), self._to_host(t.contiguous()), group=group)
+            self._from_host(buf, out)
+        else:
+            dist.all_gather(list(out.unbind(0)), t.contiguous(), group=group)
+        self.collective_s += time.perf_counter() - t0
+        return out
+
+    def all_to_all(self, t: torch.Tensor, group) -> torch.Tensor:
+        """``t`` is ``[n, ...]``: slot ``j`` goes to the group's rank ``j``, and
+        slot ``j`` of the result is what rank ``j`` sent this rank."""
+        self._settle()
+        t0 = time.perf_counter()
+        out = torch.empty_like(t, memory_format=torch.contiguous_format)
+        if self.staged:
+            buf = self._buffer(t.shape, t.dtype, "a2a")
+            dist.all_to_all_single(buf, self._to_host(t.contiguous()), group=group)
+            self._from_host(buf, out)
+        else:
+            dist.all_to_all_single(out, t.contiguous(), group=group)
+        self.collective_s += time.perf_counter() - t0
+        return out
+
     def barrier(self):
         if self.backend == "nccl":
             dist.barrier(device_ids=[self.device.index])
         else:
             dist.barrier()
+
+
+@dataclass(frozen=True)
+class Axis:
+    """One axis of the rank grid as a rank sees it (from
+    :meth:`~ddl25spring_tpu_torch.utils.mesh.Mesh.axis`): its name, the
+    :class:`Comm`, the process group of the rank's line along the axis, the
+    global ranks of that line in index order, and the rank's index on it."""
+
+    name: str
+    comm: Comm
+    group: object
+    ranks: tuple[int, ...]
+    index: int
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+    def shift(self, tensors, step: int = 1) -> list[torch.Tensor]:
+        """Every index ``i`` sends ``tensors`` to index ``(i + step) % n`` and
+        receives from ``(i - step) % n``, in one exchange; returns what it
+        received.  Not differentiable: :func:`ring_pass` is."""
+        n, i = self.size, self.index
+        if n == 1:
+            return list(tensors)
+        dst, src = self.ranks[(i + step) % n], self.ranks[(i - step) % n]
+        return self.comm.send_recv(
+            sends=[(t, dst, j) for j, t in enumerate(tensors)],
+            recvs=[(t.shape, t.dtype, src, j) for j, t in enumerate(tensors)])
+
+
+class _RingPass(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, axis, *xs):
+        ctx.axis = axis
+        ctx.diff = [x.is_floating_point() for x in xs]
+        hops = [list(xs)]
+        for _ in range(axis.size - 1):
+            hops.append(axis.shift(hops[-1]))
+        outs = [torch.stack(blocks) for blocks in zip(*hops)]
+        ctx.mark_non_differentiable(*[o for o, d in zip(outs, ctx.diff) if not d])
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        gs = [g for g, d in zip(gs, ctx.diff) if d]
+        # hop t's cotangent goes back to the index it came from, t hops
+        # behind: accumulate from the last hop, one reverse shift per hop
+        acc = [g[-1] for g in gs]
+        for t in range(ctx.axis.size - 1, 0, -1):
+            acc = [g[t - 1] + a for g, a in zip(gs, ctx.axis.shift(acc, step=-1))]
+        it = iter(acc)
+        return (None, *[next(it) if d else None for d in ctx.diff])
+
+
+def ring_pass(axis: Axis, *xs: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """For each ``x``, ``[n, *x.shape]``: slot ``t`` holds the ``x`` of index
+    ``(i - t) % n``, received after ``t`` hops of the ring (slot 0 is this
+    rank's own).  The ``n - 1`` hops each move every ``x`` together, in one
+    exchange (:meth:`Axis.shift`).  Differentiable in the floating-point
+    ``x``; integer ones (positions) travel along without a cotangent.
+
+    Every rank of the axis must use some output (slot 0 will do), so that
+    autograd runs the backward's hops on every rank: a rank that uses none
+    would leave the others waiting on it."""
+    return _RingPass.apply(axis, *xs)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, split, concat):
+        ctx.axis, ctx.split, ctx.concat = axis, split, concat
+        return _all_to_all(x, axis, split, concat)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.axis, ctx.concat, ctx.split), None, None, None
+
+
+def _all_to_all(x, axis, split, concat):
+    n = axis.size
+    if x.shape[split] % n:
+        raise ValueError(f"dim {split} of {tuple(x.shape)} does not split over {n} ranks")
+    slots = x.unflatten(split, (n, x.shape[split] // n)).movedim(split, 0)
+    got = axis.comm.all_to_all(slots.contiguous(), axis.group)
+    return got.movedim(0, concat).flatten(concat, concat + 1)
+
+
+def all_to_all(x: torch.Tensor, axis: Axis, split: int, concat: int) -> torch.Tensor:
+    """``lax.all_to_all(x, split_axis=split, concat_axis=concat, tiled=True)``:
+    dim ``split`` is cut into ``n`` slices, slice ``j`` goes to index ``j``,
+    and the slices received are joined along dim ``concat`` in index order."""
+    if axis.size == 1:
+        return x
+    return _AllToAll.apply(x, axis, split, concat)
+
+
+class _CopyIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        ctx.axis.comm.all_reduce_sum_([g], ctx.axis.group)
+        return g, None
+
+
+class _ReduceOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        y = x.contiguous().clone()
+        axis.comm.all_reduce_sum_([y], axis.group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_in(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """Identity forward; the backward sums the cotangent over the axis."""
+    return x if axis.size == 1 else _CopyIn.apply(x, axis)
+
+
+def reduce_out(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """The sum over the axis forward; identity backward."""
+    return x if axis.size == 1 else _ReduceOut.apply(x, axis)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.index = axis.index
+        return axis.comm.all_gather(x, axis.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.index], None
+
+
+def all_gather(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """``[n, *x.shape]``, slot ``j`` from index ``j``; for a value every rank of
+    the axis then uses identically (its backward takes this rank's slot)."""
+    return x[None] if axis.size == 1 else _AllGather.apply(x, axis)

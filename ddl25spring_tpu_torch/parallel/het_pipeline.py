@@ -51,9 +51,9 @@ LossFn = Callable[[torch.Tensor, Any], torch.Tensor]
 
 def _hops(boundary_shapes, mesh, inject_fn, loss_fn: LossFn, compute_dtype) -> dict:
     """The schedule's keyword arguments for this rank's stage."""
-    if len(boundary_shapes) != mesh.grid.stages:
+    if len(boundary_shapes) != mesh.grid.size:
         raise ValueError(f"{len(boundary_shapes)} boundary shapes for "
-                         f"{mesh.grid.stages} stages")
+                         f"{mesh.grid.size} stages")
     s = mesh.coords[1]
     per_sample = boundary_shapes[s - 1] if s > 0 else None
 

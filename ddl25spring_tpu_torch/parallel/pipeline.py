@@ -88,7 +88,7 @@ def shard_staged_params(params: dict, cfg: LlamaConfig, mesh, num_chunks: int = 
     :class:`~ddl25spring_tpu_torch.models.llama.LlamaStage` for one chunk, a
     :class:`~ddl25spring_tpu_torch.models.llama.LlamaChunkedStage` of
     ``num_chunks`` for the interleaved schedules."""
-    S, s = mesh.grid.stages, mesh.coords[1]
+    S, s = mesh.grid.size, mesh.coords[1]
     if np.ndim(params["blocks"]["wq"]) == 3:
         params = (split_blocks_interleaved(params, S, num_chunks) if num_chunks > 1
                   else split_blocks_for_stages(params, S))
@@ -230,7 +230,7 @@ class Executor:
     def __init__(self, chunk_fns, mesh, num_microbatches: int, schedule: str, *, in_shape,
                  hop_dtype, inject_fn, loss_fn):
         self.chunk_fns, self.mesh, self.M = list(chunk_fns), mesh, num_microbatches
-        self.S, self.V, self.D = mesh.grid.stages, len(self.chunk_fns), mesh.grid.data
+        self.S, self.V, self.D = mesh.grid.size, len(self.chunk_fns), mesh.grid.data
         self.d, self.s = mesh.coords
         check_layout(schedule, self.S, self.V, self.M)
         check_deadlock_free(schedule, self.S, self.V, self.M)

@@ -1,0 +1,232 @@
+"""Megatron tensor parallelism for the LLaMA blocks: the counterpart of the
+JAX package's ``parallel/tp.py``.
+
+Layout over the ``model`` axis of a ``data x model`` grid (the standard
+column/row split):
+
+- column slices (output dim): ``wq``, ``wk``, ``wv`` (whole heads per rank),
+  ``w_gate``, ``w_up``;
+- row slices (input dim): ``wo``, ``w_down``, whose partial products are
+  summed over the axis;
+- replicated: the norms;
+- ``embed`` and ``unembed`` vocab-sharded with ``shard_vocab=True`` (index
+  ``i`` holds vocab ids ``[i V/n, (i+1) V/n)``): each rank gathers its own
+  rows and one sum assembles the activations (:func:`vocab_sharded_embed`);
+  the head projects onto the rank's ``V/n`` logit columns, and the loss is
+  assembled from one all-gather of the per-shard log-sum-exps and one sum of
+  the picked target logit (:func:`vocab_sharded_lm_loss`), so the full ``[B,
+  L, V]`` logits never exist on a rank.  Replicated otherwise.
+
+:func:`~ddl25spring_tpu_torch.models.llama.block_forward` (``tp_axis=``) holds
+the sharded arithmetic; this module slices the parameters and builds the
+loss and the step.
+
+Gradient convention.  The loss is replicated over the model group: every
+rank computes the same value.  Each normed input enters the rank-local
+products through ``copy_in``, whose backward sums the cotangent over the
+axis, and each sum of partial products leaves through ``reduce_out``, whose
+backward is the identity.  So a sliced leaf's gradient is this rank's slice
+of the full gradient, and a replicated leaf (the norms; ``embed`` and
+``unembed`` when not vocab-sharded) gets the full gradient, the same on every
+rank of the group.  The gradients are averaged over the data group.
+
+``make_tp_moe_fn`` and the MoE branch of the loss belong to the EP slice
+(ROADMAP A8) and raise; ``describe()`` is not ported (ROADMAP A12).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ddl25spring_tpu_torch.models import llama
+from ddl25spring_tpu_torch.ops.losses import causal_lm_loss
+from ddl25spring_tpu_torch.parallel.bucketing import (
+    default_bucket_bytes,
+    flatten,
+    parts,
+    plan_buckets,
+)
+from ddl25spring_tpu_torch.parallel.comm import Axis, all_gather, reduce_out
+from ddl25spring_tpu_torch.parallel.dp import _not_ported, grad_leaves, param_leaves, shard_rows
+from ddl25spring_tpu_torch.utils.config import LlamaConfig
+
+_COL = ("wq", "wk", "wv", "w_gate", "w_up")  # split the output (last) dim
+_ROW = ("wo", "w_down")                      # split the input dim
+
+_MOE = ("switch-MoE under tensor parallelism (make_tp_moe_fn) waits for the EP slice "
+        "(ROADMAP A8: ep.py with MoE LLaMA)")
+
+
+def tp_param_specs(shard_vocab: bool = True) -> dict:
+    """The dim each leaf of the reference pytree is split on over the model
+    axis, or None where it is replicated (JAX ``tp_param_specs``,
+    ``tp.py:63``).  Blocks are stacked ``[L, ...]``, so their weight dims
+    shift right by one."""
+    block = {"ln1": None, "ln2": None, **{k: 2 for k in _COL}, **{k: 1 for k in _ROW}}
+    return {"embed": 0 if shard_vocab else None, "blocks": block, "ln_f": None,
+            "unembed": 1 if shard_vocab else None}
+
+
+def _split_dims(shard_vocab: bool) -> dict[str, int | None]:
+    return dict(flatten(tp_param_specs(shard_vocab)))
+
+
+def shard_tp_params(params: dict, n: int, index: int, shard_vocab: bool = True) -> dict:
+    """Index ``index``'s slice of the reference pytree (numpy leaves) over a
+    model axis of ``n``: the JAX ``shard_tp_params`` (``tp.py:100``) for one
+    rank.  Every split dim must divide by ``n``."""
+    dims = _split_dims(shard_vocab)
+
+    def cut(path, leaf):
+        leaf, dim = np.asarray(leaf), dims[path]
+        if dim is None:
+            return leaf.copy()
+        if leaf.shape[dim] % n:
+            raise ValueError(f"{path}: dim {dim} of {leaf.shape} does not split over {n}")
+        size = leaf.shape[dim] // n
+        return np.take(leaf, np.arange(index * size, (index + 1) * size), axis=dim)
+
+    return _unflatten({path: cut(path, leaf) for path, leaf in flatten(params)})
+
+
+def merge_tp_params(shards: list[dict], shard_vocab: bool = True) -> dict:
+    """The full pytree from the slices of indices ``0..n-1``, in order (the
+    inverse of :func:`shard_tp_params`; a replicated leaf is index 0's)."""
+    dims = _split_dims(shard_vocab)
+    flat = [dict(flatten(s)) for s in shards]
+    return _unflatten({path: (flat[0][path].copy() if dim is None
+                              else np.concatenate([f[path] for f in flat], axis=dim))
+                       for path, dim in dims.items()})
+
+
+def _unflatten(flat: dict) -> dict:
+    tree: dict = {}
+    for path, leaf in flat.items():
+        *outer, last = path.split(".")
+        node = tree
+        for key in outer:
+            node = node.setdefault(key, {})
+        node[last] = leaf
+    return tree
+
+
+@torch.no_grad()
+def load_tp_params(model: llama.Llama, local: dict) -> llama.Llama:
+    """Give ``model``'s parameters this rank's slices (numpy leaves, from
+    :func:`shard_tp_params`): each parameter takes the slice's shape.  Build
+    the optimizer after."""
+    leaves = dict(flatten(model.param_tree()))
+    for path, value in flatten(local):
+        leaf = leaves[path]
+        # a stacked leaf is one parameter per layer
+        values = [value] if isinstance(leaf, torch.Tensor) else list(value)
+        for p, v in zip(parts(leaf), values, strict=True):
+            p.data = torch.from_numpy(np.array(v, dtype=np.float32)).to(p.device)
+    return model
+
+
+def _vocab_shard_ownership(tokens: torch.Tensor, Vl: int, axis: Axis):
+    """``(t_local, mine)`` for vocab ids under the contiguous-shard convention
+    (index ``i`` owns ``[i Vl, (i+1) Vl)``): the clamped local row and the
+    ownership mask.  The embedding gather and the loss's target pick share it
+    (JAX ``tp.py:119``)."""
+    off = axis.index * Vl
+    return (tokens - off).clamp(0, Vl - 1), (tokens >= off) & (tokens < off + Vl)
+
+
+def vocab_sharded_embed(table_local: torch.Tensor, tokens: torch.Tensor, axis: Axis,
+                        dtype: torch.dtype) -> torch.Tensor:
+    """The embedding from a vocab-sharded ``[V/n, D]`` slice: each rank gathers
+    its own rows (a foreign token hits a clamped row, zeroed by the ownership
+    mask), and one sum over the axis (``reduce_out``) assembles ``[B, L, D]``.
+    The sum's backward hands every rank the full cotangent, whose scatter
+    touches only its own rows."""
+    t_local, mine = _vocab_shard_ownership(tokens, table_local.shape[0], axis)
+    return reduce_out(table_local.to(dtype)[t_local] * mine[..., None].to(dtype), axis)
+
+
+def vocab_sharded_lm_loss(logits: torch.Tensor, tokens: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """:func:`~ddl25spring_tpu_torch.ops.losses.causal_lm_loss` over a
+    vocab-sharded logits slice ``[B, L, V/n]``: the log-partition from one
+    all-gather of the per-shard log-sum-exps, the target logit from one sum
+    of each rank's pick, both ``[B, L-1]``, whatever V.  Every rank returns
+    the same loss."""
+    logits = logits[:, :-1].float()
+    targets = tokens[:, 1:]
+    Vl = logits.shape[-1]
+    logz = torch.logsumexp(all_gather(torch.logsumexp(logits, -1), axis), 0)
+    t_local, mine = _vocab_shard_ownership(targets, Vl, axis)
+    picked_l = logits.gather(-1, t_local[..., None])[..., 0]
+    picked = reduce_out(torch.where(mine, picked_l, 0.0), axis)
+    return (logz - picked).mean()
+
+
+def make_tp_moe_fn(*args, **kwargs):
+    """The expert-sharded switch-MoE FFN under TP: not ported yet."""
+    raise NotImplementedError(_MOE)
+
+
+def make_tp_loss(cfg: LlamaConfig, mesh, model_axis: str = "model",
+                 data_axis: str | None = None, shard_vocab: bool = True):
+    """``loss(model, tokens) -> scalar`` with TP(xDP) blocks (JAX
+    ``make_tp_loss``, ``tp.py:208``): ``model`` holds this rank's slices
+    (:func:`load_tp_params`); the rank takes its replica's rows of the global
+    batch (all of them when ``data_axis`` is None).  The loss is the same on
+    every rank of the model group."""
+    if cfg.n_experts > 0:
+        raise NotImplementedError(_MOE)
+    axis = mesh.axis(model_axis)
+    rows = mesh.axis(data_axis) if data_axis is not None else None
+    dtype = getattr(torch, cfg.dtype)
+
+    def loss(model, tokens):
+        if rows is not None:
+            tokens = shard_rows(tokens, rows.index, rows.size, mesh.device)
+        tokens = tokens.to(mesh.device)
+        if shard_vocab:
+            x = vocab_sharded_embed(model.embed, tokens, axis, dtype)
+        else:
+            x = llama.embed(model, tokens, cfg)
+        for block in model.blocks:
+            x = llama.block_forward(block, x, cfg, tp_axis=axis)
+        if shard_vocab:
+            return vocab_sharded_lm_loss(llama.unembed(model, x, cfg, tp_axis=axis), tokens, axis)
+        return causal_lm_loss(llama.unembed(model, x, cfg), tokens)
+
+    return loss
+
+
+def make_tp_train_step(model, cfg: LlamaConfig, optimizer: torch.optim.Optimizer, mesh,
+                       model_axis: str = "model", data_axis: str | None = None,
+                       shard_vocab: bool = True, sentinel: bool | None = None):
+    """The TP(xDP) train step (JAX ``make_tp_train_step``, ``tp.py:237``):
+    ``model`` holds this rank's slices and keeps them across steps.
+    ``step(tokens)`` takes the global batch, averages the gradients over the
+    data group (one all-reduce per bucket of ``DDL25_BUCKET_BYTES``, 4 MiB
+    when unset, as :func:`~ddl25spring_tpu_torch.parallel.dp.
+    make_dp_train_step`), steps ``optimizer`` and returns the loss, the same
+    on every rank.
+
+    JAX's ``donate`` has no counterpart (the optimizer updates the
+    parameters in place); ``sentinel`` is not ported and raises."""
+    _not_ported("make_tp_train_step", sentinel=sentinel)
+    loss_fn = make_tp_loss(cfg, mesh, model_axis, data_axis, shard_vocab)
+    data = mesh.axis(data_axis) if data_axis is not None else None
+    bb = default_bucket_bytes()
+    leaves = param_leaves(model)
+    plan = plan_buckets(leaves, bb) if bb else None
+    comm = mesh.comm
+
+    def step(tokens):
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn(model, tokens)
+        loss.backward()
+        loss = loss.detach().clone()
+        if data is not None:
+            comm.bucketed_all_reduce_mean_(grad_leaves(leaves), data.group, plan)
+            comm.all_reduce_mean_([loss], data.group)
+        optimizer.step()
+        return loss
+
+    return step

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card,
 the launches of every pipeline schedule on the card, the ResNet-18 slice's
 card-only checks (the on-card dataset, fp32 against
-the CPU, bf16 channels_last against fp32), and federated learning's
-(``MnistCnn`` and one FedAvg round on the card against the CPU).
+the CPU, bf16 channels_last against fp32), federated learning's
+(``MnistCnn`` and one FedAvg round on the card against the CPU), and one
+flash-ring and one TP step on the card against the CPU.
 
 Marked ``gpu``: each test skips unless an sm_90 (Hopper) device is present,
 but for the FL entry points' refusal of a missing GPU, which runs anywhere.
@@ -515,3 +516,57 @@ def test_explicit_hbm_scan_on_ranks_sharing_the_card_raises(dev):
         dp_pp.main(["--workload", "resnet", "--pp", "--ranks", "4", "--input", "hbm-scan"])
     assert dp_pp.resnet_input("auto", 0, dev, 4, 256)[:2] == ("hbm", 1)
     assert dp_pp.resnet_input("auto", 0, dev, 1, 1024)[:2] == ("hbm-scan", 16)
+
+
+# ------------------------------------------- sequence and tensor parallelism
+
+
+def sp_tp_rank(rdv, device):
+    """One rank of a 2-rank world on ``device``: one step (SGD at lr 0, which
+    leaves the weights) of the flash ring over ``seq = 2`` and of TP over
+    ``model = 2`` (vocab-sharded), fp32 ``DP_CFG``; the losses, the synced
+    gradients and each step's flash launches."""
+    from ddl25spring_tpu_torch.models.llama import Llama, export_grads, export_params
+    from ddl25spring_tpu_torch.parallel import sp, tp
+    from ddl25spring_tpu_torch.utils.config import LlamaConfig
+    from ddl25spring_tpu_torch.utils.mesh import init_mesh
+
+    cfg = LlamaConfig(**DP_CFG)
+    params = export_params(Llama(cfg, device="cpu", generator=torch.Generator().manual_seed(3)))
+    tokens = _dp_batches()[0]
+    out = {}
+    with init_mesh(rdv, 1, seq=2, device=device) as mesh:
+        for name, m in (("sp", mesh), ("tp", mesh.regrid(1, model=2))):
+            model = Llama(cfg, device=mesh.device, generator=torch.Generator().manual_seed(3))
+            if name == "sp":
+                step = sp.make_sp_train_step(model, cfg, torch.optim.SGD(model.parameters(),
+                                                                         lr=0.0), m)
+            else:
+                tp.load_tp_params(model, tp.shard_tp_params(params, 2, m.axis("model").index))
+                step = tp.make_tp_train_step(model, cfg, torch.optim.SGD(model.parameters(),
+                                                                         lr=0.0), m)
+            fa.reset_launches()
+            loss = step(tokens).item()
+            out[name] = {"loss": loss, "grads": export_grads(model),
+                         "launches": dict(fa.LAUNCHES), "device": str(mesh.device)}
+    return out
+
+
+@pytest.mark.parametrize("name", ["sp", "tp"])
+def test_sp_and_tp_steps_on_the_card_match_the_cpu(dev, tmp_path, name):
+    """The flash ring (index s launches each kernel (1 + s) x 2 layers) and
+    TP (2 each) on the card against the same world on the CPU, where the
+    plain versions run: loss rtol 1e-5, gradients atol 2e-4 + rtol 2e-3."""
+    from ddl25spring_tpu_torch.parallel.bucketing import flatten
+    from ddl25spring_tpu_torch.parallel.launch import spawn
+
+    card = spawn(sp_tp_rank, 2, "cuda", timeout=300, tmpdir=str(tmp_path))
+    host = spawn(sp_tp_rank, 2, "cpu", timeout=300, tmpdir=str(tmp_path))
+    for s, (c, h) in enumerate(zip(card, host)):
+        c, h = c[name], h[name]
+        assert c["device"].startswith("cuda")
+        n = 2 * (1 + s) if name == "sp" else 2
+        assert c["launches"] == {"fwd": n, "dq": n, "dkv": n}
+        assert c["loss"] == pytest.approx(h["loss"], rel=1e-5)
+        for (path, a), (_, b) in zip(flatten(c["grads"]), flatten(h["grads"])):
+            assert (abs(a - b) - 2e-3 * abs(b)).max() <= 2e-4, path

@@ -130,7 +130,7 @@ def test_overlap_needs_buckets_and_pure_dp():
             make_dp_train_step(model, _loss, opt, None, bucket_bytes=bb, overlap=True)
 
     class Grid:
-        data, stages = 1, 2
+        data, size = 1, 2
 
     class PipelineMesh:
         grid, device, coords = Grid, torch.device("cpu"), (0, 0)

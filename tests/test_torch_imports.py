@@ -42,5 +42,6 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "bench", "examples.homework1_a1_equivalence",
                 "examples.vfl_and_generative_fl", "parallel.schedule",
                 "examples.homework1_a2_a3_sweeps", "examples.tutorial_1b.intro_dp_ga",
-                "examples.tutorial_1b.intro_dp_wa", "examples.tutorial_1b.intro_pp_1f1b"):
+                "examples.tutorial_1b.intro_dp_wa", "examples.tutorial_1b.intro_pp_1f1b",
+                "parallel.sp", "parallel.tp"):
         assert f"ddl25spring_tpu_torch.{mod}" in report["modules"]

@@ -137,7 +137,7 @@ def test_stage_chain_equals_llama_forward(params, use_flash):
 
 
 def test_rank_grid_and_backend_rule():
-    grid = RankGrid(data=2, stages=3)
+    grid = RankGrid(data=2, size=3)
     assert [grid.coords(r) for r in range(6)] == [(0, 0), (0, 1), (0, 2), (1, 0), (1, 1), (1, 2)]
     assert [grid.dp_ranks(s) for s in range(3)] == [[0, 3], [1, 4], [2, 5]]
     assert [grid.prev_rank(r) for r in range(6)] == [None, 0, 1, None, 3, 4]

@@ -258,7 +258,7 @@ def test_chunked_stage_chain_equals_llama_forward(params):
 
 def test_guards_raise_as_in_jax(params):
     class Grid:
-        stages, data = S, 1
+        size, data = S, 1
 
     class FakeMesh:
         grid, coords, device = Grid, (0, 0), torch.device("cpu")
