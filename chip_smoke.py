@@ -207,6 +207,38 @@ Phases, in order; any failure exits non-zero and prints no result:
         each kernel's device time beside its bound and SDPA's forward and
         backward.
 
+13. switch-MoE LLaMA and expert parallelism on the card (``parallel/ep.py``;
+    ``MOE``: ``LlamaConfig()`` with 4 experts, capacity factor 1.25, aux
+    weight 0.01, the flash kernels), each sub-phase timed:
+    (a) one process, bf16, 3 rows x 256, Adam 8e-4, 10 steps each of top-1,
+        top-2 and the dense ``LlamaConfig(use_flash=True)``: losses finite
+        and falling, the first within 1 of ln(4096) + w aux; each kernel
+        launched exactly 6 times per step, all on ``wgmma``; kept/assigned
+        slots per layer; the median step, device busy and idle share over 5
+        profiled steps and the busy shares of attention, the dispatch/combine
+        products and the expert GEMMs (``moe_profile``); then one fp32 step
+        (TF32 off) of top-1 and of top-2 on the card against the CPU port
+        from the same weights: loss rtol 1e-5, gradients atol 2e-4 + rtol
+        2e-3, the tokens whose ordered expert choices differ counted and
+        printed, each allowed only at a near-tie (neighbouring probs within
+        ``FLIP_GAP``);
+    (b) four ranks on ``cuda:0`` over gloo, one layout after another
+        (``Mesh.regrid``): the EP x DP 2 x 2 layer (top-2, 3072 tokens,
+        fp32, at capacity 0.5, where every bucket fills, and at 1.0, where
+        some overflow and some do not) against ``moe_ffn`` on each shard's
+        tokens in one process (outputs within 1e-5, kept counts equal); MoE LLaMA on 2 x 2 TP, 2 x 2 SP ring and 2 x 2 SP Ulysses,
+        one fp32 Adam step each against the single-process oracle (each data
+        row's loss, the SP shards' MoE dispatched per shard, ``moe_oracle``)
+        in phase 12 (a)'s bands; then 10 bf16 steps of each: losses falling,
+        launches exact, the median step (slowest rank), exchange seconds and
+        the bytes staged per rank per step against ``moe_staged_bytes``;
+    (c) MoE LLaMA through the pipeline on 2 x 3 (six ranks, M = 3, one row
+        per microbatch): one fp32 step of each of the five schedules
+        (``interleaved*`` with 2 chunks) against the serial oracle, the mean
+        over the ``M D`` microbatches of ``causal_lm_loss + w aux`` (loss
+        rtol 1e-5, gradients atol 2e-4 + rtol 2e-3), then 5 bf16 gpipe
+        steps, losses falling and the median step.
+
 Tolerances (|kernel - plain| <= atol + rtol * |plain|):
   fp32: atol 1e-4, rtol 0 (summation order only);
   bf16: atol 2e-2, rtol 1e-2 against the plain version on the same bf16
@@ -219,8 +251,9 @@ In the kernels line, ``ms`` and ``device_ms`` are the device time per call,
 scalar kernel's device time on the same inputs; ``launches_per_fused_window``
 the kernel's nodes in phase 11 (a)'s graph of 16 steps;
 ``launches_sp_tp_per_rank`` each rank's launches over phase 12 (b)'s run of
-each layout; ``max_abs_err_sp_tp`` the largest error of phase 12 (c)'s
-checks.
+each layout; ``launches_moe_per_step`` the kernel's launches per step of
+phase 13 (a)'s top-1 and top-2 MoE steps; ``max_abs_err_sp_tp`` the largest
+error of phase 12 (c)'s checks.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -2281,6 +2314,516 @@ def sp_tp_phase(dev):
     return {"launches": launches, "times": times, "max_abs_err": errs}
 
 
+# ---------------------------------------------------------------- phase 13
+
+MOE_STEPS = 10                  # (a): bf16 Adam steps per routing
+MOE_PROFILED = 5                # (a): steps under torch.profiler
+MOE_EP_TOKENS = 4 * 768         # (b): the EP x DP layer, 768 tokens per shard
+MOE_EP_CFS = (0.5, 1.0)         # (b): its capacity factors: every bucket fills at 0.5;
+                                # at 1.0 some overflow and others do not, so the
+                                # kept counts depend on the routing
+MOE_PIPE = (2, 3, 3)            # (c): data, stages, microbatches (one row each)
+MOE_PIPE_STEPS = 5              # (c): bf16 gpipe steps
+FLIP_GAP = 1e-5                 # a routing flip is a near-tie below this top-two gap
+
+
+def moe_cfg(dtype="bfloat16", top_k=1):
+    """Phase 13's configuration: ``LlamaConfig()`` at full width with 4
+    experts, the flash kernels and the config's own capacity factor (1.25)
+    and aux weight (0.01)."""
+    from ddl25spring_tpu_torch.utils.config import LlamaConfig
+
+    return LlamaConfig(dtype=dtype, use_flash=True, n_experts=4, moe_top_k=top_k)
+
+
+def _moe_loss(model, tokens, cfg, moe_fn=None):
+    """``causal_lm_loss + w aux`` and ``aux`` (``moe_fn`` to every block)."""
+    from ddl25spring_tpu_torch.models.llama import llama_forward_with_aux
+    from ddl25spring_tpu_torch.ops.losses import causal_lm_loss
+
+    kw = {} if moe_fn is None else {"moe_fn": moe_fn}
+    logits, aux = llama_forward_with_aux(model, tokens, cfg, **kw)
+    loss = causal_lm_loss(logits, tokens)
+    return (loss + cfg.moe_aux_weight * aux if cfg.n_experts else loss), aux
+
+
+def _moe_step(model, cfg):
+    """The single-process Adam step (8e-4) on ``_moe_loss``: ``(loss, aux)``."""
+    opt = torch.optim.Adam(model.parameters(), lr=8e-4)
+
+    def step(tokens):
+        opt.zero_grad(set_to_none=True)
+        loss, aux = _moe_loss(model, tokens, cfg)
+        loss.backward()
+        opt.step()
+        return loss.detach(), torch.as_tensor(aux).detach()
+
+    return step
+
+
+def _routing_recorder(cfg, log):
+    """A ``moe_fn`` that runs ``moe_ffn`` at the config's capacity and top-k
+    and logs, per call, the float32 router logits and the kept counts."""
+    from ddl25spring_tpu_torch.parallel import ep
+
+    def moe_fn(mp, flat):
+        y, aux, st = ep.moe_ffn(mp, flat, cfg.capacity_factor, return_stats=True,
+                                top_k=cfg.moe_top_k)
+        log.append({"logits": ep.router_logits(mp["router"], flat).detach(),
+                    "kept": float(st["kept"].sum()), "assigned": st["assigned"]})
+        return y, aux
+
+    return moe_fn
+
+
+def moe_profile(dev, step, tokens, slots):
+    """Device busy per step over ``MOE_PROFILED`` steps (torch.profiler, with
+    shapes), and its shares: attention (the flash kernels), the dispatch
+    and combine products (an ``mm`` with a dim of ``slots = E C``, forward
+    and backward) and the expert GEMMs (``bmm``, batched over the experts)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        for _ in range(MOE_PROFILED):
+            step(tokens)
+        torch.cuda.synchronize()
+    avgs = prof.key_averages(group_by_input_shape=True)
+    kernels = [e for e in avgs
+               if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / MOE_PROFILED
+    check(busy > 0, "(a) the profiler recorded no device time")
+    share = {"attention": sum(e.self_device_time_total for e in kernels if "flash_" in e.key),
+             "dispatch/combine": 0.0, "experts": 0.0}
+    for e in avgs:
+        if e.device_type != torch.autograd.DeviceType.CPU or e.key not in ("aten::mm", "aten::bmm"):
+            continue
+        dims = {d for shape in (e.input_shapes or []) for d in shape}
+        if e.key == "aten::bmm":
+            share["experts"] += e.self_device_time_total
+        elif slots in dims:
+            share["dispatch/combine"] += e.self_device_time_total
+    return busy, {k: v / 1e3 / MOE_PROFILED / busy for k, v in share.items()}
+
+
+def _moe_flips(card_logs, host_logs, top_k):
+    """Tokens whose ordered expert choices (first, second, ...) differ
+    between the card's and the CPU's router logits, over every layer, and at
+    each the CPU's smallest gap between neighbouring probs among its top
+    ``k + 1``: a near-tie is what may flip."""
+    flips, gaps = 0, []
+    for c, h in zip(card_logs, host_logs):
+        pc, ph = torch.softmax(c["logits"].cpu(), -1), torch.softmax(h["logits"], -1)
+        diff = (pc.topk(top_k, -1).indices != ph.topk(top_k, -1).indices).any(-1)
+        flips += int(diff.sum())
+        top = ph.topk(top_k + 1, -1).values
+        gaps += (top[:, :-1] - top[:, 1:]).min(-1).values[diff].tolist()
+    return flips, gaps
+
+
+def moe_single(dev):
+    """Phase 13 (a): MoE LLaMA in one process, top-1 and top-2."""
+    import numpy as np
+
+    from ddl25spring_tpu_torch.data.tinystories import TinyStories
+    from ddl25spring_tpu_torch.data.tokenizer import get_tokenizer
+    from ddl25spring_tpu_torch.models.llama import Llama, export_grads
+    from ddl25spring_tpu_torch.ops import flash_attention as fa
+    from ddl25spring_tpu_torch.parallel import ep
+    from ddl25spring_tpu_torch.parallel.bucketing import flatten
+    from ddl25spring_tpu_torch.utils.config import LlamaConfig
+    from ddl25spring_tpu_torch.utils.device import backend_flags
+
+    ds = iter(TinyStories(get_tokenizer(), batch_size=SPTP_ROWS, seq_l=256, seed=0))
+    batches = [torch.from_numpy(np.asarray(next(ds))).long().to(dev) for _ in range(MOE_STEPS)]
+    T = SPTP_ROWS * 256
+    out = {"launches": {}}
+    for name, cfg in (("top1", moe_cfg(top_k=1)), ("top2", moe_cfg(top_k=2)),
+                      ("dense", LlamaConfig(use_flash=True))):
+        model = Llama(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+        step = _moe_step(model, cfg)
+        losses, auxes, step_s = [], [], []
+        fa.reset_launches()
+        for b in batches:
+            t0 = time.perf_counter()
+            loss, aux = step(b)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+            auxes.append(float(aux))
+        launches = dict(fa.LAUNCHES)
+        by_variant = {n: dict(c) for n, c in fa.LAUNCHES_BY_VARIANT.items()}
+        check(all(math.isfinite(x) for x in losses), f"(a) {name}: losses {losses}")
+        start = math.log(cfg.vocab_size) + cfg.moe_aux_weight * auxes[0]
+        check(abs(losses[0] - start) < 1.0,
+              f"(a) {name}: first loss {losses[0]:.3f} far from ln(vocab) + w aux {start:.3f}")
+        first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+        check(last < first, f"(a) {name}: loss did not fall: {first:.4f} -> {last:.4f}")
+        want = {k: 6 * MOE_STEPS for k in ("fwd", "dq", "dkv")}
+        check(launches == want, f"(a) {name}: launches {launches} != {want}")
+        for k in want:
+            check(by_variant[k]["wgmma"] == 6 * MOE_STEPS,
+                  f"(a) {name}: {k} launches by variant {by_variant[k]}")
+        out["launches"][name] = {k: v // MOE_STEPS for k, v in launches.items()}
+        step_ms = statistics.median(step_s[1:]) * 1e3
+        slots = ep.capacity(T, cfg.capacity_factor, cfg.moe_top_k, 4) * 4
+        busy, shares = moe_profile(dev, step, batches[-1], slots)
+        line = (f"  (a) {name}: loss {first:.4f} (first 3) -> {last:.4f} (last 3), first "
+                f"{losses[0]:.4f} vs ln(4096) + w aux {start:.4f}; flash launches per step "
+                f"{out['launches'][name]}, all wgmma; step median {step_ms:.3f} ms (host clock "
+                f"to the card's idle, steps 1..{MOE_STEPS - 1}), busy {busy:.3f} ms, idle share "
+                f"{1 - busy / step_ms:.3f}; busy shares " + ", ".join(
+                    f"{k} {v:.3f}" for k, v in shares.items()))
+        out[name] = {"step_ms": step_ms, "busy_ms": busy, "shares": shares}
+        if cfg.n_experts:
+            log = []
+            with torch.no_grad():
+                _moe_loss(model, batches[-1], cfg, _routing_recorder(cfg, log))
+            line += "; kept/assigned per layer (last batch) " + " ".join(
+                f"{int(r['kept'])}/{int(r['assigned'])}" for r in log)
+        print(line, flush=True)
+        del model, step
+
+    # fp32, TF32 off: the card against the CPU port from the same weights
+    tokens = torch.from_numpy(_token_batches(moe_cfg(), SPTP_ROWS, 1, seed=21)[0]).long()
+    for top_k in (1, 2):
+        cfg = moe_cfg("float32", top_k)
+        got = {}
+        for key, where in (("card", dev), ("host", torch.device("cpu"))):
+            model = Llama(cfg, device=where, generator=torch.Generator().manual_seed(7))
+            with backend_flags(**FP32_EXACT):
+                loss, _ = _moe_loss(model, tokens.to(where), cfg)
+                loss.backward()
+                log = []
+                with torch.no_grad():
+                    _moe_loss(model, tokens.to(where), cfg, _routing_recorder(cfg, log))
+            got[key] = (loss.item(), export_grads(model), log)
+        flips, gaps = _moe_flips(got["card"][2], got["host"][2], top_k)
+        print(f"  (a) fp32 top-{top_k}: routing flips card vs CPU {flips} of "
+              f"{T * cfg.n_layers} token choices; top-two gaps at them {gaps}")
+        check(all(g < FLIP_GAP for g in gaps),
+              f"(a) fp32 top-{top_k}: a routing flip at a prob gap of {max(gaps or [0]):.3g} "
+              f">= {FLIP_GAP}, not a near-tie")
+        check(excess(got["card"][0], got["host"][0], (0.0, 1e-5)) <= 0,
+              f"(a) fp32 top-{top_k}: loss {got['card'][0]} vs CPU {got['host'][0]}")
+        err = 0.0
+        for (path, a), (_, b) in zip(flatten(got["card"][1]), flatten(got["host"][1])):
+            e = excess(a, b, (2e-4, 2e-3))
+            check(e <= 0, f"(a) fp32 top-{top_k}: grad {path} off the CPU by {e:.3g}")
+            err = max(err, max_err(torch.from_numpy(a), torch.from_numpy(b)))
+        print(f"  (a) fp32 top-{top_k}: loss {got['card'][0]:.7f} card vs {got['host'][0]:.7f} "
+              f"CPU; grads max abs err {err:.2e}")
+    return out
+
+
+def _moe_composite_fn(cfg, L, shards):
+    """The per-shard-dispatch ``moe_fn`` of the single-process oracle: a
+    block's ``[B L, D]`` tokens dispatched in ``shards`` groups of positions
+    (``[B, L/shards]`` each, an SP rank's local tokens), the aux their mean."""
+    from ddl25spring_tpu_torch.parallel import ep
+
+    def moe_fn(mp, flat):
+        B, Ll = flat.shape[0] // L, L // shards
+        parts = flat.view(B, shards, Ll, -1)
+        ys, auxes = zip(*(ep.moe_ffn(mp, parts[:, s].reshape(B * Ll, -1), cfg.capacity_factor,
+                                     top_k=cfg.moe_top_k) for s in range(shards)))
+        y = torch.stack([v.view(B, Ll, -1) for v in ys], 1).reshape(B * L, -1)
+        return y, sum(auxes) / shards
+
+    return moe_fn
+
+
+def moe_oracle(cfg, dev, seed, tokens, data, shards):
+    """The single-process fp32 loss and gradients a 2 x 2 MoE step must give:
+    the mean over the ``data`` row blocks of ``causal_lm_loss + w aux``, each
+    block's MoE dispatched per seq shard (``shards`` groups)."""
+    from ddl25spring_tpu_torch.models.llama import Llama, export_grads
+
+    model = Llama(cfg, device=dev, generator=torch.Generator().manual_seed(seed))
+    tokens = tokens.to(dev)
+    fn = _moe_composite_fn(cfg, tokens.shape[1], shards)
+    total = sum(_moe_loss(model, rows, cfg, fn)[0] for rows in tokens.chunk(data)) / data
+    total.backward()
+    return total.item(), export_grads(model)
+
+
+def _ep_inputs(dev):
+    from ddl25spring_tpu_torch.parallel import ep
+
+    gen = torch.Generator().manual_seed(31)
+    p = ep.init_moe_params(gen, 288, 1152, 4, dev)
+    return p, torch.randn(MOE_EP_TOKENS, 288, generator=gen).to(dev)
+
+
+def moe_world_rank(rdv, exact_tokens, slice_batches, device):
+    """One rank of phase 13 (b)'s world of 4 on the card: the EP x DP layer
+    (2 x 2, top-2, capacities ``MOE_EP_CFS``, fp32); one fp32 MoE step of TP, the ring and
+    Ulysses on 2 x 2; ``SPTP_STEPS`` bf16 MoE steps of each (as
+    :func:`sp_tp_rank`)."""
+    from ddl25spring_tpu_torch.models.llama import export_grads
+    from ddl25spring_tpu_torch.ops import flash_attention as fa
+    from ddl25spring_tpu_torch.parallel import ep
+    from ddl25spring_tpu_torch.utils.device import backend_flags
+    from ddl25spring_tpu_torch.utils.mesh import init_mesh
+
+    out = {"exact": {}, "slice": {}}
+    with init_mesh(rdv, 1, seq=4, device=device) as world:
+        with backend_flags(**FP32_EXACT):
+            mesh = world.regrid(2, expert=2)
+            axis = mesh.axis("expert")
+            p, x = _ep_inputs(mesh.device)
+            out["ep"] = {}
+            for cf in MOE_EP_CFS:
+                f = ep.make_ep_moe_fn(mesh, capacity_factor=cf, return_stats=True,
+                                      data_axis="data", top_k=2)
+                with torch.no_grad():
+                    y, aux, stats = f(ep.shard_moe_params(p, 2, axis.index, mesh.device), x)
+                out["ep"][cf] = {"y": y.cpu() if rdv.rank == 0 else None, "aux": float(aux),
+                                 "kept": stats["kept"].cpu(), "assigned": stats["assigned"]}
+            for name, layout in SPTP_SLICE.items():
+                mesh, model, step = _sptp_step(layout, world, moe_cfg("float32"), 7)
+                tokens = torch.from_numpy(exact_tokens[:layout[0] * SPTP_ROWS]).long()
+                out["exact"][name] = {"coords": mesh.coords, "loss": float(step(tokens)),
+                                      "grads": export_grads(model)}
+        for name, layout in SPTP_SLICE.items():
+            mesh, model, step = _sptp_step(layout, world, moe_cfg(), 0)
+            r = {"coords": mesh.coords, "device": str(mesh.device), "backend": mesh.backend,
+                 "n_params": sum(p.numel() for p in model.parameters()), "losses": [],
+                 "step_s": [], "comm": []}
+            world.comm.take_stats()
+            fa.reset_launches()
+            for b in slice_batches:
+                t0 = time.perf_counter()
+                loss = step(torch.from_numpy(b).long())
+                if mesh.device.type == "cuda":
+                    torch.cuda.synchronize(mesh.device)
+                r["step_s"].append(time.perf_counter() - t0)
+                r["comm"].append(world.comm.take_stats())
+                r["losses"].append(float(loss))
+            r["launches"] = dict(fa.LAUNCHES)
+            r["by_variant"] = {n: dict(c) for n, c in fa.LAUNCHES_BY_VARIANT.items()}
+            out["slice"][name] = r
+    return out
+
+
+def moe_staged_bytes(name, n_params, top_k=1, rows=SPTP_ROWS, L=256, layers=6):
+    """Bytes a MoE rank stages per bf16 step of 2 x 2: SP's as the dense
+    count (each rank dispatches its own tokens, with no collective); TP's
+    dense count plus, per layer in the backward, the gates' ``copy_in``
+    (``[rows L, top_k]`` fp32); the MoE input's ``copy_in`` and output's
+    ``reduce_out`` take the places of the dense FFN's."""
+    extra = layers * 2 * rows * L * top_k * 4 if name == "tp" else 0
+    return sp_tp_staged_bytes(name, n_params) + extra
+
+
+def moe_world_checks(ranks, dev):
+    """Phase 13 (b): the EP layer against ``moe_ffn`` per shard group, the fp32
+    steps against their single-process oracles, the bf16 runs."""
+    from ddl25spring_tpu_torch.parallel import ep, tp
+    from ddl25spring_tpu_torch.parallel.bucketing import flatten
+
+    p, x = _ep_inputs(dev)
+    for cf in MOE_EP_CFS:
+        ys, kept = [], torch.zeros(4)
+        with torch.no_grad():
+            for shard in x.chunk(4):
+                y, _, st = ep.moe_ffn(p, shard, cf, return_stats=True, top_k=2)
+                ys.append(y)
+                kept += st["kept"].cpu()
+        got = ranks[0]["ep"][cf]
+        err = max_err(got["y"], torch.cat(ys).cpu())
+        check(err <= 1e-5, f"(b) EP x DP layer, capacity {cf}: output off moe_ffn per shard "
+                           f"group by {err:.3g}")
+        for r in ranks:
+            check(torch.equal(r["ep"][cf]["kept"], kept),
+                  f"(b) EP x DP layer, capacity {cf}: kept {r['ep'][cf]['kept'].tolist()} "
+                  f"vs {kept.tolist()}")
+        dropped = got["assigned"] - float(kept.sum())
+        check(dropped > 0, f"(b) EP x DP layer: capacity {cf} dropped nothing")
+        full = 4 * ep.capacity(MOE_EP_TOKENS // 4, cf, 2, 4)
+        check(cf != MOE_EP_CFS[-1] or bool((kept < full).any()),
+              f"(b) EP x DP layer: every bucket filled at capacity {cf}, so the kept "
+              "counts cannot tell routings apart")
+        print(f"  (b) EP x DP 2 x 2 layer, top-2, capacity {cf}, {MOE_EP_TOKENS} tokens: "
+              f"max abs err {err:.2e} vs moe_ffn per shard group; kept {kept.tolist()} of "
+              f"{full} per expert (= the oracle's on every rank), {int(dropped)} of "
+              f"{int(got['assigned'])} slots dropped; aux {got['aux']:.5f}")
+
+    cfg = moe_cfg("float32")
+    tokens = torch.from_numpy(_token_batches(cfg, 2 * SPTP_ROWS, 1, seed=17)[0]).long()
+    for name, (data, axis, size, mode) in SPTP_SLICE.items():
+        want_loss, want_grads = moe_oracle(cfg, dev, 7, tokens[:data * SPTP_ROWS], data,
+                                           1 if axis == "model" else size)
+        res = [r["exact"][name] for r in ranks]
+        for r in res:
+            check(excess(r["loss"], want_loss, (0.0, 1e-5)) <= 0,
+                  f"(b) fp32 {name}: loss {r['loss']} vs oracle {want_loss}")
+        replica0 = [r for r in res if r["coords"][0] == 0]
+        grads = (tp.merge_tp_params([r["grads"] for r in replica0]) if axis == "model"
+                 else replica0[0]["grads"])
+        err = 0.0
+        for (path, a), (_, b) in zip(flatten(grads), flatten(want_grads)):
+            e = excess(a, b, (2e-4, 2e-3))
+            check(e <= 0, f"(b) fp32 {name}: grad {path} off the oracle by {e:.3g}")
+            err = max(err, max_err(torch.from_numpy(a), torch.from_numpy(b)))
+        print(f"  (b) fp32 MoE {name} 2 x 2: loss {res[0]['loss']:.6f} vs single-process "
+              f"oracle {want_loss:.6f}; grads max abs err {err:.2e}")
+
+    out = {}
+    for name in SPTP_SLICE:
+        runs = [r["slice"][name] for r in ranks]
+        losses = runs[0]["losses"]
+        check(all(r["losses"] == losses for r in runs), f"(b) {name}: the ranks' losses differ")
+        check(all(math.isfinite(v) for v in losses), f"(b) {name}: losses {losses}")
+        first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+        check(last < first, f"(b) {name}: loss did not fall: {first:.4f} -> {last:.4f}")
+        staged, expect = [], []
+        for r in runs:
+            n = sp_tp_launches(name, r["coords"][1]) * SPTP_STEPS
+            check(r["launches"] == {k: n for k in ("fwd", "dq", "dkv")},
+                  f"(b) {name}: rank {r['coords']} launches {r['launches']}")
+            check(all(r["by_variant"][k]["wgmma"] == n for k in ("fwd", "dq", "dkv")),
+                  f"(b) {name}: rank {r['coords']} launches by variant {r['by_variant']}")
+            staged.append(sorted({c["bytes_staged"] for c in r["comm"]}))
+            expect.append(moe_staged_bytes(name, r["n_params"]))
+            check(staged[-1] == [expect[-1]], f"(b) {name}: rank {r['coords']} staged "
+                                              f"{staged[-1]} B per step, the shapes give "
+                                              f"{expect[-1]}")
+        steady = [max(r["step_s"][i] for r in runs) for i in range(1, SPTP_STEPS)]
+        step_ms = statistics.median(steady) * 1e3
+        exch = {k: [round(statistics.median(c[k] for c in r["comm"][1:]) * 1e3, 3)
+                    for r in runs] for k in ("send_s", "recv_wait_s", "allreduce_s",
+                                             "collective_s")}
+        out[name] = step_ms
+        print(f"  (b) bf16 MoE {name} 2 x 2: loss {first:.4f} (first 3) -> {last:.4f} "
+              f"(last 3); step median {step_ms:.3f} ms (slowest rank, steps "
+              f"1..{SPTP_STEPS - 1}, host clock); staged per rank per step {staged} B, the "
+              f"shapes give {expect}; exchange ms per step per rank (median): "
+              + "; ".join(f"{k} {v}" for k, v in exch.items()))
+    return out
+
+
+def moe_pipe_rank(rdv, exact_tokens, batches, device):
+    """One rank of phase 13 (c)'s 2 x 3 world: one fp32 step of every
+    schedule (its stage's gradients, the loss on the last stage), then
+    ``MOE_PIPE_STEPS`` bf16 gpipe steps."""
+    from ddl25spring_tpu_torch.models.llama import Llama, export_grads, export_params
+    from ddl25spring_tpu_torch.parallel.pipeline import (
+        make_pipeline_train_step,
+        shard_staged_params,
+    )
+    from ddl25spring_tpu_torch.utils.device import backend_flags
+    from ddl25spring_tpu_torch.utils.mesh import init_mesh
+
+    D, S, M = MOE_PIPE
+    out = {"exact": {}}
+    # the weights are float32 whatever the compute dtype: one draw serves both
+    params = export_params(Llama(moe_cfg(), device="cpu",
+                                 generator=torch.Generator().manual_seed(7)))
+    with init_mesh(rdv, D, stages=S, device=device) as mesh:
+        for dtype in ("float32", "bfloat16"):
+            cfg = moe_cfg(dtype)
+            for schedule in (SCHED if dtype == "float32" else ("gpipe",)):
+                V = _chunks_of(schedule)
+                stage = shard_staged_params(params, cfg, mesh, num_chunks=V)
+                step = make_pipeline_train_step(
+                    stage, cfg, torch.optim.Adam(stage.parameters(), lr=8e-4), mesh, M,
+                    schedule, num_chunks=V)
+                if dtype == "float32":
+                    with backend_flags(**FP32_EXACT):
+                        loss = step(torch.from_numpy(exact_tokens).long())
+                    out["exact"][schedule] = (None if loss is None else float(loss),
+                                              export_grads(stage))
+                    continue
+                losses, step_s = [], []
+                for b in batches:
+                    t0 = time.perf_counter()
+                    loss = step(torch.from_numpy(b).long())
+                    if mesh.device.type == "cuda":
+                        torch.cuda.synchronize(mesh.device)
+                    step_s.append(time.perf_counter() - t0)
+                    losses.append(None if loss is None else float(loss))
+                out["slice"] = {"losses": losses, "step_s": step_s}
+        out["coords"] = mesh.coords
+    return out
+
+
+def moe_pipe_checks(ranks, dev, exact_tokens):
+    """Phase 13 (c): every schedule's fp32 step against the serial oracle (the
+    mean over the ``M D`` one-row microbatches of ``causal_lm_loss + w
+    aux``), then the bf16 gpipe run."""
+    from ddl25spring_tpu_torch.models.llama import Llama, export_grads, merge_stage_exports
+    from ddl25spring_tpu_torch.parallel.bucketing import flatten
+
+    D, S, M = MOE_PIPE
+    cfg = moe_cfg("float32")
+    model = Llama(cfg, device=dev, generator=torch.Generator().manual_seed(7))
+    tokens = torch.from_numpy(exact_tokens).long().to(dev)
+    groups = tokens.view(M * D, -1, tokens.shape[1])
+    total = sum(_moe_loss(model, g, cfg)[0] for g in groups) / (M * D)
+    total.backward()
+    want_loss, want_grads = total.item(), export_grads(model)
+    last = [r for r in ranks if r["coords"][1] == S - 1]
+    replica0 = sorted((r for r in ranks if r["coords"][0] == 0), key=lambda r: r["coords"][1])
+    for schedule in SCHED:
+        losses = [r["exact"][schedule][0] for r in last]
+        check(all(v == losses[0] for v in losses), f"(c) {schedule}: the replicas' losses differ")
+        check(excess(losses[0], want_loss, (0.0, 1e-5)) <= 0,
+              f"(c) fp32 {schedule}: loss {losses[0]} vs serial {want_loss}")
+        grads = merge_stage_exports([r["exact"][schedule][1] for r in replica0],
+                                    num_chunks=_chunks_of(schedule))
+        err = 0.0
+        for (path, a), (_, b) in zip(flatten(grads), flatten(want_grads)):
+            e = excess(a, b, (2e-4, 2e-3))
+            check(e <= 0, f"(c) fp32 {schedule}: grad {path} off the serial oracle by {e:.3g}")
+            err = max(err, max_err(torch.from_numpy(a), torch.from_numpy(b)))
+        print(f"  (c) fp32 MoE {schedule} 2 x 3: loss {losses[0]:.6f} vs serial {want_loss:.6f}; "
+              f"grads max abs err {err:.2e}")
+    losses = [r["slice"]["losses"] for r in last][0]
+    check(all(v is not None and math.isfinite(v) for v in losses), f"(c) bf16 losses {losses}")
+    check(losses[-1] < losses[0], f"(c) bf16 gpipe: loss did not fall: {losses}")
+    steady = [max(r["slice"]["step_s"][i] for r in ranks) for i in range(1, MOE_PIPE_STEPS)]
+    step_ms = statistics.median(steady) * 1e3
+    print(f"  (c) bf16 MoE gpipe 2 x 3: losses {[round(v, 4) for v in losses]}; step median "
+          f"{step_ms:.3f} ms (slowest rank, steps 1..{MOE_PIPE_STEPS - 1}, host clock)")
+    return step_ms
+
+
+def moe_phase(dev):
+    """Phase 13: switch-MoE LLaMA and expert parallelism on the card, each
+    sub-phase timed; returns (a)'s flash launches per step."""
+    import numpy as np
+
+    from ddl25spring_tpu_torch.data.tinystories import TinyStories
+    from ddl25spring_tpu_torch.data.tokenizer import get_tokenizer
+    from ddl25spring_tpu_torch.ops import _build
+    from ddl25spring_tpu_torch.parallel.launch import spawn
+
+    _build.build(_build.CSRC / "flash_attention.cu", _build.CSRC / "flash_attention_sm90.cu")
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    single = moe_single(dev)
+    print(f"  (a) took {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    exact = _token_batches(moe_cfg(), 2 * SPTP_ROWS, 1, seed=17)[0]
+    ds = iter(TinyStories(get_tokenizer(), batch_size=2 * SPTP_ROWS, seq_l=256, seed=0))
+    batches = [np.asarray(next(ds)) for _ in range(SPTP_STEPS)]
+    ranks = spawn(moe_world_rank, 4, exact, batches, dev.type, timeout=SPAWN_TIMEOUT)
+    print(f"  (b) 4 ranks, backend {sorted({r['slice']['tp']['backend'] for r in ranks})}: "
+          f"{time.perf_counter() - t0:.1f} s")
+    world = moe_world_checks(ranks, dev)
+    print(f"  (b) took {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    D, S, M = MOE_PIPE
+    exact = _token_batches(moe_cfg(), D * M, 1, seed=19)[0]
+    pipe_batches = [np.asarray(next(ds))[:D * M] for _ in range(MOE_PIPE_STEPS)]
+    ranks = spawn(moe_pipe_rank, D * S, exact, pipe_batches, dev.type, timeout=SPAWN_TIMEOUT)
+    pipe = moe_pipe_checks(ranks, dev, exact)
+    print(f"  (c) took {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"  phase 13 took {time.perf_counter() - t_phase:.1f} s (after the build)")
+    return {"launches": single["launches"], "single": single, "world": world, "pipe": pipe}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2419,12 +2962,22 @@ def main() -> int:
     sptp = sp_tp_phase(dev)
     print(f"  phase 12 in {time.perf_counter() - t0:.1f} s")
 
+    print("== switch-MoE LLaMA and expert parallelism on the card: MoE in one process "
+          "(top-1, top-2), EP x DP, TP-, SP-MoE (4 ranks on cuda:0), MoE through the five "
+          "schedules (6 ranks)")
+    print(card)
+    t0 = time.perf_counter()
+    moe = moe_phase(dev)
+    print(f"  phase 13 in {time.perf_counter() - t0:.1f} s")
+
     kernels = [
         {"name": f"flash_{name}", "route": "cuda", "source": SOURCE[timing[name]["variant"]],
          "replaces": REPLACES[name], "launches": launches[name],
          "launches_per_fused_window": fused["census"][f"flash_{name}_wgmma"],
          "launches_sp_tp_per_rank": {layout: [c[name] for c in per_rank]
                                      for layout, per_rank in sptp["launches"].items()},
+         "launches_moe_per_step": {k: c[name] for k, c in moe["launches"].items()
+                                   if k != "dense"},
          "max_abs_err": main_err[name], "max_abs_err_sp_tp": sptp["max_abs_err"][name],
          **timing[name]}
         for name in ("fwd", "dq", "dkv")

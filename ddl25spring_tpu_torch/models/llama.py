@@ -25,7 +25,15 @@ sequence shard, for RoPE) and ``attn_fn`` (the attention of a sequence-
 parallel ring or all-to-all); :mod:`~ddl25spring_tpu_torch.parallel.tp` and
 :mod:`~ddl25spring_tpu_torch.parallel.sp` use them.
 
-Only the dense-FFN model is ported; switch-MoE configs raise.
+Switch-MoE configs (``cfg.n_experts > 0``) put a
+:class:`~ddl25spring_tpu_torch.parallel.ep.MoeParams` (router, stacked
+experts) in each block in place of the dense FFN; the pytree's
+``blocks["moe"]`` is then a subtree of stacked ``[L, ...]`` leaves, which
+the bridge and the stage splits carry.  :func:`block_forward` returns the
+block's switch aux loss beside its output (0.0 for a dense FFN), and
+:func:`llama_forward_with_aux` the sum over the layers: a MoE model trains
+on ``causal_lm_loss + cfg.moe_aux_weight * aux``, so :func:`llama_forward`
+refuses one, as the JAX function does.
 """
 
 from __future__ import annotations
@@ -38,10 +46,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from ddl25spring_tpu_torch.ops.flash_attention import flash_attention
+from ddl25spring_tpu_torch.parallel import ep
+from ddl25spring_tpu_torch.parallel.bucketing import flatten
 from ddl25spring_tpu_torch.parallel.comm import Axis, copy_in, reduce_out
 from ddl25spring_tpu_torch.utils.config import LlamaConfig
 
-BLOCK_KEYS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "w_gate", "w_up", "w_down")
+ATTN_BLOCK_KEYS = ("ln1", "wq", "wk", "wv", "wo", "ln2")
+FFN_KEYS = ("w_gate", "w_up", "w_down")
 
 
 def _dense(shape, generator: torch.Generator, device, scale=0.02) -> nn.Parameter:
@@ -56,7 +67,9 @@ def _ones(n, device) -> nn.Parameter:
 
 
 class LlamaBlock(nn.Module):
-    """One pre-norm block's parameters (applied by :func:`block_forward`)."""
+    """One pre-norm block's parameters (applied by :func:`block_forward`):
+    the dense SwiGLU FFN, or with ``cfg.n_experts > 0`` the switch-MoE FFN
+    ``moe`` (:func:`~ddl25spring_tpu_torch.parallel.ep.init_moe_params`)."""
 
     def __init__(self, cfg: LlamaConfig, generator: torch.Generator, device):
         super().__init__()
@@ -67,9 +80,12 @@ class LlamaBlock(nn.Module):
         self.wv = _dense((d, d), generator, device)
         self.wo = _dense((d, d), generator, device)
         self.ln2 = _ones(d, device)
-        self.w_gate = _dense((d, f), generator, device)
-        self.w_up = _dense((d, f), generator, device)
-        self.w_down = _dense((f, d), generator, device)
+        if cfg.n_experts > 0:
+            self.moe = ep.init_moe_params(generator, d, f, cfg.n_experts, device)
+        else:
+            self.w_gate = _dense((d, f), generator, device)
+            self.w_up = _dense((d, f), generator, device)
+            self.w_down = _dense((f, d), generator, device)
 
 
 class Llama(nn.Module):
@@ -78,10 +94,6 @@ class Llama(nn.Module):
 
     def __init__(self, cfg: LlamaConfig, *, device, generator: torch.Generator):
         super().__init__()
-        if cfg.n_experts > 0:
-            raise NotImplementedError(
-                "switch-MoE LLaMA (cfg.n_experts > 0) is not ported yet"
-            )
         self.cfg = cfg
         self.embed = _dense((cfg.vocab_size, cfg.dmodel), generator, device)
         self.blocks = nn.ModuleList(
@@ -106,10 +118,6 @@ class LlamaStage(nn.Module):
     def __init__(self, cfg: LlamaConfig, stage: int, num_stages: int, *, device,
                  generator: torch.Generator):
         super().__init__()
-        if cfg.n_experts > 0:
-            raise NotImplementedError(
-                "switch-MoE LLaMA (cfg.n_experts > 0) is not ported yet"
-            )
         if cfg.n_layers % num_stages:
             raise ValueError(f"{cfg.n_layers} layers not divisible by {num_stages} stages")
         if not 0 <= stage < num_stages:
@@ -166,17 +174,38 @@ class LlamaChunkedStage(nn.Module):
             tree["embed"] = self.chunks[0].embed
         if self.last:
             tree["ln_f"], tree["unembed"] = self.chunks[-1].ln_f, self.chunks[-1].unembed
-        tree["blocks"] = {k: [getattr(b, k) for b in self.blocks] for k in BLOCK_KEYS}
+        tree["blocks"] = _blocks_tree(self.blocks)
         return tree
+
+
+def _blocks_tree(blocks) -> dict:
+    """``blocks.<key>`` as one parameter per layer (the stacked ``[L, ...]``
+    leaf), with the MoE leaves under ``blocks.moe.<key>``."""
+    tree = {k: [getattr(b, k) for b in blocks] for k in ATTN_BLOCK_KEYS}
+    if hasattr(blocks[0], "moe"):
+        tree["moe"] = {k: [b.moe[k] for b in blocks] for k in ep.MOE_KEYS}
+    else:
+        tree.update({k: [getattr(b, k) for b in blocks] for k in FFN_KEYS})
+    return tree
 
 
 def _param_tree(model: nn.Module) -> dict:
     """The reference's pytree layout over ``model``'s parameters: ``blocks.<key>``
-    holds one parameter per layer (the stacked ``[L, ...]`` leaf); ``embed``,
-    ``ln_f`` and ``unembed`` where the model holds them."""
+    holds one parameter per layer (the stacked ``[L, ...]`` leaf; a MoE
+    block's under ``blocks.moe.<key>``); ``embed``, ``ln_f`` and ``unembed``
+    where the model holds them."""
     tree = {k: getattr(model, k) for k in ("embed", "ln_f", "unembed") if hasattr(model, k)}
-    tree["blocks"] = {k: [getattr(b, k) for b in model.blocks] for k in BLOCK_KEYS}
+    tree["blocks"] = _blocks_tree(model.blocks)
     return tree
+
+
+def map_blocks(fn, *trees):
+    """``fn`` over the matching leaves of nested dicts (the ``blocks``
+    subtrees of reference pytrees): the ``jax.tree.map`` the stage splits and
+    the bridge need."""
+    if isinstance(trees[0], dict):
+        return {k: map_blocks(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
 
 
 # ---------------------------------------------------------------- forward
@@ -232,23 +261,40 @@ def _flash(q, k, v, dtype):
 
 def block_forward(p: LlamaBlock, x: torch.Tensor, cfg: LlamaConfig, *,
                   tp_axis: Axis | None = None, pos: torch.Tensor | None = None,
-                  attn_fn=None) -> torch.Tensor:
+                  attn_fn=None, moe_fn=None):
     """One pre-norm block: RMSNorm -> causal RoPE attention -> residual ->
-    RMSNorm -> SwiGLU FFN -> residual.  Attention goes through ``attn_fn(q,
-    k, v, dtype)`` when given, else through :func:`flash_attention` when
-    ``cfg.use_flash`` (its kernels on CUDA, their plain versions on the CPU),
-    else through dense :func:`causal_attention`.
+    RMSNorm -> FFN -> residual; returns ``(x, aux)``, ``aux`` the switch-MoE
+    load-balancing loss when ``cfg.n_experts > 0`` and ``0.0`` for the dense
+    SwiGLU FFN (JAX ``block_forward``, ``llama.py:130``).  Attention goes
+    through ``attn_fn(q, k, v, dtype)`` when given, else through
+    :func:`flash_attention` when ``cfg.use_flash`` (its kernels on CUDA,
+    their plain versions on the CPU), else through dense
+    :func:`causal_attention`.  The MoE FFN takes the normed tokens flattened
+    to ``[B L, D]``, one dispatch group per call, through ``moe_fn(p.moe,
+    flat) -> (y, aux)``, by default
+    :func:`~ddl25spring_tpu_torch.parallel.ep.moe_ffn` at the config's
+    capacity and top-k.
 
     Parallel hooks (both off by default, the serial block): ``tp_axis``, the
     model axis of Megatron tensor parallelism: ``p`` holds this rank's slices,
     each normed input enters the column-parallel products through
     :func:`~ddl25spring_tpu_torch.parallel.comm.copy_in` and each
     row-parallel product leaves through
-    :func:`~ddl25spring_tpu_torch.parallel.comm.reduce_out`; ``pos``/
-    ``attn_fn``: a sequence shard's global RoPE positions and its
+    :func:`~ddl25spring_tpu_torch.parallel.comm.reduce_out`; a MoE block
+    needs the expert-sharded ``moe_fn`` of
+    :func:`~ddl25spring_tpu_torch.parallel.tp.make_tp_moe_fn`, whose partial
+    output ``reduce_out`` completes, and raises without one, as in JAX;
+    ``pos``/``attn_fn``: a sequence shard's global RoPE positions and its
     attention."""
+    if cfg.n_experts > 0 and tp_axis is not None and moe_fn is None:
+        # the replicated moe_ffn's output would be summed n times by the
+        # row-parallel reduce_out
+        raise NotImplementedError(
+            "switch-MoE under tensor parallelism needs the expert-sharded moe_fn "
+            "from parallel.tp.make_tp_moe_fn (whose partial output the "
+            "row-parallel reduce_out completes)")
     dtype = _dtype(cfg)
-    B, L, _ = x.shape
+    B, L, D = x.shape
     hd = cfg.head_dim
 
     def col_in(h):
@@ -269,10 +315,29 @@ def block_forward(p: LlamaBlock, x: torch.Tensor, cfg: LlamaConfig, *,
     attn = attn_fn(q, k, v, dtype)
     x = x + row_out(attn.reshape(B, L, -1) @ p.wo.to(dtype))
 
+    if cfg.n_experts > 0:
+        if moe_fn is None:
+            def moe_fn(mp, flat):
+                return ep.moe_ffn(mp, flat, capacity_factor=cfg.capacity_factor,
+                                  top_k=cfg.moe_top_k)
+        # the TP moe_fn puts its own copy_in where the rank-local work starts
+        y, aux = moe_fn(p.moe, rms_norm(x, p.ln2).reshape(B * L, D))
+        return x + row_out(y.reshape(B, L, D).to(dtype)), aux
     h = col_in(rms_norm(x, p.ln2))
     gate = F.silu(h @ p.w_gate.to(dtype))
     up = h @ p.w_up.to(dtype)
-    return x + row_out((gate * up) @ p.w_down.to(dtype))
+    return x + row_out((gate * up) @ p.w_down.to(dtype)), 0.0
+
+
+def apply_blocks(blocks, x: torch.Tensor, cfg: LlamaConfig, **block_kw):
+    """:func:`block_forward` of each block in turn (JAX ``apply_blocks``, a
+    scan there): ``(x, aux)``, ``aux`` summed over the layers (``0.0`` for a
+    dense FFN)."""
+    aux = 0.0
+    for block in blocks:
+        x, a = block_forward(block, x, cfg, **block_kw)
+        aux = aux + a
+    return x, aux
 
 
 def embed(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
@@ -290,25 +355,47 @@ def unembed(model: Llama, x: torch.Tensor, cfg: LlamaConfig,
     return (h @ model.unembed.to(h.dtype)).float()
 
 
+def _refuse_moe(cfg: LlamaConfig, use: str):
+    if cfg.n_experts > 0:
+        raise NotImplementedError(
+            f"cfg.n_experts > 0: use {use} so the MoE load-balancing aux loss reaches "
+            "the objective")
+
+
 def llama_forward(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
                   **block_kw) -> torch.Tensor:
     """``tokens [B, L]`` -> logits ``[B, L, V]`` float32; ``block_kw``
-    (``pos``, ``attn_fn``) go to every :func:`block_forward`."""
+    (``pos``, ``attn_fn``) go to every :func:`block_forward`.  Dense-FFN
+    configs only: a switch-MoE config raises (JAX ``llama.py:280``), since its
+    aux loss would be dropped; use :func:`llama_forward_with_aux`."""
+    _refuse_moe(cfg, "llama_forward_with_aux")
+    return llama_forward_with_aux(model, tokens, cfg, **block_kw)[0]
+
+
+def llama_forward_with_aux(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
+                           **block_kw):
+    """``(logits, moe_aux)``: a switch-MoE config trains on
+    ``causal_lm_loss(logits, tokens) + cfg.moe_aux_weight * moe_aux``;
+    ``moe_aux`` is ``0.0`` for a dense FFN."""
     x = embed(model, tokens, cfg)
-    for block in model.blocks:
-        x = block_forward(block, x, cfg, **block_kw)
-    return unembed(model, x, cfg)
+    x, aux = apply_blocks(model.blocks, x, cfg, **block_kw)
+    return unembed(model, x, cfg), aux
 
 
-def stage_forward(stage: LlamaStage, x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+def stage_forward(stage: LlamaStage, x: torch.Tensor, cfg: LlamaConfig,
+                  with_aux: bool = False):
     """One pipeline stage: ``tokens [B, L]`` on the first stage, activations
     ``[B, L, D]`` in ``cfg.dtype`` elsewhere; returns float32 logits on the last
-    stage, activations otherwise."""
+    stage, activations otherwise.  ``with_aux``: ``(out, aux)``, the stage's
+    MoE aux loss summed over its layers; a MoE stage needs it (and raises
+    without it, as :func:`llama_forward` does)."""
+    if not with_aux:
+        _refuse_moe(cfg, "stage_forward(with_aux=True)")
     if stage.first:
         x = embed(stage, x, cfg)
-    for block in stage.blocks:
-        x = block_forward(block, x, cfg)
-    return unembed(stage, x, cfg) if stage.last else x
+    x, aux = apply_blocks(stage.blocks, x, cfg)
+    out = unembed(stage, x, cfg) if stage.last else x
+    return (out, aux) if with_aux else out
 
 
 # ------------------------------------------------------------ weight bridge
@@ -324,18 +411,21 @@ def _put(param: nn.Parameter, value, name: str):
 @torch.no_grad()
 def load_jax_params(model: Llama | LlamaStage, np_params: dict):
     """Copy the reference's parameter pytree (numpy leaves: ``embed [V, D]``,
-    stacked ``blocks.<key> [L, ...]``, ``ln_f``, ``unembed [D, V]``) into
-    ``model`` (a stage takes the keys it holds).  Shapes must match exactly."""
-    for name, param in model.param_tree().items():
-        if name != "blocks":
-            _put(param, np_params[name], name)
-    blocks = np_params["blocks"]
-    for key in BLOCK_KEYS:
-        if len(blocks[key]) != len(model.blocks):
-            raise ValueError(f"blocks.{key}: {len(blocks[key])} layers != "
-                             f"{len(model.blocks)}")
-        for i, block in enumerate(model.blocks):
-            _put(getattr(block, key), blocks[key][i], f"blocks.{key}[{i}]")
+    stacked ``blocks.<key> [L, ...]`` with a MoE model's under
+    ``blocks.moe.<key>``, ``ln_f``, ``unembed [D, V]``) into ``model`` (a
+    stage takes the keys it holds).  Shapes must match exactly."""
+    given = dict(flatten(np_params))
+    for path, leaf in flatten(model.param_tree()):
+        if path not in given:
+            raise ValueError(f"{path}: not in the pytree")
+        value = given[path]
+        if isinstance(leaf, torch.Tensor):
+            _put(leaf, value, path)
+            continue
+        if len(value) != len(leaf):
+            raise ValueError(f"{path}: {len(value)} layers != {len(leaf)}")
+        for i, param in enumerate(leaf):
+            _put(param, value[i], f"{path}[{i}]")
     return model
 
 
@@ -354,12 +444,12 @@ def load_stage_params(stage: LlamaStage | LlamaChunkedStage, staged: dict):
         raise ValueError("an interleaved pytree ([S, V, Lc, ...] blocks) loads into a "
                          "LlamaChunkedStage, a staged one ([S, Lc, ...]) into a LlamaStage")
     mine = dict(staged)
-    mine["blocks"] = {k: np.asarray(v[stage.stage]) for k, v in staged["blocks"].items()}
+    mine["blocks"] = map_blocks(lambda v: np.asarray(v[stage.stage]), staged["blocks"])
     if chunked:
         if len(mine["blocks"]["wq"]) != stage.num_chunks:
             raise ValueError(f"pytree split into {len(mine['blocks']['wq'])} chunks, the "
                              f"stage holds {stage.num_chunks}")
-        mine["blocks"] = {k: v.reshape((-1,) + v.shape[2:]) for k, v in mine["blocks"].items()}
+        mine["blocks"] = map_blocks(lambda v: v.reshape((-1,) + v.shape[2:]), mine["blocks"])
     return load_jax_params(stage, mine)
 
 
@@ -369,7 +459,7 @@ def _export(model: nn.Module, grads: bool) -> dict:
 
     tree = model.param_tree()
     out = {k: arr(v) for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = {k: np.stack([arr(p) for p in ps]) for k, ps in tree["blocks"].items()}
+    out["blocks"] = map_blocks(lambda ps: np.stack([arr(p) for p in ps]), tree["blocks"])
     return out
 
 
@@ -392,32 +482,34 @@ def merge_stage_exports(exports: list[dict], num_chunks: int = 1) -> dict:
     blocks concatenated (with ``num_chunks > 1``, each stage's ``V Lc``
     blocks put back in their interleaved places), ``embed`` from the first
     stage, ``ln_f``/``unembed`` from the last."""
-    blocks = {k: np.concatenate([e["blocks"][k] for e in exports]) for k in BLOCK_KEYS}
+    blocks = map_blocks(lambda *vs: np.concatenate(vs), *(e["blocks"] for e in exports))
     if num_chunks > 1:
         S = len(exports)
-        blocks = merge_blocks_interleaved({"blocks": {
-            k: v.reshape((S, num_chunks, -1) + v.shape[1:]) for k, v in blocks.items()}})["blocks"]
+        blocks = merge_blocks_interleaved({"blocks": map_blocks(
+            lambda v: v.reshape((S, num_chunks, -1) + v.shape[1:]), blocks)})["blocks"]
     return {"embed": exports[0]["embed"], "blocks": blocks, "ln_f": exports[-1]["ln_f"],
             "unembed": exports[-1]["unembed"]}
 
 
 def split_blocks_for_stages(params: dict, num_stages: int) -> dict:
-    """Reshape the stacked blocks ``[L, ...] -> [S, L/S, ...]`` (numpy), as the
-    JAX package's ``split_blocks_for_stages`` (``llama.py:306``)."""
+    """Reshape the stacked blocks ``[L, ...] -> [S, L/S, ...]`` (numpy), the
+    MoE subtree too, as the JAX package's ``split_blocks_for_stages``
+    (``llama.py:306``)."""
     L = len(params["blocks"]["wq"])
     if L % num_stages:
         raise ValueError(f"{L} layers not divisible by {num_stages} stages")
     out = dict(params)
-    out["blocks"] = {k: np.asarray(v).reshape((num_stages, L // num_stages) + v.shape[1:])
-                     for k, v in params["blocks"].items()}
+    out["blocks"] = map_blocks(
+        lambda v: np.asarray(v).reshape((num_stages, L // num_stages) + v.shape[1:]),
+        params["blocks"])
     return out
 
 
 def merge_blocks_from_stages(params: dict) -> dict:
     """Inverse of :func:`split_blocks_for_stages`."""
     out = dict(params)
-    out["blocks"] = {k: np.asarray(v).reshape((-1,) + v.shape[2:])
-                     for k, v in params["blocks"].items()}
+    out["blocks"] = map_blocks(lambda v: np.asarray(v).reshape((-1,) + v.shape[2:]),
+                               params["blocks"])
     return out
 
 
@@ -432,14 +524,15 @@ def split_blocks_interleaved(params: dict, num_stages: int, num_chunks: int) -> 
         raise ValueError(f"{L} layers not divisible by S*V = {S}*{V}")
     out = dict(params)
     # [L] -> [V, S, Lc] (chunk-major: g = v S + s) -> [S, V, Lc]
-    out["blocks"] = {k: np.asarray(v).reshape((V, S, L // (S * V)) + v.shape[1:]).swapaxes(0, 1)
-                     for k, v in params["blocks"].items()}
+    out["blocks"] = map_blocks(
+        lambda v: np.asarray(v).reshape((V, S, L // (S * V)) + v.shape[1:]).swapaxes(0, 1),
+        params["blocks"])
     return out
 
 
 def merge_blocks_interleaved(params: dict) -> dict:
     """Inverse of :func:`split_blocks_interleaved`."""
     out = dict(params)
-    out["blocks"] = {k: np.asarray(v).swapaxes(0, 1).reshape((-1,) + v.shape[3:])
-                     for k, v in params["blocks"].items()}
+    out["blocks"] = map_blocks(lambda v: np.asarray(v).swapaxes(0, 1).reshape((-1,) + v.shape[3:]),
+                               params["blocks"])
     return out

@@ -43,6 +43,14 @@ the stage axis (the other stages add zeros, so the gradients are the same).
 Replica ``d`` takes rows ``[d * mb, (d+1) * mb)`` of each microbatch of the
 global batch, the rows its device gets from the JAX step's token spec.
 
+A chunk may add a term of its own to the loss (``extra_loss=True``: the
+chunk callables return ``(out, extra)``), as a switch-MoE stage adds its
+layers' weighted aux loss (JAX ``pipeline.py:458-467``): the last global
+chunk adds it to its microbatch's loss; every other chunk seeds its
+backward with ``1/M`` on it beside the output's cotangent (a remat
+backward recomputes it too), and the step's returned loss gathers the
+other chunks' terms with one sum of a scalar over the stage group.
+
 The executor knows nothing of LLaMA: the chunk callables, stage 0's input,
 the last chunk's loss and each hop's shape are its arguments.
 :func:`make_pipeline_train_step` is its LLaMA form;
@@ -133,6 +141,7 @@ class _Run:
         self.stash: dict[tuple[int, int], dict] = {}
         self.stash_max = 0
         self.losses: list[torch.Tensor] = []
+        self.extras: list[torch.Tensor] = []      # the other chunks' loss terms
         self._gv = V * S - 1
 
     def run(self):
@@ -173,12 +182,15 @@ class _Run:
             self.outbox[op.tag] = t
 
     def _apply(self, v, m, x):
-        """Chunk ``v`` on ``x``; on the last global chunk, microbatch ``m``'s
-        loss instead of its output."""
+        """``(y, extra)``: chunk ``v`` on ``x`` and its own loss term (None
+        without ``extra_loss``); on the last global chunk, microbatch ``m``'s
+        loss, its term included, in place of the output, and None."""
         y = self.ex.chunk_fns[v](x)
+        y, extra = y if self.ex.extra_loss else (y, None)
         if v * self.ex.S + self.ex.s == self._gv:
-            return self.ex.loss_fn(y, self.micro[m])
-        return y
+            loss = self.ex.loss_fn(y, self.micro[m])
+            return (loss if extra is None else loss + extra), None
+        return y, extra
 
     def _forward(self, v, m):
         ex = self.ex
@@ -191,15 +203,17 @@ class _Run:
         if keep_graph and x.is_floating_point():
             x.requires_grad_(True)
         with torch.set_grad_enabled(keep_graph):
-            y = self._apply(v, m, x)
+            y, extra = self._apply(v, m, x)
         if send is None:
             self.losses.append(y.detach())
         else:
             self._put(send, y)
+        if extra is not None:
+            self.extras.append(extra.detach().float())
         if self.grad:
             entry = {"x": x, "out_shape": tuple(y.shape)}
             if keep_graph:
-                entry["y"] = y
+                entry["y"], entry["extra"] = y, extra
             self.stash[(v, m)] = entry
             self.stash_max = max(self.stash_max, len(self.stash))
 
@@ -212,11 +226,15 @@ class _Run:
             if x.is_floating_point():
                 x.requires_grad_(True)
             with torch.enable_grad():
-                y = self._apply(v, m, x)
+                y, extra = self._apply(v, m, x)
         else:
-            y = entry["y"]
+            y, extra = entry["y"], entry["extra"]
         if recv is None:
             (y / ex.M).backward()
+        elif extra is not None:
+            # the chunk's own loss term, seeded as the loss's 1/M
+            torch.autograd.backward([y, extra], [self._take(recv).to(y.dtype),
+                                                 torch.full_like(extra, 1.0 / ex.M)])
         else:
             y.backward(self._take(recv).to(y.dtype))
         if send is not None:
@@ -228,7 +246,7 @@ class Executor:
     :func:`make_schedule_train_step`)."""
 
     def __init__(self, chunk_fns, mesh, num_microbatches: int, schedule: str, *, in_shape,
-                 hop_dtype, inject_fn, loss_fn):
+                 hop_dtype, inject_fn, loss_fn, extra_loss: bool = False):
         self.chunk_fns, self.mesh, self.M = list(chunk_fns), mesh, num_microbatches
         self.S, self.V, self.D = mesh.grid.size, len(self.chunk_fns), mesh.grid.data
         self.d, self.s = mesh.coords
@@ -239,15 +257,27 @@ class Executor:
         self.forward_plan = comm_plan(schedule, self.S, self.V, self.M, self.s,
                                       forward_only=True)
         self.in_shape, self.hop_dtype = in_shape, hop_dtype
-        self.inject_fn, self.loss_fn = inject_fn, loss_fn
+        self.inject_fn, self.loss_fn, self.extra_loss = inject_fn, loss_fn, extra_loss
 
     @property
     def holds_loss(self) -> bool:
         return self.s == self.S - 1
 
-    def mean_loss(self, losses):
-        """The mean over microbatches and replicas, on the last stage."""
-        loss = torch.stack(losses).mean()
+    def mean_loss(self, run: _Run):
+        """The mean loss over microbatches and replicas on the last stage,
+        None on the others.  With ``extra_loss`` every rank first adds up its
+        chunks' own terms and one sum over the stage group brings them to the
+        last stage."""
+        extra = None
+        if self.extra_loss:
+            extra = (torch.stack(run.extras).sum() if run.extras
+                     else torch.zeros((), device=self.mesh.device))
+            self.mesh.comm.all_reduce_sum_([extra], self.mesh.axis_group)
+        if not self.holds_loss:
+            return None
+        loss = torch.stack(run.losses).mean()
+        if extra is not None:
+            loss = loss + extra / self.M
         if self.D > 1:
             self.mesh.comm.all_reduce_mean_([loss], self.mesh.dp_group)
         return loss
@@ -265,7 +295,7 @@ def make_schedule_loss(chunk_fns, mesh, num_microbatches: int, schedule: str = "
     def loss(batch: dict):
         with torch.no_grad():
             run = _Run(ex, batch, grad=False, forward_only=True).run()
-        return ex.mean_loss(run.losses) if ex.holds_loss else None
+        return ex.mean_loss(run)
 
     return loss
 
@@ -273,7 +303,7 @@ def make_schedule_loss(chunk_fns, mesh, num_microbatches: int, schedule: str = "
 def make_schedule_train_step(chunk_fns, module: torch.nn.Module,
                              optimizer: torch.optim.Optimizer, mesh, num_microbatches: int,
                              schedule: str = "gpipe", *, in_shape, hop_dtype, inject_fn,
-                             loss_fn, bucket_bytes=bucketing.AUTO):
+                             loss_fn, extra_loss: bool = False, bucket_bytes=bucketing.AUTO):
     """The train step of one rank of a ``D x S`` grid under ``schedule``, for
     any model cut into ``S * V`` chunks.
 
@@ -286,7 +316,9 @@ def make_schedule_train_step(chunk_fns, module: torch.nn.Module,
     dict of ``mb`` rows): ``inject_fn(micro)`` is the first chunk's input,
     ``loss_fn(final, micro)`` the last chunk's mean loss, and
     ``in_shape(micro)`` the shape of a chunk's input hop; every hop travels
-    in ``hop_dtype``.  The step runs this rank's part of the schedule,
+    in ``hop_dtype``.  With ``extra_loss``, ``chunk_fns[v](x)`` returns
+    ``(out, extra)``, a scalar term of the chunk's own that joins the loss
+    (see the module docstring).  The step runs this rank's part of the schedule,
     averages the stage's gradients over its DP group when ``D > 1``
     (``bucket_bytes`` as in :func:`~ddl25spring_tpu_torch.parallel.dp.
     make_dp_train_step`), steps ``optimizer``, and returns the loss (the
@@ -294,7 +326,8 @@ def make_schedule_train_step(chunk_fns, module: torch.nn.Module,
     others.  ``step.stats["stash_max"]`` is the most microbatch-chunks the
     last step held in flight at once."""
     ex = Executor(chunk_fns, mesh, num_microbatches, schedule, in_shape=in_shape,
-                  hop_dtype=hop_dtype, inject_fn=inject_fn, loss_fn=loss_fn)
+                  hop_dtype=hop_dtype, inject_fn=inject_fn, loss_fn=loss_fn,
+                  extra_loss=extra_loss)
     leaves = param_leaves(module)
     bb = bucketing.resolve_bucket_bytes(bucket_bytes)
     plan = bucketing.plan_buckets(leaves, bb) if bb else None
@@ -306,7 +339,7 @@ def make_schedule_train_step(chunk_fns, module: torch.nn.Module,
         if ex.D > 1:
             mesh.comm.bucketed_all_reduce_mean_(grad_leaves(leaves), mesh.dp_group, plan)
         optimizer.step()
-        return ex.mean_loss(run.losses) if ex.holds_loss else None
+        return ex.mean_loss(run)
 
     step.stats = {"stash_max": 0}
     return step
@@ -327,18 +360,36 @@ def make_pipeline_train_step(stage: LlamaStage | LlamaChunkedStage, cfg: LlamaCo
     ``num_chunks >= 2``, and the interleaved schedules need ``M % S == 0``;
     each raises ``ValueError`` as the JAX function does (``:1325-1362``).
 
+    Switch-MoE configs (``cfg.n_experts > 0``): each chunk dispatches the
+    ``[mb L, D]`` tokens of its microbatch and adds ``cfg.moe_aux_weight``
+    times its layers' aux to the loss (``extra_loss``), so the loss is the
+    mean over the ``M D`` microbatches of ``causal_lm_loss + w aux``, the JAX
+    scalar (``pipeline.py:289-297``).
+
     ``step(tokens)`` takes the global ``[B, L]`` batch, ``B = M * D * mb``,
     and returns the loss on the last stage, None on the others."""
     chunks = stage.chunks if isinstance(stage, LlamaChunkedStage) else [stage]
     if len(chunks) != num_chunks:
         raise ValueError(f"the stage holds {len(chunks)} chunks, num_chunks={num_chunks}")
+    moe = cfg.n_experts > 0
+
+    def chunk_fn(c):
+        if not moe:
+            return lambda x: stage_forward(c, x, cfg)
+
+        def apply(x):
+            out, aux = stage_forward(c, x, cfg, with_aux=True)
+            return out, cfg.moe_aux_weight * aux
+
+        return apply
+
     step = make_schedule_train_step(
-        [lambda x, c=c: stage_forward(c, x, cfg) for c in chunks], stage, optimizer, mesh,
+        [chunk_fn(c) for c in chunks], stage, optimizer, mesh,
         num_microbatches, schedule,
         in_shape=lambda micro: (*micro["tokens"].shape, cfg.dmodel),
         hop_dtype=getattr(torch, cfg.dtype), inject_fn=lambda micro: micro["tokens"],
         loss_fn=lambda logits, micro: causal_lm_loss(logits, micro["tokens"]),
-        bucket_bytes=bucket_bytes)
+        extra_loss=moe, bucket_bytes=bucket_bytes)
 
     def tokens_step(tokens):
         return step({"tokens": tokens})

@@ -32,6 +32,13 @@ backprops its share; the gradients are then summed over the seq group and
 averaged over the data group (:func:`make_sp_train_step`).  The loss it
 returns is the global one, the same on every rank.
 
+Switch-MoE configs: each rank's blocks dispatch its own ``[B Ll, D]``
+token group (:func:`~ddl25spring_tpu_torch.parallel.ep.moe_ffn`), and the
+loss adds ``cfg.moe_aux_weight`` times the mean over the seq shards of
+their aux losses (the JAX ``pmean``, the standard sharded-MoE estimator, not
+bitwise the unsharded aux under overflow): a rank's share carries ``w
+aux_local / n``, so that the shares sum to it.
+
 On the CPU ``flash_attention_with_lse`` runs the kernels' plain versions, so
 the flash ring runs there as it does on the card; the JAX package's dense
 stand-in for it (``_dense_attention_with_lse``) has no counterpart here.
@@ -195,7 +202,9 @@ def make_sp_loss(cfg: LlamaConfig, mesh, seq_axis: str = "seq", data_axis: str |
     index's positions, and every block attends through ``mode``, ``"ring"``
     or ``"ulysses"`` (which needs ``num_heads % n == 0``).  The shares of a
     replica sum to :func:`~ddl25spring_tpu_torch.models.llama.llama_forward` +
-    causal-LM loss on the unsharded model."""
+    causal-LM loss on the unsharded model; with ``cfg.n_experts > 0``, plus
+    ``cfg.moe_aux_weight`` times the shards' mean aux (see the module
+    docstring)."""
     axis = mesh.axis(seq_axis)
     n = axis.size
     if mode not in MODES:
@@ -214,9 +223,12 @@ def make_sp_loss(cfg: LlamaConfig, mesh, seq_axis: str = "seq", data_axis: str |
         Ll = L // n
         mine = tokens[:, axis.index * Ll:(axis.index + 1) * Ll].to(mesh.device)
         pos = axis.index * Ll + torch.arange(Ll, device=mesh.device)
-        logits = llama.llama_forward(model, mine, cfg, pos=pos,
-                                     attn_fn=make_sp_attn_fn(cfg, axis, mode, pos))
-        return sp_causal_lm_loss(logits, mine, axis)
+        logits, aux = llama.llama_forward_with_aux(
+            model, mine, cfg, pos=pos, attn_fn=make_sp_attn_fn(cfg, axis, mode, pos))
+        share = sp_causal_lm_loss(logits, mine, axis)
+        if cfg.n_experts > 0:
+            share = share + cfg.moe_aux_weight * aux / n
+        return share
 
     return loss
 

@@ -30,8 +30,22 @@ of the full gradient, and a replicated leaf (the norms; ``embed`` and
 ``unembed`` when not vocab-sharded) gets the full gradient, the same on every
 rank of the group.  The gradients are averaged over the data group.
 
-``make_tp_moe_fn`` and the MoE branch of the loss belong to the EP slice
-(ROADMAP A8) and raise; ``describe()`` is not ported (ROADMAP A12).
+Switch-MoE blocks (``cfg.n_experts > 0``) shard their expert stacks over
+the same model axis (:func:`make_tp_moe_fn`): the tokens are replicated
+over it, so every rank computes the same global routing, capacity and
+drops, runs its ``E/n`` experts and returns a partial output that the
+block's ``reduce_out`` completes; the result is the serial
+:func:`~ddl25spring_tpu_torch.parallel.ep.moe_ffn`, drops included.  The
+router is replicated.  Its gradient has two paths: the aux loss, computed
+the same on every rank (full share, not summed), and the combine tensor, of
+which each rank uses only its experts' slice (summed: JAX sums the combine
+tensor's cotangent over the axis; here the gates, the only part of it that
+has a gradient, enter it through ``copy_in``, which sums ``[T, k]`` floats in
+place of ``[T, E, C]``, the same gradient).  The tokens the local experts
+take enter through ``copy_in`` too.  The loss adds ``cfg.moe_aux_weight *
+aux``.
+
+``describe()`` is not ported (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -47,36 +61,46 @@ from ddl25spring_tpu_torch.parallel.bucketing import (
     parts,
     plan_buckets,
 )
-from ddl25spring_tpu_torch.parallel.comm import Axis, all_gather, reduce_out
+from ddl25spring_tpu_torch.parallel import ep
+from ddl25spring_tpu_torch.parallel.comm import Axis, all_gather, copy_in, reduce_out
 from ddl25spring_tpu_torch.parallel.dp import _not_ported, grad_leaves, param_leaves, shard_rows
 from ddl25spring_tpu_torch.utils.config import LlamaConfig
 
 _COL = ("wq", "wk", "wv", "w_gate", "w_up")  # split the output (last) dim
 _ROW = ("wo", "w_down")                      # split the input dim
 
-_MOE = ("switch-MoE under tensor parallelism (make_tp_moe_fn) waits for the EP slice "
-        "(ROADMAP A8: ep.py with MoE LLaMA)")
 
-
-def tp_param_specs(shard_vocab: bool = True) -> dict:
+def tp_param_specs(shard_vocab: bool = True, n_experts: int = 0) -> dict:
     """The dim each leaf of the reference pytree is split on over the model
     axis, or None where it is replicated (JAX ``tp_param_specs``,
     ``tp.py:63``).  Blocks are stacked ``[L, ...]``, so their weight dims
-    shift right by one."""
+    shift right by one.  ``n_experts > 0`` swaps the dense FFN leaves for
+    the ``moe`` subtree: the router replicated, the expert stacks ``[L, E,
+    ...]`` split on E."""
     block = {"ln1": None, "ln2": None, **{k: 2 for k in _COL}, **{k: 1 for k in _ROW}}
+    if n_experts > 0:
+        for k in ep.EXPERT_KEYS:
+            del block[k]
+        block["moe"] = {"router": None, **{k: 1 for k in ep.EXPERT_KEYS}}
     return {"embed": 0 if shard_vocab else None, "blocks": block, "ln_f": None,
             "unembed": 1 if shard_vocab else None}
 
 
-def _split_dims(shard_vocab: bool) -> dict[str, int | None]:
-    return dict(flatten(tp_param_specs(shard_vocab)))
+def _n_experts(params: dict) -> int:
+    moe = params["blocks"].get("moe")
+    return np.shape(moe["router"])[-1] if moe is not None else 0
+
+
+def _split_dims(shard_vocab: bool, n_experts: int = 0) -> dict[str, int | None]:
+    return dict(flatten(tp_param_specs(shard_vocab, n_experts)))
 
 
 def shard_tp_params(params: dict, n: int, index: int, shard_vocab: bool = True) -> dict:
     """Index ``index``'s slice of the reference pytree (numpy leaves) over a
     model axis of ``n``: the JAX ``shard_tp_params`` (``tp.py:100``) for one
-    rank.  Every split dim must divide by ``n``."""
-    dims = _split_dims(shard_vocab)
+    rank, a MoE pytree's expert stacks included.  Every split dim must
+    divide by ``n``."""
+    dims = _split_dims(shard_vocab, _n_experts(params))
 
     def cut(path, leaf):
         leaf, dim = np.asarray(leaf), dims[path]
@@ -93,7 +117,7 @@ def shard_tp_params(params: dict, n: int, index: int, shard_vocab: bool = True) 
 def merge_tp_params(shards: list[dict], shard_vocab: bool = True) -> dict:
     """The full pytree from the slices of indices ``0..n-1``, in order (the
     inverse of :func:`shard_tp_params`; a replicated leaf is index 0's)."""
-    dims = _split_dims(shard_vocab)
+    dims = _split_dims(shard_vocab, _n_experts(shards[0]))
     flat = [dict(flatten(s)) for s in shards]
     return _unflatten({path: (flat[0][path].copy() if dim is None
                               else np.concatenate([f[path] for f in flat], axis=dim))
@@ -162,9 +186,29 @@ def vocab_sharded_lm_loss(logits: torch.Tensor, tokens: torch.Tensor, axis: Axis
     return (logz - picked).mean()
 
 
-def make_tp_moe_fn(*args, **kwargs):
-    """The expert-sharded switch-MoE FFN under TP: not ported yet."""
-    raise NotImplementedError(_MOE)
+def make_tp_moe_fn(axis: Axis, capacity_factor: float = 1.25, top_k: int = 1):
+    """The switch-MoE FFN under TP (JAX ``make_tp_moe_fn``, ``tp.py:170``):
+    ``f(mp, x) -> (y_partial, aux)`` with ``mp`` this rank's slice (router
+    whole, experts ``[i E/n, (i+1) E/n)`` of index ``i``) and ``x [T, D]`` the
+    tokens, the same on every rank of ``axis``.  The routing, capacity ``T
+    cf k / E`` and drops are global and computed on every rank; the rank
+    takes its experts' slice of the dispatch and combine tensors, and its
+    partial combine goes to :func:`~ddl25spring_tpu_torch.models.llama.
+    block_forward`'s ``reduce_out``.  The gates (the combine tensor's
+    differentiable part) and the tokens the experts take enter through
+    ``copy_in``: see the module docstring."""
+    def tp_moe(mp, x):
+        T, _ = x.shape
+        E = mp["router"].shape[1]
+        E_local = mp["w_gate"].shape[0]
+        C = ep.capacity(T, capacity_factor, top_k, E)
+        disp, combine, aux, _ = ep._dispatch_tensors(
+            ep.router_logits(mp["router"], x), C, top_k, gate_fn=lambda g: copy_in(g, axis))
+        e0 = axis.index * E_local
+        expert_in = ep.dispatch(disp[:, e0:e0 + E_local], copy_in(x, axis))
+        return ep.combine_out(combine[:, e0:e0 + E_local], ep._expert_ffn(mp, expert_in)), aux
+
+    return tp_moe
 
 
 def make_tp_loss(cfg: LlamaConfig, mesh, model_axis: str = "model",
@@ -173,10 +217,15 @@ def make_tp_loss(cfg: LlamaConfig, mesh, model_axis: str = "model",
     ``make_tp_loss``, ``tp.py:208``): ``model`` holds this rank's slices
     (:func:`load_tp_params`); the rank takes its replica's rows of the global
     batch (all of them when ``data_axis`` is None).  The loss is the same on
-    every rank of the model group."""
-    if cfg.n_experts > 0:
-        raise NotImplementedError(_MOE)
+    every rank of the model group; a switch-MoE config's blocks run
+    :func:`make_tp_moe_fn` and the loss adds ``cfg.moe_aux_weight`` times
+    their aux, summed over the layers."""
     axis = mesh.axis(model_axis)
+    if cfg.n_experts > 0 and cfg.n_experts % axis.size:
+        raise ValueError(f"n_experts ({cfg.n_experts}) not divisible by "
+                         f"{model_axis}={axis.size}")
+    moe_fn = (make_tp_moe_fn(axis, cfg.capacity_factor, cfg.moe_top_k)
+              if cfg.n_experts > 0 else None)
     rows = mesh.axis(data_axis) if data_axis is not None else None
     dtype = getattr(torch, cfg.dtype)
 
@@ -188,11 +237,16 @@ def make_tp_loss(cfg: LlamaConfig, mesh, model_axis: str = "model",
             x = vocab_sharded_embed(model.embed, tokens, axis, dtype)
         else:
             x = llama.embed(model, tokens, cfg)
-        for block in model.blocks:
-            x = llama.block_forward(block, x, cfg, tp_axis=axis)
+        x, aux = llama.apply_blocks(model.blocks, x, cfg, tp_axis=axis,
+                                    moe_fn=moe_fn)
         if shard_vocab:
-            return vocab_sharded_lm_loss(llama.unembed(model, x, cfg, tp_axis=axis), tokens, axis)
-        return causal_lm_loss(llama.unembed(model, x, cfg), tokens)
+            loss = vocab_sharded_lm_loss(llama.unembed(model, x, cfg, tp_axis=axis), tokens,
+                                         axis)
+        else:
+            loss = causal_lm_loss(llama.unembed(model, x, cfg), tokens)
+        if cfg.n_experts > 0:
+            loss = loss + cfg.moe_aux_weight * aux
+        return loss
 
     return loss
 

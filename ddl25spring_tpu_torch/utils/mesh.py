@@ -4,8 +4,8 @@ the counterpart of the JAX package's ``utils/mesh.py`` (``make_mesh``).
 The JAX package runs one SPMD program over a named mesh, ``(data, stage)``,
 ``(data, seq)`` or ``(data, model)``.  The port runs one process per rank, as
 the reference course does (``lab/s01_b2_dp_pp.py:22-34``), on a 2-D grid
-``data x X`` whose second axis ``X`` is named ``stage``, ``seq`` or
-``model``.  Ranks are numbered row-major with ``data`` outermost, as
+``data x X`` whose second axis ``X`` is named ``stage``, ``seq``, ``model``
+or ``expert``.  Ranks are numbered row-major with ``data`` outermost, as
 ``make_mesh`` orders its devices: rank ``r = d * S + s`` is index ``s`` along
 ``X`` of replica ``d``, so replica 0 is ranks ``0..S-1``, replica 1 is
 ``S..2S-1``, and the DP group of index ``s`` is ``{d * S + s}`` over ``d``
@@ -36,7 +36,7 @@ import torch.distributed as dist
 
 from ddl25spring_tpu_torch.parallel.comm import Axis, Comm
 
-AXES = ("stage", "seq", "model")
+AXES = ("stage", "seq", "model", "expert")
 
 
 @dataclass(frozen=True)
@@ -55,7 +55,8 @@ class Rendezvous:
 class RankGrid:
     """``data`` replicas of ``size`` ranks along the second axis, named
     ``axis`` (``stage``: pipeline stages; ``seq``: sequence shards;
-    ``model``: tensor-parallel shards); rank ``r = d * size + s``."""
+    ``model``: tensor-parallel shards; ``expert``: expert-parallel shards);
+    rank ``r = d * size + s``."""
 
     data: int
     size: int
@@ -150,11 +151,11 @@ class Mesh:
         return Axis(name, self.comm, self.axis_group, tuple(self.grid.axis_ranks(d)), s)
 
     def regrid(self, data: int, stages: int | None = None, *, seq: int | None = None,
-               model: int | None = None) -> "Mesh":
+               model: int | None = None, expert: int | None = None) -> "Mesh":
         """The same world, device and :class:`Comm` as another grid, with its
         groups: a world of ranks can run several layouts one after the
         other.  Every rank must call it, in the same order."""
-        return _grid_mesh(_grid(data, stages, seq, model, self.grid.world), self.rank,
+        return _grid_mesh(_grid(data, stages, seq, model, expert, self.grid.world), self.rank,
                           self.device, self.backend, self.comm)
 
     @property
@@ -184,11 +185,12 @@ class Mesh:
         self.close(barrier=exc_type is None)
 
 
-def _grid(data, stages, seq, model, world) -> RankGrid:
-    given = {k: v for k, v in (("stage", stages), ("seq", seq), ("model", model))
-             if v is not None}
+def _grid(data, stages, seq, model, expert, world) -> RankGrid:
+    given = {k: v for k, v in (("stage", stages), ("seq", seq), ("model", model),
+                               ("expert", expert)) if v is not None}
     if len(given) != 1:
-        raise ValueError(f"name one second axis (stages=, seq= or model=), got {given}")
+        raise ValueError(f"name one second axis (stages=, seq=, model= or expert=), "
+                         f"got {given}")
     (axis, size), = given.items()
     grid = RankGrid(data, size, axis)
     if grid.world != world:
@@ -207,15 +209,17 @@ def _grid_mesh(grid: RankGrid, rank: int, dev, backend, comm) -> Mesh:
 
 
 def init_mesh(rdv: Rendezvous, data: int, stages: int | None = None, device: str = "cuda",
-              *, seq: int | None = None, model: int | None = None) -> Mesh:
+              *, seq: int | None = None, model: int | None = None,
+              expert: int | None = None) -> Mesh:
     """Join the world of ``rdv`` as one rank of a ``data x stages`` grid, or
-    of a ``data x seq`` or ``data x model`` one (name exactly one).
+    of a ``data x seq``, ``data x model`` or ``data x expert`` one (name
+    exactly one).
 
     ``device`` is ``"cuda"`` (the layout's card), ``"cpu"``, or an explicit
     device, which must be the one the layout names: a rank on another device
     raises.  Every rank creates every group of the grid, in the same order.
     A failed NCCL init raises; it never switches to gloo."""
-    grid = _grid(data, stages, seq, model, rdv.world)
+    grid = _grid(data, stages, seq, model, expert, rdv.world)
     asked = torch.device(device)
     dev = rank_device(rdv.local_rank, asked.type)
     if asked.type == "cuda" and asked.index is not None and asked != dev:

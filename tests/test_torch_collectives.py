@@ -142,5 +142,6 @@ def test_grid_axes_order_ranks_with_data_outermost(world):
     assert [grid.coords(r) for r in range(4)] == [(0, 0), (0, 1), (1, 0), (1, 1)]
     assert grid.axis_ranks(1) == [2, 3] and grid.dp_ranks(1) == [1, 3]
     assert [r["data"] for r in world] == [(0, 2), (1, 3), (0, 2), (1, 3)]
+    assert RankGrid(2, 2, "expert").axis_ranks(0) == [0, 1]
     with pytest.raises(ValueError, match="none of"):
-        RankGrid(2, 2, "expert")
+        RankGrid(2, 2, "tensor")

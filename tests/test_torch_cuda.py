@@ -2,8 +2,9 @@
 the launches of every pipeline schedule on the card, the ResNet-18 slice's
 card-only checks (the on-card dataset, fp32 against
 the CPU, bf16 channels_last against fp32), federated learning's
-(``MnistCnn`` and one FedAvg round on the card against the CPU), and one
-flash-ring and one TP step on the card against the CPU.
+(``MnistCnn`` and one FedAvg round on the card against the CPU), one
+flash-ring and one TP step on the card against the CPU, and a switch-MoE
+LLaMA step (top 1 and 2) and the EP layer on the card.
 
 Marked ``gpu``: each test skips unless an sm_90 (Hopper) device is present,
 but for the FL entry points' refusal of a missing GPU, which runs anywhere.
@@ -570,3 +571,120 @@ def test_sp_and_tp_steps_on_the_card_match_the_cpu(dev, tmp_path, name):
         assert c["loss"] == pytest.approx(h["loss"], rel=1e-5)
         for (path, a), (_, b) in zip(flatten(c["grads"]), flatten(h["grads"])):
             assert (abs(a - b) - 2e-3 * abs(b)).max() <= 2e-4, path
+
+
+# ------------------------------------------------ switch-MoE and EP
+
+
+def _moe_loss_grads(cfg, device, tokens):
+    """``causal_lm_loss + w aux`` of the MoE model from seed 3 on ``device``,
+    its gradients and each layer's float32 router logits."""
+    from ddl25spring_tpu_torch.models.llama import Llama, export_grads, llama_forward_with_aux
+    from ddl25spring_tpu_torch.ops.losses import causal_lm_loss
+    from ddl25spring_tpu_torch.parallel import ep
+
+    model = Llama(cfg, device=device, generator=torch.Generator().manual_seed(3))
+    logs = []
+
+    def moe_fn(mp, flat):
+        logs.append(ep.router_logits(mp["router"], flat).detach().cpu())
+        return ep.moe_ffn(mp, flat, cfg.capacity_factor, top_k=cfg.moe_top_k)
+
+    tokens = tokens.to(device)
+    logits, aux = llama_forward_with_aux(model, tokens, cfg, moe_fn=moe_fn)
+    loss = causal_lm_loss(logits, tokens) + cfg.moe_aux_weight * aux
+    loss.backward()
+    return loss.item(), export_grads(model), logs
+
+
+@pytest.mark.parametrize("top_k", [1, 2])
+def test_moe_step_on_the_card_matches_the_cpu(dev, top_k):
+    """A MoE LLaMA step (fp32, TF32 off, capacity 1.25, which drops) on the
+    card against the CPU from the same weights: every layer's ordered expert
+    choices agree, loss rtol 1e-5, gradients atol 2e-4 + rtol 2e-3, and each
+    flash kernel launches once per layer."""
+    from ddl25spring_tpu_torch.parallel.bucketing import flatten
+    from ddl25spring_tpu_torch.utils.config import LlamaConfig
+
+    cfg = LlamaConfig(**DP_CFG, n_experts=4, moe_top_k=top_k)
+    tokens = _dp_batches()[0]
+    fa.reset_launches()
+    card = _moe_loss_grads(cfg, dev, tokens)
+    assert dict(fa.LAUNCHES) == {"fwd": 2, "dq": 2, "dkv": 2}
+    host = _moe_loss_grads(cfg, torch.device("cpu"), tokens)
+    for c, h in zip(card[2], host[2]):
+        assert torch.equal(torch.softmax(c, -1).topk(top_k, -1).indices,
+                           torch.softmax(h, -1).topk(top_k, -1).indices)
+    assert card[0] == pytest.approx(host[0], rel=1e-5)
+    for (path, a), (_, b) in zip(flatten(card[1]), flatten(host[1])):
+        assert (abs(a - b) - 2e-3 * abs(b)).max() <= 2e-4, path
+
+
+EP_CFS = (0.5, 1.0)  # every bucket fills at 0.5; at 1.0 some overflow and some do not
+
+
+def ep_layer_rank(rdv, device):
+    """One rank of a 2-rank world: the EP layer over ``expert = 2`` (top-2,
+    capacities ``EP_CFS``, fp32, TF32 off) on 256 tokens of width 64."""
+    from ddl25spring_tpu_torch.parallel import ep
+    from ddl25spring_tpu_torch.utils.mesh import init_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with init_mesh(rdv, 1, expert=2, device=device) as mesh:
+        gen = torch.Generator().manual_seed(5)
+        p = ep.init_moe_params(gen, 64, 128, 4, mesh.device)
+        x = torch.randn(256, 64, generator=gen).to(mesh.device)
+        out = {"device": str(mesh.device)}
+        for cf in EP_CFS:
+            f = ep.make_ep_moe_fn(mesh, capacity_factor=cf, return_stats=True, top_k=2)
+            with torch.no_grad():
+                y, aux, st = f(ep.shard_moe_params(p, 2, mesh.axis("expert").index,
+                                                   mesh.device), x)
+            out[cf] = {"y": y.cpu(), "kept": st["kept"].cpu()}
+        return out
+
+
+def test_ep_layer_on_the_card_equals_moe_ffn_per_shard(dev, tmp_path):
+    """Two ranks on the card (gloo through host buffers): the EP layer's
+    output within 1e-5 of ``moe_ffn`` on each shard's tokens on the card, and
+    the kept counts equal, at a capacity where every bucket fills and at one
+    where the counts depend on the routing."""
+    from ddl25spring_tpu_torch.parallel import ep
+    from ddl25spring_tpu_torch.parallel.launch import spawn
+
+    ranks = spawn(ep_layer_rank, 2, "cuda", timeout=300, tmpdir=str(tmp_path))
+    gen = torch.Generator().manual_seed(5)
+    p = ep.init_moe_params(gen, 64, 128, 4, dev)
+    x = torch.randn(256, 64, generator=gen).to(dev)
+    for cf in EP_CFS:
+        ys, kept = [], torch.zeros(4)
+        with torch.no_grad():
+            for shard in x.chunk(2):
+                y, _, st = ep.moe_ffn(p, shard, cf, return_stats=True, top_k=2)
+                ys.append(y.cpu())
+                kept += st["kept"].cpu()
+        full = 2 * ep.capacity(128, cf, 2, 4)
+        assert kept.sum() < 2 * 256  # drops
+        assert cf != EP_CFS[-1] or (kept < full).any()
+        for r in ranks:
+            assert r["device"].startswith("cuda")
+            assert (r[cf]["y"] - torch.cat(ys)).abs().max() <= 1e-5
+            assert torch.equal(r[cf]["kept"], kept)
+
+
+def test_router_logits_stay_full_fp32_under_tf32(dev):
+    """The router's product runs in full fp32 on the card whatever the
+    global TF32 flag says (a routing decision must not depend on it), and
+    the flag is left as it was."""
+    from ddl25spring_tpu_torch.parallel import ep
+
+    gen = torch.Generator().manual_seed(6)
+    router, x = torch.randn(288, 4, generator=gen), torch.randn(768, 288, generator=gen)
+    want = (x.double() @ router.double()).float()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = ep.router_logits(router.to(dev), x.to(dev)).cpu()
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert (got - want).abs().max() <= 1e-4

@@ -20,6 +20,7 @@ from ddl25spring_tpu.ops import losses as jlosses  # noqa: E402
 from ddl25spring_tpu.utils import config as jconfig  # noqa: E402
 from ddl25spring_tpu_torch.models import llama  # noqa: E402
 from ddl25spring_tpu_torch.ops import losses  # noqa: E402
+from ddl25spring_tpu_torch.parallel.bucketing import flatten  # noqa: E402
 from ddl25spring_tpu_torch.utils import config  # noqa: E402
 
 SMALL = dict(vocab_size=96, dmodel=64, num_heads=2, n_layers=2, ctx_size=64,
@@ -135,6 +136,8 @@ def test_bridge_round_trips_exactly(small_model):
 
 
 def test_init_is_seeded_normal_and_moe_is_refused():
+    """The seeded init (dense and MoE), and ``llama_forward``'s refusal of a
+    MoE config, whose aux would be lost (JAX ``llama.py:280``)."""
     cfg = config.LlamaConfig(**SMALL)
     a = llama.Llama(cfg, device="cpu", generator=torch.Generator().manual_seed(7))
     b = llama.Llama(cfg, device="cpu", generator=torch.Generator().manual_seed(7))
@@ -142,6 +145,141 @@ def test_init_is_seeded_normal_and_moe_is_refused():
         assert torch.equal(pa, pb), name
     assert abs(a.embed.std().item() - 0.02) < 2e-3
     assert torch.equal(a.blocks[0].ln1, torch.ones(64))
+    moe_cfg = config.replace(cfg, n_experts=4)
+    a = llama.Llama(moe_cfg, device="cpu", generator=torch.Generator().manual_seed(7))
+    b = llama.Llama(moe_cfg, device="cpu", generator=torch.Generator().manual_seed(7))
+    for (name, pa), pb in zip(a.named_parameters(), b.parameters()):
+        assert torch.equal(pa, pb), name
+    moe = a.blocks[0].moe
+    assert not hasattr(a.blocks[0], "w_gate")
+    assert moe.router.shape == (64, 4) and moe.w_gate.shape == (4, 64, 256)
+    assert moe.w_down.shape == (4, 256, 64) and abs(moe.w_up.std().item() - 0.02) < 2e-3
+    tokens = torch.zeros(1, 8, dtype=torch.long)
     with pytest.raises(NotImplementedError, match="MoE"):
-        llama.Llama(config.replace(cfg, n_experts=4), device="cpu",
-                    generator=torch.Generator())
+        llama.llama_forward(a, tokens, moe_cfg)
+    with pytest.raises(NotImplementedError, match="MoE"):
+        a(tokens)
+
+
+MOE = dict(vocab_size=64, dmodel=32, num_heads=2, n_layers=2, ctx_size=16,
+           dtype="float32", n_experts=4, capacity_factor=2.0)
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One torch thread for the MoE tests: the suite runs its files side by
+    side on one host, and torch's default threads contend for its cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _moe_pair(**kw):
+    """The port's MoE ``Llama`` from a seed and its weights as the JAX pytree."""
+    cfg = config.LlamaConfig(**{**MOE, **kw})
+    model = llama.Llama(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    return cfg, model, llama.export_params(model)
+
+
+def _composite(logits, aux, tokens, cfg):
+    return losses.causal_lm_loss(logits, tokens) + cfg.moe_aux_weight * aux
+
+
+@pytest.mark.parametrize("kw", [{}, {"moe_top_k": 2}, {"capacity_factor": 0.5}],
+                         ids=["top1", "top2", "drops"])
+@pytest.mark.usefixtures("one_torch_thread")
+def test_moe_llama_forward_and_aux(kw):
+    """Logits, aux and the gradients of ``causal_lm_loss + w aux`` against
+    JAX's ``llama_forward_with_aux`` from the same weights (top 1, top 2,
+    and capacity 0.5, which drops); at ample capacity the token-flattened
+    dispatch keeps causality and the examples independent."""
+    cfg, model, params = _moe_pair(**kw)
+    jcfg = jconfig.LlamaConfig(**{**MOE, **kw})
+    tokens = _rng(1).integers(0, 64, (2, 16)).astype(np.int32)
+    logits, aux = llama.llama_forward_with_aux(model, _t(tokens).long(), cfg)
+    assert logits.shape == (2, 16, 64) and torch.isfinite(logits).all()
+    assert 0.5 < float(aux.detach()) < 8.0
+    jlogits, jaux = jllama.llama_forward_with_aux(params, tokens, jcfg)
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(jlogits), atol=1e-4)
+    np.testing.assert_allclose(float(aux.detach()), float(jaux), rtol=1e-5)
+    loss = _composite(logits, aux, _t(tokens).long(), cfg)
+    loss.backward()
+
+    def jloss_fn(p):
+        jl, ja = jllama.llama_forward_with_aux(p, tokens, jcfg)
+        return jlosses.causal_lm_loss(jl, tokens) + jcfg.moe_aux_weight * ja
+
+    jloss, jgrads = jax.value_and_grad(jloss_fn)(params)
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5)
+    for (path, a), (_, b) in zip(flatten(llama.export_grads(model)), flatten(jgrads)):
+        np.testing.assert_allclose(a, np.asarray(b), atol=2e-4, rtol=2e-3, err_msg=path)
+    if kw:
+        return
+    changed = tokens.copy()
+    changed[0, 10] = (changed[0, 10] + 1) % 64
+    with torch.no_grad():
+        logits_b, _ = llama.llama_forward_with_aux(model, _t(changed).long(), cfg)
+    np.testing.assert_allclose(logits[0, :10].detach().numpy(), logits_b[0, :10].numpy(),
+                               atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(logits[1].detach().numpy(), logits_b[1].numpy(),
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_moe_llama_trains():
+    """The switch recipe, LM loss + weighted aux, falls under Adam, and the
+    router's gradient flows."""
+    cfg, model, _ = _moe_pair()
+    tokens = _t(_rng(1).integers(0, 64, (4, 16))).long()
+    opt = torch.optim.Adam(model.parameters(), lr=1e-2)
+    history = []
+    for _ in range(30):
+        opt.zero_grad()
+        loss = _composite(*llama.llama_forward_with_aux(model, tokens, cfg), tokens, cfg)
+        loss.backward()
+        if not history:
+            assert model.blocks[0].moe.router.grad.abs().max() > 0
+        opt.step()
+        history.append(float(loss.detach()))
+    assert history[-1] < 0.5 * history[0], history[::10]
+    assert all(np.isfinite(history))
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_moe_bridge_round_trips_flat_and_staged():
+    """A JAX MoE pytree (structure from ``jax.eval_shape`` of its init) goes
+    across bit for bit: flat, staged ``[S, L/S, ...]`` into ``LlamaStage``s
+    and interleaved ``[S, V, Lc, ...]`` into ``LlamaChunkedStage``s; the
+    splits equal JAX's."""
+    cfg = config.LlamaConfig(**{**MOE, "n_layers": 4})
+    jcfg = jconfig.LlamaConfig(**{**MOE, "n_layers": 4})
+    shapes = jax.eval_shape(lambda: jllama.init_llama_params(jax.random.PRNGKey(0), jcfg))
+    rng = _rng(5)
+    params = jax.tree.map(lambda s: rng.standard_normal(s.shape).astype(np.float32), shapes)
+    model = llama.load_jax_params(
+        llama.Llama(cfg, device="cpu", generator=torch.Generator()), params)
+    out = llama.export_params(model)
+    assert jax.tree.structure(out) == jax.tree.structure(params)
+    for a, b in zip(jax.tree.leaves(out), jax.tree.leaves(params)):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    for S, V in ((2, 1), (2, 2)):
+        split = (llama.split_blocks_interleaved(params, S, V) if V > 1
+                 else llama.split_blocks_for_stages(params, S))
+        want = (jllama.split_blocks_interleaved(params, S, V) if V > 1
+                else jllama.split_blocks_for_stages(params, S))
+        for (pa, a), (pb, b) in zip(flatten(split), flatten(jax.tree.map(np.asarray, want))):
+            assert pa == pb and np.array_equal(a, b)
+        stages = [llama.load_stage_params(
+            llama.LlamaChunkedStage(cfg, s, S, V, device="cpu", generator=torch.Generator())
+            if V > 1 else llama.LlamaStage(cfg, s, S, device="cpu", generator=torch.Generator()),
+            split) for s in range(S)]
+        merged = llama.merge_stage_exports([llama.export_params(st) for st in stages],
+                                           num_chunks=V)
+        assert [p for p, _ in flatten(merged)] == [p for p, _ in flatten(params)]
+        for (path, a), (_, b) in zip(flatten(merged), flatten(params)):
+            assert np.array_equal(a, b), path
+        back = (llama.merge_blocks_interleaved(split) if V > 1
+                else llama.merge_blocks_from_stages(split))
+        for (_, a), (_, b) in zip(flatten(back), flatten(params)):
+            assert np.array_equal(a, b)

@@ -171,12 +171,17 @@ def test_unported_schedules_and_workloads_raise():
     assert K == 1 and "host copy" in why
     assert dp_pp.llama_scan_steps(4, torch.device("cpu"), S) == (4, "")
     assert dp_pp.llama_scan_steps(0, torch.device("cpu"), S) == (1, "")
-    # switch-MoE LLaMA
-    for make in (lambda cfg: llama.Llama(cfg, device="cpu", generator=torch.Generator()),
-                 lambda cfg: llama.LlamaStage(cfg, 0, S, device="cpu",
-                                              generator=torch.Generator())):
-        with pytest.raises(NotImplementedError, match="n_experts > 0"):
-            make(_cfg(n_experts=4))
+    # switch-MoE LLaMA: a MoE stage builds (its blocks hold the moe subtree),
+    # and the forwards that would drop the aux loss refuse it
+    moe = _cfg(n_experts=4)
+    stage = llama.LlamaStage(moe, 0, S, device="cpu", generator=torch.Generator())
+    assert all(hasattr(b, "moe") for b in stage.blocks)
+    tokens = torch.zeros(1, 4, dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="n_experts > 0"):
+        llama.llama_forward(llama.Llama(moe, device="cpu", generator=torch.Generator()),
+                            tokens, moe)
+    with pytest.raises(NotImplementedError, match="n_experts > 0"):
+        llama.stage_forward(stage, tokens, moe)
     # homework B1 is LLaMA only; the ResNet step runs through lab.dp_pp
     with pytest.raises(ValueError, match="LLaMA workload only"):
         microbatches.main(["--device", "cpu", "--workload", "resnet"])
