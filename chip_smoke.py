@@ -239,6 +239,35 @@ Phases, in order; any failure exits non-zero and prints no result:
         rtol 1e-5, gradients atol 2e-4 + rtol 2e-3), then 5 bf16 gpipe
         steps, losses falling and the median step.
 
+14. the pipeline compositions on the card (``make_pipeline_train_step`` with
+    ``ep_axis=``, ``tp_axis=``, ``seq_axis=``; ``pipe_phase``), full width,
+    the flash kernels, ranks on ``cuda:0`` over gloo, two worlds spawned after
+    phase 2 built the kernels: 6 ranks for (a), 8 ranks that regrid into
+    (b)-(d):
+    (a) EP x DP x PP on the reference's 2 x 3, MoE (2 experts per rank and
+        stage), M 3, 3 rows per replica, all five schedules (the interleaved
+        ones with 2 chunks of one layer);
+    (b) DP x PP x TP, 2 x 2 x 2, M 2, 2 rows per replica, dense and MoE (2
+        experts per model index), ``gpipe``, ``1f1b`` and
+        ``interleaved-1f1b`` with 3 chunks;
+    (c) DP x PP x SP, 2 x 2 x 2, 128 positions per shard: the flash ring and
+        Ulysses (3 heads per shard) under ``gpipe`` and ``1f1b``, MoE under
+        the ring's ``gpipe``;
+    (d) PP x SP x TP, 2 x 2 x 2, the flash ring under ``gpipe`` and ``1f1b``;
+        Ulysses raises there (3 local heads over seq 2), before any rank.
+    Each run: one fp32 step (TF32 off) against one process on the card from
+    the same weights (``pipe_oracle``: ``llama_forward``; MoE the mean over
+    the microbatch groups of ``causal_lm_loss + w aux``, dispatched per seq
+    shard under SP), loss and gradients within ``GRAD_BAND`` (1e-5), routing
+    flips counted; then ``PIPE_STEPS`` bf16 Adam steps at 8e-4 on
+    TinyStories: losses falling, flash launches per rank per step exact
+    (``pipe_launches``) and all ``wgmma``, the staged bytes per rank per step
+    equal to ``pipe_staged_bytes``, the median step (slowest rank) and the
+    all-reduce seconds.  (e): the kernels at the new per-rank shapes
+    (``PIPE_KERNEL_CASES``) against their plain versions and the autograd
+    Functions against the CPU, then, in a process of their own, their device
+    times beside their bounds and SDPA's.
+
 Tolerances (|kernel - plain| <= atol + rtol * |plain|):
   fp32: atol 1e-4, rtol 0 (summation order only);
   bf16: atol 2e-2, rtol 1e-2 against the plain version on the same bf16
@@ -253,7 +282,9 @@ the kernel's nodes in phase 11 (a)'s graph of 16 steps;
 ``launches_sp_tp_per_rank`` each rank's launches over phase 12 (b)'s run of
 each layout; ``launches_moe_per_step`` the kernel's launches per step of
 phase 13 (a)'s top-1 and top-2 MoE steps; ``max_abs_err_sp_tp`` the largest
-error of phase 12 (c)'s checks.
+error of phase 12 (c)'s checks; ``launches_pipeline_compositions_per_rank``
+each rank's launches per step in each run of phase 14, and
+``max_abs_err_pipeline_compositions`` the largest error of phase 14 (e).
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -2824,6 +2855,453 @@ def moe_phase(dev):
     return {"launches": single["launches"], "single": single, "world": world, "pipe": pipe}
 
 
+# ---------------------------------------------------------------- phase 14
+
+PIPE_STEPS = 10                 # bf16 Adam steps per layout and schedule
+GRAD_BAND = 1e-5                # fp32: |pipeline - one process|, loss (relative) and grads
+# run -> world, grid (data, stages, seq, model), model kind, schedule, chunks per
+# rank, the composition's axes, microbatches, rows per replica
+PIPE_RUNS = {}
+for _s in SCHED:
+    PIPE_RUNS[f"(a) ep {_s}"] = dict(world=6, grid=(2, 3, None, None), kind="moe", schedule=_s,
+                                     V=2 if _s in ("interleaved", "interleaved-1f1b") else 1,
+                                     axes={"ep_axis": "data"}, M=3, rows=3)
+for _kind in ("dense", "moe"):
+    for _s in ("gpipe", "1f1b", "interleaved-1f1b"):
+        PIPE_RUNS[f"(b) tp {_kind} {_s}"] = dict(
+            world=8, grid=(2, 2, None, 2), kind=_kind, schedule=_s,
+            V=3 if _s == "interleaved-1f1b" else 1, axes={"tp_axis": "model"}, M=2, rows=2)
+for _mode, _s, _kind in (("ring", "gpipe", "dense"), ("ring", "1f1b", "dense"),
+                         ("ulysses", "gpipe", "dense"), ("ulysses", "1f1b", "dense"),
+                         ("ring", "gpipe", "moe")):
+    PIPE_RUNS[f"(c) sp {_mode} {_kind} {_s}"] = dict(
+        world=8, grid=(2, 2, 2, None), kind=_kind, schedule=_s, V=1,
+        axes={"seq_axis": "seq", "sp_mode": _mode}, M=2, rows=2)
+for _s in ("gpipe", "1f1b"):
+    PIPE_RUNS[f"(d) sp-tp ring dense {_s}"] = dict(
+        world=8, grid=(1, 2, 2, 2), kind="dense", schedule=_s, V=1,
+        axes={"seq_axis": "seq", "tp_axis": "model", "sp_mode": "ring"}, M=2, rows=2)
+# (B, H, L, causal) of the kernels' new calls, folded to [B H, L, 48]: TP's 3
+# local heads and Ulysses' 3 heads over the whole length; the SP ring's own and
+# received blocks of 128 positions, over 6 heads and, under TP, 3
+PIPE_KERNEL_CASES = [(1, 3, 256, True), (1, 6, 128, True), (1, 6, 128, False),
+                     (1, 3, 128, True), (1, 3, 128, False)]
+
+
+def pipe_cfg(kind, dtype):
+    """Phase 14's configurations: ``LlamaConfig(use_flash=True)`` at full
+    width, and with ``kind == "moe"`` phase 13's ``MOE`` (4 experts, capacity
+    1.25)."""
+    from ddl25spring_tpu_torch.utils.config import LlamaConfig
+
+    if kind == "moe":
+        return moe_cfg(dtype)
+    return LlamaConfig(dtype=dtype, use_flash=True)
+
+
+def _pipe_grid(g):
+    from ddl25spring_tpu_torch.utils.mesh import _grid
+
+    data, stages, seq, model = g
+    return _grid(data, stages, seq, model, None, data * stages * (seq or 1) * (model or 1))
+
+
+class RouterLog:
+    """While active, every router's float32 logits, by global layer (the
+    routers' parameters name them): ``ep.router_logits`` wrapped, which
+    ``moe_ffn``, ``ep_moe_local`` and the TP-MoE layer all call."""
+
+    def __init__(self, layer_of: dict):
+        self.layer_of, self.logs = layer_of, {}
+
+    def __enter__(self):
+        from ddl25spring_tpu_torch.parallel import ep
+
+        self.orig = ep.router_logits
+
+        def log(router, x):
+            out = self.orig(router, x)
+            self.logs.setdefault(self.layer_of[id(router)], []).append(out.detach().cpu())
+            return out
+
+        ep.router_logits = log
+        return self
+
+    def __exit__(self, *exc):
+        from ddl25spring_tpu_torch.parallel import ep
+
+        ep.router_logits = self.orig
+
+
+def _stage_layers(stage, S, s) -> dict:
+    """``id(router) -> global layer`` of a pipeline rank's MoE blocks."""
+    from ddl25spring_tpu_torch.models.llama import LlamaChunkedStage
+
+    chunks = stage.chunks if isinstance(stage, LlamaChunkedStage) else [stage]
+    out = {}
+    for v, c in enumerate(chunks):
+        g = v * S + s
+        for j, b in enumerate(c.blocks):
+            out[id(b.moe.router)] = g * len(c.blocks) + j
+    return out
+
+
+def pipe_comp_rank(rdv, world_size, exact, batches, device):
+    """One rank of a phase 14 world: every run of ``PIPE_RUNS`` on that many
+    ranks, each grid a regrid of the first.  Per run: one fp32 step (the
+    loss, the stage's gradients where the merge needs them, the routers'
+    logits), then ``PIPE_STEPS`` bf16 Adam steps (losses, host seconds per
+    step to the card's idle, comm counts, the flash launches of the run: the
+    counts set to 0 just before it and read just after)."""
+    from ddl25spring_tpu_torch.models.llama import Llama, export_grads, export_params
+    from ddl25spring_tpu_torch.ops import flash_attention as fa
+    from ddl25spring_tpu_torch.parallel import ep
+    from ddl25spring_tpu_torch.parallel.pipeline import (
+        make_pipeline_train_step,
+        shard_staged_params,
+    )
+    from ddl25spring_tpu_torch.utils.device import backend_flags
+    from ddl25spring_tpu_torch.utils.mesh import init_mesh
+
+    runs = {n: r for n, r in PIPE_RUNS.items() if r["world"] == world_size}
+    params = {k: export_params(Llama(pipe_cfg(k, "float32"), device="cpu",
+                                     generator=torch.Generator().manual_seed(7)))
+              for k in {r["kind"] for r in runs.values()}}
+    grids = list(dict.fromkeys(r["grid"] for r in runs.values()))
+    data, stages, seq, model = grids[0]
+    out = {}
+    with init_mesh(rdv, data, stages, device=device, seq=seq, model=model) as world:
+        meshes = {grids[0]: world}
+        for g in grids[1:]:
+            meshes[g] = world.regrid(g[0], g[1], seq=g[2], model=g[3])
+        for name, run in runs.items():
+            mesh = meshes[run["grid"]]
+            names = mesh.grid.names
+            c = dict(zip(names, mesh.coords))
+            keep = c.get("seq", 0) == 0 and ("ep_axis" in run["axes"] or c["data"] == 0)
+            r = {"coords": c, "device": str(mesh.device), "backend": mesh.backend}
+            for dtype in ("float32", "bfloat16"):
+                cfg = pipe_cfg(run["kind"], dtype)
+                stage = shard_staged_params(params[run["kind"]], cfg, mesh, run["V"],
+                                            ep_axis=run["axes"].get("ep_axis"),
+                                            tp_axis=run["axes"].get("tp_axis"))
+                step = make_pipeline_train_step(
+                    stage, cfg, torch.optim.Adam(stage.parameters(), lr=8e-4), mesh,
+                    run["M"], run["schedule"], run["V"], **run["axes"])
+                rows = mesh.grid.data * run["rows"]
+                if dtype == "float32":
+                    layers = (_stage_layers(stage, mesh.grid.size, c["stage"])
+                              if cfg.n_experts else {})
+                    with backend_flags(**FP32_EXACT), RouterLog(layers) as log:
+                        loss = step(torch.from_numpy(exact[:rows]).long())
+                    r["exact"] = {"loss": None if loss is None else float(loss),
+                                  "grads": export_grads(stage) if keep else None,
+                                  "logits": log.logs}
+                    continue
+                # EP's expert stacks: left out of the DP average
+                experts = sum(p.numel() for b in stage.blocks
+                              for k, p in b.moe.named_parameters()
+                              if k in ep.EXPERT_KEYS) if "ep_axis" in run["axes"] else 0
+                r.update(n_params=sum(p.numel() for p in stage.parameters()),
+                         n_experts_local=experts, losses=[], step_s=[], comm=[])
+                world.comm.take_stats()
+                fa.reset_launches()
+                for b in batches:
+                    t0 = time.perf_counter()
+                    loss = step(torch.from_numpy(b[:rows]).long())
+                    if mesh.device.type == "cuda":
+                        torch.cuda.synchronize(mesh.device)
+                    r["step_s"].append(time.perf_counter() - t0)
+                    r["comm"].append(world.comm.take_stats())
+                    r["losses"].append(None if loss is None else float(loss))
+                r["launches"] = dict(fa.LAUNCHES)
+                r["by_variant"] = {n: dict(v) for n, v in fa.LAUNCHES_BY_VARIANT.items()}
+            out[name] = r
+    return out
+
+
+def pipe_launches(run, c) -> dict:
+    """Flash launches of each kernel per rank per step: one per layer and
+    microbatch (the flash ring's index ``i`` runs ``1 + i``), the forward
+    twice under the remat schedules (the forward, then its recompute in the
+    backward)."""
+    S = run["grid"][1]
+    k = 1 + c["seq"] if run["axes"].get("sp_mode") == "ring" else 1
+    n = 6 // S * run["M"] * k
+    return {"fwd": n * (2 if run["schedule"] in ("1f1b", "interleaved-1f1b") else 1),
+            "dq": n, "dkv": n}
+
+
+def pipe_staged_bytes(run, cfg, c, n_params, n_experts_local, L=256) -> int:
+    """Bytes one rank stages through the host per bf16 step (every staged
+    tensor counts once on its way to the host and once back), from the
+    shapes, activations in the compute dtype (bf16 here): the pipeline's
+    hops, activations forward and their gradients
+    back (``[mb, L/n, D]``; a rank with the first chunk receives none
+    for it, with the last sends none); the fp32 gradients averaged over
+    ``data`` (and summed over ``seq``), the expert stacks under EP left out;
+    the scalar loss terms (a MoE chunk's aux summed over the stages, the SP
+    shares over ``seq``, the mean over ``data``); the last stage's one-token
+    target hop under SP (int64, the global batch's rows); and per layer and
+    microbatch, each forward pass (two under the remat schedules) and the
+    backward: TP's two all-reduces of ``[mb, L/n, D]`` bf16 forward and two
+    backward (MoE: plus the gates' ``[T, 1]`` fp32), the flash ring's ``n -
+    1`` hops of k and v (``[mb, L/n, H/T, hd]`` bf16) each way, Ulysses'
+    all-to-alls of q/k/v and of the output, EP's two all-to-alls of the
+    ``[E, C, D]`` buckets each way."""
+    from ddl25spring_tpu_torch.parallel import ep
+
+    D, S, n, T = run["grid"][0], run["grid"][1], run["grid"][2] or 1, run["grid"][3] or 1
+    M, V, mb, Dm = run["M"], run["V"], 1, cfg.dmodel
+    assert run["rows"] == M * mb
+    e = torch.finfo(getattr(torch, cfg.dtype)).bits // 8  # the compute dtype's bytes
+    s, last = c["stage"], c["stage"] == S - 1
+    Ll = L // n
+    passes = 2 if run["schedule"] in ("1f1b", "interleaved-1f1b") else 1
+    act = mb * Ll * Dm * e
+    total = 2 * M * (2 * V - (s == 0) - last) * act
+    if D * n > 1:
+        total += 2 * 4 * (n_params - n_experts_local)
+    total += 2 * 4 * ((cfg.n_experts > 0) + last * ((n > 1) + (D > 1)))
+    if last and n > 1:
+        total += 2 * 8 * D * run["rows"]
+    per = 0
+    if T > 1:
+        per += (passes + 1) * 2 * 2 * act
+        if cfg.n_experts:
+            per += 2 * mb * Ll * cfg.moe_top_k * 4
+    mode = run["axes"].get("sp_mode")
+    blk = mb * Ll * (Dm // T) * e
+    if mode == "ring" and n > 1:
+        per += (passes + 1) * 4 * (n - 1) * blk
+    elif mode == "ulysses":
+        per += (passes + 1) * 8 * blk
+    if "ep_axis" in run["axes"]:
+        C = ep.capacity(mb * L, cfg.capacity_factor, cfg.moe_top_k, cfg.n_experts)
+        per += (passes + 1) * 2 * 2 * cfg.n_experts * C * Dm * e
+    return total + cfg.n_layers // S * M * per
+
+
+def pipe_oracle(run, dev, tokens):
+    """The fp32 loss, gradients and routers' logits (by layer) of one process
+    on the card from the same weights: ``llama_forward`` + causal-LM loss
+    over the batch (dense), else the mean over the ``M D`` microbatch groups
+    of ``causal_lm_loss + w aux``, each group's MoE dispatched per seq shard
+    under SP (``_moe_composite_fn``)."""
+    from ddl25spring_tpu_torch.models.llama import Llama, export_grads
+    from ddl25spring_tpu_torch.ops.losses import causal_lm_loss
+    from ddl25spring_tpu_torch.utils.device import backend_flags
+
+    cfg = pipe_cfg(run["kind"], "float32")
+    model = Llama(cfg, device=dev, generator=torch.Generator().manual_seed(7))
+    tokens = torch.from_numpy(tokens).long().to(dev)
+    layers = {id(b.moe.router): i for i, b in enumerate(model.blocks)} if cfg.n_experts else {}
+    with backend_flags(**FP32_EXACT), RouterLog(layers) as log:
+        if not cfg.n_experts:
+            total = causal_lm_loss(model(tokens), tokens)
+        else:
+            n = run["grid"][2] or 1
+            fn = _moe_composite_fn(cfg, tokens.shape[1], n) if n > 1 else None
+            groups = tokens.view(run["M"] * run["grid"][0], -1, tokens.shape[1])
+            total = sum(_moe_loss(model, g, cfg, fn)[0] for g in groups) / len(groups)
+        total.backward()
+    return total.item(), export_grads(model), log.logs
+
+
+def _pipe_flips(rank_logs, oracle_logs, top_k=1):
+    """Routing flips: for every distinct router call of the pipeline (the
+    remat schedules call each twice), the tokens whose ordered top-k choice
+    differs from the one-process call on the same tokens (the nearest of
+    the layer's calls)."""
+    flips, calls = 0, 0
+    for layer, logs in rank_logs.items():
+        seen = []
+        for p in logs:
+            if any(p.shape == q.shape and torch.equal(p, q) for q in seen):
+                continue
+            seen.append(p)
+            cands = [q for q in oracle_logs[layer] if q.shape == p.shape]
+            q = min(cands, key=lambda q: float((q - p).abs().max()))
+            flips += int((p.topk(top_k, -1).indices != q.topk(top_k, -1).indices).any(-1).sum())
+            calls += 1
+    return flips, calls
+
+
+def _merge_pipe_grads(run, ranks):
+    """The full gradient tree of a run from its ranks' stage exports: the
+    model indices' TP slices joined, or under EP the replicas' experts, then
+    the stages (the seq shards' gradients are already summed, the replicas'
+    averaged)."""
+    import numpy as np
+
+    from ddl25spring_tpu_torch.models.llama import merge_stage_exports
+    from ddl25spring_tpu_torch.parallel import ep, tp
+
+    by = {tuple(r["coords"].values()): r["exact"]["grads"] for r in ranks}
+    grid = _pipe_grid(run["grid"])
+    stages = []
+    for s in range(grid.size):
+        def at(**idx):
+            c = [idx.get(n, 0) for n in grid.names]
+            c[1] = s
+            return by[tuple(c)]
+
+        if "tp_axis" in run["axes"]:
+            stages.append(tp.merge_tp_params([at(model=t) for t in range(grid.shape[-1])],
+                                             shard_vocab=False))
+        elif "ep_axis" in run["axes"]:
+            shards = [at(data=d) for d in range(grid.data)]
+            moe = dict(shards[0]["blocks"]["moe"])
+            for k in ep.EXPERT_KEYS:
+                moe[k] = np.concatenate([x["blocks"]["moe"][k] for x in shards], 1)
+            stages.append(dict(shards[0], blocks=dict(shards[0]["blocks"], moe=moe)))
+        else:
+            stages.append(at())
+    return merge_stage_exports(stages, num_chunks=run["V"])
+
+
+def pipe_checks(ranks, dev, exact):
+    """Each run of a world: (1) its fp32 step against :func:`pipe_oracle`,
+    loss and gradients within ``GRAD_BAND``, routing flips counted; (2) the
+    bf16 run: losses finite, the same on every last-stage rank and falling,
+    launches exact and all ``wgmma``, the staged bytes the shapes give, the
+    median step (slowest rank) and the all-reduce seconds.  Returns each
+    run's launches per rank per step and its median step."""
+    from ddl25spring_tpu_torch.parallel.bucketing import flatten
+
+    out = {}
+    for name in ranks[0]:
+        run, rs = PIPE_RUNS[name], [r[name] for r in ranks]
+        cfg = pipe_cfg(run["kind"], "bfloat16")
+        rows = run["grid"][0] * run["rows"]
+        want_loss, want_grads, want_logs = pipe_oracle(run, dev, exact[:rows])
+        losses = [r["exact"]["loss"] for r in rs if r["exact"]["loss"] is not None]
+        check(len(losses) == len(rs) // run["grid"][1] and
+              all(excess(v, want_loss, (0.0, GRAD_BAND)) <= 0 for v in losses),
+              f"{name}: fp32 losses {losses} vs one process {want_loss}")
+        grads = _merge_pipe_grads(run, [r for r in rs if r["exact"]["grads"] is not None])
+        err = 0.0
+        for (path, a), (_, b) in zip(flatten(grads), flatten(want_grads), strict=True):
+            e = float(abs(torch.from_numpy(a) - torch.from_numpy(b)).max())
+            check(e <= GRAD_BAND, f"{name}: fp32 grad {path} off one process by {e:.3g}")
+            err = max(err, e)
+        flips = calls = 0
+        for r in rs:
+            if r["coords"].get("model", 0) == 0 and r["exact"]["logits"]:
+                f, k = _pipe_flips(r["exact"]["logits"], want_logs)
+                flips, calls = flips + f, calls + k
+        bf = [r["losses"] for r in rs if r["losses"][0] is not None]
+        check(all(x == bf[0] for x in bf), f"{name}: the last stages' bf16 losses differ")
+        bf = bf[0]
+        check(all(math.isfinite(x) for x in bf) and abs(bf[0] - math.log(4096)) < 1.0,
+              f"{name}: bf16 losses {bf}")
+        first, last_ = statistics.mean(bf[:3]), statistics.mean(bf[-3:])
+        check(last_ < first, f"{name}: bf16 loss did not fall: {bf}")
+        per_rank = []
+        for r in rs:
+            check(r["device"].startswith("cuda"), f"{name}: rank {r['coords']} on {r['device']}")
+            want = {k: v * PIPE_STEPS for k, v in pipe_launches(run, r["coords"]).items()}
+            check(r["launches"] == want,
+                  f"{name}: rank {r['coords']} launches {r['launches']} != {want}")
+            for k in want:
+                check(r["by_variant"][k].get("wgmma", 0) == want[k] and
+                      r["by_variant"][k].get("scalar", 0) == 0,
+                      f"{name}: rank {r['coords']} {k} by variant {r['by_variant'][k]}")
+            staged = {x["bytes_staged"] for x in r["comm"]}
+            expect = pipe_staged_bytes(run, cfg, r["coords"], r["n_params"],
+                                       r["n_experts_local"])
+            check(staged == {expect}, f"{name}: rank {r['coords']} staged {staged} B per step, "
+                                      f"the shapes give {expect}")
+            per_rank.append(pipe_launches(run, r["coords"]))
+        steady = [max(r["step_s"][i] for r in rs) for i in range(1, PIPE_STEPS)]
+        step_ms = statistics.median(steady) * 1e3
+        ar = [round(statistics.median(x["allreduce_s"] for x in r["comm"][1:]) * 1e3, 3)
+              for r in rs]
+        staged = sorted({x["bytes_staged"] for r in rs for x in r["comm"]})
+        print(f"  {name}: fp32 loss {losses[0]:.6f} vs one process {want_loss:.6f}, grads max "
+              f"abs err {err:.2e}, routing flips {flips} over {calls} router calls; bf16 "
+              f"loss {first:.4f} (first 3) -> {last_:.4f} (last 3); step median "
+              f"{step_ms:.3f} ms (slowest rank, steps 1..{PIPE_STEPS - 1}, host clock); "
+              f"all-reduce ms per rank {ar}; staged B per rank per step {staged} (exact); "
+              f"flash launches per rank per step {[p['fwd'] for p in per_rank]} fwd, "
+              f"{[p['dq'] for p in per_rank]} dq/dkv, all wgmma", flush=True)
+        out[name] = {"launches": per_rank, "step_ms": step_ms, "err": err, "flips": flips}
+    return out
+
+
+def pipe_refusals():
+    """(d): Ulysses under PP x SP x TP raises before any rank starts: the 3
+    local heads of TP 2 do not split over seq 2."""
+    from ddl25spring_tpu_torch.parallel.comm import Comm
+    from ddl25spring_tpu_torch.parallel.pipeline import check_compositions
+    from ddl25spring_tpu_torch.utils.mesh import Mesh
+
+    grid = _pipe_grid((1, 2, 2, 2))
+    mesh = Mesh(grid, 0, torch.device("cpu"), "gloo", Comm("gloo", torch.device("cpu")),
+                {n: None for n in grid.names})
+    try:
+        check_compositions(pipe_cfg("dense", "bfloat16"), mesh, "gpipe", seq_axis="seq",
+                           tp_axis="model", sp_mode="ulysses")
+    except ValueError as e:
+        check("local heads (3)" in str(e), f"(d) Ulysses raised {e}")
+        print(f"  (d) sp-tp ulysses: ValueError: {e}")
+    else:
+        check(False, "(d) Ulysses over 3 local heads and seq 2 did not raise")
+
+
+def pipe_kernel_checks(dev):
+    """The kernels at ``PIPE_KERNEL_CASES`` against their plain versions on the
+    ``wgmma`` variant, and the autograd Functions on the card against the
+    CPU (:func:`sp_tp_kernel_checks`' checks); the max abs errors."""
+    from ddl25spring_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(14)
+    errs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    for B, H, L, causal in PIPE_KERNEL_CASES:
+        e = kernel_case(fa, gen, dev, B * H, L, L, 48, torch.bfloat16, causal)
+        errs = {n: max(errs[n], e[n]) for n in errs}
+        for with_lse in (True, False):
+            autograd_case(fa, gen, dev, (B, L, H, 48), torch.bfloat16, causal, with_lse)
+    return errs
+
+
+def pipe_phase(dev):
+    """Phase 14: the pipeline compositions on the card, two worlds (6 ranks:
+    (a); 8 ranks: (b)-(d)), each sub-phase timed; returns the runs'
+    launches, the kernels' errors at the new shapes and their times."""
+    import numpy as np
+
+    from ddl25spring_tpu_torch.data.tinystories import TinyStories
+    from ddl25spring_tpu_torch.data.tokenizer import get_tokenizer
+    from ddl25spring_tpu_torch.ops import _build
+    from ddl25spring_tpu_torch.parallel.launch import spawn
+
+    _build.build(_build.CSRC / "flash_attention.cu", _build.CSRC / "flash_attention_sm90.cu")
+    t_phase = time.perf_counter()
+    exact = _token_batches(pipe_cfg("dense", "float32"), 6, 1, seed=23)[0]
+    ds = iter(TinyStories(get_tokenizer(), batch_size=6, seq_l=256, seed=0))
+    batches = [np.asarray(next(ds)) for _ in range(PIPE_STEPS)]
+    runs = {}
+    for world in (6, 8):
+        t0 = time.perf_counter()
+        ranks = spawn(pipe_comp_rank, world, world, exact, batches, dev.type,
+                      timeout=SPAWN_TIMEOUT)
+        print(f"  {world} ranks, backend {sorted({r[n]['backend'] for r in ranks for n in r})}:"
+              f" {time.perf_counter() - t0:.1f} s", flush=True)
+        runs.update(pipe_checks(ranks, dev, exact))
+        print(f"  the {world}-rank world took {time.perf_counter() - t0:.1f} s", flush=True)
+    pipe_refusals()
+    t0 = time.perf_counter()
+    errs = pipe_kernel_checks(dev)
+    cases = [(B, H, L, torch.bfloat16, causal) for B, H, L, causal in PIPE_KERNEL_CASES]
+    (times, lines), = spawn(kernel_times_at, 1, cases, "(e)", timeout=SPAWN_TIMEOUT)
+    for line in lines:
+        print(line)
+    print(f"  (e) took {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"  phase 14 took {time.perf_counter() - t_phase:.1f} s (after the build)")
+    return {"runs": runs, "max_abs_err": errs, "times": times}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2970,6 +3448,13 @@ def main() -> int:
     moe = moe_phase(dev)
     print(f"  phase 13 in {time.perf_counter() - t0:.1f} s")
 
+    print("== the pipeline compositions on the card: EP x DP x PP (6 ranks), DP x PP x TP, "
+          "DP x PP x SP and PP x SP x TP (8 ranks), all on cuda:0")
+    print(card)
+    t0 = time.perf_counter()
+    pipe = pipe_phase(dev)
+    print(f"  phase 14 in {time.perf_counter() - t0:.1f} s")
+
     kernels = [
         {"name": f"flash_{name}", "route": "cuda", "source": SOURCE[timing[name]["variant"]],
          "replaces": REPLACES[name], "launches": launches[name],
@@ -2978,7 +3463,10 @@ def main() -> int:
                                      for layout, per_rank in sptp["launches"].items()},
          "launches_moe_per_step": {k: c[name] for k, c in moe["launches"].items()
                                    if k != "dense"},
+         "launches_pipeline_compositions_per_rank": {
+             run: [c[name] for c in r["launches"]] for run, r in pipe["runs"].items()},
          "max_abs_err": main_err[name], "max_abs_err_sp_tp": sptp["max_abs_err"][name],
+         "max_abs_err_pipeline_compositions": pipe["max_abs_err"][name],
          **timing[name]}
         for name in ("fwd", "dq", "dkv")
     ]

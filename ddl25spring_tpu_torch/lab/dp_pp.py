@@ -9,7 +9,9 @@ BASELINE benchmark config, ``lab/run-b2.sh:7-9``) is described below.
 pipelines of three stages, ranks ``0..2`` and ``3..5``, the DP group of each
 stage ``[0, 3] / [1, 4] / [2, 5]``; the workload constants
 (vocab 4096, dmodel 288, 6 heads, 6 layers, ctx 256), 3 rows per replica in
-3 microbatches, Adam 8e-4 (``utils/config.py`` ``DpPpConfig``).  Each rank holds one
+3 microbatches, Adam 8e-4 (``utils/config.py`` ``DpPpConfig``), 200 steps;
+``--batch`` (global), ``--microbatches``, ``--lr`` and ``--iters`` change
+them with the JAX lab's meanings (:func:`llama_job`).  Each rank holds one
 :class:`~ddl25spring_tpu_torch.models.llama.LlamaStage` (``--chunks V``
 of them under an interleaved schedule) and runs the step of
 :mod:`~ddl25spring_tpu_torch.parallel.pipeline` under ``--schedule``
@@ -72,7 +74,7 @@ cards, or the CPU, between N processes: the port's form of
 and puts both back after.
 
 Run: ``python -m ddl25spring_tpu_torch.lab.dp_pp [--pp --ranks 4] [--input hbm]``
-     ``python -m ddl25spring_tpu_torch.lab.dp_pp --workload llama [--iters 20]
+     ``python -m ddl25spring_tpu_torch.lab.dp_pp --workload llama [--iters 200]
 [--device cuda] [--schedule interleaved-1f1b --chunks 2]``
 """
 
@@ -129,6 +131,9 @@ class Job:
     schedule: str = "gpipe"
     chunks: int = 1             # layer chunks per rank (the interleaved schedules)
     scan_steps: int = 1         # train steps per dispatch (fuse_train_steps)
+
+
+LLAMA_ITERS = 200  # the JAX labs' default (lab/s01_b2_dp_pp.py:140)
 
 
 def world_totals(mesh, flops: int, seconds: list[float]) -> tuple[int, list[float]]:
@@ -214,7 +219,7 @@ def parse_args(argv=None):
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--workload", choices=("resnet", "llama"), default="resnet")
     ap.add_argument("--iters", type=int, default=0,
-                    help="0 = the workload's default (llama 20, resnet 30)")
+                    help="0 = the workload's default (llama 200, resnet 30)")
     ap.add_argument("--schedule", choices=SCHEDULES, default="gpipe",
                     help="llama: the pipeline schedule")
     ap.add_argument("--chunks", type=int, default=2, metavar="V",
@@ -237,10 +242,11 @@ def parse_args(argv=None):
     ap.add_argument("--ranks", type=int, default=0,
                     help="resnet: rank processes; 0 = one per card (one on the CPU)")
     ap.add_argument("--batch", type=int, default=0,
-                    help="resnet: global batch; 0 = 1024 per rank on CUDA, 4 on the CPU")
+                    help="global batch; 0 = llama 3 per replica, resnet 1024 per rank on "
+                         "CUDA and 4 on the CPU")
     ap.add_argument("--microbatches", type=int, default=0,
-                    help="resnet: microbatches under --pp; 0 = 2")
-    ap.add_argument("--lr", type=float, default=0.0, help="resnet: 0 = 0.1")
+                    help="0 = llama 3, resnet 2 (under --pp)")
+    ap.add_argument("--lr", type=float, default=0.0, help="0 = llama 8e-4, resnet 0.1")
     ap.add_argument("--input", choices=("auto", "hbm-scan", "hbm", "fixed"), default="auto",
                     help="resnet: 'hbm' = the train split on the device, reshuffled "
                          "per epoch; 'hbm-scan' = the same, K steps per dispatch with the "
@@ -261,25 +267,11 @@ def main(argv=None, layout: DpPpConfig = DpPpConfig()) -> dict:
     args = parse_args(argv)
     if args.workload == "resnet":
         return run_resnet(args)
-    D, S, M = layout.data, layout.num_stages, layout.num_microbatches
-    V = args.chunks if args.schedule in INTERLEAVED else 1
-    check_layout(args.schedule, S, V, M)
-    device = resolve_device(args.device)
-    K, why = llama_scan_steps(args.scan_steps, device, D * S)
-    asked = args.iters or 20
-    iters = max(1, asked // K)  # dispatches
-    if iters * K != asked:
-        print(f"note: --iters {asked} adjusted to {iters * K} (a dispatch runs {K} fused "
-              "steps; use --scan-steps to change the granularity)", flush=True)
-    cfg = LlamaConfig(ctx_size=args.seq_len,
-                      dtype="bfloat16" if device.type == "cuda" else "float32",
-                      use_flash=not args.no_flash)
-    if cfg.n_layers % (S * V):
-        raise ValueError(f"{cfg.n_layers} layers not divisible by S*V = {S}*{V}")
-    job = Job(cfg, D, S, M, batch=D * layout.per_replica_batch, iters=iters,
-              lr=layout.learning_rate, seed=args.seed, device=device.type,
-              schedule=args.schedule, chunks=V, scan_steps=K)
-    print(f"llama DPxPP: {D} x {S} ranks, {M} microbatches, {layout.per_replica_batch} rows "
+    job, why = llama_job(args, layout)
+    D, S, M, V, K = job.data, job.stages, job.microbatches, job.chunks, job.scan_steps
+    device = torch.device(job.device)
+    cfg = job.cfg
+    print(f"llama DPxPP: {D} x {S} ranks, {M} microbatches, {job.batch // D} rows "
           f"per replica, ctx {args.seq_len}, {cfg.dtype}, "
           f"attention={'flash' if cfg.use_flash else 'dense'}, schedule {args.schedule}"
           + (f" ({V} chunks per rank)" if V > 1 else "") + f", device={device.type}, "
@@ -297,6 +289,41 @@ def main(argv=None, layout: DpPpConfig = DpPpConfig()) -> dict:
           f"{statistics.median(timed) * 1e3:.2f} ms)", flush=True)
     return {"losses": log["losses"], "step_s": step_s, "tokens_per_s": tokens_per_s,
             "ranks": ranks}
+
+
+def llama_job(args, layout: DpPpConfig) -> tuple[Job, str]:
+    """The LLaMA run that ``args`` (:func:`parse_args`) asks for on
+    ``layout``'s grid, and the header's reason for the steps per dispatch.
+    The flags keep the JAX labs' meanings (``lab/s01_b2_dp_pp.py:126-140``,
+    ``lab/s01_b1_microbatches.py:27-38``): ``--batch`` is the global batch
+    (0: ``per_replica_batch`` per replica), ``--microbatches`` M (0:
+    ``num_microbatches``), ``--lr`` Adam's rate (0: ``learning_rate``),
+    ``--iters`` the steps (0: 200).  A batch that does not split into M
+    microbatches of whole rows per replica raises, as the JAX step's shapes
+    do."""
+    D, S = layout.data, layout.num_stages
+    M = args.microbatches or layout.num_microbatches
+    batch = args.batch or D * layout.per_replica_batch
+    if batch % (M * D):
+        raise ValueError(f"batch {batch} not divisible by {M} microbatches x {D} replicas")
+    V = args.chunks if args.schedule in INTERLEAVED else 1
+    check_layout(args.schedule, S, V, M)
+    device = resolve_device(args.device)
+    K, why = llama_scan_steps(args.scan_steps, device, D * S)
+    asked = args.iters or LLAMA_ITERS
+    iters = max(1, asked // K)  # dispatches
+    if iters * K != asked:
+        print(f"note: --iters {asked} adjusted to {iters * K} (a dispatch runs {K} fused "
+              "steps; use --scan-steps to change the granularity)", flush=True)
+    cfg = LlamaConfig(ctx_size=args.seq_len,
+                      dtype="bfloat16" if device.type == "cuda" else "float32",
+                      use_flash=not args.no_flash)
+    if cfg.n_layers % (S * V):
+        raise ValueError(f"{cfg.n_layers} layers not divisible by S*V = {S}*{V}")
+    job = Job(cfg, D, S, M, batch=batch, iters=iters, lr=args.lr or layout.learning_rate,
+              seed=args.seed, device=device.type, schedule=args.schedule, chunks=V,
+              scan_steps=K)
+    return job, why
 
 
 def _layout_refusal(device, world: int) -> Exception | None:

@@ -383,17 +383,20 @@ def llama_forward_with_aux(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
 
 
 def stage_forward(stage: LlamaStage, x: torch.Tensor, cfg: LlamaConfig,
-                  with_aux: bool = False):
+                  with_aux: bool = False, **block_kw):
     """One pipeline stage: ``tokens [B, L]`` on the first stage, activations
     ``[B, L, D]`` in ``cfg.dtype`` elsewhere; returns float32 logits on the last
     stage, activations otherwise.  ``with_aux``: ``(out, aux)``, the stage's
     MoE aux loss summed over its layers; a MoE stage needs it (and raises
-    without it, as :func:`llama_forward` does)."""
+    without it, as :func:`llama_forward` does).  ``block_kw`` (``tp_axis``,
+    ``moe_fn``, ``pos``, ``attn_fn``) goes to every :func:`block_forward`: the
+    parallel hooks of a stage under TP, EP or SP; the embedding and the head
+    stay whole."""
     if not with_aux:
         _refuse_moe(cfg, "stage_forward(with_aux=True)")
     if stage.first:
         x = embed(stage, x, cfg)
-    x, aux = apply_blocks(stage.blocks, x, cfg)
+    x, aux = apply_blocks(stage.blocks, x, cfg, **block_kw)
     out = unembed(stage, x, cfg) if stage.last else x
     return (out, aux) if with_aux else out
 
@@ -401,40 +404,47 @@ def stage_forward(stage: LlamaStage, x: torch.Tensor, cfg: LlamaConfig,
 # ------------------------------------------------------------ weight bridge
 
 
-def _put(param: nn.Parameter, value, name: str):
+def _put(param: nn.Parameter, value, name: str, resize: bool):
     value = np.asarray(value)
+    if resize:
+        param.data = torch.from_numpy(np.array(value, dtype=np.float32)).to(param.device)
+        return
     if tuple(value.shape) != tuple(param.shape):
         raise ValueError(f"{name}: shape {value.shape} != {tuple(param.shape)}")
     param.copy_(torch.from_numpy(np.array(value, dtype=np.float32)))
 
 
 @torch.no_grad()
-def load_jax_params(model: Llama | LlamaStage, np_params: dict):
+def load_jax_params(model: Llama | LlamaStage, np_params: dict, resize: bool = False):
     """Copy the reference's parameter pytree (numpy leaves: ``embed [V, D]``,
     stacked ``blocks.<key> [L, ...]`` with a MoE model's under
     ``blocks.moe.<key>``, ``ln_f``, ``unembed [D, V]``) into ``model`` (a
-    stage takes the keys it holds).  Shapes must match exactly."""
+    stage takes the keys it holds).  Shapes must match exactly, unless
+    ``resize``: then each parameter takes its value's shape (a rank's slice
+    under TP or EP; build the optimizer after)."""
     given = dict(flatten(np_params))
     for path, leaf in flatten(model.param_tree()):
         if path not in given:
             raise ValueError(f"{path}: not in the pytree")
         value = given[path]
         if isinstance(leaf, torch.Tensor):
-            _put(leaf, value, path)
+            _put(leaf, value, path, resize)
             continue
         if len(value) != len(leaf):
             raise ValueError(f"{path}: {len(value)} layers != {len(leaf)}")
         for i, param in enumerate(leaf):
-            _put(param, value[i], f"{path}[{i}]")
+            _put(param, value[i], f"{path}[{i}]", resize)
     return model
 
 
-def load_stage_params(stage: LlamaStage | LlamaChunkedStage, staged: dict):
+def load_stage_params(stage: LlamaStage | LlamaChunkedStage, staged: dict,
+                      resize: bool = False):
     """Copy stage ``stage.stage``'s slice of the reference's staged pytree into
     ``stage``: its layers, and whichever of ``embed``, ``ln_f``, ``unembed``
     it holds.  A :class:`LlamaStage` takes blocks ``[S, L/S, ...]`` (from
     :func:`split_blocks_for_stages`), a :class:`LlamaChunkedStage` blocks
-    ``[S, V, L/(S V), ...]`` (from :func:`split_blocks_interleaved`)."""
+    ``[S, V, L/(S V), ...]`` (from :func:`split_blocks_interleaved`).
+    ``resize`` as in :func:`load_jax_params`."""
     n = len(staged["blocks"]["wq"])
     if n != stage.num_stages:
         raise ValueError(f"pytree split into {n} stages, the stage is one of "
@@ -450,7 +460,7 @@ def load_stage_params(stage: LlamaStage | LlamaChunkedStage, staged: dict):
             raise ValueError(f"pytree split into {len(mine['blocks']['wq'])} chunks, the "
                              f"stage holds {stage.num_chunks}")
         mine["blocks"] = map_blocks(lambda v: v.reshape((-1,) + v.shape[2:]), mine["blocks"])
-    return load_jax_params(stage, mine)
+    return load_jax_params(stage, mine, resize)
 
 
 def _export(model: nn.Module, grads: bool) -> dict:

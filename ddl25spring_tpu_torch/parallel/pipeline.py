@@ -67,12 +67,15 @@ from ddl25spring_tpu_torch.models.llama import (
     LlamaChunkedStage,
     LlamaStage,
     load_stage_params,
+    merge_blocks_from_stages,
+    merge_blocks_interleaved,
     split_blocks_for_stages,
     split_blocks_interleaved,
     stage_forward,
 )
 from ddl25spring_tpu_torch.ops.losses import causal_lm_loss
-from ddl25spring_tpu_torch.parallel import bucketing
+from ddl25spring_tpu_torch.parallel import bucketing, ep, sp, tp
+from ddl25spring_tpu_torch.parallel.bucketing import parts
 from ddl25spring_tpu_torch.parallel.dp import grad_leaves, param_leaves
 from ddl25spring_tpu_torch.parallel.schedule import (  # noqa: F401 (re-exported)
     INTERLEAVED,
@@ -88,15 +91,36 @@ from ddl25spring_tpu_torch.parallel.schedule import (  # noqa: F401 (re-exported
 from ddl25spring_tpu_torch.utils.config import LlamaConfig
 
 
-def shard_staged_params(params: dict, cfg: LlamaConfig, mesh, num_chunks: int = 1):
+def shard_staged_params(params: dict, cfg: LlamaConfig, mesh, num_chunks: int = 1, *,
+                        ep_axis: str | None = None, tp_axis: str | None = None):
     """This rank's stage on ``mesh.device``, loaded from the reference's
     parameter pytree (numpy leaves): full (blocks ``[L, ...]``), staged by
     ``split_blocks_for_stages`` (``[S, L/S, ...]``) or by
     ``split_blocks_interleaved`` (``[S, V, L/(S V), ...]``).  A
     :class:`~ddl25spring_tpu_torch.models.llama.LlamaStage` for one chunk, a
     :class:`~ddl25spring_tpu_torch.models.llama.LlamaChunkedStage` of
-    ``num_chunks`` for the interleaved schedules."""
+    ``num_chunks`` for the interleaved schedules.
+
+    ``ep_axis`` (the data axis, EP x DP x PP): the switch-MoE expert stacks
+    keep replica ``d``'s ``E/D`` experts, ``[d E/D, (d+1) E/D)``, as the
+    JAX ``staged_param_specs(ep_axis=)`` (``pipeline.py:86-96``) shards dim
+    2 of the ``[S, L/S, E, ...]`` stacks.  ``tp_axis`` (DP x PP x TP): the
+    blocks keep model index ``t``'s Megatron slices, ``wq``/``wk``/``wv``/
+    ``w_gate``/``w_up`` by column and ``wo``/``w_down`` by row, a MoE
+    block's expert stacks ``E/T`` experts (``:97-121``); the router, the
+    norms, ``embed``, ``ln_f`` and ``unembed`` stay whole (``P()`` there).
+    The two exclude each other, as in JAX."""
+    _check_ep_tp(ep_axis, tp_axis)
     S, s = mesh.grid.size, mesh.coords[1]
+    if ep_axis is not None or tp_axis is not None:
+        params = _full(params)
+        if tp_axis is not None:
+            ax = mesh.axis(tp_axis)
+            params = tp.shard_tp_params(params, ax.size, ax.index, shard_vocab=False)
+        if ep_axis is not None:
+            ax = mesh.axis(ep_axis)
+            params = dict(params, blocks=dict(params["blocks"], moe=_expert_slice(
+                params["blocks"]["moe"], ax.size, ax.index)))
     if np.ndim(params["blocks"]["wq"]) == 3:
         params = (split_blocks_interleaved(params, S, num_chunks) if num_chunks > 1
                   else split_blocks_for_stages(params, S))
@@ -105,7 +129,32 @@ def shard_staged_params(params: dict, cfg: LlamaConfig, mesh, num_chunks: int = 
         stage = LlamaChunkedStage(cfg, s, S, num_chunks, device=mesh.device, generator=gen)
     else:
         stage = LlamaStage(cfg, s, S, device=mesh.device, generator=gen)
-    return load_stage_params(stage, params)
+    return load_stage_params(stage, params, resize=ep_axis is not None or tp_axis is not None)
+
+
+def _full(params: dict) -> dict:
+    """``params`` with its blocks stacked ``[L, ...]``, from any of the three
+    layouts :func:`shard_staged_params` takes."""
+    nd = np.ndim(params["blocks"]["wq"])
+    if nd == 4:
+        return merge_blocks_from_stages(params)
+    return merge_blocks_interleaved(params) if nd == 5 else params
+
+
+def _expert_slice(moe: dict, n: int, i: int) -> dict:
+    """Index ``i`` of ``n``'s experts of each ``[L, E, ...]`` expert stack;
+    the router whole."""
+    E = np.shape(moe["router"])[-1]
+    if E % n:
+        raise ValueError(f"{E} experts do not split over {n} ranks")
+    El = E // n
+    return {k: np.asarray(v) if k not in ep.EXPERT_KEYS
+            else np.asarray(v)[:, i * El:(i + 1) * El] for k, v in moe.items()}
+
+
+def _check_ep_tp(ep_axis, tp_axis):
+    if ep_axis is not None and tp_axis is not None:
+        raise NotImplementedError("ep_axis and tp_axis are exclusive")
 
 
 def _microbatches(batch: dict, M: int, D: int, d: int, device) -> list[dict]:
@@ -152,7 +201,8 @@ class _Run:
         return self
 
     def _peer(self, stage: int) -> int:
-        return self.ex.mesh.grid.rank(self.ex.d, stage)
+        mesh = self.ex.mesh
+        return mesh.grid.moved(mesh.rank, mesh.grid.axis, stage)
 
     def _exchange(self, ops):
         ex = self.ex
@@ -246,10 +296,12 @@ class Executor:
     :func:`make_schedule_train_step`)."""
 
     def __init__(self, chunk_fns, mesh, num_microbatches: int, schedule: str, *, in_shape,
-                 hop_dtype, inject_fn, loss_fn, extra_loss: bool = False):
+                 hop_dtype, inject_fn, loss_fn, extra_loss: bool = False,
+                 share_axis: str | None = None):
         self.chunk_fns, self.mesh, self.M = list(chunk_fns), mesh, num_microbatches
         self.S, self.V, self.D = mesh.grid.size, len(self.chunk_fns), mesh.grid.data
-        self.d, self.s = mesh.coords
+        self.d, self.s = mesh.coords[:2]
+        self.share_axis = share_axis
         check_layout(schedule, self.S, self.V, self.M)
         check_deadlock_free(schedule, self.S, self.V, self.M)
         self.schedule, self.remat = schedule, schedule in REMAT
@@ -267,7 +319,8 @@ class Executor:
         """The mean loss over microbatches and replicas on the last stage,
         None on the others.  With ``extra_loss`` every rank first adds up its
         chunks' own terms and one sum over the stage group brings them to the
-        last stage."""
+        last stage; with ``share_axis`` one sum over that axis adds up the
+        shares."""
         extra = None
         if self.extra_loss:
             extra = (torch.stack(run.extras).sum() if run.extras
@@ -278,6 +331,8 @@ class Executor:
         loss = torch.stack(run.losses).mean()
         if extra is not None:
             loss = loss + extra / self.M
+        if self.share_axis is not None:
+            self.mesh.comm.all_reduce_sum_([loss], self.mesh.axis(self.share_axis).group)
         if self.D > 1:
             self.mesh.comm.all_reduce_mean_([loss], self.mesh.dp_group)
         return loss
@@ -303,7 +358,8 @@ def make_schedule_loss(chunk_fns, mesh, num_microbatches: int, schedule: str = "
 def make_schedule_train_step(chunk_fns, module: torch.nn.Module,
                              optimizer: torch.optim.Optimizer, mesh, num_microbatches: int,
                              schedule: str = "gpipe", *, in_shape, hop_dtype, inject_fn,
-                             loss_fn, extra_loss: bool = False, bucket_bytes=bucketing.AUTO):
+                             loss_fn, extra_loss: bool = False, bucket_bytes=bucketing.AUTO,
+                             share_axis: str | None = None, data_sharded=()):
     """The train step of one rank of a ``D x S`` grid under ``schedule``, for
     any model cut into ``S * V`` chunks.
 
@@ -324,20 +380,42 @@ def make_schedule_train_step(chunk_fns, module: torch.nn.Module,
     make_dp_train_step`), steps ``optimizer``, and returns the loss (the
     mean over microbatches and replicas) on the last stage, None on the
     others.  ``step.stats["stash_max"]`` is the most microbatch-chunks the
-    last step held in flight at once."""
+    last step held in flight at once.
+
+    On a grid with more axes than ``data x stage`` (``data`` outermost,
+    ``stage`` second) the pipeline's peers are the ranks that differ from
+    this one only in ``stage``.  ``share_axis``: each rank's loss is its
+    share of its replica's, summed over that axis (sequence parallelism),
+    as are the gradients: one all-reduce over ``data`` and ``share_axis``
+    together averages them, times the axis' size.  ``data_sharded``: the
+    parameters that differ between replicas (expert parallelism's expert
+    stacks), whose gradients already hold every replica's share: they are
+    divided by ``D`` in place of the average."""
     ex = Executor(chunk_fns, mesh, num_microbatches, schedule, in_shape=in_shape,
                   hop_dtype=hop_dtype, inject_fn=inject_fn, loss_fn=loss_fn,
-                  extra_loss=extra_loss)
-    leaves = param_leaves(module)
+                  extra_loss=extra_loss, share_axis=share_axis)
+    mine = {id(p) for p in data_sharded}
+    leaves = [leaf for leaf in param_leaves(module) if id(parts(leaf)[0]) not in mine]
+    local = [p for p in module.parameters() if id(p) in mine]
     bb = bucketing.resolve_bucket_bytes(bucket_bytes)
     plan = bucketing.plan_buckets(leaves, bb) if bb else None
+    if share_axis is None:
+        group, n_share = (mesh.dp_group if ex.D > 1 else None), 1
+    else:
+        names = ("data", share_axis) if ex.D > 1 else share_axis
+        group, n_share = mesh.axis(names).group, mesh.axis(share_axis).size
 
     def step(batch: dict):
         optimizer.zero_grad(set_to_none=True)
         run = _Run(ex, batch, grad=True, forward_only=False).run()
         step.stats.update(stash_max=run.stash_max)
-        if ex.D > 1:
-            mesh.comm.bucketed_all_reduce_mean_(grad_leaves(leaves), mesh.dp_group, plan)
+        if ex.D * n_share > 1:
+            grads = grad_leaves(leaves)
+            mesh.comm.bucketed_all_reduce_mean_(grads, group, plan)
+            if n_share > 1:
+                torch._foreach_mul_([g for leaf in grads for g in parts(leaf)], n_share)
+        if ex.D > 1 and local:
+            torch._foreach_div_([p.grad for p in local], ex.D)
         optimizer.step()
         return ex.mean_loss(run)
 
@@ -345,10 +423,63 @@ def make_schedule_train_step(chunk_fns, module: torch.nn.Module,
     return step
 
 
+SP_SCHEDULES = ("gpipe", "1f1b", "interleaved-1f1b")
+
+
+def check_compositions(cfg: LlamaConfig, mesh, schedule: str, *, ep_axis=None,
+                       tp_axis=None, seq_axis=None, sp_mode: str = "ring"):
+    """The JAX package's refusals of the pipeline compositions, with its
+    messages: EP with TP (``staged_param_specs``), SP outside gpipe, 1f1b and
+    interleaved-1f1b (``make_pipeline_train_step``), SP with EP
+    (``make_pipeline_loss``), SP with MoE under the 1F1B backward
+    (``make_1f1b_value_and_grad``), an SP mode or a Ulysses head count that
+    does not fit (``_check_sp``: the local heads ``H / T`` under TP), heads or
+    experts that do not split over TP (``_check_tp``), and EP without
+    experts, EP over any axis but ``data``, experts that do not split over
+    it (``_ep_moe_fn``)."""
+    _check_ep_tp(ep_axis, tp_axis)
+    if seq_axis is not None:
+        if schedule not in SP_SCHEDULES:
+            raise NotImplementedError(
+                "seq_axis rides gpipe, 1f1b, and interleaved-1f1b (the residual-stash and "
+                "scan-transpose-interleaved backwards are not wired for sequence-sharded "
+                "stages)")
+        if ep_axis is not None:
+            raise NotImplementedError(
+                "seq_axis with ep_axis is not wired (the EP a2a over data and the ring "
+                "over seq are untested together)")
+        if schedule != "gpipe" and cfg.n_experts > 0:
+            raise NotImplementedError("SP under 1F1B ships dense blocks (no MoE/EP "
+                                      "composition)")
+        if sp_mode not in sp.MODES:
+            raise ValueError(f"unknown SP mode {sp_mode!r}")
+        n = mesh.axis(seq_axis).size
+        local_heads = cfg.num_heads // (mesh.axis(tp_axis).size if tp_axis else 1)
+        if sp_mode == "ulysses" and local_heads % n:
+            raise ValueError(f"ulysses SP needs local heads ({local_heads}) divisible by "
+                             f"the {seq_axis!r} axis size ({n})")
+    if tp_axis is not None:
+        t = mesh.axis(tp_axis).size
+        if cfg.num_heads % t:
+            raise ValueError(f"num_heads ({cfg.num_heads}) not divisible by {tp_axis}={t}")
+        if cfg.n_experts > 0 and cfg.n_experts % t:
+            raise ValueError(f"n_experts ({cfg.n_experts}) not divisible by {tp_axis}={t}")
+    if ep_axis is not None:
+        if cfg.n_experts <= 0:
+            raise ValueError("ep_axis given but cfg.n_experts == 0")
+        if ep_axis != "data":
+            raise ValueError(f"ep_axis {ep_axis!r} must be the data axis 'data'")
+        n = mesh.axis(ep_axis).size
+        if cfg.n_experts % n:
+            raise ValueError(f"{cfg.n_experts} experts not divisible by {ep_axis}={n}")
+
+
 def make_pipeline_train_step(stage: LlamaStage | LlamaChunkedStage, cfg: LlamaConfig,
                              optimizer: torch.optim.Optimizer, mesh,
                              num_microbatches: int, schedule: str = "gpipe",
-                             num_chunks: int = 1, bucket_bytes=bucketing.AUTO):
+                             num_chunks: int = 1, bucket_bytes=bucketing.AUTO, *,
+                             ep_axis: str | None = None, tp_axis: str | None = None,
+                             seq_axis: str | None = None, sp_mode: str = "ring"):
     """The train step of one LLaMA rank of a ``D x S`` grid (``D = 1``: the
     pipeline alone; ``D > 1``: DP x PP, the JAX step with ``data_axis``) under
     ``schedule``, one of :data:`SCHEDULES`:
@@ -366,33 +497,110 @@ def make_pipeline_train_step(stage: LlamaStage | LlamaChunkedStage, cfg: LlamaCo
     mean over the ``M D`` microbatches of ``causal_lm_loss + w aux``, the JAX
     scalar (``pipeline.py:289-297``).
 
-    ``step(tokens)`` takes the global ``[B, L]`` batch, ``B = M * D * mb``,
-    and returns the loss on the last stage, None on the others."""
+    The compositions, with the JAX names (``pipeline.py:1258``), each on a
+    grid with that axis (:func:`~ddl25spring_tpu_torch.utils.mesh.init_mesh`)
+    and the stage from :func:`shard_staged_params` with the same axes:
+
+    - ``ep_axis="data"`` (EP x DP x PP, MoE configs, every schedule): each
+      chunk's MoE runs :func:`~ddl25spring_tpu_torch.parallel.ep.ep_moe_local`
+      over the stage's DP group, routing and capacity per replica decided
+      before the all-to-all, so loss and gradients are the replicated-expert
+      pipeline's, drops included.  An expert stack's gradient already holds
+      every replica's tokens (the all-to-all's backward brought them): it is
+      divided by ``D``, not averaged (the JAX ``1/n``, ``:1190-1205``);
+    - ``tp_axis`` (DP x PP x TP, every schedule): Megatron slices inside
+      each block (``block_forward(tp_axis=)``; MoE: the expert-sharded
+      :func:`~ddl25spring_tpu_torch.parallel.tp.make_tp_moe_fn`); the
+      embedding and the head are whole, so every hop carries the full
+      activation between the same model index of neighbouring stages, the
+      loss is the same on every member and every gradient is whole;
+    - ``seq_axis`` with ``sp_mode`` ``"ring"`` or ``"ulysses"`` (SP inside
+      the stages; gpipe, 1f1b and interleaved-1f1b, MoE under gpipe only):
+      index ``i`` of ``n`` holds the positions ``[i L/n, (i+1) L/n)``, the
+      blocks take their global RoPE positions and the attention of
+      :func:`~ddl25spring_tpu_torch.parallel.sp.make_sp_attn_fn` (the flash
+      ring under ``cfg.use_flash``), the last stage's targets come from one
+      shift over ``seq`` before the schedule runs, and each rank's loss is
+      its share, its cross-entropy sum over the global count of predicted
+      positions (a MoE chunk's aux over ``n``, the shards' mean): the shares
+      and their gradients are summed over ``seq`` (``share_axis``).  Composes
+      with ``tp_axis`` (PP x SP x TP).
+
+    :func:`check_compositions` raises, before anything runs, on what the JAX
+    package refuses.  ``step(tokens)`` takes the global ``[B, L]`` batch,
+    ``B = M * D * mb``, and returns the loss on the last stage (the same on
+    every member of its ``model`` and ``seq`` lines), None on the others."""
     chunks = stage.chunks if isinstance(stage, LlamaChunkedStage) else [stage]
     if len(chunks) != num_chunks:
         raise ValueError(f"the stage holds {len(chunks)} chunks, num_chunks={num_chunks}")
+    check_compositions(cfg, mesh, schedule, ep_axis=ep_axis, tp_axis=tp_axis,
+                       seq_axis=seq_axis, sp_mode=sp_mode)
     moe = cfg.n_experts > 0
+    block_kw = {}
+    if tp_axis is not None:
+        block_kw["tp_axis"] = mesh.axis(tp_axis)
+        if moe:
+            block_kw["moe_fn"] = tp.make_tp_moe_fn(block_kw["tp_axis"], cfg.capacity_factor,
+                                                   cfg.moe_top_k)
+    if ep_axis is not None:
+        ep_ax = mesh.axis(ep_axis)
+
+        def ep_moe(mp, flat):
+            return ep.ep_moe_local(mp, flat, ep_ax, cfg.capacity_factor, top_k=cfg.moe_top_k)
+
+        block_kw["moe_fn"] = ep_moe
+    seq = mesh.axis(seq_axis) if seq_axis is not None else None
+    aux_scale = cfg.moe_aux_weight / (seq.size if seq is not None else 1)
 
     def chunk_fn(c):
-        if not moe:
-            return lambda x: stage_forward(c, x, cfg)
-
         def apply(x):
-            out, aux = stage_forward(c, x, cfg, with_aux=True)
-            return out, cfg.moe_aux_weight * aux
+            kw = dict(block_kw)
+            if seq is not None:
+                Ll = x.shape[1]
+                pos = seq.index * Ll + torch.arange(Ll, device=x.device)
+                kw.update(pos=pos, attn_fn=sp.make_sp_attn_fn(cfg, seq, sp_mode, pos))
+            out, aux = stage_forward(c, x, cfg, with_aux=True, **kw)
+            return (out, aux_scale * aux) if moe else out
 
         return apply
 
+    shard = {}  # the last stage's valid-position mask, set per step
+
+    if seq is None:
+        def loss_fn(logits, micro):
+            return causal_lm_loss(logits, micro["tokens"])
+    else:
+        def loss_fn(logits, micro):
+            mb, Ll = micro["tokens"].shape
+            return (sp.sp_local_ce_sum(logits, micro["targets"], shard["valid"])
+                    / (mb * (seq.size * Ll - 1)))
+
+    data_sharded = ([p for b in stage.blocks for k, p in b.moe.named_parameters()
+                     if k in ep.EXPERT_KEYS] if ep_axis is not None else ())
     step = make_schedule_train_step(
         [chunk_fn(c) for c in chunks], stage, optimizer, mesh,
         num_microbatches, schedule,
         in_shape=lambda micro: (*micro["tokens"].shape, cfg.dmodel),
         hop_dtype=getattr(torch, cfg.dtype), inject_fn=lambda micro: micro["tokens"],
-        loss_fn=lambda logits, micro: causal_lm_loss(logits, micro["tokens"]),
-        extra_loss=moe, bucket_bytes=bucket_bytes)
+        loss_fn=loss_fn, extra_loss=moe, bucket_bytes=bucket_bytes, share_axis=seq_axis,
+        data_sharded=data_sharded)
+    last = mesh.coords[1] == mesh.grid.size - 1
 
     def tokens_step(tokens):
-        return step({"tokens": tokens})
+        if seq is None:
+            return step({"tokens": tokens})
+        L = tokens.shape[1]
+        if L % seq.size:
+            raise ValueError(f"sequence length {L} does not split over {seq.size} seq shards")
+        Ll = L // seq.size
+        batch = {"tokens": tokens[:, seq.index * Ll:(seq.index + 1) * Ll]}
+        if last:
+            # the targets of the shard's last position, from the next index,
+            # once for the whole batch before the schedule runs
+            mine = batch["tokens"].to(mesh.device)
+            targets, shard["valid"] = sp.sp_shifted_targets(mine, seq)
+            batch = {"tokens": mine, "targets": targets}
+        return step(batch)
 
     tokens_step.stats = step.stats
     return tokens_step

@@ -58,7 +58,6 @@ from ddl25spring_tpu_torch.ops.losses import causal_lm_loss
 from ddl25spring_tpu_torch.parallel.bucketing import (
     default_bucket_bytes,
     flatten,
-    parts,
     plan_buckets,
 )
 from ddl25spring_tpu_torch.parallel import ep
@@ -116,12 +115,14 @@ def shard_tp_params(params: dict, n: int, index: int, shard_vocab: bool = True) 
 
 def merge_tp_params(shards: list[dict], shard_vocab: bool = True) -> dict:
     """The full pytree from the slices of indices ``0..n-1``, in order (the
-    inverse of :func:`shard_tp_params`; a replicated leaf is index 0's)."""
+    inverse of :func:`shard_tp_params`; a replicated leaf is index 0's).  The
+    slices may hold part of the tree, as a pipeline stage's do: the result
+    holds the same keys, blocks stacked ``[L/S, ...]`` as the slices' are."""
     dims = _split_dims(shard_vocab, _n_experts(shards[0]))
     flat = [dict(flatten(s)) for s in shards]
-    return _unflatten({path: (flat[0][path].copy() if dim is None
-                              else np.concatenate([f[path] for f in flat], axis=dim))
-                       for path, dim in dims.items()})
+    return _unflatten({path: (leaf.copy() if dims[path] is None
+                              else np.concatenate([f[path] for f in flat], axis=dims[path]))
+                       for path, leaf in flat[0].items()})
 
 
 def _unflatten(flat: dict) -> dict:
@@ -135,19 +136,11 @@ def _unflatten(flat: dict) -> dict:
     return tree
 
 
-@torch.no_grad()
 def load_tp_params(model: llama.Llama, local: dict) -> llama.Llama:
     """Give ``model``'s parameters this rank's slices (numpy leaves, from
     :func:`shard_tp_params`): each parameter takes the slice's shape.  Build
     the optimizer after."""
-    leaves = dict(flatten(model.param_tree()))
-    for path, value in flatten(local):
-        leaf = leaves[path]
-        # a stacked leaf is one parameter per layer
-        values = [value] if isinstance(leaf, torch.Tensor) else list(value)
-        for p, v in zip(parts(leaf), values, strict=True):
-            p.data = torch.from_numpy(np.array(v, dtype=np.float32)).to(p.device)
-    return model
+    return llama.load_jax_params(model, local, resize=True)
 
 
 def _vocab_shard_ownership(tokens: torch.Tensor, Vl: int, axis: Axis):

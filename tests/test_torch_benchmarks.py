@@ -90,9 +90,8 @@ def test_dp_pp_defaults_match_the_jax_lab():
     trains: ResNet-18, the BASELINE benchmark config (``lab/run-b2.sh:7-9``).
     The JAX lab's module level imports the standard library only, so it is
     loaded from its path.  ``iters`` is 0 on both sides, the workload's
-    default, which for LLaMA is 20 steps in the port against 200 in JAX (the
-    port's LLaMA labs run six ranks on one card through host buffers, ~0.1 s
-    a step); for ResNet both take 30."""
+    default: LLaMA 200 steps, ResNet 30 (the LLaMA jobs themselves:
+    ``test_llama_labs_take_the_jax_labs_flags``)."""
     import importlib.util
     from pathlib import Path
 
@@ -105,6 +104,93 @@ def test_dp_pp_defaults_match_the_jax_lab():
               "lr", "log_every", "pp", "no_flash")
     assert {k: got[k] for k in shared} == {k: want[k] for k in shared}
     assert got["workload"] == "resnet" and got["input"] == "auto"
+
+
+def _jax_lab(name: str):
+    """The JAX lab ``lab/<name>.py``, loaded from its path (its module level
+    imports the standard library only)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "lab" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"jax_lab_{name}", path)
+    lab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(lab)
+    return lab
+
+
+def _jax_llama_job(name: str, argv: list[str]) -> dict:
+    """What the JAX lab trains on LLaMA for ``argv`` on the reference's device
+    count (six devices: ``mesh(data=2, stage=3)`` for B2, three stages for
+    B1), by the lab's own expressions: ``run_llama``
+    (``lab/s01_b2_dp_pp.py:126-128, 140``) and ``main``
+    (``lab/s01_b1_microbatches.py:105-107, 116``, the parser's defaults)."""
+    a = _jax_lab(name).parse_args(argv)
+    if name == "s01_b2_dp_pp":
+        return {"data": 2, "stages": 3, "batch": a.batch or 3 * 2,
+                "microbatches": a.microbatches or 3, "lr": a.lr or 8e-4,
+                "iters": a.iters or 200}
+    return {"data": 1, "stages": a.stages or 3, "batch": a.batch,
+            "microbatches": a.microbatches, "lr": a.lr, "iters": a.iters}
+
+
+def _port_llama_job(monkeypatch, run, argv: list[str]) -> dict:
+    """The job the port's lab hands its ranks for ``argv`` (``spawn``
+    stubbed: no rank starts)."""
+    got = {}
+
+    def spawn(fn, world, job, timeout):
+        got.update(world=world, job=job)
+        return [None] * world
+
+    monkeypatch.setattr(dp_pp, "spawn", spawn)
+    run([*argv, "--device", "cpu"])
+    job = got["job"]
+    assert got["world"] == job.data * job.stages and job.scan_steps == 1
+    return {"data": job.data, "stages": job.stages, "batch": job.batch,
+            "microbatches": job.microbatches, "lr": job.lr, "iters": job.iters}
+
+
+@pytest.mark.parametrize("name,argv", [
+    ("s01_b2_dp_pp", ["--workload", "llama"]),
+    ("s01_b2_dp_pp", ["--workload", "llama", "--batch", "12", "--microbatches", "6",
+                      "--lr", "1e-3", "--iters", "7"]),
+    ("s01_b1_microbatches", []),
+    ("s01_b1_microbatches", ["--microbatches", "6", "--stages", "3", "--batch", "6",
+                             "--lr", "2e-3", "--iters", "5"]),
+    ("s01_b1_microbatches", ["--stages", "2", "--batch", "4", "--microbatches", "2"]),
+], ids=["b2-defaults", "b2-flags", "b1-defaults", "b1-flags", "b1-two-stages"])
+def test_llama_labs_take_the_jax_labs_flags(monkeypatch, name, argv):
+    """The port's LLaMA labs train what the JAX labs train for the same argv:
+    batch (global), microbatches, learning rate, steps and stages, with the
+    JAX defaults (batch 3 per replica, M 3, lr 8e-4, 200 steps, 3 stages)."""
+    from ddl25spring_tpu_torch.lab import microbatches
+
+    run = dp_pp.main if name == "s01_b2_dp_pp" else microbatches.main
+    assert _port_llama_job(monkeypatch, run, argv) == _jax_llama_job(name, argv)
+
+
+def test_llama_lab_refuses_a_batch_the_microbatches_do_not_split(monkeypatch):
+    from ddl25spring_tpu_torch.lab import microbatches
+
+    monkeypatch.setattr(dp_pp, "spawn", lambda *a, **k: pytest.fail("a rank started"))
+    with pytest.raises(ValueError, match="batch 8 not divisible by 3 microbatches x 2"):
+        dp_pp.main(["--workload", "llama", "--device", "cpu", "--batch", "8"])
+    with pytest.raises(ValueError, match="batch 3 not divisible by 6 microbatches x 1"):
+        microbatches.main(["--device", "cpu", "--microbatches", "6"])
+
+
+def test_microbatches_lab_trains_the_microbatches_asked_for():
+    """``lab.microbatches --microbatches 6 --stages 3`` runs 6 microbatches
+    through 3 ranks: under GPipe stage 0 holds every one of them at once."""
+    from ddl25spring_tpu_torch.lab import microbatches
+
+    run = microbatches.main(["--device", "cpu", "--microbatches", "6", "--stages", "3",
+                             "--batch", "6", "--iters", "1", "--seq-len", "16",
+                             "--timeout", "120"])
+    assert len(run["ranks"]) == 3 and len(run["losses"]) == 1
+    assert [r["stash_max"] for r in sorted(run["ranks"], key=lambda r: r["rank"])] == \
+        [[6], [6], [6]]
 
 
 def test_auto_input_resolves_by_device_and_ranks():

@@ -3,8 +3,9 @@ the launches of every pipeline schedule on the card, the ResNet-18 slice's
 card-only checks (the on-card dataset, fp32 against
 the CPU, bf16 channels_last against fp32), federated learning's
 (``MnistCnn`` and one FedAvg round on the card against the CPU), one
-flash-ring and one TP step on the card against the CPU, and a switch-MoE
-LLaMA step (top 1 and 2) and the EP layer on the card.
+flash-ring and one TP step on the card against the CPU, a switch-MoE
+LLaMA step (top 1 and 2) and the EP layer on the card, and one EP x DP x PP
+and one DP x PP x TP step on the card against the CPU.
 
 Marked ``gpu``: each test skips unless an sm_90 (Hopper) device is present,
 but for the FL entry points' refusal of a missing GPU, which runs anywhere.
@@ -688,3 +689,65 @@ def test_router_logits_stay_full_fp32_under_tf32(dev):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
     assert (got - want).abs().max() <= 1e-4
+
+
+# ------------------------------------------------ the pipeline compositions
+
+# name -> (world, init_mesh arguments, n_experts, schedule, the composition's axes)
+COMPOSITIONS = {
+    "ep-dp-pp 1f1b": (4, dict(data=2, stages=2), 4, "1f1b", {"ep_axis": "data"}),
+    "dp-pp-tp gpipe": (8, dict(data=2, stages=2, model=2), 0, "gpipe", {"tp_axis": "model"}),
+}
+
+
+def composition_rank(rdv, name, device):
+    """One rank of a composition of ``COMPOSITIONS`` on ``device``: one step
+    (SGD at lr 0) of ``DP_CFG`` with 4 layers (and 4 experts under EP), M 2,
+    fp32, TF32 off; its coordinates, the loss (last stage), its stage's
+    gradients and the flash launches."""
+    from ddl25spring_tpu_torch.models.llama import Llama, export_grads, export_params
+    from ddl25spring_tpu_torch.parallel.pipeline import (
+        make_pipeline_train_step,
+        shard_staged_params,
+    )
+    from ddl25spring_tpu_torch.utils.config import LlamaConfig
+    from ddl25spring_tpu_torch.utils.mesh import init_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world, kw, experts, schedule, axes = COMPOSITIONS[name]
+    cfg = LlamaConfig(**{**DP_CFG, "n_layers": 4, "n_experts": experts})
+    params = export_params(Llama(cfg, device="cpu", generator=torch.Generator().manual_seed(3)))
+    with init_mesh(rdv, kw["data"], kw["stages"], device=device, model=kw.get("model")) as mesh:
+        stage = shard_staged_params(params, cfg, mesh, ep_axis=axes.get("ep_axis"),
+                                    tp_axis=axes.get("tp_axis"))
+        step = make_pipeline_train_step(stage, cfg, torch.optim.SGD(stage.parameters(), lr=0.0),
+                                        mesh, 2, schedule, **axes)
+        fa.reset_launches()
+        loss = step(torch.cat(_dp_batches()))
+        return {"coords": mesh.coords, "loss": None if loss is None else loss.item(),
+                "grads": export_grads(stage), "launches": dict(fa.LAUNCHES),
+                "device": str(mesh.device)}
+
+
+@pytest.mark.parametrize("name", list(COMPOSITIONS))
+def test_pipeline_composition_on_the_card_matches_the_cpu(dev, tmp_path, name):
+    """EP x DP x PP under 1F1B and DP x PP x TP under GPipe, every rank on the
+    card (gloo through host buffers), against the same world on the CPU,
+    where the plain versions run: each rank's loss rtol 1e-5 and stage
+    gradients atol 2e-4 + rtol 2e-3; each kernel launched once per layer and
+    microbatch, the forward twice under 1F1B's recompute."""
+    from ddl25spring_tpu_torch.parallel.bucketing import flatten
+    from ddl25spring_tpu_torch.parallel.launch import spawn
+
+    world, _, _, schedule, _ = COMPOSITIONS[name]
+    card = spawn(composition_rank, world, name, "cuda", timeout=300, tmpdir=str(tmp_path))
+    host = spawn(composition_rank, world, name, "cpu", timeout=300, tmpdir=str(tmp_path))
+    n = 2 * 2  # 2 layers per stage, 2 microbatches
+    for c, h in zip(card, host):
+        assert c["device"].startswith("cuda") and c["coords"] == h["coords"]
+        assert c["launches"] == {"fwd": n * (2 if schedule == "1f1b" else 1), "dq": n, "dkv": n}
+        assert (c["loss"] is None) == (h["loss"] is None)
+        if c["loss"] is not None:
+            assert c["loss"] == pytest.approx(h["loss"], rel=1e-5)
+        for (path, a), (_, b) in zip(flatten(c["grads"]), flatten(h["grads"])):
+            assert (abs(a - b) - 2e-3 * abs(b)).max() <= 2e-4, path
