@@ -268,6 +268,40 @@ Phases, in order; any failure exits non-zero and prints no result:
     Functions against the CPU, then, in a process of their own, their device
     times beside their bounds and SDPA's.
 
+15. ZeRO stages 1, 2 and 3 and the partition-rule engine on the card
+    (``parallel/zero.py``, ``parallel/rules.py``; ``zero_phase``): one world
+    of 4 ranks on ``cuda:0`` over gloo, spawned after phase 2 built the
+    kernels, regridded to 2 x 2 (two DP lines of 2) for the n = 2 runs:
+    (a) ZeRO-3 over the driver entry's workload, the ResNet-18 GroupNorm
+        with SGD momentum 0.9: one fp32 step (lr 0.1, TF32 off, 8 rows per
+        rank) against one process on the card (each rank's rows forward and
+        backward apart, the gradients' sum over them / 4, one step), loss
+        and parameters within ``GRAD_BAND``; then 10 bf16 steps at lr 0.002,
+        256 rows per rank: losses falling, the bytes staged per rank per
+        step equal to ``zero_staged_bytes`` (JAX's wire count printed
+        beside), the persistent bytes per rank (the allocator's requested
+        bytes after a step less after the run is freed: rows, gradients,
+        momentum) equal to the state's exactly and 1/4 of a DP rank's (+ the
+        padding), measured the same way over 3 DP steps; both median steps;
+    (b) ZeRO-1 and ZeRO-2, sync and overlap: one fp32 step each against
+        (a)'s one process, within ``GRAD_BAND``;
+    (c) LLaMA ZeRO-3 (``LlamaConfig(use_flash=True)``), ``prefetch`` True and
+        False, at n = 4 and n = 2: one fp32 Adam step against one process
+        (loss, and the row gradients unsharded) within ``GRAD_BAND``; then
+        ``PIPE_STEPS`` bf16 Adam steps at 8e-4 on TinyStories: losses
+        falling, flash launches per rank per step exact (6/6/6, the forward 12 under
+        remat) and all ``wgmma``, staged bytes exact, persistent bytes
+        (rows, gradients, Adam m and v) equal to the state's, the median
+        step (slowest rank), gather + reduce-scatter and all-reduce seconds;
+        a DP rank's persistent bytes and step over 3 bf16 steps;
+    (d) switch-MoE LLaMA (``MOE``) under ZeRO-3 with 2 microbatches of one
+        row: the fp32 step against one process dispatching the same row
+        groups (loss, gradients within ``GRAD_BAND``, routing flips 0),
+        ``PIPE_STEPS`` bf16 steps falling, launches exact;
+    (e) ``RulePartitioner`` with the ``dp`` and ``zero3`` tables on the tiny
+        MLP: ``PIPE_STEPS`` Adam steps bitwise equal to the bespoke builders'
+        on every rank, the loss falling.
+
 Tolerances (|kernel - plain| <= atol + rtol * |plain|):
   fp32: atol 1e-4, rtol 0 (summation order only);
   bf16: atol 2e-2, rtol 1e-2 against the plain version on the same bf16
@@ -283,8 +317,10 @@ the kernel's nodes in phase 11 (a)'s graph of 16 steps;
 each layout; ``launches_moe_per_step`` the kernel's launches per step of
 phase 13 (a)'s top-1 and top-2 MoE steps; ``max_abs_err_sp_tp`` the largest
 error of phase 12 (c)'s checks; ``launches_pipeline_compositions_per_rank``
-each rank's launches per step in each run of phase 14, and
-``max_abs_err_pipeline_compositions`` the largest error of phase 14 (e).
+each rank's launches per step in each run of phase 14,
+``max_abs_err_pipeline_compositions`` the largest error of phase 14 (e), and
+``launches_zero_per_rank`` each rank's launches per step in phase 15 (c)'s
+LLaMA runs and (d)'s MoE run.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -295,6 +331,7 @@ Run from the repository root: ``python3 chip_smoke.py``
 import itertools
 import json
 import math
+from collections import defaultdict
 import re
 import statistics
 import subprocess
@@ -2857,7 +2894,7 @@ def moe_phase(dev):
 
 # ---------------------------------------------------------------- phase 14
 
-PIPE_STEPS = 10                 # bf16 Adam steps per layout and schedule
+PIPE_STEPS = 6                  # bf16 Adam steps per layout and schedule (phases 14, 15)
 GRAD_BAND = 1e-5                # fp32: |pipeline - one process|, loss (relative) and grads
 # run -> world, grid (data, stages, seq, model), model kind, schedule, chunks per
 # rank, the composition's axes, microbatches, rows per replica
@@ -3302,6 +3339,547 @@ def pipe_phase(dev):
     return {"runs": runs, "max_abs_err": errs, "times": times}
 
 
+# ---------------------------------------------------------------- phase 15
+
+ZERO_N = 4                      # ranks of phase 15's world; the n = 2 runs regrid it to 2 x 2
+ZERO_EXACT_ROWS = 8             # (a), (b): fp32 ResNet rows per rank
+ZERO_RESNET_ROWS = 256          # (a): bf16 ResNet rows per rank
+ZERO_RESNET_STEPS = 10          # (a): bf16 ResNet steps (the LLaMA, MoE and rule runs: PIPE_STEPS)
+ZERO_DP_STEPS = 3               # (a), (c): steps of the DP rank whose bytes are compared
+ZERO_RESNET_LR = 0.1            # (a), (b): the fp32 step's SGD (the driver entry's, momentum 0.9)
+ZERO_LLAMA = {f"n{n} {'prefetch' if pf else 'remat'}": (n, pf) for n in (4, 2)
+              for pf in (True, False)}
+ZERO_MOE_M = 2                  # (d): microbatches, one row each per rank
+
+
+def _zero_resnet(dtype, dev):
+    from ddl25spring_tpu_torch.models.resnet import ResNet18
+
+    return ResNet18(norm="group", dtype=dtype, device=dev,
+                    generator=torch.Generator().manual_seed(11))
+
+
+def _resnet_loss(model, batch):
+    from ddl25spring_tpu_torch.benchmarks import _nchw
+    from ddl25spring_tpu_torch.ops.losses import cross_entropy_logits
+
+    x_u8, y = batch
+    return cross_entropy_logits(model(_nchw(x_u8, model.dtype)), y)
+
+
+def _lm_loss(model, tokens):
+    from ddl25spring_tpu_torch.ops.losses import causal_lm_loss
+
+    return causal_lm_loss(model(tokens), tokens)
+
+
+def _zero_moe_loss(model, tokens):
+    return _moe_loss(model, tokens, model.cfg)[0]
+
+
+def _np_rows(rows):
+    return [r.detach().float().cpu().numpy() for r in rows]
+
+
+def _np_grads(rows):
+    return [r.grad.detach().float().cpu().numpy() for r in rows]
+
+
+def _requested(dev) -> int:
+    """The bytes the process's live tensors on ``dev`` asked the caching
+    allocator for (``requested_bytes``: ``memory_allocated`` counts blocks,
+    which the allocator rounds up, by up to 1 MiB for a large one)."""
+    return torch.cuda.memory_stats(dev)["requested_bytes.all.current"]
+
+
+def _zero_run(step, batches, dev, comm):
+    """``step`` over ``batches``: losses, host seconds per step to the card's
+    idle, comm counts per step, the flash launches of the run (the counts set
+    to 0 just before it and read just after) and the bytes requested after
+    each step (:func:`_requested`)."""
+    import gc
+
+    from ddl25spring_tpu_torch.ops import flash_attention as fa
+
+    r = {"losses": [], "step_s": [], "comm": [], "alloc": []}
+    gc.collect()
+    comm.take_stats()
+    fa.reset_launches()
+    for b in batches:
+        t0 = time.perf_counter()
+        loss = step(b)
+        torch.cuda.synchronize(dev)
+        r["step_s"].append(time.perf_counter() - t0)
+        r["comm"].append(comm.take_stats())
+        r["losses"].append(float(loss))
+        del loss
+        r["alloc"].append(_requested(dev))
+    r["launches"] = dict(fa.LAUNCHES)
+    r["by_variant"] = {n: dict(c) for n, c in fa.LAUNCHES_BY_VARIANT.items()}
+    return r
+
+
+def _settled_alloc(dev):
+    """The bytes requested once a run's objects are gone: the workspaces a
+    process keeps (cuBLAS's) stay in it, so a run's persistent bytes are its
+    requests between steps less this."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    return _requested(dev)
+
+
+def zero_rank(rdv, data, device):
+    """One rank of phase 15's world of 4 ranks on the card (gloo through pinned
+    host buffers), regridded to 2 x 2 for the n = 2 runs.  (a), (b): one fp32
+    SGD step of ZeRO-3, ZeRO-1 and ZeRO-2 (sync, overlap) over the ResNet;
+    the bf16 ZeRO-3 run and a DP rank's; (c): per ``ZERO_LLAMA`` run one fp32
+    Adam step (loss, row gradients), then the bf16 run, and a DP rank's bf16
+    run; (d): the MoE LLaMA under ZeRO-3, fp32 (routers' logits in call
+    order) and bf16; (e): the rule tables' steps and the bespoke ones."""
+    from ddl25spring_tpu_torch.models.llama import Llama
+    from ddl25spring_tpu_torch.parallel import dp, rules, zero
+    from ddl25spring_tpu_torch.utils.device import backend_flags
+    from ddl25spring_tpu_torch.utils.mesh import init_mesh
+
+    out = {"exact": {}, "runs": {}}
+    with init_mesh(rdv, ZERO_N, stages=1, device=device) as world:
+        dev, comm = world.device, world.comm
+        meshes = {ZERO_N: world, 2: world.regrid(2, stages=2)}
+        out.update(rank=world.rank, device=str(dev), backend=world.backend)
+
+        def resnet_batch(x, y):
+            return torch.from_numpy(x), torch.from_numpy(y).long()
+
+        exact = resnet_batch(*data["resnet exact"])
+        with backend_flags(**FP32_EXACT):
+            for name in ("zero3", "zero1", "zero1 overlap", "zero2", "zero2 overlap"):
+                model = _zero_resnet(torch.float32, dev)
+                rows = zero.zero_shard_params(model, world)
+                opt = torch.optim.SGD(rows, lr=ZERO_RESNET_LR, momentum=0.9)
+                if name == "zero3":
+                    step = zero.make_zero_dp_train_step(model, _resnet_loss, opt, world, rows)
+                else:
+                    step = zero.make_zero_partitioned_train_step(
+                        model, _resnet_loss, opt, world, rows, stage=int(name[4]),
+                        overlap=name.endswith("overlap"))
+                r = {"loss": float(step(exact))}
+                if name == "zero3":
+                    r["rows"] = _np_rows(rows)
+                elif world.rank == 0:
+                    r["params"] = [p.detach().cpu().numpy() for p in dp.param_leaves(model)]
+                out["exact"]["resnet " + name] = r
+                del model, rows, opt, step
+        batches = [resnet_batch(*b) for b in data["resnet"]]
+        for name in ("zero3", "dp"):
+            model = _zero_resnet(torch.bfloat16, dev)
+            if name == "zero3":
+                rows = zero.zero_shard_params(model, world)
+                opt = torch.optim.SGD(rows, lr=float(RESNET_LR), momentum=0.9)
+                step = zero.make_zero_dp_train_step(model, _resnet_loss, opt, world, rows)
+            else:
+                opt = torch.optim.SGD(model.parameters(), lr=float(RESNET_LR), momentum=0.9)
+                step = dp.make_dp_train_step(model, _resnet_loss, opt, world)
+            r = _zero_run(step, batches if name == "zero3" else batches[:ZERO_DP_STEPS], dev,
+                          comm)
+            del model, opt, step
+            rows = None     # frees the ZeRO-3 rows before the baseline is read
+            base = _settled_alloc(dev)
+            r.update(persistent=[a - base for a in r.pop("alloc")])
+            out["runs"]["resnet " + name] = r
+        for name, (n, prefetch) in ZERO_LLAMA.items():
+            mesh = meshes[n]
+            for dtype in ("float32", "bfloat16"):
+                cfg = pipe_cfg("dense", dtype)
+                model = Llama(cfg, device=dev, generator=torch.Generator().manual_seed(7))
+                rows = zero.zero_shard_llama_params(model, mesh)
+                opt = torch.optim.Adam(rows.parameters(), lr=8e-4)
+                step = zero.make_zero3_llama_train_step(model, opt, mesh, rows, prefetch=prefetch)
+                if dtype == "float32":
+                    with backend_flags(**FP32_EXACT):
+                        loss = float(step(torch.from_numpy(data["llama exact"][:n * SPTP_ROWS])
+                                          .long()))
+                    out["exact"]["llama " + name] = {
+                        "coords": mesh.coords, "loss": loss,
+                        "grads": zero.LlamaRows(_np_grads(rows.outer),
+                                                [_np_grads(layer) for layer in rows.blocks])}
+                else:
+                    r = _zero_run(step, [torch.from_numpy(b[:n * SPTP_ROWS]).long()
+                                         for b in data["llama"]], dev, comm)
+                    del model, rows, opt, step
+                    base = _settled_alloc(dev)
+                    r.update(persistent=[a - base for a in r.pop("alloc")], coords=mesh.coords)
+                    out["runs"]["llama " + name] = r
+        model = Llama(pipe_cfg("dense", "bfloat16"), device=dev,
+                      generator=torch.Generator().manual_seed(7))
+        opt = torch.optim.Adam(model.parameters(), lr=8e-4)
+        step = dp.make_dp_train_step(model, _lm_loss, opt, world)
+        r = _zero_run(step, [torch.from_numpy(b[:ZERO_N * SPTP_ROWS]).long()
+                             for b in data["llama"][:ZERO_DP_STEPS]], dev, comm)
+        del model, opt, step
+        base = _settled_alloc(dev)
+        r.update(persistent=[a - base for a in r.pop("alloc")])
+        out["runs"]["llama dp"] = r
+        for dtype in ("float32", "bfloat16"):
+            cfg = moe_cfg(dtype)
+            model = Llama(cfg, device=dev, generator=torch.Generator().manual_seed(7))
+            rows = zero.zero_shard_params(model, world)
+            opt = torch.optim.Adam(rows, lr=8e-4)
+            step = zero.make_zero_dp_train_step(model, _zero_moe_loss, opt, world, rows,
+                                                num_microbatches=ZERO_MOE_M)
+            if dtype == "float32":
+                # ZeRO-3 gathers the routers, so no tensor names its layer:
+                # every call goes under layer 0, in call order
+                with backend_flags(**FP32_EXACT), RouterLog(defaultdict(int)) as log:
+                    loss = float(step(torch.from_numpy(data["moe exact"]).long()))
+                out["exact"]["moe"] = {"loss": loss, "grads": _np_grads(rows),
+                                       "logits": log.logs[0]}
+            else:
+                r = _zero_run(step, [torch.from_numpy(b).long() for b in data["moe"]], dev,
+                              comm)
+                r.pop("alloc")
+                out["runs"]["moe"] = r
+            del model, rows, opt, step
+        x, y = (torch.from_numpy(a) for a in data["mlp"])
+        for name in ("dp", "zero3"):
+            for how in ("table", "bespoke"):
+                model = dp.TinyMlp(device=dev)
+                with torch.no_grad():
+                    for p, a in zip(model.parameters(), data["mlp weights"]):
+                        p.copy_(torch.from_numpy(a))
+                part = rules.RulePartitioner(world, rules.TABLES[name])
+                if name == "dp":
+                    opt = torch.optim.Adam(model.parameters(), lr=1e-2)
+                    step = (part.make_train_step(model, dp.tiny_mlp_loss, opt) if how == "table"
+                            else dp.make_dp_train_step(model, dp.tiny_mlp_loss, opt, world))
+                    state = dp.param_leaves(model)
+                else:
+                    rows = (part.shard_params(model) if how == "table"
+                            else zero.zero_shard_params(model, world))
+                    opt = torch.optim.Adam(rows, lr=1e-2)
+                    step = (part.make_train_step(model, dp.tiny_mlp_loss, opt, rows=rows)
+                            if how == "table"
+                            else zero.make_zero_dp_train_step(model, dp.tiny_mlp_loss, opt,
+                                                              world, rows))
+                    state = rows
+                losses = [float(step((x, y))) for _ in range(PIPE_STEPS)]
+                out["exact"][f"rules {name} {how}"] = {
+                    "losses": losses, "params": [t.detach().cpu().numpy() for t in state]}
+    return out
+
+
+def zero_row_bytes(leaves, n) -> int:
+    """Bytes of one rank's rows of ``leaves`` (float32): ``sum k * 4``."""
+    from ddl25spring_tpu_torch.parallel.zero import row_elems
+
+    return sum(row_elems(leaf, n) * 4 for leaf in leaves)
+
+
+def zero_staged_bytes(top, layer, n, L, remat=False) -> int:
+    """Bytes one rank stages per ZeRO-3 step: each gather and each
+    reduce-scatter of a bucket moves the rank's row one way and the ``[n, K]``
+    buffer the other, ``(n + 1) K`` elements; the whole-tree step gathers and
+    scatters the rows once (``top``, ``L = 0``), the LLaMA step the outer rows
+    and each layer's (``layer``), gathering the layers twice under remat; the
+    loss's mean is one float32 each way."""
+    return (n + 1) * (2 * top + (3 if remat else 2) * L * layer) + 8
+
+
+def _zero_resnet_oracle(dev, x_u8, y, n):
+    """One process on the card from the same weights: each rank's rows
+    forward and backward apart (the ranks' shapes), the gradients' sum over
+    the slices divided by ``n``, one SGD step; the mean loss and the
+    parameters after it, in ``param_leaves`` order."""
+    from ddl25spring_tpu_torch.parallel.dp import param_leaves
+    from ddl25spring_tpu_torch.utils.device import backend_flags
+
+    with backend_flags(**FP32_EXACT):
+        model = _zero_resnet(torch.float32, dev)
+        opt = torch.optim.SGD(model.parameters(), lr=ZERO_RESNET_LR, momentum=0.9)
+        losses = []
+        for d in range(n):
+            rows = slice(d * len(x_u8) // n, (d + 1) * len(x_u8) // n)
+            loss = _resnet_loss(model, (torch.from_numpy(x_u8[rows]).to(dev),
+                                        torch.from_numpy(y[rows]).long().to(dev)))
+            loss.backward()
+            losses.append(loss.item())
+        for p in model.parameters():
+            p.grad.div_(n)
+        opt.step()
+    return sum(losses) / n, [p.detach().cpu().numpy() for p in param_leaves(model)]
+
+
+def _zero_llama_oracle(dev, tokens):
+    """One process on the card: the fp32 loss and gradients of the batch."""
+    from ddl25spring_tpu_torch.models.llama import Llama, export_grads
+    from ddl25spring_tpu_torch.utils.device import backend_flags
+
+    model = Llama(pipe_cfg("dense", "float32"), device=dev,
+                  generator=torch.Generator().manual_seed(7))
+    with backend_flags(**FP32_EXACT):
+        loss = _lm_loss(model, torch.from_numpy(tokens).long().to(dev))
+        loss.backward()
+    return loss.item(), export_grads(model)
+
+
+def _zero_moe_oracle(dev, tokens, groups):
+    """One process on the card: the mean over the ``groups`` row groups (each
+    rank's microbatches, in rank order) of ``causal_lm_loss + w aux``, each
+    group dispatched alone as on the ranks; the gradients and the routers'
+    logits in call order."""
+    from ddl25spring_tpu_torch.models.llama import Llama, export_grads
+    from ddl25spring_tpu_torch.utils.device import backend_flags
+
+    model = Llama(moe_cfg("float32"), device=dev, generator=torch.Generator().manual_seed(7))
+    t = torch.from_numpy(tokens).long().to(dev)
+    with backend_flags(**FP32_EXACT), RouterLog(defaultdict(int)) as log:
+        total = sum(_zero_moe_loss(model, g) for g in t.chunk(groups)) / groups
+        total.backward()
+    return total.item(), export_grads(model), log.logs[0]
+
+
+def _tree_err(got: dict, want: dict) -> tuple[float, str]:
+    from ddl25spring_tpu_torch.parallel.bucketing import flatten
+
+    worst = (0.0, "")
+    for (path, a), (_, b) in zip(flatten(got), flatten(want), strict=True):
+        worst = max(worst, (float(abs(torch.as_tensor(a) - torch.as_tensor(b)).max()), path))
+    return worst
+
+
+def _median_ms(rs, key="step_s", skip=1):
+    """Median over the steps after ``skip`` of the slowest rank's seconds, in ms."""
+    steps = len(rs[0][key])
+    return statistics.median(max(r[key][i] for r in rs) for i in range(skip, steps)) * 1e3
+
+
+def zero_checks(ranks, dev, data):
+    """Every check of phase 15 on the ranks' results; returns the LLaMA runs'
+    launches per rank per step, the MoE run's, and the printed numbers."""
+    import numpy as np
+
+    from ddl25spring_tpu_torch.models.llama import Llama
+    from ddl25spring_tpu_torch.parallel import dp, zero
+    from ddl25spring_tpu_torch.parallel.bucketing import flatten, parts
+
+    n = ZERO_N
+    check(all(r["device"].startswith("cuda") for r in ranks),
+          f"ranks on {[r['device'] for r in ranks]}")
+    out = {"launches": {}}
+    # (a), (b): fp32 ResNet steps against one process
+    x, y = data["resnet exact"]
+    want_loss, want = _zero_resnet_oracle(dev, x, y, n)
+    leaves = dp.param_leaves(_zero_resnet(torch.float32, "meta"))
+    for name in ("zero3", "zero1", "zero1 overlap", "zero2", "zero2 overlap"):
+        rs = [r["exact"]["resnet " + name] for r in ranks]
+        if name == "zero3":
+            got = zero.zero_unshard_params(
+                [np.concatenate([r["rows"][j] for r in rs]) for j in range(len(leaves))], leaves)
+        else:
+            got = rs[0]["params"]
+        err = max(float(abs(a - b).max()) for a, b in zip(got, want, strict=True))
+        losses = [r["loss"] for r in rs]
+        check(all(excess(v, want_loss, (0.0, GRAD_BAND)) <= 0 for v in losses),
+              f"({'a' if name == 'zero3' else 'b'}) resnet {name}: fp32 losses {losses} vs one "
+              f"process {want_loss}")
+        check(err <= GRAD_BAND, f"resnet {name}: fp32 parameters off one process by {err:.3g}")
+        print(f"  ({'a' if name == 'zero3' else 'b'}) ResNet-18 {name}, fp32, one SGD step "
+              f"(lr {ZERO_RESNET_LR}, momentum 0.9), {n} x {ZERO_EXACT_ROWS} rows: loss "
+              f"{losses[0]:.6f} vs one process {want_loss:.6f}; parameters max abs err "
+              f"{err:.2e}", flush=True)
+    # (a): the bf16 ZeRO-3 run, its staged bytes and persistent bytes against a DP rank's
+    row_bytes = zero_row_bytes(leaves, n)
+    P = sum(sum(t.numel() for t in parts(leaf)) for leaf in leaves)
+    rz = [r["runs"]["resnet zero3"] for r in ranks]
+    rd = [r["runs"]["resnet dp"] for r in ranks]
+    bf = rz[0]["losses"]
+    check(all(r["losses"] == bf for r in rz), "(a) the ranks' bf16 losses differ")
+    check(all(math.isfinite(v) for v in bf), f"(a) bf16 losses {bf}")
+    first, last = statistics.mean(bf[:3]), statistics.mean(bf[-3:])
+    check(last < first, f"(a) bf16 loss did not fall: {bf}")
+    want_staged = zero_staged_bytes(row_bytes, 0, n, 0)
+    staged = sorted({c["bytes_staged"] for r in rz for c in r["comm"]})
+    check(staged == [want_staged], f"(a) staged {staged} B per rank per step, the rows give "
+                                   f"{want_staged}")
+    zp = [r["persistent"][-1] for r in rz]
+    dpp = [r["persistent"][-1] for r in rd]
+    z_want, d_want = 3 * row_bytes, 3 * P * 4
+    for got, want_b, tag in ((zp, z_want, "ZeRO-3"), (dpp, d_want, "DP")):
+        check(set(got) == {want_b}, f"(a) {tag} persistent bytes per rank {got}, the state "
+                                    f"gives {want_b}")
+    check(max(zp) <= min(dpp) / n + 3 * 4 * n * len(leaves),
+          f"(a) ZeRO-3 persistent {zp} not 1/{n} of DP's {dpp} (+ the padding)")
+    z_ms, d_ms = _median_ms(rz), _median_ms(rd)
+    coll = statistics.median(c["collective_s"] for r in rz for c in r["comm"][1:]) * 1e3
+    print(f"  (a) ResNet-18 ZeRO-3, bf16, {n} x {ZERO_RESNET_ROWS} rows, SGD lr {RESNET_LR}: "
+          f"loss {first:.4f} (first 3) -> {last:.4f} (last 3); step median {z_ms:.1f} ms "
+          f"(slowest rank, steps 1..{ZERO_RESNET_STEPS - 1}, host clock) vs DP {d_ms:.1f} ms "
+          f"(steps 1..{ZERO_DP_STEPS - 1}); gather + reduce-scatter {coll:.1f} ms per rank per "
+          f"step; staged {want_staged} B per rank per step (exact; JAX's wire count "
+          f"{(n - 1) * row_bytes} B each way); persistent B per rank: ZeRO-3 {zp} (rows, grads, "
+          f"momentum: 3 x {row_bytes}) vs DP {dpp} (3 x {P * 4}), ratio "
+          f"{max(zp) / min(dpp):.4f}", flush=True)
+    out["resnet"] = {"zero_ms": z_ms, "dp_ms": d_ms, "persistent": zp, "dp_persistent": dpp,
+                     "staged": want_staged}
+    # (c): LLaMA ZeRO-3, prefetch and remat, n = 4 and 2
+    meta = Llama(pipe_cfg("dense", "float32"), device="meta", generator=torch.Generator())
+    outer, layers = zero._llama_leaves(meta)
+    oracle = {}
+    out["llama"] = {}
+    for name, (m, prefetch) in ZERO_LLAMA.items():
+        line = [r for r in ranks if r["exact"]["llama " + name]["coords"][1] == 0]
+        if m not in oracle:
+            oracle[m] = _zero_llama_oracle(dev, data["llama exact"][:m * SPTP_ROWS])
+        want_loss, want_grads = oracle[m]
+        ex = [r["exact"]["llama " + name] for r in line]
+        got = zero.zero_unshard_llama_params(
+            zero.llama_rows_to_jax([e["grads"] for e in ex], meta), meta)
+        err, where = _tree_err(got, want_grads)
+        losses = [e["loss"] for e in ex]
+        check(all(excess(v, want_loss, (0.0, GRAD_BAND)) <= 0 for v in losses),
+              f"(c) {name}: fp32 losses {losses} vs one process {want_loss}")
+        check(err <= GRAD_BAND, f"(c) {name}: fp32 gradient {where} off one process by {err:.3g}")
+        rs = [r["runs"]["llama " + name] for r in ranks]
+        bf = rs[0]["losses"]
+        check(all(r["losses"] == bf for r in rs), f"(c) {name}: the ranks' bf16 losses differ")
+        check(all(math.isfinite(v) for v in bf) and abs(bf[0] - math.log(4096)) < 1.0,
+              f"(c) {name}: bf16 losses {bf}")
+        first, last = statistics.mean(bf[:3]), statistics.mean(bf[-3:])
+        check(last < first, f"(c) {name}: bf16 loss did not fall: {bf}")
+        L = len(layers)
+        want_l = {"fwd": L * (1 if prefetch else 2), "dq": L, "dkv": L}
+        for r in rs:
+            got_l = {k: v / PIPE_STEPS for k, v in r["launches"].items()}
+            check(got_l == want_l, f"(c) {name}: launches per step {got_l} != {want_l}")
+            for k in want_l:
+                check(r["by_variant"][k].get("wgmma", 0) == want_l[k] * PIPE_STEPS and
+                      r["by_variant"][k].get("scalar", 0) == 0,
+                      f"(c) {name}: {k} by variant {r['by_variant'][k]}")
+        top = zero_row_bytes([v for _, v in outer], m)
+        layer = zero_row_bytes([v for _, v in layers[0]], m)
+        want_staged = zero_staged_bytes(top, layer, m, L, remat=not prefetch)
+        staged = sorted({c["bytes_staged"] for r in rs for c in r["comm"]})
+        check(staged == [want_staged], f"(c) {name}: staged {staged} B per rank per step, the "
+                                       f"rows give {want_staged}")
+        state = 4 * (top + L * layer)
+        zp = [r["persistent"][-1] for r in rs]
+        check(set(zp) == {state}, f"(c) {name}: persistent bytes per rank {zp}, the state "
+                                  f"gives {state}")
+        ms = _median_ms(rs)
+        coll = statistics.median(c["collective_s"] for r in rs for c in r["comm"][1:]) * 1e3
+        ar = statistics.median(c["allreduce_s"] for r in rs for c in r["comm"][1:]) * 1e3
+        print(f"  (c) LLaMA ZeRO-3 {name}: fp32 Adam step, loss {losses[0]:.6f} vs one process "
+              f"{want_loss:.6f}, gradients max abs err {err:.2e} ({where}); bf16 loss "
+              f"{first:.4f} (first 3) -> {last:.4f} (last 3); step median {ms:.1f} ms (slowest "
+              f"rank, steps 1..{PIPE_STEPS - 1}, host clock); gather + reduce-scatter "
+              f"{coll:.1f} ms, loss all-reduce {ar:.2f} ms per rank per step (medians); staged "
+              f"{want_staged} B per rank per step (exact); flash launches per rank per step "
+              f"{want_l}, all wgmma; persistent B per rank {zp} (rows, grads, Adam m and v: "
+              f"4 x {top + L * layer})", flush=True)
+        out["launches"][name] = [{k: v // PIPE_STEPS for k, v in r["launches"].items()}
+                                 for r in rs]
+        out["llama"][name] = {"step_ms": ms, "collective_ms": coll, "persistent": zp,
+                              "staged": want_staged, "grad_err": err}
+    rd = [r["runs"]["llama dp"] for r in ranks]
+    P = sum(t.numel() for t in meta.parameters())
+    dpp = [r["persistent"][-1] for r in rd]
+    check(set(dpp) == {16 * P}, f"(c) DP persistent bytes per rank {dpp}, the state gives "
+                                f"{16 * P}")
+    zp4 = out["llama"]["n4 prefetch"]["persistent"]
+    print(f"  (c) LLaMA DP rank, bf16, Adam: persistent B per rank {dpp} (4 x {P * 4}); step "
+          f"median {_median_ms(rd):.1f} ms; ZeRO-3 n4 / DP {max(zp4) / min(dpp):.4f}", flush=True)
+    out["llama"]["dp"] = {"step_ms": _median_ms(rd), "persistent": dpp}
+    # (d): switch-MoE LLaMA under ZeRO-3, 2 microbatches
+    exact = data["moe exact"]
+    want_loss, want_grads, want_logs = _zero_moe_oracle(dev, exact, n * ZERO_MOE_M)
+    mleaves = dp.param_leaves(Llama(moe_cfg("float32"), device="meta",
+                                    generator=torch.Generator()))
+    ex = [r["exact"]["moe"] for r in ranks]
+    full = zero.zero_unshard_params(
+        [np.concatenate([e["grads"][j] for e in ex]) for j in range(len(mleaves))], mleaves)
+    err = max(float(abs(a - np.asarray(b)).max())
+              for a, (_, b) in zip(full, flatten(want_grads), strict=True))
+    flips = calls = 0
+    for d, e in enumerate(ex):
+        base = d * len(e["logits"])
+        for i, p in enumerate(e["logits"]):
+            q = want_logs[base + i]
+            flips += int((p.argmax(-1) != q.argmax(-1)).sum())
+            calls += 1
+    losses = [e["loss"] for e in ex]
+    check(all(excess(v, want_loss, (0.0, GRAD_BAND)) <= 0 for v in losses),
+          f"(d) MoE: fp32 losses {losses} vs one process {want_loss}")
+    check(err <= GRAD_BAND, f"(d) MoE: fp32 gradients off one process by {err:.3g}")
+    check(flips == 0, f"(d) MoE: {flips} routing flips over {calls} router calls")
+    rs = [r["runs"]["moe"] for r in ranks]
+    bf = rs[0]["losses"]
+    check(all(math.isfinite(v) for v in bf), f"(d) MoE bf16 losses {bf}")
+    first, last = statistics.mean(bf[:3]), statistics.mean(bf[-3:])
+    check(last < first, f"(d) MoE bf16 loss did not fall: {bf}")
+    moe_l = {k: v // PIPE_STEPS for k, v in rs[0]["launches"].items()}
+    want_l = {k: 6 * ZERO_MOE_M for k in ("fwd", "dq", "dkv")}
+    check(all({k: v // PIPE_STEPS for k, v in r["launches"].items()} == want_l for r in rs),
+          f"(d) MoE launches per step {moe_l} != {want_l}")
+    print(f"  (d) MoE LLaMA ZeRO-3, {ZERO_MOE_M} microbatches of one row per rank: fp32 loss "
+          f"{losses[0]:.6f} vs one process {want_loss:.6f}, gradients max abs err {err:.2e}, "
+          f"routing flips {flips} over {calls} router calls; bf16 loss {first:.4f} (first 3) "
+          f"-> {last:.4f} (last 3); step median {_median_ms(rs):.1f} ms; flash launches per "
+          f"rank per step {moe_l}", flush=True)
+    out["launches"]["moe"] = [{k: v // PIPE_STEPS for k, v in r["launches"].items()} for r in rs]
+    # (e): the rule tables' steps against the bespoke builders, bitwise
+    for name in ("dp", "zero3"):
+        for r in ranks:
+            a, b = r["exact"][f"rules {name} table"], r["exact"][f"rules {name} bespoke"]
+            check(a["losses"] == b["losses"] and
+                  all(np.array_equal(p, q) for p, q in zip(a["params"], b["params"], strict=True)),
+                  f"(e) rank {r['rank']}: the {name} table's step differs from the bespoke one")
+        losses = ranks[0]["exact"][f"rules {name} table"]["losses"]
+        check(losses[-1] < losses[0], f"(e) {name}: loss did not fall: {losses}")
+        print(f"  (e) RulePartitioner {name!r} table == bespoke builder, bitwise on every rank "
+              f"over {PIPE_STEPS} Adam steps: loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    return out
+
+
+def zero_phase(dev):
+    """Phase 15: ZeRO stages 1, 2 and 3 and the rule tables on the card, one
+    world of 4 ranks; returns the checks' numbers and launches."""
+    import numpy as np
+
+    from ddl25spring_tpu_torch.data.cifar10 import load_cifar10_u8
+    from ddl25spring_tpu_torch.data.tinystories import TinyStories
+    from ddl25spring_tpu_torch.data.tokenizer import get_tokenizer
+    from ddl25spring_tpu_torch.ops import _build
+    from ddl25spring_tpu_torch.parallel.launch import spawn
+
+    _build.build(_build.CSRC / "flash_attention.cu", _build.CSRC / "flash_attention_sm90.cu")
+    t0 = time.perf_counter()
+    n = ZERO_N
+    c = load_cifar10_u8(n_train=n * ZERO_RESNET_ROWS)
+    x, y = c["x"], c["y"].astype(np.int64)
+    rng = np.random.default_rng(15)
+    order = [rng.permutation(len(x)) for _ in range(ZERO_RESNET_STEPS)]
+    ds = iter(TinyStories(get_tokenizer(), batch_size=n * SPTP_ROWS, seq_l=256, seed=0))
+    cfg = pipe_cfg("dense", "float32")
+    g = np.random.default_rng(16)
+    data = {"resnet exact": (x[:n * ZERO_EXACT_ROWS], y[:n * ZERO_EXACT_ROWS]),
+            "resnet": [(x[o], y[o]) for o in order],
+            "llama exact": _token_batches(cfg, n * SPTP_ROWS, 1, seed=23)[0],
+            "llama": [np.asarray(next(ds)) for _ in range(PIPE_STEPS)],
+            "moe exact": _token_batches(cfg, n * ZERO_MOE_M, 1, seed=29)[0],
+            "mlp": (g.normal(size=(8 * n, 16)).astype(np.float32),
+                    g.normal(size=(8 * n, 4)).astype(np.float32)),
+            "mlp weights": [(0.1 * g.normal(size=s)).astype(np.float32)
+                            for s in ((16, 32), (32,), (32, 4))]}
+    data["moe"] = [b[:n * ZERO_MOE_M] for b in data["llama"]]
+    ranks = spawn(zero_rank, n, data, dev.type, timeout=SPAWN_TIMEOUT)
+    print(f"  {n} ranks, backend {sorted({r['backend'] for r in ranks})}: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    out = zero_checks(ranks, dev, data)
+    print(f"  phase 15 took {time.perf_counter() - t0:.1f} s (after the build)")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -3455,6 +4033,14 @@ def main() -> int:
     pipe = pipe_phase(dev)
     print(f"  phase 14 in {time.perf_counter() - t0:.1f} s")
 
+    print("== ZeRO stages 1, 2 and 3 and the partition-rule engine on the card: ResNet-18 "
+          "ZeRO-3 and ZeRO-1/2, LLaMA ZeRO-3 with gather prefetch and remat, MoE LLaMA under "
+          "ZeRO-3, the rule tables (4 ranks on cuda:0)")
+    print(card)
+    t0 = time.perf_counter()
+    zero3 = zero_phase(dev)
+    print(f"  phase 15 in {time.perf_counter() - t0:.1f} s")
+
     kernels = [
         {"name": f"flash_{name}", "route": "cuda", "source": SOURCE[timing[name]["variant"]],
          "replaces": REPLACES[name], "launches": launches[name],
@@ -3465,6 +4051,8 @@ def main() -> int:
                                    if k != "dense"},
          "launches_pipeline_compositions_per_rank": {
              run: [c[name] for c in r["launches"]] for run, r in pipe["runs"].items()},
+         "launches_zero_per_rank": {run: [c[name] for c in per_rank]
+                                    for run, per_rank in zero3["launches"].items()},
          "max_abs_err": main_err[name], "max_abs_err_sp_tp": sptp["max_abs_err"][name],
          "max_abs_err_pipeline_compositions": pipe["max_abs_err"][name],
          **timing[name]}

@@ -77,7 +77,8 @@ def _shape(leaf: Leaf) -> tuple[int, ...]:
 @dataclass(frozen=True)
 class BucketPlan:
     """Leaves grouped into dtype-homogeneous flat buckets: ``buckets[b]`` lists
-    leaf indices, ``sizes[i]`` is leaf ``i``'s element count."""
+    leaf indices, ``sizes[i]`` is leaf ``i``'s element count (its padded ZeRO
+    row under ``plan_buckets(sizes=)``)."""
 
     shapes: tuple[tuple[int, ...], ...]
     dtypes: tuple[torch.dtype, ...]
@@ -148,7 +149,7 @@ class BucketPlan:
 
 def plan_buckets(leaves: Sequence[Leaf],
                  bucket_bytes: int | float = DEFAULT_BUCKET_BYTES,
-                 order: str = "forward") -> BucketPlan:
+                 order: str = "forward", sizes: Sequence[int] | None = None) -> BucketPlan:
     """Greedy order-preserving packing, as the JAX planner: walk the leaves in
     order, append each to the open bucket of its dtype until adding it would
     pass ``bucket_bytes``, then seal that bucket and open a new one.  A leaf
@@ -158,7 +159,15 @@ def plan_buckets(leaves: Sequence[Leaf],
     ``order="backward"`` walks the leaves reversed, as the JAX planner does
     for its overlapped path: the backward produces gradients roughly in
     reverse, so bucket 0 holds the last layers and is complete first.
-    Packing and unpacking go by index, so both orders round-trip alike."""
+    Packing and unpacking go by index, so both orders round-trip alike.
+
+    ``sizes`` overrides each leaf's packed element count, as the JAX
+    planner's does: ZeRO plans over its padded rows, where leaf ``i`` takes
+    ``k_i = ceil(size_i / n)`` slots of a bucket row (the JAX ``_row_plan``,
+    ``zero.py:59``).  Only :attr:`BucketPlan.sizes` changes; ``shapes`` stay
+    the leaves' own, and :meth:`BucketPlan.pack`/``unpack`` are for plans
+    without it.  Leaves may be ``meta`` tensors: only shapes and dtypes are
+    read."""
     if order not in ("forward", "backward"):
         raise ValueError(f"order must be 'forward' or 'backward', got {order!r}")
     shapes = tuple(_shape(leaf) for leaf in leaves)
@@ -168,7 +177,11 @@ def plan_buckets(leaves: Sequence[Leaf],
         if len(kinds) != 1:
             raise ValueError(f"leaf {i} mixes dtypes {sorted(map(str, kinds))}")
         dtypes.append(kinds.pop())
-    sizes = tuple(sum(t.numel() for t in parts(leaf)) for leaf in leaves)
+    if sizes is None:
+        sizes = [sum(t.numel() for t in parts(leaf)) for leaf in leaves]
+    if len(sizes) != len(leaves):
+        raise ValueError(f"sizes has {len(sizes)} entries for {len(leaves)} leaves")
+    sizes = tuple(int(s) for s in sizes)
     bucket_bytes = max(int(bucket_bytes), 1)
     open_by_dtype: dict = {}  # dtype -> (indices, bytes)
     buckets: list[tuple[int, ...]] = []

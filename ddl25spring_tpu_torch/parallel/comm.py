@@ -15,9 +15,9 @@ one-card run, not a way around the card; every byte it moves is counted.
 A :class:`Comm` counts, until :meth:`Comm.take_stats` resets them, the bytes
 it staged through the host, the seconds it spent posting sends (and waiting
 for an exchange that only sends) and waiting for exchanges that receive,
-the seconds of its all-reduces and those of its all-gathers and
-all-to-alls (``collective_s``), staging included.  A staged exchange
-or all-reduce first waits for the card to finish the work queued before it,
+the seconds of its all-reduces and those of its all-gathers,
+reduce-scatters and all-to-alls (``collective_s``), staging included.  A
+staged exchange or all-reduce first waits for the card to finish the work queued before it,
 outside the clock, so its seconds are transport only; a receive counts the
 wait for the peer.  Under NCCL the calls return once the transfer
 is queued on the stream, so its seconds are host time only.
@@ -41,7 +41,13 @@ inside ``shard_map``:
 - :func:`all_gather` of a value every rank then uses identically (the loss
   is replicated over the axis): its backward is this rank's own slot of the
   cotangent, not a sum over the ranks, which would count the loss ``n``
-  times.
+  times;
+- :func:`gather_rows` (``lax.all_gather(tiled=True)`` of ZeRO's ``[1, K]``
+  rows into ``[n, K]``), whose backward is the reduce-scatter SUM of the
+  cotangent into this rank's row: each rank's loss differs, and every rank's
+  gradient of the gathered value counts.  It can finish a gather that
+  :meth:`Comm.start_all_gather` issued earlier, which is how ZeRO's LLaMA
+  step prefetches the next layer.
 
 A collective's backward runs only if autograd reaches it, and every rank
 of the axis must run it, in the same order.  :func:`ring_pass` is therefore
@@ -222,18 +228,57 @@ class Comm:
 
     def all_gather(self, t: torch.Tensor, group) -> torch.Tensor:
         """``[n, *t.shape]``: slot ``j`` holds ``t`` of the group's rank ``j``."""
+        return self.start_all_gather(t, group)()
+
+    def start_all_gather(self, t: torch.Tensor, group, slot=None):
+        """Issue :meth:`all_gather` of ``t`` without waiting for it (``slot``
+        names its host buffers on the staged path, where the copy to the host
+        waits for the card).  Returns ``finish()``, which waits and returns
+        the ``[n, *t.shape]`` result on this rank's device.  Both halves
+        count in ``collective_s``."""
         n = dist.get_world_size(group)
         self._settle()
         t0 = time.perf_counter()
         out = torch.empty((n, *t.shape), dtype=t.dtype, device=self.device)
         if self.staged:
-            buf = self._buffer(out.shape, out.dtype, "gather")
-            dist.all_gather(list(buf.unbind(0)), self._to_host(t.contiguous()), group=group)
+            buf = self._buffer(out.shape, out.dtype, ("gather", slot))
+            work = dist.all_gather(list(buf.unbind(0)),
+                                   self._to_host(t.contiguous(), ("gather in", slot)),
+                                   group=group, async_op=True)
+        else:
+            work = dist.all_gather(list(out.unbind(0)), t.contiguous(), group=group,
+                                   async_op=True)
+        self.collective_s += time.perf_counter() - t0
+
+        def finish() -> torch.Tensor:
+            t1 = time.perf_counter()
+            work.wait()
+            if self.staged:
+                self._from_host(buf, out)
+            self.collective_s += time.perf_counter() - t1
+            return out
+
+        return finish
+
+    def reduce_scatter(self, t: torch.Tensor, group) -> torch.Tensor:
+        """``t`` is ``[n, ...]``: slot ``j`` of every rank's ``t`` is summed
+        into the group's rank ``j``; returns this rank's sum, ``t.shape[1:]``
+        (``lax.psum_scatter(scatter_dimension=0, tiled=True)`` of ``n`` rows).
+        Staged, the whole ``t`` goes to the host and this rank's slot comes
+        back."""
+        self._settle()
+        t0 = time.perf_counter()
+        # flat: gloo takes the input as the outputs concatenated along dim 0
+        flat = t.contiguous().view(-1)
+        out = torch.empty(flat.numel() // t.shape[0], dtype=t.dtype, device=self.device)
+        if self.staged:
+            buf = self._buffer(out.shape, out.dtype, "scatter")
+            dist.reduce_scatter_tensor(buf, self._to_host(flat), group=group)
             self._from_host(buf, out)
         else:
-            dist.all_gather(list(out.unbind(0)), t.contiguous(), group=group)
+            dist.reduce_scatter_tensor(out, flat, group=group)
         self.collective_s += time.perf_counter() - t0
-        return out
+        return out.view(t.shape[1:])
 
     def all_to_all(self, t: torch.Tensor, group) -> torch.Tensor:
         """``t`` is ``[n, ...]``: slot ``j`` goes to the group's rank ``j``, and
@@ -403,3 +448,28 @@ def all_gather(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     """``[n, *x.shape]``, slot ``j`` from index ``j``; for a value every rank of
     the axis then uses identically (its backward takes this rank's slot)."""
     return x[None] if axis.size == 1 else _AllGather.apply(x, axis)
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, row, axis, pending):
+        ctx.axis = axis
+        if pending is not None:
+            return pending()
+        return axis.comm.all_gather(row.reshape(-1), axis.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        row = ctx.axis.comm.reduce_scatter(g.contiguous(), ctx.axis.group)
+        return row.view(1, -1), None, None
+
+
+def gather_rows(row: torch.Tensor, axis: Axis, pending=None) -> torch.Tensor:
+    """``[n, K]`` from this rank's ``[1, K]`` ``row``: slot ``j`` is index
+    ``j``'s row (``lax.all_gather(tiled=True)``).  The backward reduce-scatters
+    the SUM of the ``[n, K]`` cotangent over the axis into this rank's row,
+    the transpose JAX derives, so every rank's gradient of what it gathered
+    reaches the rank that holds the row.  ``pending``, the ``finish`` of a
+    :meth:`Comm.start_all_gather` of ``row`` issued earlier, supplies the
+    result instead of a new gather."""
+    return _GatherRows.apply(row, axis, pending)

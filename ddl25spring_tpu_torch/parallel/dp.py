@@ -83,16 +83,18 @@ def _not_ported(step: str, instrument=None, sentinel=None):
 class _Overlap:
     """The overlapped reduction of :func:`make_dp_train_step`: a
     post-accumulate-grad hook on every parameter counts the gradients of
-    its bucket, and the last one to arrive packs the bucket and issues its
-    all-reduce without waiting (``Comm.start_all_reduce_mean_``), while the
-    backward goes on with the layers before; a bucket that completes before
-    a lower-numbered one waits for it, so every replica issues them in the
-    same order.  ``log`` records, per step,
-    ``("grad", leaf)`` as each leaf's last tensor gets its gradient and
-    ``("issue", bucket)`` as each bucket's all-reduce is issued."""
+    its bucket, and the last one to arrive issues the bucket's reduction,
+    ``issue(b) -> finish``, while the backward goes on with the layers
+    before; a bucket that completes before a lower-numbered one waits for
+    it, so every replica issues them in the same order.  DP's ``issue``
+    (:func:`_all_reduce_issue`) packs the bucket and starts its all-reduce
+    without waiting; ZeRO-2's reduce-scatters it into this rank's rows.
+    ``log`` records, per step, ``("grad", leaf)`` as each leaf's last tensor
+    gets its gradient and ``("issue", bucket)`` as each bucket's reduction
+    is issued."""
 
-    def __init__(self, leaves, plan, comm, group):
-        self.leaves, self.plan, self.comm, self.group = leaves, plan, comm, group
+    def __init__(self, leaves, plan, issue):
+        self.leaves, self.plan, self.issue = leaves, plan, issue
         self.armed = False
         self.log: list[tuple[str, int]] = []
         self._bucket = {i: b for b, idxs in enumerate(plan.buckets) for i in idxs}
@@ -105,7 +107,7 @@ class _Overlap:
         self.armed, self.log = True, []
         self._parts = [0] * len(self.leaves)
         self._have = [0] * self.plan.n_buckets
-        self._issued: list[tuple] = []
+        self._issued: list = []
 
     def _arrived(self, i: int):
         if not self.armed:
@@ -119,26 +121,40 @@ class _Overlap:
 
     def _issue_ready(self, everything: bool = False):
         # buckets go out in index order on every replica, whatever order
-        # their gradients complete in: the all-reduces of a group are
+        # their gradients complete in: the collectives of a group are
         # matched by their order
         while len(self._issued) < self.plan.n_buckets:
             b = len(self._issued)
             if not everything and self._have[b] < self._need[b]:
                 return
             self.log.append(("issue", b))
-            buf = self.plan.pack_bucket(b, grad_leaves(self.leaves))
-            self._issued.append((buf, self.comm.start_all_reduce_mean_(buf, self.group, slot=b)))
+            self._issued.append(self.issue(b))
 
     def finish(self):
         """Issue what the backward left (a bucket some of whose gradients came
-        from no hook), then wait for every bucket, in order, and write the
-        means back into ``.grad``."""
+        from no hook), then finish every bucket, in order."""
         self.armed = False
         self._issue_ready(everything=True)
-        grads = grad_leaves(self.leaves)
-        for b, (buf, done) in enumerate(self._issued):
+        for done in self._issued:
             done()
-            self.plan.unpack_bucket_into(b, buf, grads)
+
+
+def _all_reduce_issue(leaves, plan, comm, group):
+    """DP's ``issue`` for :class:`_Overlap`: pack bucket ``b``'s gradients and
+    start their all-reduce (``Comm.start_all_reduce_mean_``); its ``finish``
+    waits and writes the means back into ``.grad``."""
+
+    def issue(b):
+        buf = plan.pack_bucket(b, grad_leaves(leaves))
+        done = comm.start_all_reduce_mean_(buf, group, slot=b)
+
+        def finish():
+            done()
+            plan.unpack_bucket_into(b, buf, grad_leaves(leaves))
+
+        return finish
+
+    return issue
 
 
 def make_dp_train_step(model: nn.Module, loss_fn: LossFn, optimizer: torch.optim.Optimizer,
@@ -179,7 +195,8 @@ def make_dp_train_step(model: nn.Module, loss_fn: LossFn, optimizer: torch.optim
     leaves = param_leaves(model)
     plan = plan_buckets(leaves, bb, order="backward" if overlap else "forward") if bb else None
     d, comm = mesh.coords[0], mesh.comm
-    hooks = _Overlap(leaves, plan, comm, mesh.dp_group) if overlap else None
+    hooks = (_Overlap(leaves, plan, _all_reduce_issue(leaves, plan, comm, mesh.dp_group))
+             if overlap else None)
 
     def step(batch):
         optimizer.zero_grad(set_to_none=True)
@@ -231,3 +248,29 @@ def make_dp_weight_avg_step(model: nn.Module, loss_fn: LossFn,
         return loss
 
     return step
+
+
+class TinyMlp(nn.Module):
+    """The JAX package's tiny MLP workload (``_tiny_mlp_workload``,
+    ``parallel/dp.py:327``): ``tanh(x @ w1 + b1) @ w2``, with ``w1 [16, 32]``,
+    ``b1 [32]``, ``w2 [32, 4]`` (zeros, as there; callers load weights), and
+    the rule tables' names (``param_tree()``: ``b1``, ``w1``, ``w2``)."""
+
+    def __init__(self, d_in: int = 16, d_h: int = 32, d_out: int = 4, device="cpu"):
+        super().__init__()
+        self.w1 = nn.Parameter(torch.zeros(d_in, d_h, device=device))
+        self.b1 = nn.Parameter(torch.zeros(d_h, device=device))
+        self.w2 = nn.Parameter(torch.zeros(d_h, d_out, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(x @ self.w1 + self.b1) @ self.w2
+
+    def param_tree(self) -> dict:
+        return {"w1": self.w1, "b1": self.b1, "w2": self.w2}
+
+
+def tiny_mlp_loss(model: TinyMlp, batch) -> torch.Tensor:
+    """The tiny MLP's loss: the mean squared error of ``model(x)`` to ``y``."""
+    x, y = batch
+    return ((model(x) - y) ** 2).mean()
+

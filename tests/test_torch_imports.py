@@ -43,5 +43,6 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "examples.vfl_and_generative_fl", "parallel.schedule",
                 "examples.homework1_a2_a3_sweeps", "examples.tutorial_1b.intro_dp_ga",
                 "examples.tutorial_1b.intro_dp_wa", "examples.tutorial_1b.intro_pp_1f1b",
-                "parallel.sp", "parallel.tp", "parallel.ep"):
+                "parallel.sp", "parallel.tp", "parallel.ep", "parallel.zero",
+                "parallel.rules"):
         assert f"ddl25spring_tpu_torch.{mod}" in report["modules"]
