@@ -302,6 +302,44 @@ Phases, in order; any failure exits non-zero and prints no result:
         MLP: ``PIPE_STEPS`` Adam steps bitwise equal to the bespoke builders'
         on every rank, the loss falling.
 
+16. the observability slice on the card (``obs/``, the builders'
+    ``sentinel=`` and ``instrument=``; ``obs_phase``), full-width
+    ``LlamaConfig(use_flash=True)``, bf16, batch 3, Adam 8e-4, the loss times a
+    factor the batch carries on the card (1.0, or NaN on the poisoned step):
+    (a) in a process of its own: ``OBS_STEPS`` eager steps of the one-process
+        step with ``sentinel=True``, policy ``skip`` (plain Adam, whose step
+        counter lives on the host), step ``OBS_POISON`` poisoned: one
+        violation record naming it, 11 step records with finite loss, grad
+        norm and update ratio; parameters and Adam state bitwise unchanged
+        across it; the 11 clean losses and the final parameters bitwise an
+        unguarded run's that leaves the poisoned batch out; 6/6/6 flash
+        launches a step on ``wgmma``; the guard's own kernels per step
+        (torch.profiler, guarded less unguarded); the run logged into a run
+        directory (spans, metrics, counters, flight, timeline);
+    (b) the same inside ``fuse_train_steps`` (k = ``FUSE_K``, capturable
+        Adam), window step ``OBS_WINDOW_POISON`` poisoned: 16 records in step
+        order with one violation; the clean losses, parameters and Adam state
+        bitwise 15 eager unguarded steps'; the graph's flash nodes 96 each on
+        ``wgmma``; its node count beside an unguarded graph's;
+    (c) the median step per window of 16, eager and fused, guarded and
+        unguarded, in turns (written down, not gated);
+    (d) ``halt`` in a child process: ``SentinelViolation`` at most one step
+        after the poisoned one, a ``flight.json`` naming the step and the
+        metric, a non-zero exit;
+    (e) the 2 x 3 DP x PP LLaMA on ``cuda:0`` over gloo, ``gpipe``,
+        ``PIPE_STEPS`` steps, ``instrument=True``, ``sentinel=True``,
+        ``skip``, one rank's loss NaN on one step: one violation, recorded on
+        rank 0 only; every rank's parameters and Adam state bitwise unchanged
+        by it; the statics ``pipeline.num_stages`` 3, ``num_microbatches`` 3
+        and the GPipe bubble; a ``pipeline.tick`` series on every rank;
+        6/6/6 launches per rank per step on ``wgmma``;
+    (f) ``lab.dp_pp --workload llama --trace-dir``: the reporting rank's
+        ``trace.json`` holds the ``dp_pp.step`` spans and the three flash
+        kernels;
+    (g) (a)'s run directory holds ``trace.json``, ``metrics.jsonl``,
+        ``counters.json``, ``flight.json`` and ``timeline.jsonl``, and
+        ``tools/trace_export.py <dir> --check`` exits 0.
+
 Tolerances (|kernel - plain| <= atol + rtol * |plain|):
   fp32: atol 1e-4, rtol 0 (summation order only);
   bf16: atol 2e-2, rtol 1e-2 against the plain version on the same bf16
@@ -320,7 +358,11 @@ error of phase 12 (c)'s checks; ``launches_pipeline_compositions_per_rank``
 each rank's launches per step in each run of phase 14,
 ``max_abs_err_pipeline_compositions`` the largest error of phase 14 (e), and
 ``launches_zero_per_rank`` each rank's launches per step in phase 15 (c)'s
-LLaMA runs and (d)'s MoE run.
+LLaMA runs and (d)'s MoE run; ``launches_obs_guarded_per_step`` phase 16
+(a)'s launches per guarded step, ``launches_obs_guarded_per_fused_window``
+the kernel's nodes in (b)'s guarded graph of 16 steps, and
+``launches_obs_dp_pp_per_rank_per_step`` each rank's launches per step in
+(e).
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -3880,6 +3922,445 @@ def zero_phase(dev):
     return out
 
 
+# ---------------------------------------------------------------- phase 16
+
+OBS_STEPS = 12                  # (a): guarded eager bf16 steps
+OBS_POISON = 5                  # (a): the step whose loss factor is NaN
+OBS_WINDOW_POISON = 9           # (b): the poisoned step inside the fused window of FUSE_K
+OBS_TIMED = 3                   # (c): windows of FUSE_K steps per timed block
+OBS_PIPE_POISON = (2, (1, 2))   # (e): the step, and the (replica, stage) rank whose loss is NaN
+OBS_HALT_STEPS = 4              # (d): steps the halting child is given, the poison at 1
+
+
+def _bits(tensors) -> list:
+    """Each tensor's bits, as integers (a NaN compares equal to itself)."""
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return [t.detach().contiguous().view(ints[t.element_size()]).clone() for t in tensors]
+
+
+def _bitwise(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _opt_tensors(opt) -> list:
+    return [v for st in opt.state.values() for v in st.values() if torch.is_tensor(v)]
+
+
+def _scaled_lm_loss(model, batch):
+    """The LLaMA loss times a factor the batch carries on the card: 1.0, or
+    NaN on the step phase 16 poisons, so one code path runs both."""
+    from ddl25spring_tpu_torch.ops.losses import causal_lm_loss
+
+    tokens, factor = batch
+    return causal_lm_loss(model(tokens), tokens) * factor
+
+
+def obs_cfg():
+    """Phase 16's LLaMA: full width, bf16, the flash kernels."""
+    from ddl25spring_tpu_torch.utils.config import LlamaConfig
+
+    return LlamaConfig(dtype="bfloat16", use_flash=True)
+
+
+def _obs_llama(dev, capturable, guarded, policy="skip", seed=0):
+    from ddl25spring_tpu_torch.models.llama import Llama
+    from ddl25spring_tpu_torch.obs import sentinels
+    from ddl25spring_tpu_torch.parallel.dp import make_train_step
+
+    model = Llama(obs_cfg(), device=dev, generator=torch.Generator().manual_seed(seed))
+    # capturable: Adam's state on the card, for a CUDA graph (the CPU has none)
+    opt = torch.optim.Adam(model.parameters(), lr=8e-4,
+                           capturable=capturable and torch.device(dev).type == "cuda")
+    with sentinels.scoped(guarded, policy=policy):
+        step = make_train_step(model, _scaled_lm_loss, opt, sentinel=guarded)
+    return model, opt, step
+
+
+def _guard_launches(dev, step, batch) -> int:
+    """Kernels one call of ``step`` launches, from torch.profiler."""
+    step(batch)
+    torch.cuda.synchronize()
+    return sum(e.count for e in kernel_events(lambda: step(batch), 1))
+
+
+def obs_llama(rdv, run_dir, device="cuda"):
+    """Phase 16 (a)-(c) and (g), in a process of its own (fresh profiler and
+    flight state).  (a) 12 guarded eager steps (policy skip, plain Adam)
+    with step 5's loss factor NaN, against 11 unguarded steps without it;
+    the run logged into ``run_dir`` (spans, metrics, counters, flight,
+    timeline).  (b) the same inside ``fuse_train_steps`` (k = 16,
+    capturable Adam), step 9 poisoned, against 15 eager unguarded steps; the
+    graph's node counts, guarded and unguarded.  (c) median step per
+    16-step window, eager and fused, guarded and unguarded, in turns.
+    Returns the numbers and the lines to print."""
+    import os
+    import tempfile
+
+    from ddl25spring_tpu_torch import obs
+    from ddl25spring_tpu_torch.obs import flight, sentinels, timeline
+    from ddl25spring_tpu_torch.ops import flash_attention as fa
+    from ddl25spring_tpu_torch.parallel.pipeline import fuse_train_steps
+
+    dev, K = torch.device(device, 0) if device == "cuda" else torch.device(device), FUSE_K
+    cfg = obs_cfg()
+    gen = torch.Generator().manual_seed(16)
+    tokens = torch.randint(0, cfg.vocab_size, (OBS_STEPS + 2 * K, MAIN_SHAPE[0], cfg.ctx_size),
+                           generator=gen).to(dev)
+    factors = torch.ones(OBS_STEPS, device=dev)
+    factors[OBS_POISON] = float("nan")
+    out, lines = {}, []
+    sentinels.reset()
+    flight.reset()
+    obs.counters.reset()
+    # (a) and (g): the guarded eager run, logged
+    flight.configure(run_dir=run_dir)
+    timeline.configure(run_dir, meta={"phase": 16})
+    spans = obs.SpanRecorder(process_name="chip_smoke phase 16")
+    logger = obs.MetricsLogger(run_dir, meta=obs.run_metadata(layout="one card",
+                                                                 workload="llama"))
+    model, opt, step = _obs_llama(dev, False, True)
+    check(step.guard is not None, "(a) sentinel=True built no guard")
+    fa.reset_launches()
+    losses, before, after = [], None, None
+    with obs.scoped(True):
+        for i in range(OBS_STEPS):
+            if i == OBS_POISON:
+                sentinels.flush()
+                before = _bits(list(model.parameters()) + _opt_tensors(opt))
+            t0 = time.perf_counter()
+            with spans.span("phase16.step", step=i):
+                loss = step((tokens[i], factors[i]))
+            losses.append(loss)
+            logger.log(step=i, wall_s=time.perf_counter() - t0)
+            if i == OBS_POISON:
+                sentinels.flush()  # the fold puts Adam's host step counter back
+                after = _bits(list(model.parameters()) + _opt_tensors(opt))
+        sentinels.flush()
+    launches = dict(fa.LAUNCHES)
+    by_variant = {n: dict(c) for n, c in fa.LAUNCHES_BY_VARIANT.items()}
+    records = flight.last()
+    losses = torch.stack(losses).float().tolist()
+    violations = [r for r in records if r["kind"] == "violation"]
+    clean = [r for r in records if r["kind"] == "step"]
+    check(len(records) == OBS_STEPS and len(violations) == 1
+          and violations[0]["step"] == OBS_POISON,
+          f"(a) {len(records)} records, violations {violations}: not one at step {OBS_POISON}")
+    check(all(math.isfinite(r[k]) for r in clean for k in ("loss", "grad_norm", "update_ratio")),
+          f"(a) a clean step's facts are not finite: {clean}")
+    check(before is not None and _bitwise(before, after),
+          "(a) the skipped step changed the parameters or the optimizer state")
+    want = {n: 6 * OBS_STEPS for n in ("fwd", "dq", "dkv")}
+    check(launches == want and all(by_variant[n]["wgmma"] == 6 * OBS_STEPS for n in want),
+          f"(a) flash launches {launches}, by variant {by_variant}: not 6 a step on wgmma")
+    # the unguarded run from the same weights, the poisoned batch left out
+    plain, plain_opt, plain_step = _obs_llama(dev, False, False)
+    ref = [plain_step((tokens[i], factors[i])).float().item()
+           for i in range(OBS_STEPS) if i != OBS_POISON]
+    mine = [x for i, x in enumerate(losses) if i != OBS_POISON]
+    check(mine == ref, f"(a) clean guarded losses {mine} vs unguarded {ref}: not bitwise")
+    check(_bitwise(_bits(model.parameters()), _bits(plain.parameters())),
+          "(a) the guarded run's parameters differ from the unguarded run's")
+    guard_launches = (_guard_launches(dev, step, (tokens[0], factors[0]))
+                      - _guard_launches(dev, plain_step, (tokens[0], factors[0])))
+    lines.append(f"  (a) guarded eager, {OBS_STEPS} steps, skip: 1 violation at step "
+                 f"{violations[0]['step']} ({violations[0]['violating_metric']}, "
+                 f"{len(violations[0].get('nonfinite_leaves', []))} non-finite leaves); "
+                 f"parameters and Adam state bitwise unchanged across it; the {OBS_STEPS - 1} "
+                 f"clean losses bitwise the unguarded run's ({mine[0]:.4f} -> {mine[-1]:.4f}); "
+                 f"launches {launches} (wgmma); the guard's own kernels per step "
+                 f"{guard_launches}")
+    obs.counters.save(run_dir)
+    spans.save(os.path.join(run_dir, "trace.json"))
+    logger.close()
+    flight.dump(reason="end_of_run")
+    timeline.configure(None)
+    out.update(eager_launches=launches, guard_launches=guard_launches)
+    # (b): the window, step 9 poisoned, against 15 eager unguarded steps
+    window = tokens[OBS_STEPS:OBS_STEPS + K]
+    wf = torch.ones(K, device=dev)
+    wf[OBS_WINDOW_POISON] = float("nan")
+    sentinels.reset()
+    flight.reset()
+    fmodel, fopt, fstep = _obs_llama(dev, True, True)
+    emodel, eopt, estep = _obs_llama(dev, True, False)
+    ref = [estep((window[i], wf[i])).float().item() for i in range(K)
+           if i != OBS_WINDOW_POISON]
+    fa.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        dumps = {"guarded": os.path.join(tmp, "guarded.dot")}
+        multi = fuse_train_steps(fstep, K, module=fmodel, optimizer=fopt, device=dev,
+                                 dump_graph=dumps["guarded"])
+        fused = multi((window, wf))
+        captured = {n: dict(c) for n, c in fa.CAPTURED.items()}
+        umodel, uopt, ustep = _obs_llama(dev, True, False)
+        dumps["unguarded"] = os.path.join(tmp, "unguarded.dot")
+        umulti = fuse_train_steps(ustep, K, module=umodel, optimizer=uopt, device=dev,
+                                  dump_graph=dumps["unguarded"])
+        umulti((window, torch.ones(K, device=dev)))
+        census = {}
+        for name, path in dumps.items():
+            check(os.path.exists(path), f"(b) CUDAGraph.debug_dump wrote no {path}")
+            census[name] = ({}, 0)
+            if os.path.exists(path):
+                with open(path) as f:
+                    census[name] = graph_census(f.read())
+    sentinels.flush()
+    records = flight.last()
+    fused = fused.float().tolist()
+    kinds = [r["kind"] for r in records]
+    check([r["step"] for r in records] == list(range(K))
+          and kinds.count("violation") == 1 and kinds[OBS_WINDOW_POISON] == "violation",
+          f"(b) window records {kinds} (steps {[r['step'] for r in records]})")
+    check([x for i, x in enumerate(fused) if i != OBS_WINDOW_POISON] == ref,
+          f"(b) fused clean losses {fused} vs eager unguarded {ref}: not bitwise")
+    check(_bitwise(_bits(list(fmodel.parameters()) + _opt_tensors(fopt)),
+                   _bits(list(emodel.parameters()) + _opt_tensors(eopt))),
+          f"(b) after the window, parameters or Adam state differ from {K - 1} clean eager steps")
+    flash_nodes = {n: c for n, c in census["guarded"][0].items() if c}
+    check(flash_nodes == {f"flash_{n}_wgmma": 6 * K for n in ("fwd", "dq", "dkv")}
+          and all(c == {"wgmma": 6 * K, "scalar": 0} for c in captured.values()),
+          f"(b) the guarded graph's flash nodes {flash_nodes}, captured {captured}")
+    nodes = {name: c[1] for name, c in census.items()}
+    lines.append(f"  (b) fused window of {K}, step {OBS_WINDOW_POISON} poisoned: {K} records "
+                 "in step order, 1 violation; clean losses, parameters and Adam state bitwise "
+                 f"{K - 1} eager unguarded steps'; graph nodes guarded {nodes['guarded']}, "
+                 f"unguarded {nodes['unguarded']} (+{nodes['guarded'] - nodes['unguarded']}, "
+                 f"{(nodes['guarded'] - nodes['unguarded']) / K:.1f} a step); flash nodes "
+                 f"{flash_nodes}")
+    out.update(nodes=nodes, fused_launches=flash_nodes)
+    # (c): host wall per step, windows of K, guarded and unguarded in turns
+    clean_window = (tokens[OBS_STEPS + K:OBS_STEPS + 2 * K], torch.ones(K, device=dev))
+    runs = {"eager guarded": lambda: [step((clean_window[0][i], clean_window[1][i]))
+                                      for i in range(K)],
+            "eager unguarded": lambda: [plain_step((clean_window[0][i], clean_window[1][i]))
+                                        for i in range(K)],
+            "fused guarded": lambda: multi(clean_window),
+            "fused unguarded": lambda: umulti(clean_window)}
+    times = {name: [] for name in runs}
+    for order in (list(runs), list(runs)[::-1]):
+        for name in order:
+            times[name] += _window_ms(runs[name], K, OBS_TIMED)
+    sentinels.flush()
+    med = {name: statistics.median(ts) for name, ts in times.items()}
+    for kind in ("eager", "fused"):
+        g, u = med[f"{kind} guarded"], med[f"{kind} unguarded"]
+        lines.append(f"  (c) {kind}: median step guarded {g:.3f} ms, unguarded {u:.3f} ms "
+                     f"({(g / u - 1) * 100:+.1f} %), {2 * OBS_TIMED} windows of {K} each")
+    out["step_ms"] = med
+    return out, lines
+
+
+_HALT_CHILD = r"""
+import sys, torch
+sys.path.insert(0, sys.argv[2])
+import chip_smoke as cs
+from ddl25spring_tpu_torch.obs import flight, sentinels
+
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device(sys.argv[3])
+flight.configure(run_dir=sys.argv[1])
+model, opt, step = cs._obs_llama(dev, False, True, policy="halt")
+cfg = cs.obs_cfg()
+tokens = torch.randint(0, cfg.vocab_size, (cs.OBS_HALT_STEPS, 3, cfg.ctx_size),
+                       generator=torch.Generator().manual_seed(4)).to(dev)
+for i in range(cs.OBS_HALT_STEPS):
+    factor = torch.full((), float("nan") if i == 1 else 1.0, device=dev)
+    step((tokens[i], factor))
+    print(f"STEP {i} returned", flush=True)
+sentinels.flush()
+print("NO RAISE", flush=True)
+"""
+
+
+def obs_halt_start(tmp, device="cuda"):
+    """(d): a child process running guarded steps under ``halt``, step 1's
+    loss NaN; it must die of the violation.  Started here, read by
+    :func:`obs_halt_check`."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.Popen([sys.executable, "-c", _HALT_CHILD, tmp, root, device], cwd=root,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def obs_halt_check(proc, tmp) -> str:
+    import os
+
+    out, err = proc.communicate(timeout=SPAWN_TIMEOUT)
+    returned = [int(x) for x in re.findall(r"STEP (\d+) returned", out)]
+    check(proc.returncode != 0 and "NO RAISE" not in out,
+          f"(d) the halting child exited {proc.returncode}: {out[-500:]} {err[-1500:]}")
+    check("SentinelViolation" in err, f"(d) the child died of something else: {err[-1500:]}")
+    check(max(returned, default=-1) <= 1,
+          f"(d) halt surfaced after step {max(returned)}: more than one step late")
+    with open(os.path.join(tmp, "flight.json")) as f:
+        doc = json.load(f)
+    v = doc.get("last_violation", {})
+    check(doc["reason"] == "sentinel_halt" and v.get("step") == 1 and v.get("violating_metric"),
+          f"(d) flight.json reason {doc['reason']}, last violation {v}")
+    return (f"  (d) halt: the child raised SentinelViolation after step(s) {returned} returned "
+            f"(poison at 1), exit {proc.returncode}; flight.json: {doc['reason']}, step "
+            f"{v['step']}, {v['violating_metric']}")
+
+
+def obs_pipe_rank(rdv, params, batches, device):
+    """(e): one rank of the 2 x 3 DP x PP LLaMA (bf16, flash, gpipe, Adam
+    8e-4, instrument and sentinel on, skip); the loss of rank
+    ``OBS_PIPE_POISON[1]`` is NaN at step ``OBS_PIPE_POISON[0]`` through a
+    factor on the card.  Returns its records, whether the poisoned step left
+    its parameters and Adam state bitwise, its statics, ticks and launches."""
+    from ddl25spring_tpu_torch import obs
+    from ddl25spring_tpu_torch.obs import flight, sentinels
+    from ddl25spring_tpu_torch.ops import flash_attention as fa
+    from ddl25spring_tpu_torch.parallel import pipeline as pl
+    from ddl25spring_tpu_torch.utils.mesh import init_mesh
+
+    cfg = obs_cfg()
+    factor = torch.ones((), device=torch.device(device, 0) if device == "cuda" else "cpu")
+    loss = pl.causal_lm_loss
+    pl.causal_lm_loss = lambda logits, tokens: loss(logits, tokens) * factor
+    poison_step, poison_rank = OBS_PIPE_POISON
+    with init_mesh(rdv, DP, PP, device=device) as mesh:
+        stage = pl.shard_staged_params(params, cfg, mesh)
+        opt = torch.optim.Adam(stage.parameters(), lr=8e-4)
+        with sentinels.scoped(True, policy="skip"):
+            step = pl.make_pipeline_train_step(stage, cfg, opt, mesh, MICRO, instrument=True,
+                                               sentinel=True)
+        out = {"coords": mesh.coords, "losses": []}
+        fa.reset_launches()
+        for i, b in enumerate(batches):
+            mine = i == poison_step and mesh.coords == poison_rank
+            if i == poison_step:
+                sentinels.flush()
+                before = _bits(list(stage.parameters()) + _opt_tensors(opt))
+            if mine:
+                factor.fill_(float("nan"))
+            loss_i = step(torch.from_numpy(b).long())
+            factor.fill_(1.0)
+            out["losses"].append(None if loss_i is None else float(loss_i))
+            if i == poison_step:
+                sentinels.flush()
+                out["unchanged"] = _bitwise(before, _bits(list(stage.parameters())
+                                                          + _opt_tensors(opt)))
+        sentinels.flush()
+        out["launches"] = dict(fa.LAUNCHES)
+        out["by_variant"] = {n: dict(c) for n, c in fa.LAUNCHES_BY_VARIANT.items()}
+        out["records"] = flight.last()
+        snap = obs.counters.snapshot()
+        out["static"] = snap["static"]
+        out["ticks"] = len(snap["series"].get("pipeline.tick", []))
+        return out
+
+
+def obs_pipe_checks(ranks) -> list[str]:
+    from ddl25spring_tpu_torch.obs import gpipe_bubble_fraction
+
+    poison_step = OBS_PIPE_POISON[0]
+    n = len(ranks[0]["losses"])
+    per_rank = [len(r["records"]) for r in ranks]
+    check(per_rank == [n] + [0] * (len(ranks) - 1),
+          f"(e) records per rank {per_rank}: only rank 0 records, once a step")
+    kinds = [r["kind"] for r in ranks[0]["records"]]
+    check(kinds.count("violation") == 1 and kinds[poison_step] == "violation",
+          f"(e) rank 0's records {kinds}: not one violation at step {poison_step}")
+    check(all(r["unchanged"] for r in ranks),
+          f"(e) the skipped step changed some rank: {[r['unchanged'] for r in ranks]}")
+    want = {"pipeline.num_stages": PP, "pipeline.num_microbatches": MICRO,
+            "pipeline.num_chunks": 1,
+            "pipeline.bubble_fraction_gpipe": gpipe_bubble_fraction(PP, MICRO)}
+    for r in ranks:
+        check(r["static"] == want, f"(e) rank {r['coords']} statics {r['static']}")
+        check(r["ticks"] > 0 and r["ticks"] % n == 0, f"(e) rank {r['coords']} ticks {r['ticks']}")
+        per_step = {k: v / n for k, v in r["launches"].items()}
+        check(per_step == {"fwd": 2 * MICRO, "dq": 2 * MICRO, "dkv": 2 * MICRO}
+              and all(v["scalar"] == 0 for v in r["by_variant"].values()),
+              f"(e) rank {r['coords']} launches {r['launches']} over {n} steps")
+    last = [r for r in ranks if r["coords"] == (0, PP - 1)][0]["losses"]
+    check(not math.isfinite(last[poison_step])
+          and all(math.isfinite(x) for i, x in enumerate(last) if i != poison_step),
+          f"(e) the last stage's losses {last}")
+    v = ranks[0]["records"][poison_step]
+    return [f"  (e) 2 x 3 DP x PP gpipe, {n} bf16 steps, rank {OBS_PIPE_POISON[1]}'s loss NaN "
+            f"at step {poison_step}: one violation, on rank 0 only ({v['violating_metric']}); "
+            "every rank's parameters and Adam state bitwise unchanged by it; statics "
+            f"{want}; ticks per rank per step {ranks[0]['ticks'] // n}; flash launches per "
+            f"rank per step {2 * MICRO}/{2 * MICRO}/{2 * MICRO} on wgmma; losses {last}"]
+
+
+def obs_trace(tmp, device="cuda") -> str:
+    """(f): ``lab.dp_pp --workload llama --trace-dir``: the reporting rank's
+    trace holds its steps' spans and the three flash kernels."""
+    import os
+
+    from ddl25spring_tpu_torch.lab import dp_pp
+
+    run = dp_pp.main(["--workload", "llama", "--iters", "3", "--trace-dir", tmp,
+                      "--device", device])
+    check(len(run["losses"]) == 3 and all(math.isfinite(x) for x in run["losses"]),
+          f"(f) lab losses {run['losses']}")
+    with open(os.path.join(tmp, "trace.json")) as f:
+        names = {str(e.get("name")) for e in json.load(f)["traceEvents"]}
+    flash = {k: any(k in n for n in names)
+             for k in ("flash_fwd_wgmma", "flash_dq_wgmma", "flash_dkv_wgmma")}
+    check("dp_pp.step" in names and all(flash.values()),
+          f"(f) the trace's names hold dp_pp.step: {'dp_pp.step' in names}, flash {flash}")
+    return (f"  (f) lab.dp_pp --trace-dir: {len(names)} event names, dp_pp.step spans and "
+            f"the three flash kernels in the reporting rank's trace.json")
+
+
+def obs_export(run_dir) -> str:
+    """(g): the run directory (a) wrote, merged by ``tools/trace_export.py``."""
+    import os
+
+    files = sorted(os.listdir(run_dir))
+    want = {"trace.json", "metrics.jsonl", "counters.json", "flight.json", "timeline.jsonl"}
+    check(want <= set(files), f"(g) the run directory holds {files}, not {sorted(want)}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    r = subprocess.run([sys.executable, os.path.join(root, "tools", "trace_export.py"),
+                        run_dir, "--check"], capture_output=True, text=True, timeout=120)
+    check(r.returncode == 0, f"(g) trace_export --check exited {r.returncode}: "
+                             f"{r.stdout[-800:]} {r.stderr[-800:]}")
+    return f"  (g) run directory {sorted(want)}: trace_export --check exit 0"
+
+
+def obs_phase(dev, device="cuda"):
+    """Phase 16, each sub-phase timed; returns the launch counts and times
+    (``device``: where the spawned processes run, ``"cpu"`` to rehearse)."""
+    import os
+    import tempfile
+
+    from ddl25spring_tpu_torch.models.llama import Llama, export_params
+    from ddl25spring_tpu_torch.parallel.launch import spawn
+    from ddl25spring_tpu_torch.utils.config import replace
+
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = os.path.join(tmp, "run")
+        t0 = time.perf_counter()
+        (llama, lines), = spawn(obs_llama, 1, run_dir, device, timeout=SPAWN_TIMEOUT)
+        for line in lines:
+            print(line)
+        print(f"  (a)-(c) took {time.perf_counter() - t0:.1f} s", flush=True)
+        halt_dir = os.path.join(tmp, "halt")
+        os.makedirs(halt_dir)
+        halt = obs_halt_start(halt_dir, device)
+        t0 = time.perf_counter()
+        cfg = replace(obs_cfg(), dtype="float32")
+        params = export_params(Llama(cfg, device="cpu", generator=torch.Generator().manual_seed(7)))
+        batches = _token_batches(cfg, DP * ROWS, PIPE_STEPS, 17)
+        ranks = spawn(obs_pipe_rank, DP * PP, params, batches, device, timeout=SPAWN_TIMEOUT)
+        for line in obs_pipe_checks(ranks):
+            print(line)
+        print(f"  (e) took {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        print(obs_trace(os.path.join(tmp, "trace"), device))
+        print(f"  (f) took {time.perf_counter() - t0:.1f} s", flush=True)
+        print(obs_halt_check(halt, halt_dir))
+        print(obs_export(run_dir))
+    llama["pipe_launches"] = [{k: v // PIPE_STEPS for k, v in r["launches"].items()}
+                              for r in ranks]
+    return llama
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -4041,6 +4522,14 @@ def main() -> int:
     zero3 = zero_phase(dev)
     print(f"  phase 15 in {time.perf_counter() - t0:.1f} s")
 
+    print("== the observability slice on the card: guarded LLaMA eager and in a CUDA graph "
+          "(policy skip), halt in a child, the 2 x 3 DP x PP guard, the lab's trace, the run "
+          "directory")
+    print(card)
+    t0 = time.perf_counter()
+    health = obs_phase(dev)
+    print(f"  phase 16 in {time.perf_counter() - t0:.1f} s")
+
     kernels = [
         {"name": f"flash_{name}", "route": "cuda", "source": SOURCE[timing[name]["variant"]],
          "replaces": REPLACES[name], "launches": launches[name],
@@ -4053,6 +4542,9 @@ def main() -> int:
              run: [c[name] for c in r["launches"]] for run, r in pipe["runs"].items()},
          "launches_zero_per_rank": {run: [c[name] for c in per_rank]
                                     for run, per_rank in zero3["launches"].items()},
+         "launches_obs_guarded_per_step": health["eager_launches"][name] // OBS_STEPS,
+         "launches_obs_guarded_per_fused_window": health["fused_launches"][f"flash_{name}_wgmma"],
+         "launches_obs_dp_pp_per_rank_per_step": [c[name] for c in health["pipe_launches"]],
          "max_abs_err": main_err[name], "max_abs_err_sp_tp": sptp["max_abs_err"][name],
          "max_abs_err_pipeline_compositions": pipe["max_abs_err"][name],
          **timing[name]}

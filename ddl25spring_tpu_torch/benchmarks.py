@@ -19,9 +19,8 @@ that returns new ones, the port's step updates its module and optimizer in
 place (as :mod:`~ddl25spring_tpu_torch.parallel.dp` does): ``step(batch)``
 returns the loss, or None on a pipeline rank that is not the last stage.
 
-Not ported yet (ROADMAP): the native streaming ``InputFeed``, the compute
-counterfactual, and the ``instrument`` and ``sentinel`` options of the JAX
-functions that build the steps.
+Not ported yet (ROADMAP): the native streaming ``InputFeed`` and the
+compute counterfactual.
 """
 
 from __future__ import annotations
@@ -56,7 +55,8 @@ def _nchw(x_u8: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 def build_resnet_step(mesh=None, num_microbatches: int = 1, batch: int = 1024,
                       lr: float = 0.1, dtype: torch.dtype | None = None, *,
-                      device=None, seed: int = 0, overlap: bool = False):
+                      device=None, seed: int = 0, overlap: bool = False,
+                      instrument: bool | None = None, sentinel: bool | None = None):
     """The north-star train step of this rank of ``mesh``
     (:func:`~ddl25spring_tpu_torch.utils.mesh.init_mesh`; ``data x stages``
     ranks), or of this process alone on ``device`` when ``mesh`` is None (one
@@ -109,10 +109,13 @@ def build_resnet_step(mesh=None, num_microbatches: int = 1, batch: int = 1024,
         opt = torch.optim.SGD(module.parameters(), lr=lr, momentum=0.9)
         inner = make_het_pipeline_train_step(
             module, lambda logits, b: cross_entropy_logits(logits, b["y"]), shapes, opt,
-            mesh, M, inject_fn=lambda b: _nchw(b["x"], dtype), compute_dtype=dtype)
+            mesh, M, inject_fn=lambda b: _nchw(b["x"], dtype), compute_dtype=dtype,
+            instrument=instrument, sentinel=sentinel)
 
         def step(raw):
             return inner({"x": raw[0], "y": raw[1]})
+
+        step.guard = inner.guard
 
         layout, topo = "dppp", f"mesh(data={D}, stage={S}), microbatches={M}"
     else:
@@ -125,12 +128,15 @@ def build_resnet_step(mesh=None, num_microbatches: int = 1, batch: int = 1024,
             return cross_entropy_logits(model(_nchw(raw[0], dtype)), raw[1])
 
         if mesh is None:
-            inner = make_train_step(module, loss_fn, opt)
+            inner = make_train_step(module, loss_fn, opt, sentinel=sentinel)
 
             def step(raw):
                 return inner((raw[0].to(dev), raw[1].to(dev)))
+
+            step.guard = inner.guard
         else:
-            step = make_dp_train_step(module, loss_fn, opt, mesh, overlap=overlap)
+            step = make_dp_train_step(module, loss_fn, opt, mesh, overlap=overlap,
+                                      instrument=instrument, sentinel=sentinel)
         layout, topo = "dp-overlap" if overlap else "dp", f"mesh(data={D})"
 
     meta = {
@@ -152,7 +158,8 @@ def build_resnet_step(mesh=None, num_microbatches: int = 1, batch: int = 1024,
 def build_resnet_scan_step(mesh=None, num_microbatches: int = 1, batch: int = 1024,
                            lr: float = 0.1, dtype: torch.dtype | None = None, *,
                            scan_steps: int, dataset: "DeviceDataset", device=None,
-                           seed: int = 0, overlap: bool = False):
+                           seed: int = 0, overlap: bool = False,
+                           instrument: bool | None = None, sentinel: bool | None = None):
     """``scan_steps`` train steps per dispatch, each drawing its batch from
     ``dataset`` on the device: the counterpart of the JAX
     ``build_resnet_scan_step`` (``benchmarks.py:180-246``).
@@ -175,15 +182,20 @@ def build_resnet_scan_step(mesh=None, num_microbatches: int = 1, batch: int = 10
     ``scan_steps``.  ``scan_steps`` must divide ``dataset``'s batches per
     epoch (``ValueError``), so a window never crosses an epoch; a mesh whose
     transport cannot be graphed raises (:func:`~ddl25spring_tpu_torch.
-    parallel.pipeline.graph_refusal`)."""
+    parallel.pipeline.graph_refusal`).  ``instrument`` and ``sentinel`` as in
+    :func:`build_resnet_step`; a guarded step's records fold after each
+    window (:func:`~ddl25spring_tpu_torch.parallel.pipeline.fuse_train_steps`)."""
     if dataset.batch != batch:
         raise ValueError(f"the dataset draws batches of {dataset.batch}, the step takes {batch}")
     dataset.check_scan(scan_steps)
     step1, module, opt, meta = build_resnet_step(mesh, num_microbatches, batch, lr, dtype,
-                                                 device=device, seed=seed, overlap=overlap)
+                                                 device=device, seed=seed, overlap=overlap,
+                                                 instrument=instrument, sentinel=sentinel)
 
     def scan_body(off):
         return step1(dataset.gather(off))
+
+    scan_body.guard = step1.guard
 
     multi = fuse_train_steps(scan_body, scan_steps, module=module, optimizer=opt,
                              device=meta["device"], comm=mesh.comm if mesh is not None else None)

@@ -81,6 +81,7 @@ Run: ``python -m ddl25spring_tpu_torch.lab.dp_pp [--pp --ranks 4] [--input hbm]`
 from __future__ import annotations
 
 import argparse
+import contextlib
 import statistics
 import time
 from dataclasses import dataclass
@@ -89,7 +90,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ddl25spring_tpu_torch import benchmarks
+from ddl25spring_tpu_torch import benchmarks, obs
 from ddl25spring_tpu_torch.data.tinystories import TinyStories
 from ddl25spring_tpu_torch.data.tokenizer import get_tokenizer
 from ddl25spring_tpu_torch.models.llama import Llama, export_grads, export_params
@@ -109,6 +110,7 @@ from ddl25spring_tpu_torch.utils.config import DpPpConfig, LlamaConfig
 from ddl25spring_tpu_torch.utils.device import backend_flags, resolve_device
 from ddl25spring_tpu_torch.utils.flops import count_flops, mfu
 from ddl25spring_tpu_torch.utils.mesh import cards_used, init_mesh, select_backend
+from ddl25spring_tpu_torch.utils.tracing import trace
 
 
 @dataclass(frozen=True)
@@ -131,6 +133,21 @@ class Job:
     schedule: str = "gpipe"
     chunks: int = 1             # layer chunks per rank (the interleaved schedules)
     scan_steps: int = 1         # train steps per dispatch (fuse_train_steps)
+    trace_dir: str = ""         # the reporting rank's torch.profiler trace of its loop
+
+
+def traced(trace_dir: str, reports: bool):
+    """The context of a rank's timed loop: with ``trace_dir`` on the
+    reporting rank, a :func:`~ddl25spring_tpu_torch.utils.tracing.trace`
+    run writing ``trace_dir/trace.json``, its steps as
+    :mod:`~ddl25spring_tpu_torch.obs.spans` (``record_function`` ranges in
+    the trace); else nothing."""
+    if not (trace_dir and reports):
+        return contextlib.nullcontext()
+    stack = contextlib.ExitStack()
+    stack.enter_context(trace(trace_dir))
+    stack.enter_context(obs.scoped(True))
+    return stack
 
 
 LLAMA_ITERS = 200  # the JAX labs' default (lab/s01_b2_dp_pp.py:140)
@@ -189,7 +206,21 @@ def run_rank(rdv, job: Job) -> dict:
                "stash_max": []}
         fa.reset_launches()
         mesh.comm.take_stats()
-        for it in range(job.iters):
+        with traced(job.trace_dir, (d, s) == (0, job.stages - 1)):
+            _loop(job, mesh, step, stats, batches, stage, out)
+        out["launches"] = dict(fa.LAUNCHES)
+        out["launches_by_variant"] = {n: dict(c) for n, c in fa.LAUNCHES_BY_VARIANT.items()}
+        if job.export:
+            out["params"] = export_params(stage)
+        _, out["world_step_s"] = world_totals(mesh, 0, out["step_s"])
+        return out
+
+
+def _loop(job: Job, mesh, step, stats, batches, stage, out: dict):
+    """:func:`run_rank`'s training loop, each dispatch an ``obs`` span."""
+    K, (d, _) = job.scan_steps, mesh.coords
+    for it in range(job.iters):
+        with obs.span("dp_pp.step", step=it):
             tokens = np.stack([np.asarray(next(batches)) for _ in range(K)])
             tokens = torch.from_numpy(tokens if K > 1 else tokens[0]).long()
             t0 = time.perf_counter()
@@ -197,21 +228,15 @@ def run_rank(rdv, job: Job) -> dict:
             if mesh.device.type == "cuda":
                 torch.cuda.synchronize(mesh.device)
             out["step_s"].append((time.perf_counter() - t0) / K)
-            out["comm"].append(mesh.comm.take_stats())
-            out["stash_max"].append(stats["stash_max"])
-            for j, x in enumerate([] if loss is None else loss.reshape(-1).tolist()):
-                out["losses"].append(x)
-                if job.log and d == 0:
-                    print(f"iter {it * K + j:3d}  loss {x:.4f}  "
-                          f"step {out['step_s'][-1] * 1e3:.2f} ms", flush=True)
-            if job.export and it == 0:
-                out["grads"] = export_grads(stage)
-        out["launches"] = dict(fa.LAUNCHES)
-        out["launches_by_variant"] = {n: dict(c) for n, c in fa.LAUNCHES_BY_VARIANT.items()}
-        if job.export:
-            out["params"] = export_params(stage)
-        _, out["world_step_s"] = world_totals(mesh, 0, out["step_s"])
-        return out
+        out["comm"].append(mesh.comm.take_stats())
+        out["stash_max"].append(stats["stash_max"])
+        for j, x in enumerate([] if loss is None else loss.reshape(-1).tolist()):
+            out["losses"].append(x)
+            if job.log and d == 0:
+                print(f"iter {it * K + j:3d}  loss {x:.4f}  "
+                      f"step {out['step_s'][-1] * 1e3:.2f} ms", flush=True)
+        if job.export and it == 0:
+            out["grads"] = export_grads(stage)
 
 
 def parse_args(argv=None):
@@ -254,6 +279,9 @@ def parse_args(argv=None):
                          "'auto' = hbm-scan on CUDA where one rank has the card to itself, "
                          "else hbm")
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--trace-dir", default="",
+                    help="capture a torch.profiler trace of the timed loop (the reporting "
+                         "rank's, into DIR/trace.json; the steps as obs spans)")
     return ap.parse_args(argv)
 
 
@@ -287,6 +315,8 @@ def main(argv=None, layout: DpPpConfig = DpPpConfig()) -> dict:
     print(f"backend {log['backend']}; done: {len(step_s) * K} steps, {tokens_per_s:.1f} "
           f"tokens/s after the first dispatch (median step "
           f"{statistics.median(timed) * 1e3:.2f} ms)", flush=True)
+    if args.trace_dir:
+        print(f"profiler trace written to {args.trace_dir}", flush=True)
     return {"losses": log["losses"], "step_s": step_s, "tokens_per_s": tokens_per_s,
             "ranks": ranks}
 
@@ -322,7 +352,7 @@ def llama_job(args, layout: DpPpConfig) -> tuple[Job, str]:
         raise ValueError(f"{cfg.n_layers} layers not divisible by S*V = {S}*{V}")
     job = Job(cfg, D, S, M, batch=batch, iters=iters, lr=args.lr or layout.learning_rate,
               seed=args.seed, device=device.type, schedule=args.schedule, chunks=V,
-              scan_steps=K)
+              scan_steps=K, trace_dir=args.trace_dir)
     return job, why
 
 
@@ -374,6 +404,7 @@ class ResnetJob:
     input: str = "hbm"           # "hbm": DeviceDataset.feed; "hbm-scan": its windows;
                                  # "fixed": its first batch
     scan_steps: int = 1          # steps per dispatch under "hbm-scan"
+    trace_dir: str = ""          # the reporting rank's torch.profiler trace of its timed run
 
 
 # the timed ResNet run: cuDNN autotunes its convolutions, TF32 off
@@ -412,8 +443,10 @@ def train_resnet(mesh, job: ResnetJob) -> dict:
         _, warm, _ = benchmarks.timed_run(call, feed, 0, WARMUP - 1, device=dev, k=K)
         if comm is not None:
             comm.take_stats()
-        dt, timed, step_s = benchmarks.timed_run(call, feed, job.iters // K, 0, device=dev,
-                                                 k=K)
+        reports = mesh is None or mesh.coords == (0, job.stages - 1)
+        with traced(job.trace_dir, reports):
+            dt, timed, step_s = benchmarks.timed_run(call, feed, job.iters // K, 0,
+                                                     device=dev, k=K)
         return {
             "rank": mesh.rank if mesh is not None else 0,
             "coords": mesh.coords if mesh is not None else (0, 0),
@@ -460,7 +493,7 @@ def run_resnet(args) -> dict:
     if K > 1:  # the JAX lab's dispatch count: max(2, iters // K) windows
         iters = max(2, iters // K) * K
     job = ResnetJob(dp, S, M, batch, iters, lr=args.lr or 0.1, seed=args.seed,
-                    device=device.type, input=mode, scan_steps=K)
+                    device=device.type, input=mode, scan_steps=K, trace_dir=args.trace_dir)
     print(f"resnet18/cifar10: mesh(data={dp}, stage={S}), microbatches={M}, global "
           f"batch={batch}, {n_used} rank(s), input={mode}"
           + (f" ({K} steps per dispatch, {iters} timed steps)" if K > 1 else "")
@@ -471,6 +504,8 @@ def run_resnet(args) -> dict:
     else:
         ranks = spawn(resnet_rank, n_used, job, timeout=args.timeout)
     report = report_resnet(ranks, job, cards_used(n_used, device.type), device, args.log_every)
+    if args.trace_dir and report is not None:
+        print(f"profiler trace written to {args.trace_dir}", flush=True)
     return {"ranks": ranks, **(report or {})}
 
 

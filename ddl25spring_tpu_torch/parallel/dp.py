@@ -23,6 +23,8 @@ from typing import Any, Callable
 import torch
 from torch import nn
 
+from ddl25spring_tpu_torch import obs
+from ddl25spring_tpu_torch.obs import sentinels
 from ddl25spring_tpu_torch.parallel import bucketing
 from ddl25spring_tpu_torch.parallel.bucketing import flatten, parts, plan_buckets
 
@@ -30,19 +32,36 @@ from ddl25spring_tpu_torch.parallel.bucketing import flatten, parts, plan_bucket
 LossFn = Callable[[nn.Module, Any], torch.Tensor]
 
 
-def make_train_step(model: nn.Module, loss_fn: LossFn, optimizer: torch.optim.Optimizer):
+def make_train_step(model: nn.Module, loss_fn: LossFn, optimizer: torch.optim.Optimizer,
+                    sentinel: bool | None = None):
     """Single-device train step (parity: the centralized loop of
     ``lab/tutorial_1b/primer/intro.py:23-33``): forward, loss, ``backward()``,
     optimizer step.  ``step(batch)`` updates ``model`` in place and returns the
-    loss, detached."""
+    loss, detached.
+
+    ``sentinel`` (None = follow ``DDL25_SENTINELS`` when the step is built):
+    the in-step numerics sentinels, strategy ``"serial"``
+    (:mod:`ddl25spring_tpu_torch.obs.sentinels`); the guard is ``step.guard``,
+    which :func:`~ddl25spring_tpu_torch.parallel.pipeline.fuse_train_steps`
+    drives inside its graph."""
+    s_on, s_policy = sentinels.resolve(sentinel)
+    guard = (sentinels.Guard("serial", sentinels.named_leaves(model), optimizer,
+                             policy=s_policy) if s_on else None)
 
     def step(batch):
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(model, batch)
         loss.backward()
+        if guard is None:
+            optimizer.step()
+            return loss.detach()
+        guard.begin()
         optimizer.step()
-        return loss.detach()
+        loss = loss.detach()
+        guard.end(loss)
+        return loss
 
+    step.guard = guard
     return step
 
 
@@ -74,10 +93,24 @@ def shard_rows(batch, d: int, n: int, device):
     return batch[d * (B // n):(d + 1) * (B // n)].to(device)
 
 
-def _not_ported(step: str, instrument=None, sentinel=None):
-    if instrument or sentinel:
-        raise NotImplementedError(f"{step}(instrument=, sentinel=) is not ported yet "
-                                  "(ROADMAP A11: observability)")
+def group_guard(strategy: str, s_on: bool, s_policy: str, leaves, optimizer, axis, *,
+                weights=None, loss_weight: float = 1.0):
+    """The sentinel of a step whose facts are summed over ``axis`` (a
+    :class:`~ddl25spring_tpu_torch.parallel.comm.Axis`; its index 0
+    records), or None when the sentinel is off."""
+    if not s_on:
+        return None
+    return sentinels.Guard(strategy, leaves, optimizer, policy=s_policy,
+                           weights=weights, loss_weight=loss_weight,
+                           group=axis.group if axis.size > 1 else None, comm=axis.comm,
+                           record=axis.index == 0)
+
+
+def grad_norm(leaves) -> torch.Tensor:
+    """The global norm of the gradients of ``leaves`` (a 0-dim tensor)."""
+    grads = [g for leaf in grad_leaves(leaves) for g in parts(leaf) if g is not None]
+    norms = torch.stack(torch._foreach_norm(grads)).float()
+    return (norms * norms).sum().sqrt()
 
 
 class _Overlap:
@@ -186,8 +219,19 @@ def make_dp_train_step(model: nn.Module, loss_fn: LossFn, optimizer: torch.optim
     card, so the backward stalls at each bucket and the overlap buys little
     there; under NCCL the all-reduce is queued on its own stream.
 
-    ``instrument`` and ``sentinel`` are not ported and raise."""
-    _not_ported("make_dp_train_step", instrument, sentinel)
+    ``instrument`` (None = follow the :mod:`~ddl25spring_tpu_torch.obs` flag
+    when the step is built): the counters ``dp.loss`` and ``dp.grad_norm``
+    (the replicas' mean loss, the averaged gradients' global norm), copied
+    from the card without a sync.  ``sentinel`` (None = follow
+    ``DDL25_SENTINELS`` when the step is built): the in-step numerics
+    sentinels, strategy ``"dp"`` (``"dp-overlap"``); the averaged gradients
+    are the same on every replica, so each replica computes the facts alone
+    and the first records them.  Both come after the step's own
+    reductions and add no hook, so the overlapped step issues its buckets
+    as without them.  Disabled, the step runs the operations of one built
+    without them."""
+    instr = obs.enabled() if instrument is None else bool(instrument)
+    s_on, s_policy = sentinels.resolve(sentinel)
     bb = bucketing.resolve_bucket_bytes(bucket_bytes)
     if overlap and not bb:
         raise ValueError("overlap=True needs the bucketed path; pass a bucket_bytes "
@@ -197,6 +241,8 @@ def make_dp_train_step(model: nn.Module, loss_fn: LossFn, optimizer: torch.optim
     d, comm = mesh.coords[0], mesh.comm
     hooks = (_Overlap(leaves, plan, _all_reduce_issue(leaves, plan, comm, mesh.dp_group))
              if overlap else None)
+    guard = (sentinels.Guard("dp-overlap" if overlap else "dp", sentinels.named_leaves(model),
+                             optimizer, policy=s_policy, record=d == 0) if s_on else None)
 
     def step(batch):
         optimizer.zero_grad(set_to_none=True)
@@ -209,12 +255,20 @@ def make_dp_train_step(model: nn.Module, loss_fn: LossFn, optimizer: torch.optim
             loss.backward()
             hooks.finish()
             step.log = list(hooks.log)
+        if guard is not None:
+            guard.begin()
         optimizer.step()
         loss = loss.detach().clone()
         comm.all_reduce_mean_([loss], mesh.dp_group)
+        if instr:
+            obs.counters.emit_many({"dp.loss": loss, "dp.grad_norm": grad_norm(leaves)},
+                                   force=True)
+        if guard is not None:
+            guard.end(loss)
         return loss
 
     step.log = []
+    step.guard = guard
     return step
 
 
@@ -226,8 +280,14 @@ def make_dp_weight_avg_step(model: nn.Module, loss_fn: LossFn,
     own optimizer state, then every parameter becomes its mean over the
     replicas (every step, the reference scripts' cadence).  Returns the
     loss's mean over the replicas.  ``bucket_bytes`` as in
-    :func:`make_dp_train_step`; ``sentinel`` is not ported and raises."""
-    _not_ported("make_dp_weight_avg_step", sentinel=sentinel)
+    :func:`make_dp_train_step`.
+
+    ``sentinel``: the in-step numerics sentinels, strategy
+    ``"dp-weight-avg"``, over each replica's own gradients and updates (the
+    updates before the average), their squared norms summed over the DP
+    group (JAX's ``axis=``); ``skip`` puts back the parameters and optimizer
+    state of before the step on every replica."""
+    s_on, s_policy = sentinels.resolve(sentinel)
     bb = bucketing.resolve_bucket_bytes(bucket_bytes)
     leaves = param_leaves(model)
     plan = plan_buckets(leaves, bb) if bb else None
@@ -236,17 +296,27 @@ def make_dp_weight_avg_step(model: nn.Module, loss_fn: LossFn,
     weights = [leaf.detach() if isinstance(leaf, torch.Tensor) else [p.detach() for p in leaf]
                for leaf in leaves]
     d, comm = mesh.coords[0], mesh.comm
+    data = mesh.axis("data")
+    guard = group_guard("dp-weight-avg", s_on, s_policy, sentinels.named_leaves(model),
+                        optimizer, data, loss_weight=1.0 / data.size)
 
     def step(batch):
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(model, shard_rows(batch, d, mesh.grid.data, mesh.device))
         loss.backward()
+        if guard is not None:
+            guard.begin()
         optimizer.step()
+        if guard is not None:
+            updates = guard.updates()
         comm.bucketed_all_reduce_mean_(weights, mesh.dp_group, plan)
         loss = loss.detach().clone()
+        if guard is not None:
+            guard.end(loss, updates)
         comm.all_reduce_mean_([loss], mesh.dp_group)
         return loss
 
+    step.guard = guard
     return step
 
 

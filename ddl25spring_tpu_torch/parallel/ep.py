@@ -308,12 +308,21 @@ def make_ep_train_step(p: MoeParams, optimizer: torch.optim.Optimizer, mesh,
     ``optimizer`` and returns the loss, the same on every rank (the layer's
     ``copy_in`` has summed the router's gradient over the expert axis).
 
-    JAX's ``donate`` has no counterpart (the optimizer updates in place);
-    ``sentinel`` is not ported and raises."""
-    from ddl25spring_tpu_torch.parallel.dp import _not_ported
+    JAX's ``donate`` has no counterpart (the optimizer updates in place).
+    ``sentinel``: the in-step numerics sentinels, strategy ``"ep"``, their
+    facts summed over ``axis``: the expert stacks' squared norms count whole
+    on each rank (each holds its own experts), the router's and the loss
+    ``1 / n``; recorded by the axis' index 0."""
+    from ddl25spring_tpu_torch.obs import sentinels
+    from ddl25spring_tpu_torch.parallel.dp import group_guard
 
-    _not_ported("make_ep_train_step", sentinel=sentinel)
+    s_on, s_policy = sentinels.resolve(sentinel)
     moe = make_ep_moe_fn(mesh, axis, capacity_factor)
+    guard = None
+    if s_on:
+        ax = mesh.axis(axis)
+        guard = group_guard("ep", s_on, s_policy, [((k,), p[k]) for k in MOE_KEYS], optimizer,
+                            ax, weights={("router",): 1.0 / ax.size}, loss_weight=1.0 / ax.size)
 
     def step(batch):
         x, y = (t.to(mesh.device) for t in batch)
@@ -321,7 +330,14 @@ def make_ep_train_step(p: MoeParams, optimizer: torch.optim.Optimizer, mesh,
         out, aux = moe(p, x)
         loss = ((out - y) ** 2).mean() + aux
         loss.backward()
+        if guard is None:
+            optimizer.step()
+            return loss.detach()
+        guard.begin()
         optimizer.step()
-        return loss.detach()
+        loss = loss.detach()
+        guard.end(loss)
+        return loss
 
+    step.guard = guard
     return step

@@ -84,15 +84,21 @@ def make_het_pipeline_train_step(stage: nn.Module, loss_fn: LossFn, boundary_sha
                                  optimizer: torch.optim.Optimizer, mesh,
                                  num_microbatches: int, inject_fn=None,
                                  compute_dtype: torch.dtype = torch.float32,
-                                 bucket_bytes=bucketing.AUTO):
+                                 bucket_bytes=bucketing.AUTO, instrument: bool | None = None,
+                                 sentinel: bool | None = None):
     """The GPipe train step of one rank of a ``D x S`` grid over heterogeneous
     stages: arguments as :func:`make_het_pipeline_loss`, plus ``optimizer``
     over ``stage``'s parameters and ``bucket_bytes`` as in
     :func:`~ddl25spring_tpu_torch.parallel.dp.make_dp_train_step`.
     ``step(batch)`` runs this rank's part of the schedule, averages the
     stage's gradients over its DP group when ``D > 1``, steps ``optimizer``
-    and returns the loss (last stage) or None."""
+    and returns the loss (last stage) or None.  ``instrument`` and
+    ``sentinel`` as in :func:`~ddl25spring_tpu_torch.parallel.pipeline.
+    make_schedule_train_step`, strategy ``"het_pipeline"``, stage ``s``'s
+    leaves under ``[s]`` as in the JAX package's tuple of stage pytrees."""
     return make_schedule_train_step([stage], stage, optimizer, mesh, num_microbatches,
                                     "gpipe", bucket_bytes=bucket_bytes,
+                                    instrument=instrument, sentinel=sentinel,
+                                    strategy="het_pipeline", leaf_prefix=(mesh.coords[1],),
                                     **_hops(boundary_shapes, mesh, inject_fn, loss_fn,
                                             compute_dtype))

@@ -60,9 +60,13 @@ the last chunk's loss and each hop's shape are its arguments.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ddl25spring_tpu_torch import obs
 from ddl25spring_tpu_torch.models.llama import (
     LlamaChunkedStage,
     LlamaStage,
@@ -73,6 +77,7 @@ from ddl25spring_tpu_torch.models.llama import (
     split_blocks_interleaved,
     stage_forward,
 )
+from ddl25spring_tpu_torch.obs import sentinels
 from ddl25spring_tpu_torch.ops.losses import causal_lm_loss
 from ddl25spring_tpu_torch.parallel import bucketing, ep, sp, tp
 from ddl25spring_tpu_torch.parallel.bucketing import parts
@@ -194,7 +199,10 @@ class _Run:
         self._gv = V * S - 1
 
     def run(self):
-        for ops, unit in self.plan:
+        for i, (ops, unit) in enumerate(self.plan):
+            if self.ex.instrument:
+                # the host time at which this rank issues its i-th unit
+                obs.counters.mark("pipeline.tick", i, force=True)
             self._exchange(ops)
             for kind, v, m in unit:
                 (self._forward if kind == "F" else self._backward)(v, m)
@@ -297,8 +305,9 @@ class Executor:
 
     def __init__(self, chunk_fns, mesh, num_microbatches: int, schedule: str, *, in_shape,
                  hop_dtype, inject_fn, loss_fn, extra_loss: bool = False,
-                 share_axis: str | None = None):
+                 share_axis: str | None = None, instrument: bool = False):
         self.chunk_fns, self.mesh, self.M = list(chunk_fns), mesh, num_microbatches
+        self.instrument = instrument
         self.S, self.V, self.D = mesh.grid.size, len(self.chunk_fns), mesh.grid.data
         self.d, self.s = mesh.coords[:2]
         self.share_axis = share_axis
@@ -359,7 +368,10 @@ def make_schedule_train_step(chunk_fns, module: torch.nn.Module,
                              optimizer: torch.optim.Optimizer, mesh, num_microbatches: int,
                              schedule: str = "gpipe", *, in_shape, hop_dtype, inject_fn,
                              loss_fn, extra_loss: bool = False, bucket_bytes=bucketing.AUTO,
-                             share_axis: str | None = None, data_sharded=()):
+                             share_axis: str | None = None, data_sharded=(),
+                             instrument: bool | None = None, sentinel: bool | None = None,
+                             strategy: str = "pipeline", leaf_prefix: tuple = (),
+                             model_copies=None):
     """The train step of one rank of a ``D x S`` grid under ``schedule``, for
     any model cut into ``S * V`` chunks.
 
@@ -390,10 +402,37 @@ def make_schedule_train_step(chunk_fns, module: torch.nn.Module,
     together averages them, times the axis' size.  ``data_sharded``: the
     parameters that differ between replicas (expert parallelism's expert
     stacks), whose gradients already hold every replica's share: they are
-    divided by ``D`` in place of the average."""
+    divided by ``D`` in place of the average.
+
+    ``instrument`` (None = follow the :mod:`~ddl25spring_tpu_torch.obs` flag
+    when the step is built): the static counters ``pipeline.num_stages``,
+    ``pipeline.num_microbatches``, ``pipeline.num_chunks`` and
+    ``pipeline.bubble_fraction_gpipe`` (:func:`~ddl25spring_tpu_torch.obs.
+    counters.gpipe_bubble_fraction` of ``S`` and ``M V``), and the
+    ``pipeline.tick`` series: the host time at which the executor issues
+    each unit of the rank's plan (JAX marks the arrival of a device
+    callback per scan tick).  ``sentinel`` (None = follow
+    ``DDL25_SENTINELS`` when the step is built): the in-step numerics
+    sentinels, ``strategy`` (``"pipeline"``), over the whole model as JAX's
+    global guard sees it: each rank's facts for the leaves it holds (paths
+    of ``module``'s pytree after ``leaf_prefix``; the union over the ranks
+    is agreed when the step is built) are summed over every rank, each
+    leaf's squared norm over the ranks that hold a copy of it (the ``D``
+    replicas unless ``data_sharded``, ``model_copies(path)`` members of a
+    model line, every seq shard) and the loss over the last stage's ranks;
+    rank 0 records.  The guard adds no hook and comes after the step's
+    reductions, so the schedule runs as without it."""
+    instr = obs.enabled() if instrument is None else bool(instrument)
+    s_on, s_policy = sentinels.resolve(sentinel)
     ex = Executor(chunk_fns, mesh, num_microbatches, schedule, in_shape=in_shape,
                   hop_dtype=hop_dtype, inject_fn=inject_fn, loss_fn=loss_fn,
-                  extra_loss=extra_loss, share_axis=share_axis)
+                  extra_loss=extra_loss, share_axis=share_axis, instrument=instr)
+    if instr:
+        obs.counters.add_static("pipeline.num_stages", ex.S)
+        obs.counters.add_static("pipeline.num_microbatches", ex.M)
+        obs.counters.add_static("pipeline.num_chunks", ex.V)
+        obs.counters.add_static("pipeline.bubble_fraction_gpipe",
+                                obs.gpipe_bubble_fraction(ex.S, ex.M * ex.V))
     mine = {id(p) for p in data_sharded}
     leaves = [leaf for leaf in param_leaves(module) if id(parts(leaf)[0]) not in mine]
     local = [p for p in module.parameters() if id(p) in mine]
@@ -404,6 +443,22 @@ def make_schedule_train_step(chunk_fns, module: torch.nn.Module,
     else:
         names = ("data", share_axis) if ex.D > 1 else share_axis
         group, n_share = mesh.axis(names).group, mesh.axis(share_axis).size
+    guard = None
+    if s_on:
+        named = [((*leaf_prefix, *path), leaf)
+                 for path, leaf in sentinels.named_leaves(module)]
+        world = mesh.grid.world
+
+        def copies(path, leaf) -> int:
+            d = 1 if id(parts(leaf)[0]) in mine else ex.D
+            return d * n_share * (model_copies(path[len(leaf_prefix):]) if model_copies else 1)
+
+        guard = sentinels.Guard(
+            strategy, named, optimizer, policy=s_policy,
+            names=sentinels.global_names([p for p, _ in named], dist.group.WORLD),
+            weights={p: 1.0 / copies(p, leaf) for p, leaf in named},
+            loss_weight=ex.S / world, group=dist.group.WORLD if world > 1 else None,
+            comm=mesh.comm, record=mesh.rank == 0)
 
     def step(batch: dict):
         optimizer.zero_grad(set_to_none=True)
@@ -416,10 +471,17 @@ def make_schedule_train_step(chunk_fns, module: torch.nn.Module,
                 torch._foreach_mul_([g for leaf in grads for g in parts(leaf)], n_share)
         if ex.D > 1 and local:
             torch._foreach_div_([p.grad for p in local], ex.D)
+        if guard is None:
+            optimizer.step()
+            return ex.mean_loss(run)
+        guard.begin()
         optimizer.step()
-        return ex.mean_loss(run)
+        loss = ex.mean_loss(run)
+        guard.end(loss)
+        return loss
 
     step.stats = {"stash_max": 0}
+    step.guard = guard
     return step
 
 
@@ -479,7 +541,8 @@ def make_pipeline_train_step(stage: LlamaStage | LlamaChunkedStage, cfg: LlamaCo
                              num_microbatches: int, schedule: str = "gpipe",
                              num_chunks: int = 1, bucket_bytes=bucketing.AUTO, *,
                              ep_axis: str | None = None, tp_axis: str | None = None,
-                             seq_axis: str | None = None, sp_mode: str = "ring"):
+                             seq_axis: str | None = None, sp_mode: str = "ring",
+                             instrument: bool | None = None, sentinel: bool | None = None):
     """The train step of one LLaMA rank of a ``D x S`` grid (``D = 1``: the
     pipeline alone; ``D > 1``: DP x PP, the JAX step with ``data_axis``) under
     ``schedule``, one of :data:`SCHEDULES`:
@@ -529,7 +592,14 @@ def make_pipeline_train_step(stage: LlamaStage | LlamaChunkedStage, cfg: LlamaCo
     :func:`check_compositions` raises, before anything runs, on what the JAX
     package refuses.  ``step(tokens)`` takes the global ``[B, L]`` batch,
     ``B = M * D * mb``, and returns the loss on the last stage (the same on
-    every member of its ``model`` and ``seq`` lines), None on the others."""
+    every member of its ``model`` and ``seq`` lines), None on the others.
+
+    ``instrument`` and ``sentinel`` (None: the flags when the step is
+    built) as in :func:`make_schedule_train_step`, strategy ``"pipeline"``,
+    with the leaves of the JAX pytree (``grads['blocks']['wq']``...); an
+    instrumented MoE chunk also emits its layers' aux (the ``E Σ f_e P_e``
+    load balance, 1.0 when balanced) as ``pipeline.moe_aux`` per forward.
+    ``step.guard`` is the sentinel (None when off)."""
     chunks = stage.chunks if isinstance(stage, LlamaChunkedStage) else [stage]
     if len(chunks) != num_chunks:
         raise ValueError(f"the stage holds {len(chunks)} chunks, num_chunks={num_chunks}")
@@ -551,6 +621,7 @@ def make_pipeline_train_step(stage: LlamaStage | LlamaChunkedStage, cfg: LlamaCo
         block_kw["moe_fn"] = ep_moe
     seq = mesh.axis(seq_axis) if seq_axis is not None else None
     aux_scale = cfg.moe_aux_weight / (seq.size if seq is not None else 1)
+    instr = obs.enabled() if instrument is None else bool(instrument)
 
     def chunk_fn(c):
         def apply(x):
@@ -560,6 +631,8 @@ def make_pipeline_train_step(stage: LlamaStage | LlamaChunkedStage, cfg: LlamaCo
                 pos = seq.index * Ll + torch.arange(Ll, device=x.device)
                 kw.update(pos=pos, attn_fn=sp.make_sp_attn_fn(cfg, seq, sp_mode, pos))
             out, aux = stage_forward(c, x, cfg, with_aux=True, **kw)
+            if moe and instr:
+                obs.counters.emit("pipeline.moe_aux", aux, force=True)
             return (out, aux_scale * aux) if moe else out
 
         return apply
@@ -577,13 +650,21 @@ def make_pipeline_train_step(stage: LlamaStage | LlamaChunkedStage, cfg: LlamaCo
 
     data_sharded = ([p for b in stage.blocks for k, p in b.moe.named_parameters()
                      if k in ep.EXPERT_KEYS] if ep_axis is not None else ())
+    model_copies = None
+    if tp_axis is not None:
+        split, T = tp._split_dims(False, cfg.n_experts), mesh.axis(tp_axis).size
+
+        def model_copies(path):
+            return 1 if split[".".join(path)] is not None else T
+
     step = make_schedule_train_step(
         [chunk_fn(c) for c in chunks], stage, optimizer, mesh,
         num_microbatches, schedule,
         in_shape=lambda micro: (*micro["tokens"].shape, cfg.dmodel),
         hop_dtype=getattr(torch, cfg.dtype), inject_fn=lambda micro: micro["tokens"],
         loss_fn=loss_fn, extra_loss=moe, bucket_bytes=bucket_bytes, share_axis=seq_axis,
-        data_sharded=data_sharded)
+        data_sharded=data_sharded, instrument=instr, sentinel=sentinel,
+        model_copies=model_copies)
     last = mesh.coords[1] == mesh.grid.size - 1
 
     def tokens_step(tokens):
@@ -603,6 +684,7 @@ def make_pipeline_train_step(stage: LlamaStage | LlamaChunkedStage, cfg: LlamaCo
         return step(batch)
 
     tokens_step.stats = step.stats
+    tokens_step.guard = step.guard
     return tokens_step
 
 
@@ -755,6 +837,7 @@ class FusedSteps:
         self.step_fn, self.k, self.module, self.optimizer = step_fn, k, module, optimizer
         self.device, self.dump_graph = torch.device(device), dump_graph
         self.name = getattr(step_fn, "__qualname__", repr(step_fn))
+        self.guard = getattr(step_fn, "guard", None)
         self.graph = None
 
     def __call__(self, window):
@@ -764,10 +847,14 @@ class FusedSteps:
                              "the caller's step accounting would silently drift")
         if self.device.type != "cuda":
             return _losses([self.step_fn(_row(window, i)) for i in range(self.k)])
+        if self.guard is not None:
+            sentinels.flush(block=self.guard.mode == "halt")
         if self.graph is None:
             self._capture(window)
         _map(_copy_in, self.static, window)
         self.graph.replay()
+        if self.guard is not None:
+            self.guard.window_done()
         return None if self.out is None else self.out.clone()
 
     def _capture(self, window):
@@ -777,7 +864,9 @@ class FusedSteps:
         snapshot = _Snapshot(self.module, self.optimizer)
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream):
+        # the warm-up's steps are undone below, and a guard records none of them
+        muted = self.guard.muted() if self.guard is not None else contextlib.nullcontext()
+        with torch.cuda.stream(stream), muted:
             for i in range(min(WARMUP_STEPS, self.k)):
                 self.step_fn(_row(self.static, i))
             snapshot.restore()
@@ -786,8 +875,11 @@ class FusedSteps:
         graph = torch.cuda.CUDAGraph(keep_graph=bool(self.dump_graph))
         if self.dump_graph:
             graph.enable_debug_mode()
+        # a guarded step writes its facts into row i of a static [k, n] buffer
+        window = (self.guard.capture(self.k) if self.guard is not None
+                  else contextlib.nullcontext())
         try:
-            with torch.cuda.graph(graph, stream=stream):
+            with window, torch.cuda.graph(graph, stream=stream):
                 self.out = _losses([self.step_fn(_row(self.static, i))
                                     for i in range(self.k)])
         except Exception as e:  # a host sync, a host copy, a non-capturable optimizer
@@ -834,6 +926,14 @@ def fuse_train_steps(step_fn, k: int, *, module: torch.nn.Module,
     multi-rank step over NCCL ``NotImplementedError``, here, before anything
     runs (:func:`graph_refusal`).  ``dump_graph``: a path to write the
     captured graph to (``CUDAGraph.debug_dump``), to count its nodes.
+
+    A step built with the sentinel on (``step_fn.guard``): the warm-up steps
+    record nothing, each captured step writes its facts into its row of a
+    static ``[k, n]`` buffer the graph fills, and each call stages the
+    window's ``k`` records after its replay and folds the previous
+    window's (in step order) before it; the ``skip`` select is captured
+    with the step, so a poisoned step inside the window is undone on the
+    card.
 
     On the CPU ``multi`` is a loop of ``k`` calls of ``step_fn``.  Nothing
     on CUDA takes that loop."""

@@ -59,7 +59,8 @@ from ddl25spring_tpu_torch.ops.flash_attention import (
 )
 from ddl25spring_tpu_torch.parallel.bucketing import default_bucket_bytes, plan_buckets
 from ddl25spring_tpu_torch.parallel.comm import Axis, all_to_all, ring_pass
-from ddl25spring_tpu_torch.parallel.dp import _not_ported, grad_leaves, param_leaves, shard_rows
+from ddl25spring_tpu_torch.obs import sentinels
+from ddl25spring_tpu_torch.parallel.dp import grad_leaves, group_guard, param_leaves, shard_rows
 from ddl25spring_tpu_torch.utils.config import LlamaConfig
 
 MODES = ("ring", "ulysses")
@@ -250,8 +251,11 @@ def make_sp_train_step(model, cfg: LlamaConfig, optimizer: torch.optim.Optimizer
     over the seq group averaged over the data group.
 
     JAX's ``donate`` has no counterpart (the optimizer updates the
-    parameters in place); ``sentinel`` is not ported and raises."""
-    _not_ported("make_sp_train_step", sentinel=sentinel)
+    parameters in place).  ``sentinel``: the in-step numerics sentinels,
+    strategy ``"sp"``, their facts summed over the ranks that average the
+    gradients (every rank holds the whole, averaged gradients, so each
+    counts ``1 / size``), recorded by the first."""
+    s_on, s_policy = sentinels.resolve(sentinel)
     loss_fn = make_sp_loss(cfg, mesh, seq_axis, data_axis, mode)
     n = mesh.axis(seq_axis).size
     group = None if data_axis is not None else mesh.axis(seq_axis).group
@@ -259,15 +263,27 @@ def make_sp_train_step(model, cfg: LlamaConfig, optimizer: torch.optim.Optimizer
     leaves = param_leaves(model)
     plan = plan_buckets(leaves, bb) if bb else None
     comm = mesh.comm
+    guard = None
+    if s_on:
+        ax = mesh.axis(("data", seq_axis) if data_axis is not None else seq_axis)
+        named = sentinels.named_leaves(model)
+        guard = group_guard("sp", s_on, s_policy, named, optimizer, ax,
+                            weights={p: 1.0 / ax.size for p, _ in named},
+                            loss_weight=1.0 / ax.size)
 
     def step(tokens):
         optimizer.zero_grad(set_to_none=True)
         scaled = n * loss_fn(model, tokens)
         scaled.backward()
         comm.bucketed_all_reduce_mean_(grad_leaves(leaves), group, plan)
+        if guard is not None:
+            guard.begin()
         optimizer.step()
         loss = scaled.detach().clone()
         comm.all_reduce_mean_([loss], group)
+        if guard is not None:
+            guard.end(loss)
         return loss
 
+    step.guard = guard
     return step

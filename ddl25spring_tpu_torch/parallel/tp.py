@@ -62,7 +62,8 @@ from ddl25spring_tpu_torch.parallel.bucketing import (
 )
 from ddl25spring_tpu_torch.parallel import ep
 from ddl25spring_tpu_torch.parallel.comm import Axis, all_gather, copy_in, reduce_out
-from ddl25spring_tpu_torch.parallel.dp import _not_ported, grad_leaves, param_leaves, shard_rows
+from ddl25spring_tpu_torch.obs import sentinels
+from ddl25spring_tpu_torch.parallel.dp import grad_leaves, group_guard, param_leaves, shard_rows
 from ddl25spring_tpu_torch.utils.config import LlamaConfig
 
 _COL = ("wq", "wk", "wv", "w_gate", "w_up")  # split the output (last) dim
@@ -256,14 +257,28 @@ def make_tp_train_step(model, cfg: LlamaConfig, optimizer: torch.optim.Optimizer
     on every rank.
 
     JAX's ``donate`` has no counterpart (the optimizer updates the
-    parameters in place); ``sentinel`` is not ported and raises."""
-    _not_ported("make_tp_train_step", sentinel=sentinel)
+    parameters in place).  ``sentinel``: the in-step numerics sentinels,
+    strategy ``"tp"``, their facts summed over the model axis (and the data
+    axis when given): a sliced leaf's squared norm counts whole on each
+    member, a replicated one ``1 / T``, so the sum is the global norm;
+    recorded by the first rank."""
+    s_on, s_policy = sentinels.resolve(sentinel)
     loss_fn = make_tp_loss(cfg, mesh, model_axis, data_axis, shard_vocab)
     data = mesh.axis(data_axis) if data_axis is not None else None
     bb = default_bucket_bytes()
     leaves = param_leaves(model)
     plan = plan_buckets(leaves, bb) if bb else None
     comm = mesh.comm
+    guard = None
+    if s_on:
+        T = mesh.axis(model_axis).size
+        ax = mesh.axis(("data", model_axis) if data is not None else model_axis)
+        split = _split_dims(shard_vocab, cfg.n_experts)
+        named = sentinels.named_leaves(model)
+        guard = group_guard("tp", s_on, s_policy, named, optimizer, ax,
+                            weights={p: (1.0 if split[".".join(p)] is not None else 1.0 / T)
+                                     * T / ax.size for p, _ in named},
+                            loss_weight=1.0 / ax.size)
 
     def step(tokens):
         optimizer.zero_grad(set_to_none=True)
@@ -273,7 +288,12 @@ def make_tp_train_step(model, cfg: LlamaConfig, optimizer: torch.optim.Optimizer
         if data is not None:
             comm.bucketed_all_reduce_mean_(grad_leaves(leaves), data.group, plan)
             comm.all_reduce_mean_([loss], data.group)
+        if guard is not None:
+            guard.begin()
         optimizer.step()
+        if guard is not None:
+            guard.end(loss)
         return loss
 
+    step.guard = guard
     return step

@@ -59,15 +59,17 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ddl25spring_tpu_torch import obs
+from ddl25spring_tpu_torch.obs import sentinels
 from ddl25spring_tpu_torch.parallel import bucketing
 from ddl25spring_tpu_torch.parallel.bucketing import Leaf, flatten, parts, plan_buckets
 from ddl25spring_tpu_torch.parallel.comm import gather_rows
 from ddl25spring_tpu_torch.parallel.dp import (
     LossFn,
     _all_reduce_issue,
-    _not_ported,
     _Overlap,
     grad_leaves,
+    group_guard,
     param_leaves,
     shard_rows,
 )
@@ -259,10 +261,11 @@ def _microbatches(batch, M: int):
     return list(batch.chunk(M))
 
 
-def _finish_rows(rows, optimizer, axis, loss, divisors: tuple, max_grad_norm):
+def _finish_rows(rows, optimizer, axis, loss, divisors: tuple, max_grad_norm, guard=None):
     """The common tail of the ZeRO-3 steps: the row gradients divided by
     each of ``divisors`` in turn (JAX's ``/ M`` then ``/ n``), the clip, the
-    optimizer's step, the loss's mean over the replicas."""
+    optimizer's step, the loss's mean over the replicas; the sentinel
+    ``guard`` around the step, when there is one."""
     with torch.no_grad():
         for r in rows:
             if r.grad is None:
@@ -271,10 +274,23 @@ def _finish_rows(rows, optimizer, axis, loss, divisors: tuple, max_grad_norm):
                 r.grad.div_(d)
     if max_grad_norm is not None:
         zero_clip_by_global_norm([r.grad for r in rows], max_grad_norm, axis)
+    if guard is not None:
+        guard.begin()
     optimizer.step()
     loss = loss.detach().clone()
     axis.comm.all_reduce_mean_([loss], axis.group)
+    if guard is not None:
+        guard.end(loss)
     return loss
+
+
+def _row_guard(strategy: str, s_on: bool, s_policy: str, paths, rows, optimizer, axis):
+    """The sentinel of a ZeRO step over this rank's ``rows`` (one per leaf
+    path; a stacked leaf's as a list): the leaves' rows are disjoint over
+    ``axis``, so their squared norms sum to the global ones, and the loss
+    (the replicas' mean) counts once."""
+    return group_guard(strategy, s_on, s_policy, list(zip(paths, rows)), optimizer, axis,
+                       loss_weight=1.0 / axis.size)
 
 
 def make_zero_dp_train_step(model: nn.Module, loss_fn: LossFn,
@@ -306,8 +322,18 @@ def make_zero_dp_train_step(model: nn.Module, loss_fn: LossFn,
     one per leaf; both give the same result.  ``overlap=True`` plans the
     buckets in backward order (the reduce-scatters already run from the
     backward, as each bucket's gradients complete) and needs buckets.
-    ``instrument`` and ``sentinel`` are not ported and raise."""
-    _not_ported("make_zero_dp_train_step", instrument, sentinel)
+
+    ``instrument`` (None = follow the :mod:`~ddl25spring_tpu_torch.obs` flag
+    when the step is built): the static counters
+    ``zero.allgather_bytes_per_step``, ``zero.reduce_scatter_bytes_per_step``
+    (what JAX's ICI moves per device: ``(n - 1)/n`` of every gathered leaf,
+    per microbatch) and ``zero.params_bytes_gathered``, and the counter
+    ``zero.loss`` per step.  ``sentinel``: the in-step numerics sentinels
+    over the row gradients, strategy ``"zero3"`` (``"zero3-overlap"``), the
+    squared norms summed over ``axis`` (JAX's ``axis=``), recorded once by
+    its index 0."""
+    instr = obs.enabled() if instrument is None else bool(instrument)
+    s_on, s_policy = sentinels.resolve(sentinel)
     if num_microbatches < 1:
         raise ValueError(f"num_microbatches must be >= 1, got {num_microbatches}")
     bb = bucketing.resolve_bucket_bytes(bucket_bytes)
@@ -322,6 +348,14 @@ def make_zero_dp_train_step(model: nn.Module, loss_fn: LossFn,
     # bucket_bytes None: a threshold of one byte gives every leaf its own
     plan = _row_plan(leaves, n, bb or 1, order="backward" if overlap else "forward")
     names = _names(model, leaves)
+    if instr:
+        gathered = sum(n * row_elems(l, n) * parts(l)[0].element_size() for l in leaves)
+        wire = gathered * (n - 1) // n * num_microbatches
+        obs.counters.add_static("zero.allgather_bytes_per_step", wire)
+        obs.counters.add_static("zero.reduce_scatter_bytes_per_step", wire)
+        obs.counters.add_static("zero.params_bytes_gathered", gathered)
+    guard = _row_guard("zero3-overlap" if overlap else "zero3", s_on, s_policy,
+                       [p for p, _ in sentinels.named_leaves(model)], rows, optimizer, ax)
     _free(model)
     wrapper = _LossOf(model, loss_fn)
 
@@ -344,9 +378,13 @@ def make_zero_dp_train_step(model: nn.Module, loss_fn: LossFn,
             loss.backward()
             total = loss.detach() if total is None else total + loss.detach()
         divisors = (n,) if num_microbatches == 1 else (num_microbatches, n)
-        return _finish_rows(rows, optimizer, ax, total / num_microbatches, divisors,
-                            max_grad_norm)
+        loss = _finish_rows(rows, optimizer, ax, total / num_microbatches, divisors,
+                            max_grad_norm, guard)
+        if instr:
+            obs.counters.emit("zero.loss", loss, force=True)
+        return loss
 
+    step.guard = guard
     return step
 
 
@@ -379,8 +417,13 @@ def make_zero_partitioned_train_step(model: nn.Module, loss_fn: LossFn,
     over a flat plan in backward order (the raw gradients, no padding, as
     JAX's), stage 2 the reduce-scatter of a row bucket planned in backward
     order.  The gather of the updated rows is unchanged.  ``stage`` outside
-    {1, 2} raises; ``sentinel`` is not ported and raises."""
-    _not_ported("make_zero_partitioned_train_step", sentinel=sentinel)
+    {1, 2} raises.
+
+    ``sentinel``: the in-step numerics sentinels over the row gradients and
+    updates, strategy ``"zero1"``/``"zero2"`` (``-overlap``), summed over
+    ``axis``; under ``skip`` the rows are put back before they are gathered,
+    so the replicated parameters keep their values too."""
+    s_on, s_policy = sentinels.resolve(sentinel)
     if stage not in (1, 2):
         raise ValueError(f"stage must be 1 or 2, got {stage} "
                          "(stage 3 is make_zero_dp_train_step)")
@@ -396,6 +439,8 @@ def make_zero_partitioned_train_step(model: nn.Module, loss_fn: LossFn,
     order = "backward" if overlap else "forward"
     plan = _row_plan(leaves, n, bb or 1, order)
     ks = [row_elems(l, n) for l in leaves]
+    guard = _row_guard(f"zero{stage}-overlap" if overlap else f"zero{stage}", s_on, s_policy,
+                       [p for p, _ in sentinels.named_leaves(model)], rows, optimizer, ax)
 
     def padded_grad(j):
         return _padded(_flat(grad_leaves([leaves[j]])[0]), n, ks[j])
@@ -459,12 +504,17 @@ def make_zero_partitioned_train_step(model: nn.Module, loss_fn: LossFn,
                 with torch.no_grad():
                     for j in range(len(leaves)):
                         rows[j].grad = padded_grad(j)[i:i + 1].clone()
+        if guard is not None:
+            guard.begin()
         optimizer.step()
+        if guard is not None:
+            guard.end(loss.detach())
         gather_update()
         loss = loss.detach().clone()
         comm.all_reduce_mean_([loss], ax.group)
         return loss
 
+    step.guard = guard
     return step
 
 
@@ -594,11 +644,13 @@ def make_zero3_llama_train_step(model, optimizer: torch.optim.Optimizer, mesh, r
     step returns the loss's mean over the replicas.  ``bucket_bytes`` must
     be a positive threshold.  On the staged transport (gloo with the ranks
     on one card) the copy to the host waits for the card, so the prefetch
-    overlaps nothing there."""
+    overlaps nothing there.  ``sentinel``: the in-step numerics sentinels
+    over the rows, strategy ``"zero3-prefetch"`` (``"zero3-llama"`` without
+    prefetch), summed over ``axis``; a block leaf is its layers' rows."""
     from ddl25spring_tpu_torch.models import llama
     from ddl25spring_tpu_torch.ops.losses import causal_lm_loss
 
-    _not_ported("make_zero3_llama_train_step", sentinel=sentinel)
+    s_on, s_policy = sentinels.resolve(sentinel)
     bb = bucketing.resolve_bucket_bytes(bucket_bytes)
     if not bb:
         raise ValueError("the LLaMA ZeRO-3 step is bucketed by construction; bucket_bytes "
@@ -616,6 +668,12 @@ def make_zero3_llama_train_step(model, optimizer: torch.optim.Optimizer, mesh, r
     _check_opt_state(optimizer, mesh.device)
     outer_keys = [k for k, _ in outer]
     block_keys = [k for k, _ in layers[0]]
+    guard = _row_guard(
+        "zero3-prefetch" if prefetch else "zero3-llama", s_on, s_policy,
+        [tuple(k.split(".")) for k in outer_keys]
+        + [("blocks", *k.split(".")) for k in block_keys],
+        [*rows.outer, *([layer[j] for layer in rows.blocks] for j in range(len(block_keys)))],
+        optimizer, ax)
     _free(model)
     every = rows.parameters()
 
@@ -667,6 +725,7 @@ def make_zero3_llama_train_step(model, optimizer: torch.optim.Optimizer, mesh, r
         optimizer.zero_grad(set_to_none=True)
         loss = forward(shard_rows(tokens, ax.index, n, mesh.device))
         loss.backward()
-        return _finish_rows(every, optimizer, ax, loss, (n,), max_grad_norm)
+        return _finish_rows(every, optimizer, ax, loss, (n,), max_grad_norm, guard)
 
+    step.guard = guard
     return step

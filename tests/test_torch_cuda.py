@@ -4,8 +4,10 @@ card-only checks (the on-card dataset, fp32 against
 the CPU, bf16 channels_last against fp32), federated learning's
 (``MnistCnn`` and one FedAvg round on the card against the CPU), one
 flash-ring and one TP step on the card against the CPU, a switch-MoE
-LLaMA step (top 1 and 2) and the EP layer on the card, and one EP x DP x PP
-and one DP x PP x TP step on the card against the CPU.
+LLaMA step (top 1 and 2) and the EP layer on the card, one EP x DP x PP
+and one DP x PP x TP step on the card against the CPU, and the sentinel's
+``skip`` on the card, eager and inside a CUDA graph (chip_smoke phase 16 (a)
+and (b), small).
 
 Marked ``gpu``: each test skips unless an sm_90 (Hopper) device is present,
 but for the FL entry points' refusal of a missing GPU, which runs anywhere.
@@ -751,3 +753,109 @@ def test_pipeline_composition_on_the_card_matches_the_cpu(dev, tmp_path, name):
             assert c["loss"] == pytest.approx(h["loss"], rel=1e-5)
         for (path, a), (_, b) in zip(flatten(c["grads"]), flatten(h["grads"])):
             assert (abs(a - b) - 2e-3 * abs(b)).max() <= 2e-4, path
+
+
+def _scaled_loss(model, batch):
+    from ddl25spring_tpu_torch.ops.losses import causal_lm_loss
+
+    tokens, factor = batch
+    return causal_lm_loss(model(tokens), tokens) * factor
+
+
+def _guarded_llama(dev, capturable, guarded):
+    from ddl25spring_tpu_torch.models.llama import Llama
+    from ddl25spring_tpu_torch.obs import sentinels
+    from ddl25spring_tpu_torch.parallel.dp import make_train_step
+    from ddl25spring_tpu_torch.utils.config import LlamaConfig
+
+    cfg = LlamaConfig(**{**DP_CFG, "dtype": "bfloat16"})
+    model = Llama(cfg, device=dev, generator=torch.Generator().manual_seed(6))
+    opt = torch.optim.Adam(model.parameters(), lr=8e-4, capturable=capturable)
+    with sentinels.scoped(guarded, policy="skip"):
+        return model, opt, make_train_step(model, _scaled_loss, opt, sentinel=guarded)
+
+
+def _bits_of(tensors):
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return [t.detach().contiguous().view(ints[t.element_size()]).clone() for t in tensors]
+
+
+def _opt_state(opt):
+    return [v for st in opt.state.values() for v in st.values() if torch.is_tensor(v)]
+
+
+def test_guarded_step_skips_a_poisoned_step_bitwise_on_the_card(dev):
+    """chip_smoke phase 16 (a), small: 6 guarded bf16 steps (plain Adam, its
+    step counter on the host), step 3's loss factor NaN: one violation
+    record naming step 3; parameters and Adam state bitwise unchanged across
+    it; the 5 clean losses bitwise an unguarded run's without the poisoned
+    batch; each flash kernel launched 2 (layers) times a step on wgmma."""
+    from ddl25spring_tpu_torch.obs import flight, sentinels
+
+    sentinels.reset()
+    flight.reset()
+    g = torch.Generator().manual_seed(9)
+    tokens = torch.randint(0, 256, (6, 4, 64), generator=g).to(dev)
+    factors = torch.ones(6, device=dev)
+    factors[3] = float("nan")
+    model, opt, step = _guarded_llama(dev, False, True)
+    fa.reset_launches()
+    losses = []
+    for i in range(6):
+        if i == 3:
+            sentinels.flush()
+            before = _bits_of(list(model.parameters()) + _opt_state(opt))
+        losses.append(step((tokens[i], factors[i])))
+        if i == 3:
+            sentinels.flush()
+            assert all(torch.equal(a, b) for a, b in
+                       zip(before, _bits_of(list(model.parameters()) + _opt_state(opt))))
+    sentinels.flush()
+    assert {n: c["wgmma"] for n, c in fa.LAUNCHES_BY_VARIANT.items()} == \
+        {"fwd": 12, "dq": 12, "dkv": 12}
+    kinds = [r["kind"] for r in flight.last()]
+    assert kinds == ["step"] * 3 + ["violation"] + ["step"] * 2
+    plain, _, plain_step = _guarded_llama(dev, False, False)
+    ref = [plain_step((tokens[i], factors[i])).float().item() for i in range(6) if i != 3]
+    assert [x.float().item() for i, x in enumerate(losses) if i != 3] == ref
+    assert all(torch.equal(a, b) for a, b in zip(model.parameters(), plain.parameters()))
+    sentinels.reset()
+    flight.reset()
+
+
+def test_guarded_fused_window_records_every_step_on_the_card(dev):
+    """chip_smoke phase 16 (b), small: ``fuse_train_steps(step, 4)`` with the
+    guard (capturable Adam), window step 2 poisoned: 4 records in step
+    order, one violation; the clean losses, parameters and Adam state
+    bitwise 3 eager unguarded steps'; the graph holds 4 x 2 of each flash
+    kernel; a second replay records 4 more."""
+    from ddl25spring_tpu_torch.obs import flight, sentinels
+    from ddl25spring_tpu_torch.parallel.pipeline import fuse_train_steps
+
+    sentinels.reset()
+    flight.reset()
+    g = torch.Generator().manual_seed(10)
+    window = torch.randint(0, 256, (4, 4, 64), generator=g).to(dev)
+    wf = torch.ones(4, device=dev)
+    wf[2] = float("nan")
+    emodel, eopt, estep = _guarded_llama(dev, True, False)
+    ref = [estep((window[i], wf[i])).float().item() for i in range(4) if i != 2]
+    model, opt, step = _guarded_llama(dev, True, True)
+    fa.reset_launches()
+    multi = fuse_train_steps(step, 4, module=model, optimizer=opt, device=dev)
+    fused = multi((window, wf)).float().tolist()
+    sentinels.flush()
+    assert {n: c["wgmma"] for n, c in fa.CAPTURED.items()} == {"fwd": 8, "dq": 8, "dkv": 8}
+    recs = flight.last()
+    assert [r["step"] for r in recs] == [0, 1, 2, 3]
+    assert [r["kind"] for r in recs] == ["step", "step", "violation", "step"]
+    assert [x for i, x in enumerate(fused) if i != 2] == ref
+    assert all(torch.equal(a, b) for a, b in zip(_bits_of(list(model.parameters())
+                                                          + _opt_state(opt)),
+                                                 _bits_of(list(emodel.parameters())
+                                                          + _opt_state(eopt))))
+    multi((window, torch.ones(4, device=dev)))
+    sentinels.flush()
+    assert [r["step"] for r in flight.last()] == list(range(8))
+    sentinels.reset()
+    flight.reset()

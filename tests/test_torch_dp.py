@@ -149,14 +149,20 @@ def test_replicas_agree(world):
     assert all(r["allreduce_s"] > 0 for r in ranks)
 
 
-def test_unported_options_raise():
+def test_refused_options_raise(monkeypatch):
+    from ddl25spring_tpu_torch.obs import sentinels
+
     model = torch.nn.Linear(2, 2)
     opt = torch.optim.SGD(model.parameters(), lr=0.1)
     # overlap is ported, but only over buckets, as in the JAX step
     with pytest.raises(ValueError, match="overlap=True needs the bucketed path"):
         make_dp_train_step(model, _loss, opt, None, bucket_bytes=None, overlap=True)
-    for kw in ({"instrument": True}, {"sentinel": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-            make_dp_train_step(model, _loss, opt, None, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+    # what JAX refuses of the sentinel: a policy outside log/halt/skip, when
+    # the builder resolves it (sentinels.resolve)
+    with pytest.raises(ValueError, match="not one of"):
+        sentinels.resolve(True, "explode")
+    monkeypatch.setattr(sentinels, "_policy", "explode")
+    with pytest.raises(ValueError, match="not one of"):
+        make_dp_train_step(model, _loss, opt, None, sentinel=True)
+    with pytest.raises(ValueError, match="not one of"):
         make_dp_weight_avg_step(model, _loss, opt, None, sentinel=True)

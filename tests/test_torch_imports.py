@@ -44,5 +44,7 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "examples.homework1_a2_a3_sweeps", "examples.tutorial_1b.intro_dp_ga",
                 "examples.tutorial_1b.intro_dp_wa", "examples.tutorial_1b.intro_pp_1f1b",
                 "parallel.sp", "parallel.tp", "parallel.ep", "parallel.zero",
-                "parallel.rules"):
+                "parallel.rules", "obs", "obs.state", "obs.recorder", "obs.counters",
+                "obs.spans", "obs.logger", "obs.watchdog", "obs.timeline", "obs.sentinels",
+                "analysis", "analysis.host_sanitizer", "utils.tracing"):
         assert f"ddl25spring_tpu_torch.{mod}" in report["modules"]

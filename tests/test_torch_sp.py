@@ -259,12 +259,15 @@ class _Grid:
         return Axis(name, None, None, tuple(range(self.n)), 0)
 
 
-def test_sp_rejects_what_jax_rejects():
+def test_sp_rejects_what_jax_rejects(monkeypatch):
+    from ddl25spring_tpu_torch.obs import sentinels
+
     with pytest.raises(ValueError, match="unknown SP mode"):
         sp.make_sp_loss(CFG, _Grid(2), mode="tree")
     with pytest.raises(ValueError, match="divisible"):
         sp.make_sp_loss(CFG, _Grid(4), mode="ulysses")  # 2 heads over 4 shards
     model = llama.Llama(CFG, device="cpu", generator=torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+    monkeypatch.setattr(sentinels, "_policy", "explode")  # a policy JAX refuses too
+    with pytest.raises(ValueError, match="not one of"):
         sp.make_sp_train_step(model, CFG, torch.optim.SGD(model.parameters(), lr=0.1),
                               _Grid(2), sentinel=True)

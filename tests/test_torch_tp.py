@@ -326,6 +326,10 @@ def test_tp_refusals():
         tp.shard_tp_params(llama.export_params(llama.Llama(
             CFG, device="cpu", generator=torch.Generator().manual_seed(0))), 3, 0)
     model = llama.Llama(CFG, device="cpu", generator=torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        tp.make_tp_train_step(model, CFG, torch.optim.SGD(model.parameters(), lr=0.1), None,
-                              sentinel=True)
+    from ddl25spring_tpu_torch.obs import sentinels
+
+    with pytest.raises(ValueError, match="not one of"):  # a policy JAX refuses too
+        with sentinels.scoped(True):
+            sentinels._policy = "explode"
+            tp.make_tp_train_step(model, CFG, torch.optim.SGD(model.parameters(), lr=0.1),
+                                  None, sentinel=True)

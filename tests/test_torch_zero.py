@@ -652,8 +652,12 @@ def test_refusals():
             make(m, dp.tiny_mlp_loss, opt, mesh, rows, bucket_bytes=None, overlap=True)
     with pytest.raises(ValueError, match="not the \\[1, k\\] rows"):
         zero.make_zero_dp_train_step(m, dp.tiny_mlp_loss, opt, _mesh(4), rows)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        zero.make_zero_dp_train_step(m, dp.tiny_mlp_loss, opt, mesh, rows, sentinel=True)
+    from ddl25spring_tpu_torch.obs import sentinels
+
+    with pytest.raises(ValueError, match="not one of"):  # a policy JAX refuses too
+        with sentinels.scoped(True):
+            sentinels._policy = "explode"
+            zero.make_zero_dp_train_step(m, dp.tiny_mlp_loss, opt, mesh, rows, sentinel=True)
     lm = _llama()
     lrows = zero.zero_shard_llama_params(lm, mesh)
     with pytest.raises(ValueError, match="positive threshold"):
