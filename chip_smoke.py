@@ -340,6 +340,42 @@ Phases, in order; any failure exits non-zero and prints no result:
         ``counters.json``, ``flight.json`` and ``timeline.jsonl``, and
         ``tools/trace_export.py <dir> --check`` exits 0.
 
+17. fault tolerance on the card (``ft/``, ``utils/checkpoint.py`` on
+    ``torch.distributed.checkpoint``, ``lab.dp_pp --ckpt-dir``; ``ft_phase``):
+    (a) the main path checkpointed: ``lab.dp_pp --workload llama`` (2 x 3,
+        ``gpipe``, M 3, full width, bf16, flash; six ranks on ``cuda:0`` over
+        gloo) run A, ``FT_ITERS`` steps with ``--ckpt-every 2``, and run B,
+        ``FT_HALF`` steps twice into one directory, the second resuming
+        from step ``FT_HALF - 1``: the losses and B's step-5 checkpoint,
+        stage by stage, parameters and Adam state (``exp_avg``,
+        ``exp_avg_sq``, ``step``), bitwise A's; every rank 6/6/6 ``wgmma``
+        launches a step (the counts set to 0 in each rank before its run);
+    (b) beside B, run C (A's flags) in a process group of its own, SIGKILLed
+        once ``latest_durable_step`` reads ``FT_KILL_AFTER``: every committed
+        step has its metadata and no staging directory counts; the relaunch
+        for the ``FT_ITERS - (d + 1)`` steps left from durable step ``d``
+        ends bitwise on A's last checkpoint;
+    (c) in a process of its own: phase 16 (a)'s guarded step (policy
+        ``skip``, plain Adam) with ``AutoSaver(save_every=1,
+        async_save=False)``, step ``FT_GATE_POISON``'s loss NaN: one
+        ``save_skipped`` record (``sentinel_violation``), the manifest's
+        ``save_skipped`` 1, that step never on disk, and ``restore_or_init``
+        of the last durable step bitwise the live parameters and Adam state;
+    (d) 4 ranks on ``cuda:0``: ``make_zero3_llama_train_step`` at full width
+        in fp32 (the scalar flash kernels, Adam 8e-4, eps 1e-6), 2 steps at
+        n = 4, a live reshape to n = 2 (``Mesh.regrid``,
+        ``elastic.reshape_state`` onto ``zero_resume_template(abstract=True)``),
+        2 steps; and 2 -> 4 likewise: both within atol 2e-5 + rtol 2e-5 (the
+        JAX test's) of 4 uninterrupted steps at n = 2; a ``reshape`` flight
+        record ``{"data": 4} -> {"data": 2}``, steps lost 0; the
+        ``AutoSaver`` checkpoint of n = 4 (``leaf_shapes`` ``[4, k]`` /
+        ``[L, 4, k]``) restored by ``restore_or_init`` on n = 2 bitwise the
+        live reshape's state; 6/6/6 scalar launches a step;
+    (e) written down, not gated: the lab's median step with ``--ckpt-every
+        2`` and without (one more unchecked run), each async save's blocking
+        wall, a warm single-process restore of the 2 x 3 checkpoint, the
+        reshape walls, a synchronous save and the cross-mesh restore.
+
 Tolerances (|kernel - plain| <= atol + rtol * |plain|):
   fp32: atol 1e-4, rtol 0 (summation order only);
   bf16: atol 2e-2, rtol 1e-2 against the plain version on the same bf16
@@ -362,7 +398,9 @@ LLaMA runs and (d)'s MoE run; ``launches_obs_guarded_per_step`` phase 16
 (a)'s launches per guarded step, ``launches_obs_guarded_per_fused_window``
 the kernel's nodes in (b)'s guarded graph of 16 steps, and
 ``launches_obs_dp_pp_per_rank_per_step`` each rank's launches per step in
-(e).
+(e); ``launches_ft_lab_per_rank_per_step`` each rank's launches per step in
+phase 17 (a)'s run A, and ``launches_ft_zero3_per_rank_per_step`` each rank's
+per step in each run of phase 17 (d).
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -4361,6 +4399,443 @@ def obs_phase(dev, device="cuda"):
     return llama
 
 
+# ---------------------------------------------------------------- phase 17
+
+FT_ITERS = 8                    # (a), (b): the uninterrupted lab runs' steps
+FT_EVERY = 2                    # (a), (b): --ckpt-every
+FT_HALF = 3                     # (a): each of B's two runs
+FT_KILL_AFTER = 3               # (b): SIGKILL once this step is durable
+FT_GATE_STEPS = 6               # (c): guarded steps, one autosave each
+FT_GATE_POISON = 3              # (c): the step whose loss factor is NaN
+FT_ZERO_N = 4                   # (d): ranks; n = 2 regrids them to 2 x 2
+FT_ZERO_ROWS = 4                # (d): global rows per step
+FT_ZERO_EPS = 1e-6              # (d): Adam's eps (the parity tests' value; see ft_zero_rank)
+FT_BAND = 2e-5                  # (d): atol and rtol, the JAX test's assert_allclose (test_elastic.py)
+FT_LAB = ["--workload", "llama"]  # the lab's flags (2 x 3, gpipe, full width, flash)
+
+
+def _ft_bits_equal(a: dict, b: dict) -> tuple[bool, str]:
+    """Two restored checkpoints (nested dicts of host tensors), leaf by leaf,
+    bitwise (NaN equal to itself); the first leaf that differs."""
+    from ddl25spring_tpu_torch.utils import pytree
+
+    fa, fb = pytree.flatten_with_path(a), pytree.flatten_with_path(b)
+    if [p for p, _ in fa] != [p for p, _ in fb]:
+        return False, "the keys differ"
+    for (path, x), (_, y) in zip(fa, fb):
+        if x.dtype != y.dtype or not _bitwise(_bits([x]), _bits([y])):
+            return False, pytree.slashed(path)
+    return True, ""
+
+
+def _ft_lab(device, ckpt_dir, iters, every=FT_EVERY):
+    """One run of ``lab.dp_pp --workload llama`` (2 x 3, gpipe, full width,
+    bf16 on the card, flash), checkpointed into ``ckpt_dir`` when given."""
+    from ddl25spring_tpu_torch.lab import dp_pp
+
+    argv = [*FT_LAB, "--device", device, "--iters", str(iters)]
+    if ckpt_dir:
+        argv += ["--ckpt-dir", ckpt_dir, "--ckpt-every", str(every)]
+    return dp_pp.main(argv)
+
+
+def _ft_launch_check(tag, run, steps):
+    """Every rank of a lab run launched each flash kernel 2 x M times a step
+    (its 2 layers, M microbatches), all on ``wgmma`` on the card."""
+    want = {n: 2 * MICRO * steps for n in ("fwd", "dq", "dkv")}
+    for r in run["ranks"]:
+        check(r["launches"] == want
+              and all(v.get("scalar", 0) == 0 for v in r["launches_by_variant"].values()),
+              f"{tag} rank {r['coords']} launches {r['launches']} by variant "
+              f"{r['launches_by_variant']}, not {want} on wgmma")
+
+
+def ft_resume(tmp, device="cuda") -> tuple[dict, list[str]]:
+    """(a) A: ``FT_ITERS`` steps with ``--ckpt-every 2``; B: ``FT_HALF`` steps
+    twice, the second resuming from step ``FT_HALF - 1``: B's step 5 equals
+    A's bitwise, stage by stage.  (b) C, beside B: the same run as A in a
+    process group of its own, SIGKILLed once step ``FT_KILL_AFTER`` is
+    durable, relaunched for the steps left: its last checkpoint equals A's
+    bitwise.  (e) an unchecked run of ``FT_ITERS`` steps for the step time
+    without checkpoints, and the walls of a save and a restore."""
+    import os
+    import signal
+    import threading
+
+    from ddl25spring_tpu_torch.ft.manifest import latest_durable_step
+    from ddl25spring_tpu_torch.utils.checkpoint import Checkpointer
+
+    A, B, C = (os.path.join(tmp, x) for x in "ABC")
+    lines, out = [], {}
+    a = _ft_lab(device, A, FT_ITERS)
+    _ft_launch_check("(a) A", a, FT_ITERS)
+    # (b) runs beside B: C is launched as a process group of its own, and a
+    # watcher SIGKILLs the group once step FT_KILL_AFTER is durable
+    root = os.path.dirname(os.path.abspath(__file__))
+    log = open(os.path.join(tmp, "c.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ddl25spring_tpu_torch.lab.dp_pp", *FT_LAB, "--device", device,
+         "--iters", str(FT_ITERS), "--ckpt-every", str(FT_EVERY), "--ckpt-dir", C],
+        cwd=root, stdout=log, stderr=subprocess.STDOUT, start_new_session=True)
+
+    def watch():
+        deadline = time.monotonic() + SPAWN_TIMEOUT
+        try:
+            while proc.poll() is None and time.monotonic() < deadline:
+                d = latest_durable_step(C)
+                if d is not None and d >= FT_KILL_AFTER:
+                    break
+                time.sleep(0.005)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+
+    watcher = threading.Thread(target=watch, name="ft-kill-watcher")
+    watcher.start()
+    try:
+        b1 = _ft_lab(device, B, FT_HALF)
+        b2 = _ft_lab(device, B, FT_HALF)
+    finally:
+        watcher.join()
+        log.close()
+    check({r["start"] for r in b2["ranks"]} == {FT_HALF},
+          f"(a) B's second run started at {[r['start'] for r in b2['ranks']]}, not "
+          f"{FT_HALF} (resumed from step {FT_HALF - 1})")
+    _ft_launch_check("(a) B", b2, FT_HALF)
+    check(a["losses"][:2 * FT_HALF] == b1["losses"] + b2["losses"],
+          f"(a) losses A {a['losses']} vs B {b1['losses']} + {b2['losses']}")
+    last_b = 2 * FT_HALF - 1
+    Checkpointer(A).restore(last_b)        # the first restore also loads the library
+    t0 = time.perf_counter()
+    want = Checkpointer(A).restore(last_b)
+    out["restore_s"] = time.perf_counter() - t0
+    same, where = _ft_bits_equal(Checkpointer(B).restore(last_b), want)
+    check(same, f"(a) B's step {last_b} differs from A's at {where}")
+    stages = sorted(want)
+    kinds = sorted({k for st in want.values() for o in st["opt_state"].values() for k in o})
+    lines.append(f"  (a) lab 2 x 3 gpipe bf16, A {FT_ITERS} steps (--ckpt-every {FT_EVERY}), B "
+                 f"{FT_HALF} + {FT_HALF} (resumed from step {FT_HALF - 1}): losses bitwise, "
+                 f"B's step {last_b} bitwise A's, {stages}, parameters and Adam {kinds}; "
+                 f"each rank 6/6/6 wgmma launches a step")
+    # (b): the SIGKILLed run, relaunched for the steps left
+    with open(os.path.join(tmp, "c.log")) as f:
+        tail = f.read()[-1500:]
+    check(proc.returncode == -signal.SIGKILL,
+          f"(b) the run ended with {proc.returncode} before the kill: {tail}")
+    d = latest_durable_step(C)
+    check(d is not None and FT_KILL_AFTER <= d < FT_ITERS - 1,
+          f"(b) durable step {d} after the kill, not in [{FT_KILL_AFTER}, {FT_ITERS - 2}]")
+    entries = sorted(os.listdir(C))
+    steps = [e for e in entries if e.isdigit()]
+    check(all(os.path.exists(os.path.join(C, s, ".metadata")) for s in steps)
+          and max(int(s) for s in steps) == d,
+          f"(b) directory after the kill {entries}: a committed step without its metadata")
+    c = _ft_lab(device, C, FT_ITERS - (d + 1))
+    check({r["start"] for r in c["ranks"]} == {d + 1},
+          f"(b) the relaunch started at {[r['start'] for r in c['ranks']]}, not {d + 1}")
+    _ft_launch_check("(b) relaunch", c, FT_ITERS - (d + 1))
+    same, where = _ft_bits_equal(Checkpointer(C).restore(FT_ITERS - 1),
+                                 Checkpointer(A).restore(FT_ITERS - 1))
+    check(same, f"(b) the relaunched run's step {FT_ITERS - 1} differs from A's at {where}")
+    lines.append(f"  (b) SIGKILL of the process group with step {d} durable (staging left: "
+                 f"{[e for e in entries if 'tmp' in e]}, invisible), relaunch of "
+                 f"{FT_ITERS - (d + 1)} steps from step {d + 1}: step {FT_ITERS - 1} bitwise "
+                 "the uninterrupted run's")
+    # (e): the step with and without checkpoints, and each save's blocking wall
+    plain = _ft_lab(device, "", FT_ITERS)
+    _ft_launch_check("(e) unchecked", plain, FT_ITERS)
+    saves = [s for r in a["ranks"] for s in r["ckpt_s"]]
+    out.update(step_ckpt_ms=_median_ms(a["ranks"]), step_plain_ms=_median_ms(plain["ranks"]),
+               save_block_ms=statistics.median(saves) * 1e3, save_block_max_ms=max(saves) * 1e3,
+               lab_launches=[{k: v // FT_ITERS for k, v in r["launches"].items()}
+                             for r in sorted(a["ranks"], key=lambda r: r["rank"])])
+    lines.append(f"  (e) lab median step (slowest rank, steps 1..{FT_ITERS - 1}): "
+                 f"{out['step_ckpt_ms']:.3f} ms with --ckpt-every {FT_EVERY}, "
+                 f"{out['step_plain_ms']:.3f} ms without; an async save blocks "
+                 f"{out['save_block_ms']:.3f} ms (median over ranks and saves, max "
+                 f"{out['save_block_max_ms']:.3f}); a single-process restore of the "
+                 f"2 x 3 checkpoint {out['restore_s'] * 1e3:.1f} ms (warm)")
+    return out, lines
+
+
+def ft_gate(rdv, ckpt_dir, device="cuda"):
+    """(c), in a process of its own (fresh flight and sentinel state): the
+    guarded full-width LLaMA step (policy skip, plain Adam) with an
+    ``AutoSaver(save_every=1, async_save=False)``; step ``FT_GATE_POISON``'s
+    loss factor is NaN, and the gate judges by the sentinels alone (no loss
+    handed to it).  Returns the skipped records, the manifest, whether the
+    restore of the last durable step equals the live state bitwise, and the
+    save and restore walls."""
+    import os
+
+    from ddl25spring_tpu_torch.ft import AutoSaver, read_manifest, resume_bundle
+    from ddl25spring_tpu_torch.obs import flight, sentinels
+    from ddl25spring_tpu_torch.ops import flash_attention as fa
+    from ddl25spring_tpu_torch.utils import checkpoint as ck
+
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    cfg = obs_cfg()
+    sentinels.reset()
+    flight.reset()
+    model, opt, step = _obs_llama(dev, False, True)
+    named = list(model.named_parameters())
+    tokens = torch.randint(0, cfg.vocab_size, (FT_GATE_STEPS, MAIN_SHAPE[0], cfg.ctx_size),
+                           generator=torch.Generator().manual_seed(17)).to(dev)
+    factors = torch.ones(FT_GATE_STEPS, device=dev)
+    factors[FT_GATE_POISON] = float("nan")
+    saver = AutoSaver(ckpt_dir, save_every=1, max_to_keep=FT_GATE_STEPS, async_save=False)
+    fa.reset_launches()
+    saved, save_s = [], []
+    for i in range(FT_GATE_STEPS):
+        step((tokens[i], factors[i]))
+        t0 = time.perf_counter()
+        saved.append(saver.maybe_save(i, resume_bundle(
+            {n: p.detach() for n, p in named}, ck.optimizer_state(opt, named),
+            data_cursor=i + 1)))
+        save_s.append(time.perf_counter() - t0)
+    saver.close()
+    launches = dict(fa.LAUNCHES)
+    live = _bits([p for _, p in named] + [opt.state[p][k] for _, p in named
+                                          for k in ("exp_avg", "exp_avg_sq", "step")])
+    skipped = [r for r in flight.last() if r["kind"] == "save_skipped"]
+    fresh, fresh_opt, _ = _obs_llama(dev, False, False, seed=1)
+    fnamed = list(fresh.named_parameters())
+    t0 = time.perf_counter()
+    saver2 = AutoSaver(ckpt_dir, save_every=1)
+    state, nxt = saver2.restore_or_init(resume_bundle(
+        {n: p.detach() for n, p in fnamed}, ck.optimizer_template(fresh_opt, fnamed)))
+    restore_s = time.perf_counter() - t0
+    saver2.close()
+    got = _bits([state["params"][n] for n, _ in named]
+                + [state["opt_state"][n][k] for n, _ in named
+                   for k in ("exp_avg", "exp_avg_sq", "step")])
+    return {"saved": saved, "skipped": skipped, "manifest": read_manifest(ckpt_dir),
+            "next": nxt, "bitwise": _bitwise(live, got), "launches": launches,
+            "save_ms": [s * 1e3 for s in save_s], "restore_ms": restore_s * 1e3,
+            "steps_on_disk": sorted(int(p) for p in os.listdir(ckpt_dir) if p.isdigit())}
+
+
+def ft_gate_checks(g) -> str:
+    check(g["saved"] == [i != FT_GATE_POISON for i in range(FT_GATE_STEPS)],
+          f"(c) saves {g['saved']}: not every step but {FT_GATE_POISON}")
+    check(len(g["skipped"]) == 1 and g["skipped"][0]["step"] == FT_GATE_POISON
+          and g["skipped"][0]["reason"] == "sentinel_violation",
+          f"(c) save_skipped records {g['skipped']}")
+    man = g["manifest"]
+    check(man["save_skipped"] == 1 and man["last_durable_step"] == FT_GATE_STEPS - 1
+          and FT_GATE_POISON not in g["steps_on_disk"],
+          f"(c) manifest {man}, steps on disk {g['steps_on_disk']}")
+    check(g["next"] == FT_GATE_STEPS and g["bitwise"],
+          f"(c) restore_or_init gave next step {g['next']}, bitwise {g['bitwise']}")
+    want = {n: 6 * FT_GATE_STEPS for n in ("fwd", "dq", "dkv")}
+    check(g["launches"] == want, f"(c) launches {g['launches']}, not {want}")
+    return (f"  (c) guarded LLaMA, skip, AutoSaver every step: step {FT_GATE_POISON} poisoned -> "
+            f"1 save_skipped (sentinel_violation), manifest save_skipped 1, steps on disk "
+            f"{g['steps_on_disk']}, restore_or_init of step {FT_GATE_STEPS - 1} bitwise the "
+            f"live parameters and Adam state; a synchronous save of the full state "
+            f"{statistics.median(g['save_ms']):.1f} ms (median), restore "
+            f"{g['restore_ms']:.1f} ms")
+
+
+def ft_zero_rank(rdv, batches, ckpt_dir, device="cuda"):
+    """(d): one rank of 4 on the card (gloo through pinned host buffers),
+    regridded to 2 x 2 for n = 2: the fp32 full-width LLaMA ZeRO-3 (Adam 8e-4,
+    eps ``FT_ZERO_EPS``: at 1e-8 Adam moves a gradient at rounding-noise size
+    by up to its rate, and the two layouts round their sums differently),
+    4 uninterrupted steps at n = 2; 2 steps at n = 4 autosaved, a live
+    reshape to n = 2, 2 steps; 2 steps at n = 2, a reshape to n = 4, 2 steps;
+    the n = 4 checkpoint restored on n = 2.  Returns rows, states, walls and
+    launches."""
+    from ddl25spring_tpu_torch.ft import AutoSaver, elastic, reshard, resume_bundle
+    from ddl25spring_tpu_torch.models.llama import Llama
+    from ddl25spring_tpu_torch.ops import flash_attention as fa
+    from ddl25spring_tpu_torch.parallel import zero
+    from ddl25spring_tpu_torch.utils import pytree
+    from ddl25spring_tpu_torch.utils.mesh import init_mesh
+
+    cfg = pipe_cfg("dense", "float32")
+    out = {"launches": {}}
+    with init_mesh(rdv, FT_ZERO_N, stages=1, device=device) as mesh4:
+        dev = mesh4.device
+        meshes = {FT_ZERO_N: mesh4, 2: mesh4.regrid(2, stages=2)}
+        toks = [torch.from_numpy(b).long() for b in batches]
+
+        def fresh(n):
+            model = Llama(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+            rows = zero.zero_shard_llama_params(model, meshes[n])
+            opt = torch.optim.Adam(rows.parameters(), lr=8e-4, eps=FT_ZERO_EPS)
+            return model, rows, opt, zero.make_zero3_llama_train_step(model, opt, meshes[n], rows)
+
+        def adopt(model, n, state):
+            rows = zero.zero_rows_from_state(state, model, llama=True)
+            opt = torch.optim.Adam(rows.parameters(), lr=8e-4, eps=FT_ZERO_EPS)
+            zero.zero_load_optimizer(opt, rows, state, model)
+            return rows, opt, zero.make_zero3_llama_train_step(model, opt, meshes[n], rows)
+
+        def run(tag, step, ids):
+            fa.reset_launches()
+            for i in ids:
+                step(toks[i])
+            out["launches"][tag] = {k: v // len(ids) for k, v in fa.LAUNCHES.items()}
+
+        def np_rows(rows):
+            return [r.detach().cpu().numpy() for r in rows.parameters()]
+
+        def np_state(state):
+            return {pytree.keystr(p): (x.local if isinstance(x, reshard.Rows) else x)
+                    .detach().cpu().clone() for p, x in pytree.flatten_with_path(state)}
+
+        _, rows, _, step = fresh(2)
+        run("n2", step, range(4))
+        out["ref"] = np_rows(rows)
+        for first, second in ((FT_ZERO_N, 2), (2, FT_ZERO_N)):
+            model, rows, opt, step = fresh(first)
+            saver = None
+            if first == FT_ZERO_N:
+                saver = AutoSaver(ckpt_dir, save_every=1, async_save=False)
+            run(f"n{first} before", step, range(2))
+            if saver is not None:
+                st = zero.zero_state(rows, opt, meshes[first], model)
+                t0 = time.perf_counter()
+                saver.maybe_save(1, resume_bundle(st["params"], st["opt_state"], data_cursor=2,
+                                                  rng_seed=0))
+                out["save_s"] = time.perf_counter() - t0
+                saver.close()
+            t0 = time.perf_counter()
+            state = elastic.reshape_state(
+                zero.zero_state(rows, opt, meshes[first], model),
+                zero.zero_resume_template(model, opt, meshes[second], llama=True, abstract=True))
+            rows2, opt2, step2 = adopt(model, second, state)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            ev = elastic.record_reshape(old=meshes[first].axis("data"),
+                                        new=meshes[second].axis("data"), wall_s=wall,
+                                        steps_lost=0, reason="device_loss")
+            if first == FT_ZERO_N:
+                out["live"] = np_state({"params": state["params"],
+                                        "opt_state": state["opt_state"]})
+            run(f"n{second} after", step2, (2, 3))
+            out[f"{first}->{second}"] = {"rows": np_rows(rows2), "event": ev, "wall_s": wall}
+            del model, rows, opt, step, rows2, opt2, step2, state
+        fresh_model = Llama(cfg, device=dev, generator=torch.Generator().manual_seed(5))
+        opt = torch.optim.Adam([torch.zeros(1, requires_grad=True)], lr=8e-4, eps=FT_ZERO_EPS)
+        tmpl = zero.zero_resume_template(fresh_model, opt, meshes[2], llama=True)
+        saver2 = AutoSaver(ckpt_dir, save_every=1)
+        t0 = time.perf_counter()
+        state, nxt = saver2.restore_or_init(resume_bundle(tmpl["params"], tmpl["opt_state"],
+                                                          rng_seed=0))
+        out["restore_s"] = time.perf_counter() - t0
+        saver2.close()
+        out["restored"] = (np_state({"params": state["params"], "opt_state": state["opt_state"]}),
+                           nxt, int(state["data_cursor"]))
+        out["rank"] = mesh4.rank
+    return out
+
+
+def ft_zero_checks(ranks, ckpt_dir) -> tuple[dict, list[str]]:
+    """(d)'s checks: the reshaped runs within ``FT_BAND`` of the
+    uninterrupted n = 2 run (the rows unsharded over a DP line), the flight
+    events, the checkpoint route bitwise the live reshape, the saved
+    ``leaf_shapes``; returns the launches and walls."""
+    import numpy as np
+
+    from ddl25spring_tpu_torch.ft import read_manifest
+
+    ranks = sorted(ranks, key=lambda r: r["rank"])
+    lines = []
+
+    def full(line, key=None):
+        rows = [ranks[r]["ref"] if key is None else ranks[r][key]["rows"] for r in line]
+        return [np.concatenate([rs[j] for rs in rows]) for j in range(len(rows[0]))]
+
+    line2, line4 = (0, 2), tuple(range(FT_ZERO_N))
+    ref = full(line2)
+
+    def err(got):
+        # a leaf's [n, k] rows flatten to its padded vector, whatever n is;
+        # the excess over the band's rtol part, as assert_allclose counts
+        worst = 0.0
+        for a, b in zip(got, ref, strict=True):
+            a, b = a.reshape(-1), b.reshape(-1)
+            k = min(a.size, b.size)
+            worst = max(worst, float((np.abs(a[:k] - b[:k]) - FT_BAND * np.abs(b[:k])).max()))
+            check(not a[k:].any() and not b[k:].any(), "(d) nonzero padding")
+        return worst
+
+    shrink = err(full(line2, f"{FT_ZERO_N}->2"))
+    grow = err(full(line4, f"2->{FT_ZERO_N}"))
+    check(shrink <= FT_BAND and grow <= FT_BAND,
+          f"(d) |4 -> 2 - ref| - {FT_BAND} |ref| up to {shrink:.3e}, 2 -> 4 {grow:.3e}: above "
+          f"atol {FT_BAND} against the uninterrupted n = 2 run")
+    ev = ranks[0][f"{FT_ZERO_N}->2"]["event"]
+    check(ev["old"] == {"data": FT_ZERO_N} and ev["new"] == {"data": 2}
+          and ev["steps_lost"] == 0, f"(d) reshape record {ev}")
+    for r in ranks:
+        restored, nxt, cursor = r["restored"]
+        live = r["live"]
+        check((nxt, cursor) == (2, 2) and sorted(restored) == sorted(live)
+              and all(_bitwise(_bits([restored[k]]), _bits([live[k]])) for k in live),
+              f"(d) rank {r['rank']}: the n = 4 checkpoint restored on n = 2 (next {nxt}, "
+              f"cursor {cursor}) is not bitwise the live reshape's state")
+    man = read_manifest(ckpt_dir)
+    shapes = [tuple(s) for s, _ in man["leaf_shapes"]]
+    rows2 = [s for s in shapes if len(s) == 2 and s[0] == FT_ZERO_N]
+    rows3 = [s for s in shapes if len(s) == 3 and s[1] == FT_ZERO_N]
+    check(rows2 and rows3 and len(rows2) + len(rows3) + 3 == len(shapes),
+          f"(d) saved leaf_shapes {shapes}: not [4, k] / [L, 4, k] rows beside the cursor, "
+          "the seed and Adam's count")
+    launches = ranks[0]["launches"]
+    for tag, c in launches.items():
+        check(c == {"fwd": 6, "dq": 6, "dkv": 6}, f"(d) {tag} launches per step {c}")
+    walls = {k: max(r[f"{k}"]["wall_s"] for r in ranks) * 1e3
+             for k in (f"{FT_ZERO_N}->2", f"2->{FT_ZERO_N}")}
+    save_ms = max(r["save_s"] for r in ranks) * 1e3
+    restore_ms = max(r["restore_s"] for r in ranks) * 1e3
+    lines.append(f"  (d) fp32 LLaMA ZeRO-3, 4 ranks: against 4 uninterrupted steps at n = 2, "
+                 f"max(|d| - {FT_BAND} |ref|) {shrink:.3e} after 4 -> 2 live and {grow:.3e} after "
+                 f"2 -> 4 (atol {FT_BAND}); "
+                 f"reshape record {ev['old']} -> {ev['new']}, steps lost 0; the n = 4 "
+                 f"checkpoint restored on n = 2 bitwise the live reshape; leaf_shapes "
+                 f"{len(rows2)} x [4, k], {len(rows3)} x [L, 4, k]; reshape walls "
+                 f"{walls[f'{FT_ZERO_N}->2']:.1f} / {walls[f'2->{FT_ZERO_N}']:.1f} ms, "
+                 f"a synchronous save at n = 4 {save_ms:.1f} ms, the cross-mesh restore "
+                 f"{restore_ms:.1f} ms (slowest rank); scalar flash launches a step {launches}")
+    return {"launches": [r["launches"] for r in ranks], "reshape_ms": walls,
+            "save_ms": save_ms, "restore_ms": restore_ms}, lines
+
+
+def ft_phase(dev, device="cuda"):
+    """Phase 17, each sub-phase timed; returns the launch counts and walls
+    (``device``: where the spawned processes run, ``"cpu"`` to rehearse)."""
+    import os
+    import tempfile
+
+    from ddl25spring_tpu_torch.parallel.launch import spawn
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        lab, lines = ft_resume(tmp, device)
+        for line in lines:
+            print(line)
+        print(f"  (a), (b), (e) took {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        (gate,) = spawn(ft_gate, 1, os.path.join(tmp, "gate"), device, timeout=SPAWN_TIMEOUT)
+        print(ft_gate_checks(gate))
+        print(f"  (c) took {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        cfg = pipe_cfg("dense", "float32")
+        batches = _token_batches(cfg, FT_ZERO_ROWS, 4, seed=31)
+        zdir = os.path.join(tmp, "zero")
+        ranks = spawn(ft_zero_rank, FT_ZERO_N, batches, zdir, device, timeout=SPAWN_TIMEOUT)
+        zero3, lines = ft_zero_checks(ranks, zdir)
+        for line in lines:
+            print(line)
+        print(f"  (d) took {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"lab": lab, "gate": gate, "zero3": zero3}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -4530,6 +5005,14 @@ def main() -> int:
     health = obs_phase(dev)
     print(f"  phase 16 in {time.perf_counter() - t0:.1f} s")
 
+    print("== fault tolerance on the card: the 2 x 3 LLaMA lab checkpointed, resumed and "
+          "SIGKILLed, the sentinel-gated autosave, the fp32 LLaMA ZeRO-3 reshaped live 4 -> 2 "
+          "-> 4 and restored across meshes (4 ranks on cuda:0)")
+    print(card)
+    t0 = time.perf_counter()
+    ft = ft_phase(dev)
+    print(f"  phase 17 in {time.perf_counter() - t0:.1f} s")
+
     kernels = [
         {"name": f"flash_{name}", "route": "cuda", "source": SOURCE[timing[name]["variant"]],
          "replaces": REPLACES[name], "launches": launches[name],
@@ -4545,6 +5028,9 @@ def main() -> int:
          "launches_obs_guarded_per_step": health["eager_launches"][name] // OBS_STEPS,
          "launches_obs_guarded_per_fused_window": health["fused_launches"][f"flash_{name}_wgmma"],
          "launches_obs_dp_pp_per_rank_per_step": [c[name] for c in health["pipe_launches"]],
+         "launches_ft_lab_per_rank_per_step": [c[name] for c in ft["lab"]["lab_launches"]],
+         "launches_ft_zero3_per_rank_per_step": [
+             {run: c[name] for run, c in per_rank.items()} for per_rank in ft["zero3"]["launches"]],
          "max_abs_err": main_err[name], "max_abs_err_sp_tp": sptp["max_abs_err"][name],
          "max_abs_err_pipeline_compositions": pipe["max_abs_err"][name],
          **timing[name]}

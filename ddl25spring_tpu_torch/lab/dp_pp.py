@@ -35,6 +35,10 @@ layout (:func:`~ddl25spring_tpu_torch.utils.mesh.select_backend`): six ranks
 on one card talk over gloo through pinned host buffers.  ``--device cpu``
 runs them on the host in float32, the kernels' plain versions in their place.
 
+``--ckpt-dir DIR`` checkpoints the LLaMA run and resumes a relaunched one
+from DIR's latest step, with the JAX lab's meanings (``--ckpt-every``, default
+100; :class:`StageCheckpoint`, :func:`run_rank`).
+
 Prints the loss of every iteration (the last stage of pipeline 0), then the
 tokens per second.  Under ``torchrun --nproc-per-node 6`` each process is one
 rank; otherwise the ranks are spawned here.  Either way one rank reports, the
@@ -75,7 +79,7 @@ and puts both back after.
 
 Run: ``python -m ddl25spring_tpu_torch.lab.dp_pp [--pp --ranks 4] [--input hbm]``
      ``python -m ddl25spring_tpu_torch.lab.dp_pp --workload llama [--iters 200]
-[--device cuda] [--schedule interleaved-1f1b --chunks 2]``
+[--device cuda] [--schedule interleaved-1f1b --chunks 2] [--ckpt-dir DIR]``
 """
 
 from __future__ import annotations
@@ -134,6 +138,8 @@ class Job:
     chunks: int = 1             # layer chunks per rank (the interleaved schedules)
     scan_steps: int = 1         # train steps per dispatch (fuse_train_steps)
     trace_dir: str = ""         # the reporting rank's torch.profiler trace of its loop
+    ckpt_dir: str = ""          # checkpoint/resume directory ("": none)
+    ckpt_every: int = 100       # steps between checkpoints (0: only the tail's)
 
 
 def traced(trace_dir: str, reports: bool):
@@ -172,6 +178,49 @@ def reporting_rank(ranks: list, stages: int) -> dict | None:
     return next((r for r in ranks if r is not None and r["coords"] == (0, stages - 1)), None)
 
 
+class StageCheckpoint:
+    """The lab's checkpoint of one rank (``lab/s01_b2_dp_pp.py:153-166,
+    198-212``): its stage's parameters and Adam state under
+    ``stage{s}/params/<name>`` and ``stage{s}/opt_state/<name>/<state>``
+    (the DP replicas of a stage hold the same tensors; the checkpoint writes
+    them once), through a :class:`~ddl25spring_tpu_torch.utils.checkpoint.
+    Checkpointer` (async, the newest 3 kept).  Every rank makes one, in the
+    same order."""
+
+    def __init__(self, directory: str, stage_index: int, module, optimizer):
+        from ddl25spring_tpu_torch.utils.checkpoint import Checkpointer
+
+        self.ckpt = Checkpointer(directory)
+        self.key = f"stage{stage_index}"
+        self.named = list(module.named_parameters())
+        self.optimizer = optimizer
+
+    def state(self) -> dict:
+        from ddl25spring_tpu_torch.utils.checkpoint import optimizer_state
+
+        return {self.key: {"params": {n: p.detach() for n, p in self.named},
+                           "opt_state": optimizer_state(self.optimizer, self.named)}}
+
+    def restore_or_init(self) -> int:
+        """Load the latest checkpoint into the stage and its optimizer;
+        returns the next step (0 on a fresh start, which loads nothing)."""
+        from ddl25spring_tpu_torch.utils.checkpoint import (
+            load_optimizer_state,
+            optimizer_template,
+        )
+
+        init = {self.key: {"params": {n: p.detach() for n, p in self.named},
+                           "opt_state": optimizer_template(self.optimizer, self.named)}}
+        state, start = self.ckpt.restore_or_init(init)
+        if start:
+            mine = state[self.key]
+            with torch.no_grad():
+                for n, p in self.named:
+                    p.copy_(mine["params"][n])
+            load_optimizer_state(self.optimizer, self.named, mine["opt_state"])
+        return start
+
+
 def run_rank(rdv, job: Job) -> dict:
     """One rank of ``job``: its stage's training loop, ``job.iters``
     dispatches of ``job.scan_steps`` steps.  Returns its coordinates, device
@@ -180,7 +229,14 @@ def run_rank(rdv, job: Job) -> dict:
     (``world_step_s``), its comm counts per dispatch
     (:meth:`~ddl25spring_tpu_torch.parallel.comm.Comm.take_stats`), its flash
     kernel launches and, with ``job.export``, its stage's gradients after the
-    first step and parameters after the last."""
+    first step and parameters after the last.
+
+    With ``job.ckpt_dir`` (:class:`StageCheckpoint`): the run resumes from
+    the directory's latest step (``start``, returned), skips the
+    ``start * batch`` samples the earlier runs consumed, runs ``job.iters``
+    dispatches more, saves after every step ``it`` with ``(it + 1) %
+    ckpt_every == 0`` and the last step unless that save covered it (the
+    JAX lab's rule); ``ckpt_s`` holds each save's blocking seconds."""
     cfg = job.cfg
     with init_mesh(rdv, job.data, job.stages, job.device) as mesh:
         params = job.params
@@ -189,6 +245,13 @@ def run_rank(rdv, job: Job) -> dict:
                                          generator=torch.Generator().manual_seed(job.seed)))
         stage = shard_staged_params(params, cfg, mesh, job.chunks)
         opt = torch.optim.Adam(stage.parameters(), lr=job.lr)
+        d, s = mesh.coords
+        ckpt, start = None, 0
+        if job.ckpt_dir:
+            ckpt = StageCheckpoint(job.ckpt_dir, s, stage, opt)
+            start = ckpt.restore_or_init()
+            if start and mesh.rank == 0:
+                print(f"resumed from step {start - 1} in {job.ckpt_dir}", flush=True)
         step = make_pipeline_train_step(stage, cfg, opt, mesh, job.microbatches,
                                         job.schedule, job.chunks)
         stats, K = step.stats, job.scan_steps
@@ -196,18 +259,27 @@ def run_rank(rdv, job: Job) -> dict:
             step = fuse_train_steps(step, K, module=stage, optimizer=opt, device=mesh.device,
                                     comm=mesh.comm)
         if job.batches is not None:
-            batches = iter(job.batches)
+            batches = iter(job.batches[start:])
         else:
             batches = iter(TinyStories(get_tokenizer(), batch_size=job.batch,
-                                       seq_l=cfg.ctx_size, seed=job.seed))
-        d, s = mesh.coords
+                                       seq_l=cfg.ctx_size, seed=job.seed,
+                                       skip=start * job.batch))
         out = {"rank": mesh.rank, "coords": (d, s), "device": str(mesh.device),
                "backend": mesh.backend, "losses": [], "step_s": [], "comm": [],
-               "stash_max": []}
+               "stash_max": [], "start": start, "ckpt_s": []}
         fa.reset_launches()
         mesh.comm.take_stats()
         with traced(job.trace_dir, (d, s) == (0, job.stages - 1)):
-            _loop(job, mesh, step, stats, batches, stage, out)
+            _loop(job, mesh, step, stats, batches, stage, out, ckpt, start)
+        if ckpt is not None:
+            last = start + job.iters * K - 1
+            if job.iters and (job.ckpt_every <= 0 or (last + 1) % job.ckpt_every):
+                # persist the tail: without it up to ckpt_every - 1 trailing
+                # steps would be redone on relaunch
+                t0 = time.perf_counter()
+                ckpt.ckpt.save(last, ckpt.state(), force=True)
+                out["ckpt_s"].append(time.perf_counter() - t0)
+            ckpt.ckpt.close()
         out["launches"] = dict(fa.LAUNCHES)
         out["launches_by_variant"] = {n: dict(c) for n, c in fa.LAUNCHES_BY_VARIANT.items()}
         if job.export:
@@ -216,8 +288,10 @@ def run_rank(rdv, job: Job) -> dict:
         return out
 
 
-def _loop(job: Job, mesh, step, stats, batches, stage, out: dict):
-    """:func:`run_rank`'s training loop, each dispatch an ``obs`` span."""
+def _loop(job: Job, mesh, step, stats, batches, stage, out: dict, ckpt=None, start: int = 0):
+    """:func:`run_rank`'s training loop, each dispatch an ``obs`` span; steps
+    are numbered from ``start``, and ``ckpt`` saves at the end of a dispatch
+    whose last step ``it`` has ``(it + 1) % ckpt_every == 0``."""
     K, (d, _) = job.scan_steps, mesh.coords
     for it in range(job.iters):
         with obs.span("dp_pp.step", step=it):
@@ -233,10 +307,15 @@ def _loop(job: Job, mesh, step, stats, batches, stage, out: dict):
         for j, x in enumerate([] if loss is None else loss.reshape(-1).tolist()):
             out["losses"].append(x)
             if job.log and d == 0:
-                print(f"iter {it * K + j:3d}  loss {x:.4f}  "
+                print(f"iter {start + it * K + j:3d}  loss {x:.4f}  "
                       f"step {out['step_s'][-1] * 1e3:.2f} ms", flush=True)
         if job.export and it == 0:
             out["grads"] = export_grads(stage)
+        last = start + (it + 1) * K - 1
+        if ckpt is not None and job.ckpt_every > 0 and (last + 1) % job.ckpt_every == 0:
+            t0 = time.perf_counter()
+            ckpt.ckpt.save(last, ckpt.state())
+            out["ckpt_s"].append(time.perf_counter() - t0)
 
 
 def parse_args(argv=None):
@@ -282,6 +361,12 @@ def parse_args(argv=None):
     ap.add_argument("--trace-dir", default="",
                     help="capture a torch.profiler trace of the timed loop (the reporting "
                          "rank's, into DIR/trace.json; the steps as obs spans)")
+    ap.add_argument("--ckpt-dir", default="",
+                    help="llama workload: checkpoint/resume directory; a relaunched run "
+                         "continues from the latest step")
+    ap.add_argument("--ckpt-every", type=int, default=100,
+                    help="llama workload with --ckpt-dir: steps between checkpoints (a "
+                         "multiple of --scan-steps); the last step is always saved")
     return ap.parse_args(argv)
 
 
@@ -294,6 +379,9 @@ def main(argv=None, layout: DpPpConfig = DpPpConfig()) -> dict:
     prints nothing after the header and returns ``{"ranks"}`` alone)."""
     args = parse_args(argv)
     if args.workload == "resnet":
+        if args.ckpt_dir:
+            raise ValueError("--ckpt-dir checkpoints the llama workload only, as the JAX lab "
+                             "does (lab/s01_b2_dp_pp.py:48-51)")
         return run_resnet(args)
     job, why = llama_job(args, layout)
     D, S, M, V, K = job.data, job.stages, job.microbatches, job.chunks, job.scan_steps
@@ -350,9 +438,14 @@ def llama_job(args, layout: DpPpConfig) -> tuple[Job, str]:
                       use_flash=not args.no_flash)
     if cfg.n_layers % (S * V):
         raise ValueError(f"{cfg.n_layers} layers not divisible by S*V = {S}*{V}")
+    if args.ckpt_dir and args.ckpt_every % K:
+        # a save lands at the end of a dispatch, and a resume starts at one
+        raise ValueError(f"--ckpt-every {args.ckpt_every} is not a multiple of the "
+                         f"{K} steps per dispatch (--scan-steps)")
     job = Job(cfg, D, S, M, batch=batch, iters=iters, lr=args.lr or layout.learning_rate,
               seed=args.seed, device=device.type, schedule=args.schedule, chunks=V,
-              scan_steps=K, trace_dir=args.trace_dir)
+              scan_steps=K, trace_dir=args.trace_dir, ckpt_dir=args.ckpt_dir,
+              ckpt_every=args.ckpt_every)
     return job, why
 
 

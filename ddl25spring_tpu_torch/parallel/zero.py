@@ -73,6 +73,7 @@ from ddl25spring_tpu_torch.parallel.dp import (
     param_leaves,
     shard_rows,
 )
+from ddl25spring_tpu_torch.utils.checkpoint import optimizer_layout
 
 # ---------------------------------------------------------------- layout
 
@@ -729,3 +730,213 @@ def make_zero3_llama_train_step(model, optimizer: torch.optim.Optimizer, mesh, r
 
     step.guard = guard
     return step
+
+
+# ------------------------------------------------ checkpoint and reshape
+
+
+# torch's optimizer state names -> optax's ScaleByAdamState fields, so the
+# state flattens as JAX's {"params", "opt_state"} (count, mu, nu) does
+_OPT_ALIAS = {"step": "count", "exp_avg": "mu", "exp_avg_sq": "nu"}
+_OPT_NAME = {v: k for k, v in _OPT_ALIAS.items()}
+
+
+def _row_layout(model, llama: bool):
+    """``[(path, leaf)]`` of ``model``'s row leaves in the rows' order: the
+    plain plan's (:func:`param_leaves`'s, under the JAX paths), or LLaMA's
+    outer leaves then each block leaf (its layers' rows stacked)."""
+    if not llama:
+        return [(p, leaf) for p, leaf in sentinels.named_leaves(model)]
+    outer, layers = _llama_leaves(model)
+    return ([(tuple(k.split(".")), v) for k, v in outer]
+            + [(("blocks", *k.split(".")), v) for k, v in layers[0]])
+
+
+def _row_list(rows) -> list:
+    """Each row leaf's live rows: a ``[1, k]`` Parameter, or a LLaMA block
+    leaf's per-layer list."""
+    if isinstance(rows, LlamaRows):
+        return [*rows.outer, *([layer[j] for layer in rows.blocks]
+                               for j in range(len(rows.blocks[0])))]
+    return list(rows)
+
+
+def _rows_tree(paths, values, n: int, index: int, axis, device=None) -> dict:
+    """A nested dict of :class:`~ddl25spring_tpu_torch.ft.reshard.Rows` under
+    ``paths``; a list value is a block leaf's layers, stacked ``[L, 1, k]``."""
+    from ddl25spring_tpu_torch.ft.reshard import Rows
+
+    def rows_of(v):
+        local = torch.stack(list(v)) if isinstance(v, list) else v
+        return Rows(local, n, index, axis, device)
+
+    return _nest((".".join(p), rows_of(v)) for p, v in zip(paths, values, strict=True))
+
+
+def zero_state(rows, optimizer: torch.optim.Optimizer, mesh, model, axis: str = "data") -> dict:
+    """This rank's live ZeRO state as the JAX package lays it out:
+    ``{"params": rows, "opt_state": {"count", "mu", "nu"}}`` (Adam's names
+    for torch's ``step``, ``exp_avg``, ``exp_avg_sq``; another optimizer's
+    entries keep theirs), every row leaf a :class:`~ddl25spring_tpu_torch.
+    ft.reshard.Rows` of its global ``[n, k]`` (``[L, n, k]`` for a LLaMA
+    block leaf, layers stacked), keyed by the JAX pytree's paths.  So a
+    :class:`~ddl25spring_tpu_torch.utils.checkpoint.Checkpointer` saves JAX's
+    leaf shapes, and :func:`~ddl25spring_tpu_torch.ft.reshard.reshard_state`
+    refits it onto another mesh's :func:`zero_resume_template`.  ``rows``
+    are :func:`zero_shard_params`'s list or a :class:`LlamaRows`; ``model``
+    the template (``meta`` parameters will do).  An optimizer that has not
+    stepped has a fresh state's zeros."""
+    ax = mesh.axis(axis)
+    llama = isinstance(rows, LlamaRows)
+    paths = [p for p, _ in _row_layout(model, llama)]
+    live = _row_list(rows)
+    first = live[0][0] if isinstance(live[0], list) else live[0]
+    layout = optimizer_layout(optimizer, first.device, first.dtype)
+    opt: dict = {}
+    for key, (dtype, scalar_dev) in layout.items():
+        name = _OPT_ALIAS.get(key, key)
+        if scalar_dev is not None:
+            st = optimizer.state.get(first, {})
+            opt[name] = (st[key].detach().clone() if key in st
+                         else torch.zeros((), dtype=dtype, device=scalar_dev))
+            continue
+
+        def get(r, key=key):
+            st = optimizer.state.get(r, {})
+            return st[key].detach() if key in st else torch.zeros_like(r, dtype=dtype)
+
+        opt[name] = _rows_tree(paths, [[get(r) for r in v] if isinstance(v, list) else get(v)
+                                       for v in live], ax.size, ax.index, ax)
+    params = _rows_tree(paths, [[r.detach() for r in v] if isinstance(v, list) else v.detach()
+                                for v in live], ax.size, ax.index, ax)
+    return {"params": params, "opt_state": opt}
+
+
+def zero_resume_template(model, optimizer: torch.optim.Optimizer, mesh, axis: str = "data",
+                         llama: bool = False, abstract: bool = False) -> dict:
+    """The restore template of a (possibly cross-mesh) ZeRO resume on this
+    rank's ``mesh`` (JAX ``zero_resume_template``, ``:848``): the
+    :func:`zero_state` layout a fresh run would build, its rows those of
+    :func:`zero_shard_params` (:func:`zero_shard_llama_params` with
+    ``llama``) and its optimizer state a fresh one's zeros, ``optimizer``
+    giving the type and defaults.  Hand it (with the cursors, through
+    ``ft.autosave.resume_bundle``) to ``AutoSaver.restore_or_init``: a
+    checkpoint of another world size re-lands each saved ``[n, k]`` row
+    layout onto this template's ``[m, k']``.
+
+    ``abstract=True``: the same shapes and dtypes without storage (``meta``
+    rows that land on ``mesh.device``, scalars that land on their own
+    device), from ``model``'s shapes alone, so a model whose parameters a
+    ZeRO-3 step moved to ``meta`` will do, and the elastic reshape
+    (:mod:`~ddl25spring_tpu_torch.ft.elastic`) allocates no throwaway
+    state."""
+    ax = mesh.axis(axis)
+    n = ax.size
+    layout = _row_layout(model, llama)
+    paths = [p for p, _ in layout]
+    if abstract:
+        def empty(leaf, dtype):
+            return torch.empty((1, row_elems(leaf, n)), dtype=dtype, device="meta")
+
+        first_dtype = parts(layout[0][1])[0].dtype
+        outer_n = len(layout) if not llama else len(_llama_leaves(model)[0])
+        L = None if not llama else len(model.blocks)
+
+        def rows_for(dtype=None):
+            vals = []
+            for j, (_, leaf) in enumerate(layout):
+                dt = dtype or parts(leaf)[0].dtype
+                if llama and j >= outer_n:
+                    vals.append([empty(leaf, dt)[0:1] for _ in range(L)])
+                else:
+                    vals.append(empty(leaf, dt))
+            return _rows_tree(paths, vals, n, ax.index, ax, mesh.device)
+
+        params = rows_for()
+        row_device = mesh.device
+    else:
+        rows = zero_shard_llama_params(model, mesh, axis) if llama else \
+            zero_shard_params(model, mesh, axis)
+        live = _row_list(rows)
+        params = _rows_tree(paths, [[r.detach() for r in v] if isinstance(v, list) else
+                                    v.detach() for v in live], n, ax.index, ax)
+        first_dtype = parts(layout[0][1])[0].dtype
+        row_device = mesh.device
+
+        def rows_for(dtype=None):
+            return _rows_tree(paths, [[torch.zeros_like(r, dtype=dtype) for r in v]
+                                      if isinstance(v, list) else torch.zeros_like(v, dtype=dtype)
+                                      for v in live], n, ax.index, ax)
+    opt: dict = {}
+    for key, (dtype, scalar_dev) in optimizer_layout(optimizer, row_device,
+                                                          first_dtype).items():
+        name = _OPT_ALIAS.get(key, key)
+        if scalar_dev is None:
+            opt[name] = rows_for(dtype if dtype != first_dtype else None)
+        elif abstract:
+            opt[name] = torch.empty((), dtype=dtype, device="meta")
+        else:
+            opt[name] = torch.zeros((), dtype=dtype, device=scalar_dev)
+    return {"params": params, "opt_state": opt}
+
+
+def _tree_rows(tree: dict, model, llama: bool) -> list:
+    """The :class:`~ddl25spring_tpu_torch.ft.reshard.Rows` of ``tree`` (a
+    ``params`` or a moment subtree) in the rows' order."""
+    from ddl25spring_tpu_torch.utils.pytree import flatten_with_path
+
+    by_path = {tuple(p): leaf for p, leaf in flatten_with_path(tree)}
+    return [by_path[p] for p, _ in _row_layout(model, llama)]
+
+
+def zero_rows_from_state(state: dict, model, llama: bool = False):
+    """New row Parameters holding ``state["params"]``'s rows (a
+    :func:`zero_state`-layout state on this rank's mesh, as
+    :func:`~ddl25spring_tpu_torch.ft.reshard.reshard_state` gives it): a
+    list for the plain step, a :class:`LlamaRows` with ``llama``.  Build the
+    optimizer over them and load it with :func:`zero_load_optimizer`."""
+    got = _tree_rows(state["params"], model, llama)
+    if not llama:
+        return [nn.Parameter(r.local.detach().clone()) for r in got]
+    n_outer = len(_llama_leaves(model)[0])
+    outer = [nn.Parameter(r.local.detach().clone()) for r in got[:n_outer]]
+    L = got[n_outer].local.shape[0]
+    blocks = [[nn.Parameter(r.local[l].detach().clone()) for r in got[n_outer:]]
+              for l in range(L)]
+    return LlamaRows(outer, blocks)
+
+
+@torch.no_grad()
+def zero_load_state(state: dict, rows, optimizer: torch.optim.Optimizer, model) -> None:
+    """Load a :func:`zero_state`-layout ``state`` of this rank's mesh into
+    the live ``rows`` (copied in place) and ``optimizer`` (its state per row
+    set anew: torch's names, a scalar such as Adam's ``step`` cloned per row
+    on its own device).  Advances nothing and moves nothing else."""
+    llama = isinstance(rows, LlamaRows)
+    live = _row_list(rows)
+    for v, r in zip(live, _tree_rows(state["params"], model, llama), strict=True):
+        for l, p in enumerate(v if isinstance(v, list) else [v]):
+            p.copy_(r.local[l] if isinstance(v, list) else r.local)
+    zero_load_optimizer(optimizer, rows, state, model)
+
+
+@torch.no_grad()
+def zero_load_optimizer(optimizer: torch.optim.Optimizer, rows, state: dict, model) -> None:
+    """Set ``optimizer``'s state for every row from ``state["opt_state"]``
+    (see :func:`zero_load_state`)."""
+    llama = isinstance(rows, LlamaRows)
+    live = _row_list(rows)
+    per_row: dict = {}
+    for name, sub in state["opt_state"].items():
+        key = _OPT_NAME.get(name, name)
+        if torch.is_tensor(sub) or not isinstance(sub, dict):
+            for v in live:
+                for p in (v if isinstance(v, list) else [v]):
+                    per_row.setdefault(p, {})[key] = torch.as_tensor(sub).clone()
+            continue
+        for v, r in zip(live, _tree_rows(sub, model, llama), strict=True):
+            for l, p in enumerate(v if isinstance(v, list) else [v]):
+                local = r.local[l] if isinstance(v, list) else r.local
+                per_row.setdefault(p, {})[key] = local.to(p.device).clone()
+    for p, st in per_row.items():
+        optimizer.state[p] = st

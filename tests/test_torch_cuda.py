@@ -859,3 +859,120 @@ def test_guarded_fused_window_records_every_step_on_the_card(dev):
     assert [r["step"] for r in flight.last()] == list(range(8))
     sentinels.reset()
     flight.reset()
+
+
+# ------------------------------------------------------- fault tolerance
+
+FT_CFG = dict(vocab_size=256, dmodel=64, num_heads=2, n_layers=3, ctx_size=64,
+              dtype="bfloat16", use_flash=True)
+
+
+def _ft_tokens(n, rows, seed):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randint(0, 256, (rows, 64), generator=g).numpy() for _ in range(n)]
+
+
+def test_lab_resume_is_bitwise_on_the_card(dev, tmp_path):
+    """chip_smoke phase 17 (a), small: the lab's 2 x 3 world on the card
+    (bf16, flash; gloo through pinned buffers), 4 steps with checkpoints
+    after steps 1 and 3 against 2 steps and a relaunch of 2: the losses and
+    step 3's checkpoint, every stage's parameters and Adam state, bitwise;
+    each rank launches each kernel once per layer and microbatch, on
+    ``wgmma``."""
+    from ddl25spring_tpu_torch.lab import dp_pp
+    from ddl25spring_tpu_torch.parallel.launch import spawn
+    from ddl25spring_tpu_torch.utils import pytree
+    from ddl25spring_tpu_torch.utils.checkpoint import Checkpointer
+    from ddl25spring_tpu_torch.utils.config import LlamaConfig
+
+    tokens = _ft_tokens(4, 6, 21)
+
+    def job(d, iters):
+        return dp_pp.Job(LlamaConfig(**FT_CFG), data=2, stages=3, microbatches=3, batch=6,
+                         iters=iters, device="cuda", batches=tokens, log=False,
+                         ckpt_dir=str(tmp_path / d), ckpt_every=2)
+
+    rdv = str(tmp_path)
+    a = spawn(dp_pp.run_rank, 6, job("A", 4), timeout=300, tmpdir=rdv)
+    b1 = spawn(dp_pp.run_rank, 6, job("B", 2), timeout=300, tmpdir=rdv)
+    b2 = spawn(dp_pp.run_rank, 6, job("B", 2), timeout=300, tmpdir=rdv)
+    last = [next(r for r in run if r["coords"] == (0, 2))["losses"] for run in (a, b1, b2)]
+    assert last[0] == last[1] + last[2]
+    assert {r["start"] for r in b2} == {2}
+    for r in a + b2:
+        steps = 4 if r in a else 2
+        assert r["device"].startswith("cuda")
+        assert {n: c["wgmma"] for n, c in r["launches_by_variant"].items()} == \
+            {n: 3 * steps for n in ("fwd", "dq", "dkv")}
+    want = pytree.flatten_with_path(Checkpointer(tmp_path / "A").restore(3))
+    got = pytree.flatten_with_path(Checkpointer(tmp_path / "B").restore(3))
+    assert [p for p, _ in got] == [p for p, _ in want]
+    for (path, x), (_, y) in zip(got, want):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32)), path
+
+
+def ft_zero_rank(rdv, device):
+    """One rank of 4 on ``device``: the narrow fp32 LLaMA ZeRO-3 (Adam at the
+    lab's 8e-4, eps 1e-6), 4 steps at n = 2; 2 at n = 4, a live reshape to n = 2, 2
+    more; 2 at n = 2, a reshape to n = 4, 2 more.  This rank's rows, numpy."""
+    from ddl25spring_tpu_torch.ft import elastic
+    from ddl25spring_tpu_torch.models.llama import Llama
+    from ddl25spring_tpu_torch.parallel import zero
+    from ddl25spring_tpu_torch.utils.config import LlamaConfig
+    from ddl25spring_tpu_torch.utils.mesh import init_mesh
+
+    cfg = LlamaConfig(**{**FT_CFG, "dtype": "float32"})
+    tokens = [torch.from_numpy(t).long() for t in _ft_tokens(4, 4, 22)]
+    out = {}
+    with init_mesh(rdv, 4, stages=1, device=device) as mesh4:
+        meshes = {4: mesh4, 2: mesh4.regrid(2, stages=2)}
+
+        def build(model, n, rows):
+            opt = torch.optim.Adam(rows.parameters(), lr=8e-4, eps=1e-6)
+            return opt, zero.make_zero3_llama_train_step(model, opt, meshes[n], rows)
+
+        def fresh(n):
+            model = Llama(cfg, device=mesh4.device, generator=torch.Generator().manual_seed(0))
+            rows = zero.zero_shard_llama_params(model, meshes[n])
+            return (model, rows, *build(model, n, rows))
+
+        _, rows, _, step = fresh(2)
+        for t in tokens:
+            step(t)
+        out["ref"] = [r.detach().cpu().numpy() for r in rows.parameters()]
+        for first, second in ((4, 2), (2, 4)):
+            model, rows, opt, step = fresh(first)
+            for t in tokens[:2]:
+                step(t)
+            state = elastic.reshape_state(
+                zero.zero_state(rows, opt, meshes[first], model),
+                zero.zero_resume_template(model, opt, meshes[second], llama=True, abstract=True))
+            rows2 = zero.zero_rows_from_state(state, model, llama=True)
+            opt2, step2 = build(model, second, rows2)
+            zero.zero_load_optimizer(opt2, rows2, state, model)
+            for t in tokens[2:]:
+                step2(t)
+            out[first, second] = [r.detach().cpu().numpy() for r in rows2.parameters()]
+    return out
+
+
+def test_zero3_reshape_on_the_card_matches_uninterrupted(dev, tmp_path):
+    """chip_smoke phase 17 (d), small: fp32 LLaMA ZeRO-3 on 4 ranks sharing
+    the card, reshaped live 4 -> 2 and 2 -> 4 after 2 steps: within atol
+    2e-5 + rtol 2e-5 (the JAX test's ``assert_allclose``) of 4 uninterrupted
+    steps at n = 2 on the card."""
+    from ddl25spring_tpu_torch.parallel.launch import spawn
+
+    ranks = spawn(ft_zero_rank, 4, "cuda", timeout=300, tmpdir=str(tmp_path))
+
+    def flat(line, key):
+        per_rank = [ranks[r][key] for r in line]
+        return [np.concatenate([rows[j] for rows in per_rank]).reshape(-1)
+                for j in range(len(per_rank[0]))]
+
+    ref = flat((0, 2), "ref")
+    for key, line in (((4, 2), (0, 2)), ((2, 4), (0, 1, 2, 3))):
+        for a, b in zip(flat(line, key), ref, strict=True):
+            k = min(a.size, b.size)
+            np.testing.assert_allclose(a[:k], b[:k], atol=2e-5, rtol=2e-5, err_msg=str(key))
+            assert not a[k:].any() and not b[k:].any()

@@ -46,5 +46,7 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "parallel.sp", "parallel.tp", "parallel.ep", "parallel.zero",
                 "parallel.rules", "obs", "obs.state", "obs.recorder", "obs.counters",
                 "obs.spans", "obs.logger", "obs.watchdog", "obs.timeline", "obs.sentinels",
-                "analysis", "analysis.host_sanitizer", "utils.tracing"):
+                "analysis", "analysis.host_sanitizer", "utils.tracing", "utils.pytree",
+                "utils.checkpoint", "ft", "ft.manifest", "ft.chaos", "ft.reshard",
+                "ft.autosave", "ft.elastic", "ft.demo", "lab.ckpt_overhead"):
         assert f"ddl25spring_tpu_torch.{mod}" in report["modules"]
