@@ -376,6 +376,40 @@ Phases, in order; any failure exits non-zero and prints no result:
         wall, a warm single-process restore of the 2 x 3 checkpoint, the
         reshape walls, a synchronous save and the cross-mesh restore.
 
+18. decode and the serving engine on the card (``models/decode.py``,
+    ``serve/``, ``bench --serve``; ``serve_phase``), each sub-phase timed;
+    no flash kernel is on this path (0 launches, eagerly or into a graph,
+    checked over the whole phase):
+    (a) fp32 (TF32 off), the tiny model and ``LlamaConfig(dtype="float32")``
+        (full width), each the seeded ``Llama``: the seeded smoke trace
+        through the smoke-knob engine on the virtual clock, on the card with
+        every program a CUDA graph, on the card eagerly and on the CPU, the
+        host/device page mirror asserted after every step
+        (``check_serve_mirror``): the three token streams identical, the
+        token timeline the CPU's, the final pool bitwise graphed == eager
+        (the trash page aside), no leak; then a request admitted mid-flight
+        beside one crossing two page boundaries, each token for token the
+        dense ``generate`` on the card; the smallest top-2 logit gap of the
+        CPU streams is printed;
+    (b) ``bench.main(["--serve", "--serve-model", "ref", ...])`` in this
+        process (``LlamaConfig()``, bf16, the serving knobs, sentinels on with
+        policy ``log``): the ramp at 8 rps, seed 0, cut to ``SERVE_RAMP_S``
+        seconds of arrivals, and the shared profile cut to ``SERVE_SHARED_S``
+        at ``DDL25_SERVE_PAGE_LEN=4`` (its 6 + 2-token prompts are shorter
+        than a 16-token page, so no page can match at the serving page
+        length, in JAX as here): every arrival admitted or rejected with one
+        of the five reasons, every admitted request completed, no page left
+        at drain, no pool backstop, no sentinel violation, continuous ahead
+        of static at the fixed budget; on ``shared`` a prefix hit rate above
+        0 and equal tokens cached and cold; tokens/s, TTFT p50/p95 and the
+        per-token latency are printed;
+    (c) the full-width bf16 decode tick at the serving knobs with 4 slots
+        decoding, graphed and eager, ``SERVE_TICKS`` ticks each in two turns:
+        the median tick, and over ``SERVE_PROFILED`` more under
+        torch.profiler the device busy time and idle share, the kernels and
+        the host's launch and copy calls a tick; both engines decode the
+        same tokens.
+
 Tolerances (|kernel - plain| <= atol + rtol * |plain|):
   fp32: atol 1e-4, rtol 0 (summation order only);
   bf16: atol 2e-2, rtol 1e-2 against the plain version on the same bf16
@@ -399,8 +433,9 @@ LLaMA runs and (d)'s MoE run; ``launches_obs_guarded_per_step`` phase 16
 the kernel's nodes in (b)'s guarded graph of 16 steps, and
 ``launches_obs_dp_pp_per_rank_per_step`` each rank's launches per step in
 (e); ``launches_ft_lab_per_rank_per_step`` each rank's launches per step in
-phase 17 (a)'s run A, and ``launches_ft_zero3_per_rank_per_step`` each rank's
-per step in each run of phase 17 (d).
+phase 17 (a)'s run A, ``launches_ft_zero3_per_rank_per_step`` each rank's
+per step in each run of phase 17 (d), and ``launches_serve_per_tick`` the
+kernel's launches (eager and captured) over phase 18 per decode tick run (0).
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -4836,6 +4871,252 @@ def ft_phase(dev, device="cuda"):
     return {"lab": lab, "gate": gate, "zero3": zero3}
 
 
+SERVE_RAMP_S = 6.0              # (b): the ramp trace's duration (the bench default is 30 s)
+SERVE_SHARED_S = 4.0            # (b): the shared-profile trace's
+SERVE_SHARED_PAGE_LEN = 4       # (b): the shared run's page length (its prompts are 8 tokens)
+SERVE_TICKS = 40                # (c): timed decode ticks per engine and turn
+SERVE_PROFILED = 10             # (c): ticks under torch.profiler per engine
+SERVE_REASONS = ("queue_full", "token_budget", "too_long", "pool_exhausted", "bad_request")
+
+
+def _serve_model(cfg, device):
+    from ddl25spring_tpu_torch.models.llama import Llama
+
+    model = Llama(cfg, device=device, generator=torch.Generator().manual_seed(0))
+    return model.requires_grad_(False)
+
+
+def serve_fp32_run(cfg, device, graphs):
+    """(a): the seeded smoke trace through the smoke-knob engine on the
+    virtual clock, the host/device page mirror asserted after every step."""
+    from ddl25spring_tpu_torch.serve import driver
+    from ddl25spring_tpu_torch.serve.engine import ServeEngine
+    from ddl25spring_tpu_torch.serve.traffic import TrafficSpec, synth_trace
+
+    trace = synth_trace(TrafficSpec(**driver.SMOKE_TRAFFIC, vocab_size=cfg.vocab_size))
+    knobs = driver.engine_knobs(smoke=True)
+    eng = ServeEngine(_serve_model(cfg, device), cfg, **knobs, clock="virtual",
+                      tick_s=driver.ab_tick_s(trace, knobs["max_slots"]), trace_label=None,
+                      graphs=graphs)
+    eng._sanitize = True  # analysis.host_sanitizer.check_serve_mirror at every step
+    eng.warmup()
+    eng.run(trace, max_steps=5_000)
+    return eng
+
+
+def serve_min_margin(model, cfg, reqs) -> float:
+    """The smallest top-2 logit gap at any generated token of ``reqs``, from
+    the CPU full forward (a card/CPU flip below it would be a near-tie)."""
+    from ddl25spring_tpu_torch.models import llama
+
+    gaps = []
+    with torch.no_grad():
+        for r in reqs:
+            seq = torch.tensor([r.prompt + r.tokens])
+            top2 = llama.llama_forward(model, seq, cfg)[0, len(r.prompt) - 1:-1].topk(2, -1)
+            gaps.append(float((top2.values[:, 0] - top2.values[:, 1]).min()))
+    return min(gaps)
+
+
+def serve_exactness(dev) -> int:
+    """Phase 18 (a): fp32 (TF32 off), the tiny model and the full-width
+    config; returns the decode ticks run."""
+    from ddl25spring_tpu_torch.models import decode as dm
+    from ddl25spring_tpu_torch.models.llama import Llama
+    from ddl25spring_tpu_torch.serve import driver
+    from ddl25spring_tpu_torch.serve.engine import ServeEngine
+    from ddl25spring_tpu_torch.utils.config import LlamaConfig
+
+    ticks = 0
+    for name, cfg in (("tiny", driver.serve_model("tiny")),
+                      ("full width", LlamaConfig(dtype="float32"))):
+        graphed, eager = serve_fp32_run(cfg, dev, True), serve_fp32_run(cfg, dev, False)
+        cpu = serve_fp32_run(cfg, torch.device("cpu"), True)
+        ticks += graphed._ticks + eager._ticks
+        check(graphed._tick.graph is not None and eager._tick.graph is None,
+              f"{name}: the graphed engine ran eagerly or the eager one captured")
+        streams = [{r.rid: r.tokens for r in e.done} for e in (graphed, eager, cpu)]
+        check(len(streams[0]) > 5 and streams[0] == streams[2],
+              f"{name}: the card's token streams differ from the CPU's")
+        check(streams[0] == streams[1], f"{name}: graphed and eager token streams differ")
+        check(graphed.token_log == cpu.token_log, f"{name}: the token timeline differs")
+        for key, t in graphed.pool.items():
+            keep = slice(0, graphed.n_pages) if key in ("k", "v") else slice(None)
+            check(torch.equal(t[keep], eager.pool[key][keep]),
+                  f"{name}: the graphed pool's {key} is not bitwise the eager pool's")
+        check(graphed.pool_ok_failures == 0 and graphed.mem_leak_check()["ok"],
+              f"{name}: pool backstop fired or pages leaked")
+        # paged == dense across a page boundary and a mid-batch admission
+        model = graphed.params
+        eng = ServeEngine(model, cfg, **driver.engine_knobs(smoke=True), clock="virtual",
+                          trace_label=None)
+        ra = eng.make_request([5, 9, 11, 3], 9)
+        eng.submit(ra)
+        eng.step()
+        eng.step()
+        rb = eng.make_request([7, 2, 8], 6)
+        eng.submit(rb)
+        while eng.queue or any(r is not None for r in eng.slots):
+            eng.step()
+        for r in (ra, rb):
+            dense = dm.generate(model, torch.tensor([r.prompt], device=dev), cfg,
+                                r.max_new_tokens)[0].tolist()
+            check(r.tokens == dense, f"{name}: paged decode {r.tokens} != dense {dense}")
+        cpu_model = Llama(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+        margin = serve_min_margin(cpu_model, cfg, cpu.done)
+        print(f"  (a) {name} fp32: {len(streams[0])} requests, {graphed._ticks} ticks, "
+              f"{graphed._prefills} prefills: token streams card (graphed) == card (eager) "
+              f"== CPU, timeline equal, pool bitwise graphed == eager, mirror exact every "
+              f"step, paged == dense across a page boundary and a mid-batch admission; "
+              f"smallest top-2 gap {margin:.3g}", flush=True)
+    return ticks
+
+
+def serve_bench(tmp) -> dict:
+    """Phase 18 (b): ``bench --serve`` at full width (``LlamaConfig()``, bf16)
+    through the entry point, sentinels on, the ramp and the shared profile."""
+    import os
+
+    from ddl25spring_tpu_torch import bench
+    from ddl25spring_tpu_torch.obs import sentinels
+
+    out = {}
+    for profile, dur, page_len in (("ramp", SERVE_RAMP_S, None),
+                                   ("shared", SERVE_SHARED_S, SERVE_SHARED_PAGE_LEN)):
+        before = sentinels.violation_count()
+        t0 = time.perf_counter()
+        if page_len is not None:
+            os.environ["DDL25_SERVE_PAGE_LEN"] = str(page_len)
+        try:
+            with sentinels.scoped(True, policy="log"):
+                rec = bench.main(["--serve", "--serve-model", "ref", "--device", "cuda",
+                                  "--serve-profile", profile, "--serve-duration", str(dur),
+                                  "--perf-ledger", os.path.join(tmp, "ledger.jsonl"),
+                                  "--obs-dir", os.path.join(tmp, profile)])
+        finally:
+            os.environ.pop("DDL25_SERVE_PAGE_LEN", None)
+        wall = time.perf_counter() - t0
+        cell, health = rec["telemetry"]["serve"], rec["telemetry"]["health"]
+        check(cell["admitted"] + cell["rejected"] == cell["requests"]
+              and cell["completed"] == cell["admitted"]
+              and set(cell["rejected_by_reason"]) <= set(SERVE_REASONS),
+              f"{profile}: requests {cell['requests']} != admitted {cell['admitted']} + "
+              f"rejected {cell['rejected_by_reason']}, or completed {cell['completed']}")
+        check(cell["pool_leak"]["ok"] and cell["pool_ok_failures"] == 0,
+              f"{profile}: pages leaked at drain or the pool backstop fired: "
+              f"{cell['pool_leak']}")
+        check(health["sentinels"] and sentinels.violation_count() == before,
+              f"{profile}: sentinel violations {sentinels.violation_count() - before}")
+        check(cell["ab"]["advantage_tokens"] > 0,
+              f"{profile}: continuous did not beat static: {cell['ab']}")
+        pab = cell.get("prefix_ab")
+        if profile == "shared":
+            check(pab["prefix_hit_rate"] > 0 and pab["tokens_match"]
+                  and pab["compared_requests"] > 0,
+                  f"shared: prefix A/B without hits or with other tokens: {pab}")
+        print(f"  (b) {profile}, {cell['requests']} requests, {wall:.1f} s: "
+              f"{cell['tokens_per_sec_per_chip']} tokens/s, TTFT p50 "
+              f"{cell['ttft_s_p50'] * 1e3:.3f} ms p95 {cell['ttft_s_p95'] * 1e3:.3f} ms, "
+              f"per-token p50 {cell['tok_latency_s_p50'] * 1e3:.3f} ms p95 "
+              f"{cell['tok_latency_s_p95'] * 1e3:.3f} ms; admitted {cell['admitted']}, "
+              f"rejected {cell['rejected_by_reason']}, peak pages "
+              f"{cell['page_pool_peak_pages']}; A/B +{cell['ab']['advantage_tokens']} "
+              f"tokens ({cell['ab']['advantage_frac']}); prefix hit rate "
+              f"{cell['prefix_hit_rate']}, prefix A/B "
+              f"{None if pab is None else (pab['advantage_tokens'], pab['tokens_match'])}; "
+              f"no leak, no violation", flush=True)
+        out[profile] = cell
+    return out
+
+
+def serve_ticks(dev) -> int:
+    """Phase 18 (c): the full-width bf16 decode tick graphed and eager (the
+    serving knobs, 4 slots decoding), in turns; host launches, device busy
+    and idle share.  Returns the ticks run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ddl25spring_tpu_torch.models.llama import Llama
+    from ddl25spring_tpu_torch.serve import driver
+    from ddl25spring_tpu_torch.serve.engine import ServeEngine
+    from ddl25spring_tpu_torch.utils.config import LlamaConfig
+
+    cfg = LlamaConfig()
+    model = Llama(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    model.requires_grad_(False)
+    engines = {}
+    for graphs in (True, False):
+        eng = ServeEngine(model, cfg, **driver.engine_knobs(), clock="wall", trace_label=None,
+                          graphs=graphs)
+        eng.warmup()
+        g = torch.Generator().manual_seed(1)
+        for _ in range(eng.max_slots):  # 16-token prompts, decoding for 200 ticks
+            eng.submit(eng.make_request(torch.randint(1, cfg.vocab_size, (16,),
+                                                      generator=g).tolist(), 200))
+        while eng.queue:
+            eng.step()
+        engines["graphed" if graphs else "eager"] = eng
+    walls = {k: [] for k in engines}
+    for _ in range(2):
+        for name, eng in engines.items():
+            for _ in range(SERVE_TICKS):
+                t0 = time.perf_counter()
+                eng.step()
+                walls[name].append(time.perf_counter() - t0)
+    check(engines["graphed"].slots[0].tokens == engines["eager"].slots[0].tokens,
+          "the graphed and eager full-width bf16 engines decoded other tokens")
+    stats = {}
+    for name, eng in engines.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(SERVE_PROFILED):
+                eng.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        ka = prof.key_averages()
+        busy = sum(e.self_device_time_total for e in ka
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.is_user_annotation) / 1e3
+        calls = {e.key: e.count // SERVE_PROFILED for e in ka
+                 if e.key.startswith("cuda") and ("Launch" in e.key or "Memcpy" in e.key)}
+        kernels = sum(e.count for e in ka if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not e.is_user_annotation) / SERVE_PROFILED
+        stats[name] = (wall * 1e3 / SERVE_PROFILED, busy / SERVE_PROFILED, calls, kernels)
+    for name in engines:
+        ms, busy, calls, kernels = stats[name]
+        steady = walls[name][SERVE_TICKS // 4:]
+        median = statistics.median(steady) * 1e3
+        print(f"  (c) {name} tick (4 slots, full width, bf16): median {median:.3f} ms (min "
+              f"{min(steady) * 1e3:.3f}); device busy {busy:.3f} ms a tick, idle "
+              f"{1 - busy / median:.3f} of the median tick ({1 - busy / ms:.3f} of the "
+              f"{ms:.3f} ms under the profiler), {kernels:.0f} kernels a tick; host calls a "
+              f"tick {calls}", flush=True)
+    return sum(e._ticks for e in engines.values())
+
+
+def serve_phase(dev) -> dict:
+    """Phase 18, each sub-phase timed; returns the flash launches per decode
+    tick (0: serving has no flash kernel on its path)."""
+    import tempfile
+
+    from ddl25spring_tpu_torch.ops import flash_attention as fa
+
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    ticks = serve_exactness(dev)
+    print(f"  (a) took {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cells = serve_bench(tmp)
+    print(f"  (b) took {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    ticks += serve_ticks(dev)
+    print(f"  (c) took {time.perf_counter() - t0:.1f} s", flush=True)
+    launches = {n: fa.LAUNCHES[n] + sum(fa.CAPTURED[n].values()) for n in fa.LAUNCHES}
+    check(not any(launches.values()), f"the serving path launched flash kernels: {launches}")
+    return {"launches_per_tick": {n: c / ticks for n, c in launches.items()}, "cells": cells}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -5013,6 +5294,14 @@ def main() -> int:
     ft = ft_phase(dev)
     print(f"  phase 17 in {time.perf_counter() - t0:.1f} s")
 
+    print("== decode and the serving engine on the card: the paged engine graphed and eager "
+          "against the CPU (fp32), bench --serve at full width (bf16), the decode tick's "
+          "cost")
+    print(card)
+    t0 = time.perf_counter()
+    serve = serve_phase(dev)
+    print(f"  phase 18 in {time.perf_counter() - t0:.1f} s")
+
     kernels = [
         {"name": f"flash_{name}", "route": "cuda", "source": SOURCE[timing[name]["variant"]],
          "replaces": REPLACES[name], "launches": launches[name],
@@ -5031,6 +5320,7 @@ def main() -> int:
          "launches_ft_lab_per_rank_per_step": [c[name] for c in ft["lab"]["lab_launches"]],
          "launches_ft_zero3_per_rank_per_step": [
              {run: c[name] for run, c in per_rank.items()} for per_rank in ft["zero3"]["launches"]],
+         "launches_serve_per_tick": serve["launches_per_tick"][name],
          "max_abs_err": main_err[name], "max_abs_err_sp_tp": sptp["max_abs_err"][name],
          "max_abs_err_pipeline_compositions": pipe["max_abs_err"][name],
          **timing[name]}

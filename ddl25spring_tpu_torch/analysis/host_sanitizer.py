@@ -13,12 +13,14 @@ through ``utils.config``) arms it:
   handler re-entering the critical section it interrupted, which would
   otherwise hang silently — raises immediately with both stacks named.
 
-The JAX package's third check, the serve engine's host/device page
-mirror (``check_serve_mirror``), comes with the serving engine.
+- **Serve page mirror.**  :func:`check_serve_mirror` asserts, at every
+  scheduler step of a serving engine, that the device pool's used pages
+  equal the engine's host accounting exactly (a device sync: debug mode
+  only).
 
 Zero-cost discipline: with the flag off (the default) ``wrap_lock``
-returns the lock unchanged.  The sanitizer is host-side only; nothing
-here touches a tensor.
+returns the lock unchanged.  The sanitizer is host-side only; the
+mirror's read of the pool's ``free`` mask is the one tensor it touches.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from ddl25spring_tpu_torch.utils.config import env_flag
 
 __all__ = [
     "SanitizerError", "OrderCheckedLock", "wrap_lock", "enabled",
-    "violations", "reset",
+    "violations", "reset", "check_serve_mirror",
 ]
 
 
@@ -169,3 +171,25 @@ def wrap_lock(name: str, lock: Any) -> Any:
     """The declaration-site hook: returns ``lock`` untouched unless
     ``DDL25_SANITIZE=1`` (resolved here, at construction time)."""
     return OrderCheckedLock(name, lock) if enabled() else lock
+
+
+def check_serve_mirror(engine) -> dict[str, Any]:
+    """Assert the host/device page mirror live: the device pool's ``free``
+    mask must count exactly the pages the engine's host accounting says are
+    used.  Cheap but synchronizing — callers gate on :func:`enabled`."""
+    device_used = int((~engine.pool["free"]).sum().item())
+    host_used = int(engine._host_pages_used())
+    out = {
+        "ok": device_used == host_used,
+        "device_used_pages": device_used,
+        "host_used_pages": host_used,
+    }
+    if not out["ok"]:
+        _record_violation("mirror_drift", **out)
+        raise SanitizerError(
+            f"sanitizer: host<->device page mirror drift — device "
+            f"refcounts hold {device_used} pages, host accounting says "
+            f"{host_used}; some pool mutation site updated one side "
+            "without its twin"
+        )
+    return out

@@ -19,6 +19,18 @@ reads ``hbm-resident-shuffle-scan16``; ``--scan-steps K`` sets K, and
 Run: ``python -m ddl25spring_tpu_torch.bench [--device cuda] [--rounds 10]
 [--n-train 60000] [--scan-steps K]``.  The last line of the output is the
 record.
+
+Serving mode (``bench.py:694-745``, ``:939-1000``): ``--serve`` runs the
+continuous-batching LLaMA serving bench instead
+(:func:`~ddl25spring_tpu_torch.serve.driver.run_serve_bench`): seeded
+open-loop traffic through the paged-KV engine, a continuous-vs-static and a
+cached-vs-cold prefix A/B on the virtual clock, ``serve.json`` in
+``--obs-dir`` and one ``record: "serve"`` row in ``--perf-ledger``
+(default ``runs/perf_ledger.jsonl``); the last line is the BENCH record
+with ``telemetry.serve``.  ``--smoke`` serves the tiny fp32 model with the
+smoke knobs (obs dir ``runs/serve_smoke``); ``--serve-model ref`` the
+full-width LLaMA.  ``python -m ddl25spring_tpu_torch.bench --serve
+--serve-model ref --device cuda``.
 """
 
 from __future__ import annotations
@@ -74,7 +86,8 @@ def fedavg_secondary(n_rounds: int = 10, device=None, n_train: int | None = None
 def main(argv=None) -> dict:
     """Run the ResNet headline, then the FedAvg rounds, and print the
     headline's ``report_line`` with ``"secondary": [<FedAvg line>]`` as the
-    last line; returns that record."""
+    last line; returns that record.  With ``--serve``, the serving bench
+    (:func:`serve_main`) instead."""
     from ddl25spring_tpu_torch.lab import dp_pp
 
     ap = argparse.ArgumentParser(description=__doc__,
@@ -86,12 +99,117 @@ def main(argv=None) -> dict:
     ap.add_argument("--scan-steps", type=int, default=0, metavar="K",
                     help="ResNet train steps per dispatch; 0 = the JAX rule (16 at batch "
                          "1024 on the card, 1 on the CPU); 1 = one step at a time")
+    ap.add_argument("--obs-dir", default=None, metavar="DIR",
+                    help="serving: write serve.json, trace.json and timeline.jsonl here")
+    ap.add_argument("--perf-ledger", default=None, metavar="JSONL",
+                    help="serving: append the record:\"serve\" row here (default "
+                         "runs/perf_ledger.jsonl; gate trends with tools/serve_report.py)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="with --serve: the tiny fp32 model and the smoke knobs, obs dir "
+                         "runs/serve_smoke")
+    ap.add_argument("--serve", action="store_true",
+                    help="run the continuous-batching LLaMA serving bench instead of the "
+                         "training bench (engine knobs via DDL25_SERVE_*)")
+    ap.add_argument("--serve-duration", type=float, default=None, metavar="S",
+                    help="traffic trace duration (seconds of arrival clock)")
+    ap.add_argument("--serve-rate", type=float, default=None, metavar="RPS",
+                    help="peak arrival rate (requests/sec)")
+    ap.add_argument("--serve-profile", default=None,
+                    choices=("flat", "ramp", "spike", "shared"),
+                    help="arrival-rate shape (default ramp; 'shared' = seeded system "
+                         "prompts, the radix-prefix-cache workload)")
+    ap.add_argument("--serve-seed", type=int, default=None,
+                    help="traffic trace seed (one seed replays the identical workload)")
+    ap.add_argument("--serve-budget", type=float, default=None, metavar="S",
+                    help="wall-clock bound on the ramp phase (default: run to drain)")
+    ap.add_argument("--serve-model", default=None, choices=("tiny", "tiny-deep", "ref"),
+                    help="model to serve (default: tiny under --smoke, else the "
+                         "reference LLaMA constants)")
+    ap.add_argument("--serve-tp", type=int, default=None, metavar="N",
+                    help="TP-shard the serving engine N ways (N > 1 waits for A9b)")
+    ap.add_argument("--no-serve-ab", action="store_true",
+                    help="skip the continuous-vs-static A/B phase")
+    ap.add_argument("--no-serve-prefix-ab", action="store_true",
+                    help="skip the cached-vs-cold prefix-cache A/B phase")
     args = ap.parse_args(argv)
+    if args.serve:
+        return serve_main(args)
     scan = ["--scan-steps", str(args.scan_steps)] if args.scan_steps else []
     run = dp_pp.main(["--workload", "resnet", "--device", args.device, *scan])
     rec = json.loads(run["line"])
     rec["secondary"] = [fedavg_secondary(args.rounds, args.device, args.n_train or None)]
     print(json.dumps(rec), flush=True)
+    return rec
+
+
+def serve_main(args) -> dict:
+    """The serving bench: prints the BENCH record with ``telemetry.serve`` as
+    the last line and returns it."""
+    import os
+
+    import torch
+
+    from ddl25spring_tpu_torch import obs
+    from ddl25spring_tpu_torch.obs import sentinels
+    from ddl25spring_tpu_torch.obs.timeline import timeline
+    from ddl25spring_tpu_torch.serve.driver import run_serve_bench, serve_cell
+    from ddl25spring_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(args.device)
+    if args.smoke:
+        args.obs_dir = args.obs_dir or os.path.join("runs", "serve_smoke")
+    if args.obs_dir:
+        # before the engines build, so the serve spans and the request
+        # timeline record
+        obs.enable()
+        obs.set_recorder(obs.SpanRecorder(process_name="serve"))
+        timeline.configure(run_dir=args.obs_dir)
+    record = run_serve_bench(
+        smoke=args.smoke, model=args.serve_model, obs_dir=args.obs_dir,
+        duration_s=args.serve_duration, rate_rps=args.serve_rate,
+        profile=args.serve_profile, seed=args.serve_seed, budget_s=args.serve_budget,
+        ledger_path=args.perf_ledger or "runs/perf_ledger.jsonl",
+        skip_ab=args.no_serve_ab, skip_prefix_ab=args.no_serve_prefix_ab,
+        serve_tp=args.serve_tp, device=dev,
+    )
+    sentinels.flush()
+    snap = obs.flight.snapshot()
+    telemetry: dict = {
+        "enabled": bool(args.obs_dir),
+        "serve": serve_cell(record),
+        # the goodput and memory cells come with the rest of the
+        # observability port (ROADMAP A11b)
+        "goodput": {"enabled": False},
+        "mem": {"enabled": False},
+    }
+    health = {
+        "sentinels": sentinels.enabled(),
+        "policy": sentinels.policy(),
+        "violations": snap["violations"],
+        "stalls": snap["stalls"],
+        "flight_records": snap["recorded"],
+    }
+    if args.obs_dir:
+        health["flight_dump"] = obs.flight.dump(
+            os.path.join(args.obs_dir, "flight.json"), reason="end_of_run")
+        telemetry["trace"] = obs.get_recorder().save(os.path.join(args.obs_dir, "trace.json"))
+        timeline.flush()
+        telemetry["timeline"] = timeline.path
+        telemetry["timeline_events"] = timeline.snapshot()["emitted"]
+    telemetry["health"] = health
+    ramp = record["ramp"]
+    kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    rec = {
+        "metric": "serve_tokens_per_sec_per_chip",
+        "value": ramp.get("tokens_per_sec_per_chip"),
+        "unit": "tokens/sec/chip",
+        "vs_baseline": None,
+        "model": record["key"]["model"],
+        "profile": record["key"]["profile"],
+        "chip": f"{kind} x{ramp.get('n_chips', 1)}",
+        "telemetry": telemetry,
+    }
+    print(json.dumps(rec, default=str), flush=True)
     return rec
 
 

@@ -976,3 +976,48 @@ def test_zero3_reshape_on_the_card_matches_uninterrupted(dev, tmp_path):
             k = min(a.size, b.size)
             np.testing.assert_allclose(a[:k], b[:k], atol=2e-5, rtol=2e-5, err_msg=str(key))
             assert not a[k:].any() and not b[k:].any()
+
+
+def _serve_run(device, graphs):
+    """The tiny fp32 engine with the smoke knobs on the seeded smoke trace,
+    virtual clock, the host/device page mirror asserted at every step."""
+    from ddl25spring_tpu_torch.models.llama import Llama
+    from ddl25spring_tpu_torch.serve import driver
+    from ddl25spring_tpu_torch.serve.engine import ServeEngine
+    from ddl25spring_tpu_torch.serve.traffic import TrafficSpec, synth_trace
+
+    cfg = driver.serve_model("tiny")
+    model = Llama(cfg, device=device, generator=torch.Generator().manual_seed(0))
+    model.requires_grad_(False)
+    trace = synth_trace(TrafficSpec(**driver.SMOKE_TRAFFIC, vocab_size=cfg.vocab_size))
+    knobs = driver.engine_knobs(smoke=True)
+    eng = ServeEngine(model, cfg, **knobs, clock="virtual", trace_label=None, graphs=graphs,
+                      tick_s=driver.ab_tick_s(trace, knobs["max_slots"]))
+    eng._sanitize = True
+    eng.warmup()
+    eng.run(trace, max_steps=5_000)
+    return eng
+
+
+def test_serve_engine_graphed_equals_eager_and_the_cpu(dev):
+    """chip_smoke phase 18 (a), small: the graphed engine's token streams and
+    final pool are bitwise the eager engine's on the card, and its streams
+    the CPU engine's."""
+    from ddl25spring_tpu_torch.ops import flash_attention as fa
+
+    fa.reset_launches()
+    graphed = _serve_run(dev, graphs=True)
+    eager = _serve_run(dev, graphs=False)
+    cpu = _serve_run(torch.device("cpu"), graphs=True)
+    assert graphed._tick.graph is not None and eager._tick.graph is None
+    streams = [{r.rid: r.tokens for r in e.done} for e in (graphed, eager, cpu)]
+    assert streams[0] == streams[1] == streams[2] and len(streams[0]) > 5
+    assert graphed.token_log == cpu.token_log
+    for name, t in graphed.pool.items():
+        # the trash page (the last K/V row) takes the masked rows' writes in
+        # an undefined order; nothing reads it
+        keep = slice(0, graphed.n_pages) if name in ("k", "v") else slice(None)
+        assert torch.equal(t[keep], eager.pool[name][keep]), name
+    assert graphed.pool_ok_failures == 0 and graphed.mem_leak_check()["ok"]
+    assert sum(fa.LAUNCHES.values()) == 0
+    assert sum(c for v in fa.CAPTURED.values() for c in v.values()) == 0
