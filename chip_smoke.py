@@ -4,17 +4,21 @@
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build: ``nvcc`` compiles ``ops/csrc/flash_attention.cu`` (scalar kernels)
-   and ``ops/csrc/flash_attention_sm90.cu`` (tensor-core kernels) for sm_90a
-   from the checkout, in parallel; the build time and the ``ptxas``
-   registers and spills of every instantiation are printed;
+2. build: ``nvcc`` compiles ``ops/csrc/flash_attention.cu`` (scalar kernels),
+   ``ops/csrc/flash_attention_sm90.cu`` (bf16 tensor-core kernels) and
+   ``ops/csrc/flash_attention_tf32x3.cu`` (fp32 dq and dk/dv on the tensor
+   cores, 3xTF32) for sm_90a from the checkout, in parallel; the build time
+   and the ``ptxas`` registers and spills of every instantiation are printed;
 3. kernels: the forward, dq and dk/dv kernels against their plain PyTorch
    versions on the same inputs, on the card, at the LLaMA path's shape
    ``[3, 256, 6, 48]`` (bf16 and fp32), causal and not, ragged L=200 at hd
    64, 48 and 40, L=17, hd 32 and 128, the tensor-core kernels at every
    instruction width (hd 16, 80, 96, 112), hd 36 (bf16 on the scalar
-   variant), non-square non-causal, odd lengths with BH = 2; each case
-   checks which variant each kernel ran.  Plus both autograd Functions (``with_lse`` with
+   variant), non-square non-causal, odd lengths with BH = 2; the fp32
+   ``tf32x3`` dq and dk/dv at hd 16-128 (20: padded to 32), L 17/66/130,
+   causal and not, Lk != Lq, each twice and bitwise equal, and fp32 at hd 18
+   and misaligned on the scalar variant; each case checks which variant each
+   kernel ran.  Plus both autograd Functions (``with_lse`` with
    a nonzero lse cotangent) on the card against the same Functions on the
    CPU, where the plain versions run;
 4. timing at the LLaMA path's shape (bf16, causal): each kernel's device time
@@ -36,7 +40,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    (a) fp32, full width, flash kernels: one step's loss and gradients against
        a single-process step on the batch of 6 from the same weights (loss
        rtol 1e-5; gradients atol 2e-4 + rtol 2e-3), then 2 Adam steps (losses
-       rtol 1e-4);
+       rtol 1e-4); every rank's forward launches on ``scalar`` and as many
+       dq and dk/dv launches, all on ``tf32x3`` (the fp32 path's kernels);
    (b) the slice, ``lab.dp_pp.main``: bf16, flash kernels, 24 steps; losses
        finite and falling, the first within 1 of ln(4096), every rank on CUDA
        with each kernel launched 6 times per step, all on the tensor cores;
@@ -139,8 +144,12 @@ Phases, in order; any failure exits non-zero and prints no result:
         on the card, fp32, full-width LLaMA, 2 steps: within 1e-7, the
         difference printed, and where each bucket was issued in the backward;
     (f) the kernels' device time at the schedules' per-microbatch shape
-        ``[6, 256, 48]`` bf16 and the fp32 (scalar) kernels' at
-        ``[18, 256, 48]``, each beside SDPA's forward and backward.
+        ``[6, 256, 48]`` bf16 and the fp32 kernels' (forward scalar, dq and
+        dk/dv ``tf32x3``) at ``[18, 256, 48]`` causal and non-causal and
+        ``[6, 256, 48]`` causal, each beside SDPA's forward and backward; in
+        fp32 also the scalar dq and dk/dv on the same inputs, each kernel's
+        plain version, and both bounds (CUDA-core fp32 at 67 TFLOP/s; three
+        TF32 products at 495).
 
 11. fused dispatch: K train steps as one CUDA graph
     (``parallel/pipeline.fuse_train_steps``) and the FedAvg client axis
@@ -362,7 +371,7 @@ Phases, in order; any failure exits non-zero and prints no result:
         ``save_skipped`` 1, that step never on disk, and ``restore_or_init``
         of the last durable step bitwise the live parameters and Adam state;
     (d) 4 ranks on ``cuda:0``: ``make_zero3_llama_train_step`` at full width
-        in fp32 (the scalar flash kernels, Adam 8e-4, eps 1e-6), 2 steps at
+        in fp32 (the fp32 flash kernels, Adam 8e-4, eps 1e-6), 2 steps at
         n = 4, a live reshape to n = 2 (``Mesh.regrid``,
         ``elastic.reshape_state`` onto ``zero_resume_template(abstract=True)``),
         2 steps; and 2 -> 4 likewise: both within atol 2e-5 + rtol 2e-5 (the
@@ -370,7 +379,8 @@ Phases, in order; any failure exits non-zero and prints no result:
         record ``{"data": 4} -> {"data": 2}``, steps lost 0; the
         ``AutoSaver`` checkpoint of n = 4 (``leaf_shapes`` ``[4, k]`` /
         ``[L, 4, k]``) restored by ``restore_or_init`` on n = 2 bitwise the
-        live reshape's state; 6/6/6 scalar launches a step;
+        live reshape's state; 6/6/6 launches a step, the forward on
+        ``scalar``, dq and dk/dv on ``tf32x3``;
     (e) written down, not gated: the lab's median step with ``--ckpt-every
         2`` and without (one more unchecked run), each async save's blocking
         wall, a warm single-process restore of the 2 x 3 checkpoint, the
@@ -436,6 +446,11 @@ the kernel's nodes in (b)'s guarded graph of 16 steps, and
 phase 17 (a)'s run A, ``launches_ft_zero3_per_rank_per_step`` each rank's
 per step in each run of phase 17 (d), and ``launches_serve_per_tick`` the
 kernel's launches (eager and captured) over phase 18 per decode tick run (0).
+The rows ``flash_dq_tf32x3`` and ``flash_dkv_tf32x3`` are the fp32 path's:
+``launches`` its launches over phase 7 (a)'s six ranks, ``max_abs_err``
+phase 3's at ``[18, 256, 48]`` fp32 causal, the times phase 10 (f)'s at that
+shape (``library_ms`` null: no one call computes dq or dk/dv alone;
+``sdpa_bwd_ms`` SDPA fp32's backward), ``bound_ms`` on the tensor cores.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -485,9 +500,11 @@ FL_ACC_BANDS = {"vfl_acc": (0.93, 1.0), "tstr_real": (0.85, 0.95),
 # its bytes over the memory rate and its operations over the rate of its type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+TF32_OPS = 495e12               # the tf32x3 variant: three TF32 products per product
 
 CSRC = "ddl25spring_tpu_torch/ops/csrc/"
-SOURCE = {"wgmma": CSRC + "flash_attention_sm90.cu", "scalar": CSRC + "flash_attention.cu"}
+SOURCE = {"wgmma": CSRC + "flash_attention_sm90.cu", "scalar": CSRC + "flash_attention.cu",
+          "tf32x3": CSRC + "flash_attention_tf32x3.cu"}
 REPLACES = {
     "fwd": "ddl25spring_tpu/ops/flash_attention.py:76",   # _fwd_kernel
     "dq": "ddl25spring_tpu/ops/flash_attention.py:165",   # _dq_kernel
@@ -514,13 +531,14 @@ def card_line() -> str:
 
 
 def kernel_name(mangled: str) -> str:
-    """``flash_fwd_kernel<bf16,64>`` / ``flash_dq_wgmma<48>`` from a mangled
-    name (the scalar kernels are templated on dtype and padded hd, the
-    tensor-core ones on hd rounded up to 16)."""
+    """``flash_fwd_kernel<bf16,64>`` / ``flash_dq_wgmma<48>`` /
+    ``flash_dq_tf32x3<48>`` from a mangled name (the scalar kernels are
+    templated on dtype and padded hd, the tensor-core ones on hd rounded up
+    to 16)."""
     k = re.search(r"(flash_(?:fwd|dq|dkv)_kernel)I(13__nv_bfloat16|f)Li(\d+)E", mangled)
     if k:
         return f"{k.group(1)}<{'f32' if k.group(2) == 'f' else 'bf16'},{k.group(3)}>"
-    k = re.search(r"(flash_(?:fwd|dq|dkv)_wgmma)ILi(\d+)E", mangled)
+    k = re.search(r"(flash_(?:fwd|dq|dkv)_(?:wgmma|tf32x3))ILi(\d+)E", mangled)
     return f"{k.group(1)}<{k.group(2)}>" if k else mangled
 
 
@@ -553,16 +571,26 @@ def randn(gen, *shape, dtype, dev):
     return torch.randn(*shape, generator=gen).to(device=dev, dtype=dtype)
 
 
+def want_variant(name, dtype, hd):
+    """The variant the dispatch rule names for kernel ``name`` on aligned
+    operands: bf16 on wgmma at hd a multiple of 8, fp32 dq and dk/dv on
+    tf32x3 at hd a multiple of 4, the rest on scalar."""
+    if dtype == torch.bfloat16:
+        return "wgmma" if hd % 8 == 0 else "scalar"
+    return "tf32x3" if name != "fwd" and hd % 4 == 0 else "scalar"
+
+
 def kernel_case(fa, gen, dev, BH, Lq, Lk, hd, dtype, causal):
     """Each kernel against its plain version on the same inputs (the plain
     versions compute in fp32 and round p and ds where the kernels do); checks
-    that each kernel ran the variant the dispatch rule names.  Returns the
-    max abs errors ``{"fwd", "dq", "dkv"}``."""
+    that each kernel ran the variant the dispatch rule names, and that the
+    tf32x3 kernels give the same bits on a second call.  Returns the max abs
+    errors ``{"fwd", "dq", "dkv"}``."""
     q = randn(gen, BH, Lq, hd, dtype=dtype, dev=dev)
     k = randn(gen, BH, Lk, hd, dtype=dtype, dev=dev)
     v = randn(gen, BH, Lk, hd, dtype=dtype, dev=dev)
     do = randn(gen, BH, Lq, hd, dtype=dtype, dev=dev)
-    want = "wgmma" if dtype == torch.bfloat16 and hd % 8 == 0 else "scalar"
+    want = {n: want_variant(n, dtype, hd) for n in ("fwd", "dq", "dkv")}
     before = {n: dict(c) for n, c in fa.LAUNCHES_BY_VARIANT.items()}
     o, lse = fa.flash_fwd(q, k, v, causal)
     o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal)
@@ -571,10 +599,16 @@ def kernel_case(fa, gen, dev, BH, Lq, Lk, hd, dtype, causal):
     dk, dv = fa.flash_dkv(q, k, v, lse_ref, do, delta, causal)
     dq_ref, dk_ref, dv_ref = fa.flash_bwd_reference(q, k, v, lse_ref, do, delta, causal)
     torch.cuda.synchronize()
-    tag = f"[{BH},{Lq},{Lk},{hd}] {str(dtype)[6:]} causal={causal} {want}"
+    tag = (f"[{BH},{Lq},{Lk},{hd}] {str(dtype)[6:]} causal={causal} "
+           f"{'/'.join(dict.fromkeys(want.values()))}")
     for name in ("fwd", "dq", "dkv"):
         ran = {v_: n - before[name][v_] for v_, n in fa.LAUNCHES_BY_VARIANT[name].items()}
-        check(ran[want] == 1 and sum(ran.values()) == 1, f"{tag}: {name} ran {ran}")
+        check(ran[want[name]] == 1 and sum(ran.values()) == 1, f"{tag}: {name} ran {ran}")
+    if want["dq"] == "tf32x3":
+        again = (fa.flash_dq(q, k, v, lse_ref, do, delta, causal),
+                 *fa.flash_dkv(q, k, v, lse_ref, do, delta, causal))
+        check(all(torch.equal(a, b) for a, b in zip(again, (dq, dk, dv))),
+              f"{tag}: a second call of the tf32x3 kernels gave other bits")
     pairs = {"o": (o, o_ref), "lse": (lse, lse_ref), "dq": (dq, dq_ref),
              "dk": (dk, dk_ref), "dv": (dv, dv_ref)}
     errs = {}
@@ -584,9 +618,35 @@ def kernel_case(fa, gen, dev, BH, Lq, Lk, hd, dtype, causal):
         e = excess(a, ref, TOL[torch.float32 if name == "lse" else dtype])
         check(e <= 0, f"{tag}: {name} off its plain version by {e:.3g} past tolerance")
         errs[name] = max_err(a, ref)
-    print(f"  kernels {tag}: " + " ".join(f"{n}={e:.2e}" for n, e in errs.items()))
+    print(f"  kernels {tag}: " + " ".join(f"{n}={e:.2e}" for n, e in errs.items())
+          + (" (bitwise on a second call)" if want["dq"] == "tf32x3" else ""))
     return {"fwd": max(errs["o"], errs["lse"]), "dq": errs["dq"],
             "dkv": max(errs["dk"], errs["dv"])}
+
+
+def misaligned_fp32_case(fa, gen, dev):
+    """fp32 views 4 bytes past 16-byte alignment cannot be ``cp.async``
+    sources: the dispatch sends dq and dk/dv to the scalar kernels, which are
+    right (fp32 tolerance)."""
+    BH, L, hd, n = 2, 66, 48, 2 * 66 * 48
+    q, k, v, do = (randn(gen, n + 4, dtype=torch.float32, dev=dev)[1:n + 1].view(BH, L, hd)
+                   for _ in range(4))
+    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, True)
+    delta = (do * o_ref).sum(-1)
+    before = {n_: dict(c) for n_, c in fa.LAUNCHES_BY_VARIANT.items()}
+    got = (fa.flash_dq(q, k, v, lse_ref, do, delta, True),
+           *fa.flash_dkv(q, k, v, lse_ref, do, delta, True))
+    refs = fa.flash_bwd_reference(q, k, v, lse_ref, do, delta, True)
+    torch.cuda.synchronize()
+    for name in ("dq", "dkv"):
+        ran = {v_: c - before[name][v_] for v_, c in fa.LAUNCHES_BY_VARIANT[name].items()}
+        check(ran["scalar"] == 1 and sum(ran.values()) == 1,
+              f"misaligned fp32: {name} ran {ran}, not the scalar variant")
+    for name, a, ref in zip(("dq", "dk", "dv"), got, refs):
+        e = excess(a, ref, TOL[torch.float32])
+        check(e <= 0, f"misaligned fp32: {name} off its plain version by {e:.3g}")
+    print(f"  kernels [{BH},{L},{L},{hd}] float32 misaligned by 4 bytes: dq, dk/dv on scalar, "
+          + " ".join(f"{n_}={max_err(a, r):.2e}" for n_, a, r in zip(("dq", "dk", "dv"), got, refs)))
 
 
 def autograd_case(fa, gen, dev, shape, dtype, causal, with_lse):
@@ -670,8 +730,12 @@ def device_ms(fn, iters=50, warmup=3, tries=3):
     raise PhaseError(f"profiler kept dropping kernel records ({n} for {iters} calls)")
 
 
-def bound(nbytes, ops, dtype):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]
+def bound(nbytes, ops, dtype, variant=None):
+    """The least ms the card could take: bytes over the memory rate against
+    operations over the peak of their type; the tf32x3 variant does each
+    product as three TF32 products on the tensor cores."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 3 * ops / TF32_OPS if variant == "tf32x3" else ops / PEAK_OPS[dtype]
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -876,6 +940,18 @@ def dp_pp_exactness(dev):
         err = max(err, max_err(torch.from_numpy(a), torch.from_numpy(b)))
     print(f"  (a) fp32 losses {[round(x, 6) for x in got]} vs single process "
           f"{[round(x, 6) for x in want_losses]}; grads max abs err {err:.2e}")
+    # the fp32 path's kernels: each rank counts from 0 over its run
+    for r in ranks:
+        n, by = r["launches"]["fwd"], r["launches_by_variant"]
+        check(n > 0 and r["launches"] == {"fwd": n, "dq": n, "dkv": n}
+              and by["fwd"]["scalar"] == n and by["dq"]["tf32x3"] == n
+              and by["dkv"]["tf32x3"] == n,
+              f"(a) rank {r['rank']}: fp32 launches by variant {by}, not the forward on "
+              "scalar and dq, dk/dv as often on tf32x3")
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in ("fwd", "dq", "dkv")}
+    print(f"  (a) flash launches over the {len(ranks)} ranks {launches}: fwd on scalar, dq "
+          f"and dk/dv on tf32x3")
+    return launches
 
 
 def dp_pp_slice(dev):
@@ -1783,10 +1859,13 @@ def kernel_times_at(rdv, cases, tag):
     """Device time per call of the three kernels on bf16 or fp32 inputs at
     each case ``(B, H, L, dtype, causal)`` (folded ``[B H, L, 48]``), each
     beside its bound and SDPA's forward and backward on the same inputs and
-    causality.  Run in a process of its own (phases 10 (f), 12 (c)), because
-    a process that has already held several profiler sessions (phases 4, 6,
-    8 (c), 9 (d)) was seen to record 35 of 50 launches in every retry.
-    Returns the times and the lines to print."""
+    causality; in fp32 also the scalar dq and dk/dv launched past the
+    dispatch rule, each kernel's plain version (CUDA events over 20 calls)
+    and the bound on the CUDA cores beside the variant's.  Run in a process
+    of its own (phases 10 (f), 12 (c)), because a process that has already
+    held several profiler sessions (phases 4, 6, 8 (c), 9 (d)) was seen to
+    record 35 of 50 launches in every retry.  Returns the times and the
+    lines to print."""
     from ddl25spring_tpu_torch.ops import flash_attention as fa
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1804,38 +1883,66 @@ def kernel_times_at(rdv, cases, tag):
         q4, k4, v4, do4 = (x.view(B, H, L, hd) for x in (q, k, v, do))
         qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q4, k4, v4))
         o4 = sdpa(qg, kg, vg, is_causal=causal)
-        row = {n: device_ms(fn) for n, fn in (
-            ("fwd", lambda: fa.flash_fwd(q, k, v, causal)),
-            ("dq", lambda: fa.flash_dq(q, k, v, lse, do, delta, causal)),
-            ("dkv", lambda: fa.flash_dkv(q, k, v, lse, do, delta, causal)),
-            ("sdpa fwd", lambda: sdpa(q4, k4, v4, is_causal=causal)),
-            ("sdpa bwd", lambda: torch.autograd.grad(o4, (qg, kg, vg), do4,
-                                                     retain_graph=True)))}
+        calls = {
+            "fwd": lambda: fa.flash_fwd(q, k, v, causal),
+            "dq": lambda: fa.flash_dq(q, k, v, lse, do, delta, causal),
+            "dkv": lambda: fa.flash_dkv(q, k, v, lse, do, delta, causal),
+            "sdpa fwd": lambda: sdpa(q4, k4, v4, is_causal=causal),
+            "sdpa bwd": lambda: torch.autograd.grad(o4, (qg, kg, vg), do4, retain_graph=True)}
         variants = {n: fa._variant(n, (q, k, v)) for n in ("fwd", "dq", "dkv")}
+        plain_ms = {}
+        if dtype == torch.float32:
+            dq_s, dk_s, dv_s = (torch.empty_like(q) for _ in range(3))
+            calls["scalar dq"] = lambda: fa._launch("dq", "scalar", q, k, v, do, lse, delta,
+                                                    dq_s, q3=q, Lk=L, causal=causal)
+            calls["scalar dkv"] = lambda: fa._launch("dkv", "scalar", q, k, v, do, lse, delta,
+                                                     dk_s, dv_s, q3=q, Lk=L, causal=causal)
+            plain_ms = {n: cuda_ms(fn, 20) for n, fn in (
+                ("fwd", lambda: fa.flash_fwd_reference(q, k, v, causal)),
+                ("dq", lambda: fa.flash_dq_reference(q, k, v, lse, do, delta, causal)),
+                ("dkv", lambda: fa.flash_dkv_reference(q, k, v, lse, do, delta, causal)))}
+        row = {n: device_ms(fn) for n, fn in calls.items()}
         act, rows = BH * L * hd * q.element_size(), BH * L * 4
         # the (query, key) pairs that attend
         pairs = BH * L * (L + 1) // 2 if causal else BH * L * L
-        bounds = {n: bound(nbytes, ops, dtype) for n, (nbytes, ops) in {
-            "fwd": (4 * act + rows, 4 * hd * pairs), "dq": (5 * act + 2 * rows, 6 * hd * pairs),
-            "dkv": (6 * act + 2 * rows, 8 * hd * pairs)}.items()}
+        work = {"fwd": (4 * act + rows, 4 * hd * pairs), "dq": (5 * act + 2 * rows, 6 * hd * pairs),
+                "dkv": (6 * act + 2 * rows, 8 * hd * pairs)}
+        bounds = {n: bound(*w, dtype, variants[n]) for n, w in work.items()}
+        cores = {n: bound(*w, dtype) for n, w in work.items() if variants[n] == "tf32x3"}
         key = f"[{BH}, {L}, {hd}] {str(dtype)[6:]} {'causal' if causal else 'non-causal'}"
-        out[key] = {"ms": row, "variants": variants,
-                    "bound_ms": {n: b[0] for n, b in bounds.items()}}
+        out[key] = {"ms": row, "variants": variants, "plain_ms": plain_ms,
+                    "bound_ms": {n: b[0] for n, b in bounds.items()},
+                    "bound_by": {n: b[1] for n, b in bounds.items()},
+                    "bound_ms_cuda_cores": {n: b[0] for n, b in cores.items()}}
+
+        def about(n):
+            if n not in variants:
+                return ""
+            extra = (f"; on the CUDA cores {cores[n][0]:.6f} by {cores[n][1]}" if n in cores
+                     else "")
+            plain = f"; plain {plain_ms[n]:.4f}" if n in plain_ms else ""
+            return (f" ({variants[n]}; bound {bounds[n][0]:.6f} by {bounds[n][1]}{extra}"
+                    f"{plain})")
+
         lines.append(f"  {tag} {key}, device ms per call: "
-                     + ", ".join(f"{n} {t:.5f}"
-                                 + (f" ({variants[n]}; bound {bounds[n][0]:.6f} by "
-                                    f"{bounds[n][1]})" if n in variants else "")
-                                 for n, t in row.items()))
+                     + ", ".join(f"{n} {t:.5f}{about(n)}" for n, t in row.items()))
+        if "scalar dq" in row:
+            pair = row["dq"] + row["dkv"]
+            lines.append(f"  {tag} {key}: dq + dk/dv ({variants['dq']}) {pair:.5f} ms against "
+                         f"SDPA backward {row['sdpa bwd']:.5f} ({pair / row['sdpa bwd']:.2f}x) "
+                         f"and the scalar pair {row['scalar dq'] + row['scalar dkv']:.5f}")
     return out, lines
 
 
 def slice_kernel_times(dev):
     """Phase 10 (f): :func:`kernel_times_at` the schedules' per-microbatch
-    shape ``[6, 256, 48]`` bf16 causal and phase 4's ``[18, 256, 48]`` in
-    fp32 (the scalar kernels), in a new process."""
+    shape ``[6, 256, 48]`` bf16 causal, phase 4's ``[18, 256, 48]`` in fp32
+    causal and not, and ``[6, 256, 48]`` fp32 causal (phase 7 (a)'s
+    microbatch), in a new process."""
     from ddl25spring_tpu_torch.parallel.launch import spawn
 
-    cases = [(1, 6, 256, torch.bfloat16, True), (3, 6, 256, torch.float32, True)]
+    cases = [(1, 6, 256, torch.bfloat16, True), (3, 6, 256, torch.float32, True),
+             (3, 6, 256, torch.float32, False), (1, 6, 256, torch.float32, True)]
     (out, lines), = spawn(kernel_times_at, 1, cases, "(f)", timeout=SPAWN_TIMEOUT)
     for line in lines:
         print(line)
@@ -1843,12 +1950,13 @@ def slice_kernel_times(dev):
 
 
 def schedules_phase(dev):
-    """Phase 10, each sub-phase timed."""
+    """Phase 10, each sub-phase timed; returns (f)'s kernel times."""
     for name, fn in (("(a)-(c)", schedules_worlds), ("(d)", grad_accum_resnet),
                      ("(e)", dp_overlap), ("(f)", slice_kernel_times)):
         t0 = time.perf_counter()
-        fn(dev)
+        out = fn(dev)
         print(f"  {name} took {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 # ---------------------------------------------------------------- phase 11
@@ -1945,7 +2053,7 @@ def fused_llama(rdv):
     per_window = 6 * K
     check(eager == {n: 6 * WARMUP_STEPS for n in eager},
           f"(a) eager launches {eager}: the warm-up's {WARMUP_STEPS} steps should be the only ones")
-    check(all(c == {"wgmma": per_window, "scalar": 0} for c in captured.values()),
+    check(all(c == {"wgmma": per_window, "tf32x3": 0, "scalar": 0} for c in captured.values()),
           f"(a) captured launches {captured}, not {per_window} of each on wgmma")
     want_census = {n: per_window if n.endswith("wgmma") else 0 for n in CENSUS}
     check(census == want_census, f"(a) the graph's {n_nodes} nodes hold flash kernels "
@@ -4191,7 +4299,7 @@ def obs_llama(rdv, run_dir, device="cuda"):
           f"(b) after the window, parameters or Adam state differ from {K - 1} clean eager steps")
     flash_nodes = {n: c for n, c in census["guarded"][0].items() if c}
     check(flash_nodes == {f"flash_{n}_wgmma": 6 * K for n in ("fwd", "dq", "dkv")}
-          and all(c == {"wgmma": 6 * K, "scalar": 0} for c in captured.values()),
+          and all(c == {"wgmma": 6 * K, "tf32x3": 0, "scalar": 0} for c in captured.values()),
           f"(b) the guarded graph's flash nodes {flash_nodes}, captured {captured}")
     nodes = {name: c[1] for name, c in census.items()}
     lines.append(f"  (b) fused window of {K}, step {OBS_WINDOW_POISON} poisoned: {K} records "
@@ -4690,7 +4798,7 @@ def ft_zero_rank(rdv, batches, ckpt_dir, device="cuda"):
     from ddl25spring_tpu_torch.utils.mesh import init_mesh
 
     cfg = pipe_cfg("dense", "float32")
-    out = {"launches": {}}
+    out = {"launches": {}, "by_variant": {}}
     with init_mesh(rdv, FT_ZERO_N, stages=1, device=device) as mesh4:
         dev = mesh4.device
         meshes = {FT_ZERO_N: mesh4, 2: mesh4.regrid(2, stages=2)}
@@ -4713,6 +4821,9 @@ def ft_zero_rank(rdv, batches, ckpt_dir, device="cuda"):
             for i in ids:
                 step(toks[i])
             out["launches"][tag] = {k: v // len(ids) for k, v in fa.LAUNCHES.items()}
+            out["by_variant"][tag] = {
+                k: {x: c // len(ids) for x, c in v.items() if c}
+                for k, v in fa.LAUNCHES_BY_VARIANT.items()}
 
         def np_rows(rows):
             return [r.detach().cpu().numpy() for r in rows.parameters()]
@@ -4824,6 +4935,13 @@ def ft_zero_checks(ranks, ckpt_dir) -> tuple[dict, list[str]]:
     launches = ranks[0]["launches"]
     for tag, c in launches.items():
         check(c == {"fwd": 6, "dq": 6, "dkv": 6}, f"(d) {tag} launches per step {c}")
+    for r in ranks:
+        for tag, c in r["by_variant"].items():
+            n = r["launches"][tag]
+            want_v = {"fwd": {"scalar": n["fwd"]}, "dq": {"tf32x3": n["dq"]},
+                      "dkv": {"tf32x3": n["dkv"]}}
+            check(c == want_v, f"(d) rank {r['rank']} {tag} launches per step by variant {c}, "
+                               f"not {want_v}")
     walls = {k: max(r[f"{k}"]["wall_s"] for r in ranks) * 1e3
              for k in (f"{FT_ZERO_N}->2", f"2->{FT_ZERO_N}")}
     save_ms = max(r["save_s"] for r in ranks) * 1e3
@@ -4836,7 +4954,8 @@ def ft_zero_checks(ranks, ckpt_dir) -> tuple[dict, list[str]]:
                  f"{len(rows2)} x [4, k], {len(rows3)} x [L, 4, k]; reshape walls "
                  f"{walls[f'{FT_ZERO_N}->2']:.1f} / {walls[f'2->{FT_ZERO_N}']:.1f} ms, "
                  f"a synchronous save at n = 4 {save_ms:.1f} ms, the cross-mesh restore "
-                 f"{restore_ms:.1f} ms (slowest rank); scalar flash launches a step {launches}")
+                 f"{restore_ms:.1f} ms (slowest rank); flash launches a step {launches}, the "
+                 "forward on scalar, dq and dk/dv on tf32x3, every rank")
     return {"launches": [r["launches"] for r in ranks], "reshape_ms": walls,
             "save_ms": save_ms, "restore_ms": restore_ms}, lines
 
@@ -5138,7 +5257,8 @@ def main() -> int:
     print("== build")
     t0 = time.perf_counter()
     libs = _build.build(_build.CSRC / "flash_attention.cu",
-                        _build.CSRC / "flash_attention_sm90.cu")
+                        _build.CSRC / "flash_attention_sm90.cu",
+                        _build.CSRC / "flash_attention_tf32x3.cu")
     print(f"  {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.1f} s "
           f"(one nvcc each, in parallel)")
     for lib in libs:
@@ -5148,8 +5268,8 @@ def main() -> int:
     B, L, H, hd = MAIN_SHAPE
     gen = torch.Generator().manual_seed(0)
     main_err = kernel_case(fa, gen, dev, B * H, L, L, hd, torch.bfloat16, True)
+    fp32_err = kernel_case(fa, gen, dev, B * H, L, L, hd, torch.float32, True)
     for case in [
-        (B * H, L, L, hd, torch.float32, True),
         (B * H, L, L, hd, torch.float32, False),
         (4, 200, 200, 64, torch.float32, True),    # ragged tail
         (4, 200, 200, 64, torch.float32, False),
@@ -5173,8 +5293,21 @@ def main() -> int:
         (4, 256, 192, 48, torch.bfloat16, False),
         (2, 66, 66, 48, torch.bfloat16, False),    # odd lengths, BH = 2
         (2, 130, 130, 48, torch.bfloat16, True),
+        # fp32 dq and dk/dv on tf32x3: every padded width (hd 20 pads to 32),
+        # lengths of 17, 66 and 130, causal and not, Lk != Lq
+        (2, 17, 17, 16, torch.float32, True),
+        (2, 100, 100, 20, torch.float32, True),
+        (2, 66, 66, 80, torch.float32, False),
+        (2, 130, 130, 96, torch.float32, False),
+        (2, 66, 66, 112, torch.float32, True),
+        (2, 130, 130, 128, torch.float32, True),
+        (2, 17, 17, 48, torch.float32, False),
+        (2, 256, 192, 16, torch.float32, False),
+        (3, 17, 40, 36, torch.float32, False),
+        (2, 66, 66, 18, torch.float32, True),      # hd not a multiple of 4: scalar fp32
     ]:
         kernel_case(fa, gen, dev, *case)
+    misaligned_fp32_case(fa, gen, dev)
     for dtype in (torch.float32, torch.bfloat16):
         for causal in (True, False):
             autograd_case(fa, gen, dev, MAIN_SHAPE, dtype, causal, with_lse=False)
@@ -5219,7 +5352,7 @@ def main() -> int:
     print(f"== DP x PP on the card: {DP} x {PP} ranks, {MICRO} microbatches, {ROWS} rows "
           "per replica")
     t0 = time.perf_counter()
-    dp_pp_exactness(dev)
+    fp32_launches = dp_pp_exactness(dev)
     dp_pp_slice(dev)
     nccl_dp(dev)
     print(f"  phase 7 in {time.perf_counter() - t0:.1f} s")
@@ -5238,7 +5371,7 @@ def main() -> int:
     print(f"== schedules on the card: {', '.join(SCHED)} ({CHUNKS} chunks per rank when "
           "interleaved); grad accumulation; DP overlap")
     t0 = time.perf_counter()
-    schedules_phase(dev)
+    fp32_times = schedules_phase(dev)["[18, 256, 48] float32 causal"]
     print(f"  phase 10 in {time.perf_counter() - t0:.1f} s")
 
     print(f"== fused dispatch: K train steps per CUDA graph (LLaMA K = {FUSE_K}, ResNet "
@@ -5325,6 +5458,16 @@ def main() -> int:
          "max_abs_err_pipeline_compositions": pipe["max_abs_err"][name],
          **timing[name]}
         for name in ("fwd", "dq", "dkv")
+    ] + [
+        {"name": f"flash_{name}_tf32x3", "route": "cuda", "source": SOURCE["tf32x3"],
+         "replaces": REPLACES[name], "launches": fp32_launches[name],
+         "max_abs_err": fp32_err[name], "ms": fp32_times["ms"][name],
+         "plain_ms": fp32_times["plain_ms"][name], "bound_ms": fp32_times["bound_ms"][name],
+         "bound_by": fp32_times["bound_by"][name], "library_ms": None,
+         "bound_ms_cuda_cores": fp32_times["bound_ms_cuda_cores"][name],
+         "scalar_device_ms": fp32_times["ms"][f"scalar {name}"],
+         "sdpa_bwd_ms": fp32_times["ms"]["sdpa bwd"]}
+        for name in ("dq", "dkv")
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -10,9 +10,12 @@
 // bfloat16; every product and sum is float32, outputs are rounded to the input
 // type when they are stored, and so are p (forward, dk/dv) and ds (dq, dk/dv)
 // before the second product, as the TPU kernels round them (a no-op for
-// float32).  The bf16 kernels run on the tensor cores (flash_attention_sm90.cu)
-// wherever those take the shape; these kernels take float32 and the bf16
-// shapes the tensor-core kernels do not.
+// float32).  These are the kernels of what the tensor-core ones do not take:
+// the float32 forward (always), float32 dq and dk/dv whose head_dim is not a
+// multiple of 4 or whose pointers are not 16-byte aligned (the 3xTF32 kernels
+// of flash_attention_tf32x3.cu stage rows by 16-byte cp.async), and bf16 at a
+// head_dim not a multiple of 8 or misaligned (the wgmma kernels of
+// flash_attention_sm90.cu need TMA's 16-byte strides).
 //
 // Design.  The TPU kernels walk the contraction axis as the innermost,
 // sequential grid dimension and carry the online state in VMEM scratch across
@@ -25,14 +28,15 @@
 // memory with zeros; ragged tails of L are masked on load and on store.
 //
 // What bounds them on this card.  At the shapes the LLaMA path gives them
-// ([18, 256, 48] bf16) each kernel moves 1.8-2.7 MB and does 0.1-0.2 GFLOP: the
-// memory bound is below a microsecond and the launch costs more than the work.
+// ([18, 256, 48]) each kernel moves 1.8-5.4 MB and does 0.1-0.2 GFLOP: the
+// memory bound is about a microsecond and the launch costs more than the work.
 // These kernels do their products with scalar FP32 FMAs from shared memory,
-// not with the tensor cores (mma/wgmma), and launch one block per 64-row tile
-// (72 blocks on 132 SMs at the main-path shape), so they are bound by
-// shared-memory traffic and by latency, far from either roofline.  That is
-// deliberate: float32 stays exact to 1e-4, which TF32 tensor cores would not
-// be; the bf16 path has its tensor-core kernels in flash_attention_sm90.cu.
+// not with the tensor cores, and launch one block per 64-row tile (72 blocks
+// on 132 SMs at the main-path shape), so they are bound by shared-memory
+// traffic and by latency, far from either roofline: 29-30x their bound in
+// float32.  The forward stays here in float32 because one TF32 product would
+// break the fp32 tolerance of 1e-4; the 3xTF32 split that holds it, done for
+// dq and dk/dv, is yet to be done for the forward.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

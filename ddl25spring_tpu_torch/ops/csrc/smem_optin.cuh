@@ -17,7 +17,10 @@ cudaError_t allow_smem(std::atomic<uint32_t>& done, K kernel, size_t bytes, int 
   if (bit && (done.load() & bit)) return cudaSuccess;
   const cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e == cudaSuccess) done.fetch_or(bit);
+  if (e == cudaSuccess)
+    done.fetch_or(bit);
+  else
+    cudaGetLastError();  // returned here; not left for the next launch's check
   return e;
 }
 

@@ -13,11 +13,17 @@ Variants, chosen by dtype and shape (``LAUNCHES_BY_VARIANT`` counts each):
   needs 16-byte row strides) and whose data pointers are 16-byte aligned.
   They round p and ds to bf16 before the second product of each pair, as
   the TPU kernels round them to the input type.
+- ``"tf32x3"`` (``csrc/flash_attention_tf32x3.cu``): ``dq`` and ``dkv`` on the
+  tensor cores for float32 operands whose head_dim is a multiple of 4 and
+  whose data pointers are 16-byte aligned (``cp.async`` moves 16-byte pieces
+  of a row).  Each operand is split as ``hi + lo``, both TF32, and each
+  product taken as three TF32 products summed in fp32, so they hold the fp32
+  tolerance of 1e-4 that one TF32 product would miss.
 - ``"scalar"`` (``csrc/flash_attention.cu``): scalar fp32 FMAs, with the same
-  roundings.  float32 operands go here by design, not as a fallback: TF32
-  tensor cores would break the fp32 tolerance of 1e-4.  bfloat16 operands
-  the tensor-core kernels do not take (head_dim not a multiple of 8,
-  misaligned pointers) go here too.
+  roundings.  The float32 forward goes here, and so do the float32 ``dq`` and
+  ``dkv`` the tf32x3 kernels do not take and the bfloat16 operands the wgmma
+  kernels do not take (head_dim not a multiple of 8, or 4 for tf32x3;
+  misaligned pointers).
 
 A failed build or launch raises; nothing gives way to another variant.
 
@@ -56,8 +62,9 @@ TILE = 64           # the CUDA kernels' tile; the plain versions walk the same t
 MAX_HEAD_DIM = 128
 
 LAUNCHES = {"fwd": 0, "dq": 0, "dkv": 0}
-LAUNCHES_BY_VARIANT = {name: {"wgmma": 0, "scalar": 0} for name in LAUNCHES}
-CAPTURED = {name: {"wgmma": 0, "scalar": 0} for name in LAUNCHES}
+VARIANTS = ("wgmma", "tf32x3", "scalar")
+LAUNCHES_BY_VARIANT = {name: dict.fromkeys(VARIANTS, 0) for name in LAUNCHES}
+CAPTURED = {name: dict.fromkeys(VARIANTS, 0) for name in LAUNCHES}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -182,10 +189,11 @@ def flash_bwd_reference(q3, k3, v3, lse, do, delta, causal: bool):
 
 @functools.cache
 def _kernels():
-    """Both libraries, built together (one ``nvcc`` each, in parallel)."""
-    scalar_path, sm90_path = _build.build(_build.CSRC / "flash_attention.cu",
-                                          _build.CSRC / "flash_attention_sm90.cu")
-    scalar, sm90 = ctypes.CDLL(str(scalar_path)), ctypes.CDLL(str(sm90_path))
+    """The three libraries, built together (one ``nvcc`` each, in parallel)."""
+    paths = _build.build(_build.CSRC / "flash_attention.cu",
+                         _build.CSRC / "flash_attention_sm90.cu",
+                         _build.CSRC / "flash_attention_tf32x3.cu")
+    scalar, sm90, tf32x3 = (ctypes.CDLL(str(p)) for p in paths)
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     tail = [i32, i32, i32, i32, f32, i32, i32, i32, ptr]  # bh Lq Lk hd scale causal dtype dev stream
     scalar.ddl_flash_fwd.argtypes = [ptr] * 5 + tail
@@ -195,17 +203,23 @@ def _kernels():
     sm90.ddl_flash_fwd_sm90.argtypes = [ptr] * 5 + tail90
     sm90.ddl_flash_dq_sm90.argtypes = [ptr] * 7 + tail90
     sm90.ddl_flash_dkv_sm90.argtypes = [ptr] * 8 + tail90
+    tf32x3.ddl_flash_dq_tf32x3.argtypes = [ptr] * 7 + tail90
+    tf32x3.ddl_flash_dkv_tf32x3.argtypes = [ptr] * 8 + tail90
     for fn in (scalar.ddl_flash_fwd, scalar.ddl_flash_dq, scalar.ddl_flash_dkv,
-               sm90.ddl_flash_fwd_sm90, sm90.ddl_flash_dq_sm90, sm90.ddl_flash_dkv_sm90):
+               sm90.ddl_flash_fwd_sm90, sm90.ddl_flash_dq_sm90, sm90.ddl_flash_dkv_sm90,
+               tf32x3.ddl_flash_dq_tf32x3, tf32x3.ddl_flash_dkv_tf32x3):
         fn.restype = ctypes.c_int
-    for fn in (scalar.ddl_flash_error_string, sm90.ddl_flash_sm90_error_string):
+    for fn in (scalar.ddl_flash_error_string, sm90.ddl_flash_sm90_error_string,
+               tf32x3.ddl_flash_tf32x3_error_string):
         fn.argtypes = [ctypes.c_int]
         fn.restype = ctypes.c_char_p
     return {"scalar": {"fwd": scalar.ddl_flash_fwd, "dq": scalar.ddl_flash_dq,
                        "dkv": scalar.ddl_flash_dkv, "error": scalar.ddl_flash_error_string},
             "wgmma": {"fwd": sm90.ddl_flash_fwd_sm90, "dq": sm90.ddl_flash_dq_sm90,
                       "dkv": sm90.ddl_flash_dkv_sm90,
-                      "error": sm90.ddl_flash_sm90_error_string}}
+                      "error": sm90.ddl_flash_sm90_error_string},
+            "tf32x3": {"dq": tf32x3.ddl_flash_dq_tf32x3, "dkv": tf32x3.ddl_flash_dkv_tf32x3,
+                       "error": tf32x3.ddl_flash_tf32x3_error_string}}
 
 
 @functools.cache
@@ -257,11 +271,15 @@ def _check(q3, k3, v3, causal, lse=None, do=None, delta=None):
 
 def _variant(name, tensors):
     """The variant that runs kernel ``name`` on ``tensors`` (q3 first), by the
-    dispatch rule of the module docstring: the tensor-core kernels take
-    bfloat16 with head_dim a multiple of 8 and every pointer 16-byte aligned."""
+    dispatch rule of the module docstring: bfloat16 with head_dim a multiple
+    of 8 goes to wgmma, float32 ``dq``/``dkv`` with head_dim a multiple of 4
+    to tf32x3, each only with every pointer 16-byte aligned."""
     q3 = tensors[0]
-    return ("wgmma" if q3.dtype == torch.bfloat16 and q3.shape[-1] % 8 == 0
-            and all(t.data_ptr() % 16 == 0 for t in tensors) else "scalar")
+    hd = q3.shape[-1]
+    aligned = all(t.data_ptr() % 16 == 0 for t in tensors)
+    if q3.dtype == torch.bfloat16:
+        return "wgmma" if hd % 8 == 0 and aligned else "scalar"
+    return "tf32x3" if name != "fwd" and hd % 4 == 0 and aligned else "scalar"
 
 
 def _launch(name: str, variant: str, *args, q3, Lk, causal):

@@ -1,5 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card,
-the launches of every pipeline schedule on the card, the ResNet-18 slice's
+the fp32 backward kernels (tf32x3) bitwise across two calls and the fp32
+shapes off their rule on the scalar variant, the launches of every pipeline
+schedule on the card, the ResNet-18 slice's
 card-only checks (the on-card dataset, fp32 against
 the CPU, bf16 channels_last against fp32), federated learning's
 (``MnistCnn`` and one FedAvg round on the card against the CPU), one
@@ -104,24 +106,81 @@ def _run_case(dev, BH, Lq, Lk, hd, dtype, causal):
     (2, 66, 66, 48, torch.bfloat16, False),
     (2, 130, 130, 48, torch.bfloat16, True),
     (2, 130, 130, 48, torch.bfloat16, False),
+    # fp32 dq and dk/dv on tf32x3: padded widths (hd 20 pads to 32), odd
+    # lengths, Lk != Lq
+    (2, 17, 17, 16, torch.float32, True),
+    (2, 100, 100, 20, torch.float32, True),
+    (2, 66, 66, 80, torch.float32, False),
+    (2, 130, 130, 112, torch.float32, True),
+    (3, 17, 40, 36, torch.float32, False),
 ])
 def test_kernels_match_plain_versions(dev, BH, Lq, Lk, hd, dtype, causal):
     runs = _run_case(dev, BH, Lq, Lk, hd, dtype, causal)
-    want = "wgmma" if dtype == torch.bfloat16 and hd % 8 == 0 else "scalar"
-    assert runs == {"fwd": {want: 1}, "dq": {want: 1}, "dkv": {want: 1}}
+    assert runs == {n: {_want(n, dtype, hd): 1} for n in ("fwd", "dq", "dkv")}
+
+
+def _want(name, dtype, hd):
+    """The variant of the dispatch rule for aligned operands."""
+    if dtype == torch.bfloat16:
+        return "wgmma" if hd % 8 == 0 else "scalar"
+    return "tf32x3" if name != "fwd" and hd % 4 == 0 else "scalar"
 
 
 def test_main_shape_dispatch(dev):
-    """At the LLaMA path's shape bf16 goes to the tensor cores, fp32 to the
-    scalar kernels."""
-    for dtype, want in ((torch.bfloat16, "wgmma"), (torch.float32, "scalar")):
+    """At the LLaMA path's shape bf16 goes to the wgmma kernels; fp32 runs
+    its forward on the scalar kernel and dq, dk/dv on the tf32x3 kernels."""
+    for dtype, want in ((torch.bfloat16, ("wgmma",) * 3),
+                        (torch.float32, ("scalar", "tf32x3", "tf32x3"))):
         x = torch.randn(18, 256, 48, device=dev).to(dtype)
         before = {n: dict(c) for n, c in fa.LAUNCHES_BY_VARIANT.items()}
         o, lse = fa.flash_fwd(x, x, x, True)
         fa.flash_dq(x, x, x, lse, x, lse, True)
         fa.flash_dkv(x, x, x, lse, x, lse, True)
         torch.cuda.synchronize()
-        assert _variant_runs(before) == {"fwd": {want: 1}, "dq": {want: 1}, "dkv": {want: 1}}
+        assert _variant_runs(before) == {n: {w: 1} for n, w in zip(("fwd", "dq", "dkv"), want)}
+
+
+@pytest.mark.parametrize("BH,Lq,Lk,hd,causal", [
+    (18, 256, 256, 48, True),
+    (2, 130, 130, 128, True),
+    (3, 17, 40, 36, False),
+])
+def test_fp32_backward_kernels_are_bitwise_repeatable(dev, BH, Lq, Lk, hd, causal):
+    """The tf32x3 dq and dk/dv use no atomics: two calls on the same inputs
+    give the same bits (the bitwise resume of chip_smoke phase 17 needs it)."""
+    g = torch.Generator().manual_seed(2)
+    q, do = (torch.randn(BH, Lq, hd, generator=g).to(dev) for _ in range(2))
+    k, v = (torch.randn(BH, Lk, hd, generator=g).to(dev) for _ in range(2))
+    o, lse = fa.flash_fwd_reference(q, k, v, causal)
+    delta = (do * o).sum(-1)
+    before = {n: dict(c) for n, c in fa.LAUNCHES_BY_VARIANT.items()}
+    first = (fa.flash_dq(q, k, v, lse, do, delta, causal),
+             *fa.flash_dkv(q, k, v, lse, do, delta, causal))
+    second = (fa.flash_dq(q, k, v, lse, do, delta, causal),
+              *fa.flash_dkv(q, k, v, lse, do, delta, causal))
+    torch.cuda.synchronize()
+    assert _variant_runs(before) == {"fwd": {}, "dq": {"tf32x3": 2}, "dkv": {"tf32x3": 2}}
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("hd,aligned", [(18, True), (48, False)])
+def test_fp32_backward_off_the_rule_runs_on_the_scalar_variant(dev, hd, aligned):
+    """fp32 at head_dim 18 (rows not 16-byte strided) or 4 bytes past
+    16-byte alignment is no ``cp.async`` source: dq and dk/dv go to the
+    scalar kernels, which are right."""
+    g = torch.Generator().manual_seed(3)
+    n = 2 * 66 * hd
+    q, k, v, do = ((torch.randn(n + 4, generator=g).to(dev)[(0 if aligned else 1):][:n]
+                    .view(2, 66, hd)) for _ in range(4))
+    o, lse = fa.flash_fwd_reference(q, k, v, True)
+    delta = (do * o).sum(-1)
+    before = {n_: dict(c) for n_, c in fa.LAUNCHES_BY_VARIANT.items()}
+    got = (fa.flash_dq(q, k, v, lse, do, delta, True), *fa.flash_dkv(q, k, v, lse, do, delta, True))
+    refs = fa.flash_bwd_reference(q, k, v, lse, do, delta, True)
+    torch.cuda.synchronize()
+    assert _variant_runs(before) == {"fwd": {}, "dq": {"scalar": 1}, "dkv": {"scalar": 1}}
+    for a, ref in zip(got, refs):
+        _close(a, ref, torch.float32)
 
 
 def test_misaligned_bf16_runs_on_the_scalar_variant(dev):
@@ -295,7 +354,8 @@ def test_schedule_launches_on_the_card(schedule_world, name):
     for r in schedule_world:
         got = r[name]
         assert got["launches"] == want
-        assert all(got["by_variant"][n] == {"wgmma": want[n], "scalar": 0} for n in want)
+        assert all(got["by_variant"][n] == {"wgmma": want[n], "tf32x3": 0, "scalar": 0}
+                   for n in want)
     losses = schedule_world[-1][name]["losses"]
     assert all(np.isfinite(losses))
     ref = schedule_world[-1]["gpipe"]["losses"]
@@ -495,8 +555,9 @@ def test_fused_graph_equals_sequential_steps(dev, bf16):
     fused = multi(window)
     eager = dict(fa.LAUNCHES)
     assert multi.graph is not None
-    variant = "wgmma" if bf16 else "scalar"
-    assert {n: c[variant] for n, c in fa.CAPTURED.items()} == {"fwd": 6, "dq": 6, "dkv": 6}
+    want = {n: {"wgmma": 6} if bf16 else {"scalar" if n == "fwd" else "tf32x3": 6}
+            for n in fa.CAPTURED}
+    assert {n: {v: c for v, c in by.items() if c} for n, by in fa.CAPTURED.items()} == want
     torch.cuda.synchronize()
     assert (fused - seq).abs().max().item() <= 1e-6
     for a, b in zip(model.parameters(), fmodel.parameters()):

@@ -206,19 +206,69 @@ def _misaligned(shape, dtype):
     ("dq", torch.bfloat16, 16, True, "wgmma"),
     ("dq", torch.bfloat16, 80, True, "wgmma"),
     ("dq", torch.bfloat16, 112, True, "wgmma"),
-    ("dq", torch.float32, 48, True, "scalar"),
+    ("dq", torch.float32, 48, True, "tf32x3"),       # fp32 backward: 3xTF32
     ("dq", torch.bfloat16, 36, True, "scalar"),
     ("dq", torch.bfloat16, 48, False, "scalar"),
-    ("fwd", torch.float32, 48, True, "scalar"),       # fp32 stays exact: by design
-    ("dkv", torch.float32, 64, True, "scalar"),
+    ("fwd", torch.float32, 48, True, "scalar"),       # the fp32 forward stays scalar
+    ("dkv", torch.float32, 64, True, "tf32x3"),
     ("fwd", torch.bfloat16, 36, True, "scalar"),      # TMA: hd a multiple of 8
     ("dkv", torch.bfloat16, 48, False, "scalar"),     # TMA: 16-byte aligned data
+    ("dkv", torch.float32, 20, True, "tf32x3"),       # cp.async: hd a multiple of 4
+    ("dq", torch.float32, 128, True, "tf32x3"),
+    ("fwd", torch.float32, 64, True, "scalar"),
+    ("dq", torch.float32, 18, True, "scalar"),        # rows not 16-byte strided
+    ("dkv", torch.float32, 18, True, "scalar"),
+    ("dq", torch.float32, 48, False, "scalar"),       # cp.async: 16-byte aligned data
+    ("dkv", torch.float32, 64, False, "scalar"),
 ])
 def test_dispatch_rule(name, dtype, hd, aligned, want):
     """Which variant a CUDA launch would take: the rule of the module
     docstring, decided from dtype, head_dim and pointers alone."""
     x = torch.zeros(2, 64, hd, dtype=dtype) if aligned else _misaligned((2, 64, hd), dtype)
     assert fa._variant(name, (x, torch.zeros(2, 64, hd, dtype=dtype))) == want
+
+
+def _tf32(x):
+    """``cvt.rna.tf32.f32``: float32 rounded to 10 mantissa bits, to nearest
+    with ties away from zero (add half of the dropped 13 bits, then clear
+    them; the sign bit is apart, so this holds for negatives too)."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def test_tf32_rounding_is_rna():
+    """The emulation against hand-made bit patterns: below, at and above the
+    halfway point, and a tie on a negative value."""
+    one = torch.tensor([1.0], dtype=torch.float32).view(torch.int32)
+    x = (one + torch.tensor([0x0FFF, 0x1000, 0x1001, 0x3000], dtype=torch.int32)).view(torch.float32)
+    got = _tf32(x).view(torch.int32) - one
+    assert got.tolist() == [0, 0x2000, 0x2000, 0x4000]
+    assert _tf32(-x).tolist() == (-_tf32(x)).tolist()
+
+
+def test_tf32x3_split():
+    """Why the fp32 backward kernels split each operand (``csrc/
+    flash_attention_tf32x3.cu``): on a seeded ``[64, 48] x [48, 64]`` tile,
+    against float64, one TF32 product misses the fp32 kernels' tolerance of
+    1e-4, while ``lo hi' + hi lo' + hi hi'`` (hi = tf32(x), lo = tf32(x -
+    hi); each product of TF32 values exact in fp32, summed in fp32, as the
+    tensor cores do) holds within 1e-6 of the tile's scale, max |a b|, no
+    worse than 2x the plain fp32 product's own rounding error."""
+    rng = np.random.default_rng(0)
+    a = torch.from_numpy(rng.standard_normal((64, 48), dtype=np.float32))
+    b = torch.from_numpy(rng.standard_normal((48, 64), dtype=np.float32))
+    exact = a.double() @ b.double()
+    scale = exact.abs().max().item()
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    # hi + lo gives back all but ~2^-22 of each value
+    assert ((a_hi.double() + a_lo.double() - a.double()).abs() <= 2.0 ** -21 * a.abs()).all()
+    one = (a_hi @ b_hi).double()
+    three = (a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi).double()
+    plain = (a @ b).double()
+    assert (one - exact).abs().max().item() > 1e-4
+    err = (three - exact).abs().max().item()
+    assert err <= 1e-6 * scale
+    assert err <= 2 * (plain - exact).abs().max().item()
 
 
 def test_reset_launches():
