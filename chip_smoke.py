@@ -6,8 +6,8 @@ Phases, in order; any failure exits non-zero and prints no result:
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build: ``nvcc`` compiles ``ops/csrc/flash_attention.cu`` (scalar kernels),
    ``ops/csrc/flash_attention_sm90.cu`` (bf16 tensor-core kernels) and
-   ``ops/csrc/flash_attention_tf32x3.cu`` (fp32 dq and dk/dv on the tensor
-   cores, 3xTF32) for sm_90a from the checkout, in parallel; the build time
+   ``ops/csrc/flash_attention_tf32x3.cu`` (the fp32 forward, dq and dk/dv on
+   the tensor cores, 3xTF32) for sm_90a from the checkout, in parallel; the build time
    and the ``ptxas`` registers and spills of every instantiation are printed;
 3. kernels: the forward, dq and dk/dv kernels against their plain PyTorch
    versions on the same inputs, on the card, at the LLaMA path's shape
@@ -15,10 +15,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    64, 48 and 40, L=17, hd 32 and 128, the tensor-core kernels at every
    instruction width (hd 16, 80, 96, 112), hd 36 (bf16 on the scalar
    variant), non-square non-causal, odd lengths with BH = 2; the fp32
-   ``tf32x3`` dq and dk/dv at hd 16-128 (20: padded to 32), L 17/66/130,
-   causal and not, Lk != Lq, each twice and bitwise equal, and fp32 at hd 18
-   and misaligned on the scalar variant; each case checks which variant each
-   kernel ran.  Plus both autograd Functions (``with_lse`` with
+   ``tf32x3`` forward, dq and dk/dv at hd 16-128 (20: padded to 32), L
+   17/66/130/200/256, causal and not, Lk != Lq, each twice and bitwise equal
+   (o and lse too), and fp32 at hd 18 and misaligned on the scalar variant;
+   each case checks which variant each kernel ran.  Plus both autograd Functions (``with_lse`` with
    a nonzero lse cotangent) on the card against the same Functions on the
    CPU, where the plain versions run;
 4. timing at the LLaMA path's shape (bf16, causal): each kernel's device time
@@ -40,8 +40,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    (a) fp32, full width, flash kernels: one step's loss and gradients against
        a single-process step on the batch of 6 from the same weights (loss
        rtol 1e-5; gradients atol 2e-4 + rtol 2e-3), then 2 Adam steps (losses
-       rtol 1e-4); every rank's forward launches on ``scalar`` and as many
-       dq and dk/dv launches, all on ``tf32x3`` (the fp32 path's kernels);
+       rtol 1e-4); every rank's forward, dq and dk/dv launches as many
+       times, all on ``tf32x3`` (the fp32 path's kernels);
    (b) the slice, ``lab.dp_pp.main``: bf16, flash kernels, 24 steps; losses
        finite and falling, the first within 1 of ln(4096), every rank on CUDA
        with each kernel launched 6 times per step, all on the tensor cores;
@@ -144,12 +144,13 @@ Phases, in order; any failure exits non-zero and prints no result:
         on the card, fp32, full-width LLaMA, 2 steps: within 1e-7, the
         difference printed, and where each bucket was issued in the backward;
     (f) the kernels' device time at the schedules' per-microbatch shape
-        ``[6, 256, 48]`` bf16 and the fp32 kernels' (forward scalar, dq and
-        dk/dv ``tf32x3``) at ``[18, 256, 48]`` causal and non-causal and
-        ``[6, 256, 48]`` causal, each beside SDPA's forward and backward; in
-        fp32 also the scalar dq and dk/dv on the same inputs, each kernel's
-        plain version, and both bounds (CUDA-core fp32 at 67 TFLOP/s; three
-        TF32 products at 495).
+        ``[6, 256, 48]`` bf16 and the fp32 kernels' (``tf32x3``) at
+        ``[18, 256, 48]`` causal and non-causal and ``[6, 256, 48]`` causal,
+        each beside SDPA's forward and backward; in fp32 also the scalar
+        forward, dq and dk/dv on the same inputs, each kernel's plain
+        version, both bounds (CUDA-core fp32 at 67 TFLOP/s; three TF32
+        products at 495), the forward against SDPA fp32's forward and the
+        pair against its backward, each as a ratio.
 
 11. fused dispatch: K train steps as one CUDA graph
     (``parallel/pipeline.fuse_train_steps``) and the FedAvg client axis
@@ -379,8 +380,7 @@ Phases, in order; any failure exits non-zero and prints no result:
         record ``{"data": 4} -> {"data": 2}``, steps lost 0; the
         ``AutoSaver`` checkpoint of n = 4 (``leaf_shapes`` ``[4, k]`` /
         ``[L, 4, k]``) restored by ``restore_or_init`` on n = 2 bitwise the
-        live reshape's state; 6/6/6 launches a step, the forward on
-        ``scalar``, dq and dk/dv on ``tf32x3``;
+        live reshape's state; 6/6/6 launches a step, all on ``tf32x3``;
     (e) written down, not gated: the lab's median step with ``--ckpt-every
         2`` and without (one more unchecked run), each async save's blocking
         wall, a warm single-process restore of the 2 x 3 checkpoint, the
@@ -446,11 +446,12 @@ the kernel's nodes in (b)'s guarded graph of 16 steps, and
 phase 17 (a)'s run A, ``launches_ft_zero3_per_rank_per_step`` each rank's
 per step in each run of phase 17 (d), and ``launches_serve_per_tick`` the
 kernel's launches (eager and captured) over phase 18 per decode tick run (0).
-The rows ``flash_dq_tf32x3`` and ``flash_dkv_tf32x3`` are the fp32 path's:
-``launches`` its launches over phase 7 (a)'s six ranks, ``max_abs_err``
-phase 3's at ``[18, 256, 48]`` fp32 causal, the times phase 10 (f)'s at that
-shape (``library_ms`` null: no one call computes dq or dk/dv alone;
-``sdpa_bwd_ms`` SDPA fp32's backward), ``bound_ms`` on the tensor cores.
+The rows ``flash_fwd_tf32x3``, ``flash_dq_tf32x3`` and ``flash_dkv_tf32x3``
+are the fp32 path's: ``launches`` its launches over phase 7 (a)'s six ranks,
+``max_abs_err`` phase 3's at ``[18, 256, 48]`` fp32 causal, the times phase 10
+(f)'s at that shape (``library_ms`` SDPA fp32's forward for the forward, null
+for dq and dk/dv: no one call computes either alone; ``sdpa_bwd_ms`` SDPA
+fp32's backward), ``bound_ms`` on the tensor cores.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -573,11 +574,11 @@ def randn(gen, *shape, dtype, dev):
 
 def want_variant(name, dtype, hd):
     """The variant the dispatch rule names for kernel ``name`` on aligned
-    operands: bf16 on wgmma at hd a multiple of 8, fp32 dq and dk/dv on
-    tf32x3 at hd a multiple of 4, the rest on scalar."""
+    operands (the same for the three kernels): bf16 on wgmma at hd a multiple
+    of 8, fp32 on tf32x3 at hd a multiple of 4, the rest on scalar."""
     if dtype == torch.bfloat16:
         return "wgmma" if hd % 8 == 0 else "scalar"
-    return "tf32x3" if name != "fwd" and hd % 4 == 0 else "scalar"
+    return "tf32x3" if hd % 4 == 0 else "scalar"
 
 
 def kernel_case(fa, gen, dev, BH, Lq, Lk, hd, dtype, causal):
@@ -605,9 +606,10 @@ def kernel_case(fa, gen, dev, BH, Lq, Lk, hd, dtype, causal):
         ran = {v_: n - before[name][v_] for v_, n in fa.LAUNCHES_BY_VARIANT[name].items()}
         check(ran[want[name]] == 1 and sum(ran.values()) == 1, f"{tag}: {name} ran {ran}")
     if want["dq"] == "tf32x3":
-        again = (fa.flash_dq(q, k, v, lse_ref, do, delta, causal),
+        again = (*fa.flash_fwd(q, k, v, causal),
+                 fa.flash_dq(q, k, v, lse_ref, do, delta, causal),
                  *fa.flash_dkv(q, k, v, lse_ref, do, delta, causal))
-        check(all(torch.equal(a, b) for a, b in zip(again, (dq, dk, dv))),
+        check(all(torch.equal(a, b) for a, b in zip(again, (o, lse, dq, dk, dv))),
               f"{tag}: a second call of the tf32x3 kernels gave other bits")
     pairs = {"o": (o, o_ref), "lse": (lse, lse_ref), "dq": (dq, dq_ref),
              "dk": (dk, dk_ref), "dv": (dv, dv_ref)}
@@ -626,27 +628,28 @@ def kernel_case(fa, gen, dev, BH, Lq, Lk, hd, dtype, causal):
 
 def misaligned_fp32_case(fa, gen, dev):
     """fp32 views 4 bytes past 16-byte alignment cannot be ``cp.async``
-    sources: the dispatch sends dq and dk/dv to the scalar kernels, which are
-    right (fp32 tolerance)."""
+    sources: the dispatch sends the forward, dq and dk/dv to the scalar
+    kernels, which are right (fp32 tolerance)."""
     BH, L, hd, n = 2, 66, 48, 2 * 66 * 48
     q, k, v, do = (randn(gen, n + 4, dtype=torch.float32, dev=dev)[1:n + 1].view(BH, L, hd)
                    for _ in range(4))
     o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, True)
     delta = (do * o_ref).sum(-1)
     before = {n_: dict(c) for n_, c in fa.LAUNCHES_BY_VARIANT.items()}
-    got = (fa.flash_dq(q, k, v, lse_ref, do, delta, True),
+    got = (*fa.flash_fwd(q, k, v, True), fa.flash_dq(q, k, v, lse_ref, do, delta, True),
            *fa.flash_dkv(q, k, v, lse_ref, do, delta, True))
-    refs = fa.flash_bwd_reference(q, k, v, lse_ref, do, delta, True)
+    refs = (o_ref, lse_ref, *fa.flash_bwd_reference(q, k, v, lse_ref, do, delta, True))
     torch.cuda.synchronize()
-    for name in ("dq", "dkv"):
+    for name in ("fwd", "dq", "dkv"):
         ran = {v_: c - before[name][v_] for v_, c in fa.LAUNCHES_BY_VARIANT[name].items()}
         check(ran["scalar"] == 1 and sum(ran.values()) == 1,
               f"misaligned fp32: {name} ran {ran}, not the scalar variant")
-    for name, a, ref in zip(("dq", "dk", "dv"), got, refs):
+    names = ("o", "lse", "dq", "dk", "dv")
+    for name, a, ref in zip(names, got, refs):
         e = excess(a, ref, TOL[torch.float32])
         check(e <= 0, f"misaligned fp32: {name} off its plain version by {e:.3g}")
-    print(f"  kernels [{BH},{L},{L},{hd}] float32 misaligned by 4 bytes: dq, dk/dv on scalar, "
-          + " ".join(f"{n_}={max_err(a, r):.2e}" for n_, a, r in zip(("dq", "dk", "dv"), got, refs)))
+    print(f"  kernels [{BH},{L},{L},{hd}] float32 misaligned by 4 bytes: forward, dq, dk/dv on "
+          "scalar, " + " ".join(f"{n_}={max_err(a, r):.2e}" for n_, a, r in zip(names, got, refs)))
 
 
 def autograd_case(fa, gen, dev, shape, dtype, causal, with_lse):
@@ -944,13 +947,11 @@ def dp_pp_exactness(dev):
     for r in ranks:
         n, by = r["launches"]["fwd"], r["launches_by_variant"]
         check(n > 0 and r["launches"] == {"fwd": n, "dq": n, "dkv": n}
-              and by["fwd"]["scalar"] == n and by["dq"]["tf32x3"] == n
-              and by["dkv"]["tf32x3"] == n,
-              f"(a) rank {r['rank']}: fp32 launches by variant {by}, not the forward on "
-              "scalar and dq, dk/dv as often on tf32x3")
+              and all(by[k]["tf32x3"] == n for k in ("fwd", "dq", "dkv")),
+              f"(a) rank {r['rank']}: fp32 launches by variant {by}, not the forward, dq "
+              "and dk/dv as often, all on tf32x3")
     launches = {k: sum(r["launches"][k] for r in ranks) for k in ("fwd", "dq", "dkv")}
-    print(f"  (a) flash launches over the {len(ranks)} ranks {launches}: fwd on scalar, dq "
-          f"and dk/dv on tf32x3")
+    print(f"  (a) flash launches over the {len(ranks)} ranks {launches}: all on tf32x3")
     return launches
 
 
@@ -1859,9 +1860,10 @@ def kernel_times_at(rdv, cases, tag):
     """Device time per call of the three kernels on bf16 or fp32 inputs at
     each case ``(B, H, L, dtype, causal)`` (folded ``[B H, L, 48]``), each
     beside its bound and SDPA's forward and backward on the same inputs and
-    causality; in fp32 also the scalar dq and dk/dv launched past the
-    dispatch rule, each kernel's plain version (CUDA events over 20 calls)
-    and the bound on the CUDA cores beside the variant's.  Run in a process
+    causality; in fp32 also the scalar forward, dq and dk/dv launched past
+    the dispatch rule, each kernel's plain version (CUDA events over 20
+    calls), the bound on the CUDA cores beside the variant's, and the
+    forward and the backward pair each against SDPA's as a ratio.  Run in a process
     of its own (phases 10 (f), 12 (c)), because a process that has already
     held several profiler sessions (phases 4, 6, 8 (c), 9 (d)) was seen to
     record 35 of 50 launches in every retry.  Returns the times and the
@@ -1892,7 +1894,10 @@ def kernel_times_at(rdv, cases, tag):
         variants = {n: fa._variant(n, (q, k, v)) for n in ("fwd", "dq", "dkv")}
         plain_ms = {}
         if dtype == torch.float32:
-            dq_s, dk_s, dv_s = (torch.empty_like(q) for _ in range(3))
+            dq_s, dk_s, dv_s, o_s = (torch.empty_like(q) for _ in range(4))
+            lse_s = torch.empty_like(lse)
+            calls["scalar fwd"] = lambda: fa._launch("fwd", "scalar", q, k, v, o_s, lse_s,
+                                                     q3=q, Lk=L, causal=causal)
             calls["scalar dq"] = lambda: fa._launch("dq", "scalar", q, k, v, do, lse, delta,
                                                     dq_s, q3=q, Lk=L, causal=causal)
             calls["scalar dkv"] = lambda: fa._launch("dkv", "scalar", q, k, v, do, lse, delta,
@@ -1927,6 +1932,10 @@ def kernel_times_at(rdv, cases, tag):
         lines.append(f"  {tag} {key}, device ms per call: "
                      + ", ".join(f"{n} {t:.5f}{about(n)}" for n, t in row.items()))
         if "scalar dq" in row:
+            lines.append(f"  {tag} {key}: forward ({variants['fwd']}) {row['fwd']:.5f} ms "
+                         f"against SDPA forward {row['sdpa fwd']:.5f} "
+                         f"({row['fwd'] / row['sdpa fwd']:.2f}x) and the scalar forward "
+                         f"{row['scalar fwd']:.5f}")
             pair = row["dq"] + row["dkv"]
             lines.append(f"  {tag} {key}: dq + dk/dv ({variants['dq']}) {pair:.5f} ms against "
                          f"SDPA backward {row['sdpa bwd']:.5f} ({pair / row['sdpa bwd']:.2f}x) "
@@ -4938,8 +4947,7 @@ def ft_zero_checks(ranks, ckpt_dir) -> tuple[dict, list[str]]:
     for r in ranks:
         for tag, c in r["by_variant"].items():
             n = r["launches"][tag]
-            want_v = {"fwd": {"scalar": n["fwd"]}, "dq": {"tf32x3": n["dq"]},
-                      "dkv": {"tf32x3": n["dkv"]}}
+            want_v = {k: {"tf32x3": n[k]} for k in ("fwd", "dq", "dkv")}
             check(c == want_v, f"(d) rank {r['rank']} {tag} launches per step by variant {c}, "
                                f"not {want_v}")
     walls = {k: max(r[f"{k}"]["wall_s"] for r in ranks) * 1e3
@@ -4954,8 +4962,8 @@ def ft_zero_checks(ranks, ckpt_dir) -> tuple[dict, list[str]]:
                  f"{len(rows2)} x [4, k], {len(rows3)} x [L, 4, k]; reshape walls "
                  f"{walls[f'{FT_ZERO_N}->2']:.1f} / {walls[f'2->{FT_ZERO_N}']:.1f} ms, "
                  f"a synchronous save at n = 4 {save_ms:.1f} ms, the cross-mesh restore "
-                 f"{restore_ms:.1f} ms (slowest rank); flash launches a step {launches}, the "
-                 "forward on scalar, dq and dk/dv on tf32x3, every rank")
+                 f"{restore_ms:.1f} ms (slowest rank); flash launches a step {launches}, all "
+                 "on tf32x3, every rank")
     return {"launches": [r["launches"] for r in ranks], "reshape_ms": walls,
             "save_ms": save_ms, "restore_ms": restore_ms}, lines
 
@@ -5463,11 +5471,12 @@ def main() -> int:
          "replaces": REPLACES[name], "launches": fp32_launches[name],
          "max_abs_err": fp32_err[name], "ms": fp32_times["ms"][name],
          "plain_ms": fp32_times["plain_ms"][name], "bound_ms": fp32_times["bound_ms"][name],
-         "bound_by": fp32_times["bound_by"][name], "library_ms": None,
+         "bound_by": fp32_times["bound_by"][name],
+         "library_ms": fp32_times["ms"]["sdpa fwd"] if name == "fwd" else None,
          "bound_ms_cuda_cores": fp32_times["bound_ms_cuda_cores"][name],
          "scalar_device_ms": fp32_times["ms"][f"scalar {name}"],
          "sdpa_bwd_ms": fp32_times["ms"]["sdpa bwd"]}
-        for name in ("dq", "dkv")
+        for name in ("fwd", "dq", "dkv")
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

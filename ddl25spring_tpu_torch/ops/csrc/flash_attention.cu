@@ -11,11 +11,11 @@
 // type when they are stored, and so are p (forward, dk/dv) and ds (dq, dk/dv)
 // before the second product, as the TPU kernels round them (a no-op for
 // float32).  These are the kernels of what the tensor-core ones do not take:
-// the float32 forward (always), float32 dq and dk/dv whose head_dim is not a
-// multiple of 4 or whose pointers are not 16-byte aligned (the 3xTF32 kernels
-// of flash_attention_tf32x3.cu stage rows by 16-byte cp.async), and bf16 at a
-// head_dim not a multiple of 8 or misaligned (the wgmma kernels of
-// flash_attention_sm90.cu need TMA's 16-byte strides).
+// float32 whose head_dim is not a multiple of 4 or whose pointers are not
+// 16-byte aligned (the 3xTF32 kernels of flash_attention_tf32x3.cu stage rows
+// by 16-byte cp.async), and bf16 at a head_dim not a multiple of 8 or
+// misaligned (the wgmma kernels of flash_attention_sm90.cu need TMA's 16-byte
+// strides).
 //
 // Design.  The TPU kernels walk the contraction axis as the innermost,
 // sequential grid dimension and carry the online state in VMEM scratch across
@@ -34,9 +34,8 @@
 // not with the tensor cores, and launch one block per 64-row tile (72 blocks
 // on 132 SMs at the main-path shape), so they are bound by shared-memory
 // traffic and by latency, far from either roofline: 29-30x their bound in
-// float32.  The forward stays here in float32 because one TF32 product would
-// break the fp32 tolerance of 1e-4; the 3xTF32 split that holds it, done for
-// dq and dk/dv, is yet to be done for the forward.
+// float32.  They are not made faster: the shapes the LLaMA paths give run on
+// the tensor-core kernels, and these take only the shapes those refuse.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -13,17 +13,16 @@ Variants, chosen by dtype and shape (``LAUNCHES_BY_VARIANT`` counts each):
   needs 16-byte row strides) and whose data pointers are 16-byte aligned.
   They round p and ds to bf16 before the second product of each pair, as
   the TPU kernels round them to the input type.
-- ``"tf32x3"`` (``csrc/flash_attention_tf32x3.cu``): ``dq`` and ``dkv`` on the
+- ``"tf32x3"`` (``csrc/flash_attention_tf32x3.cu``): all three kernels on the
   tensor cores for float32 operands whose head_dim is a multiple of 4 and
   whose data pointers are 16-byte aligned (``cp.async`` moves 16-byte pieces
   of a row).  Each operand is split as ``hi + lo``, both TF32, and each
   product taken as three TF32 products summed in fp32, so they hold the fp32
   tolerance of 1e-4 that one TF32 product would miss.
 - ``"scalar"`` (``csrc/flash_attention.cu``): scalar fp32 FMAs, with the same
-  roundings.  The float32 forward goes here, and so do the float32 ``dq`` and
-  ``dkv`` the tf32x3 kernels do not take and the bfloat16 operands the wgmma
-  kernels do not take (head_dim not a multiple of 8, or 4 for tf32x3;
-  misaligned pointers).
+  roundings, for the float32 operands the tf32x3 kernels do not take and the
+  bfloat16 operands the wgmma kernels do not take (head_dim not a multiple of
+  8, or 4 for tf32x3; misaligned pointers).
 
 A failed build or launch raises; nothing gives way to another variant.
 
@@ -203,11 +202,13 @@ def _kernels():
     sm90.ddl_flash_fwd_sm90.argtypes = [ptr] * 5 + tail90
     sm90.ddl_flash_dq_sm90.argtypes = [ptr] * 7 + tail90
     sm90.ddl_flash_dkv_sm90.argtypes = [ptr] * 8 + tail90
+    tf32x3.ddl_flash_fwd_tf32x3.argtypes = [ptr] * 5 + tail90
     tf32x3.ddl_flash_dq_tf32x3.argtypes = [ptr] * 7 + tail90
     tf32x3.ddl_flash_dkv_tf32x3.argtypes = [ptr] * 8 + tail90
     for fn in (scalar.ddl_flash_fwd, scalar.ddl_flash_dq, scalar.ddl_flash_dkv,
                sm90.ddl_flash_fwd_sm90, sm90.ddl_flash_dq_sm90, sm90.ddl_flash_dkv_sm90,
-               tf32x3.ddl_flash_dq_tf32x3, tf32x3.ddl_flash_dkv_tf32x3):
+               tf32x3.ddl_flash_fwd_tf32x3, tf32x3.ddl_flash_dq_tf32x3,
+               tf32x3.ddl_flash_dkv_tf32x3):
         fn.restype = ctypes.c_int
     for fn in (scalar.ddl_flash_error_string, sm90.ddl_flash_sm90_error_string,
                tf32x3.ddl_flash_tf32x3_error_string):
@@ -218,7 +219,8 @@ def _kernels():
             "wgmma": {"fwd": sm90.ddl_flash_fwd_sm90, "dq": sm90.ddl_flash_dq_sm90,
                       "dkv": sm90.ddl_flash_dkv_sm90,
                       "error": sm90.ddl_flash_sm90_error_string},
-            "tf32x3": {"dq": tf32x3.ddl_flash_dq_tf32x3, "dkv": tf32x3.ddl_flash_dkv_tf32x3,
+            "tf32x3": {"fwd": tf32x3.ddl_flash_fwd_tf32x3, "dq": tf32x3.ddl_flash_dq_tf32x3,
+                       "dkv": tf32x3.ddl_flash_dkv_tf32x3,
                        "error": tf32x3.ddl_flash_tf32x3_error_string}}
 
 
@@ -272,14 +274,15 @@ def _check(q3, k3, v3, causal, lse=None, do=None, delta=None):
 def _variant(name, tensors):
     """The variant that runs kernel ``name`` on ``tensors`` (q3 first), by the
     dispatch rule of the module docstring: bfloat16 with head_dim a multiple
-    of 8 goes to wgmma, float32 ``dq``/``dkv`` with head_dim a multiple of 4
-    to tf32x3, each only with every pointer 16-byte aligned."""
+    of 8 goes to wgmma, float32 with head_dim a multiple of 4 to tf32x3, each
+    only with every pointer 16-byte aligned; the rest to scalar.  The rule is
+    the same for the three kernels (``name`` does not change it)."""
     q3 = tensors[0]
     hd = q3.shape[-1]
     aligned = all(t.data_ptr() % 16 == 0 for t in tensors)
     if q3.dtype == torch.bfloat16:
         return "wgmma" if hd % 8 == 0 and aligned else "scalar"
-    return "tf32x3" if name != "fwd" and hd % 4 == 0 and aligned else "scalar"
+    return "tf32x3" if hd % 4 == 0 and aligned else "scalar"
 
 
 def _launch(name: str, variant: str, *args, q3, Lk, causal):

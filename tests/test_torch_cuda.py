@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card,
-the fp32 backward kernels (tf32x3) bitwise across two calls and the fp32
-shapes off their rule on the scalar variant, the launches of every pipeline
+the fp32 kernels (tf32x3: forward, dq and dk/dv) bitwise across two calls and
+the fp32 shapes off their rule on the scalar variant, the launches of every pipeline
 schedule on the card, the ResNet-18 slice's
 card-only checks (the on-card dataset, fp32 against
 the CPU, bf16 channels_last against fp32), federated learning's
@@ -106,8 +106,7 @@ def _run_case(dev, BH, Lq, Lk, hd, dtype, causal):
     (2, 66, 66, 48, torch.bfloat16, False),
     (2, 130, 130, 48, torch.bfloat16, True),
     (2, 130, 130, 48, torch.bfloat16, False),
-    # fp32 dq and dk/dv on tf32x3: padded widths (hd 20 pads to 32), odd
-    # lengths, Lk != Lq
+    # fp32 on tf32x3: padded widths (hd 20 pads to 32), odd lengths, Lk != Lq
     (2, 17, 17, 16, torch.float32, True),
     (2, 100, 100, 20, torch.float32, True),
     (2, 66, 66, 80, torch.float32, False),
@@ -123,14 +122,14 @@ def _want(name, dtype, hd):
     """The variant of the dispatch rule for aligned operands."""
     if dtype == torch.bfloat16:
         return "wgmma" if hd % 8 == 0 else "scalar"
-    return "tf32x3" if name != "fwd" and hd % 4 == 0 else "scalar"
+    return "tf32x3" if hd % 4 == 0 else "scalar"
 
 
 def test_main_shape_dispatch(dev):
-    """At the LLaMA path's shape bf16 goes to the wgmma kernels; fp32 runs
-    its forward on the scalar kernel and dq, dk/dv on the tf32x3 kernels."""
+    """At the LLaMA path's shape bf16 goes to the wgmma kernels and fp32 to
+    the tf32x3 kernels."""
     for dtype, want in ((torch.bfloat16, ("wgmma",) * 3),
-                        (torch.float32, ("scalar", "tf32x3", "tf32x3"))):
+                        (torch.float32, ("tf32x3",) * 3)):
         x = torch.randn(18, 256, 48, device=dev).to(dtype)
         before = {n: dict(c) for n, c in fa.LAUNCHES_BY_VARIANT.items()}
         o, lse = fa.flash_fwd(x, x, x, True)
@@ -145,29 +144,32 @@ def test_main_shape_dispatch(dev):
     (2, 130, 130, 128, True),
     (3, 17, 40, 36, False),
 ])
-def test_fp32_backward_kernels_are_bitwise_repeatable(dev, BH, Lq, Lk, hd, causal):
-    """The tf32x3 dq and dk/dv use no atomics: two calls on the same inputs
-    give the same bits (the bitwise resume of chip_smoke phase 17 needs it)."""
+def test_fp32_kernels_are_bitwise_repeatable(dev, BH, Lq, Lk, hd, causal):
+    """The tf32x3 forward (o and lse), dq and dk/dv use no atomics: two calls
+    on the same inputs give the same bits (the bitwise resume of chip_smoke
+    phase 17 needs it)."""
     g = torch.Generator().manual_seed(2)
     q, do = (torch.randn(BH, Lq, hd, generator=g).to(dev) for _ in range(2))
     k, v = (torch.randn(BH, Lk, hd, generator=g).to(dev) for _ in range(2))
     o, lse = fa.flash_fwd_reference(q, k, v, causal)
     delta = (do * o).sum(-1)
     before = {n: dict(c) for n, c in fa.LAUNCHES_BY_VARIANT.items()}
-    first = (fa.flash_dq(q, k, v, lse, do, delta, causal),
-             *fa.flash_dkv(q, k, v, lse, do, delta, causal))
-    second = (fa.flash_dq(q, k, v, lse, do, delta, causal),
-              *fa.flash_dkv(q, k, v, lse, do, delta, causal))
+
+    def run():
+        return (*fa.flash_fwd(q, k, v, causal), fa.flash_dq(q, k, v, lse, do, delta, causal),
+                *fa.flash_dkv(q, k, v, lse, do, delta, causal))
+
+    first, second = run(), run()
     torch.cuda.synchronize()
-    assert _variant_runs(before) == {"fwd": {}, "dq": {"tf32x3": 2}, "dkv": {"tf32x3": 2}}
+    assert _variant_runs(before) == {n: {"tf32x3": 2} for n in ("fwd", "dq", "dkv")}
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.parametrize("hd,aligned", [(18, True), (48, False)])
 def test_fp32_backward_off_the_rule_runs_on_the_scalar_variant(dev, hd, aligned):
     """fp32 at head_dim 18 (rows not 16-byte strided) or 4 bytes past
-    16-byte alignment is no ``cp.async`` source: dq and dk/dv go to the
-    scalar kernels, which are right."""
+    16-byte alignment is no ``cp.async`` source: the forward, dq and dk/dv
+    go to the scalar kernels, which are right."""
     g = torch.Generator().manual_seed(3)
     n = 2 * 66 * hd
     q, k, v, do = ((torch.randn(n + 4, generator=g).to(dev)[(0 if aligned else 1):][:n]
@@ -175,10 +177,11 @@ def test_fp32_backward_off_the_rule_runs_on_the_scalar_variant(dev, hd, aligned)
     o, lse = fa.flash_fwd_reference(q, k, v, True)
     delta = (do * o).sum(-1)
     before = {n_: dict(c) for n_, c in fa.LAUNCHES_BY_VARIANT.items()}
-    got = (fa.flash_dq(q, k, v, lse, do, delta, True), *fa.flash_dkv(q, k, v, lse, do, delta, True))
-    refs = fa.flash_bwd_reference(q, k, v, lse, do, delta, True)
+    got = (*fa.flash_fwd(q, k, v, True), fa.flash_dq(q, k, v, lse, do, delta, True),
+           *fa.flash_dkv(q, k, v, lse, do, delta, True))
+    refs = (o, lse, *fa.flash_bwd_reference(q, k, v, lse, do, delta, True))
     torch.cuda.synchronize()
-    assert _variant_runs(before) == {"fwd": {}, "dq": {"scalar": 1}, "dkv": {"scalar": 1}}
+    assert _variant_runs(before) == {n_: {"scalar": 1} for n_ in ("fwd", "dq", "dkv")}
     for a, ref in zip(got, refs):
         _close(a, ref, torch.float32)
 
@@ -555,8 +558,7 @@ def test_fused_graph_equals_sequential_steps(dev, bf16):
     fused = multi(window)
     eager = dict(fa.LAUNCHES)
     assert multi.graph is not None
-    want = {n: {"wgmma": 6} if bf16 else {"scalar" if n == "fwd" else "tf32x3": 6}
-            for n in fa.CAPTURED}
+    want = {n: {"wgmma" if bf16 else "tf32x3": 6} for n in fa.CAPTURED}
     assert {n: {v: c for v, c in by.items() if c} for n, by in fa.CAPTURED.items()} == want
     torch.cuda.synchronize()
     assert (fused - seq).abs().max().item() <= 1e-6

@@ -209,13 +209,15 @@ def _misaligned(shape, dtype):
     ("dq", torch.float32, 48, True, "tf32x3"),       # fp32 backward: 3xTF32
     ("dq", torch.bfloat16, 36, True, "scalar"),
     ("dq", torch.bfloat16, 48, False, "scalar"),
-    ("fwd", torch.float32, 48, True, "scalar"),       # the fp32 forward stays scalar
+    ("fwd", torch.float32, 48, True, "tf32x3"),       # the fp32 forward: 3xTF32 too
     ("dkv", torch.float32, 64, True, "tf32x3"),
     ("fwd", torch.bfloat16, 36, True, "scalar"),      # TMA: hd a multiple of 8
     ("dkv", torch.bfloat16, 48, False, "scalar"),     # TMA: 16-byte aligned data
     ("dkv", torch.float32, 20, True, "tf32x3"),       # cp.async: hd a multiple of 4
     ("dq", torch.float32, 128, True, "tf32x3"),
-    ("fwd", torch.float32, 64, True, "scalar"),
+    ("fwd", torch.float32, 64, True, "tf32x3"),
+    ("fwd", torch.float32, 18, True, "scalar"),       # rows not 16-byte strided
+    ("fwd", torch.float32, 48, False, "scalar"),      # cp.async: 16-byte aligned data
     ("dq", torch.float32, 18, True, "scalar"),        # rows not 16-byte strided
     ("dkv", torch.float32, 18, True, "scalar"),
     ("dq", torch.float32, 48, False, "scalar"),       # cp.async: 16-byte aligned data
@@ -269,6 +271,81 @@ def test_tf32x3_split():
     err = (three - exact).abs().max().item()
     assert err <= 1e-6 * scale
     assert err <= 2 * (plain - exact).abs().max().item()
+
+
+LOG2E = 1.4426950408889634
+
+
+def _mm3(a, b):
+    """``a @ b`` as the tf32x3 kernels take it: ``lo hi' + hi lo' + hi hi'``."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    return _tf32(a - a_hi) @ b_hi + a_hi @ _tf32(b - b_hi) + a_hi @ b_hi
+
+
+def _fwd_tf32x3_design(q, k, v, causal, own=32, warps=8):
+    """``flash_fwd_tf32x3``'s arithmetic in torch: blocks of ``own`` query
+    rows, whose warps take 16 rows each times a quarter (``span`` keys) of
+    each 64-row KV tile up to the block's last row (causal); each warp keeps an
+    online state in log2 units, skips a quarter wholly above the diagonal or
+    past Lk and zeroes p under the mask; the states of each row are merged in
+    the order of the quarters, scaled to their common max."""
+    BH, Lq, hd = q.shape
+    Lk = k.shape[1]
+    sl2 = hd ** -0.5 * LOG2E
+    wn = warps // (own // 16)
+    span = fa.TILE // wn
+    o, lse = torch.empty_like(q), torch.empty(BH, Lq)
+    for q0 in range(0, Lq, own):
+        kv_end = min(Lk, q0 + own) if causal else Lk
+        for r0 in range(q0, min(q0 + own, Lq), 16):
+            qb = q[:, r0:r0 + 16]
+            rows = torch.arange(r0, r0 + qb.shape[1])[:, None]
+            states = []
+            for w in range(wn):
+                m = torch.full((BH, qb.shape[1]), fa.NEG_INF)
+                l, acc = torch.zeros_like(m), torch.zeros_like(qb)
+                for c0 in range(w * span, kv_end, fa.TILE):
+                    if c0 >= Lk or (causal and c0 > r0 + 15):
+                        continue
+                    kb, vb = k[:, c0:c0 + span], v[:, c0:c0 + span]
+                    cols = torch.arange(c0, c0 + kb.shape[1])[None, :]
+                    live = (cols <= rows) if causal else torch.ones_like(cols, dtype=bool)
+                    s = (_mm3(qb, kb.transpose(1, 2)) * sl2).masked_fill(~live, fa.NEG_INF)
+                    m_new = torch.maximum(m, s.amax(-1))
+                    corr = torch.exp2(m - m_new)
+                    p = torch.exp2(s - m_new[..., None]).masked_fill(~live, 0.0)
+                    l = l * corr + p.sum(-1)
+                    acc = acc * corr[..., None] + _mm3(p, vb)
+                    m = m_new
+                states.append((m, l, acc))
+            mt = torch.stack([m for m, _, _ in states]).amax(0)
+            l_sum, o_sum = 0.0, 0.0
+            for m, l, acc in states:
+                c = torch.exp2(m - mt)
+                l_sum, o_sum = l_sum + c * l, o_sum + c[..., None] * acc
+            o[:, r0:r0 + 16] = o_sum / l_sum[..., None]
+            lse[:, r0:r0 + 16] = mt / LOG2E + torch.log(l_sum)
+    return o, lse
+
+
+def test_tf32x3_forward_design():
+    """The fp32 forward kernel's design, emulated in torch on a seeded causal
+    ``[2, 130, 48]``: quarter-span warp states (rows 0-15 see no key of
+    quarters 1-3 of the first tile: those states stay empty and weigh 0 in
+    the merge), 3xTF32 products, the fixed-order merge.  Within 1e-5 of
+    ``flash_fwd_reference`` and 1e-4 of the JAX forward (Pallas in
+    interpret mode)."""
+    q, k, v = _inputs(7, (1, 130, 2, 48), n_extra=0)
+    tq, tk, tv = (fa._fold(torch.from_numpy(a)) for a in (q, k, v))
+    o, lse = _fwd_tf32x3_design(tq, tk, tv, True)
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    o_ref, lse_ref = fa.flash_fwd_reference(tq, tk, tv, True)
+    assert (o - o_ref).abs().max().item() <= 1e-5
+    assert (lse - lse_ref).abs().max().item() <= 1e-5
+    o_j, lse_j = jax_flash_lse(q, k, v, causal=True, interpret=True)
+    np.testing.assert_allclose(o.view(1, 2, 130, 48).transpose(1, 2).numpy(), np.asarray(o_j),
+                               atol=1e-4)
+    np.testing.assert_allclose(lse.view(1, 2, 130).numpy(), np.asarray(lse_j), atol=1e-4)
 
 
 def test_reset_launches():
