@@ -418,7 +418,34 @@ Phases, in order; any failure exits non-zero and prints no result:
         the median tick, and over ``SERVE_PROFILED`` more under
         torch.profiler the device busy time and idle share, the kernels and
         the host's launch and copy calls a tick; both engines decode the
-        same tokens.
+        same tokens;
+19. speculative decoding and elastic serving on the card (no flash kernel on
+    either path: 0 launches over the phase, eager or captured), each
+    sub-phase timed:
+    (a) fp32 (TF32 off), ``tiny-deep`` and the full-width config with
+        ``spec_k`` = ``SPEC_K`` on the smoke trace and the virtual clock,
+        graphed and eager on the card and on the CPU: the spec streams equal
+        each other, a non-spec engine's and dense ``generate`` on the card;
+        the accept counts and token timeline equal the CPU's; some full
+        accept took the (k+1)-step draft (tiny-deep, and at full width with
+        a full-depth drafter: the seeded full-width weights give the 1-layer
+        drafter next to no agreement); both pools bitwise graphed == eager,
+        the drafter's empty and neither leaking at drain, the mirror
+        asserted every step;
+    (b) ``DDL25_SERVE_SPEC=1 bench.main(["--serve", "--serve-model", "ref",
+        ...])`` (bf16, sentinels on, the ramp cut as in 18 (b)): the spec
+        ramp drains clean and the spec A/B's streams are equal (its
+        acceptance and advantage printed); the same bench on ``tiny-deep``
+        (the smoke knobs) with drafts accepted and ``serve_report
+        --check-spec-ab`` passing on its row; then the graphed spec round
+        against the graphed decode tick at 4 slots, full width: median
+        wall, device busy and tokens a slot per step;
+    (c) ``elastic_serve_run`` at full width (bf16) on the ramp trace under
+        each of ``ELASTIC_CHAOS`` (memscope on): zero dropped requests, every
+        completed stream the non-elastic engine's, each retired replica's
+        allocator step-down above 0 bytes (printed beside its pool's bytes)
+        and ``check_reshape`` clean; then ``DDL25_CHAOS=device_loss@20
+        bench --serve`` and ``serve_report --check-reshape`` on its row.
 
 Tolerances (|kernel - plain| <= atol + rtol * |plain|):
   fp32: atol 1e-4, rtol 0 (summation order only);
@@ -5244,6 +5271,351 @@ def serve_phase(dev) -> dict:
     return {"launches_per_tick": {n: c / ticks for n, c in launches.items()}, "cells": cells}
 
 
+SPEC_K = 2                      # phase 19: drafts a round (the bench's DDL25_SERVE_SPEC_K default)
+SPEC_STEPS = 25                 # (b): timed scheduler steps per engine and turn
+SPEC_PROFILED = 10              # (b): steps under torch.profiler per engine
+# (c): the chaos of each elastic run on the ramp trace cut to SERVE_RAMP_S (19
+# requests, ~30 iterations of the elastic run's clock): a loss that hands one queued
+# request over while the victim still decodes, a burst of 16 that the
+# autoscaler answers, and a shrink to one replica
+ELASTIC_CHAOS = ("device_loss@20", "traffic_spike@10:16", "capacity_change@12:1")
+
+
+def spec_fp32_run(cfg, device, graphs, spec_k=SPEC_K, draft_layers=1):
+    """(a): the seeded smoke trace through the smoke-knob engine with
+    ``spec_k`` drafts a round on the virtual clock, the host/device page
+    mirror asserted after every step."""
+    from ddl25spring_tpu_torch.serve import driver
+    from ddl25spring_tpu_torch.serve.engine import ServeEngine
+    from ddl25spring_tpu_torch.serve.traffic import TrafficSpec, synth_trace
+
+    trace = synth_trace(TrafficSpec(**driver.SMOKE_TRAFFIC, vocab_size=cfg.vocab_size))
+    knobs = {**driver.engine_knobs(smoke=True), "spec_k": spec_k, "draft_layers": draft_layers}
+    eng = ServeEngine(_serve_model(cfg, device), cfg, **knobs, clock="virtual",
+                      tick_s=driver.ab_tick_s(trace, knobs["max_slots"]), trace_label=None,
+                      graphs=graphs)
+    eng._sanitize = True
+    eng.warmup()
+    eng.run(trace, max_steps=5_000)
+    return eng
+
+
+def spec_exactness(dev) -> None:
+    """Phase 19 (a): fp32 (TF32 off), tiny-deep and the full-width config,
+    ``spec_k`` = ``SPEC_K``: graphed, eager and CPU speculative engines, a
+    non-speculative one and dense ``generate``.  At full width the seeded
+    random weights leave the 1-layer drafter next to no agreement, so a
+    full-depth drafter (the target's own 6 blocks: every draft accepted) runs
+    too, for the full accepts and the (k+1)-step catch-up draft."""
+    from ddl25spring_tpu_torch.models import decode as dm
+    from ddl25spring_tpu_torch.serve import driver
+    from ddl25spring_tpu_torch.utils.config import LlamaConfig
+
+    full = LlamaConfig(dtype="float32")
+    for name, cfg, layers in (("tiny-deep", driver.serve_model("tiny-deep"), 1),
+                              ("full width", full, 1),
+                              ("full width, full-depth drafter", full, full.n_layers)):
+        t0 = time.perf_counter()
+        graphed = spec_fp32_run(cfg, dev, True, draft_layers=layers)
+        eager = spec_fp32_run(cfg, dev, False, draft_layers=layers)
+        cpu = spec_fp32_run(cfg, torch.device("cpu"), True, draft_layers=layers)
+        plain = spec_fp32_run(cfg, dev, True, spec_k=0)
+        check(graphed._verify.graph is not None and graphed._draft_k1.graph is not None
+              and eager._verify.graph is None,
+              f"{name}: the graphed spec engine ran eagerly or the eager one captured")
+        streams = [{r.rid: r.tokens for r in e.done} for e in (graphed, eager, cpu, plain)]
+        check(len(streams[0]) > 5 and streams[0] == streams[2],
+              f"{name}: the card's spec streams differ from the CPU's")
+        check(streams[0] == streams[1], f"{name}: graphed and eager spec streams differ")
+        check(streams[0] == streams[3], f"{name}: spec streams differ from the non-spec engine's")
+        for r in graphed.done:
+            want = dm.generate(graphed.params, torch.tensor([r.prompt], device=dev), cfg,
+                               r.max_new_tokens)[0].tolist()
+            check(r.tokens == want, f"{name}: spec stream {r.tokens} != dense {want}")
+        check(graphed.spec_accept_counts == cpu.spec_accept_counts
+              and eager.spec_accept_counts == cpu.spec_accept_counts,
+              f"{name}: accept counts card {graphed.spec_accept_counts}, eager "
+              f"{eager.spec_accept_counts}, CPU {cpu.spec_accept_counts}")
+        check(graphed.token_log == cpu.token_log, f"{name}: the token timeline differs")
+        k1_rounds = graphed._draft_steps - SPEC_K * graphed._spec_rounds
+        check(name == "full width" or (graphed.spec_accept_counts.get(SPEC_K, 0) > 0
+                                       and k1_rounds > 0),
+              f"{name}: no full accept took the (k+1)-step draft: "
+              f"{graphed.spec_accept_counts}, {k1_rounds} catch-up rounds")
+        for label, ours, theirs in (("pool", graphed.pool, eager.pool),
+                                    ("drafter pool", graphed.draft_pool, eager.draft_pool)):
+            for key, t in ours.items():
+                keep = slice(0, graphed.n_pages) if key in ("k", "v") else slice(None)
+                check(torch.equal(t[keep], theirs[key][keep]),
+                      f"{name}: the graphed {label}'s {key} is not bitwise the eager one's")
+        for e in (graphed, eager):
+            leak = e.mem_leak_check()  # the target pool keeps its prefix-cache pages
+            check(e.pool_ok_failures == 0 and leak["ok"] and leak["draft"]["ok"]
+                  and not (~e.draft_pool["free"]).any(),
+                  f"{name}: a pool backstop fired or pages were left: {leak}")
+        m = graphed.metrics()
+        print(f"  (a) {name} fp32, k={SPEC_K}: {len(streams[0])} requests, "
+              f"{graphed._spec_rounds} rounds ({k1_rounds} of k+1 steps), accept counts "
+              f"{graphed.spec_accept_counts} (acceptance {m['acceptance_rate']}, flop ratio "
+              f"{m['spec']['flop_ratio']}): spec streams card (graphed) == card (eager) == CPU "
+              f"== non-spec == dense, accept counts and timeline equal the CPU's, both pools "
+              f"bitwise graphed == eager and empty at drain, mirror exact every step; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def _busy_ms(engine, steps):
+    """Host wall and device busy per scheduler step over ``steps`` steps
+    under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            engine.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation) / 1e3
+    return wall * 1e3 / steps, busy / steps
+
+
+def spec_bench(dev, tmp) -> dict:
+    """Phase 19 (b): ``DDL25_SERVE_SPEC=1 bench --serve`` at full width (bf16)
+    through the entry point, its row through ``serve_report
+    --check-spec-ab``; then the spec round against the decode tick at 4
+    slots, both graphed."""
+    import os
+
+    from ddl25spring_tpu_torch import bench
+    from ddl25spring_tpu_torch.models.llama import Llama
+    from ddl25spring_tpu_torch.obs import sentinels
+    from ddl25spring_tpu_torch.serve import driver
+    from ddl25spring_tpu_torch.serve.engine import ServeEngine
+    from ddl25spring_tpu_torch.utils.config import LlamaConfig
+    from tools import serve_report
+
+    led, obs_dir = os.path.join(tmp, "spec_ledger.jsonl"), os.path.join(tmp, "spec")
+    before = sentinels.violation_count()
+    t0 = time.perf_counter()
+    os.environ["DDL25_SERVE_SPEC"] = "1"
+    try:
+        with sentinels.scoped(True, policy="log"):
+            rec = bench.main(["--serve", "--serve-model", "ref", "--device", "cuda",
+                              "--serve-duration", str(SERVE_RAMP_S), "--no-serve-ab",
+                              "--no-serve-prefix-ab", "--perf-ledger", led, "--obs-dir", obs_dir])
+    finally:
+        os.environ.pop("DDL25_SERVE_SPEC", None)
+    wall = time.perf_counter() - t0
+    cell = rec["telemetry"]["serve"]
+    sab = cell["spec_ab"]
+    check(cell["spec"]["enabled"] and cell["completed"] == cell["admitted"]
+          and cell["pool_leak"]["ok"] and cell["pool_ok_failures"] == 0,
+          f"the spec ramp left work or pages: {cell['pool_leak']}")
+    check(sentinels.violation_count() == before,
+          f"sentinel violations {sentinels.violation_count() - before}")
+    check(sab["tokens_match"] and sab["compared_requests"] > 0,
+          f"the full-width spec A/B: other tokens or nothing compared: {sab}")
+    print(f"  (b) spec ramp, full width, {cell['requests']} requests, {wall:.1f} s: "
+          f"{cell['tokens_per_sec_per_chip']} tokens/s, TTFT p50 "
+          f"{cell['ttft_s_p50'] * 1e3:.3f} ms p95 {cell['ttft_s_p95'] * 1e3:.3f} ms, per-round "
+          f"p50 {cell['tok_latency_s_p50'] * 1e3:.3f} ms; acceptance {cell['acceptance_rate']}, "
+          f"accept counts {cell['spec']['accept_counts']}; spec A/B (virtual clock) spec "
+          f"{sab['spec_tokens_at_budget']} vs non-spec {sab['nospec_tokens_at_budget']} tokens "
+          f"at {sab['budget_s']} s, advantage {sab['advantage_tokens']} "
+          f"({sab['advantage_frac']}), acceptance {sab['acceptance_rate']}, "
+          f"{sab['compared_requests']} streams equal", flush=True)
+    # the gate needs a drafter that agrees: tiny-deep's (the seeded full-width
+    # weights give the 1-layer drafter next to none)
+    deep_led, deep_dir = os.path.join(tmp, "deep_ledger.jsonl"), os.path.join(tmp, "deep")
+    os.environ["DDL25_SERVE_SPEC"] = "1"
+    try:
+        deep = bench.main(["--serve", "--smoke", "--serve-model", "tiny-deep", "--device",
+                           "cuda", "--no-serve-ab", "--no-serve-prefix-ab", "--perf-ledger",
+                           deep_led, "--obs-dir", deep_dir])["telemetry"]["serve"]["spec_ab"]
+    finally:
+        os.environ.pop("DDL25_SERVE_SPEC", None)
+    check(deep["tokens_match"] and deep["compared_requests"] > 0
+          and deep["draft_tokens_accepted"] > 0,
+          f"the tiny-deep spec A/B: other tokens, nothing compared or no draft accepted: {deep}")
+    gate = serve_report.main([deep_dir, "--ledger", deep_led, "--check-spec-ab"])
+    check(gate == 0, f"serve_report --check-spec-ab failed ({gate}) on {deep}")
+    print(f"  (b) spec bench, tiny-deep on the card: spec {deep['spec_tokens_at_budget']} vs "
+          f"non-spec {deep['nospec_tokens_at_budget']} tokens, advantage "
+          f"{deep['advantage_tokens']} ({deep['advantage_frac']}), acceptance "
+          f"{deep['acceptance_rate']}, {deep['compared_requests']} streams equal; "
+          f"serve_report --check-spec-ab passes", flush=True)
+
+    cfg = LlamaConfig()
+    model = Llama(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    model.requires_grad_(False)
+    engines = {}
+    for k in (SPEC_K, 0):
+        eng = ServeEngine(model, cfg, **{**driver.engine_knobs(), "spec_k": k}, clock="wall",
+                          trace_label=None)
+        eng.warmup()
+        g = torch.Generator().manual_seed(1)
+        for _ in range(eng.max_slots):  # 16-token prompts, 230 tokens each
+            eng.submit(eng.make_request(torch.randint(1, cfg.vocab_size, (16,),
+                                                      generator=g).tolist(), 230))
+        while eng.queue:
+            eng.step()
+        engines["spec round" if k else "tick"] = eng
+    walls = {name: [] for name in engines}
+    start = {name: (e.generated_tokens, e._ticks) for name, e in engines.items()}
+    for _ in range(2):
+        for name, eng in engines.items():
+            for _ in range(SPEC_STEPS):
+                t0 = time.perf_counter()
+                eng.step()
+                walls[name].append(time.perf_counter() - t0)
+    check(all(r is not None for e in engines.values() for r in e.slots),
+          "a slot finished inside the timed window")
+    tokens = {name: (e.generated_tokens - start[name][0])
+              / ((e._ticks - start[name][1]) * e.max_slots) for name, e in engines.items()}
+    out = {}
+    for name, eng in engines.items():
+        ms, busy = _busy_ms(eng, SPEC_PROFILED)
+        median = statistics.median(walls[name][SPEC_STEPS // 4:]) * 1e3
+        out[name] = {"median_ms": median, "busy_ms": busy, "profiled_ms": ms,
+                     "tokens_per_step": tokens[name]}
+    s, t = out["spec round"], out["tick"]
+    check(engines["spec round"].slots[0].tokens[:len(engines["tick"].slots[0].tokens)]
+          == engines["tick"].slots[0].tokens[:len(engines["spec round"].slots[0].tokens)],
+          "the spec and plain full-width bf16 engines decoded other tokens")
+    spec_eng = engines["spec round"]
+    ratio = spec_eng.spec_flop_ratio
+    print(f"  (b) 4 slots, full width, bf16, graphed: spec round (k={SPEC_K}) median "
+          f"{s['median_ms']:.3f} ms, device busy {s['busy_ms']:.3f} ms ({s['profiled_ms']:.3f} "
+          f"under the profiler), {s['tokens_per_step']:.3f} tokens a slot-round; decode tick "
+          f"median {t['median_ms']:.3f} ms, busy {t['busy_ms']:.3f} ms ({t['profiled_ms']:.3f}), "
+          f"{t['tokens_per_step']:.3f} tokens a slot-tick; round / tick: wall "
+          f"{s['median_ms'] / t['median_ms']:.3f}, busy "
+          f"{s['busy_ms'] / max(t['busy_ms'], 1e-9):.3f} "
+          f"against the virtual clock's 1 + steps x {ratio:.4f} = "
+          f"{1 + SPEC_K * ratio:.3f} (k steps) and k + 1 + steps x ratio = "
+          f"{SPEC_K + 1 + SPEC_K * ratio:.3f}", flush=True)
+    return {"cell": cell, "timing": out}
+
+
+def elastic_run(dev) -> list:
+    """Phase 19 (c): ``elastic_serve_run`` at full width (bf16) on the ramp
+    trace under each of ``ELASTIC_CHAOS``, memscope on, every completed stream
+    against a non-elastic engine's on the same trace."""
+    from ddl25spring_tpu_torch import obs
+    from ddl25spring_tpu_torch.ft import ChaosInjector, parse_chaos
+    from ddl25spring_tpu_torch.obs import memscope
+    from ddl25spring_tpu_torch.serve import driver
+    from ddl25spring_tpu_torch.serve.engine import ServeEngine
+    from ddl25spring_tpu_torch.serve.traffic import TrafficSpec, synth_trace
+    from ddl25spring_tpu_torch.utils.config import LlamaConfig
+    from tools.serve_report import check_reshape
+
+    cfg = LlamaConfig()
+    model = _serve_model(cfg, dev)
+    trace = synth_trace(TrafficSpec(seed=0, duration_s=SERVE_RAMP_S, rate_rps=8.0,
+                                    profile="ramp", vocab_size=cfg.vocab_size))
+    knobs = driver.engine_knobs()
+    tick_s = driver.ab_tick_s(trace, knobs["max_slots"])
+    ref = ServeEngine(model, cfg, **{**knobs, "prefill_batch": knobs["max_slots"]},
+                      clock="virtual", tick_s=tick_s, trace_label=None)
+    ref.run(trace, max_steps=20_000)
+    oracle = {(tuple(r.prompt), r.max_new_tokens): r.tokens for r in ref.done}
+    check(len(oracle) > 5, f"the non-elastic engine completed {len(oracle)} kinds of request")
+    cells = []
+    obs.timeline.configure(None)
+    with obs.scoped(True), memscope.scoped(True):
+        for spec in ELASTIC_CHAOS:
+            t0 = time.perf_counter()
+            cell = driver.elastic_serve_run(model, cfg, trace, knobs,
+                                            chaos=ChaosInjector(parse_chaos(spec), None),
+                                            tick_s=tick_s, keep_requests=True)
+            reqs = cell.pop("_requests")
+            check(cell["events"] and cell["dropped_requests"] == 0
+                  and cell["completed"] == cell["admitted"] == cell["submitted"],
+                  f"{spec}: events {cell['events']}, dropped {cell['dropped_requests']}, "
+                  f"submitted {cell['submitted']}, completed {cell['completed']}")
+            bad = [r.rid for r in reqs
+                   if r.tokens != oracle[(tuple(r.prompt), r.max_new_tokens)]]
+            check(not bad, f"{spec}: requests {bad} decoded other tokens than the "
+                           "non-elastic engine")
+            shrinks = sum(1 for ev in cell["events"] if ev["new"] < ev["old"])
+            steps = cell.get("mem_steps", [])
+            check(len(steps) == shrinks and all(
+                s["leak_ok"] and s["step_down_bytes"] > 0 for s in steps),
+                f"{spec}: retired replicas' step-downs {steps}")
+            fails = check_reshape([{"reshape": driver._reshape_cell(cell)}])
+            check(not fails, f"{spec}: --check-reshape: {fails}")
+            events = [(e["reason"], e["old"], e["new"], e["t"], e["t_end"])
+                      for e in cell["events"]]
+            print(f"  (c) {spec}: events {events}, replicas {cell['replicas_start']} -> {cell['replicas_end']}, "
+                  f"{cell['completed']} of {cell['submitted']} completed, 0 dropped, every "
+                  f"stream the non-elastic engine's; TTFT p95 steady {cell['ttft_s_p95_steady']}"
+                  f" s, reshape window {cell['ttft_s_p95_reshape']} s; step-downs "
+                  f"{[(s['replica'], s['step_down_bytes'], s['pool_bytes']) for s in steps]} "
+                  f"(replica, live bytes freed, pool bytes); --check-reshape passes; "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            cells.append(cell)
+    return cells
+
+
+def elastic_bench(tmp) -> dict:
+    """Phase 19 (c): ``DDL25_CHAOS=<the first of ELASTIC_CHAOS> bench --serve``
+    at full width through the entry point, its row through ``serve_report
+    --check-reshape``."""
+    import os
+
+    from ddl25spring_tpu_torch import bench
+    from tools import serve_report
+
+    led, obs_dir = os.path.join(tmp, "elastic_ledger.jsonl"), os.path.join(tmp, "elastic")
+    os.environ["DDL25_CHAOS"] = ELASTIC_CHAOS[0]
+    try:
+        rec = bench.main(["--serve", "--serve-model", "ref", "--device", "cuda",
+                          "--serve-duration", str(SERVE_RAMP_S), "--no-serve-ab",
+                          "--no-serve-prefix-ab", "--perf-ledger", led, "--obs-dir", obs_dir])
+    finally:
+        os.environ.pop("DDL25_CHAOS", None)
+    cell = rec["telemetry"]["serve"]["reshape"]
+    with open(os.path.join(obs_dir, "serve.json")) as f:
+        steps = json.load(f)["reshape"].get("mem_steps", [])
+    check(cell["dropped_requests"] == 0 and steps and all(s["step_down_bytes"] > 0
+                                                          for s in steps),
+          f"bench --serve under {ELASTIC_CHAOS[0]}: {cell}, step-downs {steps}")
+    gate = serve_report.main([obs_dir, "--ledger", led, "--check-reshape"])
+    check(gate == 0, f"serve_report --check-reshape failed ({gate}) on {cell}")
+    print(f"  (c) bench --serve, DDL25_CHAOS={ELASTIC_CHAOS[0]}: events "
+          f"{[(e['reason'], e['old'], e['new']) for e in cell['events']]}, 0 dropped, step-down "
+          f"{[s['step_down_bytes'] for s in steps]} bytes; serve_report --check-reshape passes",
+          flush=True)
+    return cell
+
+
+def spec_elastic_phase(dev) -> dict:
+    """Phase 19, each sub-phase timed; checks that no flash kernel launched."""
+    import tempfile
+
+    from ddl25spring_tpu_torch.ops import flash_attention as fa
+
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    spec_exactness(dev)
+    print(f"  (a) took {time.perf_counter() - t0:.1f} s", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        spec = spec_bench(dev, tmp)
+        print(f"  (b) took {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        cells = elastic_run(dev)
+        bench_cell = elastic_bench(tmp)
+        print(f"  (c) took {time.perf_counter() - t0:.1f} s", flush=True)
+    launches = {n: fa.LAUNCHES[n] + sum(fa.CAPTURED[n].values()) for n in fa.LAUNCHES}
+    check(not any(launches.values()),
+          f"speculative or elastic serving launched flash kernels: {launches}")
+    return {"spec": spec, "elastic": cells, "elastic_bench": bench_cell}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -5442,6 +5814,15 @@ def main() -> int:
     t0 = time.perf_counter()
     serve = serve_phase(dev)
     print(f"  phase 18 in {time.perf_counter() - t0:.1f} s")
+
+    print("== speculative decoding and elastic serving on the card: the spec engine graphed "
+          "and eager against the CPU and dense (fp32), DDL25_SERVE_SPEC=1 bench --serve at full "
+          "width (bf16), the spec round against the decode tick, replica scale-up/down under "
+          "chaos at full width")
+    print(card)
+    t0 = time.perf_counter()
+    spec_elastic_phase(dev)
+    print(f"  phase 19 in {time.perf_counter() - t0:.1f} s")
 
     kernels = [
         {"name": f"flash_{name}", "route": "cuda", "source": SOURCE[timing[name]["variant"]],

@@ -24,7 +24,9 @@ Serving mode (``bench.py:694-745``, ``:939-1000``): ``--serve`` runs the
 continuous-batching LLaMA serving bench instead
 (:func:`~ddl25spring_tpu_torch.serve.driver.run_serve_bench`): seeded
 open-loop traffic through the paged-KV engine, a continuous-vs-static and a
-cached-vs-cold prefix A/B on the virtual clock, ``serve.json`` in
+cached-vs-cold prefix A/B on the virtual clock (with ``DDL25_SERVE_SPEC=1``
+also the spec-on-vs-off A/B; with an elastic ``DDL25_CHAOS`` the replica
+scale-up/down run), ``serve.json`` in
 ``--obs-dir`` and one ``record: "serve"`` row in ``--perf-ledger``
 (default ``runs/perf_ledger.jsonl``); the last line is the BENCH record
 with ``telemetry.serve``.  ``--smoke`` serves the tiny fp32 model with the
@@ -126,11 +128,14 @@ def main(argv=None) -> dict:
                     help="model to serve (default: tiny under --smoke, else the "
                          "reference LLaMA constants)")
     ap.add_argument("--serve-tp", type=int, default=None, metavar="N",
-                    help="TP-shard the serving engine N ways (N > 1 waits for A9b)")
+                    help="TP-shard the serving engine N ways (N > 1 waits for A9b-3)")
     ap.add_argument("--no-serve-ab", action="store_true",
                     help="skip the continuous-vs-static A/B phase")
     ap.add_argument("--no-serve-prefix-ab", action="store_true",
                     help="skip the cached-vs-cold prefix-cache A/B phase")
+    ap.add_argument("--no-serve-spec-ab", action="store_true",
+                    help="skip the spec-on-vs-off A/B phase (runs only with "
+                         "DDL25_SERVE_SPEC=1)")
     args = ap.parse_args(argv)
     if args.serve:
         return serve_main(args)
@@ -170,6 +175,7 @@ def serve_main(args) -> dict:
         profile=args.serve_profile, seed=args.serve_seed, budget_s=args.serve_budget,
         ledger_path=args.perf_ledger or "runs/perf_ledger.jsonl",
         skip_ab=args.no_serve_ab, skip_prefix_ab=args.no_serve_prefix_ab,
+        skip_spec_ab=args.no_serve_spec_ab,
         serve_tp=args.serve_tp, device=dev,
     )
     sentinels.flush()

@@ -20,9 +20,9 @@ which differ from ``jax.random``'s; the filtered logits (:func:`filter_logits`)
 are the JAX ones, and the draw is the Gumbel-max of
 ``jax.random.categorical``.
 
-Waiting for A9b (speculative decoding, TP serving and the ZeRO-3
-weight-streaming decode): ``tp_axis`` / ``shard_vocab`` and
-:func:`make_tp_generate` raise ``NotImplementedError``.
+Waiting for A9b-3 (TP serving and the ZeRO-3 weight-streaming decode):
+``tp_axis`` / ``shard_vocab`` and :func:`make_tp_generate` raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -36,12 +36,11 @@ from ddl25spring_tpu_torch.models import llama
 from ddl25spring_tpu_torch.parallel import ep
 from ddl25spring_tpu_torch.utils.config import LlamaConfig
 
-A9B = ("A9b of ROADMAP.md (speculative decoding, TP serving and the ZeRO-3 "
-       "weight-streaming decode)")
+A9B = "A9b-3 of ROADMAP.md (TP serving and the ZeRO-3 weight-streaming decode)"
 
 
 def not_yet(what: str) -> NotImplementedError:
-    """The refusal of an option that waits for A9b."""
+    """The refusal of an option that waits for A9b-3."""
     return NotImplementedError(f"{what} is not ported yet: it comes with {A9B}")
 
 
@@ -234,5 +233,5 @@ def generate(model: llama.Llama, prompt: torch.Tensor, cfg: LlamaConfig,
 
 
 def make_tp_generate(*args, **kwargs):
-    """TP-sharded generation (JAX ``make_tp_generate``): waits for A9b."""
+    """TP-sharded generation (JAX ``make_tp_generate``): waits for A9b-3."""
     raise not_yet("make_tp_generate")

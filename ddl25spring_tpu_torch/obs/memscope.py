@@ -8,6 +8,9 @@ its sampler gate.
 - :func:`pool_leak_check` — the drain-time leak detector: an idle pool must
   hold exactly its cache-held pages; residue is attributed page by page.
 
+- :func:`live_total_bytes` -- the device allocator's live bytes (the
+  step-down reading of ``elastic_serve_run`` when a replica retires).
+
 The live-bytes sampler (``MemScope``), the budget band and the ``mem``
 record and cell come with the rest of the observability port (ROADMAP
 A11b); until then :func:`enabled` gates a sampler that samples nothing.
@@ -50,6 +53,24 @@ def scoped(on: bool):
         yield
     finally:
         _flag_enabled = prev
+
+
+#: why a CPU reading of :func:`live_total_bytes` is absent
+LIVE_BYTES_ABSENT = ("the CPU allocator keeps no count of live tensor bytes "
+                     "(torch.cuda.memory_allocated exists on the card only)")
+
+
+def live_total_bytes(device=None) -> int | None:
+    """Bytes of live tensors on ``device`` (default the current card):
+    ``torch.cuda.memory_allocated`` -- the caching allocator's in-use
+    blocks, a captured graph's included.  None on the CPU
+    (:data:`LIVE_BYTES_ABSENT`)."""
+    import torch
+
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    if dev.type != "cuda":
+        return None
+    return int(torch.cuda.memory_allocated(dev))
 
 
 def _host(t) -> np.ndarray:

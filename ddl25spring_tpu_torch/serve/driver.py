@@ -22,14 +22,19 @@ Engine knobs resolve from ``DDL25_SERVE_*`` env over serving-sized (or
 smoke-sized) defaults.  The served model is the port's seeded
 :class:`~ddl25spring_tpu_torch.models.llama.Llama` (seed 0).
 
-Waiting for other slices: the speculative, TP and elastic A/Bs
-(``spec_ab_compare``, ``tp_ab_compare``, ``elastic_serve_run``) come with
-A9b and raise ``NotImplementedError`` when asked for; the goodput doc and
-its ledger row, and the ``mem`` record, come with A11b.
+``DDL25_SERVE_SPEC=1`` adds the spec-on-vs-off A/B (:func:`spec_ab_compare`);
+an armed ``DDL25_CHAOS`` of ``traffic_spike`` / ``capacity_change`` /
+``device_loss`` adds the elastic replica run (:func:`elastic_serve_run`).
+
+Waiting for other slices: the TP A/B (``tp_ab_compare``) comes with A9b-3
+and raises ``NotImplementedError`` when asked for; the goodput doc and its
+ledger row (and the elastic cell's ``goodput``), and the ``mem`` record,
+come with A11b.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import platform
@@ -44,9 +49,8 @@ SERVE_BASENAME = "serve.json"
 
 def engine_knobs(smoke: bool = False) -> dict[str, Any]:
     """Pool geometry + admission-control knobs: ``DDL25_SERVE_*`` env over
-    (smoke-sized or serving-sized) defaults.  ``DDL25_SERVE_SPEC=1``,
-    ``DDL25_SERVE_TP`` > 1 and ``DDL25_SERVE_WEIGHT_STREAM=1`` wait for A9b
-    and raise."""
+    (smoke-sized or serving-sized) defaults.  ``DDL25_SERVE_TP`` > 1 and
+    ``DDL25_SERVE_WEIGHT_STREAM=1`` wait for A9b-3 and raise."""
     from ddl25spring_tpu_torch.models.decode import not_yet
     from ddl25spring_tpu_torch.utils.config import env_int
 
@@ -57,8 +61,6 @@ def engine_knobs(smoke: bool = False) -> dict[str, Any]:
         dict(page_len=16, n_pages=64, max_slots=4, prefill_batch=2,
              max_prompt_len=32, max_queue=64, token_budget=0)
     )
-    if env_int("DDL25_SERVE_SPEC", 0):
-        raise not_yet("speculative serving (DDL25_SERVE_SPEC=1)")
     if env_int("DDL25_SERVE_TP", 1) > 1:
         raise not_yet("TP serving (DDL25_SERVE_TP > 1)")
     if env_int("DDL25_SERVE_WEIGHT_STREAM", 0):
@@ -77,6 +79,11 @@ def engine_knobs(smoke: bool = False) -> dict[str, Any]:
         # the radix prefix cache: on by default (a workload with no repeated
         # prefixes never hits, and the cold path is identical); 0 disables
         "prefix_cache": bool(env_int("DDL25_SERVE_PREFIX", 1)),
+        # speculative decoding: off by default; DDL25_SERVE_SPEC=1 turns on
+        # the early-exit drafter with DDL25_SERVE_SPEC_K drafts a round and
+        # DDL25_SERVE_DRAFT_LAYERS drafter blocks (greedy only)
+        "spec_k": env_int("DDL25_SERVE_SPEC_K", 2) if env_int("DDL25_SERVE_SPEC", 0) else 0,
+        "draft_layers": env_int("DDL25_SERVE_DRAFT_LAYERS", 1),
     }
 
 
@@ -200,6 +207,285 @@ def prefix_ab_compare(params, cfg, trace, knobs: dict[str, Any], *,
     return out
 
 
+def spec_ab_compare(params, cfg, trace, knobs: dict[str, Any], *,
+                    tick_s: float | None = None, max_steps: int = 20_000,
+                    sentinel: bool | None = None) -> dict[str, Any]:
+    """Speculative-decoding A/B: the identical trace through a SPEC engine
+    (``knobs['spec_k']`` drafts a round, one verify pass) and a sequential
+    one, both continuous on the virtual clock at ``prefill_batch =
+    max_slots``, so the only difference is what each committed token costs
+    in target passes.  The virtual clock prices a verify pass as one tick
+    and each drafter step (and the drafter's prefill) at its FLOP ratio.
+    ``tokens_match``: every request both arms completed carries the identical
+    tokens (greedy speculation emits the target's own stream)."""
+    if not knobs.get("spec_k"):
+        raise ValueError("spec_ab_compare needs knobs['spec_k'] > 0")
+    if tick_s is None:
+        tick_s = ab_tick_s(trace, knobs["max_slots"])
+    out: dict[str, Any] = {}
+    engines = {}
+    for arm, k in (("spec", knobs["spec_k"]), ("nospec", 0)):
+        e = _build_engine(params, cfg, knobs, admission="continuous", clock="virtual",
+                          tick_s=tick_s, temperature=0.0, sentinel=sentinel,
+                          prefill_batch=knobs["max_slots"], spec_k=k, trace_label=None)
+        m = e.run(trace, max_steps=max_steps)
+        engines[arm] = e
+        out[arm] = {
+            "drain_wall_s": m["wall_s"],
+            **{key: m[key] for key in ("ticks", "prefills", "generated_tokens", "completed",
+                                       "rejected", "tokens_per_sec_per_chip")},
+            **({key: m[key] for key in ("acceptance_rate", "draft_tokens_accepted",
+                                        "draft_tokens_rejected", "spec")} if k else {}),
+        }
+    budget = round((out["spec"]["drain_wall_s"] + out["nospec"]["drain_wall_s"]) / 2, 6)
+    spec_toks = engines["spec"].tokens_at(budget)
+    nospec_toks = engines["nospec"].tokens_at(budget)
+    streams = {arm: {r.rid: list(r.tokens) for r in e.done} for arm, e in engines.items()}
+    common = set(streams["spec"]) & set(streams["nospec"])
+    out.update(
+        budget_s=budget, tick_s=tick_s,
+        spec_tokens_at_budget=spec_toks, nospec_tokens_at_budget=nospec_toks,
+        advantage_tokens=spec_toks - nospec_toks,
+        advantage_frac=(round((spec_toks - nospec_toks) / nospec_toks, 4)
+                        if nospec_toks else None),
+        tokens_match=all(streams["spec"][rid] == streams["nospec"][rid] for rid in common),
+        compared_requests=len(common),
+    )
+    return out
+
+
+def elastic_serve_run(params, cfg, trace, knobs: dict[str, Any], *, chaos,
+                      tick_s: float | None = None, replicas: int = 2, max_replicas: int = 4,
+                      max_iters: int = 20_000, temperature: float = 0.0,
+                      sentinel: bool | None = None,
+                      keep_requests: bool = False) -> dict[str, Any]:
+    """Replica scale-up/down under live traffic with page-pool handoff.
+
+    A replica set of continuous engines runs the seeded trace in lockstep
+    on ONE virtual clock (each iteration steps every replica, then
+    advances ``tick_s``).  Arrivals route to the shortest non-draining
+    queue.  Armed chaos (``chaos.take`` at exact iteration indices) drives:
+
+    - ``traffic_spike@k[:B]``: B extra arrivals (the trace's first B,
+      re-stamped to now) land at once; the queue-depth autoscaler answers
+      with a scale-up once the backlog passes 2x the slot count;
+    - ``capacity_change@k[:N]``: the set resizes to N replicas;
+    - ``device_loss@k``: one replica stops admitting, its queue re-submits
+      to the survivors (:meth:`~ddl25spring_tpu_torch.serve.engine.
+      ServeEngine.begin_drain`), its live slots decode to completion, and
+      only then does it leave, its device memory with it
+      (:meth:`~ddl25spring_tpu_torch.serve.engine.ServeEngine.retire`).
+
+    Every event is a ``kind="reshape"`` flight record
+    (:func:`~ddl25spring_tpu_torch.ft.elastic.record_reshape`) and an entry
+    of the returned cell, which also splits TTFT into reshape windows and
+    steady state (what ``serve_report --check-reshape`` gates).  With
+    memscope on, each retired replica's ``mem_steps`` entry holds the
+    allocator's live bytes before and after its retirement (null on the
+    CPU, which keeps no such count)."""
+    from ddl25spring_tpu_torch.ft import elastic
+    from ddl25spring_tpu_torch.obs import memscope
+    from ddl25spring_tpu_torch.obs.timeline import timeline
+    from ddl25spring_tpu_torch.serve.engine import Request, _pct
+
+    if tick_s is None:
+        tick_s = ab_tick_s(trace, knobs["max_slots"])
+    elastic_kinds = ("traffic_spike", "capacity_change", "device_loss")
+    mem_steps: list[dict] = []
+    # replica ids are monotone and never reused: list positions shift when a
+    # drained replica leaves, and the timeline tracks need a stable id
+    next_replica = [0]
+
+    def build():
+        e = _build_engine(params, cfg, knobs, admission="continuous", clock="virtual",
+                          tick_s=tick_s, temperature=temperature, sentinel=sentinel,
+                          prefill_batch=knobs["max_slots"], trace_label="elastic")
+        e.replica_id = next_replica[0]
+        next_replica[0] += 1
+        return e
+
+    reps = [build() for _ in range(replicas)]
+    retired: list = []
+    draining: list[tuple[Any, dict]] = []
+    arrivals = sorted(trace, key=lambda r: r["t"])
+    events: list[dict] = []
+    rid = 0
+    t = 0.0
+    i = it = 0
+    submitted = 0
+    spike_backlog: list[dict] = []
+
+    def route(req: Request, force: bool = False) -> None:
+        """Shortest-queue routing.  ``force`` is the handoff: a request a
+        draining replica already accepted is seated in the shortest survivor
+        queue even past its door bound (no second, counted trip through
+        ``submit``): the zero-drop contract outranks the bound."""
+        live = [e for e in reps if not e.draining]
+        target = min(live, key=lambda e: (len(e.queue), reps.index(e)))
+        if force:
+            target.queue.append(req)
+        else:
+            target.submit(req)
+
+    def mk(a: dict, arrival_t: float) -> Request:
+        nonlocal rid, submitted
+        r = Request(rid=rid, prompt=list(map(int, a["prompt"])),
+                    max_new_tokens=int(a["max_new"]), arrival_t=arrival_t)
+        rid += 1
+        submitted += 1
+        return r
+
+    def scale_up(n_new: int, reason: str) -> None:
+        t0 = time.perf_counter()
+        old = len(reps)
+        for _ in range(n_new):
+            reps.append(build())
+        ev = elastic.record_reshape(scope="serve", reason=reason, old=old, new=len(reps),
+                                    wall_s=time.perf_counter() - t0, steps_lost=0,
+                                    t=round(t, 6))
+        ev["t_end"] = round(t, 6)  # a fresh replica serves at once
+        timeline.emit("reshape_end", reason=reason, t=ev["t"], t_end=ev["t_end"],
+                      old=ev["old"], new=ev["new"], vt=t, engine="elastic")
+        events.append(ev)
+
+    def scale_down(n_drop: int, reason: str) -> None:
+        t0 = time.perf_counter()
+        old = len(reps)
+        victims = [e for e in reversed(reps) if not e.draining][:n_drop]
+        requeued = 0
+        for v in victims:
+            for req in v.begin_drain():
+                route(req, force=True)
+                requeued += 1
+                timeline.emit("serve_drain_handoff", rid=req.rid, from_replica=v.replica_id,
+                              vt=t, engine="elastic")
+        ev = elastic.record_reshape(scope="serve", reason=reason, old=old,
+                                    new=old - len(victims), wall_s=time.perf_counter() - t0,
+                                    steps_lost=0, t=round(t, 6), requeued=requeued)
+        events.append(ev)
+        draining.extend((v, ev) for v in victims)
+
+    def retire(v, ev) -> None:
+        """A drained replica leaves, its pools and captured programs with it;
+        with memscope on, the allocator's live bytes around the drop."""
+        if not memscope.enabled():
+            v.retire()
+            return
+        before = memscope.live_total_bytes(v.device)
+        pool_bytes = v._pool_bytes()
+        leak = v.mem_leak_check()
+        v.retire()
+        gc.collect()  # a cycle must not hold a dropped tensor past the reading
+        after = memscope.live_total_bytes(v.device)
+        mem_steps.append({
+            "scope": "serve", "reason": ev["reason"], "t": ev["t_end"],
+            "replica": v.replica_id, "pool_bytes": pool_bytes,
+            "live_bytes_before": before, "live_bytes_after": after,
+            "step_down_bytes": None if before is None else before - after,
+            **({} if before is not None else {"step_down_absent": memscope.LIVE_BYTES_ABSENT}),
+            "leak_ok": leak["ok"], "leaked_pages": leak["leaked_pages"],
+        })
+
+    while True:
+        # arrivals whose time has come (and any spike burst)
+        while i < len(arrivals) and arrivals[i]["t"] <= t:
+            route(mk(arrivals[i], arrivals[i]["t"]))
+            i += 1
+        for a in spike_backlog:
+            route(mk(a, t))
+        spike_backlog = []
+
+        # chaos at this iteration, journaled before it is acted on
+        for f in chaos.take(it, kinds=elastic_kinds):
+            if f.kind == "traffic_spike":
+                burst = f.arg or max(4, len(arrivals) // 8)
+                spike_backlog.extend([dict(a) for a in arrivals[:burst]]
+                                     or [{"prompt": [1, 2], "max_new": 4}] * burst)
+            elif f.kind == "capacity_change":
+                target = f.arg or 1
+                live = sum(1 for e in reps if not e.draining)
+                grow = max(0, min(target, max_replicas) - live)
+                if grow:
+                    scale_up(grow, "capacity_change")
+                elif target < live:
+                    scale_down(live - target, "capacity_change")
+            elif f.kind == "device_loss":
+                if sum(1 for e in reps if not e.draining) > 1:
+                    scale_down(1, "device_loss")
+
+        # the queue-depth autoscaler: one replica per decision, with a
+        # settling cooldown so a burst scales once
+        backlog = sum(len(e.queue) for e in reps if not e.draining)
+        live_n = sum(1 for e in reps if not e.draining)
+        if (backlog > 2 * knobs["max_slots"] and live_n < max_replicas
+                and (not events or t - events[-1]["t"] > 10 * tick_s)):
+            scale_up(1, "traffic_spike_scale_up")
+
+        # one lockstep tick: every replica on the SAME clock
+        ran = False
+        for e in list(reps):
+            e._vtime = t
+            ran = e.step() or ran
+        for v, ev in list(draining):
+            if v.drained:
+                ev["t_end"] = round(t, 6)
+                ev["drained_slots"] = v.max_slots
+                timeline.emit("reshape_end", reason=ev["reason"], t=ev["t"],
+                              t_end=ev["t_end"], old=ev["old"], new=ev["new"], vt=t,
+                              engine="elastic")
+                reps.remove(v)
+                retired.append(v)
+                draining.remove((v, ev))
+                retire(v, ev)
+        t += tick_s
+        it += 1
+        done_feeding = i >= len(arrivals) and not spike_backlog
+        idle = not ran and all(not e.queue and all(s is None for s in e.slots) for e in reps)
+        if (done_feeding and idle and not draining) or it >= max_iters:
+            break
+
+    # ---- the reshape cell: windows, drops, percentiles
+    pad = 5 * tick_s  # settling margin after a drain completes
+    windows = [(ev["t"], ev.get("t_end", ev["t"]) + pad) for ev in events]
+
+    def in_window(x: float) -> bool:
+        return any(a <= x <= b for a, b in windows)
+
+    every = [*reps, *retired]
+    all_done = [r for e in every for r in e.done]
+    ttft = [(r.first_token_t - r.arrival_t, in_window(r.first_token_t)) for r in all_done
+            if r.first_token_t is not None]
+    ttft_window = [x for x, w in ttft if w]
+    ttft_steady = [x for x, w in ttft if not w]
+    admitted = sum(e.admitted for e in every)
+    completed = sum(e.completed for e in every)
+    return {
+        "events": events,
+        "tick_s": tick_s,
+        "iters": it,
+        "wall_virtual_s": round(t, 6),
+        "replicas_start": replicas,
+        "replicas_end": len(reps),
+        "max_replicas": max_replicas,
+        "submitted": submitted,
+        "admitted": admitted,
+        "completed": completed,
+        "rejected": sum(sum(e.rejected.values()) for e in every),
+        # accepted-then-lost across every handoff: the zero --check-reshape pins
+        "dropped_requests": admitted - completed,
+        "generated_tokens": sum(e.generated_tokens for e in every),
+        "ttft_s_p50_steady": _pct(ttft_steady, 50),
+        "ttft_s_p95_steady": _pct(ttft_steady, 95),
+        "ttft_s_p50_reshape": _pct(ttft_window, 50),
+        "ttft_s_p95_reshape": _pct(ttft_window, 95),
+        "reshape_window_requests": len(ttft_window),
+        "steady_requests": len(ttft_steady),
+        **({"mem_steps": mem_steps} if mem_steps else {}),
+        # a test hook (the token-exactness pins), never serialized
+        **({"_requests": all_done} if keep_requests else {}),
+    }
+
+
 def host_fingerprint(device) -> str:
     """Identity of the measuring machine and device — part of the ledger
     key, so one host's trend never gates another's."""
@@ -235,20 +521,24 @@ def run_serve_bench(
     sentinel: bool | None = None,
     skip_ab: bool = False,
     skip_prefix_ab: bool = False,
+    skip_spec_ab: bool = False,
     serve_tp: int | None = None,
     device=None,
 ) -> dict[str, Any]:
     """The whole serving bench on ``device`` (default the card); returns the
     record (``serve_cell`` makes the BENCH line's ``telemetry.serve``).
-    ``budget_s`` bounds the wall-clock ramp phase (None = run to drain)."""
+    ``budget_s`` bounds the wall-clock ramp phase (None = run to drain).
+    The chaos journal of the elastic run lives in ``obs_dir``."""
     import torch
 
+    from ddl25spring_tpu_torch.ft.chaos import ChaosInjector
     from ddl25spring_tpu_torch.models.decode import not_yet
     from ddl25spring_tpu_torch.models.llama import Llama
     from ddl25spring_tpu_torch.obs import sentinels, spans
     from ddl25spring_tpu_torch.obs.logger import git_sha
     from ddl25spring_tpu_torch.obs.recorder import flight
     from ddl25spring_tpu_torch.serve.traffic import TrafficSpec, synth_trace
+    from ddl25spring_tpu_torch.utils.config import env_int
     from ddl25spring_tpu_torch.utils.device import resolve_device
 
     if serve_tp is not None and serve_tp > 1:
@@ -261,12 +551,15 @@ def run_serve_bench(
     traffic_defaults = SMOKE_TRAFFIC if smoke else {
         "duration_s": 30.0, "rate_rps": 8.0, "profile": "ramp", "seed": 0,
     }
+    profile = profile or traffic_defaults["profile"]
+    # per-request max_new jitter on the shared profile (the spec A/B's
+    # variable lengths); zeroed elsewhere, where it changes nothing
+    jitter = env_int("DDL25_SERVE_JITTER", 0) if profile == "shared" else 0
     spec = TrafficSpec(
         seed=traffic_defaults["seed"] if seed is None else seed,
         duration_s=traffic_defaults["duration_s"] if duration_s is None else duration_s,
         rate_rps=traffic_defaults["rate_rps"] if rate_rps is None else rate_rps,
-        profile=profile or traffic_defaults["profile"],
-        vocab_size=cfg.vocab_size,
+        profile=profile, vocab_size=cfg.vocab_size, max_new_jitter=jitter,
     )
     trace = synth_trace(spec)
     flight.annotate(serve_model=model, serve_profile=spec.profile,
@@ -301,6 +594,30 @@ def run_serve_bench(
             prefix_ab = prefix_ab_compare(params, cfg, trace, knobs,
                                           temperature=temperature, sentinel=sentinel)
 
+    # --- spec-on-vs-off A/B: virtual clock, deterministic ---------------
+    spec_ab = None
+    if not skip_spec_ab and knobs.get("spec_k"):
+        with spans.span("serve.spec_ab", cat="serve"):
+            spec_ab = spec_ab_compare(params, cfg, trace, knobs, sentinel=sentinel)
+
+    # --- elastic replica reshaping: armed chaos only --------------------
+    # DDL25_CHAOS=traffic_spike@k / capacity_change@k:N / device_loss@k on
+    # the elastic run's virtual clock; the reshape cell is what
+    # --check-reshape gates.  Spec engines are left out, as in JAX.
+    reshape = None
+    chaos = ChaosInjector.from_env(state_dir=obs_dir)
+    elastic_armed = (chaos.pending("traffic_spike") + chaos.pending("capacity_change")
+                     + chaos.pending("device_loss"))
+    if elastic_armed and not knobs.get("spec_k"):
+        with spans.span("serve.elastic", cat="serve"):
+            reshape = elastic_serve_run(params, cfg, trace, knobs, chaos=chaos,
+                                        temperature=temperature, sentinel=sentinel)
+    elif elastic_armed:
+        import warnings
+
+        warnings.warn("elastic serve reshaping skipped: speculative engines "
+                      "(DDL25_SERVE_SPEC=1) are not covered yet", stacklevel=2)
+
     record: dict[str, Any] = {
         "record": "serve",
         "ts": time.time(),
@@ -319,6 +636,12 @@ def run_serve_bench(
             # are different measurements — keyed apart
             "sentinels": bool(sentinels.resolve(sentinel)[0]),
             "prefix_cache": bool(knobs.get("prefix_cache")),
+            # spec, jitter and elastic enter the key only when on, so older
+            # rows' keys do not shift
+            **({"spec": True, "spec_k": knobs["spec_k"], "draft_layers": knobs["draft_layers"]}
+               if knobs.get("spec_k") else {}),
+            **({"max_new_jitter": jitter} if jitter else {}),
+            **({"elastic": True} if reshape is not None else {}),
             **({
                 "shared_prefixes": spec.shared_prefixes,
                 "shared_prefix_len": spec.shared_prefix_len,
@@ -330,6 +653,8 @@ def run_serve_bench(
         "pool_leak": leak,
         **({"ab": ab} if ab is not None else {}),
         **({"prefix_ab": prefix_ab} if prefix_ab is not None else {}),
+        **({"spec_ab": spec_ab} if spec_ab is not None else {}),
+        **({"reshape": reshape} if reshape is not None else {}),
         # bounded raw samples for serve_report's histograms
         "ttft_s": [round(x, 6) for x in eng.ttft_s[:512]],
         "tick_wall_s": [round(x, 6) for x in eng.tick_wall_s[:512]],
@@ -377,6 +702,12 @@ def ledger_record(record: dict[str, Any]) -> dict[str, Any]:
     pab = record.get("prefix_ab")
     if pab:
         out["prefix_ab"] = _prefix_ab_cell(pab)
+    sab = record.get("spec_ab")
+    if sab:
+        out["spec_ab"] = _spec_ab_cell(sab)
+    rsh = record.get("reshape")
+    if rsh:
+        out["reshape"] = _reshape_cell(rsh)
     return out
 
 
@@ -403,6 +734,38 @@ def _prefix_ab_cell(pab: dict[str, Any]) -> dict[str, Any]:
     }
 
 
+def _spec_ab_cell(sab: dict[str, Any]) -> dict[str, Any]:
+    """The speculative A/B summary both the ledger row and telemetry.serve
+    carry -- what ``serve_report --check-spec-ab`` gates."""
+    spec_arm = sab.get("spec") or {}
+    nospec_arm = sab.get("nospec") or {}
+    return {
+        **{k: sab.get(k) for k in (
+            "budget_s", "spec_tokens_at_budget", "nospec_tokens_at_budget",
+            "advantage_tokens", "advantage_frac", "tokens_match", "compared_requests")},
+        "spec_tokens_per_sec_per_chip": spec_arm.get("tokens_per_sec_per_chip"),
+        "nospec_tokens_per_sec_per_chip": nospec_arm.get("tokens_per_sec_per_chip"),
+        "acceptance_rate": spec_arm.get("acceptance_rate"),
+        "draft_tokens_accepted": spec_arm.get("draft_tokens_accepted"),
+        "draft_tokens_rejected": spec_arm.get("draft_tokens_rejected"),
+    }
+
+
+def _reshape_cell(rsh: dict[str, Any]) -> dict[str, Any]:
+    """The elastic-reshape summary both the ledger row and telemetry.serve
+    carry -- what ``serve_report --check-reshape`` gates; events keep their
+    identity facts only (the whole dicts live in serve.json)."""
+    return {
+        "events": [{k: ev.get(k) for k in ("reason", "old", "new", "t", "t_end", "requeued",
+                                           "wall_s")}
+                   for ev in rsh.get("events") or []],
+        **{k: rsh.get(k) for k in (
+            "replicas_start", "replicas_end", "dropped_requests", "admitted", "completed",
+            "rejected", "ttft_s_p95_steady", "ttft_s_p95_reshape", "reshape_window_requests",
+            "steady_requests")},
+    }
+
+
 def serve_cell(record: dict[str, Any]) -> dict[str, Any]:
     """The ``telemetry.serve`` BENCH cell — every contract key (tokens/sec/
     chip, TTFT + per-token p50/p95, admission counters, pool occupancy) plus
@@ -425,6 +788,10 @@ def serve_cell(record: dict[str, Any]) -> dict[str, Any]:
         cell["ab"] = _ab_cell(record["ab"])
     if record.get("prefix_ab"):
         cell["prefix_ab"] = _prefix_ab_cell(record["prefix_ab"])
+    if record.get("spec_ab"):
+        cell["spec_ab"] = _spec_ab_cell(record["spec_ab"])
+    if record.get("reshape"):
+        cell["reshape"] = _reshape_cell(record["reshape"])
     for k in ("ledger", "ledger_error", "serve_json"):
         if record.get(k):
             cell[k] = record[k]

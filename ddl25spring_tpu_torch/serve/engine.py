@@ -1,6 +1,5 @@
 """Continuous-batching LLaMA decode engine over the paged KV cache: the
-counterpart of the JAX package's ``serve/engine.py`` (its default path:
-no speculation, one card).
+counterpart of the JAX package's ``serve/engine.py`` on one card.
 
 - **prefill/decode disaggregation**: separately built static-shape
   programs.  ``prefill`` runs a padded prompt batch through the cached
@@ -26,16 +25,22 @@ no speculation, one card).
 - **the radix prefix cache** (:mod:`.prefix`): matched prompt pages are
   shared by reference, a partial tail page copied on write, and the prefill
   starts at the page-aligned match (one program per start offset).
+- **speculative decoding** (``spec_k > 0``, :mod:`.spec`): a drafter with
+  its own pool proposes ``spec_k`` tokens a round, one verify program scores
+  them, both pools roll back to the accepted prefix (a truncate program per
+  pool); greedy acceptance keeps the stream the sequential engine's.
+- **elastic handoff**: :meth:`ServeEngine.begin_drain` hands the queue back
+  and :meth:`ServeEngine.retire` gives a drained replica's device memory
+  back (``serve/driver.py``'s ``elastic_serve_run``).
 
 The decode sentinel guards each program's logits through
 :func:`~ddl25spring_tpu_torch.obs.sentinels.guard` (a graph's facts fold
 after its replay), each scheduler iteration lands in the flight ring, and
 the ``serve_*`` timeline events carry each request's life.
 
-Waiting for A9b (ROADMAP.md): speculative decoding (``spec_k > 0``), TP
-serving (``tp > 1``) and the ZeRO-3 weight-streaming decode
-(``weight_stream=True``) raise ``NotImplementedError``; ``describe()``
-waits for A12.
+Waiting for A9b-3 (ROADMAP.md): TP serving (``tp > 1``) and the ZeRO-3
+weight-streaming decode (``weight_stream=True``) raise
+``NotImplementedError``; ``describe()`` waits for A12.
 """
 
 from __future__ import annotations
@@ -61,6 +66,7 @@ from ddl25spring_tpu_torch.obs import state as _obs_state
 from ddl25spring_tpu_torch.obs.recorder import flight
 from ddl25spring_tpu_torch.obs.timeline import timeline as _timeline
 from ddl25spring_tpu_torch.serve import kv_pages
+from ddl25spring_tpu_torch.serve import spec as spec_mod
 from ddl25spring_tpu_torch.serve.prefix import Match, PrefixCache
 from ddl25spring_tpu_torch.utils.config import LlamaConfig
 
@@ -172,23 +178,12 @@ def make_decode_tick(cfg: LlamaConfig, *, temperature: float = 0.0, top_k: int =
     time; ``sink`` takes its facts (a captured graph's)."""
     _refuse_unported(cfg, tp_axis, layer_stack)
     s_on, s_policy = sentinels.resolve(sentinel)
+    step = spec_mod._position_step(cfg)
 
     def tick(model, pool, tokens, noise, sink=None):
         active = pool["active"]
         pos = pool["seq_len"]  # [S] — the position this tick writes
-        page_len = pool["k"].shape[2]
-        n_pages = pool["free"].shape[0]
-        slots = torch.arange(tokens.shape[0], dtype=torch.int32, device=tokens.device)
-
-        need = active & (pos % page_len == 0)
-        pool, ok = kv_pages.reserve_pages(pool, slots, pos, need)
-        pages, offs = kv_pages.write_page_ids(pool, slots, pos, active)
-        rows = pool["page_table"].long().clamp(0, n_pages - 1)  # [S, P]
-
-        x = decode_mod.embed_tokens(model, tokens[:, None], cfg)
-        cos, sin = llama.rope_angles(1, cfg.head_dim, pos=pos.float())
-        x = _layers(model, x, pool, rows, pages, offs, pos, cos, sin, cfg)
-        logits = llama.unembed(model, x, cfg)[:, 0]  # [S, V] fp32
+        pool, logits, ok = step(model, pool, tokens, pos, active)  # logits [S, V] fp32
         new_tok = decode_mod.sample_from_uniform(logits, noise, temperature, top_k, top_p)
         pool = {**pool, "seq_len": torch.where(active, pos + 1, pos)}
         new_tok, pool = _guard(strategy, new_tok, pool, active, logits, s_on, s_policy, sink)
@@ -266,6 +261,10 @@ def _release(model, pool, mask, sink=None):
     return (kv_pages.release_slots(pool, mask),)
 
 
+def _truncate(model, pool, new_lens, mask, sink=None):
+    return (kv_pages.truncate_to(pool, new_lens, mask),)
+
+
 # One set of program BODIES per build key: the ramp engine and both A/B
 # engines of a `bench --serve` run (and every same-config test engine) reuse
 # them.  Keyed on everything that shapes the built body — cfg, prompt width,
@@ -274,13 +273,19 @@ def _release(model, pool, mask, sink=None):
 _BODIES: dict[tuple, Any] = {}
 
 
+def _body(key: tuple, build):
+    """The body cached under ``key``, built by ``build()`` on first use."""
+    if key not in _BODIES:
+        _BODIES[key] = build()
+    return _BODIES[key]
+
+
 def _compiled_programs(cfg: LlamaConfig, *, max_prompt_len: int, temperature: float,
                        sentinel: bool | None):
     """``(tick, prefill at start 0, release)`` bodies for one build key."""
-    key = ("tick", cfg, temperature, sentinels.resolve(sentinel))
-    if key not in _BODIES:
-        _BODIES[key] = make_decode_tick(cfg, temperature=temperature, sentinel=sentinel)
-    return (_BODIES[key],
+    tick = _body(("tick", cfg, temperature, sentinels.resolve(sentinel)),
+                 lambda: make_decode_tick(cfg, temperature=temperature, sentinel=sentinel))
+    return (tick,
             _prefill_variant(cfg, max_prompt_len=max_prompt_len, start=0,
                              temperature=temperature, sentinel=sentinel),
             _release)
@@ -289,11 +294,28 @@ def _compiled_programs(cfg: LlamaConfig, *, max_prompt_len: int, temperature: fl
 def _prefill_variant(cfg: LlamaConfig, *, max_prompt_len: int, start: int,
                      temperature: float, sentinel: bool | None):
     """The prefill body for one STATIC start offset."""
-    key = ("prefill", cfg, max_prompt_len, start, temperature, sentinels.resolve(sentinel))
-    if key not in _BODIES:
-        _BODIES[key] = make_prefill(cfg, max_prompt_len=max_prompt_len, start=start,
-                                    temperature=temperature, sentinel=sentinel)
-    return _BODIES[key]
+    return _body(("prefill", cfg, max_prompt_len, start, temperature,
+                  sentinels.resolve(sentinel)),
+                 lambda: make_prefill(cfg, max_prompt_len=max_prompt_len, start=start,
+                                      temperature=temperature, sentinel=sentinel))
+
+
+def _spec_programs(cfg: LlamaConfig, draft_cfg: LlamaConfig, *, k: int,
+                   max_prompt_len: int, sentinel: bool | None) -> dict:
+    """The speculative bodies for one build key: the ``k``- and ``k +
+    1``-step drafts, the verify pass and the drafter's prefill (start 0,
+    greedy).  Rollback rides :func:`_truncate`."""
+    gate = sentinels.resolve(sentinel)
+    return {
+        "draft_k": _body(("draft", draft_cfg, k, k, gate), lambda: spec_mod.make_draft(
+            draft_cfg, k=k, steps=k, sentinel=sentinel)),
+        "draft_k1": _body(("draft", draft_cfg, k, k + 1, gate), lambda: spec_mod.make_draft(
+            draft_cfg, k=k, steps=k + 1, sentinel=sentinel)),
+        "verify": _body(("verify", cfg, k, gate), lambda: spec_mod.make_verify(
+            cfg, k=k, sentinel=sentinel)),
+        "draft_prefill": _prefill_variant(draft_cfg, max_prompt_len=max_prompt_len, start=0,
+                                          temperature=0.0, sentinel=sentinel),
+    }
 
 
 def _assign(pool: dict, new: dict) -> None:
@@ -334,7 +356,12 @@ class _Program:
 
     def __init__(self, name: str, body, graphs: bool):
         self.name, self.body, self.graphs = name, body, graphs
-        self.graph = None
+        self.drop()
+
+    def drop(self) -> None:
+        """Release the captured graph (with its private memory pool), its
+        static inputs and its outputs; a later call captures again."""
+        self.graph = self.static = self.outs = self._bound = None
         self._facts = self._meta = None
 
     def __call__(self, model, pool, *inputs):
@@ -527,6 +554,9 @@ class ServeEngine:
         seed: int = 0,
         prefix_cache: bool = False,
         spec_k: int = 0,
+        draft_layers: int = 1,
+        draft_params=None,
+        draft_cfg: LlamaConfig | None = None,
         tp: int = 1,
         weight_stream: bool = False,
         trace_label: str | None = "serve",
@@ -552,8 +582,6 @@ class ServeEngine:
             raise ValueError(
                 "weight_stream streams ZeRO-3 rows over the model mesh axis — it "
                 "requires tp > 1")
-        if spec_k:
-            raise decode_mod.not_yet("speculative decoding (spec_k > 0)")
         if tp > 1:
             raise decode_mod.not_yet("TP serving (tp > 1)")
         self.cfg = cfg
@@ -598,7 +626,39 @@ class ServeEngine:
         # device sharing runs through kv_pages.adopt_prefix / ref_pages /
         # unref_pages and the per-offset prefill programs
         self.prefix: PrefixCache | None = PrefixCache(page_len) if prefix_cache else None
-        self.spec_k = 0
+        # speculative decoding (opt-in): a drafter with its OWN pool proposes
+        # spec_k tokens a round, one verify pass scores them, truncate_to
+        # rolls both pools back to the accepted prefix.  The default drafter
+        # is the early-exit one; draft_params + draft_cfg give another.
+        self.spec_k = int(spec_k)
+        self.draft_pool: dict | None = None
+        if self.spec_k:
+            if draft_params is None:
+                draft_params, draft_cfg = spec_mod.early_exit_drafter(params, cfg, draft_layers)
+            elif draft_cfg is None:
+                raise ValueError("explicit draft_params need their draft_cfg")
+            self.draft_params, self.draft_cfg = draft_params, draft_cfg
+            # what each drafter step costs on the virtual clock, as a
+            # fraction of a target decode tick
+            self.spec_flop_ratio = spec_mod.flop_ratio(draft_params, params)
+            # the drafter pool has the target pool's geometry and shares
+            # NOTHING (no prefix cache claims its pages), so spec admission
+            # bills every request its full worst case (see _admittable)
+            self.draft_pool = kv_pages.init_page_pool(
+                draft_cfg, n_pages=n_pages, page_len=page_len, max_slots=max_slots,
+                pages_per_seq=self.pages_per_seq, device=self.device,
+            )
+            bodies = _spec_programs(cfg, draft_cfg, k=self.spec_k,
+                                    max_prompt_len=max_prompt_len, sentinel=sentinel)
+            # a graph binds its pool's addresses: each pool's truncate and
+            # release are programs of their own
+            self._draft_k = _Program("draft_k", bodies["draft_k"], graphs)
+            self._draft_k1 = _Program("draft_k1", bodies["draft_k1"], graphs)
+            self._verify = _Program("verify", bodies["verify"], graphs)
+            self._draft_prefill = _Program("draft_prefill@0", bodies["draft_prefill"], graphs)
+            self._truncate = _Program("truncate", _truncate, graphs)
+            self._draft_truncate = _Program("draft_truncate", _truncate, graphs)
+            self._draft_release = _Program("draft_release", _release, graphs)
         # analytic forward cost of one prompt token (2 N_params)
         self._flops_per_token = 2 * sum(p.numel() for p in params.parameters())
 
@@ -619,10 +679,16 @@ class ServeEngine:
         # both pin their pages against eviction while the slot lives
         self._adopted_pages: list[list[int]] = [[] for _ in range(max_slots)]
         self._cached_pages: list[list[int]] = [[] for _ in range(max_slots)]
+        # spec: committed tokens the drafter has not appended yet (the last
+        # committed token; after a full accept also the final draft it
+        # sampled but never wrote) -- at most 2
+        self._pending: list[list[int]] = [[] for _ in range(max_slots)]
         self._t0 = time.perf_counter()
         self._vtime = 0.0
         self._ticks = 0
         self._prefills = 0
+        self._spec_rounds = 0
+        self._draft_steps = 0  # drafter steps charged
         self._next_rid = 0
         # telemetry
         self.admitted = 0
@@ -633,6 +699,12 @@ class ServeEngine:
         self.peak_pages = 0
         self.prefill_tokens_saved = 0
         self.prefill_flops_saved = 0
+        # spec counters: proposals = spec_k per live slot per round; accepted
+        # = draft-origin tokens actually emitted; the accepted-prefix
+        # histogram (a -> rounds)
+        self.draft_tokens_proposed = 0
+        self.draft_tokens_accepted = 0
+        self.spec_accept_counts: dict[int, int] = {}
         self.queue_depths = Reservoir()
         self.ttft_s = Reservoir()
         self.tick_wall_s = Reservoir()
@@ -713,6 +785,18 @@ class ServeEngine:
         finally:
             self.eos_id, self.token_budget = saved_eos, saved_budget
             self.trace_label = saved_label
+        if self.spec_k:
+            # the probe ran the drafter prefill, the k-step draft, verify
+            # and both truncates and releases; the (k+1)-step draft runs
+            # only after a full accept.  A graph is bound to its pool, so
+            # capture it on the drafter's OWN pool with every slot idle
+            # (n_ctx = 0: nothing is written)
+            S = self.max_slots
+            self._draft_k1(self.draft_params, self.draft_pool,
+                           torch.zeros((S, 2), dtype=torch.int32),
+                           torch.zeros((S,), dtype=torch.int32),
+                           torch.zeros((S,), dtype=torch.int32))
+            _reset_pool(self.draft_pool)
         _reset_pool(self.pool)
         self.queue.clear()
         self.slots = [None] * self.max_slots
@@ -722,6 +806,7 @@ class ServeEngine:
         self._pending_pages = [0] * self.max_slots
         self._adopted_pages = [[] for _ in range(self.max_slots)]
         self._cached_pages = [[] for _ in range(self.max_slots)]
+        self._pending = [[] for _ in range(self.max_slots)]
         if self.prefix is not None:  # drop the probe's cached prompt
             self.prefix = PrefixCache(self.page_len)
             # the sharing ops at the exact shapes the engine calls them with
@@ -734,7 +819,9 @@ class ServeEngine:
             # every start offset a radix hit can ride (page multiples)
             self.warm_prefill_starts(range(self.page_len, self.max_prompt_len, self.page_len))
         self._vtime = 0.0
-        self._ticks = self._prefills = 0
+        self._ticks = self._prefills = self._spec_rounds = self._draft_steps = 0
+        self.draft_tokens_proposed = self.draft_tokens_accepted = 0
+        self.spec_accept_counts = {}
         self.admitted = self.completed = self.generated_tokens = 0
         self.rejected = {}
         self.pool_ok_failures = 0
@@ -884,7 +971,11 @@ class ServeEngine:
             m = self._match(self.queue[0])
             if out and self._scan_start(m) != self._scan_start(out[0][2]):
                 break  # next batch: different start offset
-            need = self._pages_needed(self.queue[0]) - m.n_ref
+            # under spec the prefix discount is forfeit at the bill (the
+            # adoption and the prefill it saves still happen): the drafter
+            # pool shares nothing, so a slot costs it the full worst case,
+            # and that one bill covers both pools
+            need = self._pages_needed(self.queue[0]) - (0 if self.spec_k else m.n_ref)
             if need > budget:
                 if self.prefix is None:
                     break  # head-of-line blocks until pages free
@@ -976,12 +1067,26 @@ class ServeEngine:
             ok = bool(ok)
         if not ok:
             self.pool_ok_failures += 1
+        if self.spec_k:
+            # the drafter prefills its OWN pool over the same batch, always
+            # from position 0 (the radix cache shares target pages only);
+            # its sampled token is discarded
+            with _spans.span("serve.draft_prefill", cat="serve", batch=len(batch)):
+                self.draft_pool, _first, ok_d = self._draft_prefill(
+                    self.draft_params, self.draft_pool, torch.from_numpy(prompts),
+                    torch.from_numpy(lens), torch.zeros((B,), dtype=torch.int32),
+                    torch.from_numpy(slot_ids), None)
+                if not bool(ok_d):
+                    self.pool_ok_failures += 1
         wall = time.perf_counter() - t0
         self._prefills += 1
-        # the virtual clock charges prefill for the positions it ran
+        # the virtual clock charges prefill for the positions it ran, and
+        # the drafter's full-prompt pass at its FLOP ratio
         prefill_cost = (self.tick_s * (self.max_prompt_len - start) / self.max_prompt_len
                         if self.clock == "virtual" else wall)
         self._advance(self.tick_s * (self.max_prompt_len - start) / self.max_prompt_len)
+        if self.spec_k:
+            self._advance(self.tick_s * self.spec_flop_ratio)
         now = self.now()
         for row, (slot, req, m) in enumerate(batch):
             req.admitted_t = now
@@ -990,7 +1095,8 @@ class ServeEngine:
             self.slots[slot] = req
             self._slot_last_rid[slot] = req.rid
             self._cached_pages[slot] = []
-            self._reserved[slot] = self._pages_needed(req) - m.n_ref
+            # the admission bill's mirror: the full worst case under spec
+            self._reserved[slot] = self._pages_needed(req) - (0 if self.spec_k else m.n_ref)
             self.admitted += 1
             if self.prefix is not None:
                 self.prefix.lookups += 1
@@ -1000,6 +1106,8 @@ class ServeEngine:
             # saved = the positions actually skipped (the aligned floor)
             self.prefill_tokens_saved += start
             self.prefill_flops_saved += start * self._flops_per_token
+            # the drafter owes this first committed token its KV
+            self._pending[slot] = [int(first[row])]
             req.first_token_t = now
             ttft = now - req.arrival_t
             self.ttft_s.append(ttft)
@@ -1062,6 +1170,109 @@ class ServeEngine:
                           active=sum(r is not None for r in self.slots),
                           queue=len(self.queue), pages_used=self._host_pages_used())
 
+    def _run_spec_round(self) -> None:
+        """One speculative round over every active slot: the drafter
+        proposes ``spec_k`` tokens on its own pool, one verify pass scores
+        all ``spec_k + 1`` positions, the accepted prefix commits (each
+        accepted draft is the target's argmax, the first rejection is
+        replaced by it, a full accept earns the bonus token) and both pools
+        roll back to the committed frontier.  Greedy acceptance makes the
+        stream exactly the sequential engine's.  The virtual clock charges
+        1 tick for the verify pass plus ``flop_ratio`` per drafter step."""
+        k, S = self.spec_k, self.max_slots
+        ctx = np.zeros((S, 2), np.int32)
+        n_ctx = np.zeros((S,), np.int32)
+        limits = np.zeros((S,), np.int32)
+        for slot, req in enumerate(self.slots):
+            if req is None:
+                continue
+            pend = self._pending[slot]
+            assert 1 <= len(pend) <= 2, (slot, pend)
+            ctx[slot, : len(pend)] = pend
+            n_ctx[slot] = len(pend)
+            # the last position a non-speculative decode writes for this
+            # request: later writes trash-route, inside the admission bill
+            limits[slot] = req.prompt_len + req.max_new_tokens - 1
+        # the (k+1)-step draft only serves 2-token catch-up rounds (after a
+        # full accept); the clock bills the steps the program ran
+        steps = k + 1 if int(n_ctx.max(initial=0)) > 1 else k
+        draft = self._draft_k1 if steps == k + 1 else self._draft_k
+        lim = torch.from_numpy(limits)
+        last = torch.tensor(self._slot_last_tok, dtype=torch.int32, device=self.device)
+        t0 = time.perf_counter()
+        with _spans.span("serve.draft", cat="serve", steps=steps):
+            self.draft_pool, drafts_dev, ok_d = draft(
+                self.draft_params, self.draft_pool, torch.from_numpy(ctx),
+                torch.from_numpy(n_ctx), lim)
+        # the verify window is assembled ON THE DEVICE from the draft
+        # program's output: no host sync between draft and verify, one copy
+        # of drafts and greedy to the host after both
+        toks = torch.cat([last[:, None], drafts_dev], dim=1)
+        with _spans.span("serve.verify", cat="serve"):
+            self.pool, greedy_dev, ok_v = self._verify(self.params, self.pool, toks, lim)
+            host = torch.cat([drafts_dev, greedy_dev], dim=1).cpu().numpy()
+        drafts, greedy = host[:, :k], host[:, k:]  # [S, k], [S, k+1]
+        wall = time.perf_counter() - t0
+        if not bool(ok_d):
+            self.pool_ok_failures += 1
+        if not bool(ok_v):
+            self.pool_ok_failures += 1
+        self.tick_wall_s.append(wall)
+        self._spec_rounds += 1
+        # a round is the engine's decode-family pass: it counts as a tick
+        self._ticks += 1
+        self._draft_steps += steps
+        self._advance(self.tick_s * (1.0 + steps * self.spec_flop_ratio))
+        now = self.now()
+
+        new_lens = np.zeros((S,), np.int32)
+        mask = np.zeros((S,), bool)
+        for slot, req in enumerate(self.slots):
+            if req is None:
+                continue
+            mask[slot] = True
+            self.draft_tokens_proposed += k
+            # the accepted prefix: draft i is the target's own choice iff it
+            # equals greedy[i]
+            a = 0
+            while a < k and drafts[slot, a] == greedy[slot, a]:
+                a += 1
+            self.spec_accept_counts[a] = self.spec_accept_counts.get(a, 0) + 1
+            # committed token t0 sits at position p0; each emission extends
+            # the written frontier by one
+            p0 = req.prompt_len + len(req.tokens) - 1
+            emitted = 0
+            for j in range(a + 1):
+                self._emit_token(slot, req, int(greedy[slot, j]), now)
+                emitted += 1
+                if self.slots[slot] is None:
+                    break  # max_new or EOS inside the window
+            self.draft_tokens_accepted += min(a, emitted)
+            self._tl("serve_spec_round", rid=req.rid, round=self._spec_rounds, accepted=a,
+                     rejected=k - a, emitted=emitted)
+            new_lens[slot] = p0 + emitted
+            if self.slots[slot] is not None:
+                if emitted == k + 1:
+                    # full accept: the drafter never wrote its final draft,
+                    # and the bonus token is new to it
+                    self._pending[slot] = [int(drafts[slot, k - 1]), int(greedy[slot, k])]
+                else:
+                    self._pending[slot] = [int(greedy[slot, emitted - 1])]
+        # roll BOTH pools back to the committed frontier: rejected
+        # positions' pages return to the free set, stale values in kept
+        # pages are overwritten before they become readable
+        new_lens_t, mask_t = torch.from_numpy(new_lens), torch.from_numpy(mask)
+        self.pool, = self._truncate(self.params, self.pool, new_lens_t, mask_t)
+        self.draft_pool, = self._draft_truncate(self.draft_params, self.draft_pool,
+                                                new_lens_t, mask_t)
+        self._track_pages()
+        if self._spec_rounds % 8 == 0 or self._spec_rounds <= 2:
+            flight.record(kind="serve_spec", step=self._spec_rounds, wall_s=round(wall, 6),
+                          active=int(mask.sum()), draft_steps=steps,
+                          accepted=self.draft_tokens_accepted,
+                          proposed=self.draft_tokens_proposed, queue=len(self.queue),
+                          pages_used=self._host_pages_used())
+
     def _slot_fresh_pages(self, slot: int, written: int) -> int:
         """Pages slot ``slot`` holds EXCLUSIVELY after writing ``written``
         positions: its table entries so far, less the prefix pages it shares
@@ -1093,10 +1304,13 @@ class ServeEngine:
             return
         mask = torch.tensor(self._release_mask, dtype=torch.bool)
         self.pool, = self._release(self.params, self.pool, mask)
+        if self.spec_k:  # the drafter's slot returns its pages in the same flush
+            self.draft_pool, = self._draft_release(self.draft_params, self.draft_pool, mask)
         for slot, flushed in enumerate(self._release_mask):
             if flushed:  # the slot stops pinning its shared pages
                 self._adopted_pages[slot] = []
                 self._cached_pages[slot] = []
+                self._pending[slot] = []
         self._release_mask = [False] * self.max_slots
         self._pending_pages = [0] * self.max_slots
 
@@ -1131,7 +1345,10 @@ class ServeEngine:
         # decode tick with its device slot still active
         self._flush_releases()
         if any(r is not None for r in self.slots):
-            self._run_decode_tick()
+            if self.spec_k:
+                self._run_spec_round()
+            else:
+                self._run_decode_tick()
             ran = True
         self.token_log.append((self.now(), self.generated_tokens))
         if self._sanitize:
@@ -1140,11 +1357,21 @@ class ServeEngine:
 
     # ---- memory --------------------------------------------------------
 
+    def _param_bytes(self) -> int:
+        """Parameter bytes, the drafter's counted again as JAX counts them
+        (its tensors are views of the target's)."""
+        models = [self.params] + ([self.draft_params] if self.spec_k else [])
+        return sum(p.numel() * p.element_size() for m in models for p in m.parameters())
+
+    def _pool_bytes(self) -> int:
+        pools = [self.pool] + ([self.draft_pool] if self.spec_k else [])
+        return sum(t.numel() * t.element_size() for pool in pools for t in pool.values())
+
     def mem_budget_bytes(self, per_chip: bool = True) -> int:
-        """The engine's static memory bill: parameters + page pool, from
-        shapes and dtypes (one card: ``per_chip`` changes nothing)."""
-        params = sum(p.numel() * p.element_size() for p in self.params.parameters())
-        return params + sum(t.numel() * t.element_size() for t in self.pool.values())
+        """The engine's static memory bill: parameters + page pool (+ the
+        drafter's parameters and pool under spec), from shapes and dtypes
+        (one card: ``per_chip`` changes nothing)."""
+        return self._param_bytes() + self._pool_bytes()
 
     def mem_pool_snapshot(self) -> dict[str, Any]:
         """Pool telemetry (occupancy, cache-vs-table split, refcount
@@ -1160,11 +1387,31 @@ class ServeEngine:
         held = self.prefix.held_pages if self.prefix is not None else 0
         out = _memscope.pool_leak_check(self.pool, cache_held_pages=held,
                                         slot_rids=self._slot_last_rid)
+        if self.spec_k:
+            draft = _memscope.pool_leak_check(self.draft_pool, cache_held_pages=0,
+                                              slot_rids=self._slot_last_rid)
+            out["draft"] = draft
+            out["ok"] = out["ok"] and draft["ok"]
+            out["leaked_pages"] += draft["leaked_pages"]
         if not out["ok"]:
             flight.record(kind="mem", source="kv_pool_leak",
                           leaked_pages=out["leaked_pages"], leaks=out["leaks"][:8])
         self.mem_leak = out
         return out
+
+    def retire(self) -> None:
+        """Give back this engine's device memory (a drained elastic replica):
+        drop both pools and every captured program -- its graph, the graph's
+        private memory pool, its static inputs and outputs.  The host
+        counters and finished requests stay readable; the engine serves no
+        more."""
+        self.pool = self.draft_pool = None
+        programs = [self._tick, self._release, *self._prefill_programs.values()]
+        if self.spec_k:
+            programs += [self._draft_k, self._draft_k1, self._verify, self._draft_prefill,
+                         self._truncate, self._draft_truncate, self._draft_release]
+        for prog in programs:
+            prog.drop()
 
     def tokens_at(self, t: float) -> int:
         """Cumulative generated tokens delivered by time ``t`` (engine
@@ -1242,8 +1489,6 @@ class ServeEngine:
         n_chips = 1
         tok_lat = (self.tick_wall_s if self.clock == "wall"
                    else [self.tick_s] * max(self._ticks, 0))
-        pool_bytes = sum(t.numel() * t.element_size() for t in self.pool.values())
-        param_bytes = sum(p.numel() * p.element_size() for p in self.params.parameters())
         return {
             "admission": self.admission,
             "wall_s": round(wall, 4),
@@ -1277,17 +1522,30 @@ class ServeEngine:
             "pool_ok_failures": self.pool_ok_failures,
             "tp": self.tp,
             "weight_stream": self.weight_stream,
-            "pool_bytes_per_chip": pool_bytes,
-            "param_bytes_per_chip": param_bytes,
+            "pool_bytes_per_chip": self._pool_bytes(),
+            "param_bytes_per_chip": self._param_bytes(),
             "prefix_hit_rate": (self.prefix.stats()["hit_rate"]
                                 if self.prefix is not None else None),
             "prefill_tokens_saved": self.prefill_tokens_saved,
             "prefill_flops_saved": self.prefill_flops_saved,
             "prefix": self.prefix.stats() if self.prefix is not None else {"enabled": False},
-            "acceptance_rate": None,
-            "draft_tokens_accepted": 0,
-            "draft_tokens_rejected": 0,
-            "spec": {"enabled": False},
+            "acceptance_rate": (round(self.draft_tokens_accepted / self.draft_tokens_proposed, 4)
+                                if self.draft_tokens_proposed else None),
+            "draft_tokens_accepted": self.draft_tokens_accepted,
+            "draft_tokens_rejected": self.draft_tokens_proposed - self.draft_tokens_accepted,
+            "spec": {
+                "enabled": True,
+                "k": self.spec_k,
+                "draft_layers": self.draft_cfg.n_layers,
+                "draft_dim": self.draft_cfg.dmodel,
+                "flop_ratio": round(self.spec_flop_ratio, 4),
+                "rounds": self._spec_rounds,
+                "draft_steps": self._draft_steps,
+                "verify_steps": self._spec_rounds,
+                "draft_tokens_proposed": self.draft_tokens_proposed,
+                "draft_tokens_accepted": self.draft_tokens_accepted,
+                "accept_counts": {str(a): n for a, n in sorted(self.spec_accept_counts.items())},
+            } if self.spec_k else {"enabled": False},
             "config": {
                 "page_len": self.page_len,
                 "pages_per_seq": self.pages_per_seq,

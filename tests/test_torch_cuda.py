@@ -9,7 +9,8 @@ flash-ring and one TP step on the card against the CPU, a switch-MoE
 LLaMA step (top 1 and 2) and the EP layer on the card, one EP x DP x PP
 and one DP x PP x TP step on the card against the CPU, and the sentinel's
 ``skip`` on the card, eager and inside a CUDA graph (chip_smoke phase 16 (a)
-and (b), small).
+and (b), small), and the serving engine graphed against eager: plain,
+speculative and elastic (phases 18 (a), 19 (a) and (c), small).
 
 Marked ``gpu``: each test skips unless an sm_90 (Hopper) device is present,
 but for the FL entry points' refusal of a missing GPU, which runs anywhere.
@@ -1084,3 +1085,86 @@ def test_serve_engine_graphed_equals_eager_and_the_cpu(dev):
     assert graphed.pool_ok_failures == 0 and graphed.mem_leak_check()["ok"]
     assert sum(fa.LAUNCHES.values()) == 0
     assert sum(c for v in fa.CAPTURED.values() for c in v.values()) == 0
+
+
+def _spec_run(device, graphs):
+    """The tiny-deep fp32 engine with 2 drafts a round and the smoke knobs on
+    the seeded smoke trace, virtual clock, the page mirror asserted at every
+    step."""
+    from ddl25spring_tpu_torch.models.llama import Llama
+    from ddl25spring_tpu_torch.serve import driver
+    from ddl25spring_tpu_torch.serve.engine import ServeEngine
+    from ddl25spring_tpu_torch.serve.traffic import TrafficSpec, synth_trace
+
+    cfg = driver.serve_model("tiny-deep")
+    model = Llama(cfg, device=device, generator=torch.Generator().manual_seed(0))
+    model.requires_grad_(False)
+    trace = synth_trace(TrafficSpec(**driver.SMOKE_TRAFFIC, vocab_size=cfg.vocab_size))
+    knobs = {**driver.engine_knobs(smoke=True), "spec_k": 2}
+    eng = ServeEngine(model, cfg, **knobs, clock="virtual", trace_label=None, graphs=graphs,
+                      tick_s=driver.ab_tick_s(trace, knobs["max_slots"]))
+    eng._sanitize = True
+    eng.warmup()
+    eng.run(trace, max_steps=5_000)
+    return eng
+
+
+def test_spec_engine_graphed_equals_eager_and_the_cpu(dev):
+    """chip_smoke phase 19 (a), small: the graphed speculative engine's
+    streams, accept counts and both final pools are bitwise the eager
+    engine's, its streams and accept counts the CPU's, and a full accept
+    took the captured (k+1)-step draft."""
+    from ddl25spring_tpu_torch.ops import flash_attention as fa
+
+    fa.reset_launches()
+    graphed, eager = _spec_run(dev, graphs=True), _spec_run(dev, graphs=False)
+    cpu = _spec_run(torch.device("cpu"), graphs=True)
+    assert graphed._verify.graph is not None and graphed._draft_k1.graph is not None
+    assert eager._verify.graph is None
+    streams = [{r.rid: r.tokens for r in e.done} for e in (graphed, eager, cpu)]
+    assert streams[0] == streams[1] == streams[2] and len(streams[0]) > 5
+    assert graphed.spec_accept_counts == eager.spec_accept_counts == cpu.spec_accept_counts
+    assert graphed._draft_steps > 2 * graphed._spec_rounds  # a (k+1)-step round ran
+    for ours, theirs in ((graphed.pool, eager.pool), (graphed.draft_pool, eager.draft_pool)):
+        for name, t in ours.items():
+            keep = slice(0, graphed.n_pages) if name in ("k", "v") else slice(None)
+            assert torch.equal(t[keep], theirs[name][keep]), name
+    leak = graphed.mem_leak_check()
+    assert graphed.pool_ok_failures == 0 and leak["ok"] and leak["draft"]["ok"]
+    assert sum(fa.LAUNCHES.values()) == 0
+    assert sum(c for v in fa.CAPTURED.values() for c in v.values()) == 0
+
+
+def test_elastic_serve_graphed_equals_eager_on_the_card(dev, tmp_path):
+    """chip_smoke phase 19 (c), small: a traffic spike and a device loss on
+    the tiny model, graphed and eager replicas: the same events and streams,
+    nothing dropped, and the retired replica's allocator step-down above 0."""
+    from ddl25spring_tpu_torch import obs
+    from ddl25spring_tpu_torch.ft import ChaosInjector, parse_chaos
+    from ddl25spring_tpu_torch.models.llama import Llama
+    from ddl25spring_tpu_torch.obs import memscope
+    from ddl25spring_tpu_torch.serve import driver
+
+    cfg = driver.serve_model("tiny")
+    model = Llama(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    model.requires_grad_(False)
+    knobs = dict(page_len=4, n_pages=16, max_slots=2, prefill_batch=2, max_prompt_len=8,
+                 max_queue=32, token_budget=None, eos_id=None, prefix_cache=False)
+    trace = [{"t": 0.001 * i, "prompt": [5, 9, 11, 3], "max_new": 6} for i in range(8)]
+    cells = []
+    obs.timeline.configure(None)
+    with obs.scoped(True), memscope.scoped(True):
+        for graphs in (True, False):
+            chaos = ChaosInjector(parse_chaos("traffic_spike@1:12,device_loss@8"), None)
+            cells.append(driver.elastic_serve_run(model, cfg, trace, dict(knobs, graphs=graphs),
+                                                  chaos=chaos, max_replicas=3,
+                                                  keep_requests=True))
+    graphed, eager = cells
+    assert ([(e["reason"], e["old"], e["new"], e["t"]) for e in graphed["events"]]
+            == [(e["reason"], e["old"], e["new"], e["t"]) for e in eager["events"]])
+    assert graphed["dropped_requests"] == eager["dropped_requests"] == 0
+    assert ({r.rid: r.tokens for r in graphed["_requests"]}
+            == {r.rid: r.tokens for r in eager["_requests"]})
+    for cell in cells:
+        (step,) = cell["mem_steps"]
+        assert step["leak_ok"] and step["step_down_bytes"] > 0

@@ -376,7 +376,7 @@ def test_geometry_and_argument_refusals(params):
 
 
 def test_a9b_options_raise_not_implemented(params, monkeypatch):
-    for kw in (dict(spec_k=2), dict(tp=2), dict(tp=2, weight_stream=True)):
+    for kw in (dict(tp=2), dict(tp=2, weight_stream=True)):
         with pytest.raises(NotImplementedError, match="A9b"):
             make_engine(params, **kw)
     with pytest.raises(ValueError, match="tp > 1"):
@@ -385,7 +385,7 @@ def test_a9b_options_raise_not_implemented(params, monkeypatch):
         make_decode_tick(CFG, tp_axis="model")
     with pytest.raises(NotImplementedError, match="A9b"):
         driver.run_serve_bench(smoke=True, device="cpu", serve_tp=2)
-    for env in ("DDL25_SERVE_SPEC", "DDL25_SERVE_TP"):
+    for env in ("DDL25_SERVE_TP", "DDL25_SERVE_WEIGHT_STREAM"):
         monkeypatch.setenv(env, "2")
         with pytest.raises(NotImplementedError, match="A9b"):
             driver.engine_knobs(smoke=True)
