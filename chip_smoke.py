@@ -123,12 +123,12 @@ Phases, in order; any failure exits non-zero and prints no result:
         1e-5, gradients and updated parameters atol 2e-4 + rtol 2e-3, as
         phase 7 (a)); ``1f1b`` against ``1f1b-stash`` as a max abs
         difference;
-    (b) bf16, 2 x 3, 3 one-row microbatches, 12 steps of each schedule: the
+    (b) bf16, 2 x 3, 3 one-row microbatches, ``SCHED_STEPS`` steps of each schedule: the
         flash launches of every rank per step exactly (fwd twice the layers
         on the rank times M under ``1f1b`` and ``interleaved-1f1b``, which
         recompute the forward, once under the others; dq and dk/dv once),
         every launch on ``wgmma``; the median step (the slowest rank's,
-        steps 4..11) and per stage the recv wait, send, DP all-reduce and
+        steps 4 on) and per stage the recv wait, send, DP all-reduce and
         bytes staged;
     (c) bf16, 1 x 3, M = 12 one-row microbatches: each rank's activation peak
         in the second step (``max_memory_allocated`` during it less
@@ -220,10 +220,11 @@ Phases, in order; any failure exits non-zero and prints no result:
 13. switch-MoE LLaMA and expert parallelism on the card (``parallel/ep.py``;
     ``MOE``: ``LlamaConfig()`` with 4 experts, capacity factor 1.25, aux
     weight 0.01, the flash kernels), each sub-phase timed:
-    (a) one process, bf16, 3 rows x 256, Adam 8e-4, 10 steps each of top-1,
-        top-2 and the dense ``LlamaConfig(use_flash=True)``: losses finite
-        and falling, the first within 1 of ln(4096) + w aux; each kernel
-        launched exactly 6 times per step, all on ``wgmma``; kept/assigned
+    (a) one process, bf16, 3 rows x 256, Adam 8e-4, ``MOE_STEPS`` steps each
+        of top-1, top-2 and the dense ``LlamaConfig(use_flash=True)``, each
+        ``MOE_LAYERS`` deep (cut from 6): losses finite and falling, the
+        first within 1 of ln(4096) + w aux; each kernel launched exactly
+        once per layer and step, all on ``wgmma``; kept/assigned
         slots per layer; the median step, device busy and idle share over 5
         profiled steps and the busy shares of attention, the dispatch/combine
         products and the expert GEMMs (``moe_profile``); then one fp32 step
@@ -232,7 +233,8 @@ Phases, in order; any failure exits non-zero and prints no result:
         2e-3, the tokens whose ordered expert choices differ counted and
         printed, each allowed only at a near-tie (neighbouring probs within
         ``FLIP_GAP``);
-    (b) four ranks on ``cuda:0`` over gloo, one layout after another
+    (b) four ranks on ``cuda:0`` over gloo, the MoE LLaMA ``MOE_LAYERS``
+        deep, one layout after another
         (``Mesh.regrid``): the EP x DP 2 x 2 layer (top-2, 3072 tokens,
         fp32, at capacity 0.5, where every bucket fills, and at 1.0, where
         some overflow and some do not) against ``moe_ffn`` on each shard's
@@ -371,8 +373,9 @@ Phases, in order; any failure exits non-zero and prints no result:
         ``save_skipped`` record (``sentinel_violation``), the manifest's
         ``save_skipped`` 1, that step never on disk, and ``restore_or_init``
         of the last durable step bitwise the live parameters and Adam state;
-    (d) 4 ranks on ``cuda:0``: ``make_zero3_llama_train_step`` at full width
-        in fp32 (the fp32 flash kernels, Adam 8e-4, eps 1e-6), 2 steps at
+    (d) 4 ranks on ``cuda:0``: ``make_zero3_llama_train_step`` at full width,
+        ``FT_ZERO_LAYERS`` deep (cut from 6), in fp32 (the fp32 flash
+        kernels, Adam 8e-4, eps 1e-6), 2 steps at
         n = 4, a live reshape to n = 2 (``Mesh.regrid``,
         ``elastic.reshape_state`` onto ``zero_resume_template(abstract=True)``),
         2 steps; and 2 -> 4 likewise: both within atol 2e-5 + rtol 2e-5 (the
@@ -380,7 +383,8 @@ Phases, in order; any failure exits non-zero and prints no result:
         record ``{"data": 4} -> {"data": 2}``, steps lost 0; the
         ``AutoSaver`` checkpoint of n = 4 (``leaf_shapes`` ``[4, k]`` /
         ``[L, 4, k]``) restored by ``restore_or_init`` on n = 2 bitwise the
-        live reshape's state; 6/6/6 launches a step, all on ``tf32x3``;
+        live reshape's state; one launch per layer and step of each kernel,
+        all on ``tf32x3``;
     (e) written down, not gated: the lab's median step with ``--ckpt-every
         2`` and without (one more unchecked run), each async save's blocking
         wall, a warm single-process restore of the 2 x 3 checkpoint, the
@@ -445,7 +449,38 @@ Phases, in order; any failure exits non-zero and prints no result:
         completed stream the non-elastic engine's, each retired replica's
         allocator step-down above 0 bytes (printed beside its pool's bytes)
         and ``check_reshape`` clean; then ``DDL25_CHAOS=device_loss@20
-        bench --serve`` and ``serve_report --check-reshape`` on its row.
+        bench --serve`` and ``serve_report --check-reshape`` on its row;
+20. TP-sharded serving and the ZeRO-3 weight-streaming decode on the card
+    (``ServeEngine(tp=2)``, ``weight_stream=True``, ``bench --serve
+    --serve-tp``; ``tp_phase``): worlds of ``TP_N`` ranks on ``cuda:0`` over
+    gloo, the TP engines eager (ranks that share a card are not graphed); no
+    flash kernel on the path (0 launches over the phase, on every rank):
+    (a) fp32 (TF32 off), the tiny model and the full width, resident and
+        streamed, and tiny-deep with ``spec_k`` = ``SPEC_K``: the seeded smoke
+        trace on the virtual clock through the TP engines on the card,
+        against single-card engines graphed and eager on the card and on the
+        CPU: every stream and token timeline
+        equal, the accept counts too, each rank's pool within
+        ``TP_POOL_BAND`` of its heads of the single-card pool, no leak; the
+        tick's logits after a prefill streamed == resident bitwise, and the
+        largest |TP - single-card| logit printed;
+    (b) ``bench.main(["--serve", "--serve-model", "ref", "--serve-tp", "2",
+        ...])`` (bf16, the ramp cut to ``TP_BENCH_S``), resident and with
+        ``DDL25_SERVE_WEIGHT_STREAM=1``: every request completed, no page
+        left, the per-rank bill below the single card's, and ``serve_report
+        --check-tp`` on its row; where bf16 streams differ (two rounded
+        partial sums are not one product), the first request and position
+        that differ and the dense top-2 gap there are printed, and the gate
+        must pass on an fp32 tiny-deep row instead;
+    (c) the full-width bf16 tick at the serving knobs, 4 slots decoding,
+        resident TP, streamed TP and (rank 0) the single-card eager tick:
+        median wall over ``TP_TICKS`` ticks, device busy over
+        ``TP_PROFILED`` under torch.profiler, all-reduce and all-gather
+        seconds and the bytes staged through the host a tick (held exactly
+        to the arithmetic), persistent bytes against ``mem_budget_bytes()``,
+        the peak over the timed ticks (streamed held to the resident peak
+        plus the layers in flight), and where the TP stream leaves the
+        single-card one.
 
 Tolerances (|kernel - plain| <= atol + rtol * |plain|):
   fp32: atol 1e-4, rtol 0 (summation order only);
@@ -471,8 +506,9 @@ the kernel's nodes in (b)'s guarded graph of 16 steps, and
 ``launches_obs_dp_pp_per_rank_per_step`` each rank's launches per step in
 (e); ``launches_ft_lab_per_rank_per_step`` each rank's launches per step in
 phase 17 (a)'s run A, ``launches_ft_zero3_per_rank_per_step`` each rank's
-per step in each run of phase 17 (d), and ``launches_serve_per_tick`` the
-kernel's launches (eager and captured) over phase 18 per decode tick run (0).
+per step in each run of phase 17 (d), ``launches_serve_per_tick`` the
+kernel's launches (eager and captured) over phase 18 per decode tick run (0),
+and ``launches_tp_serve`` its launches over phase 20 on every rank (0).
 The rows ``flash_fwd_tf32x3``, ``flash_dq_tf32x3`` and ``flash_dkv_tf32x3``
 are the fp32 path's: ``launches`` its launches over phase 7 (a)'s six ranks,
 ``max_abs_err`` phase 3's at ``[18, 256, 48]`` fp32 causal, the times phase 10
@@ -1553,7 +1589,7 @@ def fl_phase(dev):
 
 SCHED = ("gpipe", "1f1b", "1f1b-stash", "interleaved", "interleaved-1f1b")
 CHUNKS = 2                      # phase 10: chunks per rank under the interleaved schedules
-SCHED_STEPS = 12                # phase 10 (b): steps per schedule, the median over 4..11
+SCHED_STEPS = 8                 # phase 10 (b): steps per schedule, the median over 4..7
 MEM_MICRO = 12                  # phase 10 (c): microbatches of one row each, 1 x 3
 ACCUM_MICRO = 4                 # phase 10 (d): ResNet batch 1024 in 4 microbatches
 ACCUM_ITERS = 10                # phase 10 (d): timed steps of each ResNet step
@@ -2483,11 +2519,11 @@ def sp_tp_rank(rdv, exact_tokens, slice_batches, device):
     return out
 
 
-def sp_tp_launches(name, index):
+def sp_tp_launches(name, index, layers=6):
     """Flash launches of each kernel per rank per step: index ``s`` of the
     flash ring skips the blocks it cannot see, so runs ``1 + s`` forwards
     (and as many dq and dk/dv) per layer; Ulysses and TP run one."""
-    return 6 * (1 + index if name == "ring" else 1)
+    return layers * (1 + index if name == "ring" else 1)
 
 
 def sp_tp_staged_bytes(name, n_params, n=2, rows=SPTP_ROWS, L=256, D=288, layers=6):
@@ -2643,7 +2679,8 @@ def sp_tp_phase(dev):
 
 # ---------------------------------------------------------------- phase 13
 
-MOE_STEPS = 10                  # (a): bf16 Adam steps per routing
+MOE_STEPS = 5                   # (a): bf16 Adam steps per routing
+MOE_LAYERS = 2                  # (a), (b): the MoE (and dense) LLaMA's depth; (c) keeps 6
 MOE_PROFILED = 5                # (a): steps under torch.profiler
 MOE_EP_TOKENS = 4 * 768         # (b): the EP x DP layer, 768 tokens per shard
 MOE_EP_CFS = (0.5, 1.0)         # (b): its capacity factors: every bucket fills at 0.5;
@@ -2654,13 +2691,15 @@ MOE_PIPE_STEPS = 5              # (c): bf16 gpipe steps
 FLIP_GAP = 1e-5                 # a routing flip is a near-tie below this top-two gap
 
 
-def moe_cfg(dtype="bfloat16", top_k=1):
+def moe_cfg(dtype="bfloat16", top_k=1, n_layers=6):
     """Phase 13's configuration: ``LlamaConfig()`` at full width with 4
     experts, the flash kernels and the config's own capacity factor (1.25)
-    and aux weight (0.01)."""
+    and aux weight (0.01); ``n_layers`` deep (13 (a) and (b) run
+    ``MOE_LAYERS``)."""
     from ddl25spring_tpu_torch.utils.config import LlamaConfig
 
-    return LlamaConfig(dtype=dtype, use_flash=True, n_experts=4, moe_top_k=top_k)
+    return LlamaConfig(dtype=dtype, use_flash=True, n_experts=4, moe_top_k=top_k,
+                       n_layers=n_layers)
 
 
 def _moe_loss(model, tokens, cfg, moe_fn=None):
@@ -2765,8 +2804,9 @@ def moe_single(dev):
     batches = [torch.from_numpy(np.asarray(next(ds))).long().to(dev) for _ in range(MOE_STEPS)]
     T = SPTP_ROWS * 256
     out = {"launches": {}}
-    for name, cfg in (("top1", moe_cfg(top_k=1)), ("top2", moe_cfg(top_k=2)),
-                      ("dense", LlamaConfig(use_flash=True))):
+    for name, cfg in (("top1", moe_cfg(top_k=1, n_layers=MOE_LAYERS)),
+                      ("top2", moe_cfg(top_k=2, n_layers=MOE_LAYERS)),
+                      ("dense", LlamaConfig(use_flash=True, n_layers=MOE_LAYERS))):
         model = Llama(cfg, device=dev, generator=torch.Generator().manual_seed(0))
         step = _moe_step(model, cfg)
         losses, auxes, step_s = [], [], []
@@ -2786,10 +2826,10 @@ def moe_single(dev):
               f"(a) {name}: first loss {losses[0]:.3f} far from ln(vocab) + w aux {start:.3f}")
         first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
         check(last < first, f"(a) {name}: loss did not fall: {first:.4f} -> {last:.4f}")
-        want = {k: 6 * MOE_STEPS for k in ("fwd", "dq", "dkv")}
+        want = {k: cfg.n_layers * MOE_STEPS for k in ("fwd", "dq", "dkv")}
         check(launches == want, f"(a) {name}: launches {launches} != {want}")
         for k in want:
-            check(by_variant[k]["wgmma"] == 6 * MOE_STEPS,
+            check(by_variant[k]["wgmma"] == cfg.n_layers * MOE_STEPS,
                   f"(a) {name}: {k} launches by variant {by_variant[k]}")
         out["launches"][name] = {k: v // MOE_STEPS for k, v in launches.items()}
         step_ms = statistics.median(step_s[1:]) * 1e3
@@ -2814,7 +2854,7 @@ def moe_single(dev):
     # fp32, TF32 off: the card against the CPU port from the same weights
     tokens = torch.from_numpy(_token_batches(moe_cfg(), SPTP_ROWS, 1, seed=21)[0]).long()
     for top_k in (1, 2):
-        cfg = moe_cfg("float32", top_k)
+        cfg = moe_cfg("float32", top_k, MOE_LAYERS)
         got = {}
         for key, where in (("card", dev), ("host", torch.device("cpu"))):
             model = Llama(cfg, device=where, generator=torch.Generator().manual_seed(7))
@@ -2908,12 +2948,13 @@ def moe_world_rank(rdv, exact_tokens, slice_batches, device):
                 out["ep"][cf] = {"y": y.cpu() if rdv.rank == 0 else None, "aux": float(aux),
                                  "kept": stats["kept"].cpu(), "assigned": stats["assigned"]}
             for name, layout in SPTP_SLICE.items():
-                mesh, model, step = _sptp_step(layout, world, moe_cfg("float32"), 7)
+                mesh, model, step = _sptp_step(layout, world,
+                                               moe_cfg("float32", n_layers=MOE_LAYERS), 7)
                 tokens = torch.from_numpy(exact_tokens[:layout[0] * SPTP_ROWS]).long()
                 out["exact"][name] = {"coords": mesh.coords, "loss": float(step(tokens)),
                                       "grads": export_grads(model)}
         for name, layout in SPTP_SLICE.items():
-            mesh, model, step = _sptp_step(layout, world, moe_cfg(), 0)
+            mesh, model, step = _sptp_step(layout, world, moe_cfg(n_layers=MOE_LAYERS), 0)
             r = {"coords": mesh.coords, "device": str(mesh.device), "backend": mesh.backend,
                  "n_params": sum(p.numel() for p in model.parameters()), "losses": [],
                  "step_s": [], "comm": []}
@@ -2933,14 +2974,14 @@ def moe_world_rank(rdv, exact_tokens, slice_batches, device):
     return out
 
 
-def moe_staged_bytes(name, n_params, top_k=1, rows=SPTP_ROWS, L=256, layers=6):
+def moe_staged_bytes(name, n_params, top_k=1, rows=SPTP_ROWS, L=256, layers=MOE_LAYERS):
     """Bytes a MoE rank stages per bf16 step of 2 x 2: SP's as the dense
     count (each rank dispatches its own tokens, with no collective); TP's
     dense count plus, per layer in the backward, the gates' ``copy_in``
     (``[rows L, top_k]`` fp32); the MoE input's ``copy_in`` and output's
     ``reduce_out`` take the places of the dense FFN's."""
     extra = layers * 2 * rows * L * top_k * 4 if name == "tp" else 0
-    return sp_tp_staged_bytes(name, n_params) + extra
+    return sp_tp_staged_bytes(name, n_params, layers=layers) + extra
 
 
 def moe_world_checks(ranks, dev):
@@ -2976,7 +3017,7 @@ def moe_world_checks(ranks, dev):
               f"{full} per expert (= the oracle's on every rank), {int(dropped)} of "
               f"{int(got['assigned'])} slots dropped; aux {got['aux']:.5f}")
 
-    cfg = moe_cfg("float32")
+    cfg = moe_cfg("float32", n_layers=MOE_LAYERS)
     tokens = torch.from_numpy(_token_batches(cfg, 2 * SPTP_ROWS, 1, seed=17)[0]).long()
     for name, (data, axis, size, mode) in SPTP_SLICE.items():
         want_loss, want_grads = moe_oracle(cfg, dev, 7, tokens[:data * SPTP_ROWS], data,
@@ -3006,7 +3047,7 @@ def moe_world_checks(ranks, dev):
         check(last < first, f"(b) {name}: loss did not fall: {first:.4f} -> {last:.4f}")
         staged, expect = [], []
         for r in runs:
-            n = sp_tp_launches(name, r["coords"][1]) * SPTP_STEPS
+            n = sp_tp_launches(name, r["coords"][1], MOE_LAYERS) * SPTP_STEPS
             check(r["launches"] == {k: n for k in ("fwd", "dq", "dkv")},
                   f"(b) {name}: rank {r['coords']} launches {r['launches']}")
             check(all(r["by_variant"][k]["wgmma"] == n for k in ("fwd", "dq", "dkv")),
@@ -3153,7 +3194,7 @@ def moe_phase(dev):
 
 # ---------------------------------------------------------------- phase 14
 
-PIPE_STEPS = 6                  # bf16 Adam steps per layout and schedule (phases 14, 15)
+PIPE_STEPS = 4                  # bf16 Adam steps per layout and schedule (phases 14, 15)
 GRAD_BAND = 1e-5                # fp32: |pipeline - one process|, loss (relative) and grads
 # run -> world, grid (data, stages, seq, model), model kind, schedule, chunks per
 # rank, the composition's axes, microbatches, rows per replica
@@ -4590,6 +4631,7 @@ FT_ZERO_N = 4                   # (d): ranks; n = 2 regrids them to 2 x 2
 FT_ZERO_ROWS = 4                # (d): global rows per step
 FT_ZERO_EPS = 1e-6              # (d): Adam's eps (the parity tests' value; see ft_zero_rank)
 FT_BAND = 2e-5                  # (d): atol and rtol, the JAX test's assert_allclose (test_elastic.py)
+FT_ZERO_LAYERS = 2              # (d): the fp32 LLaMA's depth (full width), cut from 6
 FT_LAB = ["--workload", "llama"]  # the lab's flags (2 x 3, gpipe, full width, flash)
 
 
@@ -4833,7 +4875,9 @@ def ft_zero_rank(rdv, batches, ckpt_dir, device="cuda"):
     from ddl25spring_tpu_torch.utils import pytree
     from ddl25spring_tpu_torch.utils.mesh import init_mesh
 
-    cfg = pipe_cfg("dense", "float32")
+    from ddl25spring_tpu_torch.utils.config import replace
+
+    cfg = replace(pipe_cfg("dense", "float32"), n_layers=FT_ZERO_LAYERS)
     out = {"launches": {}, "by_variant": {}}
     with init_mesh(rdv, FT_ZERO_N, stages=1, device=device) as mesh4:
         dev = mesh4.device
@@ -4970,7 +5014,8 @@ def ft_zero_checks(ranks, ckpt_dir) -> tuple[dict, list[str]]:
           "the seed and Adam's count")
     launches = ranks[0]["launches"]
     for tag, c in launches.items():
-        check(c == {"fwd": 6, "dq": 6, "dkv": 6}, f"(d) {tag} launches per step {c}")
+        check(c == {k: FT_ZERO_LAYERS for k in ("fwd", "dq", "dkv")},
+              f"(d) {tag} launches per step {c}")
     for r in ranks:
         for tag, c in r["by_variant"].items():
             n = r["launches"][tag]
@@ -5616,6 +5661,411 @@ def spec_elastic_phase(dev) -> dict:
     return {"spec": spec, "elastic": cells, "elastic_bench": bench_cell}
 
 
+TP_N = 2                        # phase 20: ranks of the model axis, all on cuda:0 over gloo
+TP_TICKS = 16                   # (c): timed decode ticks per TP engine (and the single-card one)
+TP_PROFILED = 4                 # (c): ticks under torch.profiler per engine
+TP_BENCH_S = 2.0                # (b): the ramp trace's duration (11 requests; the bf16
+                                # streams leave the single card's within them)
+TP_POOL_BAND = 1e-5             # (a): a rank's k/v against the single-card pool's heads
+
+
+def _tp_prompts(cfg, rows=2, width=8, seed=5):
+    return torch.randint(1, cfg.vocab_size, (rows, width),
+                         generator=torch.Generator().manual_seed(seed), dtype=torch.int32)
+
+
+def tp_logits(model, cfg, mesh) -> dict:
+    """(a): the tick's logits after one prefill of two seeded prompts, from
+    the resident TP engine, the streamed one and a single-card engine on this
+    rank, each on a fresh pool of its own: the largest difference TP against
+    single-card, and whether streamed equals resident bitwise."""
+    from ddl25spring_tpu_torch.serve import driver, kv_pages
+    from ddl25spring_tpu_torch.serve import engine as eng_mod
+    from ddl25spring_tpu_torch.serve import spec as spec_mod
+    from ddl25spring_tpu_torch.serve.engine import ServeEngine
+
+    knobs = driver.engine_knobs(smoke=True)
+    prompts, dev = _tp_prompts(cfg), mesh.device
+    lens = torch.tensor([8, 5], dtype=torch.int32)
+    out = {}
+    for name, kw in (("resident", dict(tp=TP_N, mesh=mesh)),
+                     ("streamed", dict(tp=TP_N, mesh=mesh, weight_stream=True)),
+                     ("single", {})):
+        m = model if name != "single" else _serve_model(cfg, dev)
+        e = ServeEngine(m, cfg, **{**knobs, **kw}, graphs=False, clock="virtual",
+                        trace_label=None)
+        pool = kv_pages.init_page_pool(cfg, n_pages=e.n_pages, page_len=e.page_len,
+                                       max_slots=e.max_slots, pages_per_seq=e.pages_per_seq,
+                                       num_heads=cfg.num_heads // e.tp, device=dev)
+        pool, first, _ = e._prefill_at(0).body(e.params, pool, prompts.to(dev), lens.to(dev),
+                                               torch.zeros(2, dtype=torch.int32, device=dev),
+                                               torch.arange(2, dtype=torch.int32, device=dev),
+                                               None)
+        stack = None if e._stream is None else eng_mod._stream_layer_stack(e.axis, *e._stream)
+        _, logits, _ = spec_mod._position_step(cfg, e.axis, stack)(
+            e.params, pool, first, pool["seq_len"], pool["active"])
+        out[name] = logits.cpu()
+    return {"max_diff": float((out["resident"] - out["single"]).abs().max()),
+            "streamed_bitwise": torch.equal(out["resident"], out["streamed"])}
+
+
+def tp_fp32_engine(model, cfg, mesh, weight_stream=False, spec_k=0):
+    """(a): the seeded smoke trace through a ``tp = TP_N`` engine (the smoke
+    knobs, virtual clock, eager), the page mirror asserted after every step."""
+    from ddl25spring_tpu_torch.serve import driver
+    from ddl25spring_tpu_torch.serve.engine import ServeEngine
+    from ddl25spring_tpu_torch.serve.traffic import TrafficSpec, synth_trace
+
+    trace = synth_trace(TrafficSpec(**driver.SMOKE_TRAFFIC, vocab_size=cfg.vocab_size))
+    knobs = {**driver.engine_knobs(smoke=True), "spec_k": spec_k, "tp": TP_N,
+             "weight_stream": weight_stream}
+    eng = ServeEngine(model, cfg, **knobs, mesh=mesh, graphs=False, clock="virtual",
+                      tick_s=driver.ab_tick_s(trace, knobs["max_slots"]), trace_label=None)
+    eng._sanitize = True
+    eng.warmup()
+    eng.run(trace, max_steps=5_000)
+    return eng
+
+
+TP_EXACT = (("tiny", "tiny", 0), ("full width", None, 0), ("tiny-deep spec", "tiny-deep", SPEC_K))
+
+
+def tp_exact_configs():
+    from ddl25spring_tpu_torch.serve import driver
+    from ddl25spring_tpu_torch.utils.config import LlamaConfig
+
+    return [(name, LlamaConfig(dtype="float32") if key is None else driver.serve_model(key), k)
+            for name, key, k in TP_EXACT]
+
+
+def tp_cost(mesh) -> dict:
+    """(c): the full-width bf16 decode tick at the serving knobs, 4 slots
+    decoding, resident TP, streamed TP (both ranks, in lockstep) and, on rank
+    0 alone, the single-card eager tick: each engine's persistent bytes
+    (``torch.cuda.memory_allocated`` around its build and warmup) beside its
+    ``mem_budget_bytes()``, ``TP_TICKS`` timed ticks (median wall), the
+    collective seconds and staged bytes a tick (``Comm.take_stats``), then
+    ``TP_PROFILED`` ticks under torch.profiler (device busy a tick), the peak
+    (``max_memory_allocated``) over the timed ticks; the first divergence of
+    the TP stream from the single-card one, with the single-card top-2 gap
+    there."""
+    import torch.distributed as dist
+
+    from ddl25spring_tpu_torch.models import llama
+    from ddl25spring_tpu_torch.serve import driver
+    from ddl25spring_tpu_torch.serve.engine import ServeEngine
+    from ddl25spring_tpu_torch.utils.config import LlamaConfig
+
+    cfg = LlamaConfig()
+    dev = mesh.device
+    model = _serve_model(cfg, "cpu")
+    # the serving knobs, the 4 prompts admitted in one 16-position prefill
+    knobs = {**driver.engine_knobs(), "max_prompt_len": 16, "prefill_batch": 4}
+    out, streams = {}, {}
+    g = torch.Generator().manual_seed(1)
+    prompts = [torch.randint(1, cfg.vocab_size, (16,), generator=g).tolist() for _ in range(4)]
+    for name, kw in (("resident", dict(tp=TP_N, mesh=mesh)),
+                     ("streamed", dict(tp=TP_N, mesh=mesh, weight_stream=True)),
+                     ("single", {})):
+        if name == "single" and mesh.rank != 0:
+            dist.barrier(group=mesh.axis("model").group)
+            break
+        torch.cuda.synchronize(dev)
+        before = torch.cuda.memory_allocated(dev)
+        src = model if name != "single" else model.to(dev)
+        eng = ServeEngine(src, cfg, **{**knobs, **kw}, graphs=False, clock="wall",
+                          trace_label=None)
+        eng.warmup()
+        torch.cuda.synchronize(dev)
+        held_model = sum(p.numel() * p.element_size() for p in model.parameters())
+        held = torch.cuda.memory_allocated(dev) - before - (held_model if name == "single"
+                                                            else 0)
+        for p in prompts:
+            eng.submit(eng.make_request(p, 200))
+        while eng.queue:
+            eng.step()
+        mesh.comm.take_stats()
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        walls = []
+        for _ in range(TP_TICKS):
+            t0 = time.perf_counter()
+            eng.step()
+            walls.append(time.perf_counter() - t0)
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev) - before - (held_model if name == "single"
+                                                                else 0)
+        stats = mesh.comm.take_stats()
+        ms, busy = _busy_ms(eng, TP_PROFILED)
+        out[name] = {"median_ms": statistics.median(walls[TP_TICKS // 4:]) * 1e3,
+                     "busy_ms": busy, "profiled_ms": ms, "held": held, "peak": peak,
+                     "budget": eng.mem_budget_bytes(),
+                     "allreduce_ms": stats["allreduce_s"] * 1e3 / TP_TICKS,
+                     "gather_ms": stats["collective_s"] * 1e3 / TP_TICKS,
+                     "staged": stats["bytes_staged"] / TP_TICKS,
+                     "plan": (None if eng._stream is None
+                              else [eng._stream[0].bucket_size(b)
+                                    for b in range(eng._stream[0].n_buckets)]),
+                     # one gathered layer, whole (the rows' padding too)
+                     "layer_bytes": (None if eng._stream is None
+                                     else TP_N * sum(k * d.itemsize for k, d in zip(
+                                         eng._stream[0].sizes, eng._stream[0].dtypes)))}
+        streams[name] = list(eng.slots[0].tokens)
+        prompt0 = eng.slots[0].prompt
+        del eng
+        if name == "single":
+            model.to("cpu")
+            dist.barrier(group=mesh.axis("model").group)
+    if mesh.rank == 0:
+        a, b = streams["resident"], streams["single"]
+        n = min(len(a), len(b))
+        first = next((i for i in range(n) if a[i] != b[i]), None)
+        gap = None
+        if first is not None:
+            with torch.no_grad():
+                top2 = llama.llama_forward(model.to(dev), torch.tensor(
+                    [prompt0 + b[:first]], device=dev), cfg)[0, -1].float().topk(2).values
+            model.to("cpu")
+            gap = float(top2[0] - top2[1])
+        out["divergence"] = {"compared": n, "first": first, "gap": gap,
+                             "streamed_equals_resident": streams["streamed"][:n] == a[:n]}
+    return out
+
+
+def tp_rank(rdv, device="cuda"):
+    """One rank of phase 20's world (``TP_N`` ranks of a ``1 x TP_N`` model
+    mesh on ``device``): (a)'s fp32 engines and logits, then (c)'s costs; the
+    flash launches over the whole rank."""
+    from ddl25spring_tpu_torch.ops import flash_attention as fa
+    from ddl25spring_tpu_torch.utils.mesh import init_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fa.reset_launches()
+    out = {"seconds": {}}
+    with init_mesh(rdv, 1, model=TP_N, device=device) as mesh:
+        out["index"] = mesh.axis("model").index
+        for name, cfg, spec_k in tp_exact_configs():
+            t0 = time.perf_counter()
+            model = _serve_model(cfg, "cpu")
+            res = {}
+            for mode, ws in (("resident", False),) + ((("streamed", True),) if not spec_k else ()):
+                e = tp_fp32_engine(model, cfg, mesh, ws, spec_k)
+                leak = e.mem_leak_check()
+                res[mode] = {"streams": {r.rid: r.tokens for r in e.done}, "log": e.token_log,
+                             "accept": dict(e.spec_accept_counts),
+                             "k": e.pool["k"][:e.n_pages].cpu(), "v": e.pool["v"][:e.n_pages].cpu(),
+                             "ok": e.pool_ok_failures == 0 and leak["ok"],
+                             "graphs": e.metrics()["config"]["graphs"]}
+            if not spec_k:
+                res["logits"] = tp_logits(model, cfg, mesh)
+            out[name] = res
+            out["seconds"][name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["cost"] = tp_cost(mesh)
+        out["seconds"]["cost"] = time.perf_counter() - t0
+    out["launches"] = {n: fa.LAUNCHES[n] + sum(fa.CAPTURED[n].values()) for n in fa.LAUNCHES}
+    return out
+
+
+def tp_exactness(dev) -> list:
+    """Phase 20 (a) and (c): the card's world (its (c) costs too) against
+    single-card engines, graphed and eager on the card and on the CPU (the
+    same TP world on the CPU is ``tests/test_torch_serve_tp.py``'s).  Returns
+    the card's ranks."""
+    from ddl25spring_tpu_torch.parallel.launch import spawn
+
+    t0 = time.perf_counter()
+    single = {}
+    for name, cfg, spec_k in tp_exact_configs():
+        run = serve_fp32_run if not spec_k else spec_fp32_run
+        single[name] = {mode: run(cfg, d, graphs) for mode, d, graphs in (
+            ("graphed", dev, True), ("eager", dev, False), ("cpu", torch.device("cpu"), True))}
+    print(f"  (a) the single-card engines: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    card = spawn(tp_rank, TP_N, timeout=SPAWN_TIMEOUT)
+    print(f"  (a), (c) the card's world of {TP_N}: {time.perf_counter() - t0:.1f} s (rank 0: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in card[0]["seconds"].items()) + ")",
+          flush=True)
+    for name, cfg, spec_k in tp_exact_configs():
+        s = single[name]
+        prog = "_verify" if spec_k else "_tick"
+        check(getattr(s["graphed"], prog).graph is not None
+              and getattr(s["eager"], prog).graph is None,
+              f"{name}: the single-card graphed engine ran eagerly or the eager one captured")
+        want = {r.rid: r.tokens for r in s["graphed"].done}
+        check(len(want) > 5 and all({r.rid: r.tokens for r in e.done} == want
+                                    for e in (s["eager"], s["cpu"])),
+              f"{name}: the single-card streams differ graphed / eager / CPU")
+        H = cfg.num_heads
+        for r in card:
+            i, res = r["index"], r[name]
+            for mode in [m for m in ("resident", "streamed") if m in res]:
+                got = res[mode]
+                check(got["streams"] == want and got["log"] == s["graphed"].token_log,
+                      f"{name} {mode} on rank {i}: streams or timeline differ from the "
+                      "single-card engine's")
+                check(got["ok"] and got["graphs"] is False,
+                      f"{name} {mode} on rank {i}: pool backstop, leak or graph")
+                if spec_k:
+                    check(got["accept"] == s["graphed"].spec_accept_counts,
+                          f"{name} on rank {i}: accept counts {got['accept']} != "
+                          f"{s['graphed'].spec_accept_counts}")
+                err = max(float((got[k] - s["graphed"].pool[k][:s["graphed"].n_pages, :, :,
+                                 i * H // TP_N:(i + 1) * H // TP_N].cpu()).abs().max())
+                          for k in ("k", "v"))
+                check(err <= TP_POOL_BAND, f"{name} {mode} on rank {i}: pool slice {err:.3g} "
+                                           "from the single-card heads")
+            if "logits" in res:
+                check(res["logits"]["streamed_bitwise"],
+                      f"{name} on rank {i}: streamed logits != resident bitwise")
+        diffs = [r[name]["logits"]["max_diff"] for r in card] if not spec_k else []
+        accept = (f", accept counts {s['graphed'].spec_accept_counts}" if spec_k else "")
+        print(f"  (a) {name} fp32, tp={TP_N}: {len(want)} requests; streams of the "
+              f"{'resident' if spec_k else 'resident and streamed'} engines on the card "
+              f"== the single-card engine graphed == eager == CPU, timelines equal"
+              f"{accept}; each rank's pool within {TP_POOL_BAND} of its heads of the "
+              f"single-card pool"
+              + (f"; streamed logits == resident bitwise; largest |TP - single-card| logit "
+                 f"{max(diffs):.3g}" if diffs else ""), flush=True)
+    return card
+
+
+def tp_cost_report(card):
+    """Phase 20 (c)'s lines, from the card's ranks, with the arithmetic."""
+    from ddl25spring_tpu_torch.utils.config import LlamaConfig
+
+    cfg = LlamaConfig()
+    S = 4
+    ar = 2 * cfg.n_layers * S * cfg.dmodel * 2  # 12 all-reduces of [4, 1, 288] bf16
+    for r in card:
+        c = r["cost"]
+        for name in [n for n in ("resident", "streamed", "single") if n in c]:
+            x = c[name]
+            want = 2 * ar if name != "single" else 0
+            if x["plan"] is not None:  # a layer's rows to the host, TP_N rows back
+                want += cfg.n_layers * sum(x["plan"]) * 4 * (1 + TP_N)
+            check(name == "single" or x["staged"] == want,
+                  f"rank {r['index']} {name}: staged {x['staged']} B a tick, not {want}")
+            check(x["held"] <= x["budget"] * 1.05 + (1 << 20),
+                  f"rank {r['index']} {name}: {x['held']} B held against a bill of "
+                  f"{x['budget']} B")
+            print(f"  (c) rank {r['index']} {name} tick (4 slots, full width, bf16, eager): "
+                  f"median {x['median_ms']:.3f} ms, device busy {x['busy_ms']:.3f} ms "
+                  f"({x['profiled_ms']:.3f} ms a tick under the profiler); all-reduce "
+                  f"{x['allreduce_ms']:.3f} ms and all-gather {x['gather_ms']:.3f} ms a tick, "
+                  f"staged {x['staged']:.0f} B a tick (arithmetic {want}); persistent "
+                  f"{x['held']} B against mem_budget_bytes() {x['budget']}; peak over the "
+                  f"ticks {x['peak']} B", flush=True)
+        res, st = c["resident"], c["streamed"]
+        # the layer computing and the next in flight, whole, and the
+        # computing one's TP slices and their casts: at most 3 layers
+        layer = st["layer_bytes"]
+        extra = (st["peak"] - st["held"]) - (res["peak"] - res["held"])
+        check(extra <= 3 * layer, f"rank {r['index']}: the streamed tick's transient bytes "
+                                  f"exceed the resident tick's by {extra} B, past 3 gathered "
+                                  f"layers ({3 * layer} B)")
+        print(f"  (c) rank {r['index']} peak: streamed {st['peak']} B against resident "
+              f"{res['peak']} B ({st['peak'] - res['peak']:+d} B); the streamed tick's "
+              f"transient above the resident one's {extra} B = {extra / layer:.2f} gathered "
+              f"layers of {layer} B", flush=True)
+    d = card[0]["cost"]["divergence"]
+    check(d["streamed_equals_resident"], f"streamed and resident bf16 streams differ: {d}")
+    print(f"  (c) bf16 slot 0, {d['compared']} tokens: TP == single-card "
+          + ("throughout" if d["first"] is None else
+             f"up to position {d['first']}, where the single-card top-2 gap is {d['gap']:.3g}")
+          + "; streamed == resident", flush=True)
+
+
+def tp_bench(tmp) -> dict:
+    """Phase 20 (b): ``bench --serve --serve-model ref --serve-tp 2`` at full
+    width (bf16) through the entry point, resident and with
+    ``DDL25_SERVE_WEIGHT_STREAM=1``, each row through ``serve_report
+    --check-tp``; where a bf16 row's streams differ (the row-parallel sums
+    round otherwise than one product), the gate runs on an fp32 tiny-deep
+    row, which must pass."""
+    import os
+
+    from ddl25spring_tpu_torch import bench
+    from tools import serve_report
+
+    out = {}
+    for mode, env in (("resident", {}), ("streamed", {"DDL25_SERVE_WEIGHT_STREAM": "1"})):
+        led, obs_dir = os.path.join(tmp, f"{mode}.jsonl"), os.path.join(tmp, mode)
+        os.environ.update(env)
+        t0 = time.perf_counter()
+        try:
+            rec = bench.main(["--serve", "--serve-model", "ref", "--serve-tp", str(TP_N),
+                              "--device", "cuda", "--serve-duration", str(TP_BENCH_S),
+                              "--no-serve-ab", "--no-serve-prefix-ab", "--perf-ledger", led,
+                              "--obs-dir", obs_dir])
+        finally:
+            for k in env:
+                os.environ.pop(k)
+        wall = time.perf_counter() - t0
+        cell = rec["telemetry"]["serve"]
+        tab = cell["tp_ab"]
+        check(cell["tp"] == TP_N and cell["weight_stream"] is (mode == "streamed")
+              and cell["completed"] == cell["admitted"] and cell["pool_leak"]["ok"]
+              and cell["pool_ok_failures"] == 0 and tab["budget_shrunk"],
+              f"{mode}: the TP ramp left work or pages, or the bill did not shrink: {cell}")
+        gate = serve_report.main([obs_dir, "--ledger", led, "--check-tp"])
+        print(f"  (b) bench --serve-tp {TP_N} {mode}, full width bf16, {cell['requests']} "
+              f"requests, {wall:.1f} s: {cell['tokens_per_sec_per_chip']} tokens/s, TTFT p50 "
+              f"{cell['ttft_s_p50'] * 1e3:.3f} ms, per-token p50 "
+              f"{cell['tok_latency_s_p50'] * 1e3:.3f} ms; pool {cell['pool_bytes_per_chip']} B "
+              f"and parameters {cell['param_bytes_per_chip']} B per rank, bill "
+              f"{tab['tp_mem_budget_bytes_per_chip']} against {tab['dense_mem_budget_bytes_per_chip']}"
+              f" B; tokens_match {tab['tokens_match']} over {tab['compared_requests']} requests; "
+              f"serve_report --check-tp exit {gate}", flush=True)
+        check(gate == 0 or tab["tokens_match"] is False,
+              f"{mode}: serve_report --check-tp failed ({gate}) with the streams equal: {tab}")
+        miss = tab["first_mismatch"]
+        check((miss is None) is tab["tokens_match"],
+              f"{mode}: tokens_match {tab['tokens_match']} but first_mismatch {miss}")
+        if miss is not None:
+            print(f"  (b) {mode}: the bf16 TP streams leave the single card's at request "
+                  f"{miss['rid']}, position {miss['position']} (TP token {miss['sharded']}, "
+                  f"single-card {miss['dense']}), where the single-card top-2 gap is "
+                  f"{miss['top2_gap']:.3g}", flush=True)
+        out[mode] = (cell, gate)
+    if any(gate for _, gate in out.values()):
+        led, obs_dir = os.path.join(tmp, "deep.jsonl"), os.path.join(tmp, "deep")
+        deep = bench.main(["--serve", "--smoke", "--serve-model", "tiny-deep", "--serve-tp",
+                           str(TP_N), "--device", "cuda", "--no-serve-ab",
+                           "--no-serve-prefix-ab", "--perf-ledger", led, "--obs-dir", obs_dir])
+        gate = serve_report.main([obs_dir, "--ledger", led, "--check-tp"])
+        check(gate == 0, f"serve_report --check-tp failed ({gate}) on the fp32 tiny-deep row: "
+                         f"{deep['telemetry']['serve']['tp_ab']}")
+        print(f"  (b) the bf16 streams differ (see (c) for where); fp32 tiny-deep bench "
+              f"--serve-tp {TP_N}: serve_report --check-tp passes", flush=True)
+    return out
+
+
+def tp_phase(dev) -> dict:
+    """Phase 20, each sub-phase timed; checks that no flash kernel launched
+    (here and on every rank)."""
+    import tempfile
+
+    from ddl25spring_tpu_torch.ops import flash_attention as fa
+
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    card = tp_exactness(dev)
+    tp_cost_report(card)
+    print(f"  (a), (c) took {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cells = tp_bench(tmp)
+    print(f"  (b) took {time.perf_counter() - t0:.1f} s", flush=True)
+    launches = {n: fa.LAUNCHES[n] + sum(fa.CAPTURED[n].values()) for n in fa.LAUNCHES}
+    for r in card:
+        for n, c in r["launches"].items():
+            launches[n] += c
+    check(not any(launches.values()), f"TP serving launched flash kernels: {launches}")
+    return {"launches": launches, "cells": cells}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -5824,6 +6274,15 @@ def main() -> int:
     spec_elastic_phase(dev)
     print(f"  phase 19 in {time.perf_counter() - t0:.1f} s")
 
+    print(f"== TP-sharded serving and the ZeRO-3 weight-streaming decode on the card ({TP_N} "
+          "ranks on cuda:0 over gloo): resident and streamed TP engines against single-card "
+          "ones and the CPU (fp32), bench --serve --serve-tp at full width (bf16), the TP "
+          "tick's cost and residency")
+    print(card)
+    t0 = time.perf_counter()
+    tp = tp_phase(dev)
+    print(f"  phase 20 in {time.perf_counter() - t0:.1f} s")
+
     kernels = [
         {"name": f"flash_{name}", "route": "cuda", "source": SOURCE[timing[name]["variant"]],
          "replaces": REPLACES[name], "launches": launches[name],
@@ -5843,6 +6302,7 @@ def main() -> int:
          "launches_ft_zero3_per_rank_per_step": [
              {run: c[name] for run, c in per_rank.items()} for per_rank in ft["zero3"]["launches"]],
          "launches_serve_per_tick": serve["launches_per_tick"][name],
+         "launches_tp_serve": tp["launches"][name],
          "max_abs_err": main_err[name], "max_abs_err_sp_tp": sptp["max_abs_err"][name],
          "max_abs_err_pipeline_compositions": pipe["max_abs_err"][name],
          **timing[name]}

@@ -33,6 +33,15 @@ with ``telemetry.serve``.  ``--smoke`` serves the tiny fp32 model with the
 smoke knobs (obs dir ``runs/serve_smoke``); ``--serve-model ref`` the
 full-width LLaMA.  ``python -m ddl25spring_tpu_torch.bench --serve
 --serve-model ref --device cuda``.
+
+``--serve-tp N`` (or ``DDL25_SERVE_TP=N``) serves from ``N`` ranks, started
+here (:func:`~ddl25spring_tpu_torch.parallel.launch.spawn`) on a ``1 x N``
+``model`` mesh: on one card all of them on ``cuda:0`` over gloo, on a host
+with ``N`` cards one each over NCCL (``tools/tp_nccl_check.py`` drives that
+on 2 cards).  Each rank runs the whole bench on its
+shard in lockstep and adds the sharded-vs-single-card A/B
+(``--no-serve-tp-ab`` skips it); rank 0 alone writes ``serve.json`` and the
+ledger row, and its record is the printed line.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import os
 import statistics
 
 from ddl25spring_tpu_torch.benchmarks import timed_run
@@ -128,7 +138,13 @@ def main(argv=None) -> dict:
                     help="model to serve (default: tiny under --smoke, else the "
                          "reference LLaMA constants)")
     ap.add_argument("--serve-tp", type=int, default=None, metavar="N",
-                    help="TP-shard the serving engine N ways (N > 1 waits for A9b-3)")
+                    help="TP-shard the serving engines N ways over N ranks (the pool's heads "
+                         "and the blocks' Megatron slices divided per rank; overrides "
+                         "DDL25_SERVE_TP); N > 1 also runs the sharded-vs-single-card A/B "
+                         "that serve_report --check-tp gates")
+    ap.add_argument("--no-serve-tp-ab", action="store_true",
+                    help="skip the tp-sharded-vs-single-card A/B phase (it never runs at "
+                         "tp=1)")
     ap.add_argument("--no-serve-ab", action="store_true",
                     help="skip the continuous-vs-static A/B phase")
     ap.add_argument("--no-serve-prefix-ab", action="store_true",
@@ -149,9 +165,43 @@ def main(argv=None) -> dict:
 
 def serve_main(args) -> dict:
     """The serving bench: prints the BENCH record with ``telemetry.serve`` as
-    the last line and returns it."""
-    import os
+    the last line and returns it.  At ``tp > 1`` it starts the ranks, and the
+    record is rank 0's."""
+    from ddl25spring_tpu_torch.parallel.launch import spawn
+    from ddl25spring_tpu_torch.utils.config import env_int
 
+    if args.smoke:
+        args.obs_dir = args.obs_dir or os.path.join("runs", "serve_smoke")
+    tp = args.serve_tp if args.serve_tp is not None else env_int("DDL25_SERVE_TP", 1)
+    if tp > 1:
+        # the ranks take this process's DDL25_* knobs as they are now (a rank
+        # forks from a server that may have started under other ones)
+        env = {k: v for k, v in os.environ.items() if k.startswith("DDL25_")}
+        rec = next(r for r in spawn(_serve_rank, tp, vars(args), tp, env, timeout=3600)
+                   if r is not None)
+    else:
+        rec = _serve_record(args, None)
+    print(json.dumps(rec, default=str), flush=True)
+    return rec
+
+
+def _serve_rank(rdv, args: dict, tp: int, env: dict):
+    """One rank of ``bench --serve --serve-tp N``: takes the launcher's
+    ``DDL25_*`` environment ``env``, joins the ``1 x N`` model mesh and runs
+    the bench on its shard; rank 0 returns the record, the others None."""
+    from ddl25spring_tpu_torch.utils.mesh import init_mesh
+
+    for k in [k for k in os.environ if k.startswith("DDL25_")]:
+        del os.environ[k]
+    os.environ.update(env)
+    with init_mesh(rdv, 1, model=tp, device=args["device"]) as mesh:
+        rec = _serve_record(argparse.Namespace(**args), mesh, primary=mesh.rank == 0)
+    return rec if rdv.rank == 0 else None
+
+
+def _serve_record(args, mesh, primary: bool = True) -> dict:
+    """Run the serving bench (on ``mesh`` when sharded) and build the BENCH
+    record; only the ``primary`` rank writes the obs dir and the ledger."""
     import torch
 
     from ddl25spring_tpu_torch import obs
@@ -160,28 +210,27 @@ def serve_main(args) -> dict:
     from ddl25spring_tpu_torch.serve.driver import run_serve_bench, serve_cell
     from ddl25spring_tpu_torch.utils.device import resolve_device
 
-    dev = resolve_device(args.device)
-    if args.smoke:
-        args.obs_dir = args.obs_dir or os.path.join("runs", "serve_smoke")
-    if args.obs_dir:
+    dev = resolve_device(args.device) if mesh is None else mesh.device
+    obs_dir = args.obs_dir if primary else None
+    if obs_dir:
         # before the engines build, so the serve spans and the request
         # timeline record
         obs.enable()
         obs.set_recorder(obs.SpanRecorder(process_name="serve"))
-        timeline.configure(run_dir=args.obs_dir)
+        timeline.configure(run_dir=obs_dir)
     record = run_serve_bench(
-        smoke=args.smoke, model=args.serve_model, obs_dir=args.obs_dir,
+        smoke=args.smoke, model=args.serve_model, obs_dir=obs_dir,
         duration_s=args.serve_duration, rate_rps=args.serve_rate,
         profile=args.serve_profile, seed=args.serve_seed, budget_s=args.serve_budget,
-        ledger_path=args.perf_ledger or "runs/perf_ledger.jsonl",
+        ledger_path=(args.perf_ledger or "runs/perf_ledger.jsonl") if primary else None,
         skip_ab=args.no_serve_ab, skip_prefix_ab=args.no_serve_prefix_ab,
-        skip_spec_ab=args.no_serve_spec_ab,
-        serve_tp=args.serve_tp, device=dev,
+        skip_spec_ab=args.no_serve_spec_ab, skip_tp_ab=args.no_serve_tp_ab,
+        serve_tp=args.serve_tp, mesh=mesh, device=dev,
     )
     sentinels.flush()
     snap = obs.flight.snapshot()
     telemetry: dict = {
-        "enabled": bool(args.obs_dir),
+        "enabled": bool(obs_dir),
         "serve": serve_cell(record),
         # the goodput and memory cells come with the rest of the
         # observability port (ROADMAP A11b)
@@ -195,10 +244,10 @@ def serve_main(args) -> dict:
         "stalls": snap["stalls"],
         "flight_records": snap["recorded"],
     }
-    if args.obs_dir:
+    if obs_dir:
         health["flight_dump"] = obs.flight.dump(
-            os.path.join(args.obs_dir, "flight.json"), reason="end_of_run")
-        telemetry["trace"] = obs.get_recorder().save(os.path.join(args.obs_dir, "trace.json"))
+            os.path.join(obs_dir, "flight.json"), reason="end_of_run")
+        telemetry["trace"] = obs.get_recorder().save(os.path.join(obs_dir, "trace.json"))
         timeline.flush()
         telemetry["timeline"] = timeline.path
         telemetry["timeline_events"] = timeline.snapshot()["emitted"]
@@ -213,9 +262,9 @@ def serve_main(args) -> dict:
         "model": record["key"]["model"],
         "profile": record["key"]["profile"],
         "chip": f"{kind} x{ramp.get('n_chips', 1)}",
+        **({"tp": ramp.get("tp")} if ramp.get("tp", 1) > 1 else {}),
         "telemetry": telemetry,
     }
-    print(json.dumps(rec, default=str), flush=True)
     return rec
 
 

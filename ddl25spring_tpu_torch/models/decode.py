@@ -20,9 +20,15 @@ which differ from ``jax.random``'s; the filtered logits (:func:`filter_logits`)
 are the JAX ones, and the draw is the Gumbel-max of
 ``jax.random.categorical``.
 
-Waiting for A9b-3 (TP serving and the ZeRO-3 weight-streaming decode):
-``tp_axis`` / ``shard_vocab`` and :func:`make_tp_generate` raise
-``NotImplementedError``.
+Tensor parallelism (``tp_axis``, an :class:`~ddl25spring_tpu_torch.parallel.
+comm.Axis`): the Megatron layout of :mod:`~ddl25spring_tpu_torch.parallel.tp`
+(column slices of ``wq``/``wk``/``wv``/``w_gate``/``w_up``, row slices of
+``wo``/``w_down``), the KV cache holding the rank's heads, and the two
+row-parallel products of each block summed over the axis in ``cfg.dtype``
+(JAX's ``psum``s).  ``shard_vocab`` adds the vocab-sharded embedding and one
+all-gather of the logits.  Every rank of the axis samples the same stream:
+its logits are the same bits after the sums, and its generator is seeded
+alike.  :func:`make_tp_generate` is the entry point.
 """
 
 from __future__ import annotations
@@ -34,14 +40,8 @@ import torch.nn.functional as F
 
 from ddl25spring_tpu_torch.models import llama
 from ddl25spring_tpu_torch.parallel import ep
+from ddl25spring_tpu_torch.parallel.comm import all_gather, reduce_out
 from ddl25spring_tpu_torch.utils.config import LlamaConfig
-
-A9B = "A9b-3 of ROADMAP.md (TP serving and the ZeRO-3 weight-streaming decode)"
-
-
-def not_yet(what: str) -> NotImplementedError:
-    """The refusal of an option that waits for A9b-3."""
-    return NotImplementedError(f"{what} is not ported yet: it comes with {A9B}")
 
 
 def resolve_heads(cfg: LlamaConfig, num_heads: int | None) -> int:
@@ -87,9 +87,11 @@ def _block_decode(p, x, k_cache, v_cache, pos, cos, sin, cfg: LlamaConfig,
     cache ``[B, max_len, H, hd]``, which it writes at ``pos`` in place;
     returns ``(x, k_cache, v_cache)``.  The attention follows the training
     path's dtype policy (products in ``cfg.dtype``, float32 softmax), so
-    fp32 configs match the full forward."""
-    if tp_axis is not None:
-        raise not_yet("TP decode (tp_axis)")
+    fp32 configs match the full forward.
+
+    ``tp_axis``: ``p`` holds this rank's Megatron slices (its heads fall out
+    of the reshape) and the cache its heads; the attention output and the
+    FFN output are each summed over the axis, in ``cfg.dtype``."""
     dtype = llama._dtype(cfg)
     B = x.shape[0]
     hd = cfg.head_dim
@@ -109,36 +111,66 @@ def _block_decode(p, x, k_cache, v_cache, pos, cos, sin, cfg: LlamaConfig,
     s = s.masked_fill(~live[None, None, None, :], -1e30)
     probs = torch.softmax(s, dim=-1).to(dtype)
     attn = torch.einsum("bhqm,bmhd->bqhd", probs, v_cache)
-    x = x + attn.reshape(B, 1, -1) @ p.wo.to(dtype)
+    x = x + _psum(attn.reshape(B, 1, -1) @ p.wo.to(dtype), tp_axis)
 
     h = llama.rms_norm(x, p.ln2)
     if cfg.n_experts > 0:
         # ample decode-time capacity: a drop would zero a token's FFN
         E = p.moe["router"].shape[1]
-        y, _ = ep.moe_ffn(p.moe, h.reshape(B, -1), capacity_factor=float(E),
-                          top_k=cfg.moe_top_k)
+        if tp_axis is not None:
+            from ddl25spring_tpu_torch.parallel.tp import make_tp_moe_fn
+
+            # global routing on every rank, its expert slice, a partial
+            # combine the sum below completes
+            moe_fn = make_tp_moe_fn(tp_axis, capacity_factor=float(E), top_k=cfg.moe_top_k)
+        else:
+            def moe_fn(mp, t):
+                return ep.moe_ffn(mp, t, capacity_factor=float(E), top_k=cfg.moe_top_k)
+        y, _ = moe_fn(p.moe, h.reshape(B, -1))
         ffn_out = y.reshape(B, 1, -1).to(dtype)
     else:
         gate = F.silu(h @ p.w_gate.to(dtype))
         ffn_out = (gate * (h @ p.w_up.to(dtype))) @ p.w_down.to(dtype)
-    return x + ffn_out, k_cache, v_cache
+    return x + _psum(ffn_out, tp_axis), k_cache, v_cache
+
+
+def _psum(x: torch.Tensor, tp_axis) -> torch.Tensor:
+    """``x`` summed over ``tp_axis`` in its own dtype (JAX's ``lax.psum``);
+    ``x`` itself without one."""
+    return x if tp_axis is None else reduce_out(x, tp_axis)
 
 
 def decode_step(model: llama.Llama, cache, tokens_t: torch.Tensor, pos: int,
                 cfg: LlamaConfig, tp_axis=None, shard_vocab: bool = False):
     """One incremental step: ``tokens_t [B]`` at position ``pos`` (an int)
-    -> ``(logits [B, V] float32, cache)``, the cache written in place."""
-    if tp_axis is not None or shard_vocab:
-        raise not_yet("TP decode (tp_axis, shard_vocab)")
+    -> ``(logits [B, V] float32, cache)``, the cache written in place.
+
+    Under ``tp_axis`` with ``shard_vocab``, ``model.embed`` is the rank's
+    ``[V/n, D]`` slice (one sum assembles the activations) and the head emits
+    a ``[B, V/n]`` slice that one all-gather joins in index order: the full
+    ``[B, V]`` logits, which sampling needs whole."""
+    if shard_vocab and tp_axis is None:
+        raise ValueError("shard_vocab needs a tp_axis to shard over")
     k_all, v_all = cache
-    x = embed_tokens(model, tokens_t[:, None], cfg)
+    if shard_vocab:
+        from ddl25spring_tpu_torch.parallel.tp import vocab_sharded_embed
+
+        x = vocab_sharded_embed(model.embed, tokens_t[:, None].long(), tp_axis,
+                                llama._dtype(cfg))
+    else:
+        x = embed_tokens(model, tokens_t[:, None], cfg)
     pos = int(pos)
     cos, sin = llama.rope_angles(
         1, cfg.head_dim,
         pos=torch.full((1,), pos, dtype=torch.float32, device=tokens_t.device))
     for li, block in enumerate(model.blocks):
-        x, _, _ = _block_decode(block, x, k_all[li], v_all[li], pos, cos, sin, cfg)
-    return llama.unembed(model, x, cfg)[:, 0], (k_all, v_all)
+        x, _, _ = _block_decode(block, x, k_all[li], v_all[li], pos, cos, sin, cfg,
+                                tp_axis=tp_axis)
+    logits = llama.unembed(model, x, cfg)[:, 0]
+    if shard_vocab:
+        # index i holds vocab columns [i V/n, (i+1) V/n)
+        logits = all_gather(logits, tp_axis).permute(1, 0, 2).reshape(logits.shape[0], -1)
+    return logits, (k_all, v_all)
 
 
 def filter_logits(logits: torch.Tensor, temperature: float = 1.0, top_k: int = 0,
@@ -207,9 +239,11 @@ def generate(model: llama.Llama, prompt: torch.Tensor, cfg: LlamaConfig,
     ``[B, max_new_tokens]`` int32.  ``temperature=0`` is greedy; otherwise
     softmax sampling at that temperature from the generator ``key`` (default:
     seed 0 on the prompt's device), optionally truncated by ``top_k`` /
-    ``top_p`` (:func:`sample_logits`)."""
-    if tp_axis is not None or shard_vocab:
-        raise not_yet("TP generation (tp_axis, shard_vocab)")
+    ``top_p`` (:func:`sample_logits`).
+
+    ``tp_axis``/``shard_vocab``: ``model`` holds this rank's slices
+    (:func:`~ddl25spring_tpu_torch.parallel.tp.load_tp_params`), the cache
+    its heads; every rank returns the same tokens (:func:`make_tp_generate`)."""
     B, P = prompt.shape
     L_max = max_len or (P + max_new_tokens)
     if L_max < P + max_new_tokens:
@@ -223,15 +257,37 @@ def generate(model: llama.Llama, prompt: torch.Tensor, cfg: LlamaConfig,
     cache = init_kv_cache(cfg, B, L_max, num_heads=heads, device=prompt.device)
     logits = torch.zeros((B, cfg.vocab_size), dtype=torch.float32, device=prompt.device)
     for i in range(P):
-        logits, cache = decode_step(model, cache, prompt[:, i], i, cfg)
+        logits, cache = decode_step(model, cache, prompt[:, i], i, cfg, tp_axis, shard_vocab)
     out = []
     for j in range(max_new_tokens):
         tok = sample_logits(logits, key, temperature, top_k, top_p)
-        logits, cache = decode_step(model, cache, tok, P + j, cfg)
+        logits, cache = decode_step(model, cache, tok, P + j, cfg, tp_axis, shard_vocab)
         out.append(tok)
     return torch.stack(out, dim=1)
 
 
-def make_tp_generate(*args, **kwargs):
-    """TP-sharded generation (JAX ``make_tp_generate``): waits for A9b-3."""
-    raise not_yet("make_tp_generate")
+def make_tp_generate(cfg: LlamaConfig, mesh, max_new_tokens: int, model_axis: str = "model",
+                     shard_vocab: bool = True, temperature: float = 0.0, top_k: int = 0,
+                     top_p: float = 1.0, max_len: int | None = None):
+    """TP-sharded generation (JAX ``make_tp_generate``, ``decode.py:339``):
+    ``gen(model, prompt, key=None) -> [B, max_new_tokens]`` on this rank of
+    ``mesh``'s ``model_axis``.  ``model`` holds the rank's slices in the layout
+    training produced (:func:`~ddl25spring_tpu_torch.parallel.tp.
+    shard_tp_params` + :func:`~ddl25spring_tpu_torch.parallel.tp.
+    load_tp_params`, vocab-sharded when ``shard_vocab``); the heads and the
+    cache are split over the axis, and each step communicates the two
+    row-parallel sums per block (plus, with ``shard_vocab``, the embedding's
+    sum and one ``[B, V]`` all-gather of the logits).  Every rank runs the
+    same sampling chain from ``key`` (seeded alike on every rank), so the
+    tokens equal the single-process :func:`generate`'s."""
+    axis = mesh.axis(model_axis)
+    if cfg.num_heads % axis.size:
+        raise ValueError(f"num_heads ({cfg.num_heads}) not divisible by "
+                         f"{model_axis}={axis.size}")
+
+    def gen(model, prompt, key: torch.Generator | None = None):
+        return generate(model, prompt.to(mesh.device), cfg, max_new_tokens,
+                        temperature=temperature, key=key, max_len=max_len, top_k=top_k,
+                        top_p=top_p, tp_axis=axis, shard_vocab=shard_vocab)
+
+    return gen

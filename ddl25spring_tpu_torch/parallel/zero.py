@@ -30,6 +30,13 @@ convert through its ``export_params`` (the tests do both).
   sits inside a checkpoint, so the backward gathers it again.
 - :func:`zero_clip_by_global_norm`: optax's ``clip_by_global_norm`` on the
   rows' gradients, with the global norm from one all-reduce.
+- The serving stream layout (JAX ``:727-846``): :func:`zero_stream_llama_params`
+  (block rows per layer, the outer leaves replicated), :func:`stream_block_plan`,
+  :func:`stream_param_specs`, :func:`stream_layer_bufs`, and the gathers of
+  one layer (:func:`stream_gather_layer`, async through
+  :func:`stream_start_layer`) or of the whole stack
+  (:func:`stream_gather_blocks`), for the weight-streaming decode of
+  :mod:`~ddl25spring_tpu_torch.serve.engine`.
 
 Padding stays exactly zero: its gradients are zero (the gather's backward
 gives the padded slots no cotangent), so SGD with momentum, Adam and AdamW
@@ -730,6 +737,138 @@ def make_zero3_llama_train_step(model, optimizer: torch.optim.Optimizer, mesh, r
 
     step.guard = guard
     return step
+
+
+# -------------------------------------------- serving weight streaming
+#
+# The serve engine's ZeRO-3 weight streaming rides the per-layer row layout
+# and bucketed gather of make_zero3_llama_train_step, forward only: the blocks
+# stay resident as rows (their bytes / n per rank), each decode position
+# gathers one full layer at a time (the next layer's gather issued before the
+# current layer computes), and the outer leaves (embed, ln_f, unembed) stay
+# replicated, because sampling is a decision over the whole vocabulary.
+
+
+@dataclass
+class StreamRows:
+    """This rank's serving stream layout of a LLaMA (JAX
+    ``zero_stream_llama_params``, ``:752``): ``embed``, ``ln_f`` and
+    ``unembed`` whole; ``bufs[b]`` bucket ``b`` of ``plan`` packed for every
+    layer, ``[L, K_b]`` (the rank's only copy of its block rows, which the
+    streamed tick indexes by layer); ``blocks[l]`` layer ``l``'s leaves as
+    ``[1, k]`` rows (row ``i`` of each leaf's ``[n, k]`` layout, views into
+    ``bufs``), in the flatten order of one block's pytree, whose dotted
+    paths ``paths`` holds."""
+
+    embed: torch.Tensor
+    ln_f: torch.Tensor
+    unembed: torch.Tensor
+    blocks: list[list[torch.Tensor]]
+    paths: tuple[str, ...]
+    plan: bucketing.BucketPlan
+    bufs: list[torch.Tensor]
+
+    def parameters(self):
+        """Every tensor the rank holds: the outer leaves, then the packed
+        rows (``blocks`` are views of them)."""
+        yield from (self.embed, self.ln_f, self.unembed)
+        yield from self.bufs
+
+
+def stream_block_plan(model, n: int, bucket_bytes=bucketing.AUTO):
+    """The per-layer bucket plan streamed serving gathers through (JAX
+    ``stream_block_plan``, ``:737``): over one layer's leaves of ``model``
+    (a :class:`~ddl25spring_tpu_torch.models.llama.Llama`; ``meta``
+    parameters will do), slot sizes in padded ``[n, k]`` rows, the plan
+    :func:`make_zero3_llama_train_step` gathers layers with.
+    ``bucket_bytes`` must be a positive threshold."""
+    bb = bucketing.resolve_bucket_bytes(bucket_bytes)
+    if not bb:
+        raise ValueError("weight streaming is bucketed by construction; bucket_bytes must be "
+                         "a positive threshold (DDL25_BUCKET_BYTES=0 cannot apply here)")
+    _, layers = _llama_leaves(model)
+    return _row_plan([v for _, v in layers[0]], n, bb)
+
+
+@torch.no_grad()
+def zero_stream_llama_params(model, mesh, axis: str = "model") -> StreamRows:
+    """This rank's :class:`StreamRows` of ``model`` on ``mesh.device``: each
+    block leaf's rows per layer (:func:`zero_shard_params` over ``axis``),
+    packed once into the ``[L, K_b]`` buffers of :func:`stream_block_plan`
+    over the axis, the outer leaves replicated (unlike
+    :func:`zero_shard_llama_params`, which cuts them into rows too)."""
+    outer, layers = _llama_leaves(model)
+    plan = stream_block_plan(model, mesh.axis(axis).size)
+    whole = {k: v.detach().to(mesh.device).clone() for k, v in outer}
+    bufs = stream_layer_bufs(plan, [[r.data for r in zero_shard_params(
+        [v for _, v in layer], mesh, axis)] for layer in layers])
+    blocks = [[None] * plan.n_leaves for _ in layers]
+    for b, idxs in enumerate(plan.buckets):
+        for i, off in zip(idxs, plan.offsets(b)):
+            for l, layer in enumerate(blocks):
+                layer[i] = bufs[b][l:l + 1, off:off + plan.sizes[i]]
+    return StreamRows(whole["embed"], whole["ln_f"], whole["unembed"], blocks,
+                      tuple(k for k, _ in layers[0]), plan, bufs)
+
+
+def stream_param_specs(model, axis: str = "model") -> dict:
+    """Which leaves of :func:`zero_stream_llama_params`' layout are rows and
+    which are replicated, as JAX's ``stream_param_specs`` (``:775``) states
+    it: the pytree of ``model`` with ``(None, axis)`` on every block leaf
+    (dim 1 of its ``[L, n, k]`` rows is split over ``axis``) and ``()`` on
+    every outer leaf."""
+    outer, layers = _llama_leaves(model)
+    return {**{k: () for k, _ in outer},
+            "blocks": _nest((k, (None, axis)) for k, _ in layers[0])}
+
+
+def stream_layer_bufs(plan, blocks) -> list[torch.Tensor]:
+    """The rows of every layer (``blocks[l]``, as :class:`StreamRows` holds
+    them) -> one packed ``[L, K_b]`` buffer per bucket of ``plan``, indexable
+    by layer (JAX ``stream_layer_bufs``, ``:786``)."""
+    return [torch.stack([_pack(plan, b, layer).reshape(-1) for layer in blocks])
+            for b in range(plan.n_buckets)]
+
+
+def stream_start_layer(rows, axis) -> list:
+    """Issue the all-gather of one layer's bucket rows (``[K_b]`` each)
+    without waiting: each bucket's ``finish``, for
+    :func:`stream_gather_layer`'s ``pending``."""
+    return [axis.comm.start_all_gather(r, axis.group, slot=("stream", b))
+            for b, r in enumerate(rows)]
+
+
+def stream_gather_layer(plan, rows, axis, pending=None) -> list[torch.Tensor]:
+    """One layer's bucket rows (``[K_b]`` each) -> that layer's leaves, whole,
+    in the plan's order (JAX ``stream_gather_layer``, ``:798``): one
+    all-gather per bucket, then the plan's unpack.  The leaves are the
+    original bits (a pad and reshape round trip), which keeps the streamed
+    decode bitwise the resident one.  ``pending`` finishes gathers
+    :func:`stream_start_layer` issued earlier."""
+    pending = stream_start_layer(rows, axis) if pending is None else pending
+    out: list = [None] * plan.n_leaves
+    for b, finish in enumerate(pending):
+        _unpack_full(plan, b, finish(), out)
+    return out
+
+
+def stream_gather_blocks(plan, bufs, axis) -> list[list[torch.Tensor]]:
+    """Every layer's leaves, whole, from this rank's packed ``[L, K_b]``
+    buffers (:attr:`StreamRows.bufs`): one all-gather per bucket (JAX
+    ``stream_gather_blocks``, ``:812``).  The stack is transient: streamed
+    serving gathers it for a prefill, whose prompt walk would otherwise
+    gather every layer once per position."""
+    L = bufs[0].shape[0]
+    gathered = [axis.comm.all_gather(buf, axis.group) for buf in bufs]  # [n, L, K_b]
+    out: list = [[None] * plan.n_leaves for _ in range(L)]
+    for b, idxs in enumerate(plan.buckets):
+        for i, off in zip(idxs, plan.offsets(b)):
+            size = math.prod(plan.shapes[i])
+            full = (gathered[b][:, :, off:off + plan.sizes[i]].permute(1, 0, 2)
+                    .reshape(L, -1)[:, :size].reshape(L, *plan.shapes[i]))
+            for l in range(L):
+                out[l][i] = full[l]
+    return out
 
 
 # ------------------------------------------------ checkpoint and reshape

@@ -25,11 +25,14 @@ smoke-sized) defaults.  The served model is the port's seeded
 ``DDL25_SERVE_SPEC=1`` adds the spec-on-vs-off A/B (:func:`spec_ab_compare`);
 an armed ``DDL25_CHAOS`` of ``traffic_spike`` / ``capacity_change`` /
 ``device_loss`` adds the elastic replica run (:func:`elastic_serve_run`).
+``DDL25_SERVE_TP=N`` (or ``serve_tp=N``, ``bench --serve --serve-tp N``)
+serves through TP engines on a mesh of ``N`` ranks, each rank running this
+driver in lockstep (``mesh=``), and adds the sharded-vs-single-card A/B
+(:func:`tp_ab_compare`); ``DDL25_SERVE_WEIGHT_STREAM=1`` makes the sharded
+engines stream their ZeRO-3 weight rows.
 
-Waiting for other slices: the TP A/B (``tp_ab_compare``) comes with A9b-3
-and raises ``NotImplementedError`` when asked for; the goodput doc and its
-ledger row (and the elastic cell's ``goodput``), and the ``mem`` record,
-come with A11b.
+Waiting for other slices: the goodput doc and its ledger row (and the
+elastic cell's ``goodput``), and the ``mem`` record, come with A11b.
 """
 
 from __future__ import annotations
@@ -49,9 +52,7 @@ SERVE_BASENAME = "serve.json"
 
 def engine_knobs(smoke: bool = False) -> dict[str, Any]:
     """Pool geometry + admission-control knobs: ``DDL25_SERVE_*`` env over
-    (smoke-sized or serving-sized) defaults.  ``DDL25_SERVE_TP`` > 1 and
-    ``DDL25_SERVE_WEIGHT_STREAM=1`` wait for A9b-3 and raise."""
-    from ddl25spring_tpu_torch.models.decode import not_yet
+    (smoke-sized or serving-sized) defaults."""
     from ddl25spring_tpu_torch.utils.config import env_int
 
     d = (
@@ -61,10 +62,6 @@ def engine_knobs(smoke: bool = False) -> dict[str, Any]:
         dict(page_len=16, n_pages=64, max_slots=4, prefill_batch=2,
              max_prompt_len=32, max_queue=64, token_budget=0)
     )
-    if env_int("DDL25_SERVE_TP", 1) > 1:
-        raise not_yet("TP serving (DDL25_SERVE_TP > 1)")
-    if env_int("DDL25_SERVE_WEIGHT_STREAM", 0):
-        raise not_yet("the weight-streaming decode (DDL25_SERVE_WEIGHT_STREAM=1)")
     eos = env_int("DDL25_SERVE_EOS", -1)
     return {
         "page_len": env_int("DDL25_SERVE_PAGE_LEN", d["page_len"]),
@@ -84,6 +81,12 @@ def engine_knobs(smoke: bool = False) -> dict[str, Any]:
         # DDL25_SERVE_DRAFT_LAYERS drafter blocks (greedy only)
         "spec_k": env_int("DDL25_SERVE_SPEC_K", 2) if env_int("DDL25_SERVE_SPEC", 0) else 0,
         "draft_layers": env_int("DDL25_SERVE_DRAFT_LAYERS", 1),
+        # TP-sharded serving: tp > 1 runs every engine of the bench on a
+        # mesh of tp ranks (the pool's heads and the blocks' Megatron slices
+        # divided per rank); weight streaming keeps ZeRO-3 rows of the blocks
+        # and gathers one layer at a time
+        "tp": env_int("DDL25_SERVE_TP", 1),
+        "weight_stream": bool(env_int("DDL25_SERVE_WEIGHT_STREAM", 0)),
     }
 
 
@@ -104,11 +107,19 @@ def serve_model(model: str):
     raise ValueError(f"model={model!r} is not 'tiny', 'tiny-deep' or 'ref'")
 
 
-def _build_engine(params, cfg, knobs: dict[str, Any], **over):
+def _build_engine(params, cfg, knobs: dict[str, Any], mesh=None, **over):
+    """An engine of ``knobs`` with ``over`` on top; a sharded one (``tp >
+    1``) on ``mesh``, eagerly (ranks that share a card are not graphed)."""
     from ddl25spring_tpu_torch.serve.engine import ServeEngine
 
     kw = dict(knobs)
     kw.update(over)
+    if int(kw.get("tp") or 1) > 1:
+        if mesh is None:
+            raise ValueError(
+                f"tp={kw['tp']} serves from {kw['tp']} ranks: pass the mesh this rank "
+                "joined (bench --serve --serve-tp N starts the ranks and passes it)")
+        kw.update(mesh=mesh, graphs=False)
     return ServeEngine(params, cfg, **kw)
 
 
@@ -133,7 +144,7 @@ def _arm(m: dict[str, Any]) -> dict[str, Any]:
 
 def ab_compare(params, cfg, trace, knobs: dict[str, Any], *, tick_s: float | None = None,
                max_steps: int = 20_000, temperature: float = 0.0,
-               sentinel: bool | None = None) -> dict[str, Any]:
+               sentinel: bool | None = None, mesh=None) -> dict[str, Any]:
     """Continuous vs static admission on the identical trace, virtual clock:
     run both to drain, fix the budget at the midpoint of the two drain
     walls, read tokens-delivered-by-budget off each timeline.  Both engines
@@ -144,7 +155,7 @@ def ab_compare(params, cfg, trace, knobs: dict[str, Any], *, tick_s: float | Non
     out: dict[str, Any] = {}
     engines = {}
     for adm in ("continuous", "static"):
-        e = _build_engine(params, cfg, knobs, admission=adm, clock="virtual",
+        e = _build_engine(params, cfg, knobs, mesh, admission=adm, clock="virtual",
                           tick_s=tick_s, temperature=temperature, sentinel=sentinel,
                           prefill_batch=knobs["max_slots"], trace_label=None)
         m = e.run(trace, max_steps=max_steps)
@@ -165,7 +176,7 @@ def ab_compare(params, cfg, trace, knobs: dict[str, Any], *, tick_s: float | Non
 def prefix_ab_compare(params, cfg, trace, knobs: dict[str, Any], *,
                       tick_s: float | None = None, max_steps: int = 20_000,
                       temperature: float = 0.0,
-                      sentinel: bool | None = None) -> dict[str, Any]:
+                      sentinel: bool | None = None, mesh=None) -> dict[str, Any]:
     """Radix-prefix-cache A/B: the identical trace through a CACHED engine
     and a COLD one, both continuous on the virtual clock at ``prefill_batch
     = max_slots``; prefill is charged for the positions it ran, so the
@@ -176,7 +187,7 @@ def prefix_ab_compare(params, cfg, trace, knobs: dict[str, Any], *,
     out: dict[str, Any] = {}
     engines = {}
     for arm, cache_on in (("cached", True), ("cold", False)):
-        e = _build_engine(params, cfg, knobs, admission="continuous", clock="virtual",
+        e = _build_engine(params, cfg, knobs, mesh, admission="continuous", clock="virtual",
                           tick_s=tick_s, temperature=temperature, sentinel=sentinel,
                           prefill_batch=knobs["max_slots"], prefix_cache=cache_on,
                           trace_label=None)
@@ -209,7 +220,7 @@ def prefix_ab_compare(params, cfg, trace, knobs: dict[str, Any], *,
 
 def spec_ab_compare(params, cfg, trace, knobs: dict[str, Any], *,
                     tick_s: float | None = None, max_steps: int = 20_000,
-                    sentinel: bool | None = None) -> dict[str, Any]:
+                    sentinel: bool | None = None, mesh=None) -> dict[str, Any]:
     """Speculative-decoding A/B: the identical trace through a SPEC engine
     (``knobs['spec_k']`` drafts a round, one verify pass) and a sequential
     one, both continuous on the virtual clock at ``prefill_batch =
@@ -225,7 +236,7 @@ def spec_ab_compare(params, cfg, trace, knobs: dict[str, Any], *,
     out: dict[str, Any] = {}
     engines = {}
     for arm, k in (("spec", knobs["spec_k"]), ("nospec", 0)):
-        e = _build_engine(params, cfg, knobs, admission="continuous", clock="virtual",
+        e = _build_engine(params, cfg, knobs, mesh, admission="continuous", clock="virtual",
                           tick_s=tick_s, temperature=0.0, sentinel=sentinel,
                           prefill_batch=knobs["max_slots"], spec_k=k, trace_label=None)
         m = e.run(trace, max_steps=max_steps)
@@ -254,11 +265,94 @@ def spec_ab_compare(params, cfg, trace, knobs: dict[str, Any], *,
     return out
 
 
+def tp_ab_compare(params, cfg, trace, knobs: dict[str, Any], *, mesh,
+                  tick_s: float | None = None, max_steps: int = 20_000,
+                  temperature: float = 0.0, sentinel: bool | None = None) -> dict[str, Any]:
+    """TP-sharded vs single-card A/B (JAX ``tp_ab_compare``, ``driver.py:361``):
+    the identical trace through a ``tp = knobs['tp']`` engine on ``mesh``
+    (this rank's heads and Megatron slices, or its ZeRO-3 rows with
+    ``knobs['weight_stream']``) and a ``tp=1`` engine on this rank alone,
+    both continuous on the virtual clock at ``prefill_batch = max_slots``.
+    Every rank of the mesh runs both arms.  Two verdicts:
+
+    - ``tokens_match``: every request both arms completed carries the
+      identical tokens;
+    - ``budget_shrunk``: the sharded arm's static per-rank bill
+      (:meth:`~ddl25spring_tpu_torch.serve.engine.ServeEngine.
+      mem_budget_bytes`) is strictly below the single card's.
+
+    Where the streams differ, ``first_mismatch`` says where: the lowest
+    request id that differs, the first position there, both arms' tokens,
+    and the dense forward's top-2 logit gap at that position (a near-tie is
+    a rounding difference of the row-parallel sums, a wide gap a fault).
+
+    Throughput is reported, not judged: ranks that share a card pay the
+    host-staged collectives for FLOPs they divide."""
+    t = int(knobs.get("tp") or 1)
+    if t <= 1:
+        raise ValueError("tp_ab_compare needs knobs['tp'] > 1")
+    if tick_s is None:
+        tick_s = ab_tick_s(trace, knobs["max_slots"])
+    out: dict[str, Any] = {"tp": t}
+    engines = {}
+    budgets = {}
+    for arm, arm_tp in (("sharded", t), ("dense", 1)):
+        e = _build_engine(params, cfg, knobs, mesh, admission="continuous", clock="virtual",
+                          tick_s=tick_s, temperature=temperature, sentinel=sentinel,
+                          prefill_batch=knobs["max_slots"], tp=arm_tp,
+                          weight_stream=bool(knobs.get("weight_stream")) and arm_tp > 1,
+                          trace_label=None)
+        m = e.run(trace, max_steps=max_steps)
+        engines[arm] = e
+        budgets[arm] = e.mem_budget_bytes()
+        out[arm] = {
+            "drain_wall_s": m["wall_s"],
+            **{key: m[key] for key in ("ticks", "prefills", "generated_tokens", "completed",
+                                       "rejected", "tokens_per_sec_per_chip")},
+            "mem_budget_bytes_per_chip": budgets[arm],
+            **({key: m.get(key) for key in ("pool_bytes_per_chip", "param_bytes_per_chip",
+                                            "weight_stream")} if arm_tp > 1 else {}),
+        }
+    budget = round((out["sharded"]["drain_wall_s"] + out["dense"]["drain_wall_s"]) / 2, 6)
+    streams = {arm: {r.rid: list(r.tokens) for r in e.done} for arm, e in engines.items()}
+    common = set(streams["sharded"]) & set(streams["dense"])
+    out.update(
+        budget_s=budget, tick_s=tick_s,
+        tp_tokens_at_budget=engines["sharded"].tokens_at(budget),
+        dense_tokens_at_budget=engines["dense"].tokens_at(budget),
+        tokens_match=all(streams["sharded"][rid] == streams["dense"][rid] for rid in common),
+        compared_requests=len(common),
+        budget_shrunk=budgets["sharded"] < budgets["dense"],
+        first_mismatch=_first_mismatch(params, cfg, engines["dense"], streams, common),
+    )
+    return out
+
+
+def _first_mismatch(model, cfg, dense, streams, common) -> dict[str, Any] | None:
+    """Where the sharded arm's streams first leave the dense arm's (see
+    :func:`tp_ab_compare`), or None where they agree."""
+    import torch
+
+    from ddl25spring_tpu_torch.models import llama
+
+    rid = next((r for r in sorted(common) if streams["sharded"][r] != streams["dense"][r]), None)
+    if rid is None:
+        return None
+    a, b = streams["sharded"][rid], streams["dense"][rid]
+    pos = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+    prompt = next(r.prompt for r in dense.done if r.rid == rid)
+    ids = torch.tensor([list(prompt) + b[:pos]], device=next(model.parameters()).device)
+    with torch.no_grad():
+        top2 = llama.llama_forward(model, ids, cfg)[0, -1].float().topk(2).values
+    return {"rid": rid, "position": pos, "sharded": a[pos] if pos < len(a) else None,
+            "dense": b[pos] if pos < len(b) else None, "top2_gap": float(top2[0] - top2[1])}
+
+
 def elastic_serve_run(params, cfg, trace, knobs: dict[str, Any], *, chaos,
                       tick_s: float | None = None, replicas: int = 2, max_replicas: int = 4,
                       max_iters: int = 20_000, temperature: float = 0.0,
                       sentinel: bool | None = None,
-                      keep_requests: bool = False) -> dict[str, Any]:
+                      keep_requests: bool = False, mesh=None) -> dict[str, Any]:
     """Replica scale-up/down under live traffic with page-pool handoff.
 
     A replica set of continuous engines runs the seeded trace in lockstep
@@ -297,7 +391,7 @@ def elastic_serve_run(params, cfg, trace, knobs: dict[str, Any], *, chaos,
     next_replica = [0]
 
     def build():
-        e = _build_engine(params, cfg, knobs, admission="continuous", clock="virtual",
+        e = _build_engine(params, cfg, knobs, mesh, admission="continuous", clock="virtual",
                           tick_s=tick_s, temperature=temperature, sentinel=sentinel,
                           prefill_batch=knobs["max_slots"], trace_label="elastic")
         e.replica_id = next_replica[0]
@@ -522,17 +616,25 @@ def run_serve_bench(
     skip_ab: bool = False,
     skip_prefix_ab: bool = False,
     skip_spec_ab: bool = False,
+    skip_tp_ab: bool = False,
     serve_tp: int | None = None,
+    mesh=None,
     device=None,
 ) -> dict[str, Any]:
     """The whole serving bench on ``device`` (default the card); returns the
     record (``serve_cell`` makes the BENCH line's ``telemetry.serve``).
     ``budget_s`` bounds the wall-clock ramp phase (None = run to drain).
-    The chaos journal of the elastic run lives in ``obs_dir``."""
+    The chaos journal of the elastic run lives in ``obs_dir``.
+
+    ``serve_tp`` (over ``DDL25_SERVE_TP``) > 1: this process is one rank of
+    ``mesh``'s ``model`` axis, every rank calls this with the same arguments,
+    and every engine of the bench is sharded over the axis; the
+    sharded-vs-single-card A/B (:func:`tp_ab_compare`) runs unless
+    ``skip_tp_ab``.  Only one rank should pass ``obs_dir`` and
+    ``ledger_path``."""
     import torch
 
     from ddl25spring_tpu_torch.ft.chaos import ChaosInjector
-    from ddl25spring_tpu_torch.models.decode import not_yet
     from ddl25spring_tpu_torch.models.llama import Llama
     from ddl25spring_tpu_torch.obs import sentinels, spans
     from ddl25spring_tpu_torch.obs.logger import git_sha
@@ -541,13 +643,13 @@ def run_serve_bench(
     from ddl25spring_tpu_torch.utils.config import env_int
     from ddl25spring_tpu_torch.utils.device import resolve_device
 
-    if serve_tp is not None and serve_tp > 1:
-        raise not_yet("TP serving (--serve-tp > 1)")
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.device
     t_start = time.perf_counter()
     model = model or ("tiny" if smoke else "ref")
     cfg = serve_model(model)
     knobs = engine_knobs(smoke=smoke)
+    if serve_tp is not None:  # bench --serve-tp over the env knob
+        knobs["tp"] = int(serve_tp)
     traffic_defaults = SMOKE_TRAFFIC if smoke else {
         "duration_s": 30.0, "rate_rps": 8.0, "profile": "ramp", "seed": 0,
     }
@@ -569,7 +671,7 @@ def run_serve_bench(
     params.requires_grad_(False)
 
     # --- ramp phase: wall clock, the measured serving numbers ------------
-    eng = _build_engine(params, cfg, knobs, clock="wall", temperature=temperature,
+    eng = _build_engine(params, cfg, knobs, mesh, clock="wall", temperature=temperature,
                         sentinel=sentinel, trace_label="ramp")
     # capture OFF the clock: TTFT measures serving, not the captures
     with spans.span("serve.warmup", cat="serve"):
@@ -585,20 +687,27 @@ def run_serve_bench(
     if not skip_ab:
         with spans.span("serve.ab", cat="serve"):
             ab = ab_compare(params, cfg, trace, knobs, temperature=temperature,
-                            sentinel=sentinel)
+                            sentinel=sentinel, mesh=mesh)
 
     # --- cached-vs-cold prefix A/B: virtual clock, deterministic --------
     prefix_ab = None
     if not skip_prefix_ab and knobs.get("prefix_cache"):
         with spans.span("serve.prefix_ab", cat="serve"):
-            prefix_ab = prefix_ab_compare(params, cfg, trace, knobs,
-                                          temperature=temperature, sentinel=sentinel)
+            prefix_ab = prefix_ab_compare(params, cfg, trace, knobs, temperature=temperature,
+                                          sentinel=sentinel, mesh=mesh)
 
     # --- spec-on-vs-off A/B: virtual clock, deterministic ---------------
     spec_ab = None
     if not skip_spec_ab and knobs.get("spec_k"):
         with spans.span("serve.spec_ab", cat="serve"):
-            spec_ab = spec_ab_compare(params, cfg, trace, knobs, sentinel=sentinel)
+            spec_ab = spec_ab_compare(params, cfg, trace, knobs, sentinel=sentinel, mesh=mesh)
+
+    # --- tp-sharded vs single-card A/B: virtual clock, deterministic ----
+    tp_ab = None
+    if not skip_tp_ab and int(knobs.get("tp") or 1) > 1:
+        with spans.span("serve.tp_ab", cat="serve"):
+            tp_ab = tp_ab_compare(params, cfg, trace, knobs, mesh=mesh,
+                                  temperature=temperature, sentinel=sentinel)
 
     # --- elastic replica reshaping: armed chaos only --------------------
     # DDL25_CHAOS=traffic_spike@k / capacity_change@k:N / device_loss@k on
@@ -611,7 +720,7 @@ def run_serve_bench(
     if elastic_armed and not knobs.get("spec_k"):
         with spans.span("serve.elastic", cat="serve"):
             reshape = elastic_serve_run(params, cfg, trace, knobs, chaos=chaos,
-                                        temperature=temperature, sentinel=sentinel)
+                                        temperature=temperature, sentinel=sentinel, mesh=mesh)
     elif elastic_armed:
         import warnings
 
@@ -641,6 +750,11 @@ def run_serve_bench(
             **({"spec": True, "spec_k": knobs["spec_k"], "draft_layers": knobs["draft_layers"]}
                if knobs.get("spec_k") else {}),
             **({"max_new_jitter": jitter} if jitter else {}),
+            # tp, like spec, enters the key only when sharded: sharded rows
+            # trend apart from single-card history
+            **({"tp": knobs["tp"], **({"weight_stream": True} if knobs.get("weight_stream")
+                                      else {})}
+               if int(knobs.get("tp") or 1) > 1 else {}),
             **({"elastic": True} if reshape is not None else {}),
             **({
                 "shared_prefixes": spec.shared_prefixes,
@@ -654,6 +768,7 @@ def run_serve_bench(
         **({"ab": ab} if ab is not None else {}),
         **({"prefix_ab": prefix_ab} if prefix_ab is not None else {}),
         **({"spec_ab": spec_ab} if spec_ab is not None else {}),
+        **({"tp_ab": tp_ab} if tp_ab is not None else {}),
         **({"reshape": reshape} if reshape is not None else {}),
         # bounded raw samples for serve_report's histograms
         "ttft_s": [round(x, 6) for x in eng.ttft_s[:512]],
@@ -705,6 +820,9 @@ def ledger_record(record: dict[str, Any]) -> dict[str, Any]:
     sab = record.get("spec_ab")
     if sab:
         out["spec_ab"] = _spec_ab_cell(sab)
+    tab = record.get("tp_ab")
+    if tab:
+        out["tp_ab"] = _tp_ab_cell(tab)
     rsh = record.get("reshape")
     if rsh:
         out["reshape"] = _reshape_cell(rsh)
@@ -751,6 +869,24 @@ def _spec_ab_cell(sab: dict[str, Any]) -> dict[str, Any]:
     }
 
 
+def _tp_ab_cell(tab: dict[str, Any]) -> dict[str, Any]:
+    """The TP A/B summary both the ledger row and telemetry.serve carry --
+    what ``serve_report --check-tp`` gates."""
+    tp_arm = tab.get("sharded") or {}
+    dense_arm = tab.get("dense") or {}
+    return {
+        **{k: tab.get(k) for k in (
+            "tp", "budget_s", "tp_tokens_at_budget", "dense_tokens_at_budget", "tokens_match",
+            "compared_requests", "budget_shrunk", "first_mismatch")},
+        "tp_mem_budget_bytes_per_chip": tp_arm.get("mem_budget_bytes_per_chip"),
+        "dense_mem_budget_bytes_per_chip": dense_arm.get("mem_budget_bytes_per_chip"),
+        "tp_tokens_per_sec_per_chip": tp_arm.get("tokens_per_sec_per_chip"),
+        "dense_tokens_per_sec_per_chip": dense_arm.get("tokens_per_sec_per_chip"),
+        **{k: tp_arm.get(k) for k in ("pool_bytes_per_chip", "param_bytes_per_chip",
+                                      "weight_stream")},
+    }
+
+
 def _reshape_cell(rsh: dict[str, Any]) -> dict[str, Any]:
     """The elastic-reshape summary both the ledger row and telemetry.serve
     carry -- what ``serve_report --check-reshape`` gates; events keep their
@@ -790,6 +926,8 @@ def serve_cell(record: dict[str, Any]) -> dict[str, Any]:
         cell["prefix_ab"] = _prefix_ab_cell(record["prefix_ab"])
     if record.get("spec_ab"):
         cell["spec_ab"] = _spec_ab_cell(record["spec_ab"])
+    if record.get("tp_ab"):
+        cell["tp_ab"] = _tp_ab_cell(record["tp_ab"])
     if record.get("reshape"):
         cell["reshape"] = _reshape_cell(record["reshape"])
     for k in ("ledger", "ledger_error", "serve_json"):

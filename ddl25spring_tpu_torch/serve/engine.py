@@ -32,24 +32,40 @@ counterpart of the JAX package's ``serve/engine.py`` on one card.
 - **elastic handoff**: :meth:`ServeEngine.begin_drain` hands the queue back
   and :meth:`ServeEngine.retire` gives a drained replica's device memory
   back (``serve/driver.py``'s ``elastic_serve_run``).
+- **TP-sharded serving** (``tp > 1``, ``mesh=``): one process per rank of the
+  mesh's ``model`` axis, each running a whole engine over its shard: the
+  pool's heads ``H/tp`` (dim :data:`KV_POOL_HEAD_DIM`), the Megatron slices
+  of the blocks with the vocabulary replicated, and the same host scheduler.
+  Each block sums its attention and its FFN output over the axis in
+  ``cfg.dtype`` (JAX's two ``psum``s), so every rank holds the same logits
+  and samples the same tokens; the wall clock is rank 0's, broadcast once per
+  scheduler iteration, and :meth:`ServeEngine.check_lockstep` raises if the
+  ranks' streams or counters differ.  ``weight_stream=True`` keeps the blocks
+  as ZeRO-3 rows (:func:`~ddl25spring_tpu_torch.parallel.zero.
+  zero_stream_llama_params`) and gathers one layer at a time inside the tick,
+  the next layer's gather issued before the current layer computes; a
+  prefill gathers the whole stack once.  Ranks that share a card are not
+  graphed: the TP engine runs its programs eagerly and refuses
+  ``graphs=True``.
 
 The decode sentinel guards each program's logits through
 :func:`~ddl25spring_tpu_torch.obs.sentinels.guard` (a graph's facts fold
 after its replay), each scheduler iteration lands in the flight ring, and
 the ``serve_*`` timeline events carry each request's life.
 
-Waiting for A9b-3 (ROADMAP.md): TP serving (``tp > 1``) and the ZeRO-3
-weight-streaming decode (``weight_stream=True``) raise
-``NotImplementedError``; ``describe()`` waits for A12.
+``describe()`` waits for A12 (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
 import math
 import random
 import time
 from collections import deque
 from dataclasses import dataclass, field
+from types import SimpleNamespace
 from typing import Any
 
 import numpy as np
@@ -79,6 +95,10 @@ REJECT_POOL_EXHAUSTED = "pool_exhausted"
 REJECT_BAD_REQUEST = "bad_request"  # empty prompt / non-positive max_new
 REJECT_DRAINING = "draining"  # a draining replica admits nothing
 
+# the dim of the pool's k/v ([n_pages + 1, L, page_len, H, hd]) a TP engine
+# splits over its model axis (JAX's KV_POOL_HEAD_DIM)
+KV_POOL_HEAD_DIM = 3
+
 
 # ------------------------------------------------------------ the programs
 
@@ -96,14 +116,16 @@ def _rope_rows(x, cos, sin):
 
 
 def _paged_block(p, x, kp, vp, layer: int, rows, pages, offs, pos, cos, sin,
-                 cfg: LlamaConfig):
+                 cfg: LlamaConfig, tp_axis=None):
     """One block on a single-token slice ``x [B, 1, D]`` against the PAGE
     POOL — the paged twin of :func:`~ddl25spring_tpu_torch.models.decode.
     _block_decode`, op for op (same products, float32 softmax, ``-1e30``
     mask fill), so greedy fp32 paged decode equals dense.  ``rows`` is the
     clamped page table ``[B, P]`` of the batch's sequences; ``pages``/
     ``offs`` the write coordinates of position ``pos`` (trash-routed where
-    masked)."""
+    masked).  ``tp_axis``: ``p`` is the rank's Megatron slice and the pool
+    holds its heads; the attention and FFN outputs are summed over the axis
+    in ``cfg.dtype``, as JAX's ``psum``s."""
     dtype = llama._dtype(cfg)
     B = x.shape[0]
     hd = cfg.head_dim
@@ -127,17 +149,26 @@ def _paged_block(p, x, kp, vp, layer: int, rows, pages, offs, pos, cos, sin,
     s = s.masked_fill(~live[:, None, None, :], -1e30)
     probs = torch.softmax(s, dim=-1).to(dtype)
     attn = torch.einsum("bhqm,bmhd->bqhd", probs, vs)
-    x = x + attn.reshape(B, 1, -1) @ p.wo.to(dtype)
+    x = x + decode_mod._psum(attn.reshape(B, 1, -1) @ p.wo.to(dtype), tp_axis)
 
     h = llama.rms_norm(x, p.ln2)
     gate = F.silu(h @ p.w_gate.to(dtype))
-    return x + (gate * (h @ p.w_up.to(dtype))) @ p.w_down.to(dtype)
+    return x + decode_mod._psum((gate * (h @ p.w_up.to(dtype))) @ p.w_down.to(dtype), tp_axis)
 
 
-def _layers(model, x, pool, rows, pages, offs, pos, cos, sin, cfg):
+def _layers(model, x, pool, rows, pages, offs, pos, cos, sin, cfg, tp_axis=None,
+            layer_stack=None):
+    """The block stack on ``x``: ``model``'s resident blocks in order, or the
+    walk ``layer_stack(model, run_layer, x) -> x`` with ``run_layer(block,
+    li, x)`` one block's paged step (the weight-streaming decode's hook)."""
+    def run_layer(block, li, x):
+        return _paged_block(block, x, pool["k"], pool["v"], li, rows, pages, offs, pos,
+                            cos, sin, cfg, tp_axis)
+
+    if layer_stack is not None:
+        return layer_stack(model, run_layer, x)
     for li, block in enumerate(model.blocks):
-        x = _paged_block(block, x, pool["k"], pool["v"], li, rows, pages, offs, pos,
-                         cos, sin, cfg)
+        x = run_layer(block, li, x)
     return x
 
 
@@ -153,15 +184,11 @@ def _guard(strategy, new_tok, pool, live, logits, s_on, s_policy, sink):
     )
 
 
-def _refuse_unported(cfg: LlamaConfig, tp_axis, layer_stack=None):
+def _refuse_moe(cfg: LlamaConfig):
     if cfg.n_experts > 0:
         raise NotImplementedError(
             "serve/ decodes dense-FFN configs only (MoE decode exists in "
             "models/decode.py; paging it is future work)")
-    if tp_axis is not None:
-        raise decode_mod.not_yet("TP serving (tp_axis)")
-    if layer_stack is not None:
-        raise decode_mod.not_yet("the weight-streaming layer walk (layer_stack)")
 
 
 def make_decode_tick(cfg: LlamaConfig, *, temperature: float = 0.0, top_k: int = 0,
@@ -175,10 +202,16 @@ def make_decode_tick(cfg: LlamaConfig, *, temperature: float = 0.0, top_k: int =
     ``ok`` the pool-exhaustion backstop flag (a bool tensor); ``noise [S,
     V]`` the uniforms a sampled tick draws from (None when greedy).  Static
     shapes, no host read.  The sentinel's gate and policy resolve at BUILD
-    time; ``sink`` takes its facts (a captured graph's)."""
-    _refuse_unported(cfg, tp_axis, layer_stack)
+    time; ``sink`` takes its facts (a captured graph's).
+
+    ``tp_axis``: ``model`` holds the rank's Megatron slices and the pool its
+    heads (:class:`ServeEngine` with ``tp > 1``).  ``layer_stack`` replaces
+    the walk over resident blocks (:func:`_layers`): the weight-streaming
+    decode's :func:`_stream_layer_stack` rides it; None keeps the resident
+    walk."""
+    _refuse_moe(cfg)
     s_on, s_policy = sentinels.resolve(sentinel)
-    step = spec_mod._position_step(cfg)
+    step = spec_mod._position_step(cfg, tp_axis, layer_stack)
 
     def tick(model, pool, tokens, noise, sink=None):
         active = pool["active"]
@@ -214,8 +247,9 @@ def make_prefill(cfg: LlamaConfig, *, max_prompt_len: int, start: int = 0,
     [B]`` carries each row's own matched length (``>= start``): rows never
     write positions below it — those positions' KV already sit in the pages
     ``kv_pages.adopt_prefix`` seated — and a row whose ``starts`` exceeds
-    ``start`` replays the gap's compute with its writes trash-routed."""
-    _refuse_unported(cfg, tp_axis)
+    ``start`` replays the gap's compute with its writes trash-routed.
+    ``tp_axis`` as :func:`make_decode_tick`'s."""
+    _refuse_moe(cfg)
     if not 0 <= start < max_prompt_len:
         raise ValueError(
             f"start={start} must sit in [0, max_prompt_len={max_prompt_len})")
@@ -243,7 +277,7 @@ def make_prefill(cfg: LlamaConfig, *, max_prompt_len: int, start: int = 0,
 
             x = decode_mod.embed_tokens(model, tok[:, None], cfg)
             cos, sin = llama.rope_angles(1, cfg.head_dim, pos=pos.float())
-            x = _layers(model, x, pool, rows, pages, offs, pos, cos, sin, cfg)
+            x = _layers(model, x, pool, rows, pages, offs, pos, cos, sin, cfg, tp_axis)
             logits = llama.unembed(model, x, cfg)[:, 0]
             last_logits = torch.where((i == lens - 1)[:, None], logits, last_logits)
             ok_all = ok_all & ok
@@ -315,6 +349,142 @@ def _spec_programs(cfg: LlamaConfig, draft_cfg: LlamaConfig, *, k: int,
             cfg, k=k, sentinel=sentinel)),
         "draft_prefill": _prefill_variant(draft_cfg, max_prompt_len=max_prompt_len, start=0,
                                           temperature=0.0, sentinel=sentinel),
+    }
+
+
+# ------------------------------------------------------------ TP programs
+
+
+def _block_leaves(block) -> dict:
+    """A dense block's leaves by name (a module's or a namespace's)."""
+    return {k: getattr(block, k) for k in (*llama.ATTN_BLOCK_KEYS, *llama.FFN_KEYS)}
+
+
+def _tp_slice_block(p: dict, index: int, n: int) -> SimpleNamespace:
+    """Index ``index``'s Megatron slice of a WHOLE block's leaves ``p``: the
+    column leaves (``wq``/``wk``/``wv``/``w_gate``/``w_up``) cut on their last
+    dim, the row leaves (``wo``/``w_down``) on their first, the norms whole
+    (JAX ``_tp_slice_block``, ``engine.py:546``).  These are the chunks
+    :func:`~ddl25spring_tpu_torch.parallel.tp.shard_tp_params` places, each in
+    a fresh tensor as a resident rank holds it, so the compute after a
+    streamed gather is the resident program's, bit for bit."""
+    from ddl25spring_tpu_torch.parallel.tp import _COL, _ROW
+
+    out = {}
+    for name, w in p.items():
+        if name in _COL:
+            c = w.shape[-1] // n
+            out[name] = w[..., index * c:(index + 1) * c].clone(
+                memory_format=torch.contiguous_format)
+        elif name in _ROW:
+            c = w.shape[0] // n
+            out[name] = w[index * c:(index + 1) * c].clone(memory_format=torch.contiguous_format)
+        else:
+            out[name] = w
+    return SimpleNamespace(**out)
+
+
+@torch.no_grad()
+def _tp_shard(model, cfg: LlamaConfig, axis, device) -> spec_mod.Drafter:
+    """This rank's resident TP shard of ``model`` (a ``Llama`` or a drafter)
+    on ``device``: its blocks' Megatron slices, the vocabulary (``embed``,
+    ``unembed``) and the norms replicated (``shard_tp_params(...,
+    shard_vocab=False)``)."""
+    blocks = [_tp_slice_block({k: t.detach().to(device) for k, t in _block_leaves(b).items()},
+                              axis.index, axis.size) for b in model.blocks]
+    return spec_mod.Drafter(cfg, model.embed.detach().to(device), blocks,
+                            model.ln_f.detach().to(device), model.unembed.detach().to(device))
+
+
+def _stream_layer_stack(axis, plan, paths):
+    """The ZeRO-3 streaming walk over the block stack, a ``layer_stack`` for
+    :func:`make_decode_tick` (JAX ``_stream_layer_stack``, ``engine.py:572``):
+    ``model`` is a :class:`~ddl25spring_tpu_torch.parallel.zero.StreamRows`,
+    ``plan`` its per-layer bucket plan and ``paths`` one block's leaf paths.
+    Layer ``i + 1``'s bucketed all-gather is issued before layer ``i``
+    computes; each gathered layer is TP-sliced here and run through the
+    row-parallel paged block; the last layer is peeled (nothing left to
+    prefetch).  ``plan.n_buckets * n_layers`` all-gathers a tick."""
+    from ddl25spring_tpu_torch.parallel import zero
+
+    def gathered(bufs, i, pending=None):
+        leaves = zero.stream_gather_layer(plan, [b[i] for b in bufs], axis, pending)
+        return _tp_slice_block(dict(zip(paths, leaves)), axis.index, axis.size)
+
+    def layer_stack(model, run_layer, x):
+        bufs = model.bufs
+        L = len(model.blocks)
+        cur = gathered(bufs, 0)
+        for i in range(L):
+            nxt = (zero.stream_start_layer([b[i + 1] for b in bufs], axis)
+                   if i + 1 < L else None)
+            x = run_layer(cur, i, x)
+            if nxt is not None:
+                cur = gathered(bufs, i + 1, nxt)
+        return x
+
+    return layer_stack
+
+
+def _tp_compiled_programs(cfg: LlamaConfig, axis, *, max_prompt_len: int, temperature: float,
+                          sentinel: bool | None, stream=None):
+    """``(tick, prefill at start 0, release)`` bodies of a TP engine on
+    ``axis`` (JAX ``_tp_compiled_programs``, ``engine.py:702``); ``stream``
+    is the weight-streaming decode's ``(plan, paths)``, None for resident
+    weights.  The release touches only the replicated accounting."""
+    tick = _body(("tp tick", cfg, axis, temperature, sentinels.resolve(sentinel), stream),
+                 lambda: make_decode_tick(
+                     cfg, temperature=temperature, tp_axis=axis, sentinel=sentinel,
+                     layer_stack=None if stream is None else _stream_layer_stack(axis, *stream)))
+    return (tick,
+            _tp_prefill_variant(cfg, axis, max_prompt_len=max_prompt_len, start=0,
+                                temperature=temperature, sentinel=sentinel, stream=stream),
+            _release)
+
+
+def _tp_prefill_variant(cfg: LlamaConfig, axis, *, max_prompt_len: int, start: int,
+                        temperature: float, sentinel: bool | None, stream=None):
+    """A TP engine's prefill body for one STATIC start offset (JAX
+    ``_tp_prefill_variant``, ``engine.py:660``).  Streamed, it gathers the
+    whole block stack once per call (transient), where a per-layer walk
+    would gather every layer once per prompt position."""
+    def build():
+        body = make_prefill(cfg, max_prompt_len=max_prompt_len, start=start,
+                            temperature=temperature, tp_axis=axis, sentinel=sentinel)
+        if stream is None:
+            return body
+        from ddl25spring_tpu_torch.parallel import zero
+
+        plan, paths = stream
+
+        def streamed(model, pool, *rest, sink=None):
+            blocks = [_tp_slice_block(dict(zip(paths, leaves)), axis.index, axis.size)
+                      for leaves in zero.stream_gather_blocks(plan, model.bufs, axis)]
+            whole = spec_mod.Drafter(cfg, model.embed, blocks, model.ln_f, model.unembed)
+            return body(whole, pool, *rest, sink=sink)
+
+        return streamed
+
+    return _body(("tp prefill", cfg, axis, max_prompt_len, start, temperature,
+                  sentinels.resolve(sentinel), stream), build)
+
+
+def _tp_spec_programs(cfg: LlamaConfig, draft_cfg: LlamaConfig, axis, *, k: int,
+                      max_prompt_len: int, sentinel: bool | None) -> dict:
+    """:func:`_spec_programs` on ``axis`` (JAX ``_tp_spec_programs``,
+    ``engine.py:750``): the drafter's and the target's slices, each with its
+    head-split pool."""
+    gate = sentinels.resolve(sentinel)
+    return {
+        "draft_k": _body(("tp draft", draft_cfg, axis, k, k, gate), lambda: spec_mod.make_draft(
+            draft_cfg, k=k, steps=k, tp_axis=axis, sentinel=sentinel)),
+        "draft_k1": _body(("tp draft", draft_cfg, axis, k, k + 1, gate),
+                          lambda: spec_mod.make_draft(draft_cfg, k=k, steps=k + 1, tp_axis=axis,
+                                                      sentinel=sentinel)),
+        "verify": _body(("tp verify", cfg, axis, k, gate), lambda: spec_mod.make_verify(
+            cfg, k=k, tp_axis=axis, sentinel=sentinel)),
+        "draft_prefill": _tp_prefill_variant(draft_cfg, axis, max_prompt_len=max_prompt_len,
+                                             start=0, temperature=0.0, sentinel=sentinel),
     }
 
 
@@ -527,9 +697,16 @@ class ServeEngine:
     ``clock="wall"`` uses real time (the bench path); ``clock="virtual"``
     advances ``tick_s`` per program call — deterministic, which the
     continuous-vs-static A/B and the admission tests pin.  ``graphs``: on
-    the card, capture each program as a CUDA graph (the default) or run it
-    eagerly.  ``seed`` seeds the sampling generator (on the model's
-    device).
+    the card, capture each program as a CUDA graph, or run it eagerly (the
+    TP engine's only way: ``tp > 1`` needs ``graphs=False``).  ``seed``
+    seeds the sampling generator (on the model's device).
+
+    ``tp > 1``: this process is one rank of ``mesh``'s ``model`` axis (of
+    ``tp`` ranks) and serves its shard of ``params`` (the whole model, on any
+    device) on ``mesh.device``; every rank of the axis must build the engine
+    with the same arguments and drive it with the same calls.
+    ``weight_stream=True`` keeps the blocks as ZeRO-3 rows and gathers them
+    layer by layer (greedy or sampled decode; not with ``spec_k``).
     """
 
     def __init__(
@@ -559,6 +736,7 @@ class ServeEngine:
         draft_cfg: LlamaConfig | None = None,
         tp: int = 1,
         weight_stream: bool = False,
+        mesh=None,
         trace_label: str | None = "serve",
         graphs: bool = True,
     ):
@@ -581,12 +759,33 @@ class ServeEngine:
         if weight_stream and tp == 1:
             raise ValueError(
                 "weight_stream streams ZeRO-3 rows over the model mesh axis — it "
-                "requires tp > 1")
-        if tp > 1:
-            raise decode_mod.not_yet("TP serving (tp > 1)")
+                "requires tp > 1 (tp=1 holds the whole model per rank by construction)")
+        if weight_stream and spec_k:
+            raise ValueError(
+                "weight_stream serves the plain decode path only: the drafter's rounds "
+                "would re-stream the target stack per round (spec_k must be 0)")
+        self.tp = int(tp)
+        self.weight_stream = bool(weight_stream)
+        self.mesh = mesh if self.tp > 1 else None
+        self.axis = None
+        if self.tp > 1:
+            have = (mesh.axis("model").size
+                    if mesh is not None and "model" in mesh.grid.names else 0)
+            if have != self.tp:
+                raise ValueError(
+                    f"tp={self.tp} needs {self.tp} ranks on the 'model' axis of a mesh "
+                    f"(one process per shard, as bench --serve --serve-tp starts them); "
+                    f"the mesh given has {have}")
+            if cfg.num_heads % self.tp:
+                raise ValueError(f"{cfg.num_heads} heads not divisible by tp={self.tp}")
+            if graphs:
+                raise ValueError(
+                    "a TP engine is not graphed: its ranks share a card over gloo, whose "
+                    "collectives a CUDA graph cannot hold (NCCL gives one rank per card); "
+                    "pass graphs=False")
+            self.axis = mesh.axis("model")
         self.cfg = cfg
-        self.params = params
-        self.device = next(params.parameters()).device
+        self.device = mesh.device if self.tp > 1 else next(params.parameters()).device
         self.page_len = page_len
         self.n_pages = n_pages
         self.max_slots = max_slots
@@ -606,19 +805,39 @@ class ServeEngine:
         # keeps an engine off the timeline (the driver's A/B arms)
         self.trace_label = trace_label
         self.replica_id = 0
-        self.tp = 1
-        self.weight_stream = False
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._temperature = temperature
         self._sentinel = sentinel
         self._graphs = graphs
 
+        # TP: every rank holds its shard (the tensors split over the axis are
+        # listed, for the global memory bill); the stream plan, when streaming
+        self._stream = None
+        if self.tp > 1 and self.weight_stream:
+            from ddl25spring_tpu_torch.parallel import zero
+
+            self.params = zero.zero_stream_llama_params(params, mesh, "model")
+            self._stream = (self.params.plan, self.params.paths)
+            self._split = {id(buf) for buf in self.params.bufs}
+        elif self.tp > 1:
+            self.params = _tp_shard(params, cfg, self.axis, self.device)
+            self._split = {id(t) for b in self.params.blocks for k, t in vars(b).items()
+                           if k not in ("ln1", "ln2")}
+        else:
+            self.params = params
+            self._split = set()
+        heads = cfg.num_heads // self.tp
         self.pool = kv_pages.init_page_pool(
             cfg, n_pages=n_pages, page_len=page_len, max_slots=max_slots,
-            pages_per_seq=self.pages_per_seq, device=self.device,
+            pages_per_seq=self.pages_per_seq, num_heads=heads, device=self.device,
         )
-        tick, prefill, release = _compiled_programs(
-            cfg, max_prompt_len=max_prompt_len, temperature=temperature, sentinel=sentinel)
+        if self.tp > 1:
+            tick, prefill, release = _tp_compiled_programs(
+                cfg, self.axis, max_prompt_len=max_prompt_len, temperature=temperature,
+                sentinel=sentinel, stream=self._stream)
+        else:
+            tick, prefill, release = _compiled_programs(
+                cfg, max_prompt_len=max_prompt_len, temperature=temperature, sentinel=sentinel)
         self._tick = _Program("decode_tick", tick, graphs)
         self._prefill_programs = {0: _Program("prefill@0", prefill, graphs)}
         self._release = _Program("release", release, graphs)
@@ -637,19 +856,33 @@ class ServeEngine:
                 draft_params, draft_cfg = spec_mod.early_exit_drafter(params, cfg, draft_layers)
             elif draft_cfg is None:
                 raise ValueError("explicit draft_params need their draft_cfg")
-            self.draft_params, self.draft_cfg = draft_params, draft_cfg
             # what each drafter step costs on the virtual clock, as a
-            # fraction of a target decode tick
+            # fraction of a target decode tick (unsharded, as JAX's)
             self.spec_flop_ratio = spec_mod.flop_ratio(draft_params, params)
+            if self.tp > 1:
+                # the drafter derives from the UNSHARDED target and is sliced
+                # the same way; its pool splits its heads likewise
+                if draft_cfg.num_heads % self.tp:
+                    raise ValueError(
+                        f"draft {draft_cfg.num_heads} heads not divisible by tp={self.tp}")
+                draft_params = _tp_shard(draft_params, draft_cfg, self.axis, self.device)
+                self._split |= {id(t) for b in draft_params.blocks for k, t in vars(b).items()
+                                if k not in ("ln1", "ln2")}
+            self.draft_params, self.draft_cfg = draft_params, draft_cfg
             # the drafter pool has the target pool's geometry and shares
             # NOTHING (no prefix cache claims its pages), so spec admission
             # bills every request its full worst case (see _admittable)
             self.draft_pool = kv_pages.init_page_pool(
                 draft_cfg, n_pages=n_pages, page_len=page_len, max_slots=max_slots,
-                pages_per_seq=self.pages_per_seq, device=self.device,
+                pages_per_seq=self.pages_per_seq, num_heads=draft_cfg.num_heads // self.tp,
+                device=self.device,
             )
-            bodies = _spec_programs(cfg, draft_cfg, k=self.spec_k,
-                                    max_prompt_len=max_prompt_len, sentinel=sentinel)
+            if self.tp > 1:
+                bodies = _tp_spec_programs(cfg, draft_cfg, self.axis, k=self.spec_k,
+                                           max_prompt_len=max_prompt_len, sentinel=sentinel)
+            else:
+                bodies = _spec_programs(cfg, draft_cfg, k=self.spec_k,
+                                        max_prompt_len=max_prompt_len, sentinel=sentinel)
             # a graph binds its pool's addresses: each pool's truncate and
             # release are programs of their own
             self._draft_k = _Program("draft_k", bodies["draft_k"], graphs)
@@ -659,7 +892,9 @@ class ServeEngine:
             self._truncate = _Program("truncate", _truncate, graphs)
             self._draft_truncate = _Program("draft_truncate", _truncate, graphs)
             self._draft_release = _Program("draft_release", _release, graphs)
-        # analytic forward cost of one prompt token (2 N_params)
+        # the pools' k/v hold the rank's heads
+        self._split |= {id(pool[n]) for pool in (self.pool, self.draft_pool)
+                        if pool is not None for n in ("k", "v")}
         self._flops_per_token = 2 * sum(p.numel() for p in params.parameters())
 
         # elastic handoff state: a draining replica admits nothing new
@@ -726,9 +961,15 @@ class ServeEngine:
     def _prefill_at(self, start: int) -> _Program:
         """This engine's prefill program for a STATIC start offset."""
         if start not in self._prefill_programs:
-            body = _prefill_variant(
-                self.cfg, max_prompt_len=self.max_prompt_len, start=start,
-                temperature=self._temperature, sentinel=self._sentinel)
+            if self.tp > 1:
+                body = _tp_prefill_variant(
+                    self.cfg, self.axis, max_prompt_len=self.max_prompt_len, start=start,
+                    temperature=self._temperature, sentinel=self._sentinel,
+                    stream=self._stream)
+            else:
+                body = _prefill_variant(
+                    self.cfg, max_prompt_len=self.max_prompt_len, start=start,
+                    temperature=self._temperature, sentinel=self._sentinel)
             self._prefill_programs[start] = _Program(f"prefill@{start}", body, self._graphs)
         return self._prefill_programs[start]
 
@@ -752,6 +993,46 @@ class ServeEngine:
         if self.clock == "virtual":
             return self._vtime
         return time.perf_counter() - self._t0
+
+    def _agreed_now(self) -> float:
+        """:meth:`now` as every rank of a TP engine sees it: on the wall
+        clock, rank 0's reading, broadcast (the scheduler's decisions --
+        arrivals, the budget -- must come out the same on every rank)."""
+        if self.tp == 1 or self.clock == "virtual":
+            return self.now()
+        import torch.distributed as dist
+
+        # an NCCL group takes tensors on the rank's card only
+        dev = self.device if self.axis.comm.backend == "nccl" else "cpu"
+        t = torch.tensor([self.now()], dtype=torch.float64, device=dev)
+        dist.broadcast(t, src=self.axis.ranks[0], group=self.axis.group)
+        return float(t)
+
+    def check_lockstep(self) -> None:
+        """Raise unless every rank of a TP engine finished the same requests
+        with the same tokens and holds the same counters: a rank that drifted
+        is a fault (a no-op at ``tp=1``)."""
+        if self.tp == 1:
+            return
+        import torch.distributed as dist
+
+        state = {
+            "done": sorted((r.rid, list(r.tokens)) for r in self.done),
+            "live": [(r.rid, list(r.tokens)) if r is not None else None for r in self.slots],
+            "queue": [r.rid for r in self.queue],
+            **{k: getattr(self, k) for k in (
+                "admitted", "completed", "generated_tokens", "pool_ok_failures", "peak_pages",
+                "prefill_tokens_saved", "draft_tokens_proposed", "draft_tokens_accepted",
+                "_ticks", "_prefills")},
+            "rejected": sorted(self.rejected.items()),
+        }
+        digest = hashlib.sha256(json.dumps(state, sort_keys=True).encode()).hexdigest()
+        got: list = [None] * self.tp
+        dist.all_gather_object(got, (digest, state), group=self.axis.group)
+        if len({d for d, _ in got}) > 1:
+            diff = {k: [st[k] for _, st in got] for k in state
+                    if any(st[k] != got[0][1][k] for _, st in got)}
+            raise RuntimeError(f"the TP ranks {list(self.axis.ranks)} drifted apart: {diff}")
 
     def _tl(self, kind: str, **fields) -> None:
         """One timeline event on this engine's track: host-side only, and a
@@ -1357,21 +1638,31 @@ class ServeEngine:
 
     # ---- memory --------------------------------------------------------
 
-    def _param_bytes(self) -> int:
+    def _bytes(self, tensors, per_chip: bool = True) -> int:
+        """Bytes of ``tensors`` as one rank holds them, or (``per_chip=False``)
+        as the whole axis does: a tensor split over it counts ``tp`` times."""
+        return sum(t.numel() * t.element_size()
+                   * (1 if per_chip or id(t) not in self._split else self.tp) for t in tensors)
+
+    def _param_bytes(self, per_chip: bool = True) -> int:
         """Parameter bytes, the drafter's counted again as JAX counts them
         (its tensors are views of the target's)."""
         models = [self.params] + ([self.draft_params] if self.spec_k else [])
-        return sum(p.numel() * p.element_size() for m in models for p in m.parameters())
+        return self._bytes([p for m in models for p in m.parameters()], per_chip)
 
-    def _pool_bytes(self) -> int:
+    def _pool_bytes(self, per_chip: bool = True) -> int:
         pools = [self.pool] + ([self.draft_pool] if self.spec_k else [])
-        return sum(t.numel() * t.element_size() for pool in pools for t in pool.values())
+        return self._bytes([t for pool in pools for t in pool.values()], per_chip)
 
     def mem_budget_bytes(self, per_chip: bool = True) -> int:
         """The engine's static memory bill: parameters + page pool (+ the
-        drafter's parameters and pool under spec), from shapes and dtypes
-        (one card: ``per_chip`` changes nothing)."""
-        return self._param_bytes() + self._pool_bytes()
+        drafter's parameters and pool under spec), from shapes and dtypes.
+        ``per_chip=True`` bills what this rank holds resident (a TP shard's
+        slices and head-split pool, or its ZeRO-3 rows; replicated leaves
+        whole); ``per_chip=False`` the whole axis's logical bill, which
+        sharding does not change (the rows' padding aside).  At ``tp=1`` the
+        two are equal.  A streamed layer in flight is transient, not billed."""
+        return self._param_bytes(per_chip) + self._pool_bytes(per_chip)
 
     def mem_pool_snapshot(self) -> dict[str, Any]:
         """Pool telemetry (occupancy, cache-vs-table split, refcount
@@ -1436,7 +1727,7 @@ class ServeEngine:
         i = 0
         steps = 0
         while True:
-            now = self.now()
+            now = self._agreed_now()
             if budget_s is not None and now >= budget_s:
                 break
             if max_steps is not None and steps >= max_steps:
@@ -1456,6 +1747,7 @@ class ServeEngine:
                 continue
             self.step()
             steps += 1
+        self.check_lockstep()
         return self.metrics(budget_s=budget_s)
 
     # ---- telemetry -----------------------------------------------------
@@ -1484,9 +1776,13 @@ class ServeEngine:
     def metrics(self, budget_s: float | None = None) -> dict[str, Any]:
         """The ``telemetry.serve`` cell: throughput, tail latency, admission
         counters and pool occupancy — every key the BENCH contract (and
-        ``tools/serve_report.py``) reads."""
+        ``tools/serve_report.py``) reads.  ``n_chips`` counts the cards the
+        engine's ranks compute on (TP ranks that share one card count one);
+        ``graphs`` says whether its programs run as CUDA graphs."""
         wall = self.now()
-        n_chips = 1
+        from ddl25spring_tpu_torch.utils.mesh import cards_used
+
+        n_chips = cards_used(self.tp, self.device.type)
         tok_lat = (self.tick_wall_s if self.clock == "wall"
                    else [self.tick_s] * max(self._ticks, 0))
         return {
@@ -1559,5 +1855,6 @@ class ServeEngine:
                 "spec_k": self.spec_k,
                 "tp": self.tp,
                 "weight_stream": self.weight_stream,
+                "graphs": self._graphs and self.device.type == "cuda",
             },
         }

@@ -33,6 +33,10 @@ verify pass here is ``k + 1`` single-token steps, each streaming the
 weights again, so on the card a round costs about ``(k + 1) + steps *
 flop_ratio`` ticks of wall time.
 
+Under tensor parallelism (``tp_axis``) both programs run on the rank's
+Megatron slices and the head-split pools, as the tick does: the drafter is
+built from the unsharded target, then sliced the same way.
+
 ``describe()`` (the TP lowering registry hook) waits for A12 and raises.
 """
 
@@ -61,7 +65,8 @@ class Drafter:
     """A drafter built from a target's tensors, shaped like
     :class:`~ddl25spring_tpu_torch.models.llama.Llama` for the serve
     programs (``embed``, ``blocks``, ``ln_f``, ``unembed``,
-    :meth:`parameters`).  It owns no tensor."""
+    :meth:`parameters`).  It owns no tensor.  The serve engine holds a TP
+    rank's slices of a model (or of a drafter) in one too."""
 
     def __init__(self, cfg: LlamaConfig, embed, blocks, ln_f, unembed):
         self.cfg = cfg
@@ -125,10 +130,12 @@ def flop_ratio(drafter, model) -> float:
 # ------------------------------------------------------ program bodies
 
 
-def _position_step(cfg: LlamaConfig):
+def _position_step(cfg: LlamaConfig, tp_axis=None, layer_stack=None):
     """One single-token step over a paged pool: reserve a page where the
     position opens one, write the token's KV (rows not ``writing``
-    trash-route), run the block stack, return the fp32 logits.
+    trash-route), run the block stack, return the fp32 logits.  ``tp_axis``
+    and ``layer_stack`` go to the engine's layer walk (``serve/engine.py``'s
+    ``_layers``).
 
     ``step(model, pool, tok, pos, writing) -> (pool, logits [S, V], ok)``.
     The decode tick, the draft and the verify programs all run this one
@@ -147,7 +154,8 @@ def _position_step(cfg: LlamaConfig):
 
         x = decode_mod.embed_tokens(model, tok[:, None], cfg)
         cos, sin = llama.rope_angles(1, cfg.head_dim, pos=pos.float())
-        x = _layers(model, x, pool, rows, pages, offs, pos, cos, sin, cfg)
+        x = _layers(model, x, pool, rows, pages, offs, pos, cos, sin, cfg, tp_axis,
+                    layer_stack)
         return pool, llama.unembed(model, x, cfg)[:, 0], ok
 
     return step
@@ -174,7 +182,7 @@ def _refuse_moe(cfg: LlamaConfig):
         raise NotImplementedError("serve/ decodes dense-FFN configs only")
 
 
-def make_draft(cfg: LlamaConfig, *, k: int, steps: int | None = None,
+def make_draft(cfg: LlamaConfig, *, k: int, steps: int | None = None, tp_axis=None,
                sentinel: bool | None = None, strategy: str = "serve-draft"):
     """Build the draft program: ``k`` greedy drafter tokens for every active
     slot, over the drafter's own pool.
@@ -190,7 +198,8 @@ def make_draft(cfg: LlamaConfig, *, k: int, steps: int | None = None,
     while ``j < n_ctx``, its own previous sample after, writing at
     ``seq_len + j`` (masked from ``n_ctx + k - 1`` on: the final draft is
     sampled, never written).  Slot ``s``'s drafts are the samples of steps
-    ``n_ctx[s] - 1 .. n_ctx[s] + k - 2``, gathered into ``drafts [S, k]``."""
+    ``n_ctx[s] - 1 .. n_ctx[s] + k - 2``, gathered into ``drafts [S, k]``.
+    ``tp_axis``: the drafter's Megatron slices and head-split pool."""
     if k < 1:
         raise ValueError(f"k={k} draft tokens must be >= 1")
     if steps is None:
@@ -200,7 +209,7 @@ def make_draft(cfg: LlamaConfig, *, k: int, steps: int | None = None,
         raise ValueError(f"steps={steps} must be k={k} or k+1")
     _refuse_moe(cfg)
     s_on, s_policy = sentinels.resolve(sentinel)
-    step = _position_step(cfg)
+    step = _position_step(cfg, tp_axis)
 
     def draft(model, pool, ctx, n_ctx, limits, sink=None):
         active = pool["active"]
@@ -229,7 +238,7 @@ def make_draft(cfg: LlamaConfig, *, k: int, steps: int | None = None,
     return draft
 
 
-def make_verify(cfg: LlamaConfig, *, k: int, sentinel: bool | None = None,
+def make_verify(cfg: LlamaConfig, *, k: int, tp_axis=None, sentinel: bool | None = None,
                 strategy: str = "serve-verify"):
     """Build the verify program: the target scores all ``k + 1`` positions
     of each slot's draft window.
@@ -242,12 +251,13 @@ def make_verify(cfg: LlamaConfig, *, k: int, sentinel: bool | None = None,
     ``greedy[:, j]`` is the token a decode tick would emit from the same
     context, computed by the tick's own step.  KV is written optimistically
     and ``seq_len`` advanced to ``min(base + k + 1, max(limits, base))``;
-    the engine truncates both pools to the accepted prefix right after."""
+    the engine truncates both pools to the accepted prefix right after.
+    ``tp_axis``: the target's Megatron slices and head-split pool."""
     if k < 1:
         raise ValueError(f"k={k} draft tokens must be >= 1")
     _refuse_moe(cfg)
     s_on, s_policy = sentinels.resolve(sentinel)
-    step = _position_step(cfg)
+    step = _position_step(cfg, tp_axis)
 
     def verify(model, pool, toks, limits, sink=None):
         active = pool["active"]

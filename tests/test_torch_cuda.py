@@ -9,8 +9,10 @@ flash-ring and one TP step on the card against the CPU, a switch-MoE
 LLaMA step (top 1 and 2) and the EP layer on the card, one EP x DP x PP
 and one DP x PP x TP step on the card against the CPU, and the sentinel's
 ``skip`` on the card, eager and inside a CUDA graph (chip_smoke phase 16 (a)
-and (b), small), and the serving engine graphed against eager: plain,
-speculative and elastic (phases 18 (a), 19 (a) and (c), small).
+and (b), small), the serving engine graphed against eager: plain,
+speculative and elastic (phases 18 (a), 19 (a) and (c), small), and TP
+serving from 2 ranks on the card, resident, streamed and speculative, against
+the single-card engine (phase 20 (a), small).
 
 Marked ``gpu``: each test skips unless an sm_90 (Hopper) device is present,
 but for the FL entry points' refusal of a missing GPU, which runs anywhere.
@@ -1168,3 +1170,94 @@ def test_elastic_serve_graphed_equals_eager_on_the_card(dev, tmp_path):
     for cell in cells:
         (step,) = cell["mem_steps"]
         assert step["leak_ok"] and step["step_down_bytes"] > 0
+
+
+def tp_serve_rank(rdv, device):
+    """One rank of a 2-rank TP serving world on ``device`` (chip_smoke phase
+    20 (a), small): the smoke trace through the tiny model's resident and
+    streamed ``tp=2`` engines and tiny-deep's with 2 drafts a round; each
+    engine's streams, accept counts, pool k/v (the trash page aside) and the
+    streamed tick's logits against the resident one's."""
+    from ddl25spring_tpu_torch.models.llama import Llama
+    from ddl25spring_tpu_torch.serve import driver, kv_pages
+    from ddl25spring_tpu_torch.serve import engine as eng_mod
+    from ddl25spring_tpu_torch.serve import spec as spec_mod
+    from ddl25spring_tpu_torch.serve.engine import ServeEngine
+    from ddl25spring_tpu_torch.serve.traffic import TrafficSpec, synth_trace
+    from ddl25spring_tpu_torch.utils.mesh import init_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fa.reset_launches()
+    out = {}
+    with init_mesh(rdv, 1, model=2, device=device) as mesh:
+        out["index"] = mesh.axis("model").index
+        for name, ws, spec_k in (("resident", False, 0), ("streamed", True, 0),
+                                 ("spec", False, 2)):
+            cfg = driver.serve_model("tiny-deep" if spec_k else "tiny")
+            model = Llama(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+            trace = synth_trace(TrafficSpec(**driver.SMOKE_TRAFFIC, vocab_size=cfg.vocab_size))
+            knobs = {**driver.engine_knobs(smoke=True), "spec_k": spec_k, "tp": 2,
+                     "weight_stream": ws}
+            eng = ServeEngine(model.requires_grad_(False), cfg, **knobs, mesh=mesh,
+                              graphs=False, clock="virtual", trace_label=None,
+                              tick_s=driver.ab_tick_s(trace, knobs["max_slots"]))
+            eng._sanitize = True
+            eng.warmup()
+            eng.run(trace, max_steps=5_000)
+            n = eng.n_pages
+            out[name] = {"streams": {r.rid: r.tokens for r in eng.done},
+                         "accept": dict(eng.spec_accept_counts),
+                         "k": eng.pool["k"][:n].cpu(), "v": eng.pool["v"][:n].cpu(),
+                         "ok": eng.pool_ok_failures == 0 and eng.mem_leak_check()["ok"],
+                         "device": str(eng.device)}
+            if not spec_k:
+                pool = kv_pages.init_page_pool(cfg, n_pages=n, page_len=eng.page_len,
+                                               max_slots=eng.max_slots,
+                                               pages_per_seq=eng.pages_per_seq, num_heads=1,
+                                               device=mesh.device)
+                pool["active"][:] = True
+                stack = (None if eng._stream is None
+                         else eng_mod._stream_layer_stack(eng.axis, *eng._stream))
+                toks = torch.tensor([3, 5], dtype=torch.int32, device=mesh.device)
+                _, logits, _ = spec_mod._position_step(cfg, eng.axis, stack)(
+                    eng.params, pool, toks, pool["seq_len"], pool["active"])
+                out[name]["logits"] = logits.cpu()
+    out["launches"] = sum(fa.LAUNCHES.values()) + sum(
+        c for v in fa.CAPTURED.values() for c in v.values())
+    return out
+
+
+@pytest.fixture(scope="module")
+def tp_serve_world(tmp_path_factory):
+    if not torch.cuda.is_available() or torch.cuda.get_device_capability(0) < (9, 0):
+        pytest.skip("needs an sm_90 (Hopper) CUDA device")
+    from ddl25spring_tpu_torch.parallel.launch import spawn
+
+    return spawn(tp_serve_rank, 2, "cuda", timeout=300,
+                 tmpdir=str(tmp_path_factory.mktemp("rdv")))
+
+
+@pytest.mark.parametrize("name", ["resident", "streamed", "spec"])
+def test_tp_serve_on_the_card_equals_the_single_card_engine(dev, tp_serve_world, name):
+    """chip_smoke phase 20 (a), small: 2 ranks on the card over gloo, the
+    ``tp=2`` engine's streams (and accept counts) equal the single-card
+    engine's graphed, eager and on the CPU; each rank's pool is its heads of
+    the graphed single-card pool within 1e-5; the streamed tick's logits equal
+    the resident one's bitwise; no flash kernel launched."""
+    run = _spec_run if name == "spec" else _serve_run
+    graphed, eager = run(dev, graphs=True), run(dev, graphs=False)
+    cpu = run(torch.device("cpu"), graphs=True)
+    want = {r.rid: r.tokens for r in graphed.done}
+    assert len(want) > 5
+    assert {r.rid: r.tokens for r in eager.done} == {r.rid: r.tokens for r in cpu.done} == want
+    for r in tp_serve_world:
+        got, i = r[name], r["index"]
+        assert got["device"].startswith("cuda") and got["ok"] and r["launches"] == 0
+        assert got["streams"] == want
+        if name == "spec":
+            assert got["accept"] == graphed.spec_accept_counts
+        for k in ("k", "v"):
+            ref = graphed.pool[k][:graphed.n_pages, :, :, i:i + 1].cpu()
+            assert (got[k] - ref).abs().max() <= 1e-5, k
+        if name == "streamed":
+            assert torch.equal(got["logits"], r["resident"]["logits"])

@@ -9,6 +9,12 @@ margin at each generated position exceeds ``MARGIN`` (10x the logit band),
 so a flipped argmax shows as a defect, not as noise.  Sampled tokens come
 from another generator than ``jax.random`` (a kept divergence): the
 samplers are held to JAX by their filtered logits and by support.
+
+TP generation (``make_tp_generate``) runs in one spawned gloo world of 2
+ranks (its rank function lives in ``test_torch_serve_tp.py``, which imports
+no jax at the top, so the ranks start fast): greedy tokens against JAX's
+``make_tp_generate`` on 2 CPU devices, the MoE sampled chain against the
+port's single-process ``generate`` with a generator seeded alike.
 """
 
 import jax
@@ -23,7 +29,9 @@ from ddl25spring_tpu.models import llama as jllama  # noqa: E402
 from ddl25spring_tpu.utils import config as jconfig  # noqa: E402
 from ddl25spring_tpu_torch.models import decode as dm  # noqa: E402
 from ddl25spring_tpu_torch.models import llama  # noqa: E402
+from ddl25spring_tpu_torch.parallel.comm import Axis  # noqa: E402
 from ddl25spring_tpu_torch.utils.config import LlamaConfig  # noqa: E402
+from ddl25spring_tpu_torch.utils.mesh import Mesh, RankGrid  # noqa: E402
 
 SIZES = dict(vocab_size=64, dmodel=32, num_heads=2, n_layers=2, ctx_size=32,
              dtype="float32")
@@ -131,11 +139,21 @@ def test_kv_cache_refusals():
     assert k.shape == (CFG.n_layers, 1, 8, 1, CFG.head_dim)
     with pytest.raises(ValueError, match="max_len=4"):
         dm.generate(_model(CFG), torch.ones((1, 3), dtype=torch.int32), CFG, 2, max_len=4)
-    with pytest.raises(NotImplementedError, match="A9b"):
-        dm.make_tp_generate(CFG, None, 4)
-    with pytest.raises(NotImplementedError, match="A9b"):
-        dm.generate(_model(CFG), torch.ones((1, 3), dtype=torch.int32), CFG, 2,
-                    tp_axis="model")
+    # TP generation: a head count the model axis does not divide, and a
+    # vocab sharded over no axis, are refused; over an axis of one rank (no
+    # collective runs) both layouts give the single-process tokens
+    mesh4 = Mesh(RankGrid(1, 4, "model"), 0, torch.device("cpu"), "gloo", None,
+                 {"data": None, "model": None})
+    with pytest.raises(ValueError, match="not divisible"):
+        dm.make_tp_generate(CFG, mesh4, 4)
+    prompt = torch.ones((1, 3), dtype=torch.int32)
+    with pytest.raises(ValueError, match="shard_vocab"):
+        dm.generate(_model(CFG), prompt, CFG, 2, shard_vocab=True)
+    one = Axis("model", None, None, (0,), 0)
+    want = dm.generate(_model(CFG), prompt, CFG, 3)
+    for sv in (False, True):
+        got = dm.generate(_model(CFG), prompt, CFG, 3, tp_axis=one, shard_vocab=sv)
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
 def test_temperature_sampling_deterministic_and_in_range(setup):
@@ -230,3 +248,67 @@ def test_combined_filter_equals_the_jax_filters_composed():
             if mass >= p:
                 break
         assert set(np.nonzero(keep[b])[0]) == nucleus
+
+
+# ------------------------------------------------------------ TP generation
+
+TP_SIZES = dict(vocab_size=64, dmodel=32, num_heads=4, n_layers=2, ctx_size=32,
+                dtype="float32")
+TP_MOE = dict(TP_SIZES, n_experts=4, capacity_factor=4.0)
+TP_PROMPT = np.random.default_rng(1).integers(1, 64, size=(2, 5)).astype(np.int32)
+TP_MOE_PROMPT = np.random.default_rng(3).integers(1, 64, size=(2, 4)).astype(np.int32)
+TP_SAMPLING = dict(temperature=0.8, top_k=8, seed=7)
+
+
+@pytest.fixture(scope="module")
+def tp_runs(devices8, tmp_path_factory):
+    """The 2 ranks' tokens for the three cases, JAX's ``make_tp_generate``
+    (computed meanwhile) and the port's single-process ones."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ddl25spring_tpu.parallel.tp import shard_tp_params
+    from ddl25spring_tpu.utils.mesh import make_mesh
+    from ddl25spring_tpu_torch.parallel.launch import spawn
+    from test_torch_serve_tp import tp_generate_rank
+
+    cfg, moe_cfg = LlamaConfig(**TP_SIZES), LlamaConfig(**TP_MOE)
+    model, moe = _model(cfg, seed=0), _model(moe_cfg, seed=2)
+    params, moe_params = llama.export_params(model), llama.export_params(moe)
+    s = TP_SAMPLING
+    cases = [(cfg, params, TP_PROMPT, 8, sv, 0.0, 0, None) for sv in (True, False)]
+    cases.append((moe_cfg, moe_params, TP_MOE_PROMPT, 6, True, s["temperature"], s["top_k"],
+                  s["seed"]))
+    with ThreadPoolExecutor(1) as pool:
+        ranks = pool.submit(spawn, tp_generate_rank, 2, cases, timeout=120,
+                            tmpdir=str(tmp_path_factory.mktemp("rdv")))
+        mesh = make_mesh(devices8[:2], model=2)
+        jcfg = jconfig.LlamaConfig(**TP_SIZES)
+        jparams = jax.tree.map(jnp.asarray, params)
+        refs = {sv: np.asarray(jdecode.make_tp_generate(jcfg, mesh, 8, shard_vocab=sv)(
+            shard_tp_params(jparams, mesh, shard_vocab=sv), jnp.asarray(TP_PROMPT),
+            jax.random.PRNGKey(0))) for sv in (True, False)}
+        refs["sampled"] = dm.generate(moe, torch.from_numpy(TP_MOE_PROMPT), moe_cfg, 6,
+                                      temperature=s["temperature"], top_k=s["top_k"],
+                                      key=torch.Generator().manual_seed(s["seed"])).numpy()
+        _, refs["gaps"] = _teacher_forced(model, TP_PROMPT, cfg, 8)
+        return ranks.result(), refs
+
+
+@pytest.mark.parametrize("shard_vocab", [True, False])
+def test_tp_generate_equals_single_device(tp_runs, shard_vocab):
+    """Head-sharded attention and cache, the row-parallel sums and (with
+    ``shard_vocab``) the vocab-sharded embedding and one logits all-gather:
+    greedy tokens on both ranks equal JAX ``make_tp_generate``'s."""
+    ranks, refs = tp_runs
+    assert min(refs["gaps"]) > MARGIN, refs["gaps"]
+    for r in ranks:
+        np.testing.assert_array_equal(r[0 if shard_vocab else 1], refs[shard_vocab])
+
+
+def test_tp_generate_moe_and_sampled(tp_runs):
+    """Switch-MoE blocks under TP (global routing, expert slices, the sum
+    completing the combine) and a sampled chain: every rank draws the same
+    stream, the single-process ``generate``'s with the same generator."""
+    ranks, refs = tp_runs
+    for r in ranks:
+        np.testing.assert_array_equal(r[2], refs["sampled"])

@@ -376,20 +376,44 @@ def test_geometry_and_argument_refusals(params):
 
 
 def test_a9b_options_raise_not_implemented(params, monkeypatch):
+    """The A9b-3 options, once refused, now build (their serving runs are
+    ``test_torch_serve_tp.py``'s, on a world of 2 ranks): a ``tp=2`` engine
+    holds its rank's heads and slices, the streamed one its ZeRO-3 rows; the
+    decode tick over an axis of one rank is the single-card tick; the knobs
+    read ``DDL25_SERVE_TP`` and ``DDL25_SERVE_WEIGHT_STREAM``.  What stays
+    refused: ``weight_stream`` without ``tp``, and ``tp`` without the ranks."""
+    from ddl25spring_tpu_torch.parallel.comm import Axis
+    from ddl25spring_tpu_torch.parallel.zero import StreamRows
+    from ddl25spring_tpu_torch.utils.mesh import Mesh, RankGrid
+
+    mesh = Mesh(RankGrid(1, 2, "model"), 0, torch.device("cpu"), "gloo", None,
+                {"data": None, "model": None})
     for kw in (dict(tp=2), dict(tp=2, weight_stream=True)):
-        with pytest.raises(NotImplementedError, match="A9b"):
-            make_engine(params, **kw)
+        eng = make_engine(params, mesh=mesh, graphs=False, **kw)
+        assert eng.tp == 2 and eng.weight_stream is kw.get("weight_stream", False)
+        assert eng.pool["k"].shape[3] == CFG.num_heads // 2
+        assert isinstance(eng.params, StreamRows) is eng.weight_stream
     with pytest.raises(ValueError, match="tp > 1"):
         make_engine(params, weight_stream=True)
-    with pytest.raises(NotImplementedError, match="A9b"):
-        make_decode_tick(CFG, tp_axis="model")
-    with pytest.raises(NotImplementedError, match="A9b"):
+    with pytest.raises(ValueError, match="ranks"):
+        make_engine(params, tp=2)
+    one = Axis("model", None, None, (0,), 0)
+    toks = torch.tensor([3, 5], dtype=torch.int32)
+    outs = []
+    for axis in (one, None):
+        eng = make_engine(params)
+        eng.pool = kv_pages.init_page_pool(CFG, n_pages=16, page_len=4, max_slots=2,
+                                           pages_per_seq=4)
+        eng.pool["active"][:] = True
+        outs.append(make_decode_tick(CFG, tp_axis=axis)(params, eng.pool, toks, None))
+    assert torch.equal(outs[0][1], outs[1][1])
+    assert all(torch.equal(outs[0][0][k], outs[1][0][k]) for k in outs[0][0])
+    with pytest.raises(ValueError, match="mesh"):
         driver.run_serve_bench(smoke=True, device="cpu", serve_tp=2)
-    for env in ("DDL25_SERVE_TP", "DDL25_SERVE_WEIGHT_STREAM"):
-        monkeypatch.setenv(env, "2")
-        with pytest.raises(NotImplementedError, match="A9b"):
-            driver.engine_knobs(smoke=True)
-        monkeypatch.delenv(env)
+    monkeypatch.setenv("DDL25_SERVE_TP", "2")
+    monkeypatch.setenv("DDL25_SERVE_WEIGHT_STREAM", "1")
+    knobs = driver.engine_knobs(smoke=True)
+    assert knobs["tp"] == 2 and knobs["weight_stream"] is True
 
 
 # ------------------------------------------------- kv_pages units
