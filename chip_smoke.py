@@ -416,7 +416,11 @@ Phases, in order; any failure exits non-zero and prints no result:
         at drain, no pool backstop, no sentinel violation, continuous ahead
         of static at the fixed budget; on ``shared`` a prefix hit rate above
         0 and equal tokens cached and cold; tokens/s, TTFT p50/p95 and the
-        per-token latency are printed;
+        per-token latency are printed; ``telemetry.mem`` on, with 0 leaked
+        pages, 0 growth violations and the ramp's live peak inside the band
+        of ``mem_budget_bytes(per_chip=False)``; ``telemetry.goodput``'s SLO
+        attainment and goodput tokens/s per card printed; ``mem_report --run
+        --check`` and ``goodput_report --check`` exit 0;
     (c) the full-width bf16 decode tick at the serving knobs with 4 slots
         decoding, graphed and eager, ``SERVE_TICKS`` ticks each in two turns:
         the median tick, and over ``SERVE_PROFILED`` more under
@@ -471,7 +475,11 @@ Phases, in order; any failure exits non-zero and prints no result:
         --check-tp`` on its row; where bf16 streams differ (two rounded
         partial sums are not one product), the first request and position
         that differ and the dense top-2 gap there are printed, and the gate
-        must pass on an fp32 tiny-deep row instead;
+        must pass on an fp32 tiny-deep row instead; rank 0's ``mem`` record
+        keyed by the mesh ``{"replicas": 1, "tp": 2}``, inside its band (its
+        own ``mem_budget_bytes(per_chip=True)`` plus the dense copy the A/B
+        keeps) and through ``mem_report --run --check``; the run's report
+        renders the TP lines of its ``serve.json``;
     (c) the full-width bf16 tick at the serving knobs, 4 slots decoding,
         resident TP, streamed TP and (rank 0) the single-card eager tick:
         median wall over ``TP_TICKS`` ticks, device busy over
@@ -481,6 +489,20 @@ Phases, in order; any failure exits non-zero and prints no result:
         the peak over the timed ticks (streamed held to the resident peak
         plus the layers in flight), and where the TP stream leaves the
         single-card one.
+21. the rest of observability on the card (``bench_obs_phase``; no flash
+    kernel on the path: 0 launches over the phase):
+    ``bench.main(["--device", "cuda", "--obs-dir", D, "--perf-reps", "8",
+    "--rounds", "2", "--perf-ledger", L])`` at full width (ResNet-18, batch
+    1024, bf16, 16 steps a CUDA graph): the perf record of the per-batch
+    step names the card with its data-sheet peak, its FLOPs within 10 % of
+    3.41e12, ``measured_mfu`` = flops / (p50 x 989.4e12), printed beside the
+    headline's MFU, exposed comms >= 0; the memory cell from the allocator,
+    inside the first sample's band, 0 growth violations; the flight dump
+    names the largest live tensors on the card; the goodput doc adds up
+    (fraction useful printed); ``summarize_run``/``format_report`` render
+    the run; ``tools/perf_report.py --check``, ``tools/mem_report.py --run
+    --check`` and ``--ledger --check``, ``tools/goodput_report.py --check``
+    and ``--run`` exit 0 unedited.
 
 Tolerances (|kernel - plain| <= atol + rtol * |plain|):
   fp32: atol 1e-4, rtol 0 (summation order only);
@@ -5178,7 +5200,17 @@ def serve_bench(tmp) -> dict:
 
     from ddl25spring_tpu_torch import bench
     from ddl25spring_tpu_torch.obs import sentinels
+    from tools import goodput_report, mem_report
 
+    import gc
+
+    from ddl25spring_tpu_torch.obs import memscope
+
+    gc.collect()
+    left = memscope.live_array_summary(top=3)
+    print(f"  (b) before the bench: {torch.cuda.memory_allocated()} B allocated on the card, "
+          f"live tensors {left['by_device']}, the largest {left['largest']} (what earlier "
+          "phases left)", flush=True)
     out = {}
     for profile, dur, page_len in (("ramp", SERVE_RAMP_S, None),
                                    ("shared", SERVE_SHARED_S, SERVE_SHARED_PAGE_LEN)):
@@ -5213,6 +5245,27 @@ def serve_bench(tmp) -> dict:
             check(pab["prefix_hit_rate"] > 0 and pab["tokens_match"]
                   and pab["compared_requests"] > 0,
                   f"shared: prefix A/B without hits or with other tokens: {pab}")
+        mem, gp = rec["telemetry"]["mem"], rec["telemetry"]["goodput"]
+        band = mem.get("budget") or {}
+        check(mem.get("enabled") and mem["leaked_pages"] == 0 and mem["growth_violations"] == 0
+              and band.get("within_band") and band["source"] == "serve_static_accounting",
+              f"{profile}: telemetry.mem off, leaking, growing or out of its band: {mem}")
+        check(gp.get("scope") == "serve" and gp.get("slo_attainment") is not None,
+              f"{profile}: telemetry.goodput without SLO attainment: {gp}")
+        gates = {"mem_report --run --check": mem_report.main(
+                     ["--run", os.path.join(tmp, profile), "--check"]),
+                 "goodput_report --check": goodput_report.main(
+                     ["--ledger", os.path.join(tmp, "ledger.jsonl"), "--check"])}
+        check(not any(gates.values()), f"{profile}: a memory or goodput gate failed: {gates}")
+        print(f"  (b) {profile}: live peak {band['measured_peak_bytes']} B against the bill "
+              f"{band['budget_bytes']} B (mem_budget_bytes(per_chip=False) + "
+              f"{band['pre_existing_tensor_bytes']} B of tensors held before the bench + the "
+              f"allocator's {band['non_tensor_bytes']} B beyond tensors after the warm-up; ratio "
+              f"{band['ratio']}, tolerance {band['tolerance']}), {mem['samples']} samples, 0 "
+              f"leaked pages, 0 growth violations; SLO attainment {gp['slo_attainment']}, "
+              f"availability {gp['availability']}, goodput "
+              f"{gp['goodput_tokens_per_sec_per_chip']} tokens/s per card; gates {gates}",
+              flush=True)
         print(f"  (b) {profile}, {cell['requests']} requests, {wall:.1f} s: "
               f"{cell['tokens_per_sec_per_chip']} tokens/s, TTFT p50 "
               f"{cell['ttft_s_p50'] * 1e3:.3f} ms p95 {cell['ttft_s_p95'] * 1e3:.3f} ms, "
@@ -5987,7 +6040,8 @@ def tp_bench(tmp) -> dict:
     import os
 
     from ddl25spring_tpu_torch import bench
-    from tools import serve_report
+    from ddl25spring_tpu_torch.obs.report import format_report, summarize_run
+    from tools import mem_report, serve_report
 
     out = {}
     for mode, env in (("resident", {}), ("streamed", {"DDL25_SERVE_WEIGHT_STREAM": "1"})):
@@ -6010,6 +6064,26 @@ def tp_bench(tmp) -> dict:
               and cell["pool_ok_failures"] == 0 and tab["budget_shrunk"],
               f"{mode}: the TP ramp left work or pages, or the bill did not shrink: {cell}")
         gate = serve_report.main([obs_dir, "--ledger", led, "--check-tp"])
+        mem = rec["telemetry"]["mem"]
+        with open(os.path.join(obs_dir, "mem.json")) as f:
+            mem_doc = json.load(f)
+        band = mem_doc["budget"]
+        mem_gate = mem_report.main(["--run", obs_dir, "--check"])
+        check(mem.get("enabled") and mem_doc["mesh"] == {"replicas": 1, "tp": TP_N}
+              and band.get("within_band") and mem_doc["leaked_pages"] == 0 and mem_gate == 0,
+              f"{mode}: rank 0's mem record off, out of its per-rank band or leaking "
+              f"(mem_report --check {mem_gate}): {mem_doc['mesh']}, {band}")
+        text = format_report(summarize_run(obs_dir))
+        check(f"tp {TP_N}" in text and f"tp A/B (tp={TP_N})" in text and "KiB/chip" in text,
+              f"{mode}: the report does not render the TP lines of serve.json")
+        print(f"  (b) {mode}: rank 0's live peak {band['measured_peak_bytes']} B against its "
+              f"band's bill {band['budget_bytes']} B (its mem_budget_bytes(per_chip=True) + "
+              f"the dense copy {band['dense_copy_bytes']} B + "
+              f"{band['pre_existing_tensor_bytes']} B held before + {band['non_tensor_bytes']} B "
+              f"beyond tensors; ratio {band['ratio']}), mesh {mem_doc['mesh']}, mem_report "
+              f"--check exit {mem_gate}; the report's TP lines: "
+              + "; ".join(ln.strip() for ln in text.splitlines()
+                          if ln.strip().startswith(("tp ", "tp A/B"))), flush=True)
         print(f"  (b) bench --serve-tp {TP_N} {mode}, full width bf16, {cell['requests']} "
               f"requests, {wall:.1f} s: {cell['tokens_per_sec_per_chip']} tokens/s, TTFT p50 "
               f"{cell['ttft_s_p50'] * 1e3:.3f} ms, per-token p50 "
@@ -6064,6 +6138,101 @@ def tp_phase(dev) -> dict:
             launches[n] += c
     check(not any(launches.values()), f"TP serving launched flash kernels: {launches}")
     return {"launches": launches, "cells": cells}
+
+
+OBS_PERF_REPS = 8               # phase 21: barriered reps of the per-batch step
+OBS_FEDAVG_ROUNDS = 2           # phase 21: the bench's FedAvg rounds (cut from 10)
+
+
+def bench_obs_phase(dev) -> dict:
+    """Phase 21: ``bench.main(["--device", "cuda", "--obs-dir", D, "--perf-reps",
+    "8", "--rounds", "2", "--perf-ledger", L])`` at full width (ResNet-18,
+    batch 1024, bf16, 16 steps per CUDA graph): the perf, mem and goodput
+    cells and records, the flight dump's live tensors, the run's report,
+    and the gate tools on ``D`` and ``L``; no flash kernel launched."""
+    import os
+    import tempfile
+
+    from ddl25spring_tpu_torch import bench
+    from ddl25spring_tpu_torch.obs import goodput
+    from ddl25spring_tpu_torch.obs.report import format_report, summarize_run
+    from ddl25spring_tpu_torch.ops import flash_attention as fa
+    from ddl25spring_tpu_torch.utils.flops import PEAK_BF16_FLOPS
+    from tools import goodput_report, mem_report, perf_report
+
+    fa.reset_launches()
+    name = torch.cuda.get_device_name(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        d, led = os.path.join(tmp, "run"), os.path.join(tmp, "ledger.jsonl")
+        t0 = time.perf_counter()
+        rec = bench.main(["--device", "cuda", "--obs-dir", d, "--perf-reps",
+                          str(OBS_PERF_REPS), "--rounds", str(OBS_FEDAVG_ROUNDS),
+                          "--perf-ledger", led])
+        wall = time.perf_counter() - t0
+        tel = rec["telemetry"]
+        check("error" not in tel["perf"], f"perfscope failed: {tel['perf']}")
+        with open(os.path.join(d, "perf.json")) as f:
+            perf = json.load(f)
+        peak = PEAK_BF16_FLOPS["NVIDIA H100 80GB HBM3"]
+        want_mfu = perf["flops"] / (perf["step_s_p50"] * peak)
+        check(perf["chip"] == name and perf["peak_source"] == "datasheet"
+              and perf["peak_flops_per_chip"] == peak,
+              f"perf record's chip {perf['chip']} / {perf['peak_source']} / "
+              f"{perf['peak_flops_per_chip']}, want {name} / datasheet / {peak}")
+        check(abs(perf["flops"] / RESNET_FLOPS - 1) < 0.1,
+              f"perf FLOPs {perf['flops']:.4g} not within 10 % of {RESNET_FLOPS:.4g}")
+        check(abs(perf["measured_mfu"] / want_mfu - 1) < 1e-9,
+              f"measured_mfu {perf['measured_mfu']} != flops / (p50 x peak) {want_mfu}")
+        check(perf["exposed_comms_s"] is not None and perf["exposed_comms_s"] >= 0,
+              f"exposed_comms_s {perf['exposed_comms_s']}")
+        mem = tel["mem"]
+        with open(os.path.join(d, "mem.json")) as f:
+            mem_doc = json.load(f)
+        band = mem_doc["budget"]
+        check(mem.get("enabled") and mem["growth_violations"] == 0 and band.get("within_band")
+              and band["source"] == "first_sample_live_bytes"
+              and 0 < mem_doc["memscope"]["live_bytes_peak"] <= torch.cuda.max_memory_allocated(),
+              f"telemetry.mem off, growing, out of its band or not the allocator's: {mem}")
+        with open(os.path.join(d, "flight.json")) as f:
+            live = json.load(f)["live_arrays"]
+        check(live["largest"] and any(t["device"] == str(dev) for t in live["largest"]),
+              f"the flight dump names no live tensor on the card: {live}")
+        doc = goodput.read_run_goodput(d)
+        check(doc is not None and doc["sum_check"]["ok"] and tel["goodput"]["sum_check"]["ok"],
+              f"the goodput doc breaks its sum-to-wall contract: {tel['goodput']}")
+        text = format_report(summarize_run(d))
+        check(all(t in text for t in ("performance (perf.json", "memory (mem.json",
+                                       "goodput (goodput.json", "health (flight.json")),
+              "the run's report lacks a section")
+        gates = {"perf_report --check": perf_report.main(["--ledger", led, "--check"]),
+                 "mem_report --run --check": mem_report.main(["--run", d, "--check"]),
+                 "mem_report --ledger --check": mem_report.main(["--ledger", led, "--check"]),
+                 "goodput_report --check": goodput_report.main(["--ledger", led, "--check"]),
+                 "goodput_report --run": goodput_report.main(["--run", d])}
+        check(not any(gates.values()), f"a gate tool failed: {gates}")
+    launches = {n: fa.LAUNCHES[n] + sum(fa.CAPTURED[n].values()) for n in fa.LAUNCHES}
+    check(not any(launches.values()), f"the bench's path launched flash kernels: {launches}")
+    phases = tel.get("phases") or {}
+    largest = live["largest"][0]
+    print(f"  headline: {rec['value']} samples/s per card ({rec['input']}), MFU {rec['mfu']} "
+          f"(the 16-step graph window); phases {phases}", flush=True)
+    print(f"  perf record (per-batch step, {perf['reps']} barriered reps): p50 "
+          f"{perf['step_s_p50'] * 1e3:.3f} ms, p95 {perf['step_s_p95'] * 1e3:.3f} ms, min "
+          f"{perf['step_s_min'] * 1e3:.3f} ms, compute-only p50 "
+          f"{perf['compute_s_p50'] * 1e3:.3f} ms, exposed comms "
+          f"{perf['exposed_comms_s'] * 1e3:.3f} ms; {perf['flops']:.6g} FLOP "
+          f"({perf['flops'] / RESNET_FLOPS:.4f} of 3.41e12); measured MFU "
+          f"{perf['measured_mfu']:.4f} against the headline's {rec['mfu']} (chip {perf['chip']}, "
+          f"peak {perf['peak_flops_per_chip']:.4g} {perf['peak_source']})", flush=True)
+    print(f"  mem: {mem['samples']} samples, live peak {band['measured_peak_bytes']} B against "
+          f"the first sample's {band['budget_bytes']} B (ratio {band['ratio']}), "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated()} B, 0 growth violations; "
+          f"the flight dump's largest live tensor {largest['shape']} {largest['dtype']} "
+          f"{largest['bytes']} B on {largest['device']}", flush=True)
+    print(f"  goodput: fraction useful {doc['fraction_useful']} of {doc['total_wall_s']} s "
+          f"(seconds {doc['seconds']}), sum_check ok; gates {gates}; flash launches "
+          f"{launches}; the bench took {wall:.1f} s", flush=True)
+    return {"perf": perf, "mem": mem, "goodput": tel["goodput"], "wall_s": wall}
 
 
 def main() -> int:
@@ -6282,6 +6451,14 @@ def main() -> int:
     t0 = time.perf_counter()
     tp = tp_phase(dev)
     print(f"  phase 20 in {time.perf_counter() - t0:.1f} s")
+
+    print("== the rest of observability on the card: bench --obs-dir at full width (ResNet-18, "
+          "batch 1024, bf16, 16 steps per CUDA graph): perfscope's record, memscope's cell, "
+          "goodput, the run report and the gate tools")
+    print(card)
+    t0 = time.perf_counter()
+    bench_obs_phase(dev)
+    print(f"  phase 21 in {time.perf_counter() - t0:.1f} s")
 
     kernels = [
         {"name": f"flash_{name}", "route": "cuda", "source": SOURCE[timing[name]["variant"]],

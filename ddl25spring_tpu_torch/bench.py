@@ -1,6 +1,6 @@
 """The port's bench entry: the two metrics ``BASELINE.json`` names, on one
 JSON line.  The counterpart of the top-level ``bench.py`` without its retry
-wrapper, lineage and telemetry (ROADMAP A10, A11).
+wrapper (ROADMAP A10b): each run is its own one-attempt lineage.
 
 - The headline: ResNet-18/CIFAR-10 samples/s per card through
   ``lab.dp_pp --workload resnet`` (:func:`~ddl25spring_tpu_torch.lab.dp_pp.run_resnet`),
@@ -18,7 +18,29 @@ reads ``hbm-resident-shuffle-scan16``; ``--scan-steps K`` sets K, and
 
 Run: ``python -m ddl25spring_tpu_torch.bench [--device cuda] [--rounds 10]
 [--n-train 60000] [--scan-steps K]``.  The last line of the output is the
-record.
+record, with ``telemetry``:
+
+- ``perf`` (``--perf-reps K``, default 8, 0 turns it off): the measured
+  perf record of the live per-batch train step
+  (:func:`~ddl25spring_tpu_torch.obs.perfscope.measure_bench_step`), its
+  cell on the line, the record appended to ``--perf-ledger`` (default
+  ``runs/perf_ledger.jsonl``) for ``tools/perf_report.py``;
+- ``goodput``: the run's wall split into buckets (the warm-up, the timed
+  calls, the rest), appended as a ``record: "goodput"`` row;
+- ``mem`` (with ``--obs-dir``): the live bytes sampled after each timed
+  call against the first sample's, appended as a ``record: "mem"`` row;
+- with ``--obs-dir DIR``: ``metrics.jsonl`` (one record per timed call),
+  ``counters.json``, ``trace.json``, ``timeline.jsonl``, ``flight.json``,
+  ``perf.json``, ``mem.json`` and ``goodput.json`` in DIR, and the phases of
+  :func:`~ddl25spring_tpu_torch.obs.report.summarize_run` on the line
+  (``python -m ddl25spring_tpu_torch.obs.report DIR`` renders the run).
+
+The telemetry hooks reach a one-process run (one card, or the CPU); a world
+of several ranks prints the headline with ``{"enabled": false}`` cells.
+``--smoke`` shrinks the training run as the JAX bench's does: batch 64, 8
+timed steps after 2 warm-up steps, one step per dispatch, 512 training
+rows, no FedAvg, obs dir ``runs/bench_smoke`` (``--device`` stays as
+given).
 
 Serving mode (``bench.py:694-745``, ``:939-1000``): ``--serve`` runs the
 continuous-batching LLaMA serving bench instead
@@ -51,6 +73,7 @@ import itertools
 import json
 import os
 import statistics
+import sys
 
 from ddl25spring_tpu_torch.benchmarks import timed_run
 from ddl25spring_tpu_torch.data.mnist import load_mnist
@@ -112,13 +135,19 @@ def main(argv=None) -> dict:
                     help="ResNet train steps per dispatch; 0 = the JAX rule (16 at batch "
                          "1024 on the card, 1 on the CPU); 1 = one step at a time")
     ap.add_argument("--obs-dir", default=None, metavar="DIR",
-                    help="serving: write serve.json, trace.json and timeline.jsonl here")
+                    help="write the run's telemetry here (training: metrics.jsonl, counters, "
+                         "trace, timeline, flight, perf, mem and goodput; serving: serve.json "
+                         "and the same)")
     ap.add_argument("--perf-ledger", default=None, metavar="JSONL",
-                    help="serving: append the record:\"serve\" row here (default "
-                         "runs/perf_ledger.jsonl; gate trends with tools/serve_report.py)")
+                    help="append the run's ledger rows here (perf, mem, goodput; serving: "
+                         "serve too), default runs/perf_ledger.jsonl")
+    ap.add_argument("--perf-reps", type=int, default=8, metavar="K",
+                    help="training: barriered reps of the per-batch step for the measured "
+                         "perf record (0 = off)")
     ap.add_argument("--smoke", action="store_true",
-                    help="with --serve: the tiny fp32 model and the smoke knobs, obs dir "
-                         "runs/serve_smoke")
+                    help="training: batch 64, 8 steps, 2 warm-up, one step per dispatch, "
+                         "512 rows, no FedAvg, obs dir runs/bench_smoke; with --serve: the "
+                         "tiny fp32 model and the smoke knobs, obs dir runs/serve_smoke")
     ap.add_argument("--serve", action="store_true",
                     help="run the continuous-batching LLaMA serving bench instead of the "
                          "training bench (engine knobs via DDL25_SERVE_*)")
@@ -155,11 +184,158 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     if args.serve:
         return serve_main(args)
-    scan = ["--scan-steps", str(args.scan_steps)] if args.scan_steps else []
-    run = dp_pp.main(["--workload", "resnet", "--device", args.device, *scan])
+    return train_main(args)
+
+
+def _lineage():
+    """This run's place in its lineage: the retry parent's (``DDL25_LINEAGE``
+    / ``DDL25_ATTEMPT``) or, with none, a fresh one-attempt lineage of its
+    own (``own`` True: it appends its own goodput row)."""
+    from ddl25spring_tpu_torch.obs import goodput as goodput_mod
+
+    lineage_id, attempt = goodput_mod.lineage_from_env()
+    own = lineage_id is None
+    return {"lineage_id": lineage_id or goodput_mod.mint_lineage_id(), "attempt": attempt}, own
+
+
+def train_main(args) -> dict:
+    """The training bench: the ResNet headline with its telemetry, then the
+    FedAvg rounds; prints the record as the last line and returns it."""
+    import time
+
+    import torch
+
+    from ddl25spring_tpu_torch import obs
+    from ddl25spring_tpu_torch.lab import dp_pp
+    from ddl25spring_tpu_torch.obs import goodput as goodput_mod
+    from ddl25spring_tpu_torch.obs import memscope, perfscope, sentinels
+    from ddl25spring_tpu_torch.obs.timeline import timeline
+    from ddl25spring_tpu_torch.utils.flops import chip_peak_flops
+
+    t_main0 = time.perf_counter()
+    lineage, own_lineage = _lineage()
+    meter = goodput_mod.GoodputMeter(lineage["lineage_id"], lineage["attempt"], t0_perf=t_main0)
+    obs.flight.annotate(driver="bench", **lineage)
+    ledger = args.perf_ledger or perfscope.DEFAULT_LEDGER
+    lab = ["--workload", "resnet", "--device", args.device]
+    cuts = {}
+    if args.smoke:
+        lab += ["--batch", "64", "--iters", "8", "--scan-steps", "1"]
+        cuts = {"warmup": 2, "n_train": 512}
+        args.obs_dir = args.obs_dir or os.path.join("runs", "bench_smoke")
+    elif args.scan_steps:
+        lab += ["--scan-steps", str(args.scan_steps)]
+    device = resolve_device(args.device)
+    # the hooks reach a run this process makes alone (the lab spawns a
+    # world of ranks on a host of several cards)
+    one_process = device.type != "cuda" or torch.cuda.device_count() <= 1
+    obs_dir = args.obs_dir if one_process else None
+    logger = None
+    if obs_dir:
+        # on BEFORE the step is built, so its spans and counters record
+        obs.enable()
+        obs.set_recorder(obs.SpanRecorder(process_name="bench"))
+        obs.counters.reset()
+        obs.flight.configure(run_dir=obs_dir)
+        timeline.configure(run_dir=obs_dir, meta=lineage)
+        logger = obs.MetricsLogger(obs_dir, meta=obs.run_metadata(
+            mesh={"data": 1}, n_chips=1, **lineage))
+    scope = memscope.MemScope(label="train", every=memscope.default_every(device),
+                              device=device)
+    tel = dp_pp.ResnetTelemetry(logger=logger, goodput=meter,
+                                memscope=scope if memscope.enabled() else None)
+    run = dp_pp.main(lab, telemetry=tel if one_process else None, **cuts)
     rec = json.loads(run["line"])
-    rec["secondary"] = [fedavg_secondary(args.rounds, args.device, args.n_train or None)]
-    print(json.dumps(rec), flush=True)
+    r0 = run["ranks"][0]
+    telemetry: dict = {"enabled": bool(obs_dir)}
+    fedavg = ([] if args.smoke
+              else [fedavg_secondary(args.rounds, args.device, args.n_train or None)])
+    live = r0.get("live")
+    if live is None:
+        why = ("the run handed back no live step: the bench's hooks reach a run this "
+               "process makes alone, not a spawned world of ranks")
+        for k in ("perf", "mem", "goodput"):
+            telemetry[k] = {"enabled": False, "why": why}
+        rec["telemetry"], rec["secondary"] = telemetry, fedavg
+        print(json.dumps(rec), flush=True)
+        return rec
+    step, fixed, meta = live
+    mesh_axes = {"data": meta["n_chips"]}
+
+    # the measured perf record of the live per-batch step; a failure rides
+    # the line as telemetry.perf.error (the measurement never costs the line)
+    perf = None
+    if args.perf_reps > 0:
+        try:
+            perf = perfscope.measure_bench_step(step, fixed, {**meta, "mesh_axes": mesh_axes},
+                                                reps=args.perf_reps, device=device)
+        except (RuntimeError, ValueError) as e:
+            print(f"perfscope measurement failed ({type(e).__name__}: {e})", file=sys.stderr)
+            perf = {"error": f"{type(e).__name__}: {e}"}
+        if "error" in perf:
+            telemetry["perf"] = {"error": perf["error"]}
+        else:
+            telemetry["perf"] = perfscope.perf_cell(perf)
+            telemetry["perf"]["ledger"] = perfscope.append_ledger(perf, ledger)
+            if obs_dir:
+                perfscope.write_run_perf(perf, obs_dir)
+
+    if logger is not None:
+        # the facts known only after the run (summarize_run merges headers)
+        logger.log(record="header", layout=meta["layout"], topology=meta["topology"],
+                   batch=meta["batch"], num_stages=meta["num_stages"],
+                   num_microbatches=meta["num_microbatches"], input_mode=r0["input"],
+                   flops_per_step=r0["flops"], peak_flops_per_chip=chip_peak_flops(device))
+        logger.close()
+        obs.counters.save(obs_dir)
+        telemetry["trace"] = obs.get_recorder().save(os.path.join(obs_dir, "trace.json"))
+        timeline.flush()
+        telemetry["timeline"] = timeline.path
+        from ddl25spring_tpu_torch.obs.report import summarize_run
+
+        s = summarize_run(obs_dir)
+        telemetry.update(run_dir=obs_dir, phases={
+            name: {k: ph.get(k) for k in ("steps", "step_s_p50", "step_s_p95",
+                                          "samples_per_sec_per_chip_p50", "mfu")
+                   if ph.get(k) is not None}
+            for name, ph in s.get("phases", {}).items()})
+
+    # live bytes against the first sampled step's (the budget anchor)
+    telemetry["mem"] = {"enabled": False}
+    if memscope.enabled():
+        mem = memscope.mem_record(
+            strategy=meta["layout"], mesh=mesh_axes, scope_cell=scope.cell(),
+            budget=memscope.budget_cell(scope.live_bytes_peak, scope.live_bytes_baseline,
+                                        source="first_sample_live_bytes"),
+            device=device)
+        telemetry["mem"] = memscope.mem_cell(mem)
+        telemetry["mem"]["ledger"] = perfscope.append_ledger(mem, ledger)
+        if obs_dir:
+            telemetry["mem"]["mem_json"] = memscope.write_run_mem(mem, obs_dir)
+
+    snap = obs.flight.snapshot()
+    telemetry["health"] = {
+        "sentinels": sentinels.enabled(), "policy": sentinels.policy(),
+        "violations": snap["violations"], "stalls": snap["stalls"],
+        "flight_records": snap["recorded"],
+        **({"flight_dump": obs.flight.dump(reason="end_of_run")} if obs_dir else {}),
+    }
+
+    # this attempt's wall split; everything never measured (imports, the
+    # dataset, FedAvg, perfscope) is the ``other`` residual
+    for r in obs.flight.last():
+        if r.get("kind") == "stall" and isinstance(r.get("idle_s"), (int, float)):
+            meter.add_seconds("stall", r["idle_s"])
+    doc = meter.finalize(scope="train_attempt", strategy=meta["layout"], mesh=mesh_axes)
+    telemetry["goodput"] = goodput_mod.goodput_cell(doc)
+    if obs_dir:
+        goodput_mod.write_run_goodput(doc, obs_dir)
+    if own_lineage:
+        telemetry["goodput"]["ledger"] = perfscope.append_ledger(goodput_mod.ledger_row(
+            doc, strategy=meta["layout"], mesh=mesh_axes,
+            host=perfscope.host_fingerprint(device)), ledger)
+    rec["telemetry"], rec["secondary"] = telemetry, fedavg
+    print(json.dumps(rec, default=str), flush=True)
     return rec
 
 
@@ -205,13 +381,15 @@ def _serve_record(args, mesh, primary: bool = True) -> dict:
     import torch
 
     from ddl25spring_tpu_torch import obs
-    from ddl25spring_tpu_torch.obs import sentinels
+    from ddl25spring_tpu_torch.obs import goodput as goodput_mod
+    from ddl25spring_tpu_torch.obs import memscope, sentinels
     from ddl25spring_tpu_torch.obs.timeline import timeline
     from ddl25spring_tpu_torch.serve.driver import run_serve_bench, serve_cell
     from ddl25spring_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(args.device) if mesh is None else mesh.device
     obs_dir = args.obs_dir if primary else None
+    lineage, _ = _lineage()
     if obs_dir:
         # before the engines build, so the serve spans and the request
         # timeline record
@@ -225,18 +403,20 @@ def _serve_record(args, mesh, primary: bool = True) -> dict:
         ledger_path=(args.perf_ledger or "runs/perf_ledger.jsonl") if primary else None,
         skip_ab=args.no_serve_ab, skip_prefix_ab=args.no_serve_prefix_ab,
         skip_spec_ab=args.no_serve_spec_ab, skip_tp_ab=args.no_serve_tp_ab,
-        serve_tp=args.serve_tp, mesh=mesh, device=dev,
+        serve_tp=args.serve_tp, mesh=mesh, device=dev, lineage=lineage,
     )
     sentinels.flush()
     snap = obs.flight.snapshot()
     telemetry: dict = {
         "enabled": bool(obs_dir),
         "serve": serve_cell(record),
-        # the goodput and memory cells come with the rest of the
-        # observability port (ROADMAP A11b)
-        "goodput": {"enabled": False},
-        "mem": {"enabled": False},
+        # the SLO-denominated serving goodput the driver computed
+        "goodput": {**lineage, **goodput_mod.goodput_cell(record.get("goodput"))},
+        "mem": memscope.mem_cell(record["mem"]) if record.get("mem") else {"enabled": False},
     }
+    for cell in ("mem", "goodput"):
+        if record.get(f"{cell}_json"):
+            telemetry[cell][f"{cell}_json"] = record[f"{cell}_json"]
     health = {
         "sentinels": sentinels.enabled(),
         "policy": sentinels.policy(),

@@ -19,8 +19,7 @@ that returns new ones, the port's step updates its module and optimizer in
 place (as :mod:`~ddl25spring_tpu_torch.parallel.dp` does): ``step(batch)``
 returns the loss, or None on a pipeline rank that is not the last stage.
 
-Not ported yet (ROADMAP): the native streaming ``InputFeed`` and the
-compute counterfactual.
+Not ported yet (ROADMAP A13): the native streaming ``InputFeed``.
 """
 
 from __future__ import annotations
@@ -323,7 +322,9 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def timed_run(step, feed, steps: int, warmup: int, device=None, k: int = 1):
+def timed_run(step, feed, steps: int, warmup: int, device=None, k: int = 1, *,
+              logger=None, label: str = "run", samples_per_step: int | None = None,
+              on_step=None, step_offset: int = 0, goodput=None):
     """``warmup`` calls, then ``steps`` timed ones: ``step(feed())`` each.
     Returns ``(dt, losses, step_s)``: the seconds of the timed calls (from
     the host's dispatch of the first to ``device``'s idle after the last),
@@ -338,10 +339,41 @@ def timed_run(step, feed, steps: int, warmup: int, device=None, k: int = 1):
     On CUDA the seconds come from an event recorded after each call on the
     stream, so the calls are not synchronized one by one (the time between
     two events is the card's time for a call while the host stays ahead of
-    it); elsewhere they are host time."""
+    it); elsewhere they are host time.
+
+    Telemetry (the JAX function's ``logger``/``on_step``/``goodput``):
+
+    - ``logger`` (a :class:`~ddl25spring_tpu_torch.obs.MetricsLogger`): one
+      ``step`` record per call, ``{step, label, wall_s, loss, samples,
+      fused_steps}`` (``samples`` from ``samples_per_step`` x ``k``), with
+      host spans around the warm-up, the timed window and each call;
+    - ``on_step(global_i, loss)``: called after each timed call, with
+      ``global_i = step_offset + i``;
+    - every timed call of either path also lands in the flight ring as a
+      ``kind="step"`` record (``resumable`` when ``on_step`` is given).
+
+    Either one times each call on the host: the call's losses are read
+    (which waits for the card), and the clock re-arms after the log write
+    and ``on_step``, so their I/O stays out of ``dt``, which is then the sum
+    of the calls' walls.  ``goodput`` (a :class:`~ddl25spring_tpu_torch.
+    obs.goodput.GoodputMeter`) bills the warm-up as ``warmup_compile`` and
+    the timed calls as ``useful_step`` (one window each on the per-call
+    path, one bulk window otherwise), from the clock reads the timing takes.
+    With none of the four given, the calls and their timing are exactly the
+    bare path's."""
+    from ddl25spring_tpu_torch import obs
+
+    w0 = goodput.now() if goodput is not None else 0.0
+    with obs.span("warmup", label=label, n=warmup):
+        losses = [step(feed()) for _ in range(warmup)]
+        _sync(device)
+    if goodput is not None and warmup > 0:
+        goodput.add("warmup_compile", w0, goodput.now(), label=label)
+    if logger is not None or on_step is not None:
+        return _timed_run_logged(step, feed, steps, k, losses, device, logger=logger, label=label,
+                                 samples_per_step=samples_per_step, on_step=on_step,
+                                 step_offset=step_offset, goodput=goodput)
     cuda = device is not None and torch.device(device).type == "cuda"
-    losses = [step(feed()) for _ in range(warmup)]
-    _sync(device)
     marks = []
 
     def mark():
@@ -359,9 +391,64 @@ def timed_run(step, feed, steps: int, warmup: int, device=None, k: int = 1):
         mark()
     _sync(device)
     dt = time.perf_counter() - t0
+    if goodput is not None and steps > 0:
+        g1 = goodput.now()  # one bulk window: this path has no per-call walls
+        goodput.add("useful_step", g1 - dt, g1, label=label, steps=steps)
     if cuda:
         step_s = [a.elapsed_time(b) / 1e3 / k for a, b in zip(marks, marks[1:])]
     else:
         step_s = [(b - a) / k for a, b in zip(marks, marks[1:])]
+    return dt, _flat_losses(losses), step_s
+
+
+def _flat_losses(losses) -> list[float]:
     kept = [x.reshape(-1) for x in losses if x is not None]
-    return dt, (torch.cat(kept).tolist() if kept else []), step_s
+    return torch.cat(kept).tolist() if kept else []
+
+
+def _timed_run_logged(step, feed, steps, k, losses, device, *, logger, label, samples_per_step,
+                      on_step, step_offset, goodput):
+    """:func:`timed_run`'s per-call path: each call's losses read on the host,
+    its wall logged, the clock re-armed after the I/O."""
+    from ddl25spring_tpu_torch import obs
+
+    total = 0.0
+    step_s = []
+    with obs.span("timed_run", label=label, steps=steps):
+        prev = time.perf_counter()
+        for i in range(steps):
+            gi = step_offset + i
+            with obs.span("step", label=label, i=gi):
+                out = step(feed())
+                # reading the losses waits for the call (a rank without them syncs)
+                vals = [] if out is None else out.reshape(-1).tolist()
+                if out is None:
+                    _sync(device)
+            wall = time.perf_counter() - prev
+            total += wall
+            step_s.append(wall / k)
+            losses.append(out)
+            lval = vals[-1] if vals else None
+            if goodput is not None:
+                g1 = goodput.now()
+                goodput.note_step(gi, g1 - wall, g1, resumable=on_step is not None)
+            obs.flight.record(kind="step", strategy=label, step=gi, wall_s=round(wall, 6),
+                              loss=lval, **({"resumable": True} if on_step is not None else {}))
+            if logger is not None:
+                logger.log(step=gi, label=label, wall_s=wall, loss=lval,
+                           **({"samples": samples_per_step * k} if samples_per_step else {}),
+                           **({"fused_steps": k} if k > 1 else {}))
+            if on_step is not None:
+                on_step(gi, lval)
+            prev = time.perf_counter()  # the I/O stays outside the window
+    return total, _flat_losses(losses), step_s
+
+
+def build_compute_counterfactual(per_chip_batch: int, *, device=None, **kw):
+    """The collective-free twin of the bench step: the SAME model at the
+    SAME per-card batch in one process on one device (no mesh: nothing to
+    reduce).  Timing it beside the multi-rank step splits the step's wall
+    into compute and exposed comms
+    (:func:`~ddl25spring_tpu_torch.obs.perfscope.measure_bench_step`).
+    Returns :func:`build_resnet_step`'s ``(step, module, optimizer, meta)``."""
+    return build_resnet_step(None, 1, per_chip_batch, device=device, **kw)

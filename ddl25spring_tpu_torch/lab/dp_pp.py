@@ -370,19 +370,21 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def main(argv=None, layout: DpPpConfig = DpPpConfig()) -> dict:
+def main(argv=None, layout: DpPpConfig = DpPpConfig(), **resnet) -> dict:
     """Train ``layout`` (default: the reference's 2 x 3) and print; returns
     ``{"losses", "step_s", "tokens_per_s", "ranks"}``: the reporting rank's
     losses and the slowest rank's step times (:func:`reporting_rank`,
     :func:`world_totals`), and every rank's result from :func:`run_rank`
     (only this process's under torchrun, where a rank that does not report
-    prints nothing after the header and returns ``{"ranks"}`` alone)."""
+    prints nothing after the header and returns ``{"ranks"}`` alone).
+    ``resnet`` (``telemetry``, ``warmup``, ``n_train``) goes to
+    :func:`run_resnet`: the bench's hooks and its ``--smoke`` cuts."""
     args = parse_args(argv)
     if args.workload == "resnet":
         if args.ckpt_dir:
             raise ValueError("--ckpt-dir checkpoints the llama workload only, as the JAX lab "
                              "does (lab/s01_b2_dp_pp.py:48-51)")
-        return run_resnet(args)
+        return run_resnet(args, **resnet)
     job, why = llama_job(args, layout)
     D, S, M, V, K = job.data, job.stages, job.microbatches, job.chunks, job.scan_steps
     device = torch.device(job.device)
@@ -498,28 +500,54 @@ class ResnetJob:
                                  # "fixed": its first batch
     scan_steps: int = 1          # steps per dispatch under "hbm-scan"
     trace_dir: str = ""          # the reporting rank's torch.profiler trace of its timed run
+    warmup: int = WARMUP         # steps before the timed ones (the first counts the FLOPs)
+    n_train: int | None = None   # the train split's rows (None: CIFAR-10's 50,000)
+
+
+@dataclass
+class ResnetTelemetry:
+    """The bench's hooks into a one-process ResNet run (:func:`train_resnet`):
+    a :class:`~ddl25spring_tpu_torch.obs.MetricsLogger` for one ``step``
+    record per timed call, a :class:`~ddl25spring_tpu_torch.obs.goodput.
+    GoodputMeter` billed the warm-up and each call, and a
+    :class:`~ddl25spring_tpu_torch.obs.memscope.MemScope` sampled after each
+    call.  Any may be None."""
+
+    logger: object = None
+    goodput: object = None
+    memscope: object = None
 
 
 # the timed ResNet run: cuDNN autotunes its convolutions, TF32 off
 RUN_FLAGS = dict(cudnn_benchmark=True, cudnn_tf32=False, matmul_tf32=False)
 
 
-def train_resnet(mesh, job: ResnetJob) -> dict:
+def train_resnet(mesh, job: ResnetJob, telemetry: ResnetTelemetry | None = None) -> dict:
     """One rank's ResNet run (``mesh`` None: one process alone).  Returns its
     coordinates, device, backend, layout, boundary shapes and parameter
     count; the input mode; the losses of every step (last stage only); the
     timed seconds and each timed dispatch's seconds per step; the FLOPs of
     its first step; its comm counts over the timed steps; where its
     parameters and its dataset live; and on CUDA the peak of
-    ``max_memory_allocated`` over the run (the dataset included)."""
+    ``max_memory_allocated`` over the run (the dataset included).
+
+    With ``telemetry`` (a one-process run, the bench's): the timed calls go
+    through :func:`~ddl25spring_tpu_torch.benchmarks.timed_run`'s per-call
+    path with its logger, meter and a memory sample after each call, the
+    first (FLOP-counting) step is billed as warm-up, and ``live`` holds the
+    per-batch step, the dataset's fixed batch and the builder's meta, for
+    :func:`~ddl25spring_tpu_torch.obs.perfscope.measure_bench_step`."""
     dev = mesh.device if mesh is not None else resolve_device(job.device)
     cuda = dev.type == "cuda"
+    tel = telemetry or ResnetTelemetry()
+    meter = tel.goodput
     with backend_flags(**RUN_FLAGS):
         fixed, K = job.input == "fixed", job.scan_steps
-        ds = benchmarks.DeviceDataset(job.batch, n_train=job.batch if fixed else None,
+        ds = benchmarks.DeviceDataset(job.batch, n_train=job.batch if fixed else job.n_train,
                                       device=dev)
         if cuda:
             torch.cuda.reset_peak_memory_stats(dev)
+        g0 = meter.now() if meter is not None else 0.0
         if job.input == "hbm-scan":
             call, step, module, _, meta = benchmarks.build_resnet_scan_step(
                 mesh, job.microbatches, job.batch, lr=job.lr, device=dev, seed=job.seed,
@@ -532,14 +560,22 @@ def train_resnet(mesh, job: ResnetJob) -> dict:
             call, feed = step, (lambda: ds.fixed) if fixed else ds.feed
             input_mode = "fixed-device-batch" if fixed else ds.input_mode
             first, flops = count_flops(step, feed())
+        if meter is not None:  # the build, capture and FLOP-counting step
+            if cuda:
+                torch.cuda.synchronize(dev)
+            meter.add("warmup_compile", g0, meter.now(), label=job.input)
         comm = mesh.comm if mesh is not None else None
-        _, warm, _ = benchmarks.timed_run(call, feed, 0, WARMUP - 1, device=dev, k=K)
+        _, warm, _ = benchmarks.timed_run(call, feed, 0, job.warmup - 1, device=dev, k=K,
+                                          label=job.input, goodput=meter)
         if comm is not None:
             comm.take_stats()
         reports = mesh is None or mesh.coords == (0, job.stages - 1)
+        sample = tel.memscope
         with traced(job.trace_dir, reports):
-            dt, timed, step_s = benchmarks.timed_run(call, feed, job.iters // K, 0,
-                                                     device=dev, k=K)
+            dt, timed, step_s = benchmarks.timed_run(
+                call, feed, job.iters // K, 0, device=dev, k=K, logger=tel.logger,
+                label=job.input, samples_per_step=job.batch, goodput=meter,
+                on_step=(lambda i, _loss: sample.sample(i)) if sample is not None else None)
         return {
             "rank": mesh.rank if mesh is not None else 0,
             "coords": mesh.coords if mesh is not None else (0, 0),
@@ -552,6 +588,7 @@ def train_resnet(mesh, job: ResnetJob) -> dict:
             "params_device": sorted({str(p.device) for p in module.parameters()}),
             "data_device": str(ds.x.device),
             "peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda else None,
+            **({"live": (step, ds.fixed, meta)} if telemetry is not None else {}),
         }
 
 
@@ -566,14 +603,17 @@ def resnet_rank(rdv, job: ResnetJob) -> dict:
         return out
 
 
-def run_resnet(args) -> dict:
+def run_resnet(args, telemetry: ResnetTelemetry | None = None, warmup: int = WARMUP,
+               n_train: int | None = None) -> dict:
     """``--workload resnet``: lay out the ranks, run them, print the losses,
     samples/s and TFLOP/s per card (ranks that share a card count as one
     card: :func:`~ddl25spring_tpu_torch.utils.mesh.cards_used`), MFU and
     ``report_line``, from the reporting rank (:func:`report_resnet`).
     Returns ``{"ranks", "samples_per_s_per_chip", "cards", "flops",
     "tflops", "mfu", "line"}``, or under torchrun, on a rank that does not
-    report, ``{"ranks"}`` alone."""
+    report, ``{"ranks"}`` alone.  ``telemetry`` reaches a one-rank run
+    (:func:`train_resnet`); ``warmup`` and ``n_train`` are the bench's
+    ``--smoke`` cuts."""
     device = resolve_device(args.device)
     n = args.ranks or (torch.cuda.device_count() if device.type == "cuda" else 1)
     dp, S = (n // 2, 2) if args.pp and n >= 2 else (n, 1)
@@ -586,13 +626,14 @@ def run_resnet(args) -> dict:
     if K > 1:  # the JAX lab's dispatch count: max(2, iters // K) windows
         iters = max(2, iters // K) * K
     job = ResnetJob(dp, S, M, batch, iters, lr=args.lr or 0.1, seed=args.seed,
-                    device=device.type, input=mode, scan_steps=K, trace_dir=args.trace_dir)
+                    device=device.type, input=mode, scan_steps=K, trace_dir=args.trace_dir,
+                    warmup=warmup, n_train=n_train)
     print(f"resnet18/cifar10: mesh(data={dp}, stage={S}), microbatches={M}, global "
           f"batch={batch}, {n_used} rank(s), input={mode}"
           + (f" ({K} steps per dispatch, {iters} timed steps)" if K > 1 else "")
           + (f" ({why})" if why else "") + f", device={device.type}", flush=True)
     if n_used == 1:
-        r = train_resnet(None, job)
+        r = train_resnet(None, job, telemetry)
         ranks = [{**r, "world_flops": r["flops"], "world_dt": r["dt"]}]
     else:
         ranks = spawn(resnet_rank, n_used, job, timeout=args.timeout)

@@ -30,6 +30,21 @@ Runtime health:
   (typed append-only ``timeline.jsonl``), merged with the spans and the
   flight ring into one Perfetto trace by ``tools/trace_export.py``.
 
+Measurement and the run report:
+
+- :mod:`~ddl25spring_tpu_torch.obs.perfscope` — measured perf records of a
+  step (barriered p50/p95, the compute-only counterfactual, measured MFU)
+  and the JSONL ledger ``tools/perf_report.py`` gates;
+- :mod:`~ddl25spring_tpu_torch.obs.memscope` — live bytes and host RSS per
+  step or tick, the growth detector, the budget band, the KV pool's optics
+  and the ``mem`` record ``tools/mem_report.py`` gates;
+- :mod:`~ddl25spring_tpu_torch.obs.goodput` — the run's wall split into
+  useful and badput buckets, serving SLO attainment, the ``goodput``
+  record ``tools/goodput_report.py`` gates;
+- :mod:`~ddl25spring_tpu_torch.obs.report` — ``summarize_run`` /
+  ``format_report`` over a run directory, and its CLI
+  (``python -m ddl25spring_tpu_torch.obs.report RUN_DIR``).
+
 Everything is gated by one flag read when a step is BUILT
 (:mod:`~ddl25spring_tpu_torch.obs.state`): disabled (the default), a
 built step runs exactly the operations of an uninstrumented one.  Enable
@@ -60,6 +75,7 @@ from ddl25spring_tpu_torch.obs.spans import (
 )
 from ddl25spring_tpu_torch.obs.state import enable, enabled, scoped
 from ddl25spring_tpu_torch.obs.timeline import Timeline, timeline
+from ddl25spring_tpu_torch.obs import goodput, memscope, perfscope  # noqa: E402,F401
 
 __all__ = [
     "CounterSet",

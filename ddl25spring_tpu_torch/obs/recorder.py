@@ -59,14 +59,22 @@ def default_flight_dir() -> str:
 
 
 def _memory_summary() -> dict[str, Any]:
-    """The card's allocator counters (when torch has touched CUDA) and the
-    host's peak RSS: what a dump says about memory."""
+    """What a dump says about memory: the live tensors, the largest named
+    (:func:`~ddl25spring_tpu_torch.obs.memscope.live_array_summary`), the
+    host's RSS now and at its peak, and the card's allocator counters (when
+    torch has touched CUDA)."""
     import resource
 
     import torch
 
+    from ddl25spring_tpu_torch.obs import memscope
+
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
     out: dict[str, Any] = {
-        "host_rss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024}
+        "live_arrays": memscope.live_array_summary(top=10),
+        "host_rss_bytes": memscope.host_rss_bytes() or peak,
+        "host_rss_peak_bytes": peak,
+    }
     if torch.cuda.is_initialized():
         out["cuda_memory"] = {
             "allocated_bytes": torch.cuda.memory_allocated(),
@@ -312,10 +320,10 @@ class FlightRecorder:
                 k: v for k, v in last_stall.items()
                 if k not in ("seq", "kind")
             }
-        # every dump carries the card's allocator picture and the host
-        # RSS, so an OOM-shaped death is diagnosable from flight.json
-        # alone.  Suppressed wholesale: a crash dump must succeed even
-        # with torch half-torn-down.
+        # every dump carries the live tensors, the card's allocator picture
+        # and the host RSS, so an OOM-shaped death is diagnosable from
+        # flight.json alone.  Suppressed wholesale: a crash dump must
+        # succeed even with torch half-torn-down.
         with contextlib.suppress(Exception):
             doc.update(_memory_summary())
         if extra:

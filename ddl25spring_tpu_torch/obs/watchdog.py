@@ -52,6 +52,10 @@ def thread_stacks() -> dict[str, list[str]]:
     return out
 
 
+#: how long :meth:`StallWatchdog.stop` waits for a dump in flight
+STOP_WAIT_S = 30.0
+
+
 class StallWatchdog:
     """Fire once when no step completes within ``deadline_s``.
 
@@ -128,7 +132,10 @@ class StallWatchdog:
     def stop(self) -> None:
         self._stop.set()
         if self._thread is not None:
-            self._thread.join(timeout=2 * self.poll_s)
+            # the monitor wakes within a poll; a dump in flight (its census
+            # of the live tensors takes a moment) is waited for, so
+            # ``dump_path`` is set once a fired watchdog has stopped
+            self._thread.join(timeout=max(2 * self.poll_s, STOP_WAIT_S))
             self._thread = None
 
     def __enter__(self) -> "StallWatchdog":

@@ -408,7 +408,11 @@ class _CopyIn(torch.autograd.Function):
     def backward(ctx, g):
         g = g.contiguous().clone()
         ctx.axis.comm.all_reduce_sum_([g], ctx.axis.group)
-        return g, None
+        # a fresh view: the collective's finished work may still hold ``g``
+        # for a moment on gloo's thread, and a leaf's grad accumulation
+        # steals or copies its input by that reference count -- a view
+        # makes it steal every time, whatever that thread's timing
+        return g.view_as(g), None
 
 
 class _ReduceOut(torch.autograd.Function):

@@ -31,8 +31,13 @@ driver in lockstep (``mesh=``), and adds the sharded-vs-single-card A/B
 (:func:`tp_ab_compare`); ``DDL25_SERVE_WEIGHT_STREAM=1`` makes the sharded
 engines stream their ZeRO-3 weight rows.
 
-Waiting for other slices: the goodput doc and its ledger row (and the
-elastic cell's ``goodput``), and the ``mem`` record, come with A11b.
+With memscope on (obs enabled), the ramp engine samples its live bytes
+every tick, and the run adds the ``mem`` record (the high-water against the
+engine's static bill, the pool snapshot, the drain-time leak check, the
+elastic step-downs: ``mem.json`` and a ``record: "mem"`` row).  Every run
+adds the serving ``goodput`` doc (SLO attainment on the ramp's wall clock,
+the elastic run's on its virtual clock: ``goodput.json`` and a ``record:
+"goodput"`` row).
 """
 
 from __future__ import annotations
@@ -40,14 +45,15 @@ from __future__ import annotations
 import gc
 import json
 import os
-import platform
 import time
 from typing import Any
+
+from ddl25spring_tpu_torch.obs.perfscope import append_ledger, host_fingerprint
+from ddl25spring_tpu_torch.obs.report import SERVE_BASENAME
 
 # the CI smoke must be reproducible, so every knob that shapes the workload
 # lands in the record's key
 SMOKE_TRAFFIC = {"duration_s": 2.0, "rate_rps": 6.0, "profile": "ramp", "seed": 0}
-SERVE_BASENAME = "serve.json"
 
 
 def engine_knobs(smoke: bool = False) -> dict[str, Any]:
@@ -373,11 +379,13 @@ def elastic_serve_run(params, cfg, trace, knobs: dict[str, Any], *, chaos,
     Every event is a ``kind="reshape"`` flight record
     (:func:`~ddl25spring_tpu_torch.ft.elastic.record_reshape`) and an entry
     of the returned cell, which also splits TTFT into reshape windows and
-    steady state (what ``serve_report --check-reshape`` gates).  With
-    memscope on, each retired replica's ``mem_steps`` entry holds the
-    allocator's live bytes before and after its retirement (null on the
-    CPU, which keeps no such count)."""
+    steady state (what ``serve_report --check-reshape`` gates), and its
+    ``goodput``: SLO attainment on the virtual clock (reproducible on any
+    host), availability charged with the handoff re-submissions.  With
+    memscope on, each retired replica's ``mem_steps`` entry holds the live
+    bytes before and after its retirement."""
     from ddl25spring_tpu_torch.ft import elastic
+    from ddl25spring_tpu_torch.obs import goodput as goodput_mod
     from ddl25spring_tpu_torch.obs import memscope
     from ddl25spring_tpu_torch.obs.timeline import timeline
     from ddl25spring_tpu_torch.serve.engine import Request, _pct
@@ -461,10 +469,11 @@ def elastic_serve_run(params, cfg, trace, knobs: dict[str, Any], *, chaos,
 
     def retire(v, ev) -> None:
         """A drained replica leaves, its pools and captured programs with it;
-        with memscope on, the allocator's live bytes around the drop."""
+        with memscope on, the live bytes around the drop."""
         if not memscope.enabled():
             v.retire()
             return
+        gc.collect()  # nothing dead may inflate the reading before the drop
         before = memscope.live_total_bytes(v.device)
         pool_bytes = v._pool_bytes()
         leak = v.mem_leak_check()
@@ -475,8 +484,7 @@ def elastic_serve_run(params, cfg, trace, knobs: dict[str, Any], *, chaos,
             "scope": "serve", "reason": ev["reason"], "t": ev["t_end"],
             "replica": v.replica_id, "pool_bytes": pool_bytes,
             "live_bytes_before": before, "live_bytes_after": after,
-            "step_down_bytes": None if before is None else before - after,
-            **({} if before is not None else {"step_down_absent": memscope.LIVE_BYTES_ABSENT}),
+            "step_down_bytes": before - after,
             "leak_ok": leak["ok"], "leaked_pages": leak["leaked_pages"],
         })
 
@@ -553,7 +561,16 @@ def elastic_serve_run(params, cfg, trace, knobs: dict[str, Any], *, chaos,
     ttft_steady = [x for x, w in ttft if not w]
     admitted = sum(e.admitted for e in every)
     completed = sum(e.completed for e in every)
+    rejected = sum(sum(e.rejected.values()) for e in every)
+    # the drain-window demand: the handoff re-submissions, capacity the
+    # reshape consumed twice, charged against availability
+    drain_demand = sum(int(ev.get("requeued") or 0) for ev in events)
+    slo_goodput = goodput_mod.serve_goodput_cell(
+        all_done, clock="virtual", wall_s=t if t > 0 else None, n_chips=replicas,
+        offered=submitted, rejected=rejected, completed=completed,
+        dropped=max(0, admitted - completed), drain_demand=drain_demand)
     return {
+        "goodput": slo_goodput,
         "events": events,
         "tick_s": tick_s,
         "iters": it,
@@ -564,7 +581,7 @@ def elastic_serve_run(params, cfg, trace, knobs: dict[str, Any], *, chaos,
         "submitted": submitted,
         "admitted": admitted,
         "completed": completed,
-        "rejected": sum(sum(e.rejected.values()) for e in every),
+        "rejected": rejected,
         # accepted-then-lost across every handoff: the zero --check-reshape pins
         "dropped_requests": admitted - completed,
         "generated_tokens": sum(e.generated_tokens for e in every),
@@ -578,26 +595,6 @@ def elastic_serve_run(params, cfg, trace, knobs: dict[str, Any], *, chaos,
         # a test hook (the token-exactness pins), never serialized
         **({"_requests": all_done} if keep_requests else {}),
     }
-
-
-def host_fingerprint(device) -> str:
-    """Identity of the measuring machine and device — part of the ledger
-    key, so one host's trend never gates another's."""
-    import torch
-
-    dev = torch.device(device)
-    kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    return f"{platform.node()}/{os.cpu_count()}cpu/{kind}"
-
-
-def append_ledger(record: dict[str, Any], path: str) -> str:
-    """Append one record to the JSONL ledger (created on first use)."""
-    parent = os.path.dirname(path)
-    if parent:
-        os.makedirs(parent, exist_ok=True)
-    with open(path, "a") as f:
-        f.write(json.dumps(record, default=str) + "\n")
-    return path
 
 
 def run_serve_bench(
@@ -620,6 +617,7 @@ def run_serve_bench(
     serve_tp: int | None = None,
     mesh=None,
     device=None,
+    lineage: dict[str, Any] | None = None,
 ) -> dict[str, Any]:
     """The whole serving bench on ``device`` (default the card); returns the
     record (``serve_cell`` makes the BENCH line's ``telemetry.serve``).
@@ -631,12 +629,14 @@ def run_serve_bench(
     and every engine of the bench is sharded over the axis; the
     sharded-vs-single-card A/B (:func:`tp_ab_compare`) runs unless
     ``skip_tp_ab``.  Only one rank should pass ``obs_dir`` and
-    ``ledger_path``."""
+    ``ledger_path``.  ``lineage`` (``{"lineage_id", "attempt"}``) stamps the
+    goodput doc and its ledger row."""
     import torch
 
     from ddl25spring_tpu_torch.ft.chaos import ChaosInjector
     from ddl25spring_tpu_torch.models.llama import Llama
-    from ddl25spring_tpu_torch.obs import sentinels, spans
+    from ddl25spring_tpu_torch.obs import goodput as goodput_mod
+    from ddl25spring_tpu_torch.obs import memscope, sentinels, spans
     from ddl25spring_tpu_torch.obs.logger import git_sha
     from ddl25spring_tpu_torch.obs.recorder import flight
     from ddl25spring_tpu_torch.serve.traffic import TrafficSpec, synth_trace
@@ -667,6 +667,8 @@ def run_serve_bench(
     flight.annotate(serve_model=model, serve_profile=spec.profile,
                     serve_seed=spec.seed, serve_requests=len(trace))
 
+    # the tensors this process already held: not the bench's to account for
+    pre_existing = memscope.tensor_bytes(dev) if memscope.enabled() else 0
     params = Llama(cfg, device=dev, generator=torch.Generator().manual_seed(0))
     params.requires_grad_(False)
 
@@ -676,6 +678,9 @@ def run_serve_bench(
     # capture OFF the clock: TTFT measures serving, not the captures
     with spans.span("serve.warmup", cat="serve"):
         eng.warmup()
+    # what the card's allocator holds beyond tensors (library workspaces the
+    # warm-up created), read once off the clock: the bill counts tensors
+    non_tensor = memscope.nontensor_bytes(dev) if memscope.enabled() else 0
     with spans.span("serve.ramp", cat="serve", requests=len(trace)):
         ramp = eng.run(trace, budget_s=budget_s, max_steps=50_000)
     leak = (eng.mem_leak_check() if eng.drained
@@ -727,6 +732,34 @@ def run_serve_bench(
         warnings.warn("elastic serve reshaping skipped: speculative engines "
                       "(DDL25_SERVE_SPEC=1) are not covered yet", stacklevel=2)
 
+    # --- measured memory against the static bill -----------------------
+    # the ramp's live-bytes high-water banded against the engine's bill
+    # (params + pools), the pool snapshot and drain-time leak check, and the
+    # elastic step-downs: mem.json and a record:"mem" row.  Each rank of a
+    # TP run is a process of its own with its own reading, so the band is
+    # this rank's bill (mem_budget_bytes(per_chip=True)) plus the dense copy
+    # of the weights kept for the A/B's single-card arms.  The reading counts
+    # the whole process, so the band adds what it held before the bench (its
+    # tensors then) and, on a card, the allocator's non-tensor bytes after
+    # the warm-up.
+    mem = None
+    tp = eng.tp
+    mesh_key = {"replicas": 1, **({"tp": tp} if tp > 1 else {})}
+    if memscope.enabled():
+        dense = (sum(p.numel() * p.element_size() for p in params.parameters())
+                 if tp > 1 else 0)
+        budget = memscope.budget_cell(
+            eng.memscope.live_bytes_peak,
+            eng.mem_budget_bytes(per_chip=True) + dense + pre_existing + non_tensor,
+            source="serve_static_accounting")
+        mem = memscope.mem_record(
+            strategy=f"serve/{model}", mesh=mesh_key, scope_cell=eng.memscope.cell(),
+            budget={**budget, "dense_copy_bytes": dense,
+                    "pre_existing_tensor_bytes": pre_existing, "non_tensor_bytes": non_tensor},
+            pool=eng.mem_pool_snapshot(), leaks=[leak],
+            reshape_steps=reshape.get("mem_steps") if reshape is not None else None,
+            extra={"profile": spec.profile, "seed": spec.seed}, device=dev)
+
     record: dict[str, Any] = {
         "record": "serve",
         "ts": time.time(),
@@ -775,6 +808,28 @@ def run_serve_bench(
         "tick_wall_s": [round(x, 6) for x in eng.tick_wall_s[:512]],
         "bench_wall_s": round(time.perf_counter() - t_start, 3),
         "device": str(dev),
+        **({"mem": mem} if mem is not None else {}),
+    }
+
+    # --- the SLO-denominated serving goodput ----------------------------
+    # the ramp judged on its own (wall) clock; the elastic run's cell, on
+    # the virtual clock, rides as ``elastic``
+    n_chips = ramp.get("n_chips") or 1
+    admitted, rejected = int(ramp.get("admitted") or 0), int(ramp.get("rejected") or 0)
+    completed = int(ramp.get("completed") or 0)
+    record["goodput"] = {
+        "record": "goodput",
+        "scope": "serve",
+        **(lineage or {}),
+        "chips": n_chips,
+        "total_wall_s": ramp.get("wall_s"),
+        **goodput_mod.serve_goodput_cell(
+            eng.done, clock=eng.clock, wall_s=ramp.get("wall_s"), n_chips=n_chips,
+            offered=admitted + rejected, rejected=rejected, completed=completed,
+            # a budget-cut ramp's live slots are in flight, not dropped
+            dropped=max(0, admitted - completed) if eng.drained else 0,
+            slo=goodput_mod.serve_slo()),
+        **({"elastic": reshape["goodput"]} if reshape is not None else {}),
     }
 
     if obs_dir:
@@ -785,9 +840,18 @@ def run_serve_bench(
             json.dump(record, f, indent=1, default=str)
         os.replace(tmp, path)
         record["serve_json"] = path
+        if mem is not None:  # mem.json rides beside serve.json
+            record["mem_json"] = memscope.write_run_mem(mem, obs_dir)
+        record["goodput_json"] = goodput_mod.write_run_goodput(record["goodput"], obs_dir)
     if ledger_path is not None:
         try:
             record["ledger"] = append_ledger(ledger_record(record), ledger_path)
+            if mem is not None:  # the record:"mem" trend row
+                append_ledger(mem, ledger_path)
+            append_ledger(goodput_mod.ledger_row(  # the record:"goodput" trend row
+                record["goodput"], strategy=f"serve/{model}", mesh=mesh_key,
+                host=record["host"], git_sha=record["git_sha"],
+                extra_key={"profile": spec.profile}), ledger_path)
         except OSError as e:  # a read-only FS must not kill the line
             record["ledger_error"] = str(e)
     return record
@@ -930,7 +994,7 @@ def serve_cell(record: dict[str, Any]) -> dict[str, Any]:
         cell["tp_ab"] = _tp_ab_cell(record["tp_ab"])
     if record.get("reshape"):
         cell["reshape"] = _reshape_cell(record["reshape"])
-    for k in ("ledger", "ledger_error", "serve_json"):
+    for k in ("ledger", "ledger_error", "serve_json", "mem_json", "goodput_json"):
         if record.get(k):
             cell[k] = record[k]
     return cell

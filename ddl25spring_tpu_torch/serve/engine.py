@@ -948,6 +948,13 @@ class ServeEngine:
         # cumulative generated-token timeline [(t, tokens)], one point per
         # scheduler iteration — the A/B's "tokens delivered by time B"
         self.token_log: list[tuple[float, int]] = []
+        # the per-engine memory observatory: sampling gates on
+        # memscope.enabled() AND a trace label (the A/B arms stay silent),
+        # one tick in memscope.CPU_EVERY on the CPU, whose reading walks the
+        # live tensors
+        self.memscope = _memscope.MemScope(label=trace_label or "serve",
+                                           every=_memscope.default_every(self.device),
+                                           device=self.device)
         # the last rid seated in each device slot — how a drain-time pool
         # residue is named (memscope.pool_leak_check attribution)
         self._slot_last_rid: list[int | None] = [None] * max_slots
@@ -1113,6 +1120,7 @@ class ServeEngine:
         self.tick_wall_s.clear()
         self.ttft_decomp.clear()
         self.done, self.token_log = [], []
+        self.memscope.reset()
         self._slot_last_rid = [None] * self.max_slots
         self.mem_leak = None
         self._t0 = time.perf_counter()
@@ -1632,9 +1640,26 @@ class ServeEngine:
                 self._run_decode_tick()
             ran = True
         self.token_log.append((self.now(), self.generated_tokens))
+        self._mem_sample()
         if self._sanitize:
             _sanitizer.check_serve_mirror(self)
         return ran
+
+    def _mem_sample(self) -> None:
+        """One memory observation per scheduler iteration: live bytes and
+        host RSS into the scope's series, pool occupancy, queue depth and
+        tokens/s on the timeline's ``mem_sample`` event.  The occupancy is
+        the exact host mirror: nothing waits for the card.  Gated as
+        :meth:`_tl` is: no trace label (the A/B arms) or obs off samples
+        nothing."""
+        if self.trace_label is None or not _memscope.enabled():
+            return
+        wall = self.now()
+        self.memscope.sample(
+            self._ticks, vt=wall, engine=self.trace_label, replica=self.replica_id,
+            pool_used=self._host_pages_used(), pool_pages=self.n_pages,
+            queue_depth=len(self.queue),
+            tokens_per_s=round(self.generated_tokens / wall, 3) if wall > 0 else 0.0)
 
     # ---- memory --------------------------------------------------------
 

@@ -20,6 +20,17 @@ from ddl25spring_tpu_torch.utils import config  # noqa: E402
 TINY = dict(vocab_size=64, dmodel=32, num_heads=2, n_layers=6, ctx_size=16, dtype="float32")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread in this process, as in the spawned ranks: the suite
+    runs its files side by side on one host, and torch's default threads
+    contend for its cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def trees():
     """The JAX parameter pytree and the port's model loaded from it."""

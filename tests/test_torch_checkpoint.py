@@ -34,6 +34,17 @@ TOKENS = [np.random.default_rng(20 + i).integers(0, 64, (6, 16)).astype(np.int64
           for i in range(6)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread in this process, as in the spawned ranks: the suite
+    runs its files side by side on one host, and torch's default threads
+    contend for its cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _lm_loss(model, tokens):
     return causal_lm_loss(model(tokens), tokens)
 

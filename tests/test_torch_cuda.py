@@ -12,7 +12,9 @@ and one DP x PP x TP step on the card against the CPU, and the sentinel's
 and (b), small), the serving engine graphed against eager: plain,
 speculative and elastic (phases 18 (a), 19 (a) and (c), small), and TP
 serving from 2 ranks on the card, resident, streamed and speculative, against
-the single-card engine (phase 20 (a), small).
+the single-card engine (phase 20 (a), small), and the bench's telemetry on the
+card with the training losses and the engine's streams and pool bitwise with
+the memory sampler and the goodput meter on and off (phase 21, small).
 
 Marked ``gpu``: each test skips unless an sm_90 (Hopper) device is present,
 but for the FL entry points' refusal of a missing GPU, which runs anywhere.
@@ -1044,7 +1046,7 @@ def test_zero3_reshape_on_the_card_matches_uninterrupted(dev, tmp_path):
             assert not a[k:].any() and not b[k:].any()
 
 
-def _serve_run(device, graphs):
+def _serve_run(device, graphs, trace_label=None):
     """The tiny fp32 engine with the smoke knobs on the seeded smoke trace,
     virtual clock, the host/device page mirror asserted at every step."""
     from ddl25spring_tpu_torch.models.llama import Llama
@@ -1057,8 +1059,8 @@ def _serve_run(device, graphs):
     model.requires_grad_(False)
     trace = synth_trace(TrafficSpec(**driver.SMOKE_TRAFFIC, vocab_size=cfg.vocab_size))
     knobs = driver.engine_knobs(smoke=True)
-    eng = ServeEngine(model, cfg, **knobs, clock="virtual", trace_label=None, graphs=graphs,
-                      tick_s=driver.ab_tick_s(trace, knobs["max_slots"]))
+    eng = ServeEngine(model, cfg, **knobs, clock="virtual", trace_label=trace_label,
+                      graphs=graphs, tick_s=driver.ab_tick_s(trace, knobs["max_slots"]))
     eng._sanitize = True
     eng.warmup()
     eng.run(trace, max_steps=5_000)
@@ -1261,3 +1263,90 @@ def test_tp_serve_on_the_card_equals_the_single_card_engine(dev, tp_serve_world,
             assert (got[k] - ref).abs().max() <= 1e-5, k
         if name == "streamed":
             assert torch.equal(got["logits"], r["resident"]["logits"])
+
+
+def test_bench_obs_dir_on_the_card(dev, tmp_path):
+    """chip_smoke phase 21, small (``bench --smoke --device cuda``: batch 64,
+    one step per dispatch): the perf record names the card and its data-sheet
+    peak, its measured MFU is flops / (p50 x peak); the live bytes come from
+    the allocator, inside the first sample's band; the flight dump names live
+    tensors on the card; the goodput doc adds up; every gate tool exits 0;
+    no flash kernel launched."""
+    import json
+    import os
+
+    from ddl25spring_tpu_torch import bench
+    from ddl25spring_tpu_torch.utils.flops import peak_bf16_flops
+    from tools import goodput_report, mem_report, perf_report
+
+    fa.reset_launches()
+    d, led = str(tmp_path / "run"), str(tmp_path / "ledger.jsonl")
+    rec = bench.main(["--smoke", "--device", "cuda", "--obs-dir", d, "--perf-ledger", led,
+                      "--perf-reps", "2"])
+    tel = rec["telemetry"]
+    assert "error" not in tel["perf"]
+    perf = json.load(open(os.path.join(d, "perf.json")))
+    peak = peak_bf16_flops(dev)
+    assert perf["chip"] == torch.cuda.get_device_name(0) and perf["peak_source"] == "datasheet"
+    assert perf["measured_mfu"] == pytest.approx(perf["flops"] / (perf["step_s_p50"] * peak),
+                                                 rel=1e-12)
+    assert perf["exposed_comms_s"] >= 0 and perf["flops"] > 0
+    mem = json.load(open(os.path.join(d, "mem.json")))
+    assert mem["budget"]["within_band"] and mem["growth_violations"] == 0
+    assert 0 < mem["memscope"]["live_bytes_peak"] <= torch.cuda.max_memory_allocated()
+    live = json.load(open(os.path.join(d, "flight.json")))["live_arrays"]
+    assert any(t["device"] == "cuda:0" for t in live["largest"])
+    assert tel["goodput"]["sum_check"]["ok"]
+    assert perf_report.main(["--ledger", led, "--check"]) == 0
+    assert mem_report.main(["--run", d, "--check"]) == 0
+    assert goodput_report.main(["--ledger", led, "--check"]) == 0
+    assert sum(fa.LAUNCHES.values()) == 0
+
+
+def test_memscope_and_meter_leave_losses_and_tokens_bitwise_on_the_card(dev):
+    """The ResNet run's losses (one step per dispatch, batch 64) and the
+    graphed serving engine's streams and pool are bitwise equal with the
+    memory sampler and the goodput meter on and off."""
+    from ddl25spring_tpu_torch import obs
+    from ddl25spring_tpu_torch.lab import dp_pp
+    from ddl25spring_tpu_torch.obs import goodput, memscope
+
+    job = dp_pp.ResnetJob(1, 1, 1, 64, 4, device="cuda", input="hbm", warmup=2, n_train=512)
+
+    def train(on):
+        with obs.scoped(on), memscope.scoped(on):
+            tel = (dp_pp.ResnetTelemetry(goodput=goodput.GoodputMeter("t"),
+                                         memscope=memscope.MemScope(device=dev))
+                   if on else None)
+            r = dp_pp.train_resnet(None, job, tel)
+        if on:
+            assert tel.memscope.live_bytes.count == 4 and tel.goodput.seconds["useful_step"] > 0
+        return r["losses"]
+
+    assert train(True) == train(False)
+
+    def serve(on):
+        with obs.scoped(on), memscope.scoped(on):
+            return _serve_run(dev, graphs=True, trace_label="serve")
+
+    on, off = serve(True), serve(False)
+    assert on.memscope.live_bytes.count > 0 and off.memscope.live_bytes.count == 0
+    assert {r.rid: r.tokens for r in on.done} == {r.rid: r.tokens for r in off.done}
+    for name, t in on.pool.items():
+        keep = slice(0, on.n_pages) if name in ("k", "v") else slice(None)
+        assert torch.equal(t[keep], off.pool[name][keep]), name
+
+
+def test_nontensor_bytes_leave_out_the_live_tensors(dev):
+    """The allocator's bytes beyond the live tensors: a new tensor on the
+    card moves ``memory_allocated`` and not the non-tensor bytes, whichever
+    way the card is named."""
+    from ddl25spring_tpu_torch.obs import memscope
+
+    torch.ones(8, device=dev)  # the allocator is up
+    before = memscope.nontensor_bytes(torch.device("cuda"))
+    x = torch.empty(1 << 20, dtype=torch.uint8, device=dev)
+    assert memscope.nontensor_bytes("cuda:0") == memscope.nontensor_bytes("cuda") == before
+    assert memscope.live_total_bytes(dev) >= x.numel()
+    assert any(t["device"] == "cuda:0" and t["bytes"] == 1 << 20
+               for t in memscope.live_array_summary(top=50)["largest"])

@@ -38,6 +38,17 @@ STEPS = {"bucketed": (make_dp_train_step, 65536),
          "weight_avg": (make_dp_weight_avg_step, 65536)}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread in this process, as in the spawned ranks: the suite
+    runs its files side by side on one host, and torch's default threads
+    contend for its cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _loss(model, tokens):
     return causal_lm_loss(model(tokens), tokens)
 

@@ -71,6 +71,17 @@ LLAMA_BATCHES = [np.random.default_rng(10 + i).integers(0, 64, (8, 16)).astype(n
 KINDS = ("mlp", "llama")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread in this process, as in the spawned ranks: the suite
+    runs its files side by side on one host, and torch's default threads
+    contend for its cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _model(kind):
     if kind == "llama":
         return llama.Llama(LlamaConfig(**LLAMA), device="cpu",

@@ -399,10 +399,11 @@ def test_bench_main_composes_its_line(monkeypatch, capsys, short_test_set):
 
     seen = []
 
-    def resnet_stub(argv):
+    def resnet_stub(argv, telemetry=None):
         seen.append(argv)
+        # a run that hands back no live step: the line, its telemetry cells off
         return {"line": benchmarks.report_line("dp", 25000.0, "hbm-resident-shuffle", 0.08,
-                                               80.0)}
+                                               80.0), "ranks": [{}]}
 
     monkeypatch.setattr(dp_pp, "main", resnet_stub)
     rec = bench.main(["--device", "cpu", "--rounds", "1", "--n-train", "600"])

@@ -36,6 +36,17 @@ X = np.random.default_rng(4).normal(size=(8, 32, 32, 3)).astype(np.float32)
 Y = np.random.default_rng(5).integers(0, 10, 8).astype(np.int32)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread in this process, as in the spawned ranks: the suite
+    runs its files side by side on one host, and torch's default threads
+    contend for its cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def het_rank(rdv, data, stages, trees):
     """The forward-only loss, then one SGD step, on this rank's stage: both
     losses (last stage), the stage's gradients and its comm counts."""

@@ -50,5 +50,6 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "utils.checkpoint", "ft", "ft.manifest", "ft.chaos", "ft.reshard",
                 "ft.autosave", "ft.elastic", "ft.demo", "lab.ckpt_overhead",
                 "models.decode", "serve", "serve.traffic", "serve.kv_pages", "serve.prefix",
-                "serve.engine", "serve.spec", "serve.driver", "obs.memscope"):
+                "serve.engine", "serve.spec", "serve.driver", "obs.memscope", "obs.goodput",
+                "obs.perfscope", "obs.report"):
         assert f"ddl25spring_tpu_torch.{mod}" in report["modules"]

@@ -165,10 +165,10 @@ MOE = dict(vocab_size=64, dmodel=32, num_heads=2, n_layers=2, ctx_size=16,
            dtype="float32", n_experts=4, capacity_factor=2.0)
 
 
-@pytest.fixture
+@pytest.fixture(scope="module", autouse=True)
 def one_torch_thread():
-    """One torch thread for the MoE tests: the suite runs its files side by
-    side on one host, and torch's default threads contend for its cores."""
+    """One torch thread for this file's tests: the suite runs its files side
+    by side on one host, and torch's default threads contend for its cores."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield

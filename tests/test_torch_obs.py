@@ -383,3 +383,132 @@ def test_steptimer_ticks_discard_warmup():
     for _ in range(4):
         st.tick(torch.ones(2))
     assert len(st.times) == 2
+
+
+# ------------------------------------------------------------- the run report
+
+
+def test_summarize_run_and_format(tmp_path):
+    from ddl25spring_tpu_torch.obs.report import format_report, summarize_run
+
+    run = str(tmp_path / "run")
+    with obs.MetricsLogger(run, meta=obs.run_metadata(
+            mesh={"data": 1}, layout="dp", n_chips=1, num_stages=2,
+            num_microbatches=4)) as lg:
+        walls = [0.10, 0.10, 0.10, 0.10, 0.10, 0.10, 0.10, 0.10, 0.10, 1.0]
+        for i, w in enumerate(walls):
+            lg.log(step=i, wall_s=w, samples=100, loss=1.0, label="primary")
+        # flops arrive in a late supplementary header, which must merge
+        lg.log(record="header", flops_per_step=1e9, peak_flops_per_chip=1e10)
+    obs.counters.save(run)
+
+    s = summarize_run(run)
+    ph = s["phases"]["primary"]
+    assert ph["steps"] == 10
+    # p50 shrugs off the one 1.0 s outlier (the GC-pause scenario)
+    np.testing.assert_allclose(ph["step_s_p50"], 0.10)
+    assert ph["step_s_p95"] > 0.5
+    np.testing.assert_allclose(ph["steps_per_sec_p50"], 10.0)
+    np.testing.assert_allclose(ph["samples_per_sec_per_chip_p50"], 1000.0)
+    np.testing.assert_allclose(ph["mfu"], 1e9 / 0.10 / 1e10)
+    np.testing.assert_allclose(s["bubble_fraction"], 0.2)
+
+    text = format_report(s)
+    for token in ("step p50", "step p95", "MFU", "bubble fraction", "0.2000",
+                  "torch_version="):
+        assert token in text, f"report is missing {token!r}"
+
+
+def test_summarize_run_normalizes_fused_steps(tmp_path):
+    """Fused phases log one record per DISPATCH of k train steps; the summary
+    reports per-train-step units, or the fused phase reads k times slower."""
+    from ddl25spring_tpu_torch.obs.report import summarize_run
+
+    run = str(tmp_path / "run")
+    with obs.MetricsLogger(run, meta=obs.run_metadata(n_chips=1)) as lg:
+        for i in range(6):
+            # 0.4 s per dispatch of 4 fused steps = 0.1 s/step
+            lg.log(step=i, wall_s=0.4, samples=400, fused_steps=4, label="hbm-scan")
+        lg.log(record="header", flops_per_step=1e9, peak_flops_per_chip=1e10)
+
+    ph = summarize_run(run)["phases"]["hbm-scan"]
+    assert ph["steps"] == 24 and ph["fused_steps"] == 4
+    assert ph["dispatches"] == 6
+    np.testing.assert_allclose(ph["step_s_p50"], 0.10)
+    np.testing.assert_allclose(ph["steps_per_sec_p50"], 10.0)
+    np.testing.assert_allclose(ph["samples_per_sec_per_chip_p50"], 1000.0)
+    np.testing.assert_allclose(ph["mfu"], 1e9 / 0.10 / 1e10)
+
+
+def _mini_run_dir(tmp_path, with_violation: bool):
+    run = tmp_path / "run"
+    run.mkdir(parents=True)
+    with open(run / "metrics.jsonl", "w") as f:
+        f.write(json.dumps({"record": "header", "n_chips": 1}) + "\n")
+        f.write(json.dumps({"record": "step", "step": 0, "wall_s": 0.1, "label": "x"}) + "\n")
+    obs.flight.reset()
+    obs.flight.record(kind="step", strategy="dp", step=0, loss=1.0)
+    if with_violation:
+        obs.flight.record(kind="violation", strategy="dp", step=1, violating_metric="loss",
+                          violation=True)
+    obs.flight.dump(path=str(run / "flight.json"), reason="test")
+    return str(run)
+
+
+def test_report_health_section_and_check_health(tmp_path):
+    from ddl25spring_tpu_torch.obs.report import format_report, main as report_main
+    from ddl25spring_tpu_torch.obs.report import summarize_run
+
+    run = _mini_run_dir(tmp_path, with_violation=True)
+    s = summarize_run(run)
+    assert s["health"]["violations"] == 1
+    assert s["health"]["last_violation"]["strategy"] == "dp"
+    text = format_report(s)
+    assert "health (flight.json" in text
+    assert "sentinel violations: 1" in text
+    assert "last violation: strategy=dp" in text
+
+    # --check-health: violations -> rc 3; clean run -> rc 0; nothing there -> 2
+    assert report_main([run, "--check-health"]) == 3
+    clean = _mini_run_dir(tmp_path / "c", with_violation=False)
+    assert report_main([clean, "--check-health"]) == 0
+    assert report_main([clean]) == 0  # no flag: report only
+    assert report_main([str(tmp_path / "void")]) == 2
+    obs.flight.reset()
+
+
+def test_obs_report_folds_timeline_section(tmp_path):
+    from ddl25spring_tpu_torch.obs.report import format_report, summarize_run
+    from ddl25spring_tpu_torch.obs.timeline import timeline
+    from ddl25spring_tpu_torch.serve import driver
+    from ddl25spring_tpu_torch.serve.engine import ServeEngine
+
+    cfg = driver.serve_model("tiny")
+    params = llama.Llama(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    params.requires_grad_(False)
+    run_dir = tmp_path / "run"
+    with obs.scoped(True):
+        timeline.configure(str(run_dir))
+        try:
+            eng = ServeEngine(params, cfg, page_len=4, n_pages=16, max_slots=2,
+                              pages_per_seq=4, prefill_batch=2, max_prompt_len=8,
+                              clock="virtual")
+            for i in range(3):
+                assert eng.submit(eng.make_request([5 + i, 9, 11, 3], 5)) is None
+            while eng.queue or any(s is not None for s in eng.slots):
+                eng.step()
+            timeline.flush()
+        finally:
+            timeline.configure(None)
+    obs.flight.dump(str(run_dir / "flight.json"), reason="test")
+    summary = summarize_run(str(run_dir))
+    tl_sum = summary["timeline"]
+    assert tl_sum["counts"]["serve_first_token"] == 3
+    assert 1 <= len(tl_sum["slowest_requests"]) <= 5
+    slowest = tl_sum["slowest_requests"][0]
+    assert slowest["ttft_s"] == max(r["ttft_s"] for r in tl_sum["slowest_requests"])
+    for k in ("queue_wait_s", "prefill_s", "first_decode_s"):
+        assert k in slowest
+    text = format_report(summary)
+    assert "timeline (timeline.jsonl" in text
+    assert "slowest requests" in text

@@ -47,6 +47,17 @@ TOKENS = [np.random.default_rng(10 + s).integers(0, 64, (6, 16)).astype(np.int32
           for s in range(2)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread in this process, as in the spawned ranks: the suite
+    runs its files side by side on one host, and torch's default threads
+    contend for its cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfg(**kw):
     return config.LlamaConfig(**{**TINY, **kw})
 

@@ -37,6 +37,17 @@ Y = np.random.default_rng(9).normal(size=(16, 4)).astype(np.float32)
 STEPS = 10
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread in this process, as in the spawned ranks: the suite
+    runs its files side by side on one host, and torch's default threads
+    contend for its cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _mesh(n, axis="stage"):
     """One rank's view of a ``data = n`` grid; no world is joined."""
     grid = RankGrid(n, 1, axis)

@@ -509,8 +509,11 @@ def test_driver_emits_the_telemetry_serve_contract(smoke_record):
     doc = json.loads((out / "serve.json").read_text())
     assert doc["record"] == "serve" and doc["ramp"]["admitted"] > 0
     rows = [json.loads(line) for line in open(led) if line.strip()]
-    # one serve row a run (the goodput row waits for the goodput port)
-    assert [r["record"] for r in rows] == ["serve"]
+    # a serve row and a goodput row a run (the mem row needs obs on)
+    assert [r["record"] for r in rows] == ["serve", "goodput"]
+    assert rows[1]["key"] == {"strategy": "serve/tiny", "mesh": {"replicas": 1},
+                              "scope": "serve", "profile": "shared"}
+    assert rows[1]["slo_attainment"] == rec["goodput"]["slo_attainment"] is not None
     assert rows[0]["ab"]["advantage_tokens"] > 0
     assert "ttft_s" not in rows[0] and "tick_wall_s" not in rows[0]
 
@@ -553,5 +556,7 @@ def test_bench_serve_entry_prints_the_bench_line(tmp_path, capsys):
     tel = last["telemetry"]
     assert tel["serve"]["ab"]["advantage_tokens"] >= 0 and "prefix_ab" not in tel["serve"]
     assert tel["health"]["violations"] == 0
-    assert tel["goodput"] == {"enabled": False} and tel["mem"] == {"enabled": False}
+    assert tel["goodput"]["scope"] == "serve" and tel["goodput"]["lineage_id"]
+    assert tel["mem"]["enabled"] is True and tel["mem"]["samples"] > 0
+    assert (tmp_path / "mem.json").exists() and (tmp_path / "goodput.json").exists()
     assert (tmp_path / "timeline.jsonl").exists() and (tmp_path / "trace.json").exists()

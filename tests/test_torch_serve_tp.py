@@ -33,6 +33,7 @@ tests.
 
 from __future__ import annotations
 
+import json
 from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
@@ -73,6 +74,17 @@ SLOT_IDS = np.array([0, 1], np.int32)
 # other tests')
 BENCH_ARGS = ["--serve", "--smoke", "--serve-tp", "2", "--device", "cpu", "--no-serve-ab",
               "--no-serve-prefix-ab"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread in this process, as in the spawned ranks: the suite
+    runs its files side by side on one host, and torch's default threads
+    contend for its cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _model(cfg=CFG, seed=0):
@@ -728,3 +740,74 @@ def test_bench_serve_tp2_then_check_tp(runs):
     assert cell["completed"] == cell["admitted"] > 0 and cell["pool_leak"]["ok"]
     assert serve_report.main([str(d / "obs"), "--ledger", str(d / "ledger.jsonl"),
                               "--check-tp"]) == 0
+
+
+def test_obs_report_renders_the_tp_lines(runs):
+    """The report's Serving section prints the per-chip pool and parameter
+    bytes, the tp line and the tp A/B verdict: from the raw serve.json shape
+    (the arms nested under sharded/dense), as the JAX test feeds it, and
+    from the 2-rank bench's own serve.json."""
+    from ddl25spring_tpu_torch.obs.report import format_report, summarize_run
+
+    summary = {
+        "run_dir": "/tmp/x",
+        "serve": {
+            "key": {"model": "tiny", "tp": 2},
+            "requests": {"submitted": 2, "admitted": 2, "rejected": 0,
+                         "rejected_by_reason": {}, "completed": 2},
+            "ramp": {
+                "admitted": 2, "rejected": 0, "completed": 2,
+                "tokens_per_sec_per_chip": 10.0,
+                "page_pool_peak_pages": 4, "page_pool_pages": 16,
+                "page_pool_peak_occupancy": 0.25,
+                "pool_bytes_per_chip": 8868,
+                "param_bytes_per_chip": 24896,
+                "tp": 2, "weight_stream": False,
+                "queue_depth_max": 1, "pool_ok_failures": 0,
+            },
+            "tp_ab": {
+                "tp": 2, "budget_s": 1.0, "tokens_match": True,
+                "tp_tokens_at_budget": 8, "dense_tokens_at_budget": 8,
+                "budget_shrunk": True, "compared_requests": 2,
+                "sharded": {"mem_budget_bytes_per_chip": 33722},
+                "dense": {"mem_budget_bytes_per_chip": 58810},
+            },
+        },
+    }
+    text = format_report(summary)
+    assert "8.7 KiB/chip" in text
+    assert "tp 2" in text and "params 24.3 KiB/chip" in text
+    assert "tp A/B (tp=2)" in text
+    assert "shrunk True" in text
+    assert "32.9 vs 57.4 KiB" in text
+
+    _, _, (rec, d) = runs
+    cell = rec["telemetry"]["serve"]
+    text = format_report(summarize_run(str(d / "obs")))
+    assert f"{cell['pool_bytes_per_chip'] / 1024:.1f} KiB/chip" in text
+    assert f"params {cell['param_bytes_per_chip'] / 1024:.1f} KiB/chip" in text
+    assert "tp A/B (tp=2)" in text and "shrunk True" in text
+
+
+def test_tp_mem_record_bands_the_rank_and_passes_mem_report(runs):
+    """The 2-rank bench's rank 0 writes the ``mem`` record keyed by the mesh
+    ``{"replicas": 1, "tp": 2}`` and banded against its own bill (this rank's
+    shard and pool) plus the dense copy of the weights the A/B keeps, and
+    ``tools/mem_report.py --check`` passes it, from the run dir and the
+    ledger."""
+    from tools import mem_report
+
+    _, _, (rec, d) = runs
+    mem = rec["telemetry"]["mem"]
+    assert mem["enabled"] and mem["samples"] > 0 and mem["leaked_pages"] == 0
+    doc = json.loads((d / "obs" / "mem.json").read_text())
+    assert doc["mesh"] == {"replicas": 1, "tp": 2} and doc["strategy"] == "serve/tiny"
+    tab = rec["telemetry"]["serve"]["tp_ab"]
+    dense = sum(p.numel() * p.element_size() for p in _model().parameters())
+    band = doc["budget"]
+    assert band["budget_bytes"] == (tab["tp_mem_budget_bytes_per_chip"] + dense
+                                    + band["pre_existing_tensor_bytes"])
+    assert band["dense_copy_bytes"] == dense and band["non_tensor_bytes"] == 0  # the CPU's
+    assert band["within_band"] and band["source"] == "serve_static_accounting"
+    assert mem_report.main(["--run", str(d / "obs"), "--check"]) == 0
+    assert mem_report.main(["--ledger", str(d / "ledger.jsonl"), "--check"]) == 0

@@ -67,6 +67,17 @@ MOE_CASES = {"moe ring1": (False, "ring", 1), "moe ring2": (False, "ring", 2),
              "moe flash2": (True, "ring", 2), "moe ulysses2": (False, "ulysses", 2)}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread in this process, as in the spawned ranks: the suite
+    runs its files side by side on one host, and torch's default threads
+    contend for its cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _model(cfg, params):
     return llama.load_jax_params(
         llama.Llama(cfg, device="cpu", generator=torch.Generator().manual_seed(0)), params)

@@ -57,6 +57,17 @@ CASES = {f"tp{n}{'' if sv else '-replicated-vocab'}": (n, sv)
          for n in (2, 4) for sv in (True, False)}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread in this process, as in the spawned ranks: the suite
+    runs its files side by side on one host, and torch's default threads
+    contend for its cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _model(params, n, index, shard_vocab, cfg=CFG):
     model = llama.Llama(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
     return tp.load_tp_params(model, tp.shard_tp_params(params, n, index, shard_vocab))

@@ -32,6 +32,17 @@ SMALL = dict(vocab_size=96, dmodel=64, num_heads=2, n_layers=2, ctx_size=32,
 LR = 8e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread in this process, as in the spawned ranks: the suite
+    runs its files side by side on one host, and torch's default threads
+    contend for its cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_three_adam_steps_match_jax():
     jcfg = jconfig.LlamaConfig(**SMALL)
     params = jllama.init_llama_params(jax.random.PRNGKey(0), jcfg)

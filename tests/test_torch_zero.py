@@ -79,6 +79,17 @@ MOE = dict(vocab_size=64, dmodel=32, num_heads=2, n_layers=2, ctx_size=16, dtype
 LLAMA_TOKENS = np.random.default_rng(1).integers(0, 64, (8, 16)).astype(np.int64)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread in this process, as in the spawned ranks: the suite
+    runs its files side by side on one host, and torch's default threads
+    contend for its cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cnn():
     return mnist_cnn.MnistCnn(generator=torch.Generator().manual_seed(0))
 
