@@ -7,8 +7,10 @@ Phases, in order; any failure exits non-zero and prints no result:
 2. build: ``nvcc`` compiles ``ops/csrc/flash_attention.cu`` (scalar kernels),
    ``ops/csrc/flash_attention_sm90.cu`` (bf16 tensor-core kernels) and
    ``ops/csrc/flash_attention_tf32x3.cu`` (the fp32 forward, dq and dk/dv on
-   the tensor cores, 3xTF32) for sm_90a from the checkout, in parallel; the build time
-   and the ``ptxas`` registers and spills of every instantiation are printed;
+   the tensor cores, 3xTF32) for sm_90a from the checkout, in parallel, while
+   phase 9 (e) runs on the card beside them (it launches none of them and
+   times nothing); the build time and the ``ptxas`` registers and spills of
+   every instantiation are printed;
 3. kernels: the forward, dq and dk/dv kernels against their plain PyTorch
    versions on the same inputs, on the card, at the LLaMA path's shape
    ``[3, 256, 6, 48]`` (bf16 and fp32), causal and not, ragged L=200 at hd
@@ -108,7 +110,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    (d) where a FedAvg round's time goes: host wall over 3 warm rounds
        against device busy under torch.profiler over 1 more, the idle share,
        the top kernels;
-   (e) split-NN VFL and the VAE/TSTR on ``data/heart.csv`` at the example's
+   (e) (run during step 2's build) split-NN VFL and the VAE/TSTR on
+       ``data/heart.csv`` at the example's
        defaults (4 parties, 300 epochs, batch 64; VAE 150 epochs): the VFL
        test accuracy and TSTR's real and synthetic accuracies within
        ``FL_ACC_BANDS``.
@@ -469,8 +472,9 @@ Phases, in order; any failure exits non-zero and prints no result:
         tick's logits after a prefill streamed == resident bitwise, and the
         largest |TP - single-card| logit printed;
     (b) ``bench.main(["--serve", "--serve-model", "ref", "--serve-tp", "2",
-        ...])`` (bf16, the ramp cut to ``TP_BENCH_S``), resident and with
-        ``DDL25_SERVE_WEIGHT_STREAM=1``: every request completed, no page
+        ...])`` (bf16, the ramp cut to ``TP_BENCH_S``), resident and, cut
+        to ``TP_STREAMED_S``, with ``DDL25_SERVE_WEIGHT_STREAM=1``: every
+        request completed, no page
         left, the per-rank bill below the single card's, and ``serve_report
         --check-tp`` on its row; where bf16 streams differ (two rounded
         partial sums are not one product), the first request and position
@@ -544,6 +548,7 @@ The second-to-last line is ``{"kernels": [...]}``; the last line is
 Run from the repository root: ``python3 chip_smoke.py``
 """
 
+import concurrent.futures
 import itertools
 import json
 import math
@@ -1598,10 +1603,12 @@ def fl_vertical_generative(dev):
           f"{run['vae_losses'][0]:.2f} -> {run['vae_losses'][-1]:.2f}")
 
 
-def fl_phase(dev):
-    """Phase 9, each sub-phase timed."""
-    for name, fn in (("(a)", fl_exactness), ("(b)", fl_headline), ("(c)", fl_a1_oracle),
-                     ("(d)", fl_profile), ("(e)", fl_vertical_generative)):
+def fl_phase(dev, vertical=True):
+    """Phase 9, each sub-phase timed; ``vertical=False`` leaves out (e),
+    which :func:`main` runs while the kernels build."""
+    subs = [("(a)", fl_exactness), ("(b)", fl_headline), ("(c)", fl_a1_oracle),
+            ("(d)", fl_profile)] + ([("(e)", fl_vertical_generative)] if vertical else [])
+    for name, fn in subs:
         t0 = time.perf_counter()
         fn(dev)
         print(f"  {name} took {time.perf_counter() - t0:.1f} s", flush=True)
@@ -5257,11 +5264,18 @@ def serve_bench(tmp) -> dict:
                  "goodput_report --check": goodput_report.main(
                      ["--ledger", os.path.join(tmp, "ledger.jsonl"), "--check"])}
         check(not any(gates.values()), f"{profile}: a memory or goodput gate failed: {gates}")
-        print(f"  (b) {profile}: live peak {band['measured_peak_bytes']} B against the bill "
+        # every program of every engine is captured on one stream, so the
+        # second bench of the process finds the workspaces the first made
+        check(profile != "shared" or band["blas_workspaces"] == 0,
+              f"shared: the second bench's warm-up made {band['blas_workspaces']} new cuBLAS "
+              "workspaces, where the first bench's capture stream should have served")
+        print(f"  (b) {profile}: live peak {band['measured_peak_bytes']} B above the floor of "
+              f"{band['floor_bytes']} B held before the engine, against the bill "
               f"{band['budget_bytes']} B (mem_budget_bytes(per_chip=False) + "
-              f"{band['pre_existing_tensor_bytes']} B of tensors held before the bench + the "
-              f"allocator's {band['non_tensor_bytes']} B beyond tensors after the warm-up; ratio "
-              f"{band['ratio']}, tolerance {band['tolerance']}), {mem['samples']} samples, 0 "
+              f"{band['blas_workspaces']} cuBLAS workspaces of {band['blas_workspace_bytes']} B "
+              f"the warm-up made, of at most {band['streams']}); ratio {band['ratio']} "
+              f"(tolerance {band['tolerance']}), {band['ratio_on_bill']} on the engine's own "
+              f"bill, {mem['samples']} samples, 0 "
               f"leaked pages, 0 growth violations; SLO attainment {gp['slo_attainment']}, "
               f"availability {gp['availability']}, goodput "
               f"{gp['goodput_tokens_per_sec_per_chip']} tokens/s per card; gates {gates}",
@@ -5719,6 +5733,9 @@ TP_TICKS = 16                   # (c): timed decode ticks per TP engine (and the
 TP_PROFILED = 4                 # (c): ticks under torch.profiler per engine
 TP_BENCH_S = 2.0                # (b): the ramp trace's duration (11 requests; the bf16
                                 # streams leave the single card's within them)
+TP_STREAMED_S = 1.0             # (b): the streamed row's (3 requests): its streams are the
+                                # resident engine's bitwise ((a), (c)), so the resident row
+                                # shows where they leave the single card's
 TP_POOL_BAND = 1e-5             # (a): a rank's k/v against the single-card pool's heads
 
 
@@ -6044,13 +6061,14 @@ def tp_bench(tmp) -> dict:
     from tools import mem_report, serve_report
 
     out = {}
-    for mode, env in (("resident", {}), ("streamed", {"DDL25_SERVE_WEIGHT_STREAM": "1"})):
+    for mode, env, seconds in (("resident", {}, TP_BENCH_S),
+                               ("streamed", {"DDL25_SERVE_WEIGHT_STREAM": "1"}, TP_STREAMED_S)):
         led, obs_dir = os.path.join(tmp, f"{mode}.jsonl"), os.path.join(tmp, mode)
         os.environ.update(env)
         t0 = time.perf_counter()
         try:
             rec = bench.main(["--serve", "--serve-model", "ref", "--serve-tp", str(TP_N),
-                              "--device", "cuda", "--serve-duration", str(TP_BENCH_S),
+                              "--device", "cuda", "--serve-duration", str(seconds),
                               "--no-serve-ab", "--no-serve-prefix-ab", "--perf-ledger", led,
                               "--obs-dir", obs_dir])
         finally:
@@ -6076,11 +6094,12 @@ def tp_bench(tmp) -> dict:
         text = format_report(summarize_run(obs_dir))
         check(f"tp {TP_N}" in text and f"tp A/B (tp={TP_N})" in text and "KiB/chip" in text,
               f"{mode}: the report does not render the TP lines of serve.json")
-        print(f"  (b) {mode}: rank 0's live peak {band['measured_peak_bytes']} B against its "
-              f"band's bill {band['budget_bytes']} B (its mem_budget_bytes(per_chip=True) + "
-              f"the dense copy {band['dense_copy_bytes']} B + "
-              f"{band['pre_existing_tensor_bytes']} B held before + {band['non_tensor_bytes']} B "
-              f"beyond tensors; ratio {band['ratio']}), mesh {mem_doc['mesh']}, mem_report "
+        print(f"  (b) {mode}: rank 0's live peak {band['measured_peak_bytes']} B above its "
+              f"floor of {band['floor_bytes']} B, against its band's bill "
+              f"{band['budget_bytes']} B (its mem_budget_bytes(per_chip=True) + the dense copy "
+              f"{band['dense_copy_bytes']} B + {band['blas_workspaces']} cuBLAS workspaces of "
+              f"{band['blas_workspace_bytes']} B; ratio {band['ratio']}, "
+              f"{band['ratio_on_bill']} on the bill and dense copy), mesh {mem_doc['mesh']}, mem_report "
               f"--check exit {mem_gate}; the report's TP lines: "
               + "; ".join(ln.strip() for ln in text.splitlines()
                           if ln.strip().startswith(("tp ", "tp A/B"))), flush=True)
@@ -6255,11 +6274,19 @@ def main() -> int:
 
     print("== build")
     t0 = time.perf_counter()
-    libs = _build.build(_build.CSRC / "flash_attention.cu",
-                        _build.CSRC / "flash_attention_sm90.cu",
-                        _build.CSRC / "flash_attention_tf32x3.cu")
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        building = pool.submit(_build.build, _build.CSRC / "flash_attention.cu",
+                               _build.CSRC / "flash_attention_sm90.cu",
+                               _build.CSRC / "flash_attention_tf32x3.cu")
+        # phase 9 (e) launches no kernel of the build and times nothing: it
+        # runs on the card while nvcc builds
+        print("  phase 9 (e), federated learning (cuDNN, cuBLAS), while the kernels build:")
+        t1 = time.perf_counter()
+        fl_vertical_generative(dev)
+        print(f"  (e) took {time.perf_counter() - t1:.1f} s", flush=True)
+        libs = building.result()
     print(f"  {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.1f} s "
-          f"(one nvcc each, in parallel)")
+          f"(one nvcc each, in parallel; phase 9 (e) beside them)")
     for lib in libs:
         print_ptxas(lib.with_suffix(".log").read_text())
 
@@ -6364,8 +6391,8 @@ def main() -> int:
     print("== federated learning on the card (cuDNN, cuBLAS; no hand-written kernel on "
           "this path)")
     t0 = time.perf_counter()
-    fl_phase(dev)
-    print(f"  phase 9 in {time.perf_counter() - t0:.1f} s")
+    fl_phase(dev, vertical=False)  # (e) ran while the kernels built
+    print(f"  phase 9 (a)-(d) in {time.perf_counter() - t0:.1f} s")
 
     print(f"== schedules on the card: {', '.join(SCHED)} ({CHUNKS} chunks per rank when "
           "interleaved); grad accumulation; DP overlap")

@@ -24,7 +24,7 @@ record, with ``telemetry``:
   perf record of the live per-batch train step
   (:func:`~ddl25spring_tpu_torch.obs.perfscope.measure_bench_step`), its
   cell on the line, the record appended to ``--perf-ledger`` (default
-  ``runs/perf_ledger.jsonl``) for ``tools/perf_report.py``;
+  ``runs/torch_perf_ledger.jsonl``, git-ignored) for ``tools/perf_report.py``;
 - ``goodput``: the run's wall split into buckets (the warm-up, the timed
   calls, the rest), appended as a ``record: "goodput"`` row;
 - ``mem`` (with ``--obs-dir``): the live bytes sampled after each timed
@@ -50,7 +50,7 @@ cached-vs-cold prefix A/B on the virtual clock (with ``DDL25_SERVE_SPEC=1``
 also the spec-on-vs-off A/B; with an elastic ``DDL25_CHAOS`` the replica
 scale-up/down run), ``serve.json`` in
 ``--obs-dir`` and one ``record: "serve"`` row in ``--perf-ledger``
-(default ``runs/perf_ledger.jsonl``); the last line is the BENCH record
+(default ``runs/torch_perf_ledger.jsonl``); the last line is the BENCH record
 with ``telemetry.serve``.  ``--smoke`` serves the tiny fp32 model with the
 smoke knobs (obs dir ``runs/serve_smoke``); ``--serve-model ref`` the
 full-width LLaMA.  ``python -m ddl25spring_tpu_torch.bench --serve
@@ -140,7 +140,7 @@ def main(argv=None) -> dict:
                          "and the same)")
     ap.add_argument("--perf-ledger", default=None, metavar="JSONL",
                     help="append the run's ledger rows here (perf, mem, goodput; serving: "
-                         "serve too), default runs/perf_ledger.jsonl")
+                         "serve too), default runs/torch_perf_ledger.jsonl")
     ap.add_argument("--perf-reps", type=int, default=8, metavar="K",
                     help="training: barriered reps of the per-batch step for the measured "
                          "perf record (0 = off)")
@@ -382,7 +382,7 @@ def _serve_record(args, mesh, primary: bool = True) -> dict:
 
     from ddl25spring_tpu_torch import obs
     from ddl25spring_tpu_torch.obs import goodput as goodput_mod
-    from ddl25spring_tpu_torch.obs import memscope, sentinels
+    from ddl25spring_tpu_torch.obs import memscope, perfscope, sentinels
     from ddl25spring_tpu_torch.obs.timeline import timeline
     from ddl25spring_tpu_torch.serve.driver import run_serve_bench, serve_cell
     from ddl25spring_tpu_torch.utils.device import resolve_device
@@ -400,7 +400,7 @@ def _serve_record(args, mesh, primary: bool = True) -> dict:
         smoke=args.smoke, model=args.serve_model, obs_dir=obs_dir,
         duration_s=args.serve_duration, rate_rps=args.serve_rate,
         profile=args.serve_profile, seed=args.serve_seed, budget_s=args.serve_budget,
-        ledger_path=(args.perf_ledger or "runs/perf_ledger.jsonl") if primary else None,
+        ledger_path=(args.perf_ledger or perfscope.DEFAULT_LEDGER) if primary else None,
         skip_ab=args.no_serve_ab, skip_prefix_ab=args.no_serve_prefix_ab,
         skip_spec_ab=args.no_serve_spec_ab, skip_tp_ab=args.no_serve_tp_ab,
         serve_tp=args.serve_tp, mesh=mesh, device=dev, lineage=lineage,

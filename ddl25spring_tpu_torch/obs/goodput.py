@@ -596,8 +596,7 @@ def ledger_row(
     git_sha: str | None = None,
     extra_key: dict | None = None,
 ) -> dict:
-    """One ``record: "goodput"`` trend row for ``runs/perf_ledger.
-    jsonl`` — keyed (strategy, mesh, host, scope) like every other
+    """One ``record: "goodput"`` trend row for the perf ledger — keyed (strategy, mesh, host, scope) like every other
     ledger kind so ``goodput_report --check`` bands the fraction over
     run history; the lineage id rides as identity, never as part of
     the trend key (every lineage is unique — keying on it would orphan

@@ -24,10 +24,11 @@ package's ``obs/memscope.py``, measuring what the static accounting promised.
   by the report's Memory section and gated by ``tools/mem_report.py``.
 
 **Budget against measured:** ``budget_bytes`` is the accounted persistent
-footprint -- for serving the engine's static bill of parameters and pools,
-for training the live bytes of the first sampled step -- and the measured
-high-water ``live_bytes_peak`` must sit within ``budget_bytes * (1 +
-tolerance)``.  Everything here observes from the host: with
+footprint -- for serving the engine's static bill of parameters and pools
+plus the whole cuBLAS workspaces (:func:`blas_workspace_bytes`) its warm-up
+made, against the high-water above what the process held before the
+engine; for training the live bytes of the first sampled step -- and the
+measured high-water must sit within ``budget_bytes * (1 + tolerance)``.  Everything here observes from the host: with
 ``DDL25_MEMSCOPE=0`` (or obs off) nothing is sampled, and with it on a loop
 launches the kernels it launches without it.
 """
@@ -40,6 +41,7 @@ import itertools
 import json
 import os
 import random
+import re
 import time
 from collections import deque
 from typing import Any, Callable, Iterable
@@ -175,30 +177,23 @@ def live_total_bytes(device=None) -> int:
     return sum(n for n, _ in live_tensors(dev.type))
 
 
-def tensor_bytes(device=None) -> int:
-    """The storages of the live tensors on ``device`` (default: the card when
-    there is one, else the CPU), by a walk: what :func:`live_total_bytes`
-    reads on the CPU, without the allocator's other bytes on a card."""
-    import torch
-
-    dev = _resolve(device)
-    if dev.type != "cuda":
-        return live_total_bytes(dev)
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    return sum(n for n, t in live_tensors("cuda") if t.device.index == index)
-
-
-def nontensor_bytes(device=None) -> int:
-    """What a card's allocator holds beyond the storages of the live tensors
-    (library workspaces such as cuBLAS's): ``memory_allocated`` minus a walk
-    of the card's live tensors -- one walk, so read it off the clock.  0 on
-    the CPU, whose reading is the walk itself."""
+def blas_workspace_bytes(device=None) -> int:
+    """The cuBLAS workspace PyTorch keeps for each (handle, stream) pair
+    that runs a product on ``device``, for the life of the process: the sum
+    of ``CUBLAS_WORKSPACE_CONFIG``'s ``:KiB:count`` pairs, else PyTorch's
+    default (32 MiB on a Hopper card, 8 MiB + 128 KiB before it).  0 on the
+    CPU.  A new stream's first product grows ``memory_allocated`` by exactly
+    this (33,554,432 B on an H100)."""
     import torch
 
     dev = _resolve(device)
     if dev.type != "cuda":
         return 0
-    return max(0, live_total_bytes(dev) - tensor_bytes(dev))
+    pairs = re.findall(r":(\d+):(\d+)", os.environ.get("CUBLAS_WORKSPACE_CONFIG", ""))
+    if pairs:
+        return sum(int(kib) * int(n) for kib, n in pairs) * 1024
+    major, _ = torch.cuda.get_device_capability(dev)
+    return 4096 * 8 * 1024 if major >= 9 else 4096 * 1024 * 2 + 16 * 1024 * 8
 
 
 def live_array_summary(top: int = 10) -> dict[str, Any]:
@@ -356,11 +351,12 @@ class MemScope:
         detector; ``host_rss`` is always watched."""
         self._watches[name] = fn
 
-    def set_baseline(self) -> int | None:
-        """Capture the persistent live-bytes floor now (the budget anchor)."""
+    def set_baseline(self, value: int | None = None) -> int | None:
+        """Set the live-bytes floor (the budget anchor): ``value``, or the
+        reading now."""
         if not enabled():
             return None
-        self.live_bytes_baseline = live_total_bytes(self.device)
+        self.live_bytes_baseline = live_total_bytes(self.device) if value is None else int(value)
         return self.live_bytes_baseline
 
     def reset(self) -> None:

@@ -24,8 +24,10 @@ trace analyzers): the per-collective micro-costs (``micro`` is ``[]``, so
 ``projected_bound`` and ``projection_err`` are None), and the
 registry-driven :func:`measure_strategy` and its CLI.
 
-Records append to ``runs/perf_ledger.jsonl`` keyed by (strategy, mesh, host
-fingerprint) with the git sha; ``tools/perf_report.py`` renders per-key
+Records append to :data:`DEFAULT_LEDGER` (``runs/torch_perf_ledger.jsonl``,
+the port's own and git-ignored: ``runs/perf_ledger.jsonl`` is the JAX
+package's tracked trend file) keyed by (strategy, mesh, host fingerprint)
+with the git sha; ``tools/perf_report.py`` renders per-key
 trend tables and ``--check`` gates regressions.  Compare trends on ONE host
 (the key holds the fingerprint), never across machines.
 """
@@ -38,7 +40,7 @@ import platform
 import time
 from typing import Any
 
-DEFAULT_LEDGER = os.path.join("runs", "perf_ledger.jsonl")
+DEFAULT_LEDGER = os.path.join("runs", "torch_perf_ledger.jsonl")
 PERF_BASENAME = "perf.json"
 
 #: why the analytics half of a record is empty

@@ -667,20 +667,25 @@ def run_serve_bench(
     flight.annotate(serve_model=model, serve_profile=spec.profile,
                     serve_seed=spec.seed, serve_requests=len(trace))
 
-    # the tensors this process already held: not the bench's to account for
-    pre_existing = memscope.tensor_bytes(dev) if memscope.enabled() else 0
+    # the memory scope's floor: what this process holds before the engine
+    # and its weights (earlier work, library workspaces) is not the bench's
+    mem_on = memscope.enabled()
+    floor = memscope.live_total_bytes(dev) if mem_on else 0
+    workspace = memscope.blas_workspace_bytes(dev)
     params = Llama(cfg, device=dev, generator=torch.Generator().manual_seed(0))
     params.requires_grad_(False)
 
     # --- ramp phase: wall clock, the measured serving numbers ------------
     eng = _build_engine(params, cfg, knobs, mesh, clock="wall", temperature=temperature,
                         sentinel=sentinel, trace_label="ramp")
+    built = memscope.live_total_bytes(dev) if mem_on and workspace else 0
     # capture OFF the clock: TTFT measures serving, not the captures
     with spans.span("serve.warmup", cat="serve"):
         eng.warmup()
-    # what the card's allocator holds beyond tensors (library workspaces the
-    # warm-up created), read once off the clock: the bill counts tensors
-    non_tensor = memscope.nontensor_bytes(dev) if memscope.enabled() else 0
+    # the whole cuBLAS workspaces the warm-up made (one per new stream)
+    n_workspaces = ((memscope.live_total_bytes(dev) - built) // workspace
+                    if mem_on and workspace else 0)
+    eng.memscope.set_baseline(floor)
     with spans.span("serve.ramp", cat="serve", requests=len(trace)):
         ramp = eng.run(trace, budget_s=budget_s, max_steps=50_000)
     leak = (eng.mem_leak_check() if eng.drained
@@ -733,30 +738,32 @@ def run_serve_bench(
                       "(DDL25_SERVE_SPEC=1) are not covered yet", stacklevel=2)
 
     # --- measured memory against the static bill -----------------------
-    # the ramp's live-bytes high-water banded against the engine's bill
-    # (params + pools), the pool snapshot and drain-time leak check, and the
-    # elastic step-downs: mem.json and a record:"mem" row.  Each rank of a
-    # TP run is a process of its own with its own reading, so the band is
-    # this rank's bill (mem_budget_bytes(per_chip=True)) plus the dense copy
-    # of the weights kept for the A/B's single-card arms.  The reading counts
-    # the whole process, so the band adds what it held before the bench (its
-    # tensors then) and, on a card, the allocator's non-tensor bytes after
-    # the warm-up.
+    # the ramp's live-bytes high-water above the floor, banded against the
+    # engine's bill (params + pools) plus the cuBLAS workspaces its warm-up
+    # made (whole ones of the known size, at most one per stream the engine
+    # runs on), the pool snapshot and drain-time leak check, and the elastic
+    # step-downs: mem.json and a record:"mem" row.  Each rank of a TP run is
+    # a process of its own with its own reading, so the bill is this rank's
+    # (mem_budget_bytes(per_chip=True)) plus the dense copy of the weights
+    # kept for the A/B's single-card arms.
     mem = None
     tp = eng.tp
     mesh_key = {"replicas": 1, **({"tp": tp} if tp > 1 else {})}
-    if memscope.enabled():
+    if mem_on:
         dense = (sum(p.numel() * p.element_size() for p in params.parameters())
                  if tp > 1 else 0)
-        budget = memscope.budget_cell(
-            eng.memscope.live_bytes_peak,
-            eng.mem_budget_bytes(per_chip=True) + dense + pre_existing + non_tensor,
-            source="serve_static_accounting")
+        bill = eng.mem_budget_bytes(per_chip=True) + dense
+        peak = max(0, eng.memscope.live_bytes_peak - floor)
+        budget = memscope.budget_cell(peak, bill + n_workspaces * workspace,
+                                      source="serve_static_accounting")
+        budget.update(floor_bytes=floor, dense_copy_bytes=dense, blas_workspaces=n_workspaces,
+                      blas_workspace_bytes=workspace, streams=eng.streams,
+                      ratio_on_bill=round(peak / bill, 4))
+        if n_workspaces > eng.streams:  # a workspace no stream of the engine's explains
+            budget["within_band"] = False
         mem = memscope.mem_record(
             strategy=f"serve/{model}", mesh=mesh_key, scope_cell=eng.memscope.cell(),
-            budget={**budget, "dense_copy_bytes": dense,
-                    "pre_existing_tensor_bytes": pre_existing, "non_tensor_bytes": non_tensor},
-            pool=eng.mem_pool_snapshot(), leaks=[leak],
+            budget=budget, pool=eng.mem_pool_snapshot(), leaks=[leak],
             reshape_steps=reshape.get("mem_steps") if reshape is not None else None,
             extra={"profile": spec.profile, "seed": spec.seed}, device=dev)
 

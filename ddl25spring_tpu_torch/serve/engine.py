@@ -561,7 +561,7 @@ class _Program:
         dev = pool["k"].device
         self.static = [None if x is None else x.to(dev).clone() for x in inputs]
         current = torch.cuda.current_stream(dev)
-        stream = torch.cuda.Stream(dev)
+        stream = _capture_stream(dev)
         stream.wait_stream(current)
         with torch.cuda.stream(stream):
             scratch = {name: t.clone() for name, t in pool.items()}
@@ -578,6 +578,21 @@ class _Program:
                 f"capturing the serve program {self.name} as a CUDA graph failed: {e}"
             ) from e
         self.graph, self.outs, self._bound = graph, outs[1:], pool["k"]
+
+
+_CAPTURE_STREAMS: dict = {}
+
+
+def _capture_stream(dev):
+    """The one side stream every serve program on ``dev`` is captured on.
+    Each (cuBLAS handle, stream) pair keeps a workspace (32 MiB on Hopper)
+    for the life of the process, so one stream for every capture costs one
+    workspace, where a new stream per capture added one each, up to the
+    stream pool's 32."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if index not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[index] = torch.cuda.Stream(torch.device("cuda", index))
+    return _CAPTURE_STREAMS[index]
 
 
 # ------------------------------------------------------------ host engine
@@ -1678,6 +1693,12 @@ class ServeEngine:
     def _pool_bytes(self, per_chip: bool = True) -> int:
         pools = [self.pool] + ([self.draft_pool] if self.spec_k else [])
         return self._bytes([t for pool in pools for t in pool.values()], per_chip)
+
+    @property
+    def streams(self) -> int:
+        """The CUDA streams this engine's programs run on: the caller's and,
+        graphed, the capture stream (each may hold one cuBLAS workspace)."""
+        return 2 if self._graphs and self.device.type == "cuda" else 1
 
     def mem_budget_bytes(self, per_chip: bool = True) -> int:
         """The engine's static memory bill: parameters + page pool (+ the

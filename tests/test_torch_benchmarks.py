@@ -12,21 +12,12 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from ddl25spring_tpu_torch import benchmarks  # noqa: E402
 from ddl25spring_tpu_torch.lab import dp_pp  # noqa: E402
 from ddl25spring_tpu_torch.models import resnet  # noqa: E402
 from ddl25spring_tpu_torch.utils import flops  # noqa: E402
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One torch thread for this file: the suite runs its files side by side
-    on one host, and the full-width CPU steps here would take every core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

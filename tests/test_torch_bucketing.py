@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from ddl25spring_tpu.models import llama as jllama  # noqa: E402
 from ddl25spring_tpu.parallel import bucketing as jbucketing  # noqa: E402
@@ -18,17 +19,6 @@ from ddl25spring_tpu_torch.parallel.dp import param_leaves  # noqa: E402
 from ddl25spring_tpu_torch.utils import config  # noqa: E402
 
 TINY = dict(vocab_size=64, dmodel=32, num_heads=2, n_layers=6, ctx_size=16, dtype="float32")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One torch thread in this process, as in the spawned ranks: the suite
-    runs its files side by side on one host, and torch's default threads
-    contend for its cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

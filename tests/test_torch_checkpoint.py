@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from ddl25spring_tpu_torch.lab import dp_pp  # noqa: E402
 from ddl25spring_tpu_torch.models import llama  # noqa: E402
@@ -32,17 +33,6 @@ NARROW = LlamaConfig(vocab_size=64, dmodel=16, num_heads=2, n_layers=3, ctx_size
                      dtype="float32")
 TOKENS = [np.random.default_rng(20 + i).integers(0, 64, (6, 16)).astype(np.int64)
           for i in range(6)]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One torch thread in this process, as in the spawned ranks: the suite
-    runs its files side by side on one host, and torch's default threads
-    contend for its cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _lm_loss(model, tokens):

@@ -1337,16 +1337,26 @@ def test_memscope_and_meter_leave_losses_and_tokens_bitwise_on_the_card(dev):
         assert torch.equal(t[keep], off.pool[name][keep]), name
 
 
-def test_nontensor_bytes_leave_out_the_live_tensors(dev):
-    """The allocator's bytes beyond the live tensors: a new tensor on the
-    card moves ``memory_allocated`` and not the non-tensor bytes, whichever
-    way the card is named."""
+def test_a_new_stream_costs_one_blas_workspace(dev):
+    """The serving band's known term: a product on a stream that has run
+    none grows ``memory_allocated`` by exactly ``blas_workspace_bytes``, a
+    second product on it by nothing; every serve program is captured on one
+    stream; and a live tensor is named by the summary whichever way the
+    card is named."""
     from ddl25spring_tpu_torch.obs import memscope
+    from ddl25spring_tpu_torch.serve import engine
 
-    torch.ones(8, device=dev)  # the allocator is up
-    before = memscope.nontensor_bytes(torch.device("cuda"))
+    a = torch.randn(64, 64, device=dev)
+    stream = torch.cuda.Stream(dev, priority=-1)  # the high-priority pool: the port takes none
+    before = memscope.live_total_bytes(dev)
+    with torch.cuda.stream(stream):
+        b = a @ a
+        first = memscope.live_total_bytes("cuda") - before - b.nbytes
+        c = a @ a
+    torch.cuda.synchronize()
+    assert first == memscope.blas_workspace_bytes(dev) == memscope.blas_workspace_bytes("cuda:0")
+    assert memscope.live_total_bytes(dev) - before == first + b.nbytes + c.nbytes
+    assert engine._capture_stream(torch.device(dev)) is engine._capture_stream(torch.device("cuda"))
     x = torch.empty(1 << 20, dtype=torch.uint8, device=dev)
-    assert memscope.nontensor_bytes("cuda:0") == memscope.nontensor_bytes("cuda") == before
-    assert memscope.live_total_bytes(dev) >= x.numel()
-    assert any(t["device"] == "cuda:0" and t["bytes"] == 1 << 20
+    assert any(t["device"] == "cuda:0" and t["bytes"] == x.numel()
                for t in memscope.live_array_summary(top=50)["largest"])

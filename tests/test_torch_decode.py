@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from ddl25spring_tpu.models import decode as jdecode  # noqa: E402
 from ddl25spring_tpu.models import llama as jllama  # noqa: E402
@@ -38,17 +39,6 @@ SIZES = dict(vocab_size=64, dmodel=32, num_heads=2, n_layers=2, ctx_size=32,
 CFG = LlamaConfig(**SIZES)
 BAND = 1e-5     # fp32 logits, port against JAX
 MARGIN = 1e-4   # the top-2 gap every compared greedy token must clear
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One torch thread for this file: its tensors are tiny, and torch's
-    thread pool beside JAX's (and the suite's other files) costs more than
-    it parallelizes."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _model(cfg, seed=0):

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from ddl25spring_tpu_torch.models import llama  # noqa: E402
 from ddl25spring_tpu_torch.ops.losses import causal_lm_loss  # noqa: E402
@@ -36,17 +37,6 @@ BATCHES = [np.random.default_rng(s).integers(0, 64, (2 * D, 16)).astype(np.int32
 STEPS = {"bucketed": (make_dp_train_step, 65536),
          "per_tensor": (make_dp_train_step, None),
          "weight_avg": (make_dp_weight_avg_step, 65536)}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One torch thread in this process, as in the spawned ranks: the suite
-    runs its files side by side on one host, and torch's default threads
-    contend for its cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _loss(model, tokens):

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from ddl25spring_tpu_torch import benchmarks  # noqa: E402
 from ddl25spring_tpu_torch.models import llama  # noqa: E402
@@ -30,16 +31,6 @@ D = 2
 BATCHES = [np.random.default_rng(30 + s).integers(0, 64, (2 * D, 16)).astype(np.int32)
            for s in range(2)]
 BUCKET = 8192  # the tiny unembed [32, 64] fp32 alone fills bucket 0
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One torch thread for this file: the suite runs its files side by side
-    on one host, and torch's CPU kernels would take every core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _loss(model, tokens):

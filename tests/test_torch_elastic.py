@@ -36,6 +36,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from ddl25spring_tpu_torch.ft import (  # noqa: E402
     AutoSaver,
@@ -69,17 +70,6 @@ LLAMA = dict(vocab_size=64, dmodel=16, num_heads=2, n_layers=2, ctx_size=16, dty
 LLAMA_BATCHES = [np.random.default_rng(10 + i).integers(0, 64, (8, 16)).astype(np.int64)
                  for i in range(4)]
 KINDS = ("mlp", "llama")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One torch thread in this process, as in the spawned ranks: the suite
-    runs its files side by side on one host, and torch's default threads
-    contend for its cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _model(kind):

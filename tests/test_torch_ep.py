@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from ddl25spring_tpu_torch.models import llama  # noqa: E402
 from ddl25spring_tpu_torch.ops.losses import causal_lm_loss  # noqa: E402
@@ -51,16 +52,6 @@ CASES = {"ample ep2": ("ep2", float(E), 1), "ample ep4": ("ep4", float(E), 1),
          "top2 ep2": ("ep2", float(E), 2), "top2 ep4": ("ep4", float(E), 2),
          "ample 2d": ("2d", float(E), 1)}
 
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One torch thread for this file: the suite runs its files side by side
-    on one host, and torch's default threads contend for its cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 def _t(a):
     return torch.from_numpy(np.asarray(a))

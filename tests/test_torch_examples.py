@@ -8,6 +8,7 @@ import math
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from ddl25spring_tpu_torch.examples.tutorial_1b import (  # noqa: E402
     intro_dp_ga,
@@ -16,16 +17,6 @@ from ddl25spring_tpu_torch.examples.tutorial_1b import (  # noqa: E402
 )
 
 TINY_RUN = ["--device", "cpu", "--iters", "2", "--seq-len", "16"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One torch thread for this file: the suite runs its files side by side
-    on one host, and torch's CPU kernels would take every core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("twin", [intro_dp_ga, intro_dp_wa], ids=["ga", "wa"])

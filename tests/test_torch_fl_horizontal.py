@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from torch import nn  # noqa: E402
 
@@ -29,16 +30,6 @@ from ddl25spring_tpu_torch.models import flax_bridge, mnist_cnn  # noqa: E402
 from ddl25spring_tpu_torch.models.layers import dense, dropout, keep_mask  # noqa: E402
 from ddl25spring_tpu_torch.parallel.bucketing import flatten  # noqa: E402
 from ddl25spring_tpu_torch.utils.prng import client_round_generator  # noqa: E402
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One torch thread for this file: the suite runs its files side by side
-    on one host."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 class TinyMlp(nn.Module):

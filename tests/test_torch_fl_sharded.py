@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from torch import nn  # noqa: E402
 
@@ -26,17 +27,6 @@ from ddl25spring_tpu_torch.parallel.bucketing import flatten  # noqa: E402
 from ddl25spring_tpu_torch.parallel.launch import spawn  # noqa: E402
 
 N_CLIENTS, WORLD, B, E, LR, SEED = 4, 2, 4, 2, 0.05, 10
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One torch thread in this process, as in the spawned ranks: the suite
-    runs its files side by side on one host, and torch's default threads
-    contend for its cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 class TinyMlp(nn.Module):

@@ -6,18 +6,9 @@ round on the IID split."""
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from ddl25spring_tpu_torch.examples import homework1_a2_a3_sweeps  # noqa: E402
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One torch thread for this file: the suite runs its files side by side
-    on one host, and torch's CPU kernels would take every core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_sweep_twin_quick_digits():

@@ -15,19 +15,12 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from ddl25spring_tpu_torch.data import heart  # noqa: E402
 from ddl25spring_tpu_torch.fl import generative, vertical  # noqa: E402
 from ddl25spring_tpu_torch.models import flax_bridge  # noqa: E402
 from ddl25spring_tpu_torch.parallel.bucketing import flatten  # noqa: E402
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

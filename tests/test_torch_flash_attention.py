@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from ddl25spring_tpu.ops.flash_attention import (  # noqa: E402
     flash_attention as jax_flash,
@@ -25,17 +26,6 @@ from ddl25spring_tpu_torch.ops import flash_attention as fa  # noqa: E402
 
 FWD_ATOL, GRAD_ATOL = 2e-5, 5e-5
 BF16_ATOL, BF16_RTOL = 2e-2, 1e-2
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One torch thread in this process, as in the spawned ranks: the suite
-    runs its files side by side on one host, and torch's default threads
-    contend for its cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _inputs(seed, shape, lk=None, n_extra=1):

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from ddl25spring_tpu_torch.lab import dp_pp  # noqa: E402
 from ddl25spring_tpu_torch.models import llama  # noqa: E402
@@ -32,16 +33,6 @@ from ddl25spring_tpu_torch.utils.prng import seeded_generator  # noqa: E402
 TINY = dict(vocab_size=64, dmodel=32, num_heads=2, n_layers=2, ctx_size=16, dtype="float32")
 K = 3
 WINDOW = np.random.default_rng(7).integers(0, 64, (K, 4, 16)).astype(np.int32)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One torch thread for this file: the suite runs its files side by side
-    on one host."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -31,6 +31,7 @@ import os
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from ddl25spring_tpu_torch.models.llama import Llama  # noqa: E402
 from ddl25spring_tpu_torch.obs import goodput as gp  # noqa: E402
@@ -39,14 +40,6 @@ from ddl25spring_tpu_torch.serve import driver  # noqa: E402
 from ddl25spring_tpu_torch.serve.engine import ServeEngine  # noqa: E402
 
 CFG = driver.serve_model("tiny")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

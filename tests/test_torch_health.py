@@ -55,6 +55,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
@@ -98,16 +99,6 @@ def _off():
     obs.counters.reset()
     flight.reset()
     flight.configure(run_dir=None)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One torch thread in this process too, as in the spawned ranks: the
-    suite runs beside other workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

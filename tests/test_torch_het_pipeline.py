@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from ddl25spring_tpu_torch.models import resnet  # noqa: E402
 from ddl25spring_tpu_torch.ops.losses import cross_entropy_logits  # noqa: E402
@@ -34,17 +35,6 @@ from ddl25spring_tpu_torch.utils.mesh import init_mesh  # noqa: E402
 W, M = 8, 2
 X = np.random.default_rng(4).normal(size=(8, 32, 32, 3)).astype(np.float32)
 Y = np.random.default_rng(5).integers(0, 10, 8).astype(np.int32)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One torch thread in this process, as in the spawned ranks: the suite
-    runs its files side by side on one host, and torch's default threads
-    contend for its cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def het_rank(rdv, data, stages, trees):

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from ddl25spring_tpu.models import llama as jllama  # noqa: E402
 from ddl25spring_tpu.ops import losses as jlosses  # noqa: E402
@@ -163,16 +164,6 @@ def test_init_is_seeded_normal_and_moe_is_refused():
 
 MOE = dict(vocab_size=64, dmodel=32, num_heads=2, n_layers=2, ctx_size=16,
            dtype="float32", n_experts=4, capacity_factor=2.0)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One torch thread for this file's tests: the suite runs its files side
-    by side on one host, and torch's default threads contend for its cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _moe_pair(**kw):

@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from ddl25spring_tpu_torch.models.llama import Llama  # noqa: E402
 from ddl25spring_tpu_torch.obs import memscope, state  # noqa: E402
@@ -49,14 +50,6 @@ from ddl25spring_tpu_torch.serve import driver  # noqa: E402
 from ddl25spring_tpu_torch.serve.engine import ServeEngine  # noqa: E402
 
 CFG = driver.serve_model("tiny")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture
@@ -440,6 +433,25 @@ def test_mem_record_round_trips_through_mem_json_and_cell(tmp_path):
     assert cell["growth_violations"] == 0
 
 
+@pytest.mark.parametrize("config, capability, want", [
+    (None, (9, 0), 32 << 20),
+    (None, (8, 0), (8 << 20) + (128 << 10)),
+    (":4096:8", (8, 0), 32 << 20),
+    (":4096:2:16:8", (9, 0), (8 << 20) + (128 << 10)),
+])
+def test_blas_workspace_bytes_follows_torchs_rule(monkeypatch, config, capability, want):
+    """The serving band's workspace term: ``CUBLAS_WORKSPACE_CONFIG``'s
+    ``:KiB:count`` pairs, else PyTorch's default for the card's arch; none
+    on the CPU."""
+    if config is None:
+        monkeypatch.delenv("CUBLAS_WORKSPACE_CONFIG", raising=False)
+    else:
+        monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", config)
+    monkeypatch.setattr(torch.cuda, "get_device_capability", lambda device=None: capability)
+    assert memscope.blas_workspace_bytes("cuda:0") == want
+    assert memscope.blas_workspace_bytes("cpu") == 0
+
+
 def test_budget_cell_band_semantics():
     assert budget_cell(149, 100, tol=0.5)["within_band"] is True
     assert budget_cell(151, 100, tol=0.5)["within_band"] is False
@@ -576,6 +588,7 @@ def test_bench_serve_smoke_writes_mem_and_goodput_beside_serve_json(tmp_path, ca
     from tools import goodput_report, mem_report
 
     d, led = tmp_path / "obs", str(tmp_path / "l.jsonl")
+    held = torch.empty(8 << 20)  # 32 MiB the process holds before the bench: under its floor
     prev = obs.get_recorder()
     try:
         with obs.scoped(False):  # --obs-dir turns telemetry on for the run
@@ -586,7 +599,12 @@ def test_bench_serve_smoke_writes_mem_and_goodput_beside_serve_json(tmp_path, ca
         obs.set_recorder(prev)
         obs.timeline.configure(None)
     tel = rec["telemetry"]
-    assert tel["mem"]["enabled"] is True and tel["mem"]["budget"]["within_band"]
+    band = tel["mem"]["budget"]
+    assert tel["mem"]["enabled"] is True and band["within_band"]
+    assert band["floor_bytes"] >= held.nbytes > band["measured_peak_bytes"] > 0
+    serve = tel["serve"]
+    assert band["budget_bytes"] == serve["param_bytes_per_chip"] + serve["pool_bytes_per_chip"]
+    assert band["blas_workspaces"] == 0 and band["ratio_on_bill"] == band["ratio"]
     assert tel["mem"]["leaked_pages"] == 0 and tel["mem"]["samples"] > 0
     assert tel["goodput"]["scope"] == "serve" and tel["goodput"]["slo_attainment"] is not None
     for name in ("serve.json", "mem.json", "goodput.json"):

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from ddl25spring_tpu_torch import obs  # noqa: E402
 from ddl25spring_tpu_torch.models import llama  # noqa: E402
@@ -46,15 +47,6 @@ MOE = dict(vocab_size=64, dmodel=16, num_heads=2, n_layers=2, ctx_size=8, dtype=
            n_experts=4, capacity_factor=2.0)
 TOKENS = np.random.default_rng(3).integers(0, 64, (2, 8)).astype(np.int64)
 STEPS = 2
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One torch thread in this process too, as in the spawned ranks."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

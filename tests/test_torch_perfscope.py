@@ -33,19 +33,12 @@ import time
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from ddl25spring_tpu_torch import benchmarks  # noqa: E402
 from ddl25spring_tpu_torch.obs import perfscope  # noqa: E402
 
 BATCH = 16
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _tiny_step(seed=0):

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from ddl25spring_tpu_torch.lab import dp_pp, microbatches  # noqa: E402
 from ddl25spring_tpu_torch.models import llama  # noqa: E402
@@ -45,17 +46,6 @@ S, M = 3, 3
 LR = 8e-4
 TOKENS = [np.random.default_rng(10 + s).integers(0, 64, (6, 16)).astype(np.int32)
           for s in range(2)]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One torch thread in this process, as in the spawned ranks: the suite
-    runs its files side by side on one host, and torch's default threads
-    contend for its cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfg(**kw):

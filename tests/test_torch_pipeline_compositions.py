@@ -34,6 +34,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from ddl25spring_tpu_torch.models import llama  # noqa: E402
 from ddl25spring_tpu_torch.parallel import ep, tp  # noqa: E402
@@ -135,14 +136,6 @@ def comp_rank(rdv, world: int, params: dict):
             out[name] = (mesh.coords, None if loss is None else float(loss),
                          llama.export_grads(stage))
     return out
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from ddl25spring_tpu_torch.models import llama  # noqa: E402
 from ddl25spring_tpu_torch.parallel.bucketing import flatten  # noqa: E402
@@ -47,16 +48,6 @@ CASES = {"gpipe 1x4": (1, 4, 4, "gpipe", 1, 2.0), "1f1b 1x4": (1, 4, 4, "1f1b", 
          "interleaved-1f1b 2x2": (2, 2, 2, "interleaved-1f1b", 2, 2.0),
          "gpipe 2x2 drops": (2, 2, 2, "gpipe", 1, 0.5)}
 
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One torch thread for this file: the suite runs its files side by side
-    on one host, and torch's default threads contend for its cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 def moe_rank(rdv, params):
     """Every case: this rank's coordinates, the loss (last stage) and its

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from ddl25spring_tpu_torch.lab import dp_pp  # noqa: E402
 from ddl25spring_tpu_torch.models import llama  # noqa: E402
@@ -43,16 +44,6 @@ LR = 0.5
 TOKENS = [np.random.default_rng(20 + i).integers(0, 64, (6, 16)).astype(np.int32)
           for i in range(2)]
 CASES = [(name, False) for name in SCHEDULES] + [("1f1b", True), ("interleaved-1f1b", True)]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One torch thread for this file: the suite runs its files side by side
-    on one host, and torch's CPU kernels would take every core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _chunks(name):

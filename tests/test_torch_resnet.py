@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from ddl25spring_tpu_torch.data import cifar10  # noqa: E402
 from ddl25spring_tpu_torch.models import resnet  # noqa: E402
@@ -25,16 +26,6 @@ from ddl25spring_tpu_torch.parallel.dp import make_train_step, param_leaves  # n
 W = 8
 X = np.random.default_rng(0).normal(size=(4, 32, 32, 3)).astype(np.float32)
 Y = np.array([3, 1, 7, 0], np.int32)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One torch thread for this file: the suite runs its files side by side
-    on one host, and torch's CPU kernels would take every core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _nchw(x):

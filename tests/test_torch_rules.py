@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from ddl25spring_tpu_torch.models import llama, mnist_cnn, resnet  # noqa: E402
 from ddl25spring_tpu_torch.parallel import dp, rules, zero  # noqa: E402
@@ -35,17 +36,6 @@ MOE = dict(TINY, n_experts=4)
 X = np.random.default_rng(8).normal(size=(16, 16)).astype(np.float32)
 Y = np.random.default_rng(9).normal(size=(16, 4)).astype(np.float32)
 STEPS = 10
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One torch thread in this process, as in the spawned ranks: the suite
-    runs its files side by side on one host, and torch's default threads
-    contend for its cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _mesh(n, axis="stage"):

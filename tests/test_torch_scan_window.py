@@ -12,18 +12,9 @@ card (``chip_smoke.py`` phase 11 (c)).
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from ddl25spring_tpu_torch import benchmarks  # noqa: E402
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One torch thread for this file: the suite runs its files side by side
-    on one host."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _fresh(batch, n_train):

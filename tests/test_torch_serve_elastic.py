@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from ddl25spring_tpu.ft import ChaosInjector as JaxChaos  # noqa: E402
 from ddl25spring_tpu.ft import parse_chaos as jax_parse  # noqa: E402
@@ -42,14 +43,6 @@ KNOBS = dict(page_len=4, n_pages=16, max_slots=2, prefill_batch=2, max_prompt_le
              draft_layers=1)
 SPIKE = "traffic_spike@1:12,device_loss@8"
 SPIKE_TRACE = [{"t": 0.001 * i, "prompt": [5, 9, 11, 3], "max_new": 6} for i in range(8)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from ddl25spring_tpu.serve import driver as jdriver  # noqa: E402
 from ddl25spring_tpu.serve import engine as jengine  # noqa: E402
@@ -43,17 +44,6 @@ from ddl25spring_tpu_torch.serve.traffic import PROFILES, TrafficSpec, synth_tra
 
 CFG = driver.serve_model("tiny")
 POOL_KEYS = ("page_table", "seq_len", "active", "free", "refcount")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One torch thread for this file: its tensors are tiny, and torch's
-    thread pool beside JAX's (and the suite's other files) costs more than
-    it parallelizes."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from ddl25spring_tpu.serve import driver as jdriver  # noqa: E402
 from ddl25spring_tpu.serve import spec as jspec  # noqa: E402
@@ -47,14 +48,6 @@ CFG = driver.serve_model("tiny")
 DEEP_CFG = driver.serve_model("tiny-deep")
 K = 3  # the engine tests' k, as JAX's (the A/B runs the bench's 2)
 MARGIN = 1e-4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _model(cfg, seed=0):

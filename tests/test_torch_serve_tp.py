@@ -41,6 +41,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from ddl25spring_tpu_torch.models import decode as dm  # noqa: E402
 from ddl25spring_tpu_torch.models import llama  # noqa: E402
@@ -74,17 +75,6 @@ SLOT_IDS = np.array([0, 1], np.int32)
 # other tests')
 BENCH_ARGS = ["--serve", "--smoke", "--serve-tp", "2", "--device", "cpu", "--no-serve-ab",
               "--no-serve-prefix-ab"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One torch thread in this process, as in the spawned ranks: the suite
-    runs its files side by side on one host, and torch's default threads
-    contend for its cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _model(cfg=CFG, seed=0):
@@ -805,9 +795,10 @@ def test_tp_mem_record_bands_the_rank_and_passes_mem_report(runs):
     tab = rec["telemetry"]["serve"]["tp_ab"]
     dense = sum(p.numel() * p.element_size() for p in _model().parameters())
     band = doc["budget"]
-    assert band["budget_bytes"] == (tab["tp_mem_budget_bytes_per_chip"] + dense
-                                    + band["pre_existing_tensor_bytes"])
-    assert band["dense_copy_bytes"] == dense and band["non_tensor_bytes"] == 0  # the CPU's
+    # the CPU keeps no cuBLAS workspace: the bill is the shard's and the copy
+    assert band["budget_bytes"] == tab["tp_mem_budget_bytes_per_chip"] + dense
+    assert band["dense_copy_bytes"] == dense and band["blas_workspaces"] == 0
+    assert band["floor_bytes"] >= 0 and band["ratio_on_bill"] == band["ratio"]
     assert band["within_band"] and band["source"] == "serve_static_accounting"
     assert mem_report.main(["--run", str(d / "obs"), "--check"]) == 0
     assert mem_report.main(["--ledger", str(d / "ledger.jsonl"), "--check"]) == 0

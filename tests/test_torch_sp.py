@@ -41,6 +41,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from ddl25spring_tpu_torch.models import llama  # noqa: E402
 from ddl25spring_tpu_torch.parallel import sp  # noqa: E402
@@ -65,17 +66,6 @@ MOE = dict(TINY, n_experts=4, capacity_factor=2.0)
 MOE_CFG = LlamaConfig(**MOE)
 MOE_CASES = {"moe ring1": (False, "ring", 1), "moe ring2": (False, "ring", 2),
              "moe flash2": (True, "ring", 2), "moe ulysses2": (False, "ulysses", 2)}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One torch thread in this process, as in the spawned ranks: the suite
-    runs its files side by side on one host, and torch's default threads
-    contend for its cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _model(cfg, params):

@@ -35,6 +35,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from ddl25spring_tpu_torch.models import llama  # noqa: E402
 from ddl25spring_tpu_torch.parallel import tp  # noqa: E402
@@ -55,17 +56,6 @@ EPS = 1e-6                      # Adam's eps on both sides
 # case -> (n, shard_vocab)
 CASES = {f"tp{n}{'' if sv else '-replicated-vocab'}": (n, sv)
          for n in (2, 4) for sv in (True, False)}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One torch thread in this process, as in the spawned ranks: the suite
-    runs its files side by side on one host, and torch's default threads
-    contend for its cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _model(params, n, index, shard_vocab, cfg=CFG):

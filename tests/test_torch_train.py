@@ -12,6 +12,7 @@ import optax
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from ddl25spring_tpu.data import tinystories as jtinystories  # noqa: E402
 from ddl25spring_tpu.data import tokenizer as jtokenizer  # noqa: E402
@@ -30,17 +31,6 @@ from ddl25spring_tpu_torch.utils.device import resolve_device  # noqa: E402
 SMALL = dict(vocab_size=96, dmodel=64, num_heads=2, n_layers=2, ctx_size=32,
              dtype="float32")
 LR = 8e-4
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One torch thread in this process, as in the spawned ranks: the suite
-    runs its files side by side on one host, and torch's default threads
-    contend for its cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_three_adam_steps_match_jax():

@@ -51,6 +51,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from ddl25spring_tpu_torch.models import llama, mnist_cnn  # noqa: E402
 from ddl25spring_tpu_torch.ops.losses import causal_lm_loss, nll_loss  # noqa: E402
@@ -77,17 +78,6 @@ LLAMA = dict(vocab_size=64, dmodel=16, num_heads=2, n_layers=4, ctx_size=16, dty
 MOE = dict(vocab_size=64, dmodel=32, num_heads=2, n_layers=2, ctx_size=16, dtype="float32",
            n_experts=4, capacity_factor=2.0)
 LLAMA_TOKENS = np.random.default_rng(1).integers(0, 64, (8, 16)).astype(np.int64)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One torch thread in this process, as in the spawned ranks: the suite
-    runs its files side by side on one host, and torch's default threads
-    contend for its cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cnn():
