@@ -8,9 +8,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``ops/csrc/flash_attention_sm90.cu`` (bf16 tensor-core kernels) and
    ``ops/csrc/flash_attention_tf32x3.cu`` (the fp32 forward, dq and dk/dv on
    the tensor cores, 3xTF32) for sm_90a from the checkout, in parallel, while
-   phase 9 (e) runs on the card beside them (it launches none of them and
-   times nothing); the build time and the ``ptxas`` registers and spills of
-   every instantiation are printed;
+   phase 9 (e) and phase 22 start on the card beside them (they launch none
+   of them and time nothing of the card) and run on through phases 3, 5 and
+   7; phases 4 and 6, which time the card, run once both have ended, after
+   phase 7; the build time and the ``ptxas`` registers and spills of every
+   instantiation are printed;
 3. kernels: the forward, dq and dk/dv kernels against their plain PyTorch
    versions on the same inputs, on the card, at the LLaMA path's shape
    ``[3, 256, 6, 48]`` (bf16 and fp32), causal and not, ragged L=200 at hd
@@ -32,13 +34,15 @@ Phases, in order; any failure exits non-zero and prints no result:
    kernels, batch 3, ctx 256) for 24 steps; every loss finite, the loss falls,
    each kernel launched 6 times per step, every launch on the tensor-core
    variant; then full-width fp32 logits through the kernels
-   against dense attention;
+   against dense attention (both beside phase 9 (e) and phase 22's bench
+   runs, before phase 4: the step time printed here is no measurement);
 6. profile: device time by kernel, device busy and idle share of the train
    step, with the flash kernels and with dense attention;
 7. DP x PP on the card: six rank processes on ``cuda:0`` (2 pipelines x 3
    stages, 3 microbatches, 3 rows per replica; gloo through pinned host
    buffers, since NCCL refuses two ranks on one device), spawned after phase
-   2 built the kernels:
+   2 built the kernels, run after the model check (beside 9 (e) and 22: the
+   slice's printed step time is no measurement):
    (a) fp32, full width, flash kernels: one step's loss and gradients against
        a single-process step on the batch of 6 from the same weights (loss
        rtol 1e-5; gradients atol 2e-4 + rtol 2e-3), then 2 Adam steps (losses
@@ -496,8 +500,12 @@ Phases, in order; any failure exits non-zero and prints no result:
 21. the rest of observability on the card (``bench_obs_phase``; no flash
     kernel on the path: 0 launches over the phase):
     ``bench.main(["--device", "cuda", "--obs-dir", D, "--perf-reps", "8",
-    "--rounds", "2", "--perf-ledger", L])`` at full width (ResNet-18, batch
-    1024, bf16, 16 steps a CUDA graph): the perf record of the per-batch
+    "--rounds", "2", "--perf-ledger", L, "--attempts", "1"])`` at full width
+    (ResNet-18, batch 1024, bf16, 16 steps a CUDA graph), through the retry
+    driver (one child): the line's four secondaries in the JAX bench's order
+    (``hbm-resident-shuffle`` one step per dispatch, ``native-stream-uint8``
+    really streaming through pinned buffers, ``fixed-device-batch``, FedAvg)
+    and ``h2d_mib_per_s`` > 0; the perf record of the per-batch
     step names the card with its data-sheet peak, its FLOPs within 10 % of
     3.41e12, ``measured_mfu`` = flops / (p50 x 989.4e12), printed beside the
     headline's MFU, exposed comms >= 0; the memory cell from the allocator,
@@ -507,6 +515,24 @@ Phases, in order; any failure exits non-zero and prints no result:
     the run; ``tools/perf_report.py --check``, ``tools/mem_report.py --run
     --check`` and ``--ledger --check``, ``tools/goodput_report.py --check``
     and ``--run`` exit 0 unedited.
+22. the bench's retry driver and resilient run on the card
+    (``resilient_phase``; full width, ResNet-18 bf16, the train split cut to
+    8,192 rows by ``DDL25_BENCH_NTRAIN``): (a) ``DDL25_CHAOS=sigterm@3
+    python -m ddl25spring_tpu_torch.bench --scan-steps 1 --steps 6
+    --no-fedavg --perf-reps 0`` (batch 1024) through the
+    retry parent, which must make no CUDA context: attempt 1 dies with 143
+    (``preempted``), attempt 2 resumes from the durable step; one lineage id
+    on the line, every retry record, ``flight.json`` and the timeline
+    header; ``sum_check.ok``; ``replayed_steps_count == steps_replayed ==``
+    the lost steps; ``tools/goodput_report.py --check`` exits 0; (b)
+    ``DDL25_CHAOS=device_loss@2 ... --elastic --steps 6 --per-chip-batch
+    256``: 2 ranks on cuda:0 reshape 2 -> 1 with 0 steps lost; (c) the bench with
+    ``CUDA_VISIBLE_DEVICES=`` and ``--attempts 1``: the ``accelerator
+    unreachable`` line, ``health.reason`` ``device_unreachable``, no step
+    trained.  The three run at once ((b) shares the card with (a), (c)
+    needs none), and the phase runs beside the kernels' build, phase 9 (e)
+    and phases 3, 5 and 7 (it times nothing of the card; its lines print
+    after phase 21), so its walls include that load.
 
 Tolerances (|kernel - plain| <= atol + rtol * |plain|):
   fp32: atol 1e-4, rtol 0 (summation order only);
@@ -1605,7 +1631,7 @@ def fl_vertical_generative(dev):
 
 def fl_phase(dev, vertical=True):
     """Phase 9, each sub-phase timed; ``vertical=False`` leaves out (e),
-    which :func:`main` runs while the kernels build."""
+    which :func:`main` runs beside the build."""
     subs = [("(a)", fl_exactness), ("(b)", fl_headline), ("(c)", fl_a1_oracle),
             ("(d)", fl_profile)] + ([("(e)", fl_vertical_generative)] if vertical else [])
     for name, fn in subs:
@@ -6186,9 +6212,19 @@ def bench_obs_phase(dev) -> dict:
         t0 = time.perf_counter()
         rec = bench.main(["--device", "cuda", "--obs-dir", d, "--perf-reps",
                           str(OBS_PERF_REPS), "--rounds", str(OBS_FEDAVG_ROUNDS),
-                          "--perf-ledger", led])
+                          "--perf-ledger", led, "--attempts", "1"])
         wall = time.perf_counter() - t0
+        check("error" not in rec, f"the bench failed: {rec.get('error')}")
         tel = rec["telemetry"]
+        sec = rec["secondary"]
+        check([x.get("input", x.get("metric")) for x in sec]
+              == ["hbm-resident-shuffle", "native-stream-uint8", "fixed-device-batch",
+                  "fedavg_round_ms"] and all(x["value"] and x["value"] > 0 for x in sec),
+              f"the line's secondaries are not the JAX bench's four: {sec}")
+        check("pinned buffers" in sec[1].get("note", ""),
+              f"native-stream-uint8 did not stream: {sec[1]}")
+        check(rec.get("h2d_mib_per_s") and rec["h2d_mib_per_s"] > 0,
+              f"h2d_mib_per_s {rec.get('h2d_mib_per_s')}")
         check("error" not in tel["perf"], f"perfscope failed: {tel['perf']}")
         with open(os.path.join(d, "perf.json")) as f:
             perf = json.load(f)
@@ -6210,7 +6246,7 @@ def bench_obs_phase(dev) -> dict:
         band = mem_doc["budget"]
         check(mem.get("enabled") and mem["growth_violations"] == 0 and band.get("within_band")
               and band["source"] == "first_sample_live_bytes"
-              and 0 < mem_doc["memscope"]["live_bytes_peak"] <= torch.cuda.max_memory_allocated(),
+              and 0 < mem_doc["memscope"]["live_bytes_peak"] <= rec["peak_bytes_allocated"],
               f"telemetry.mem off, growing, out of its band or not the allocator's: {mem}")
         with open(os.path.join(d, "flight.json")) as f:
             live = json.load(f)["live_arrays"]
@@ -6245,13 +6281,163 @@ def bench_obs_phase(dev) -> dict:
           f"peak {perf['peak_flops_per_chip']:.4g} {perf['peak_source']})", flush=True)
     print(f"  mem: {mem['samples']} samples, live peak {band['measured_peak_bytes']} B against "
           f"the first sample's {band['budget_bytes']} B (ratio {band['ratio']}), "
-          f"max_memory_allocated {torch.cuda.max_memory_allocated()} B, 0 growth violations; "
+          f"max_memory_allocated {rec['peak_bytes_allocated']} B (the child's), 0 growth "
+          f"violations; "
           f"the flight dump's largest live tensor {largest['shape']} {largest['dtype']} "
           f"{largest['bytes']} B on {largest['device']}", flush=True)
     print(f"  goodput: fraction useful {doc['fraction_useful']} of {doc['total_wall_s']} s "
           f"(seconds {doc['seconds']}), sum_check ok; gates {gates}; flash launches "
           f"{launches}; the bench took {wall:.1f} s", flush=True)
+    print(f"  secondaries (samples/s per card): " + ", ".join(
+        f"{x.get('input', x.get('metric'))} {x['value']}" for x in sec)
+          + f"; h2d {rec['h2d_mib_per_s']} MiB/s", flush=True)
     return {"perf": perf, "mem": mem, "goodput": tel["goodput"], "wall_s": wall}
+
+
+RESUME_STEPS = 6                # phase 22 (a): timed steps of the sigterm lineage, one a dispatch
+RESUME_KILL = 3                 # (a): sigterm@k
+ELASTIC_STEPS = 6               # (b): timed steps of the elastic run (2 ranks on cuda:0)
+ELASTIC_LOSS = 2                # (b): device_loss@k
+ELASTIC_BATCH = 256             # (b): rows a rank (cut from 1024: after the reshape each replica runs both)
+BENCH_ROWS = 8192               # (a), (b): the train split on the card (DDL25_BENCH_NTRAIN), cut from 50,000
+
+# the bench as a user runs it, then whether this (parent) process made a CUDA context
+_BENCH_PARENT = r"""
+import json, sys, torch
+from ddl25spring_tpu_torch import bench
+bench.main(sys.argv[1:])
+print(json.dumps({"parent_cuda_initialized": torch.cuda.is_initialized()}))
+"""
+
+
+def bench_cli(argv, env, timeout=900):
+    """``python -c _BENCH_PARENT argv`` with ``env`` over this process's
+    environment: ``(rc, bench record, parent_cuda_initialized, stderr,
+    wall seconds)``."""
+    import os
+
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", _BENCH_PARENT, *argv], capture_output=True,
+                       text=True, timeout=timeout, env={**os.environ, **env})
+    dicts = []
+    for line in r.stdout.splitlines():
+        try:
+            d = json.loads(line)
+        except ValueError:
+            continue
+        if isinstance(d, dict):
+            dicts.append(d)
+    tail = dicts[-1] if dicts else {}
+    rec = dicts[-2] if len(dicts) >= 2 else {}
+    return (r.returncode, rec, tail.get("parent_cuda_initialized"), r.stderr,
+            time.perf_counter() - t0)
+
+
+def resilient_phase(dev, device="cuda", extra=()) -> tuple[dict, list[str]]:
+    """Phase 22: (a) a sigterm lineage resumed from its durable step, (b) the
+    elastic 2 -> 1 reshape, (c) the bench on a host with no visible GPU, each
+    through the bench's command line, all three at once (see the module
+    docstring); returns the facts and the lines to print.  ``device`` and
+    ``extra`` flags for (a) and (b) (``"cpu"`` and a small
+    ``--per-chip-batch`` rehearse them on the host)."""
+    import os
+    import tempfile
+
+    from ddl25spring_tpu_torch.data.cifar10 import ensure_bin_dir
+
+    base = ["--device", device, "--no-fedavg", "--perf-reps", "0", *extra]
+    # fewer host threads a child: the phase shares the host's 8 cores with the
+    # build and the phases beside it
+    rows = {"DDL25_BENCH_NTRAIN": str(BENCH_ROWS), "OMP_NUM_THREADS": "2"}
+    out, lines = {}, []
+    with tempfile.TemporaryDirectory() as tmp, concurrent.futures.ThreadPoolExecutor(3) as pool:
+        # the streamed secondary's binaries, ready before (a)'s second attempt
+        # needs them
+        binaries = pool.submit(ensure_bin_dir)
+        elastic = pool.submit(bench_cli, [
+            *base, "--per-chip-batch", str(ELASTIC_BATCH), "--elastic", "--steps",
+            str(ELASTIC_STEPS), "--attempts", "1", "--obs-dir", os.path.join(tmp, "elastic"),
+            "--perf-ledger", os.path.join(tmp, "b.jsonl")],
+            {"DDL25_CHAOS": f"device_loss@{ELASTIC_LOSS}", **rows})
+        dc = os.path.join(tmp, "nogpu")
+        no_gpu = pool.submit(bench_cli, ["--device", "cuda", "--no-fedavg", "--perf-reps", "0",
+                                         "--attempts", "1", "--obs-dir", dc,
+                                         "--perf-ledger", os.path.join(tmp, "c.jsonl")],
+                             {"CUDA_VISIBLE_DEVICES": ""}, 300)
+        d, led = os.path.join(tmp, "lineage"), os.path.join(tmp, "a.jsonl")
+        rc, rec, parent_ctx, err, wall_a = bench_cli(
+            [*base, "--scan-steps", "1", "--steps", str(RESUME_STEPS), "--obs-dir", d,
+             "--perf-ledger", led], {"DDL25_CHAOS": f"sigterm@{RESUME_KILL}", **rows})
+        binaries.result()
+        check(rc == 0 and rec and "error" not in rec,
+              f"(a) the lineage failed: rc {rc}, {rec.get('error')}; {err[-3000:]}")
+        tel = rec["telemetry"]
+        resume, cell, fails = tel["resume"], tel["goodput"], tel.get("retry_failures", [])
+        check(parent_ctx is False, f"(a) the retry parent made a CUDA context: {parent_ctx}")
+        check(resume.get("resumes", 0) >= 1 and fails and fails[0]["reason"] == "preempted"
+              and fails[0]["rc"] == 143, f"(a) no preempted attempt resumed: {resume}, {fails}")
+        lineage = cell.get("lineage_id")
+        with open(os.path.join(d, "flight.json")) as f:
+            fl_meta = json.load(f)["meta"]
+        with open(os.path.join(d, "timeline.jsonl")) as f:
+            header = json.loads(f.readline())
+        check(lineage and all(f["lineage_id"] == lineage for f in fails)
+              and fl_meta.get("lineage_id") == lineage and fl_meta.get("attempt", 0) >= 2
+              and header.get("lineage_id") == lineage,
+              f"(a) more than one lineage id: {lineage}, {[f['lineage_id'] for f in fails]}, "
+              f"{fl_meta.get('lineage_id')}, {header.get('lineage_id')}")
+        lost = sum(f["goodput"]["lost_steps"] for f in fails if f.get("goodput"))
+        check(cell["scope"] == "train_lineage" and cell["sum_check"]["ok"]
+              and cell["replayed_steps_count"] == resume.get("steps_replayed") == lost > 0,
+              f"(a) replayed {cell.get('replayed_steps_count')}, steps_replayed "
+              f"{resume.get('steps_replayed')}, lost {lost}; sum_check {cell['sum_check']}")
+        # in a process of its own: its report must not land among phase 3's lines
+        gate = subprocess.run([sys.executable, "tools/goodput_report.py", "--ledger", led,
+                               "--check"], capture_output=True, text=True, timeout=120)
+        check(gate.returncode == 0, f"(a) goodput_report --check exit {gate.returncode}: "
+                                    f"{gate.stdout[-2000:]}")
+        sec = rec["secondary"]
+        check([x["input"] for x in sec] == ["native-stream-uint8", "fixed-device-batch"]
+              and ("pinned buffers" in sec[0]["note"] or device == "cpu"),
+              f"(a) secondaries {sec}")
+        lines.append(
+            f"  (a) sigterm@{RESUME_KILL} lineage, {RESUME_STEPS} steps at batch 1024: attempt 1 "
+            f"rc {fails[0]['rc']} ({fails[0]['reason']}, wall {fails[0]['wall_s']} s), resumed "
+            f"from step {resume.get('resumed_from_step')}, steps replayed "
+            f"{resume.get('steps_replayed')} = lost {lost}, recovery_wall_s "
+            f"{resume.get('recovery_wall_s')}, lineage fraction useful {cell['fraction_useful']} "
+            f"of {cell['total_wall_s']} s (seconds {cell['seconds']}); headline {rec['value']} "
+            f"samples/s per card; secondaries {[(x['input'], x['value']) for x in sec]}; h2d "
+            f"{rec.get('h2d_mib_per_s')} MiB/s; goodput_report --check 0; parent CUDA context "
+            f"{parent_ctx}; took {wall_a:.1f} s")
+        out["lineage"] = {"resume": resume, "goodput": cell, "wall_s": wall_a}
+
+        rc, rec, parent_ctx, err, wall_b = elastic.result()
+        check(rc == 0 and rec and "error" not in rec,
+              f"(b) the elastic run failed: rc {rc}, {rec.get('error')}; {err[-3000:]}")
+        resume = rec["telemetry"]["resume"]
+        shapes = [(e["old"], e["new"], e["steps_lost"]) for e in resume.get("reshape", [])]
+        check(shapes == [({"data": 2}, {"data": 1}, 0)] and resume["total_steps_lost"] == 0
+              and rec["value"] > 0 and rec["telemetry"]["goodput"]["sum_check"]["ok"],
+              f"(b) reshapes {shapes}, value {rec.get('value')}")
+        lines.append(
+            f"  (b) elastic device_loss@{ELASTIC_LOSS}, {ELASTIC_STEPS} steps, {ELASTIC_BATCH} rows "
+            f"a rank: reshape {shapes}, "
+            f"wall {resume['reshape_wall_s']} s, {rec['value']} samples/s per card over "
+            f"card-seconds ({rec['topology']}); parent CUDA context {parent_ctx}; took "
+            f"{wall_b:.1f} s")
+        out["elastic"] = {"resume": resume, "value": rec["value"], "wall_s": wall_b}
+
+        rc, rec, parent_ctx, err, wall_c = no_gpu.result()
+        h = rec.get("telemetry", {}).get("health", {})
+        check(rc == 0 and str(rec.get("error", "")).startswith(
+                  "exhausted 1 attempts; last: accelerator unreachable")
+              and h.get("reason") == "device_unreachable" and rec.get("value") == 0.0
+              and not os.path.exists(os.path.join(dc, "metrics.jsonl")),
+              f"(c) no-GPU bench: rc {rc}, {rec}; {err[-2000:]}")
+        lines.append(f"  (c) CUDA_VISIBLE_DEVICES=: {rec['error']!r}, health.reason "
+                     f"{h['reason']}, no step trained; took {wall_c:.1f} s")
+    return out, lines
 
 
 def main() -> int:
@@ -6274,19 +6460,19 @@ def main() -> int:
 
     print("== build")
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        building = pool.submit(_build.build, _build.CSRC / "flash_attention.cu",
-                               _build.CSRC / "flash_attention_sm90.cu",
-                               _build.CSRC / "flash_attention_tf32x3.cu")
-        # phase 9 (e) launches no kernel of the build and times nothing: it
-        # runs on the card while nvcc builds
-        print("  phase 9 (e), federated learning (cuDNN, cuBLAS), while the kernels build:")
-        t1 = time.perf_counter()
-        fl_vertical_generative(dev)
-        print(f"  (e) took {time.perf_counter() - t1:.1f} s", flush=True)
-        libs = building.result()
+    # phase 9 (e) and phase 22 build no kernel and time nothing of the card:
+    # they start here, beside the build, and run on through phases 3, 5 and
+    # 7, whose checks time nothing; phase 4 times the kernels and phase 6
+    # profiles once both have ended.  Phase 22's lines print after phase 21
+    side = concurrent.futures.ThreadPoolExecutor(2)
+    t_side = time.perf_counter()
+    phase22 = side.submit(resilient_phase, dev)
+    print("  phase 9 (e), federated learning (cuDNN, cuBLAS), beside the build:", flush=True)
+    vertical = side.submit(fl_vertical_generative, dev)
+    libs = _build.build(_build.CSRC / "flash_attention.cu", _build.CSRC / "flash_attention_sm90.cu",
+                        _build.CSRC / "flash_attention_tf32x3.cu")
     print(f"  {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.1f} s "
-          f"(one nvcc each, in parallel; phase 9 (e) beside them)")
+          f"(one nvcc each, in parallel; phase 9 (e) and phase 22 beside them)")
     for lib in libs:
         print_ptxas(lib.with_suffix(".log").read_text())
 
@@ -6340,10 +6526,8 @@ def main() -> int:
             autograd_case(fa, gen, dev, MAIN_SHAPE, dtype, causal, with_lse=True)
     autograd_case(fa, gen, dev, (2, 200, 2, 64), torch.float32, True, with_lse=True)
 
-    print("== timing at the LLaMA path's shape, bf16 causal")
-    timing = time_kernels(fa, gen, dev)
-
-    print(f"== the slice: primer, {STEPS} steps, full width, bf16, flash kernels")
+    print(f"== the slice: primer, {STEPS} steps, full width, bf16, flash kernels (beside 9 (e) "
+          "and phase 22: its step time below is no measurement)")
     fa.reset_launches()
     run = primer.main(["--iters", str(STEPS), "--batch", str(B), "--seq-len", str(L),
                        "--seed", "0"])
@@ -6371,17 +6555,28 @@ def main() -> int:
     print("== full-width model check")
     model_check(dev)
 
-    print("== where the step's time goes (torch.profiler, bf16, full width)")
-    for use_flash in (True, False):
-        profile_steps(dev, use_flash)
-
     print(f"== DP x PP on the card: {DP} x {PP} ranks, {MICRO} microbatches, {ROWS} rows "
-          "per replica")
+          "per replica (beside 9 (e) and phase 22: the slice's step time is no measurement)")
     t0 = time.perf_counter()
     fp32_launches = dp_pp_exactness(dev)
     dp_pp_slice(dev)
     nccl_dp(dev)
     print(f"  phase 7 in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    vertical.result()
+    _, lines22 = phase22.result()
+    wall22 = time.perf_counter() - t_side
+    side.shutdown()
+    print(f"  (phase 9 (e) and phase 22's runs ended {time.perf_counter() - t0:.1f} s after "
+          "phase 7)", flush=True)
+
+    print("== timing at the LLaMA path's shape, bf16 causal")
+    timing = time_kernels(fa, gen, dev)
+
+    print("== where the step's time goes (torch.profiler, bf16, full width)")
+    for use_flash in (True, False):
+        profile_steps(dev, use_flash)
 
     print("== ResNet-18/CIFAR-10 on the card (cuDNN; no hand-written kernel on this path)")
     t0 = time.perf_counter()
@@ -6391,7 +6586,7 @@ def main() -> int:
     print("== federated learning on the card (cuDNN, cuBLAS; no hand-written kernel on "
           "this path)")
     t0 = time.perf_counter()
-    fl_phase(dev, vertical=False)  # (e) ran while the kernels built
+    fl_phase(dev, vertical=False)  # (e) ran beside the build
     print(f"  phase 9 (a)-(d) in {time.perf_counter() - t0:.1f} s")
 
     print(f"== schedules on the card: {', '.join(SCHED)} ({CHUNKS} chunks per rank when "
@@ -6486,6 +6681,15 @@ def main() -> int:
     t0 = time.perf_counter()
     bench_obs_phase(dev)
     print(f"  phase 21 in {time.perf_counter() - t0:.1f} s")
+
+    print("== the bench's retry driver and resilient run on the card: a sigterm@k lineage "
+          "resumed from its durable step, the elastic 2 -> 1 reshape (2 ranks on cuda:0), the "
+          "bench with no visible GPU")
+    print(card)
+    for line in lines22:
+        print(line)
+    print(f"  phase 22 in {wall22:.1f} s (its runs beside the build, 9 (e) and phases 3, 5 "
+          "and 7)")
 
     kernels = [
         {"name": f"flash_{name}", "route": "cuda", "source": SOURCE[timing[name]["variant"]],

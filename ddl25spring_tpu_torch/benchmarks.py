@@ -12,14 +12,14 @@ train split on the device and draws each step's batch there;
 :func:`build_resnet_scan_step` runs ``K`` steps per dispatch, the batches
 drawn inside one CUDA graph (:meth:`DeviceDataset.scan_window`);
 :func:`timed_run` times the steps or the windows; :func:`report_line` is the
-one-line JSON record the entry points print.
+one-line JSON record the entry points print; :class:`InputFeed` streams
+batches from the native C++ loader to the card (the bench's
+``native-stream-uint8`` line) or re-feeds a fixed one.
 
 Where the JAX step is a pure function of ``(params, opt_state, batch)``
 that returns new ones, the port's step updates its module and optimizer in
 place (as :mod:`~ddl25spring_tpu_torch.parallel.dp` does): ``step(batch)``
 returns the loss, or None on a pipeline rank that is not the last stage.
-
-Not ported yet (ROADMAP A13): the native streaming ``InputFeed``.
 """
 
 from __future__ import annotations
@@ -61,7 +61,8 @@ def build_resnet_step(mesh=None, num_microbatches: int = 1, batch: int = 1024,
     ranks), or of this process alone on ``device`` when ``mesh`` is None (one
     replica, one stage: nothing to reduce).
 
-    ``stages == 1`` -> pure DP (layout ``"dp"``) through
+    ``stages == 1`` (or a second axis other than ``stage``, whose ranks are
+    then replicas) -> pure DP (layout ``"dp"``) through
     :func:`~ddl25spring_tpu_torch.parallel.dp.make_dp_train_step`;
     ``stages`` in 2..4 -> the heterogeneous pipeline x DP (``"dppp"``) over
     ``make_resnet_stages(stages)``, stage ``s`` alone on rank ``(d, s)``, with
@@ -88,6 +89,10 @@ def build_resnet_step(mesh=None, num_microbatches: int = 1, batch: int = 1024,
     counterpart: the update is in place, so parameters and momentum exist
     once anyway."""
     D, S = (mesh.grid.data, mesh.grid.size) if mesh is not None else (1, 1)
+    if getattr(mesh, "grid", None) is not None and getattr(mesh.grid, "axis", "stage") != "stage":
+        # the survivors' grid after an elastic reshape, Mesh.regrid(n,
+        # model=world // n): pure DP over "data", the other axis's ranks replicas
+        S = 1
     if S not in (1, 2, 3, 4):
         raise ValueError(f"resnet pipeline supports S in (1, 2, 3, 4), got {S}")
     if overlap and S != 1:
@@ -300,6 +305,102 @@ class DeviceDataset:
     @cursor.setter
     def cursor(self, value: int) -> None:
         self._i = int(value)
+
+
+class InputFeed:
+    """The benchmark's host input pipeline: the native C++ loader's raw
+    uint8 batches streamed to ``device`` (the counterpart of the JAX
+    package's ``InputFeed``, ``benchmarks.py:363-433``), with a fixed
+    device-resident batch as the fallback and secondary mode.
+
+    ``stream``: True streams (synthesizing CIFAR-format binaries when none
+    exist, :func:`~ddl25spring_tpu_torch.data.cifar10.ensure_bin_dir`),
+    False does not, None streams when binaries are present.  :meth:`feed`
+    gives the next streamed batch on ``device``, :meth:`feed_fixed` the
+    first one (the fixed batch); without streaming both give the fixed
+    batch, and :attr:`input_mode` says ``fixed-device-batch``.  Normalizing
+    stays on the device, inside the step, as for the device-resident modes.
+
+    On CUDA each batch is copied into one of two pinned host buffers and
+    sent with ``non_blocking=True`` on the current stream; a buffer is
+    written again only after the event recorded behind its last copy, so
+    the host fills the next batch while the card still reads the previous
+    one.  :meth:`close` stops the loader's workers."""
+
+    def __init__(self, batch: int, stream: bool | None = None, workers: int = 2,
+                 prefetch_depth: int = 4, device=None):
+        from ddl25spring_tpu_torch.data.cifar10 import (
+            _find_loader_dir,
+            ensure_bin_dir,
+            load_cifar10_u8,
+        )
+        from ddl25spring_tpu_torch.data.native_loader import (
+            NativeCifar10Loader,
+            NativeLoaderUnavailable,
+        )
+
+        self.device = resolve_device(device)
+        self.loader = self._stream = None
+        self.input_mode, self.provenance = "fixed-device-batch", "synthetic"
+        want = stream if stream is not None else (_find_loader_dir() is not None)
+        if want:
+            try:
+                bin_dir, self.provenance = ensure_bin_dir()
+                self.loader = NativeCifar10Loader(bin_dir, batch_size=batch, normalize=False,
+                                                  workers=workers,
+                                                  prefetch_depth=prefetch_depth)
+                self._stream = iter(self.loader)
+                self.input_mode = "native-stream-uint8"
+                print(f"native streaming input: {bin_dir} ({self.provenance} data)", flush=True)
+            except NativeLoaderUnavailable as e:
+                print(f"native loader unavailable ({e}); using fixed batch", flush=True)
+        self._pinned = []
+        if self.device.type == "cuda":
+            self._pinned = [(torch.empty((batch, 32, 32, 3), dtype=torch.uint8).pin_memory(),
+                             torch.empty((batch,), dtype=torch.int32).pin_memory(), None)
+                            for _ in range(2)]
+        self._slot = 0
+        if self._stream is not None:
+            xs, ys = next(self._stream)  # doubles as the fixed batch
+        else:
+            d = load_cifar10_u8(n_train=batch)
+            self.provenance = d["provenance"]
+            xs, ys = d["x"], d["y"]
+        self.fixed = self._to_device(xs, ys)
+
+    @property
+    def streaming(self) -> bool:
+        return self._stream is not None
+
+    def _to_device(self, xs, ys):
+        if not self._pinned:
+            return torch.from_numpy(xs).to(self.device), torch.from_numpy(ys).to(self.device)
+        hx, hy, done = self._pinned[self._slot]
+        if done is not None:
+            done.synchronize()  # the card has read this buffer's last batch
+        hx.numpy()[...] = xs
+        hy.numpy()[...] = ys
+        x = hx.to(self.device, non_blocking=True)
+        y = hy.to(self.device, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        self._pinned[self._slot] = (hx, hy, ev)
+        self._slot = (self._slot + 1) % len(self._pinned)
+        return x, y
+
+    def feed(self):
+        if self._stream is None:
+            return self.fixed
+        return self._to_device(*next(self._stream))
+
+    def feed_fixed(self):
+        return self.fixed
+
+    def close(self):
+        if self.loader is not None:
+            self.loader.close()
+            self.loader = None
+            self._stream = None
 
 
 def report_line(layout, sps_chip, input_mode, frac, tf, **extra):

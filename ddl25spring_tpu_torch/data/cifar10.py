@@ -8,10 +8,10 @@ Arrays are NHWC float32, normalized per-channel with the canonical CIFAR-10
 train statistics.
 
 The PyTorch port's copy of the JAX package's ``data/cifar10.py``: numpy
-only, the same arrays byte for byte.  :func:`normalize_on_device` (from the
-JAX package's ``data/native_loader.py``) is the one addition;
-``ensure_bin_dir``, which writes the files of the native streaming loader,
-waits for that loader's port.
+only, the same arrays byte for byte, and the same synthesized binaries of
+:func:`ensure_bin_dir` (the input of the native streaming loader,
+:mod:`~ddl25spring_tpu_torch.data.native_loader`).  :func:`normalize_on_device`
+(from the JAX package's ``data/native_loader.py``) is the one addition.
 """
 
 from __future__ import annotations
@@ -78,6 +78,38 @@ def _synthetic(n: int, seed: int, noise: float = 0.2):
         np.float32
     )
     return np.clip(imgs, 0.0, 1.0), labels
+
+
+def ensure_bin_dir(
+    n_records: int = 50_000, seed: int = 0, synth_dir: str = "data/cifar10-synth-bin"
+) -> tuple[Path, str]:
+    """Directory of CIFAR-10 binary batches for the native streaming loader.
+
+    Returns ``(dir, provenance)`` where provenance is ``"real"`` when the
+    canonical binaries are present (``DDL25_CIFAR10_DIR`` / data dirs) and
+    ``"synthetic"`` otherwise -- in which case a CIFAR-format ``train.bin``
+    is written once (uint8 quantization of :func:`_synthetic`) so the C++
+    prefetcher exercises its real parse/shuffle/assemble path and benchmarks
+    measure true input-pipeline cost even on a zero-egress image.
+    """
+    d = _find_loader_dir()
+    if d is not None:
+        return d, "real"
+    out = Path(synth_dir)
+    f = out / "train.bin"
+    want_bytes = n_records * 3073
+    if not (f.exists() and f.stat().st_size == want_bytes):
+        out.mkdir(parents=True, exist_ok=True)
+        imgs, labels = _synthetic(n_records, seed)
+        chw = np.round(imgs.transpose(0, 3, 1, 2) * 255.0).astype(np.uint8)
+        rec = np.empty((n_records, 3073), np.uint8)
+        rec[:, 0] = labels.astype(np.uint8)
+        rec[:, 1:] = chw.reshape(n_records, -1)
+        # pid in the temp name: two processes may synthesize at once
+        tmp = f.with_suffix(f".bin.tmp.{os.getpid()}")
+        tmp.write_bytes(rec.tobytes())
+        tmp.replace(f)
+    return out, "synthetic"
 
 
 @lru_cache(maxsize=1)

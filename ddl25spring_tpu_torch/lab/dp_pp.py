@@ -50,7 +50,8 @@ last stage of pipeline 0, with each step's seconds the slowest rank's
 :func:`~ddl25spring_tpu_torch.benchmarks.build_resnet_step` over ``N`` ranks
 (``--ranks``; default one per card, one on the CPU), pure DP
 (``data = N``) or, with ``--pp``, the 2-stage heterogeneous pipeline x DP
-(``data = N // 2``, 2 microbatches).  Batch 1024 per rank on CUDA (bf16) and
+(``data = N // 2``, 2 microbatches; ``--stages S``: S stages, 2..4).  Batch
+1024 per rank on CUDA (bf16) and
 4 on the CPU (float32), SGD 0.1 with momentum 0.9, the CIFAR-10 train split
 on the device (:class:`~ddl25spring_tpu_torch.benchmarks.DeviceDataset`;
 ``--input``, :func:`resnet_input`: ``hbm`` feeds one step at a time,
@@ -75,7 +76,10 @@ rank runs in this process; more are spawned (``--ranks N`` shares the
 cards, or the CPU, between N processes: the port's form of
 ``--force-cpu-devices N``).  On CUDA the run sets
 ``torch.backends.cudnn.benchmark`` and turns TF32 off (:data:`RUN_FLAGS`),
-and puts both back after.
+and puts both back after.  The bench drives a one-process run through
+:class:`ResnetTelemetry`: its hooks, the resilient primary of
+:class:`ResnetFT` and the secondary lines (:func:`resnet_secondaries`);
+``bench --elastic`` runs :func:`elastic_resnet`.
 
 Run: ``python -m ddl25spring_tpu_torch.lab.dp_pp [--pp --ranks 4] [--input hbm]``
      ``python -m ddl25spring_tpu_torch.lab.dp_pp --workload llama [--iters 200]
@@ -86,6 +90,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
+import os
 import statistics
 import time
 from dataclasses import dataclass
@@ -343,6 +349,9 @@ def parse_args(argv=None):
                     help="seconds before the spawned ranks are killed")
     ap.add_argument("--pp", action="store_true",
                     help="resnet: the 2-stage heterogeneous pipeline x DP")
+    ap.add_argument("--stages", type=int, default=0, metavar="S",
+                    help="resnet: the S-stage (2..4) heterogeneous pipeline x DP, the ranks "
+                         "sharing the cards; 0 = 2 under --pp, else pure DP")
     ap.add_argument("--ranks", type=int, default=0,
                     help="resnet: rank processes; 0 = one per card (one on the CPU)")
     ap.add_argument("--batch", type=int, default=0,
@@ -502,6 +511,29 @@ class ResnetJob:
     trace_dir: str = ""          # the reporting rank's torch.profiler trace of its timed run
     warmup: int = WARMUP         # steps before the timed ones (the first counts the FLOPs)
     n_train: int | None = None   # the train split's rows (None: CIFAR-10's 50,000)
+    overlap: bool = False        # pure DP's backward-overlapped buckets (layout "dp-overlap")
+
+
+@dataclass
+class ResnetFT:
+    """The fault tolerance a bench hands a ResNet run (:func:`train_resnet`,
+    :func:`elastic_rank`), as the JAX bench wires it (``bench.py:1112-1210``):
+    an :class:`~ddl25spring_tpu_torch.ft.AutoSaver` on ``ckpt_dir`` every
+    ``save_every`` steps (0: none unless ``resume``), chaos armed from
+    ``DDL25_CHAOS`` with its journal there, and with ``resume`` the latest
+    durable step restored before the first timed call.  ``t_entry`` is the
+    process's entry on ``time.perf_counter`` (``recovery_wall_s`` runs from
+    it); ``prev_last_step`` the dead attempt's last checkpointable step, read
+    from its flight dump before this attempt wrote one (the steps it
+    replays); ``elastic`` leaves ``device_loss`` and ``capacity_change`` to
+    the caller's reshape."""
+
+    ckpt_dir: str
+    save_every: int = 0
+    resume: bool = False
+    t_entry: float | None = None
+    prev_last_step: int | None = None
+    elastic: bool = False
 
 
 @dataclass
@@ -511,11 +543,118 @@ class ResnetTelemetry:
     record per timed call, a :class:`~ddl25spring_tpu_torch.obs.goodput.
     GoodputMeter` billed the warm-up and each call, and a
     :class:`~ddl25spring_tpu_torch.obs.memscope.MemScope` sampled after each
-    call.  Any may be None."""
+    call.  Any may be None.  ``ft`` (a :class:`ResnetFT`) makes the primary
+    phase resumable; ``secondaries`` runs the bench's secondary lines after
+    it (:func:`resnet_secondaries`)."""
 
     logger: object = None
     goodput: object = None
     memscope: object = None
+    ft: ResnetFT | None = None
+    secondaries: bool = False
+
+
+class _Recovery:
+    """The resilient primary phase of a ResNet run (:class:`ResnetFT`): the
+    saver, the chaos injector, the restore and the per-step hook."""
+
+    def __init__(self, cfg: ResnetFT, layout: str):
+        from ddl25spring_tpu_torch.ft import AutoSaver, ChaosInjector
+
+        self.cfg = cfg
+        self.saver = (AutoSaver(cfg.ckpt_dir, save_every=cfg.save_every,
+                                meta={"driver": "bench", "layout": layout})
+                      if cfg.save_every or cfg.resume else None)
+        self.chaos = ChaosInjector.from_env(state_dir=cfg.ckpt_dir)
+        if self.chaos.pending("nan_grad"):
+            print("chaos: nan_grad does not reach the bench's uint8 input path; exercise it "
+                  "through ft.demo or the ft tests", flush=True)
+        # the kinds an elastic run claims at its segment boundaries (chaos.take):
+        # on_step must not raise them out from under the reshape
+        self.skip = ("device_loss", "capacity_change") if cfg.elastic else ()
+        self.start_step = 0
+        self.replayed = None
+        self.recovery_wall_s = None
+
+    @staticmethod
+    def bundle(module, opt, ds) -> dict:
+        from ddl25spring_tpu_torch.ft import resume_bundle
+        from ddl25spring_tpu_torch.utils.checkpoint import optimizer_state
+
+        named = list(module.named_parameters())
+        return resume_bundle({n: p.detach() for n, p in named}, optimizer_state(opt, named),
+                             data_cursor=ds.cursor, rng_seed=ds.seed)
+
+    def restore(self, module, opt, ds, meter) -> bool:
+        """With ``resume``: the latest durable step into ``module``, ``opt``
+        and ``ds``'s cursor, copied into the tensors that are there (a CUDA
+        graph captured over them keeps reading them), and ``recovery`` billed
+        from process entry to now.  True when this ran."""
+        if not (self.cfg.resume and self.saver is not None):
+            return False
+        state, start = self.saver.restore_or_init(self.bundle(module, opt, ds))
+        if self.cfg.t_entry is not None:
+            # the relaunch's recovery bill: process entry -> restored
+            self.recovery_wall_s = round(time.perf_counter() - self.cfg.t_entry, 3)
+        if meter is not None:
+            meter.add("recovery", 0.0, meter.now(), reason="relaunch_restore")
+        if start:
+            with torch.no_grad():
+                for n, p in module.named_parameters():
+                    p.copy_(state["params"][n])
+                    live = opt.state[p]
+                    for k, v in state["opt_state"][n].items():
+                        if torch.is_tensor(live.get(k)) and live[k].shape == v.shape:
+                            live[k].copy_(v)
+                        else:
+                            live[k] = v.clone()
+            ds.cursor = int(state["data_cursor"])
+            prev = self.cfg.prev_last_step
+            if prev is not None:
+                # the steps between the dead attempt's last one and this
+                # restart re-run now: billed replayed_steps, not useful
+                self.replayed = max(0, prev + 1 - start)
+                obs.flight.annotate(steps_replayed=self.replayed)
+                if meter is not None:
+                    meter.set_replay_window(start, prev)
+        self.start_step = start
+        return True
+
+    def on_step(self, i, lval, module, opt, ds, meter) -> None:
+        """After timed call ``i``: kill-type chaos first (a fault at ``i``
+        fires before ``i``'s state can become durable), then the gated save,
+        billed ``checkpoint_save`` when it fired."""
+        self.chaos.on_step(i, skip=self.skip)
+        if self.saver is not None:
+            t0 = meter.now() if meter is not None else 0.0
+            if self.saver.maybe_save(i, self.bundle(module, opt, ds), loss=lval) \
+                    and meter is not None:
+                meter.add("checkpoint_save", t0, meter.now(), step=i)
+
+    def close(self) -> None:
+        if self.saver is not None:
+            self.saver.close()
+
+    def cell(self, total: int, **extra) -> dict | None:
+        """``telemetry.resume``'s facts of this attempt (None without a
+        saver), ``total`` the phase's dispatches."""
+        if self.saver is None:
+            return None
+        s = self.start_step
+        return {
+            "start_step": s,
+            **({"resumed_from_step": s - 1} if s else {}),
+            **({"steps_replayed": self.replayed} if self.replayed is not None else {}),
+            # the run was done when it resumed: a minimal window re-ran
+            **({"resumed_past_end": True} if s >= total else {}),
+            "save_every": self.cfg.save_every,
+            "ckpt_dir": self.cfg.ckpt_dir,
+            "saves": self.saver.saves,
+            "saves_skipped": self.saver.skipped,
+            **({"recovery_wall_s": self.recovery_wall_s}
+               if self.recovery_wall_s is not None else {}),
+            **extra,
+        }
 
 
 # the timed ResNet run: cuDNN autotunes its convolutions, TF32 off
@@ -536,7 +675,19 @@ def train_resnet(mesh, job: ResnetJob, telemetry: ResnetTelemetry | None = None)
     path with its logger, meter and a memory sample after each call, the
     first (FLOP-counting) step is billed as warm-up, and ``live`` holds the
     per-batch step, the dataset's fixed batch and the builder's meta, for
-    :func:`~ddl25spring_tpu_torch.obs.perfscope.measure_bench_step`."""
+    :func:`~ddl25spring_tpu_torch.obs.perfscope.measure_bench_step`.
+
+    ``telemetry.ft`` (:class:`ResnetFT`) makes the timed phase the bench's
+    resilient primary (``bench.py:1112-1443``): restored before it (the
+    build's first step and the capture of a CUDA graph see the restored
+    tensors, copied in place), chaos and the gated autosave after each timed
+    call, whose indices count dispatches (``K`` steps each under
+    ``hbm-scan``) from the restored step on, the saver drained after it;
+    ``resume`` holds the attempt's facts, ``timed_steps`` the steps it ran.
+    A ``device_loss`` fault drains the saver and raises
+    :class:`~ddl25spring_tpu_torch.ft.DeviceLossError`.
+    ``telemetry.secondaries``: ``secondary`` holds the bench's secondary
+    lines and ``h2d_mib_per_s`` the link's rate (:func:`resnet_secondaries`)."""
     dev = mesh.device if mesh is not None else resolve_device(job.device)
     cuda = dev.type == "cuda"
     tel = telemetry or ResnetTelemetry()
@@ -549,33 +700,64 @@ def train_resnet(mesh, job: ResnetJob, telemetry: ResnetTelemetry | None = None)
             torch.cuda.reset_peak_memory_stats(dev)
         g0 = meter.now() if meter is not None else 0.0
         if job.input == "hbm-scan":
-            call, step, module, _, meta = benchmarks.build_resnet_scan_step(
+            call, step, module, opt, meta = benchmarks.build_resnet_scan_step(
                 mesh, job.microbatches, job.batch, lr=job.lr, device=dev, seed=job.seed,
-                scan_steps=K, dataset=ds)
+                scan_steps=K, dataset=ds, overlap=job.overlap)
             feed, input_mode = (lambda: ds.scan_window(K)), f"{ds.input_mode}-scan{K}"
             first, flops = count_flops(step, ds.fixed)
         else:
-            step, module, _, meta = benchmarks.build_resnet_step(
-                mesh, job.microbatches, job.batch, lr=job.lr, device=dev, seed=job.seed)
+            step, module, opt, meta = benchmarks.build_resnet_step(
+                mesh, job.microbatches, job.batch, lr=job.lr, device=dev, seed=job.seed,
+                overlap=job.overlap)
             call, feed = step, (lambda: ds.fixed) if fixed else ds.feed
             input_mode = "fixed-device-batch" if fixed else ds.input_mode
             first, flops = count_flops(step, feed())
-        if meter is not None:  # the build, capture and FLOP-counting step
-            if cuda:
-                torch.cuda.synchronize(dev)
+        if meter is not None and cuda:
+            torch.cuda.synchronize(dev)
+        rec = _Recovery(tel.ft, meta["layout"]) if tel.ft is not None else None
+        # a resumed attempt bills process entry -> restored as recovery (the
+        # build inside it); any other bills the build, capture and
+        # FLOP-counting step as warm-up
+        if not (rec is not None and rec.restore(module, opt, ds, meter)) and meter is not None:
             meter.add("warmup_compile", g0, meter.now(), label=job.input)
         comm = mesh.comm if mesh is not None else None
+        # the warm-up re-runs in a resumed attempt too (cuDNN's autotune and
+        # the graph's capture are per process), so its cursor drifts past the
+        # restored one by the warm-up's batches, as in the JAX bench
         _, warm, _ = benchmarks.timed_run(call, feed, 0, job.warmup - 1, device=dev, k=K,
                                           label=job.input, goodput=meter)
         if comm is not None:
             comm.take_stats()
         reports = mesh is None or mesh.coords == (0, job.stages - 1)
         sample = tel.memscope
-        with traced(job.trace_dir, reports):
-            dt, timed, step_s = benchmarks.timed_run(
-                call, feed, job.iters // K, 0, device=dev, k=K, logger=tel.logger,
-                label=job.input, samples_per_step=job.batch, goodput=meter,
-                on_step=(lambda i, _loss: sample.sample(i)) if sample is not None else None)
+        total = job.iters // K
+        start = rec.start_step if rec is not None else 0
+        n_disp = max(total - start, 1)
+
+        def on_step(i, lval):
+            if sample is not None:
+                sample.sample(i)
+            if rec is not None:
+                rec.on_step(i, lval, module, opt, ds, meter)
+
+        from ddl25spring_tpu_torch.ft.chaos import DeviceLossError
+
+        try:
+            with traced(job.trace_dir, reports):
+                dt, timed, step_s = benchmarks.timed_run(
+                    call, feed, n_disp, 0, device=dev, k=K, logger=tel.logger,
+                    label=job.input, samples_per_step=job.batch, goodput=meter,
+                    on_step=on_step if sample is not None or rec is not None else None,
+                    step_offset=start)
+        except DeviceLossError:
+            rec.close()  # the relaunch resumes from what this drains
+            raise
+        if rec is not None:
+            rec.close()
+        secondary, h2d = [], None
+        if tel.secondaries:
+            secondary, h2d = resnet_secondaries(step, ds, job, meta, dev, tel.logger, meter,
+                                                scan=job.input == "hbm-scan")
         return {
             "rank": mesh.rank if mesh is not None else 0,
             "coords": mesh.coords if mesh is not None else (0, 0),
@@ -583,13 +765,273 @@ def train_resnet(mesh, job: ResnetJob, telemetry: ResnetTelemetry | None = None)
             "layout": meta["layout"], "topology": meta["topology"], "input": input_mode,
             "boundary_shapes": meta["boundary_shapes"], "n_params": meta["n_params"],
             "losses": ([] if first is None else [float(first)]) + warm + timed,
-            "dt": dt, "step_s": step_s, "flops": flops,
+            "dt": dt, "step_s": step_s, "flops": flops, "timed_steps": n_disp * K,
             "comm": comm.take_stats() if comm is not None else None,
             "params_device": sorted({str(p.device) for p in module.parameters()}),
-            "data_device": str(ds.x.device),
+            "data_device": str(ds.x.device), "provenance": ds.provenance,
             "peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda else None,
+            **({"resume": rec.cell(total)} if rec is not None else {}),
+            **({"secondary": secondary, "h2d_mib_per_s": h2d} if tel.secondaries else {}),
             **({"live": (step, ds.fixed, meta)} if telemetry is not None else {}),
         }
+
+
+def resnet_secondaries(step, ds, job: ResnetJob, meta: dict, dev, logger=None,
+                       meter=None, scan: bool = False) -> tuple[list, float | None]:
+    """The bench's secondary lines after its primary phase, in the JAX
+    bench's order and with its fields (``bench.py:1287-1298, 1445-1482,
+    1749-1790``), each ``job.iters`` timed calls of the per-batch ``step``
+    (one step each), samples/s per card:
+
+    - ``hbm-resident-shuffle`` (only after a ``hbm-scan`` primary): the same
+      device-resident input one step per dispatch; its gap to the primary
+      is what the CUDA graph of ``K`` steps saves;
+    - ``native-stream-uint8``: the native C++ loader's raw batches through
+      pinned buffers to the card (:class:`~ddl25spring_tpu_torch.benchmarks.
+      InputFeed`, ``workers = max(2, cpus // 2)``, prefetch depth 6), warmed
+      past ``warmup + depth + workers`` calls so the timed window starts with
+      the queue drained;
+    - ``fixed-device-batch``: one device-resident batch re-fed (compute only).
+
+    Returns ``(lines, h2d_mib_per_s)``: the median of three 4 MiB pinned
+    host-to-device copies (CUDA events), None on the CPU (no link)."""
+    cards = meta["n_chips"]
+    lines = []
+    if scan:
+        # scan windows and single batches count the cursor in other units:
+        # the one-step line starts the epoch afresh
+        ds.cursor = 0
+        dt0, _, _ = benchmarks.timed_run(step, ds.feed, job.iters, job.warmup, device=dev,
+                                         logger=logger, label="hbm-single",
+                                         samples_per_step=job.batch, goodput=meter)
+        lines.append({"input": ds.input_mode, "value": round(job.iters * job.batch / dt0 / cards, 1),
+                      "unit": "samples/sec/chip",
+                      "note": "one step per dispatch; the delta vs the primary is what one "
+                              "CUDA graph of the window's steps saves"})
+    workers, depth = max(2, (os.cpu_count() or 4) // 2), 6
+    feed = benchmarks.InputFeed(job.batch, stream=True, workers=workers, prefetch_depth=depth,
+                                device=dev)
+    try:
+        dt_s, _, _ = benchmarks.timed_run(step, feed.feed, job.iters, job.warmup + depth + workers,
+                                          device=dev, logger=logger, label="stream",
+                                          samples_per_step=job.batch, goodput=meter)
+        dt_f, _, _ = benchmarks.timed_run(step, feed.feed_fixed, job.iters, job.warmup,
+                                          device=dev, logger=logger, label="fixed-batch",
+                                          samples_per_step=job.batch, goodput=meter)
+    finally:
+        streamed = feed.streaming
+        feed.close()
+    h2d = h2d_mib_per_s(dev)
+    if not streamed:
+        note = "native loader unavailable; fell back to the fixed device-resident batch"
+    elif h2d is None:
+        note = "the native C++ loader's uint8 batches on the host (a CPU run: no link)"
+    else:
+        note = (f"the native C++ loader's uint8 batches through pinned buffers to the card "
+                f"(the link measured {h2d:.0f} MiB/s here)")
+    lines += [
+        {"input": feed.input_mode, "value": round(job.iters * job.batch / dt_s / cards, 1),
+         "unit": "samples/sec/chip", "note": note},
+        {"input": "fixed-device-batch", "value": round(job.iters * job.batch / dt_f / cards, 1),
+         "unit": "samples/sec/chip"},
+    ]
+    return lines, h2d
+
+
+def h2d_mib_per_s(dev) -> float | None:
+    """The host-to-device rate of a 4 MiB pinned copy to ``dev``, the median
+    of 3 (CUDA events around each copy, after one warm copy); None on the
+    CPU."""
+    if dev.type != "cuda":
+        return None
+    mib = 4
+    src = torch.empty(mib << 20, dtype=torch.uint8).pin_memory()
+    dst = torch.empty(mib << 20, dtype=torch.uint8, device=dev)
+    dst.copy_(src, non_blocking=True)
+    rates = []
+    for _ in range(3):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        dst.copy_(src, non_blocking=True)
+        e1.record()
+        e1.synchronize()
+        rates.append(mib / (e0.elapsed_time(e1) / 1e3))
+    return statistics.median(rates)
+
+
+ELASTIC_KINDS = ("device_loss", "capacity_change")
+
+
+def elastic_resnet(job: ResnetJob, ft: ResnetFT, world: int = 2, export: bool = False,
+                   lineage: dict | None = None) -> dict:
+    """The bench's ``--elastic`` run (``bench.py:1303-1427``): ``world``
+    spawned ranks (sharing the card over gloo, or on the CPU) of pure DP,
+    one step per dispatch, that answer a ``device_loss`` or
+    ``capacity_change`` fault in the run by reshaping instead of dying
+    (:func:`elastic_rank`).  The ranks take this process's ``DDL25_*``
+    environment (chaos, lineage) as it is now, with ``lineage``
+    (``{"lineage_id", "attempt"}``) over it.  Returns rank 0's result."""
+    from ddl25spring_tpu_torch.obs import goodput as goodput_mod
+
+    env = {k: v for k, v in os.environ.items() if k.startswith("DDL25_")}
+    if lineage is not None:
+        env[goodput_mod.ENV_LINEAGE] = lineage["lineage_id"]
+        env[goodput_mod.ENV_ATTEMPT] = str(lineage["attempt"])
+    return spawn(elastic_rank, world, job, ft, env, export, timeout=900.0)[0]
+
+
+def elastic_rank(rdv, job: ResnetJob, ft: ResnetFT, env: dict, export: bool = False):
+    """One rank of :func:`elastic_resnet`.  The run is split at the armed
+    elastic faults inside its window into segments, each an ordinary timed
+    run (the warm-up before the first only); at a boundary every rank takes
+    the fault (``chaos.take``: each rank's journal), and the data axis
+    shrinks to the fault's target (``capacity_change@k:n``: n; a
+    ``device_loss``: half) or grows back up to the world:
+    ``Mesh.regrid(n, model=world // n)``, whose ``model`` ranks are replicas
+    of the data axis (:func:`~ddl25spring_tpu_torch.benchmarks.
+    build_resnet_step`), the step built on it, the live parameters and
+    momentum re-landed on its module and optimizer
+    (:func:`~ddl25spring_tpu_torch.ft.elastic.reshape_state`), a
+    ``reshape`` flight record with 0 steps lost (the fault fires after its
+    step completed: nothing was in flight) and the saver told.  The data
+    cursor runs on.  Samples/s per card are over card-seconds, each segment
+    at its own width.  Rank 0 returns the run's facts (the goodput doc of
+    its meter, the reshapes, the resume cell; with ``export`` the state
+    right after the first reshape, its cursor, and the final parameters, as
+    numpy), the others None."""
+    from ddl25spring_tpu_torch.ft import elastic
+    from ddl25spring_tpu_torch.ft.chaos import DeviceLossError
+    from ddl25spring_tpu_torch.obs import goodput as goodput_mod
+    from ddl25spring_tpu_torch.utils.checkpoint import (
+        load_optimizer_state,
+        optimizer_state,
+        optimizer_template,
+    )
+
+    t0 = time.perf_counter()
+    for k in [k for k in os.environ if k.startswith("DDL25_")]:
+        del os.environ[k]
+    os.environ.update(env)
+    world = rdv.world
+    lineage_id, attempt = goodput_mod.lineage_from_env()
+    meter = (goodput_mod.GoodputMeter(lineage_id or goodput_mod.mint_lineage_id(), attempt,
+                                      t0_perf=t0) if rdv.rank == 0 else None)
+    with init_mesh(rdv, world, 1, job.device) as mesh, backend_flags(**RUN_FLAGS):
+        dev, batch = mesh.device, job.batch
+        ds = benchmarks.DeviceDataset(batch, n_train=job.n_train, device=dev)
+        g0 = meter.now() if meter is not None else 0.0
+
+        def build(m):
+            return benchmarks.build_resnet_step(m, 1, batch, lr=job.lr, device=dev,
+                                                seed=job.seed)
+
+        step, module, opt, meta = build(mesh)
+        first, flops = count_flops(step, ds.feed())
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        rec = _Recovery(dataclasses.replace(ft, elastic=True), meta["layout"])
+        if not rec.restore(module, opt, ds, meter) and meter is not None:
+            meter.add("warmup_compile", g0, meter.now(), label="hbm")
+        _, losses, _ = benchmarks.timed_run(step, ds.feed, 0, job.warmup - 1, device=dev,
+                                            label="hbm", goodput=meter)
+        losses = ([] if first is None else [float(first)]) + losses
+        start = rec.start_step
+        end = start + max(job.iters - start, 1)
+        plan = sorted((f for f in rec.chaos.pending()
+                       if f.kind in ELASTIC_KINDS and start <= f.step < end),
+                      key=lambda f: f.step)
+        dt = card_s = 0.0
+        seg, data_now, events, at_reshape = start, world, [], None
+
+        def on_step(i, lval):
+            rec.on_step(i, lval, module, opt, ds, meter)
+
+        try:
+            for fault in [*plan, None]:
+                seg_end = end if fault is None else fault.step + 1
+                if seg_end > seg:
+                    dt_i, seg_losses, _ = benchmarks.timed_run(
+                        step, ds.feed, seg_end - seg, 0, device=dev, label="hbm",
+                        samples_per_step=batch, goodput=meter, on_step=on_step,
+                        step_offset=seg)
+                    dt += dt_i
+                    card_s += dt_i * meta["n_chips"]
+                    losses += seg_losses
+                    seg = seg_end
+                if fault is None:
+                    break
+                if not rec.chaos.take(fault.step, kinds=(fault.kind,)):
+                    continue  # journaled in an earlier attempt: one-shot
+                t0r = time.perf_counter()
+                g0r = meter.now() if meter is not None else 0.0
+                target = (fault.arg if fault.kind == "capacity_change" and fault.arg
+                          else max(1, data_now // 2))
+                target = min(target, world)  # growing is best-effort, up to the world
+                while batch % target or world % target:  # keep the global batch exact
+                    target -= 1
+                new_mesh = mesh.regrid(target, model=world // target) if target < world else mesh
+                step, new_module, new_opt, meta = build(new_mesh)
+                old_named = list(module.named_parameters())
+                new_named = list(new_module.named_parameters())
+                state = elastic.reshape_state(
+                    {"params": {n: p.detach() for n, p in old_named},
+                     "opt_state": optimizer_state(opt, old_named)},
+                    {"params": {n: p.detach() for n, p in new_named},
+                     "opt_state": optimizer_template(new_opt, new_named)})
+                with torch.no_grad():
+                    for n, p in new_named:
+                        p.copy_(state["params"][n])
+                load_optimizer_state(new_opt, new_named, state["opt_state"])
+                # the old layout's state and the template's are dropped here
+                module, opt = new_module, new_opt
+                del state, old_named
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                wall = time.perf_counter() - t0r
+                if meter is not None:
+                    meter.add("reshape_window", g0r, g0r + wall, step=fault.step,
+                              reason=fault.kind)
+                events.append(elastic.record_reshape(
+                    old={"data": data_now}, new={"data": target}, wall_s=wall, steps_lost=0,
+                    reason=fault.kind, step=fault.step))
+                if rec.saver is not None:
+                    rec.saver.note_reshape(old=events[-1]["old"], new=events[-1]["new"],
+                                           step=fault.step)
+                data_now = target
+                if export and at_reshape is None:
+                    at_reshape = {"step": fault.step, "cursor": ds.cursor,
+                                  **_np_state(module, opt)}
+        except DeviceLossError:
+            rec.close()
+            raise
+        rec.close()
+        steps_run = end - start
+        world_flops, _ = world_totals(mesh, flops, [dt])
+        if rdv.rank:
+            return None
+        reshape_wall = round(sum(e["wall_s"] for e in events), 3)
+        return {
+            "layout": meta["layout"], "topology": f"mesh(data={world}) -> mesh(data={data_now})",
+            "input": ds.input_mode, "provenance": ds.provenance, "losses": losses,
+            "dt": dt, "card_s": card_s, "steps": steps_run,
+            "samples_per_s_per_chip": steps_run * batch / card_s, "flops": world_flops,
+            "cards": meta["n_chips"],
+            "resume": rec.cell(job.iters, **({
+                "reshapes": len(events), "reshape": events, "reshape_wall_s": reshape_wall,
+                "recovery_wall_s": reshape_wall, "total_steps_lost": 0} if events else {})),
+            "goodput": meter.finalize(scope="train_attempt", strategy=meta["layout"],
+                                      mesh={"data": data_now}),
+            **({"at_reshape": at_reshape, "final": _np_state(module, opt)} if export else {}),
+        }
+
+
+def _np_state(module, opt) -> dict:
+    """A module's parameters and its optimizer's momentum, as numpy."""
+    params = {n: p.detach().cpu().numpy().copy() for n, p in module.named_parameters()}
+    momentum = {n: opt.state[p]["momentum_buffer"].detach().cpu().numpy().copy()
+                for n, p in module.named_parameters()
+                if "momentum_buffer" in opt.state.get(p, {})}
+    return {"params": params, "momentum": momentum}
 
 
 def resnet_rank(rdv, job: ResnetJob) -> dict:
@@ -604,7 +1046,7 @@ def resnet_rank(rdv, job: ResnetJob) -> dict:
 
 
 def run_resnet(args, telemetry: ResnetTelemetry | None = None, warmup: int = WARMUP,
-               n_train: int | None = None) -> dict:
+               n_train: int | None = None, overlap: bool = False) -> dict:
     """``--workload resnet``: lay out the ranks, run them, print the losses,
     samples/s and TFLOP/s per card (ranks that share a card count as one
     card: :func:`~ddl25spring_tpu_torch.utils.mesh.cards_used`), MFU and
@@ -613,10 +1055,16 @@ def run_resnet(args, telemetry: ResnetTelemetry | None = None, warmup: int = WAR
     "tflops", "mfu", "line"}``, or under torchrun, on a rank that does not
     report, ``{"ranks"}`` alone.  ``telemetry`` reaches a one-rank run
     (:func:`train_resnet`); ``warmup`` and ``n_train`` are the bench's
-    ``--smoke`` cuts."""
+    ``--warmup`` and ``--smoke`` cuts, ``overlap`` its ``--overlap`` (pure
+    DP's backward-overlapped buckets).  ``--stages S`` (2..4) lays out the
+    ``data x S`` heterogeneous pipeline, ``max(N // S, 1)`` replicas; else
+    ``--pp`` is ``--stages 2`` where there are 2 ranks or more."""
     device = resolve_device(args.device)
     n = args.ranks or (torch.cuda.device_count() if device.type == "cuda" else 1)
-    dp, S = (n // 2, 2) if args.pp and n >= 2 else (n, 1)
+    if args.stages > 1:
+        dp, S = max(n // args.stages, 1), args.stages
+    else:
+        dp, S = (n // 2, 2) if args.pp and n >= 2 else (n, 1)
     n_used = dp * S
     M = (args.microbatches or 2) if S == 2 else 1
     batch = args.batch or (1024 if device.type == "cuda" else 4) * n_used
@@ -627,7 +1075,7 @@ def run_resnet(args, telemetry: ResnetTelemetry | None = None, warmup: int = WAR
         iters = max(2, iters // K) * K
     job = ResnetJob(dp, S, M, batch, iters, lr=args.lr or 0.1, seed=args.seed,
                     device=device.type, input=mode, scan_steps=K, trace_dir=args.trace_dir,
-                    warmup=warmup, n_train=n_train)
+                    warmup=warmup, n_train=n_train, overlap=overlap)
     print(f"resnet18/cifar10: mesh(data={dp}, stage={S}), microbatches={M}, global "
           f"batch={batch}, {n_used} rank(s), input={mode}"
           + (f" ({K} steps per dispatch, {iters} timed steps)" if K > 1 else "")
@@ -680,10 +1128,11 @@ def report_resnet(ranks: list, job: ResnetJob, cards: int, device, log_every: in
         if log_every and i % log_every == 0:
             print(f"iter {i:4d}  loss {loss:.4f}", flush=True)
     dt, flops = log["world_dt"], log["world_flops"]
-    sps_chip = job.iters * job.batch / dt / cards
-    tf, frac = mfu(flops, dt / job.iters, cards, device)
+    steps = log.get("timed_steps", job.iters)  # a resumed run times what was left
+    sps_chip = steps * job.batch / dt / cards
+    tf, frac = mfu(flops, dt / steps, cards, device)
     peak = log.get("peak_bytes")
-    print(f"{log['topology']}: {job.iters} timed steps in {dt:.3f} s (median step "
+    print(f"{log['topology']}: {steps} timed steps in {dt:.3f} s (median step "
           f"{statistics.median(log['step_s']) * 1e3:.3f} ms), {sps_chip:.1f} samples/s per "
           f"card, {flops / 1e12:.4f} TFLOP per step"
           + (f", peak {peak / 2**30:.3f} GiB allocated" if peak else ""), flush=True)

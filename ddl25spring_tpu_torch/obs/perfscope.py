@@ -48,15 +48,18 @@ A12_NOTE = ("no roofline projection or collective micro-costs yet: they need the
             "describe() registry and the trace analyzers (ROADMAP A12)")
 
 
-def host_fingerprint(device=None) -> str:
+def host_fingerprint(device=None, kind: str | None = None) -> str:
     """Identity of the measuring machine and device -- part of the ledger
-    key, so one host's trend never gates another's."""
-    import torch
+    key, so one host's trend never gates another's.  ``kind`` names the
+    device without asking torch (a retry parent, which makes no CUDA
+    context, takes its child's card name)."""
+    if kind is None:
+        import torch
 
-    from ddl25spring_tpu_torch.utils.flops import _device
+        from ddl25spring_tpu_torch.utils.flops import _device
 
-    dev = _device(device)
-    kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+        dev = _device(device)
+        kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     return f"{platform.node()}/{os.cpu_count()}cpu/{kind}"
 
 

@@ -12,9 +12,12 @@ and one DP x PP x TP step on the card against the CPU, and the sentinel's
 and (b), small), the serving engine graphed against eager: plain,
 speculative and elastic (phases 18 (a), 19 (a) and (c), small), and TP
 serving from 2 ranks on the card, resident, streamed and speculative, against
-the single-card engine (phase 20 (a), small), and the bench's telemetry on the
+the single-card engine (phase 20 (a), small), the bench's telemetry on the
 card with the training losses and the engine's streams and pool bitwise with
-the memory sampler and the goodput meter on and off (phase 21, small).
+the memory sampler and the goodput meter on and off (phase 21, small), and
+the bench's retry half on the card: the device probe, the native stream's
+pinned feed against the loader's batches, a resume that lands in the tensors
+a CUDA graph captured (phase 22, small).
 
 Marked ``gpu``: each test skips unless an sm_90 (Hopper) device is present,
 but for the FL entry points' refusal of a missing GPU, which runs anywhere.
@@ -1265,9 +1268,10 @@ def test_tp_serve_on_the_card_equals_the_single_card_engine(dev, tp_serve_world,
             assert torch.equal(got["logits"], r["resident"]["logits"])
 
 
-def test_bench_obs_dir_on_the_card(dev, tmp_path):
+def test_bench_obs_dir_on_the_card(dev, tmp_path, monkeypatch):
     """chip_smoke phase 21, small (``bench --smoke --device cuda``: batch 64,
-    one step per dispatch): the perf record names the card and its data-sheet
+    one step per dispatch), run in this process as a retry child would run
+    it: the perf record names the card and its data-sheet
     peak, its measured MFU is flops / (p50 x peak); the live bytes come from
     the allocator, inside the first sample's band; the flight dump names live
     tensors on the card; the goodput doc adds up; every gate tool exits 0;
@@ -1280,6 +1284,7 @@ def test_bench_obs_dir_on_the_card(dev, tmp_path):
     from tools import goodput_report, mem_report, perf_report
 
     fa.reset_launches()
+    monkeypatch.setenv("DDL25_BENCH_CHILD", "1")  # in this process, not a retry child
     d, led = str(tmp_path / "run"), str(tmp_path / "ledger.jsonl")
     rec = bench.main(["--smoke", "--device", "cuda", "--obs-dir", d, "--perf-ledger", led,
                       "--perf-reps", "2"])
@@ -1360,3 +1365,65 @@ def test_a_new_stream_costs_one_blas_workspace(dev):
     x = torch.empty(1 << 20, dtype=torch.uint8, device=dev)
     assert any(t["device"] == "cuda:0" and t["bytes"] == x.numel()
                for t in memscope.live_array_summary(top=50)["largest"])
+
+
+def test_probe_devices_brings_up_the_card(dev):
+    """The bench's device probe on the card: ``torch.cuda.init()``, the
+    count and one allocation inside the bounded thread give the cards, no
+    error and no stall dump."""
+    from ddl25spring_tpu_torch import bench
+
+    devices, err, dump = bench.probe_devices(60.0)
+    assert err is None and dump is None
+    assert devices == [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def test_input_feed_streams_pinned_batches_to_the_card(dev):
+    """``InputFeed(stream=True)`` on the card: each batch lands on cuda:0 as
+    uint8, and five batches held at once equal the native loader's batches
+    of the same seed bitwise (a pinned buffer rewritten before its copy
+    finished would show here); the fixed batch is the first."""
+    from ddl25spring_tpu_torch.benchmarks import InputFeed
+    from ddl25spring_tpu_torch.data.cifar10 import ensure_bin_dir
+    from ddl25spring_tpu_torch.data.native_loader import NativeCifar10Loader
+
+    feed = InputFeed(256, stream=True, workers=2, prefetch_depth=2, device=dev)
+    try:
+        assert feed.streaming and feed.input_mode == "native-stream-uint8"
+        got = [feed.feed_fixed()] + [feed.feed() for _ in range(5)]
+        torch.cuda.synchronize()
+    finally:
+        feed.close()
+    ref = NativeCifar10Loader(ensure_bin_dir()[0], batch_size=256, normalize=False, workers=1)
+    try:
+        it = iter(ref)
+        for x, y in got:
+            rx, ry = next(it)
+            assert x.device == dev and x.dtype == torch.uint8 and x.shape == (256, 32, 32, 3)
+            assert torch.equal(x.cpu(), torch.from_numpy(rx))
+            assert torch.equal(y.cpu(), torch.from_numpy(ry))
+    finally:
+        ref.close()
+
+
+def test_resume_lands_in_the_captured_graph_on_the_card(dev, tmp_path):
+    """The resilient primary on the card under ``hbm-scan`` (K = 2 steps a
+    CUDA graph, lr 0.002): a run that saved after each window, resumed at
+    window 2, runs windows 2 and 3 with the losses of the uninterrupted run
+    (within 5e-2 of each), so the restored weights and momentum are the
+    tensors the graph replays, not a fresh start."""
+    from ddl25spring_tpu_torch.lab import dp_pp
+
+    ck = str(tmp_path / "ck")
+
+    def run(iters, ft):
+        job = dp_pp.ResnetJob(1, 1, 1, 64, iters, lr=0.002, device="cuda", input="hbm-scan",
+                              scan_steps=2, warmup=1, n_train=512)
+        return dp_pp.train_resnet(None, job, dp_pp.ResnetTelemetry(ft=ft))
+
+    whole = run(8, None)
+    run(4, dp_pp.ResnetFT(ck, save_every=1))
+    resumed = run(8, dp_pp.ResnetFT(ck, save_every=1, resume=True))
+    assert resumed["resume"]["start_step"] == 2 and resumed["timed_steps"] == 4
+    a, b = whole["losses"][-4:], resumed["losses"][-4:]
+    assert all(abs(x - y) <= 5e-2 * abs(y) for x, y in zip(b, a)), (a, b)

@@ -51,5 +51,5 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "ft.autosave", "ft.elastic", "ft.demo", "lab.ckpt_overhead",
                 "models.decode", "serve", "serve.traffic", "serve.kv_pages", "serve.prefix",
                 "serve.engine", "serve.spec", "serve.driver", "obs.memscope", "obs.goodput",
-                "obs.perfscope", "obs.report"):
+                "obs.perfscope", "obs.report", "data.native_loader"):
         assert f"ddl25spring_tpu_torch.{mod}" in report["modules"]
