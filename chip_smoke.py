@@ -8,10 +8,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``ops/csrc/flash_attention_sm90.cu`` (bf16 tensor-core kernels) and
    ``ops/csrc/flash_attention_tf32x3.cu`` (the fp32 forward, dq and dk/dv on
    the tensor cores, 3xTF32) for sm_90a from the checkout, in parallel, while
-   phase 9 (e) and phase 22 start on the card beside them (they launch none
-   of them and time nothing of the card) and run on through phases 3, 5 and
-   7; phases 4 and 6, which time the card, run once both have ended, after
-   phase 7; the build time and the ``ptxas`` registers and spills of every
+   phase 9 (e) and phase 22 (b), (c) start beside them (they launch none of
+   them and time nothing of the card) and run on through phase 3, ending
+   before the primer (phase 5) is timed; phase 22 (a) runs beside the model
+   check and phase 7; phases 4 and 6, which time the card, run after phase
+   7; the build time and the ``ptxas`` registers and spills of every
    instantiation are printed;
 3. kernels: the forward, dq and dk/dv kernels against their plain PyTorch
    versions on the same inputs, on the card, at the LLaMA path's shape
@@ -33,16 +34,17 @@ Phases, in order; any failure exits non-zero and prints no result:
 5. the slice: ``primer.main`` trains the full-width LLaMA (bf16, flash
    kernels, batch 3, ctx 256) for 24 steps; every loss finite, the loss falls,
    each kernel launched 6 times per step, every launch on the tensor-core
-   variant; then full-width fp32 logits through the kernels
-   against dense attention (both beside phase 9 (e) and phase 22's bench
-   runs, before phase 4: the step time printed here is no measurement);
+   variant, its median step time with the card to itself; then full-width
+   fp32 logits through the kernels against dense attention (beside phase
+   22 (a));
 6. profile: device time by kernel, device busy and idle share of the train
    step, with the flash kernels and with dense attention;
 7. DP x PP on the card: six rank processes on ``cuda:0`` (2 pipelines x 3
    stages, 3 microbatches, 3 rows per replica; gloo through pinned host
    buffers, since NCCL refuses two ranks on one device), spawned after phase
-   2 built the kernels, run after the model check (beside 9 (e) and 22: the
-   slice's printed step time is no measurement):
+   2 built the kernels, run after the model check (beside phase 22 (a): the
+   slice's printed step time is no measurement; phase 10 (b) times the same
+   2 x 3 DP x PP LLaMA's gpipe step alone):
    (a) fp32, full width, flash kernels: one step's loss and gradients against
        a single-process step on the batch of 6 from the same weights (loss
        rtol 1e-5; gradients atol 2e-4 + rtol 2e-3), then 2 Adam steps (losses
@@ -114,7 +116,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    (d) where a FedAvg round's time goes: host wall over 3 warm rounds
        against device busy under torch.profiler over 1 more, the idle share,
        the top kernels;
-   (e) (run during step 2's build) split-NN VFL and the VAE/TSTR on
+   (e) (run during step 2's build and step 3, in a process of its own)
+       split-NN VFL and the VAE/TSTR on
        ``data/heart.csv`` at the example's
        defaults (4 parties, 300 epochs, batch 64; VAE 150 epochs): the VFL
        test accuracy and TSTR's real and synthetic accuracies within
@@ -519,20 +522,21 @@ Phases, in order; any failure exits non-zero and prints no result:
     (``resilient_phase``; full width, ResNet-18 bf16, the train split cut to
     8,192 rows by ``DDL25_BENCH_NTRAIN``): (a) ``DDL25_CHAOS=sigterm@3
     python -m ddl25spring_tpu_torch.bench --scan-steps 1 --steps 6
-    --no-fedavg --perf-reps 0`` (batch 1024) through the
+    --no-fedavg --perf-reps 0 --per-chip-batch 256`` through the
     retry parent, which must make no CUDA context: attempt 1 dies with 143
     (``preempted``), attempt 2 resumes from the durable step; one lineage id
     on the line, every retry record, ``flight.json`` and the timeline
     header; ``sum_check.ok``; ``replayed_steps_count == steps_replayed ==``
     the lost steps; ``tools/goodput_report.py --check`` exits 0; (b)
     ``DDL25_CHAOS=device_loss@2 ... --elastic --steps 6 --per-chip-batch
-    256``: 2 ranks on cuda:0 reshape 2 -> 1 with 0 steps lost; (c) the bench with
+    256`` (as the retry driver's child, ``DDL25_BENCH_CHILD=1``): 2 ranks
+    on cuda:0 reshape 2 -> 1 with 0 steps lost; (c) the bench with
     ``CUDA_VISIBLE_DEVICES=`` and ``--attempts 1``: the ``accelerator
     unreachable`` line, ``health.reason`` ``device_unreachable``, no step
-    trained.  The three run at once ((b) shares the card with (a), (c)
-    needs none), and the phase runs beside the kernels' build, phase 9 (e)
-    and phases 3, 5 and 7 (it times nothing of the card; its lines print
-    after phase 21), so its walls include that load.
+    trained.  (b) and (c) run beside the kernels' build, phase 9 (e) and
+    phase 3, (a) beside the model check and phase 7 (none times anything of
+    the card, and none overlaps the primer's timed steps; the lines print
+    after phase 21), so their walls include that load.
 
 Tolerances (|kernel - plain| <= atol + rtol * |plain|):
   fp32: atol 1e-4, rtol 0 (summation order only);
@@ -1627,6 +1631,33 @@ def fl_vertical_generative(dev):
           f"synthetic {run['tstr_synthetic']:.4f} (bands {FL_ACC_BANDS}); VFL loss "
           f"{run['vfl_losses'][0]:.4f} -> {run['vfl_losses'][-1]:.4f}, VAE loss "
           f"{run['vae_losses'][0]:.2f} -> {run['vae_losses'][-1]:.2f}")
+
+
+# phase 9 (e) in a process of its own: beside the build and phase 3 its
+# small Python-bound training loops would share this process's interpreter
+# lock with phase 3's checks
+_FL_VERTICAL = r"""
+import sys, torch
+import chip_smoke
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+try:
+    chip_smoke.fl_vertical_generative(torch.device("cuda", 0))
+except chip_smoke.PhaseError as e:
+    print(f"FAILED: {e}", flush=True)
+    sys.exit(1)
+"""
+
+
+def fl_vertical_generative_proc() -> str:
+    """Phase 9 (e) (:func:`fl_vertical_generative`) in a child process;
+    returns what it printed, and fails as the child did."""
+    import os
+
+    r = subprocess.run([sys.executable, "-c", _FL_VERTICAL], capture_output=True, text=True,
+                       timeout=900, cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(r.returncode == 0, f"(e) exit {r.returncode}: {r.stdout[-3000:]} {r.stderr[-3000:]}")
+    return r.stdout
 
 
 def fl_phase(dev, vertical=True):
@@ -6194,18 +6225,17 @@ def bench_obs_phase(dev) -> dict:
     "8", "--rounds", "2", "--perf-ledger", L])`` at full width (ResNet-18,
     batch 1024, bf16, 16 steps per CUDA graph): the perf, mem and goodput
     cells and records, the flight dump's live tensors, the run's report,
-    and the gate tools on ``D`` and ``L``; no flash kernel launched."""
+    and the gate tools on ``D`` and ``L``; no flash kernel launched (the
+    count the child that ran the path puts on its line)."""
     import os
     import tempfile
 
     from ddl25spring_tpu_torch import bench
     from ddl25spring_tpu_torch.obs import goodput
     from ddl25spring_tpu_torch.obs.report import format_report, summarize_run
-    from ddl25spring_tpu_torch.ops import flash_attention as fa
     from ddl25spring_tpu_torch.utils.flops import PEAK_BF16_FLOPS
     from tools import goodput_report, mem_report, perf_report
 
-    fa.reset_launches()
     name = torch.cuda.get_device_name(0)
     with tempfile.TemporaryDirectory() as tmp:
         d, led = os.path.join(tmp, "run"), os.path.join(tmp, "ledger.jsonl")
@@ -6265,8 +6295,11 @@ def bench_obs_phase(dev) -> dict:
                  "goodput_report --check": goodput_report.main(["--ledger", led, "--check"]),
                  "goodput_report --run": goodput_report.main(["--run", d])}
         check(not any(gates.values()), f"a gate tool failed: {gates}")
-    launches = {n: fa.LAUNCHES[n] + sum(fa.CAPTURED[n].values()) for n in fa.LAUNCHES}
-    check(not any(launches.values()), f"the bench's path launched flash kernels: {launches}")
+    # the bench ran in a child of the retry driver: its own count, off its line
+    launches = rec.get("flash_launches")
+    check(isinstance(launches, dict) and set(launches) == {"fwd", "dq", "dkv"}
+          and not any(launches.values()),
+          f"the bench's path launched flash kernels (or its line has no count): {launches}")
     phases = tel.get("phases") or {}
     largest = live["largest"][0]
     print(f"  headline: {rec['value']} samples/s per card ({rec['input']}), MFU {rec['mfu']} "
@@ -6286,8 +6319,8 @@ def bench_obs_phase(dev) -> dict:
           f"the flight dump's largest live tensor {largest['shape']} {largest['dtype']} "
           f"{largest['bytes']} B on {largest['device']}", flush=True)
     print(f"  goodput: fraction useful {doc['fraction_useful']} of {doc['total_wall_s']} s "
-          f"(seconds {doc['seconds']}), sum_check ok; gates {gates}; flash launches "
-          f"{launches}; the bench took {wall:.1f} s", flush=True)
+          f"(seconds {doc['seconds']}), sum_check ok; gates {gates}; flash launches in the "
+          f"child {launches}; the bench took {wall:.1f} s", flush=True)
     print(f"  secondaries (samples/s per card): " + ", ".join(
         f"{x.get('input', x.get('metric'))} {x['value']}" for x in sec)
           + f"; h2d {rec['h2d_mib_per_s']} MiB/s", flush=True)
@@ -6296,6 +6329,7 @@ def bench_obs_phase(dev) -> dict:
 
 RESUME_STEPS = 6                # phase 22 (a): timed steps of the sigterm lineage, one a dispatch
 RESUME_KILL = 3                 # (a): sigterm@k
+RESUME_BATCH = 256              # (a): rows a step (cut from the bench's 1024, as (b)'s)
 ELASTIC_STEPS = 6               # (b): timed steps of the elastic run (2 ranks on cuda:0)
 ELASTIC_LOSS = 2                # (b): device_loss@k
 ELASTIC_BATCH = 256             # (b): rows a rank (cut from 1024: after the reshape each replica runs both)
@@ -6333,110 +6367,132 @@ def bench_cli(argv, env, timeout=900):
             time.perf_counter() - t0)
 
 
-def resilient_phase(dev, device="cuda", extra=()) -> tuple[dict, list[str]]:
-    """Phase 22: (a) a sigterm lineage resumed from its durable step, (b) the
-    elastic 2 -> 1 reshape, (c) the bench on a host with no visible GPU, each
-    through the bench's command line, all three at once (see the module
-    docstring); returns the facts and the lines to print.  ``device`` and
-    ``extra`` flags for (a) and (b) (``"cpu"`` and a small
-    ``--per-chip-batch`` rehearse them on the host)."""
+def resilient_start(pool, tmp, device="cuda", extra=(), parts="abc") -> dict:
+    """Start phase 22's runs named in ``parts`` on ``pool``, each through the
+    bench's command line in ``tmp``: (a) a sigterm lineage resumed from its
+    durable step, (b) the elastic 2 -> 1 reshape, (c) the bench on a host
+    with no visible GPU; returns their futures by part, for
+    :func:`resilient_phase`.  ``device`` and ``extra`` flags for (a) and (b)
+    (``"cpu"`` and a small ``--per-chip-batch`` rehearse them on the
+    host)."""
     import os
-    import tempfile
-
-    from ddl25spring_tpu_torch.data.cifar10 import ensure_bin_dir
 
     base = ["--device", device, "--no-fedavg", "--perf-reps", "0", *extra]
-    # fewer host threads a child: the phase shares the host's 8 cores with the
-    # build and the phases beside it
+    # fewer host threads a child: the runs share the host's 8 cores with the
+    # phases beside them
     rows = {"DDL25_BENCH_NTRAIN": str(BENCH_ROWS), "OMP_NUM_THREADS": "2"}
-    out, lines = {}, []
-    with tempfile.TemporaryDirectory() as tmp, concurrent.futures.ThreadPoolExecutor(3) as pool:
-        # the streamed secondary's binaries, ready before (a)'s second attempt
-        # needs them
-        binaries = pool.submit(ensure_bin_dir)
-        elastic = pool.submit(bench_cli, [
-            *base, "--per-chip-batch", str(ELASTIC_BATCH), "--elastic", "--steps",
+    futs = {}
+    if "b" in parts:
+        # as the retry driver's child: the parent adds nothing (b) checks
+        futs["b"] = pool.submit(bench_cli, [
+            "--per-chip-batch", str(ELASTIC_BATCH), *base, "--elastic", "--steps",
             str(ELASTIC_STEPS), "--attempts", "1", "--obs-dir", os.path.join(tmp, "elastic"),
             "--perf-ledger", os.path.join(tmp, "b.jsonl")],
-            {"DDL25_CHAOS": f"device_loss@{ELASTIC_LOSS}", **rows})
-        dc = os.path.join(tmp, "nogpu")
-        no_gpu = pool.submit(bench_cli, ["--device", "cuda", "--no-fedavg", "--perf-reps", "0",
-                                         "--attempts", "1", "--obs-dir", dc,
-                                         "--perf-ledger", os.path.join(tmp, "c.jsonl")],
-                             {"CUDA_VISIBLE_DEVICES": ""}, 300)
-        d, led = os.path.join(tmp, "lineage"), os.path.join(tmp, "a.jsonl")
-        rc, rec, parent_ctx, err, wall_a = bench_cli(
-            [*base, "--scan-steps", "1", "--steps", str(RESUME_STEPS), "--obs-dir", d,
-             "--perf-ledger", led], {"DDL25_CHAOS": f"sigterm@{RESUME_KILL}", **rows})
-        binaries.result()
-        check(rc == 0 and rec and "error" not in rec,
-              f"(a) the lineage failed: rc {rc}, {rec.get('error')}; {err[-3000:]}")
-        tel = rec["telemetry"]
-        resume, cell, fails = tel["resume"], tel["goodput"], tel.get("retry_failures", [])
-        check(parent_ctx is False, f"(a) the retry parent made a CUDA context: {parent_ctx}")
-        check(resume.get("resumes", 0) >= 1 and fails and fails[0]["reason"] == "preempted"
-              and fails[0]["rc"] == 143, f"(a) no preempted attempt resumed: {resume}, {fails}")
-        lineage = cell.get("lineage_id")
-        with open(os.path.join(d, "flight.json")) as f:
-            fl_meta = json.load(f)["meta"]
-        with open(os.path.join(d, "timeline.jsonl")) as f:
-            header = json.loads(f.readline())
-        check(lineage and all(f["lineage_id"] == lineage for f in fails)
-              and fl_meta.get("lineage_id") == lineage and fl_meta.get("attempt", 0) >= 2
-              and header.get("lineage_id") == lineage,
-              f"(a) more than one lineage id: {lineage}, {[f['lineage_id'] for f in fails]}, "
-              f"{fl_meta.get('lineage_id')}, {header.get('lineage_id')}")
-        lost = sum(f["goodput"]["lost_steps"] for f in fails if f.get("goodput"))
-        check(cell["scope"] == "train_lineage" and cell["sum_check"]["ok"]
-              and cell["replayed_steps_count"] == resume.get("steps_replayed") == lost > 0,
-              f"(a) replayed {cell.get('replayed_steps_count')}, steps_replayed "
-              f"{resume.get('steps_replayed')}, lost {lost}; sum_check {cell['sum_check']}")
-        # in a process of its own: its report must not land among phase 3's lines
-        gate = subprocess.run([sys.executable, "tools/goodput_report.py", "--ledger", led,
-                               "--check"], capture_output=True, text=True, timeout=120)
-        check(gate.returncode == 0, f"(a) goodput_report --check exit {gate.returncode}: "
-                                    f"{gate.stdout[-2000:]}")
-        sec = rec["secondary"]
-        check([x["input"] for x in sec] == ["native-stream-uint8", "fixed-device-batch"]
-              and ("pinned buffers" in sec[0]["note"] or device == "cpu"),
-              f"(a) secondaries {sec}")
-        lines.append(
-            f"  (a) sigterm@{RESUME_KILL} lineage, {RESUME_STEPS} steps at batch 1024: attempt 1 "
-            f"rc {fails[0]['rc']} ({fails[0]['reason']}, wall {fails[0]['wall_s']} s), resumed "
-            f"from step {resume.get('resumed_from_step')}, steps replayed "
-            f"{resume.get('steps_replayed')} = lost {lost}, recovery_wall_s "
-            f"{resume.get('recovery_wall_s')}, lineage fraction useful {cell['fraction_useful']} "
-            f"of {cell['total_wall_s']} s (seconds {cell['seconds']}); headline {rec['value']} "
-            f"samples/s per card; secondaries {[(x['input'], x['value']) for x in sec]}; h2d "
-            f"{rec.get('h2d_mib_per_s')} MiB/s; goodput_report --check 0; parent CUDA context "
-            f"{parent_ctx}; took {wall_a:.1f} s")
-        out["lineage"] = {"resume": resume, "goodput": cell, "wall_s": wall_a}
+            {"DDL25_CHAOS": f"device_loss@{ELASTIC_LOSS}", "DDL25_BENCH_CHILD": "1", **rows})
+    if "c" in parts:
+        futs["c"] = pool.submit(bench_cli, [
+            "--device", "cuda", "--no-fedavg", "--perf-reps", "0", "--attempts", "1",
+            "--obs-dir", os.path.join(tmp, "nogpu"), "--perf-ledger", os.path.join(tmp, "c.jsonl")],
+            {"CUDA_VISIBLE_DEVICES": ""}, 300)
+    if "a" in parts:
+        futs["a"] = pool.submit(bench_cli, [
+            "--per-chip-batch", str(RESUME_BATCH), *base, "--scan-steps", "1", "--steps",
+            str(RESUME_STEPS), "--obs-dir", os.path.join(tmp, "lineage"), "--perf-ledger",
+            os.path.join(tmp, "a.jsonl")], {"DDL25_CHAOS": f"sigterm@{RESUME_KILL}", **rows})
+    return futs
 
-        rc, rec, parent_ctx, err, wall_b = elastic.result()
-        check(rc == 0 and rec and "error" not in rec,
-              f"(b) the elastic run failed: rc {rc}, {rec.get('error')}; {err[-3000:]}")
-        resume = rec["telemetry"]["resume"]
-        shapes = [(e["old"], e["new"], e["steps_lost"]) for e in resume.get("reshape", [])]
-        check(shapes == [({"data": 2}, {"data": 1}, 0)] and resume["total_steps_lost"] == 0
-              and rec["value"] > 0 and rec["telemetry"]["goodput"]["sum_check"]["ok"],
-              f"(b) reshapes {shapes}, value {rec.get('value')}")
-        lines.append(
-            f"  (b) elastic device_loss@{ELASTIC_LOSS}, {ELASTIC_STEPS} steps, {ELASTIC_BATCH} rows "
-            f"a rank: reshape {shapes}, "
-            f"wall {resume['reshape_wall_s']} s, {rec['value']} samples/s per card over "
-            f"card-seconds ({rec['topology']}); parent CUDA context {parent_ctx}; took "
-            f"{wall_b:.1f} s")
-        out["elastic"] = {"resume": resume, "value": rec["value"], "wall_s": wall_b}
 
-        rc, rec, parent_ctx, err, wall_c = no_gpu.result()
-        h = rec.get("telemetry", {}).get("health", {})
-        check(rc == 0 and str(rec.get("error", "")).startswith(
-                  "exhausted 1 attempts; last: accelerator unreachable")
-              and h.get("reason") == "device_unreachable" and rec.get("value") == 0.0
-              and not os.path.exists(os.path.join(dc, "metrics.jsonl")),
-              f"(c) no-GPU bench: rc {rc}, {rec}; {err[-2000:]}")
-        lines.append(f"  (c) CUDA_VISIBLE_DEVICES=: {rec['error']!r}, health.reason "
-                     f"{h['reason']}, no step trained; took {wall_c:.1f} s")
+def stream_inputs() -> None:
+    """What the bench's streamed secondary reads, made before phase 22 (a)
+    and phase 21 need it: the synthesized CIFAR-format binaries and the
+    native loader's library (``make`` at first use)."""
+    from ddl25spring_tpu_torch.data.cifar10 import ensure_bin_dir
+    from ddl25spring_tpu_torch.data.native_loader import load_native_lib
+
+    ensure_bin_dir()
+    load_native_lib("libddl25_dataloader.so")
+
+
+def resilient_phase(tmp, futs, device="cuda") -> tuple[dict, list[str]]:
+    """Phase 22's checks on the runs :func:`resilient_start` started in
+    ``tmp`` (see the module docstring); returns the facts and the lines to
+    print."""
+    import os
+
+    out, lines = {}, []
+    d, led = os.path.join(tmp, "lineage"), os.path.join(tmp, "a.jsonl")
+    dc = os.path.join(tmp, "nogpu")
+    rc, rec, parent_ctx, err, wall_a = futs["a"].result()
+    check(rc == 0 and rec and "error" not in rec,
+          f"(a) the lineage failed: rc {rc}, {rec.get('error')}; {err[-3000:]}")
+    tel = rec["telemetry"]
+    resume, cell, fails = tel["resume"], tel["goodput"], tel.get("retry_failures", [])
+    check(parent_ctx is False, f"(a) the retry parent made a CUDA context: {parent_ctx}")
+    check(resume.get("resumes", 0) >= 1 and fails and fails[0]["reason"] == "preempted"
+          and fails[0]["rc"] == 143, f"(a) no preempted attempt resumed: {resume}, {fails}")
+    lineage = cell.get("lineage_id")
+    with open(os.path.join(d, "flight.json")) as f:
+        fl_meta = json.load(f)["meta"]
+    with open(os.path.join(d, "timeline.jsonl")) as f:
+        header = json.loads(f.readline())
+    check(lineage and all(f["lineage_id"] == lineage for f in fails)
+          and fl_meta.get("lineage_id") == lineage and fl_meta.get("attempt", 0) >= 2
+          and header.get("lineage_id") == lineage,
+          f"(a) more than one lineage id: {lineage}, {[f['lineage_id'] for f in fails]}, "
+          f"{fl_meta.get('lineage_id')}, {header.get('lineage_id')}")
+    lost = sum(f["goodput"]["lost_steps"] for f in fails if f.get("goodput"))
+    check(cell["scope"] == "train_lineage" and cell["sum_check"]["ok"]
+          and cell["replayed_steps_count"] == resume.get("steps_replayed") == lost > 0,
+          f"(a) replayed {cell.get('replayed_steps_count')}, steps_replayed "
+          f"{resume.get('steps_replayed')}, lost {lost}; sum_check {cell['sum_check']}")
+    # in a process of its own: its report stays out of this script's lines
+    gate = subprocess.run([sys.executable, "tools/goodput_report.py", "--ledger", led,
+                           "--check"], capture_output=True, text=True, timeout=120)
+    check(gate.returncode == 0, f"(a) goodput_report --check exit {gate.returncode}: "
+                                f"{gate.stdout[-2000:]}")
+    sec = rec["secondary"]
+    check([x["input"] for x in sec] == ["native-stream-uint8", "fixed-device-batch"]
+          and ("pinned buffers" in sec[0]["note"] or device == "cpu"),
+          f"(a) secondaries {sec}")
+    check(rec.get("flash_launches") == {"fwd": 0, "dq": 0, "dkv": 0},
+          f"(a) the resumed child's flash launches {rec.get('flash_launches')}")
+    lines.append(
+        f"  (a) sigterm@{RESUME_KILL} lineage, {RESUME_STEPS} steps at batch {RESUME_BATCH}: "
+        f"attempt 1 "
+        f"rc {fails[0]['rc']} ({fails[0]['reason']}, wall {fails[0]['wall_s']} s), resumed "
+        f"from step {resume.get('resumed_from_step')}, steps replayed "
+        f"{resume.get('steps_replayed')} = lost {lost}, recovery_wall_s "
+        f"{resume.get('recovery_wall_s')}, lineage fraction useful {cell['fraction_useful']} "
+        f"of {cell['total_wall_s']} s (seconds {cell['seconds']}); headline {rec['value']} "
+        f"samples/s per card; secondaries {[(x['input'], x['value']) for x in sec]}; h2d "
+        f"{rec.get('h2d_mib_per_s')} MiB/s; goodput_report --check 0; parent CUDA context "
+        f"{parent_ctx}; took {wall_a:.1f} s")
+    out["lineage"] = {"resume": resume, "goodput": cell, "wall_s": wall_a}
+
+    rc, rec, parent_ctx, err, wall_b = futs["b"].result()
+    check(rc == 0 and rec and "error" not in rec,
+          f"(b) the elastic run failed: rc {rc}, {rec.get('error')}; {err[-3000:]}")
+    resume = rec["telemetry"]["resume"]
+    shapes = [(e["old"], e["new"], e["steps_lost"]) for e in resume.get("reshape", [])]
+    check(shapes == [({"data": 2}, {"data": 1}, 0)] and resume["total_steps_lost"] == 0
+          and rec["value"] > 0 and rec["telemetry"]["goodput"]["sum_check"]["ok"],
+          f"(b) reshapes {shapes}, value {rec.get('value')}")
+    lines.append(
+        f"  (b) elastic device_loss@{ELASTIC_LOSS}, {ELASTIC_STEPS} steps, {ELASTIC_BATCH} rows "
+        f"a rank: reshape {shapes}, "
+        f"wall {resume['reshape_wall_s']} s, {rec['value']} samples/s per card over "
+        f"card-seconds ({rec['topology']}); took {wall_b:.1f} s")
+    out["elastic"] = {"resume": resume, "value": rec["value"], "wall_s": wall_b}
+
+    rc, rec, parent_ctx, err, wall_c = futs["c"].result()
+    h = rec.get("telemetry", {}).get("health", {})
+    check(rc == 0 and str(rec.get("error", "")).startswith(
+              "exhausted 1 attempts; last: accelerator unreachable")
+          and h.get("reason") == "device_unreachable" and rec.get("value") == 0.0
+          and not os.path.exists(os.path.join(dc, "metrics.jsonl")),
+          f"(c) no-GPU bench: rc {rc}, {rec}; {err[-2000:]}")
+    lines.append(f"  (c) CUDA_VISIBLE_DEVICES=: {rec['error']!r}, health.reason "
+                 f"{h['reason']}, no step trained; took {wall_c:.1f} s")
     return out, lines
 
 
@@ -6461,18 +6517,26 @@ def main() -> int:
     print("== build")
     t0 = time.perf_counter()
     # phase 9 (e) and phase 22 build no kernel and time nothing of the card:
-    # they start here, beside the build, and run on through phases 3, 5 and
-    # 7, whose checks time nothing; phase 4 times the kernels and phase 6
-    # profiles once both have ended.  Phase 22's lines print after phase 21
-    side = concurrent.futures.ThreadPoolExecutor(2)
-    t_side = time.perf_counter()
-    phase22 = side.submit(resilient_phase, dev)
+    # 9 (e), 22 (b) and (c) start here, beside the build and phase 3 (whose
+    # checks time nothing), and end before the primer's steps are timed;
+    # 22 (a) runs beside the model check and phase 7.  Phase 22's lines
+    # print after phase 21
+    import shutil
+    import tempfile
+
+    side = concurrent.futures.ThreadPoolExecutor(4)
+    tmp22 = tempfile.mkdtemp(prefix="phase22-")
+    runs22 = resilient_start(side, tmp22, parts="bc")
+    binaries = side.submit(stream_inputs)
     print("  phase 9 (e), federated learning (cuDNN, cuBLAS), beside the build:", flush=True)
-    vertical = side.submit(fl_vertical_generative, dev)
+    vertical = side.submit(fl_vertical_generative_proc)
+    t_side, ends = time.perf_counter(), {}
+    for name, f in (("9 (e)", vertical), *((f"22 ({k})", f) for k, f in runs22.items())):
+        f.add_done_callback(lambda _, name=name: ends.setdefault(name, time.perf_counter()))
     libs = _build.build(_build.CSRC / "flash_attention.cu", _build.CSRC / "flash_attention_sm90.cu",
                         _build.CSRC / "flash_attention_tf32x3.cu")
     print(f"  {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.1f} s "
-          f"(one nvcc each, in parallel; phase 9 (e) and phase 22 beside them)")
+          f"(one nvcc each, in parallel; phase 9 (e) and phase 22 (b), (c) beside them)")
     for lib in libs:
         print_ptxas(lib.with_suffix(".log").read_text())
 
@@ -6526,8 +6590,17 @@ def main() -> int:
             autograd_case(fa, gen, dev, MAIN_SHAPE, dtype, causal, with_lse=True)
     autograd_case(fa, gen, dev, (2, 200, 2, 64), torch.float32, True, with_lse=True)
 
-    print(f"== the slice: primer, {STEPS} steps, full width, bf16, flash kernels (beside 9 (e) "
-          "and phase 22: its step time below is no measurement)")
+    t0 = time.perf_counter()
+    print(vertical.result(), end="")
+    binaries.result()
+    for f in runs22.values():
+        f.exception()  # wait; phase 22 checks them after phase 21
+    print(f"  (phase 9 (e) and phase 22 (b), (c) ended {time.perf_counter() - t0:.1f} s after "
+          "phase 3; each ran " + ", ".join(f"{k} {t - t_side:.1f} s" for k, t in ends.items())
+          + ")", flush=True)
+
+    print(f"== the slice: primer, {STEPS} steps, full width, bf16, flash kernels (the card to "
+          "itself)")
     fa.reset_launches()
     run = primer.main(["--iters", str(STEPS), "--batch", str(B), "--seq-len", str(L),
                        "--seed", "0"])
@@ -6552,11 +6625,15 @@ def main() -> int:
     print(f"  step time median {step_ms:.3f} ms (steps 4..{STEPS - 1}, host clock, "
           f"min {min(steady) * 1e3:.3f} ms), {B * L / (step_ms / 1e3):.1f} tokens/s")
 
-    print("== full-width model check")
+    # phase 22 (a) from here, beside the model check and phase 7
+    t_a = time.perf_counter()
+    runs22.update(resilient_start(side, tmp22, parts="a"))
+    print("== full-width model check (beside phase 22 (a))")
     model_check(dev)
 
     print(f"== DP x PP on the card: {DP} x {PP} ranks, {MICRO} microbatches, {ROWS} rows "
-          "per replica (beside 9 (e) and phase 22: the slice's step time is no measurement)")
+          "per replica (beside phase 22 (a): the slice's step time is no measurement; 10 (b) "
+          "times the gpipe step alone)")
     t0 = time.perf_counter()
     fp32_launches = dp_pp_exactness(dev)
     dp_pp_slice(dev)
@@ -6564,12 +6641,10 @@ def main() -> int:
     print(f"  phase 7 in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    vertical.result()
-    _, lines22 = phase22.result()
-    wall22 = time.perf_counter() - t_side
+    runs22["a"].exception()
     side.shutdown()
-    print(f"  (phase 9 (e) and phase 22's runs ended {time.perf_counter() - t0:.1f} s after "
-          "phase 7)", flush=True)
+    print(f"  (phase 22 (a) ended {time.perf_counter() - t0:.1f} s after phase 7, "
+          f"{time.perf_counter() - t_a:.1f} s after it began)", flush=True)
 
     print("== timing at the LLaMA path's shape, bf16 causal")
     timing = time_kernels(fa, gen, dev)
@@ -6686,10 +6761,15 @@ def main() -> int:
           "resumed from its durable step, the elastic 2 -> 1 reshape (2 ranks on cuda:0), the "
           "bench with no visible GPU")
     print(card)
+    t0 = time.perf_counter()
+    try:
+        _, lines22 = resilient_phase(tmp22, runs22)
+    finally:
+        shutil.rmtree(tmp22, ignore_errors=True)
     for line in lines22:
         print(line)
-    print(f"  phase 22 in {wall22:.1f} s (its runs beside the build, 9 (e) and phases 3, 5 "
-          "and 7)")
+    print(f"  phase 22's checks in {time.perf_counter() - t0:.1f} s (its runs beside the build, "
+          "9 (e) and phase 3, and beside the model check and phase 7)")
 
     kernels = [
         {"name": f"flash_{name}", "route": "cuda", "source": SOURCE[timing[name]["variant"]],

@@ -49,7 +49,11 @@ gets ``--resume-from``, restores it, and the line's ``telemetry.resume``
 names the steps it replayed and ``recovery_wall_s`` (process entry to
 restored).  A fresh start wipes the checkpoint directory only when it is
 recognisably the port's (its manifest, chaos journal or checkpoint step
-directories) and refuses anything else (exit 2).  ``--elastic`` trains on a
+directories) and refuses anything else (exit 2).  The resilient primary
+lives in a run of one process: ``--stages S > 1`` (a world of ranks) with
+``--save-every``, ``--resume-from`` or ``DDL25_CHAOS`` exits 2, and on a
+host of several cards (a world of ranks too) the line's ``telemetry.resume``
+says ``{"enabled": false}`` and why.  ``--elastic`` trains on a
 world of 2 spawned ranks (on the card over gloo, or on the CPU) that answers
 ``device_loss@k`` / ``capacity_change@k:n`` by reshaping in the run
 (:func:`~ddl25spring_tpu_torch.lab.dp_pp.elastic_resnet`).
@@ -71,6 +75,9 @@ output is the record, with ``telemetry``:
   call against the first sample's, appended as a ``record: "mem"`` row;
 - ``resume``, ``retry_failures``, ``health`` (with the flight dump and the
   failure's reason);
+- ``flash_launches`` (top level): the flash-attention kernels this process
+  launched or captured while the training bench ran, by kernel (the ResNet
+  and FedAvg paths launch none);
 - with ``--obs-dir DIR``: ``metrics.jsonl`` (one record per timed call),
   ``counters.json``, ``trace.json``, ``timeline.jsonl``, ``flight.json``,
   ``perf.json``, ``mem.json`` and ``goodput.json`` in DIR, and the phases of
@@ -623,6 +630,13 @@ def main(argv=None) -> dict:
     if chaos_spec and not args.save_every:
         args.save_every = 2  # a kill with nothing durable proves nothing
     resilient = bool(args.save_every or args.resume_from)
+    if (resilient or chaos_spec) and args.stages > 1 and not args.elastic:
+        # the autosave, the chaos hooks and the restore live in a run of one
+        # process; a pipeline is a world of ranks that would ignore them
+        print("--save-every, --resume-from and DDL25_CHAOS reach a run in one process; "
+              f"--stages {args.stages} spawns a world of ranks: drop --stages or the "
+              "resilience flags", file=sys.stderr)
+        sys.exit(2)
     ckpt_dir = args.ckpt_dir or args.resume_from or (
         os.path.join(args.obs_dir, "ckpt") if args.obs_dir else os.path.join("runs", "bench_ckpt"))
     if args.resume_from and args.ckpt_dir and (
@@ -739,6 +753,7 @@ def train_main(args, t_entry: float | None = None, ckpt_dir: str | None = None,
     from ddl25spring_tpu_torch.utils.flops import chip_peak_flops
 
     t_main0 = t_entry if t_entry is not None else time.perf_counter()
+    flash0 = _flash_launches()
     lineage, own_lineage = _lineage()
     meter = goodput_mod.GoodputMeter(lineage["lineage_id"], lineage["attempt"], t0_perf=t_main0)
     obs.flight.configure(run_dir=args.obs_dir)
@@ -815,7 +830,13 @@ def train_main(args, t_entry: float | None = None, ckpt_dir: str | None = None,
                "process makes alone, not a spawned world of ranks")
         for k in ("perf", "mem", "goodput"):
             telemetry[k] = {"enabled": False, "why": why}
+        if ft is not None:
+            # no checkpoint written, no chaos fired, nothing restored
+            telemetry["resume"] = {"enabled": False, "why": why}
+            print(f"--save-every/--resume-from/DDL25_CHAOS not applied: {why}",
+                  file=sys.stderr)
         rec["telemetry"], rec["secondary"] = telemetry, fedavg
+        rec["flash_launches"] = _flash_launches(flash0)
         print(json.dumps(rec), flush=True)
         return rec
     step, fixed, meta = live
@@ -883,8 +904,18 @@ def train_main(args, t_entry: float | None = None, ckpt_dir: str | None = None,
     telemetry["goodput"] = _goodput(meter, obs, meta["layout"], mesh_axes, obs_dir,
                                     own_lineage, ledger, kind)
     rec["telemetry"], rec["secondary"] = telemetry, r0.get("secondary", []) + fedavg
+    rec["flash_launches"] = _flash_launches(flash0)
     print(json.dumps(rec, default=str), flush=True)
     return rec
+
+
+def _flash_launches(since: dict | None = None) -> dict:
+    """The flash-attention kernels this process has launched or captured,
+    by kernel, less ``since``'s counts."""
+    from ddl25spring_tpu_torch.ops import flash_attention as fa
+
+    now = {n: fa.LAUNCHES[n] + sum(fa.CAPTURED[n].values()) for n in fa.LAUNCHES}
+    return {n: c - (since or {}).get(n, 0) for n, c in now.items()}
 
 
 def _round(x, nd: int = 1):

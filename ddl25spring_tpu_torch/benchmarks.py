@@ -321,9 +321,11 @@ class InputFeed:
     batch, and :attr:`input_mode` says ``fixed-device-batch``.  Normalizing
     stays on the device, inside the step, as for the device-resident modes.
 
-    On CUDA each batch is copied into one of two pinned host buffers and
-    sent with ``non_blocking=True`` on the current stream; a buffer is
-    written again only after the event recorded behind its last copy, so
+    On CUDA the loader writes each batch straight into one of two pinned
+    host buffers (:meth:`~ddl25spring_tpu_torch.data.native_loader.
+    NativeCifar10Loader.next_into`: one host copy, out of the loader's
+    queue), sent with ``non_blocking=True`` on the current stream; a buffer
+    is written again only after the event recorded behind its last copy, so
     the host fills the next batch while the card still reads the previous
     one.  :meth:`close` stops the loader's workers."""
 
@@ -340,7 +342,8 @@ class InputFeed:
         )
 
         self.device = resolve_device(device)
-        self.loader = self._stream = None
+        self.loader = None
+        self._shapes = ((batch, 32, 32, 3), (batch,))
         self.input_mode, self.provenance = "fixed-device-batch", "synthetic"
         want = stream if stream is not None else (_find_loader_dir() is not None)
         if want:
@@ -349,37 +352,42 @@ class InputFeed:
                 self.loader = NativeCifar10Loader(bin_dir, batch_size=batch, normalize=False,
                                                   workers=workers,
                                                   prefetch_depth=prefetch_depth)
-                self._stream = iter(self.loader)
                 self.input_mode = "native-stream-uint8"
                 print(f"native streaming input: {bin_dir} ({self.provenance} data)", flush=True)
             except NativeLoaderUnavailable as e:
                 print(f"native loader unavailable ({e}); using fixed batch", flush=True)
         self._pinned = []
-        if self.device.type == "cuda":
-            self._pinned = [(torch.empty((batch, 32, 32, 3), dtype=torch.uint8).pin_memory(),
-                             torch.empty((batch,), dtype=torch.int32).pin_memory(), None)
-                            for _ in range(2)]
+        if self.device.type == "cuda" and self.loader is not None:
+            self._pinned = [(*self._host(pin=True), None) for _ in range(2)]
         self._slot = 0
-        if self._stream is not None:
-            xs, ys = next(self._stream)  # doubles as the fixed batch
+        if self.loader is not None:
+            self.fixed = self._next()  # the first batch doubles as the fixed one
         else:
             d = load_cifar10_u8(n_train=batch)
             self.provenance = d["provenance"]
-            xs, ys = d["x"], d["y"]
-        self.fixed = self._to_device(xs, ys)
+            self.fixed = (torch.from_numpy(d["x"]).to(self.device),
+                          torch.from_numpy(d["y"]).to(self.device))
 
     @property
     def streaming(self) -> bool:
-        return self._stream is not None
+        return self.loader is not None
 
-    def _to_device(self, xs, ys):
+    def _host(self, pin: bool = False):
+        x = torch.empty(self._shapes[0], dtype=torch.uint8)
+        y = torch.empty(self._shapes[1], dtype=torch.int32)
+        return (x.pin_memory(), y.pin_memory()) if pin else (x, y)
+
+    def _next(self):
+        if self._pinned:
+            hx, hy, done = self._pinned[self._slot]
+            if done is not None:
+                done.synchronize()  # the card has read this buffer's last batch
+        else:  # the CPU: new tensors a batch, the caller keeps them
+            hx, hy = self._host()
+        if self.loader.next_into(hx.numpy(), hy.numpy()) < 0:
+            raise StopIteration
         if not self._pinned:
-            return torch.from_numpy(xs).to(self.device), torch.from_numpy(ys).to(self.device)
-        hx, hy, done = self._pinned[self._slot]
-        if done is not None:
-            done.synchronize()  # the card has read this buffer's last batch
-        hx.numpy()[...] = xs
-        hy.numpy()[...] = ys
+            return hx, hy
         x = hx.to(self.device, non_blocking=True)
         y = hy.to(self.device, non_blocking=True)
         ev = torch.cuda.Event()
@@ -389,9 +397,9 @@ class InputFeed:
         return x, y
 
     def feed(self):
-        if self._stream is None:
+        if self.loader is None:
             return self.fixed
-        return self._to_device(*next(self._stream))
+        return self._next()
 
     def feed_fixed(self):
         return self.fixed
@@ -400,7 +408,6 @@ class InputFeed:
         if self.loader is not None:
             self.loader.close()
             self.loader = None
-            self._stream = None
 
 
 def report_line(layout, sps_chip, input_mode, frac, tf, **extra):

@@ -102,17 +102,31 @@ class NativeCifar10Loader:
         self.num_samples = lib.dl_num_samples(self._handle)
         self.epoch = 0
 
+    def next_into(self, x: np.ndarray, y: np.ndarray) -> int:
+        """Write the next batch into ``x`` (``[B, 32, 32, 3]``, float32 when
+        normalizing, else uint8) and ``y`` (``[B]`` int32), both C-contiguous,
+        in place (a pinned buffer's numpy view, say); returns its epoch, or
+        -1 once the loader is closed or has failed."""
+        dtype = np.float32 if self.normalize else np.uint8
+        if (x.shape != (self.batch_size, 32, 32, 3) or x.dtype != dtype
+                or y.shape != (self.batch_size,) or y.dtype != np.int32
+                or not (x.flags.c_contiguous and y.flags.c_contiguous)):
+            raise ValueError(f"next_into wants C-contiguous x [{self.batch_size}, 32, 32, 3] "
+                             f"{np.dtype(dtype).name} and y [{self.batch_size}] int32, got "
+                             f"{x.shape} {x.dtype} and {y.shape} {y.dtype}")
+        if self._handle is None:
+            return -1
+        epoch = self._lib.dl_next(self._handle, x.ctypes.data_as(ctypes.c_void_p),
+                                  y.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+        if epoch >= 0:
+            self.epoch = int(epoch)
+        return int(epoch)
+
     def __iter__(self):
         dtype = np.float32 if self.normalize else np.uint8
         x = np.empty((self.batch_size, 32, 32, 3), dtype)
         y = np.empty((self.batch_size,), np.int32)
-        xp = x.ctypes.data_as(ctypes.c_void_p)
-        yp = y.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
-        while self._handle is not None:
-            epoch = self._lib.dl_next(self._handle, xp, yp)
-            if epoch < 0:
-                return
-            self.epoch = int(epoch)
+        while self.next_into(x, y) >= 0:
             yield x.copy(), y.copy()
 
     def close(self):

@@ -896,9 +896,9 @@ def elastic_rank(rdv, job: ResnetJob, ft: ResnetFT, env: dict, export: bool = Fa
     step completed: nothing was in flight) and the saver told.  The data
     cursor runs on.  Samples/s per card are over card-seconds, each segment
     at its own width.  Rank 0 returns the run's facts (the goodput doc of
-    its meter, the reshapes, the resume cell; with ``export`` the state
-    right after the first reshape, its cursor, and the final parameters, as
-    numpy), the others None."""
+    its meter, the reshapes, the resume cell; with ``export`` the old
+    layout's state just before the first reshape, its step and cursor, and
+    the final parameters, as numpy), the others None."""
     from ddl25spring_tpu_torch.ft import elastic
     from ddl25spring_tpu_torch.ft.chaos import DeviceLossError
     from ddl25spring_tpu_torch.obs import goodput as goodput_mod
@@ -941,7 +941,7 @@ def elastic_rank(rdv, job: ResnetJob, ft: ResnetFT, env: dict, export: bool = Fa
                        if f.kind in ELASTIC_KINDS and start <= f.step < end),
                       key=lambda f: f.step)
         dt = card_s = 0.0
-        seg, data_now, events, at_reshape = start, world, [], None
+        seg, data_now, events, before_reshape = start, world, [], None
 
         def on_step(i, lval):
             rec.on_step(i, lval, module, opt, ds, meter)
@@ -962,6 +962,9 @@ def elastic_rank(rdv, job: ResnetJob, ft: ResnetFT, env: dict, export: bool = Fa
                     break
                 if not rec.chaos.take(fault.step, kinds=(fault.kind,)):
                     continue  # journaled in an earlier attempt: one-shot
+                if export and before_reshape is None:
+                    before_reshape = {"step": fault.step, "cursor": ds.cursor,
+                                      **_np_state(module, opt)}
                 t0r = time.perf_counter()
                 g0r = meter.now() if meter is not None else 0.0
                 target = (fault.arg if fault.kind == "capacity_change" and fault.arg
@@ -998,9 +1001,6 @@ def elastic_rank(rdv, job: ResnetJob, ft: ResnetFT, env: dict, export: bool = Fa
                     rec.saver.note_reshape(old=events[-1]["old"], new=events[-1]["new"],
                                            step=fault.step)
                 data_now = target
-                if export and at_reshape is None:
-                    at_reshape = {"step": fault.step, "cursor": ds.cursor,
-                                  **_np_state(module, opt)}
         except DeviceLossError:
             rec.close()
             raise
@@ -1021,7 +1021,8 @@ def elastic_rank(rdv, job: ResnetJob, ft: ResnetFT, env: dict, export: bool = Fa
                 "recovery_wall_s": reshape_wall, "total_steps_lost": 0} if events else {})),
             "goodput": meter.finalize(scope="train_attempt", strategy=meta["layout"],
                                       mesh={"data": data_now}),
-            **({"at_reshape": at_reshape, "final": _np_state(module, opt)} if export else {}),
+            **({"before_reshape": before_reshape, "final": _np_state(module, opt)}
+               if export else {}),
         }
 
 

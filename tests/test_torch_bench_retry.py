@@ -13,7 +13,10 @@ against the JAX package's top-level ``bench.py`` on the CPU.
   ddl25spring_tpu_torch.bench --smoke --device cpu`` (ResNet-18 at 2 rows a
   step): one lineage id everywhere, the resume, the goodput sum, the replayed
   steps equal to the durable gap;
-- the hygiene refusals (exit 2); the default bench on a host with no GPU;
+- the hygiene refusals (exit 2), resilience refused for a pipeline (exit 2)
+  and switched off on the line for a world of ranks; the line's flash-launch
+  count is the process's that ran the path; the default bench on a host
+  with no GPU;
 - the resumed primary under ``hbm-scan`` equal to the uninterrupted run, and
   ``--elastic`` 2 -> 1 equal to one rank run on from the reshape's state.
 """
@@ -368,6 +371,59 @@ def test_what_counts_as_the_bench_checkpoint_directory(tmp_path, entries, ours):
     assert bench._is_bench_ckpt_dir(str(tmp_path)) is ours
 
 
+@pytest.mark.parametrize("flags,chaos", [
+    (["--save-every", "2"], None),
+    (["--resume-from", "ck"], None),
+    ([], "sigterm@4"),
+])
+def test_resilience_with_a_pipeline_exits_2(tmp_path, monkeypatch, flags, chaos):
+    """``--stages 2`` spawns a world of ranks, which the autosave, the chaos
+    hooks and the restore do not reach: asked for together, the bench
+    refuses (exit 2) before it starts anything."""
+    monkeypatch.chdir(tmp_path)
+    if chaos:
+        monkeypatch.setenv("DDL25_CHAOS", chaos)
+    else:
+        monkeypatch.delenv("DDL25_CHAOS", raising=False)
+    with pytest.raises(SystemExit) as e:
+        bench.main(["--smoke", "--device", "cpu", "--stages", "2", *flags])
+    assert e.value.code == 2
+    assert not (tmp_path / "runs").exists()
+
+
+def test_a_world_of_ranks_says_resume_is_off_and_counts_its_own_launches(tmp_path,
+                                                                         monkeypatch):
+    """A run the lab makes as a world of ranks (here a stand-in that hands
+    back no live step, as such a run does) with ``--save-every 2``: the line
+    says ``telemetry.resume`` is off and why; and ``flash_launches`` counts
+    the kernels launched or captured in the process that ran the path since
+    the bench began, not the process's earlier ones."""
+    from ddl25spring_tpu_torch import obs
+    from ddl25spring_tpu_torch.lab import dp_pp
+    from ddl25spring_tpu_torch.ops import flash_attention as fa
+
+    monkeypatch.delenv("DDL25_CHAOS", raising=False)
+    monkeypatch.setattr(fa, "LAUNCHES", {n: 5 for n in fa.LAUNCHES})  # before the bench
+    monkeypatch.setattr(fa, "CAPTURED", {n: dict(c) for n, c in fa.CAPTURED.items()})
+
+    def world_of_ranks(argv, telemetry=None, **kw):
+        fa.LAUNCHES["fwd"] += 2
+        fa.CAPTURED["dq"]["wgmma"] += 1
+        return {"line": json.dumps({"metric": "m", "value": 1.0}), "ranks": [{}]}
+
+    monkeypatch.setattr(dp_pp, "main", world_of_ranks)
+    try:
+        rec = bench.main(["--smoke", "--device", "cpu", "--save-every", "2", "--ckpt-dir",
+                          str(tmp_path / "ck"), "--obs-dir", str(tmp_path / "run"),
+                          "--perf-ledger", str(tmp_path / "l.jsonl")])
+    finally:
+        obs.flight.uninstall()
+        obs.flight.configure(run_dir=None)
+    assert rec["telemetry"]["resume"]["enabled"] is False
+    assert "world of ranks" in rec["telemetry"]["resume"]["why"]
+    assert rec["flash_launches"] == {"fwd": 2, "dq": 1, "dkv": 0}
+
+
 def test_probe_devices_on_the_cpu_and_without_a_card():
     devices, err, dump = bench.probe_devices(5.0, device="cpu")
     assert devices == [torch.device("cpu")] and err is None and dump is None
@@ -442,6 +498,7 @@ def test_sigterm_lineage_resumes_from_its_durable_step(tmp_path):
     manifest = json.loads((obs_dir / "ckpt" / "manifest.json").read_text())
     assert manifest["last_durable_step"] == 5  # the resumed attempt's last save
     assert [x["input"] for x in d["secondary"]] == ["native-stream-uint8", "fixed-device-batch"]
+    assert d["flash_launches"] == {"fwd": 0, "dq": 0, "dkv": 0}
     assert json.loads((obs_dir / "goodput.json").read_text())["scope"] == "train_lineage"
     from tools import goodput_report, trace_export
 
@@ -480,8 +537,9 @@ def test_elastic_two_to_one_equals_one_rank_from_the_reshape(tmp_path, monkeypat
     """``bench --smoke --device cpu --elastic --steps 5`` with
     ``DDL25_CHAOS=device_loss@2`` (in this process, as a retry child): 2 ranks
     train steps 0-2, reshape 2 -> 1 with 0 steps lost, and train 3-4; the
-    final fp32 weights equal one rank run on from the state the reshape
-    landed (its parameters, momentum and cursor) within 2e-5."""
+    final fp32 weights equal one rank run on from the old layout's state
+    just before the reshape (its parameters, momentum and cursor) within
+    2e-5, so a reshape that dropped momentum or moved a parameter fails."""
     from ddl25spring_tpu_torch import benchmarks, obs
     from ddl25spring_tpu_torch.lab import dp_pp
 
@@ -509,7 +567,7 @@ def test_elastic_two_to_one_equals_one_rank_from_the_reshape(tmp_path, monkeypat
     assert resume["total_steps_lost"] == 0 and rec["value"] > 0
     assert rec["telemetry"]["goodput"]["sum_check"]["ok"]
     job, r = seen["job"], seen["r"]
-    at = r["at_reshape"]
+    at = r["before_reshape"]
     step, module, opt, _ = benchmarks.build_resnet_step(None, 1, job.batch, lr=job.lr,
                                                         device="cpu", seed=job.seed)
     with torch.no_grad():

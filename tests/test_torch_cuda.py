@@ -1406,24 +1406,34 @@ def test_input_feed_streams_pinned_batches_to_the_card(dev):
         ref.close()
 
 
-def test_resume_lands_in_the_captured_graph_on_the_card(dev, tmp_path):
+def test_resume_lands_in_the_captured_graph_on_the_card(dev, tmp_path, monkeypatch):
     """The resilient primary on the card under ``hbm-scan`` (K = 2 steps a
-    CUDA graph, lr 0.002): a run that saved after each window, resumed at
-    window 2, runs windows 2 and 3 with the losses of the uninterrupted run
-    (within 5e-2 of each), so the restored weights and momentum are the
-    tensors the graph replays, not a fresh start."""
+    CUDA graph, the bench's lr 0.1, cuDNN deterministic): a run that saved
+    after each window, resumed at window 2, runs windows 2 and 3 with the
+    losses of the uninterrupted run (within 1e-3 of each), so the restored
+    weights and momentum are the tensors the graph replays.  A control
+    resumed at window 2 from a checkpoint of the untrained weights (what the
+    graph would train on had the restore missed its tensors) is off by over
+    20 times the resumed run's largest gap."""
     from ddl25spring_tpu_torch.lab import dp_pp
 
-    ck = str(tmp_path / "ck")
+    monkeypatch.setattr(dp_pp, "RUN_FLAGS", {**dp_pp.RUN_FLAGS, "cudnn_benchmark": False,
+                                             "cudnn_deterministic": True})
 
-    def run(iters, ft):
-        job = dp_pp.ResnetJob(1, 1, 1, 64, iters, lr=0.002, device="cuda", input="hbm-scan",
+    def run(iters, ft, lr=0.1):
+        job = dp_pp.ResnetJob(1, 1, 1, 64, iters, lr=lr, device="cuda", input="hbm-scan",
                               scan_steps=2, warmup=1, n_train=512)
         return dp_pp.train_resnet(None, job, dp_pp.ResnetTelemetry(ft=ft))
 
     whole = run(8, None)
-    run(4, dp_pp.ResnetFT(ck, save_every=1))
-    resumed = run(8, dp_pp.ResnetFT(ck, save_every=1, resume=True))
-    assert resumed["resume"]["start_step"] == 2 and resumed["timed_steps"] == 4
-    a, b = whole["losses"][-4:], resumed["losses"][-4:]
-    assert all(abs(x - y) <= 5e-2 * abs(y) for x, y in zip(b, a)), (a, b)
+    run(4, dp_pp.ResnetFT(str(tmp_path / "ck"), save_every=1))
+    resumed = run(8, dp_pp.ResnetFT(str(tmp_path / "ck"), save_every=1, resume=True))
+    # the same windows and cursor, the weights as they were at the start
+    run(4, dp_pp.ResnetFT(str(tmp_path / "ck0"), save_every=1), lr=1e-30)
+    control = run(8, dp_pp.ResnetFT(str(tmp_path / "ck0"), save_every=1, resume=True))
+    for r in (resumed, control):
+        assert r["resume"]["start_step"] == 2 and r["timed_steps"] == 4
+    a, b, c = whole["losses"][-4:], resumed["losses"][-4:], control["losses"][-4:]
+    gap = max(abs(x - y) for x, y in zip(b, a))
+    assert all(abs(x - y) <= 1e-3 * abs(y) for x, y in zip(b, a)), (a, b)
+    assert max(abs(x - y) for x, y in zip(c, a)) > 20 * gap, (a, b, c)

@@ -101,6 +101,26 @@ def test_raw_mode_matches_device_normalization(bin_dir):
     ref.close()
 
 
+def test_next_into_fills_the_callers_buffers_with_the_iterators_batches(bin_dir):
+    """``next_into`` writes the batches the iterator yields, in order, into
+    the caller's arrays (the pinned buffers of ``InputFeed`` on the card),
+    and refuses arrays of another shape, dtype or layout."""
+    it = iter(NativeCifar10Loader(bin_dir, batch_size=16, seed=3, normalize=False, workers=2))
+    into = NativeCifar10Loader(bin_dir, batch_size=16, seed=3, normalize=False, workers=2)
+    x, y = np.empty((16, 32, 32, 3), np.uint8), np.empty((16,), np.int32)
+    for _ in range(6):  # past an epoch of 4 batches
+        rx, ry = next(it)
+        assert into.next_into(x, y) == into.epoch
+        np.testing.assert_array_equal(x, rx)
+        np.testing.assert_array_equal(y, ry)
+    for bad in (np.empty((16, 32, 32, 3), np.float32), np.empty((8, 32, 32, 3), np.uint8),
+                np.empty((16, 3, 32, 32), np.uint8).transpose(0, 2, 3, 1)):
+        with pytest.raises(ValueError):
+            into.next_into(bad, y)
+    into.close()
+    assert into.next_into(x, y) == -1
+
+
 def test_missing_dir_raises(tmp_path):
     with pytest.raises(NativeLoaderUnavailable):
         NativeCifar10Loader(tmp_path / "nope", batch_size=8)
