@@ -51,7 +51,8 @@ Phases, in order; any failure exits non-zero and prints no result:
        rtol 1e-4); every rank's forward, dq and dk/dv launches as many
        times, all on ``tf32x3`` (the fp32 path's kernels);
    (b) the slice, ``lab.dp_pp.main``: bf16, flash kernels, 24 steps; losses
-       finite and falling, the first within 1 of ln(4096), every rank on CUDA
+       finite and falling, the first within 1 of ln(vocab) (the lab's
+       vocabulary is its tokenizer's: 259 bytes), every rank on CUDA
        with each kernel launched 6 times per step, all on the tensor cores;
        the median step time, tokens/s, each stage's ``recv`` wait, the DP
        all-reduce seconds and the bytes staged through the host per step;
@@ -126,10 +127,12 @@ Phases, in order; any failure exits non-zero and prints no result:
 10. the schedules on the card (``parallel/pipeline.py``: ``gpipe``,
     ``1f1b``, ``1f1b-stash``, ``interleaved`` and ``interleaved-1f1b``, 2
     chunks per rank when interleaved), grad accumulation and DP overlap,
-    each sub-phase timed:
-    (a) fp32, full width, flash kernels: one Adam step of every schedule in
-        a 1 x 3 world (batch 3, M 3) and in a 2 x 3 world (3 rows per
-        replica) against GPipe's on the same weights and tokens (loss rtol
+    each sub-phase timed; the LLaMA is the labs' (its vocabulary the
+    tokenizer's, 259 bytes):
+    (a) fp32, full width, flash kernels: one Adam step of every schedule on
+        a 1 x 3 grid (batch 3, M 3; the first 3 ranks of the 2 x 3 world,
+        ``Mesh.sub``) and on the 2 x 3 world (3 rows per replica) against
+        GPipe's on the same weights and tokens (loss rtol
         1e-5, gradients and updated parameters atol 2e-4 + rtol 2e-3, as
         phase 7 (a)); ``1f1b`` against ``1f1b-stash`` as a max abs
         difference;
@@ -263,9 +266,9 @@ Phases, in order; any failure exits non-zero and prints no result:
 
 14. the pipeline compositions on the card (``make_pipeline_train_step`` with
     ``ep_axis=``, ``tp_axis=``, ``seq_axis=``; ``pipe_phase``), full width,
-    the flash kernels, ranks on ``cuda:0`` over gloo, two worlds spawned after
-    phase 2 built the kernels: 6 ranks for (a), 8 ranks that regrid into
-    (b)-(d):
+    the flash kernels, ranks on ``cuda:0`` over gloo, one world of 8 spawned
+    after phase 2 built the kernels: its first 6 ranks a grid of their own
+    for (a) (``Mesh.sub``), all 8 regridded into (b)-(d):
     (a) EP x DP x PP on the reference's 2 x 3, MoE (2 experts per rank and
         stage), M 3, 3 rows per replica, all five schedules (the interleaved
         ones with 2 chunks of one layer);
@@ -537,6 +540,26 @@ Phases, in order; any failure exits non-zero and prints no result:
     phase 3, (a) beside the model check and phase 7 (none times anything of
     the card, and none overlaps the primer's timed steps; the lines print
     after phase 21), so their walls include that load.
+23. the tokenizers, the ``describe()`` registry and the lint gate on the
+    card (``tokenizer_run``, ``golden_quick``, ``registry_run``,
+    ``lint_gate``): (a) the SentencePiece model ``data/tinystories.model``
+    (vocab 512) and a BPE trained in the process (512 merges asked on the
+    synthetic TinyStories text) each feed ``TinyStories`` into the
+    full-width LLaMA sized by the tokenizer (dmodel 288, 6 heads, 6 layers,
+    ctx 256, bf16, flash kernels) for 3 Adam steps: losses finite, the first
+    within 1 of ln(vocab), each kernel launched 6 times a step, all on
+    ``wgmma``; the native BPE encoder (``native/libddl25_bpe.so``) ran and
+    equals the Python loop on the corpus; ``golden_tables --quick`` on the
+    card, in phase 9 (e)'s process, prints its header; (b) one spawned world
+    of 4 ranks on ``cuda:0`` over gloo runs the 16 training strategies'
+    ``describe()`` one step each (the ``(1, 2)`` ones on 2 ranks of it):
+    every collective signature holds on every rank, and each step's
+    ``max_memory_allocated`` above what the rank held before it is under its
+    budget; (c) ``python -m ddl25spring_tpu_torch.analysis --check
+    --host-safety`` exits 0.  (a) runs in a process of its own beside the
+    build and phase 3 (its steps wait for the kernels), (c) beside the
+    build, (b) beside the model check and phase 7; none times anything of
+    the card, and their lines print after phase 22's.
 
 Tolerances (|kernel - plain| <= atol + rtol * |plain|):
   fp32: atol 1e-4, rtol 0 (summation order only);
@@ -564,7 +587,9 @@ the kernel's nodes in (b)'s guarded graph of 16 steps, and
 phase 17 (a)'s run A, ``launches_ft_zero3_per_rank_per_step`` each rank's
 per step in each run of phase 17 (d), ``launches_serve_per_tick`` the
 kernel's launches (eager and captured) over phase 18 per decode tick run (0),
-and ``launches_tp_serve`` its launches over phase 20 on every rank (0).
+and ``launches_tp_serve`` its launches over phase 20 on every rank (0);
+``launches_tokenizer_per_step`` its launches in phase 23 (a)'s last step, by
+tokenizer (6 each: one a layer).
 The rows ``flash_fwd_tf32x3``, ``flash_dq_tf32x3`` and ``flash_dkv_tf32x3``
 are the fp32 path's: ``launches`` its launches over phase 7 (a)'s six ranks,
 ``max_abs_err`` phase 3's at ``[18, 256, 48]`` fp32 causal, the times phase 10
@@ -1084,8 +1109,9 @@ def dp_pp_slice(dev):
     ranks, losses = run["ranks"], run["losses"]
     check(len(losses) == STEPS and all(math.isfinite(x) for x in losses),
           f"DPxPP losses not all finite: {losses}")
-    check(abs(losses[0] - math.log(4096)) < 1.0,
-          f"DPxPP first loss {losses[0]:.3f} far from ln(vocab) {math.log(4096):.3f}")
+    vocab = lab_vocab()  # the lab sizes its embedding by the tokenizer
+    check(abs(losses[0] - math.log(vocab)) < 1.0,
+          f"DPxPP first loss {losses[0]:.3f} far from ln(vocab) {math.log(vocab):.3f}")
     first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
     check(last < first, f"DPxPP loss did not fall: first-5 mean {first:.4f}, last-5 {last:.4f}")
     for r in ranks:
@@ -1643,6 +1669,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 try:
     chip_smoke.fl_vertical_generative(torch.device("cuda", 0))
+    chip_smoke.golden_quick(torch.device("cuda", 0))
 except chip_smoke.PhaseError as e:
     print(f"FAILED: {e}", flush=True)
     sys.exit(1)
@@ -1685,65 +1712,85 @@ def _chunks_of(schedule):
     return CHUNKS if schedule.startswith("interleaved") else 1
 
 
-def schedules_rank(rdv, data, runs, device):
+def schedules_rank(rdv, data, runs, device, sub_runs=()):
     """One rank of a ``data x 3`` world that runs each of ``runs`` in turn
-    from the same weights (``Llama(7)``'s): a dict with ``schedule``,
+    from the same weights (``Llama(7)``'s), after ``sub_runs`` on the
+    world's first 3 ranks as a 1 x 3 grid of their own (``Mesh.sub``; their
+    results under ``"sub"``, which the other ranks leave out).  A run is a
+    dict with ``schedule``,
     ``dtype``, ``M``, ``rows`` (the global batch), ``steps`` and ``key``.
     Per run: the losses (last stage), each step's host seconds and comm
     counts, the flash launches by kernel and variant over the steps, the
     executor's largest stash per step, each step's activation peak (the
     most bytes allocated during the step less those allocated just before
     it), and the stage's gradients and parameters after the first step."""
-    from ddl25spring_tpu_torch.models.llama import Llama, export_grads, export_params
+    from ddl25spring_tpu_torch.models.llama import Llama, export_params
+    from ddl25spring_tpu_torch.utils.config import LlamaConfig
+    from ddl25spring_tpu_torch.utils.mesh import init_mesh
+
+    out = {}
+    with init_mesh(rdv, data=data, stages=PP, device=device) as world:
+        # the labs' model: the embedding sized by the tokenizer
+        vocab = lab_vocab()
+        params = export_params(Llama(LlamaConfig(vocab_size=vocab), device="cpu",
+                                     generator=torch.Generator().manual_seed(7)))
+        sub = world.sub(1, PP) if sub_runs else None
+        if sub is not None:
+            out["sub"] = {**_schedule_results(sub, params, vocab, sub_runs),
+                          "coords": sub.coords, "backend": sub.backend,
+                          "device": str(sub.device)}
+        out.update(_schedule_results(world, params, vocab, runs))
+        out["coords"] = world.coords
+        out["backend"], out["device"] = world.backend, str(world.device)
+    return out
+
+
+def _schedule_results(mesh, params, vocab, runs) -> dict:
+    """:func:`schedules_rank`'s runs on ``mesh``, by key."""
+    from ddl25spring_tpu_torch.models.llama import export_grads, export_params
     from ddl25spring_tpu_torch.ops import flash_attention as fa
     from ddl25spring_tpu_torch.parallel.pipeline import (
         make_pipeline_train_step,
         shard_staged_params,
     )
     from ddl25spring_tpu_torch.utils.config import LlamaConfig
-    from ddl25spring_tpu_torch.utils.mesh import init_mesh
 
     out = {}
-    with init_mesh(rdv, data=data, stages=PP, device=device) as mesh:
-        params = export_params(Llama(LlamaConfig(), device="cpu",
-                                     generator=torch.Generator().manual_seed(7)))
-        for run in runs:
-            cfg = LlamaConfig(dtype=run["dtype"], use_flash=True)
-            V = _chunks_of(run["schedule"])
-            stage = shard_staged_params(params, cfg, mesh, V)
-            step = make_pipeline_train_step(stage, cfg,
-                                            torch.optim.Adam(stage.parameters(), lr=8e-4),
-                                            mesh, run["M"], run["schedule"], V)
-            batches = _token_batches(cfg, run["rows"], run["steps"], seed=17)
-            r = {"losses": [], "step_s": [], "comm": [], "stash": [], "peak": []}
-            fa.reset_launches()
-            mesh.comm.take_stats()
-            cuda = mesh.device.type == "cuda"
-            for i, b in enumerate(batches):
-                tokens = torch.from_numpy(b).long()
-                if cuda:
-                    torch.cuda.synchronize(mesh.device)
-                    before = torch.cuda.memory_allocated(mesh.device)
-                    torch.cuda.reset_peak_memory_stats(mesh.device)
-                t0 = time.perf_counter()
-                loss = step(tokens)
-                if cuda:
-                    torch.cuda.synchronize(mesh.device)
-                r["step_s"].append(time.perf_counter() - t0)
-                r["peak"].append(torch.cuda.max_memory_allocated(mesh.device) - before
-                                 if cuda else 0)
-                r["comm"].append(mesh.comm.take_stats())
-                r["stash"].append(step.stats["stash_max"])
-                if loss is not None:
-                    r["losses"].append(float(loss))
-                if i == 0:
-                    r["grads"], r["updated"] = export_grads(stage), export_params(stage)
-            r["launches"] = dict(fa.LAUNCHES)
-            r["by_variant"] = {n: dict(c) for n, c in fa.LAUNCHES_BY_VARIANT.items()}
-            out[run["key"]] = r
-            del step, stage
-        out["coords"] = mesh.coords
-        out["backend"], out["device"] = mesh.backend, str(mesh.device)
+    for run in runs:
+        cfg = LlamaConfig(vocab_size=vocab, dtype=run["dtype"], use_flash=True)
+        V = _chunks_of(run["schedule"])
+        stage = shard_staged_params(params, cfg, mesh, V)
+        step = make_pipeline_train_step(stage, cfg,
+                                        torch.optim.Adam(stage.parameters(), lr=8e-4),
+                                        mesh, run["M"], run["schedule"], V)
+        batches = _token_batches(cfg, run["rows"], run["steps"], seed=17)
+        r = {"losses": [], "step_s": [], "comm": [], "stash": [], "peak": []}
+        fa.reset_launches()
+        mesh.comm.take_stats()
+        cuda = mesh.device.type == "cuda"
+        for i, b in enumerate(batches):
+            tokens = torch.from_numpy(b).long()
+            if cuda:
+                torch.cuda.synchronize(mesh.device)
+                before = torch.cuda.memory_allocated(mesh.device)
+                torch.cuda.reset_peak_memory_stats(mesh.device)
+            t0 = time.perf_counter()
+            loss = step(tokens)
+            if cuda:
+                torch.cuda.synchronize(mesh.device)
+            r["step_s"].append(time.perf_counter() - t0)
+            r["peak"].append(torch.cuda.max_memory_allocated(mesh.device) - before
+                             if cuda else 0)
+            r["comm"].append(mesh.comm.take_stats())
+            r["stash"].append(step.stats["stash_max"])
+            if loss is not None:
+                r["losses"].append(float(loss))
+            if i == 0:
+                r["grads"], r["updated"] = export_grads(stage), export_params(stage)
+        r["launches"] = dict(fa.LAUNCHES)
+        r["by_variant"] = {n: dict(c) for n, c in fa.LAUNCHES_BY_VARIANT.items()}
+        out[run["key"]] = r
+        del step, stage
     return out
 
 
@@ -1858,23 +1905,22 @@ def schedules_memory(ranks):
 
 
 def schedules_worlds(dev):
-    """Phase 10 (a)-(c): one 1 x 3 world and one 2 x 3 world, each running
-    every schedule's runs in turn."""
+    """Phase 10 (a)-(c): one 2 x 3 world running every schedule's runs in
+    turn, the 1 x 3 runs first on its first 3 ranks (``Mesh.sub``)."""
     from ddl25spring_tpu_torch.parallel.launch import spawn
 
-    t0 = time.perf_counter()
-    one = spawn(schedules_rank, PP, 1,
-                _schedule_runs("a", "float32", MICRO, MICRO, 1)
-                + _schedule_runs("c", "bfloat16", MEM_MICRO, MEM_MICRO, 2,
-                                 ("gpipe", "1f1b", "1f1b-stash", "interleaved-1f1b")),
-                dev.type, timeout=SPAWN_TIMEOUT)
-    print(f"  1 x 3 world: backend {one[0]['backend']}, {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     two = spawn(schedules_rank, DP * PP, DP,
                 _schedule_runs("a", "float32", MICRO, DP * ROWS, 1)
                 + _schedule_runs("b", "bfloat16", MICRO, DP * ROWS, SCHED_STEPS),
-                dev.type, timeout=SPAWN_TIMEOUT)
-    print(f"  2 x 3 world: backend {two[0]['backend']}, {time.perf_counter() - t0:.1f} s")
+                dev.type,
+                _schedule_runs("a", "float32", MICRO, MICRO, 1)
+                + _schedule_runs("c", "bfloat16", MEM_MICRO, MEM_MICRO, 2,
+                                 ("gpipe", "1f1b", "1f1b-stash", "interleaved-1f1b")),
+                timeout=SPAWN_TIMEOUT)
+    one = [r["sub"] for r in two[:PP]]
+    print(f"  one 2 x 3 world, the 1 x 3 runs on its first 3 ranks: backend "
+          f"{two[0]['backend']}, {time.perf_counter() - t0:.1f} s")
     schedules_exactness("1 x 3", one)
     schedules_exactness("2 x 3", two)
     timing = schedules_launches_and_times(two)
@@ -3369,9 +3415,11 @@ def _stage_layers(stage, S, s) -> dict:
     return out
 
 
-def pipe_comp_rank(rdv, world_size, exact, batches, device):
-    """One rank of a phase 14 world: every run of ``PIPE_RUNS`` on that many
-    ranks, each grid a regrid of the first.  Per run: one fp32 step (the
+def pipe_comp_rank(rdv, exact, batches, device):
+    """One rank of phase 14's world of 8: every run of ``PIPE_RUNS``, the
+    8-rank grids regrids of the first, the 6-rank grid (EP x DP x PP) the
+    world's first 6 ranks (``Mesh.sub``; ranks 6 and 7 sit those runs out).
+    Per run: one fp32 step (the
     loss, the stage's gradients where the merge needs them, the routers'
     logits), then ``PIPE_STEPS`` bf16 Adam steps (losses, host seconds per
     step to the card's idle, comm counts, the flash launches of the run: the
@@ -3386,19 +3434,23 @@ def pipe_comp_rank(rdv, world_size, exact, batches, device):
     from ddl25spring_tpu_torch.utils.device import backend_flags
     from ddl25spring_tpu_torch.utils.mesh import init_mesh
 
-    runs = {n: r for n, r in PIPE_RUNS.items() if r["world"] == world_size}
+    runs = PIPE_RUNS
     params = {k: export_params(Llama(pipe_cfg(k, "float32"), device="cpu",
                                      generator=torch.Generator().manual_seed(7)))
               for k in {r["kind"] for r in runs.values()}}
-    grids = list(dict.fromkeys(r["grid"] for r in runs.values()))
+    grids = list(dict.fromkeys(r["grid"] for r in runs.values() if r["world"] == 8))
     data, stages, seq, model = grids[0]
     out = {}
     with init_mesh(rdv, data, stages, device=device, seq=seq, model=model) as world:
         meshes = {grids[0]: world}
         for g in grids[1:]:
             meshes[g] = world.regrid(g[0], g[1], seq=g[2], model=g[3])
+        for g in dict.fromkeys(r["grid"] for r in runs.values() if r["world"] < 8):
+            meshes[g] = world.sub(g[0], g[1], seq=g[2], model=g[3])
         for name, run in runs.items():
             mesh = meshes[run["grid"]]
+            if mesh is None:
+                continue  # a run of the 6-rank grid, which leaves this rank out
             names = mesh.grid.names
             c = dict(zip(names, mesh.coords))
             keep = c.get("seq", 0) == 0 and ("ep_axis" in run["axes"] or c["data"] == 0)
@@ -3689,9 +3741,10 @@ def pipe_kernel_checks(dev):
 
 
 def pipe_phase(dev):
-    """Phase 14: the pipeline compositions on the card, two worlds (6 ranks:
-    (a); 8 ranks: (b)-(d)), each sub-phase timed; returns the runs'
-    launches, the kernels' errors at the new shapes and their times."""
+    """Phase 14: the pipeline compositions on the card, one world of 8 ranks
+    ((a) on its first 6, (b)-(d) on all 8), each sub-phase timed; returns
+    the runs' launches, the kernels' errors at the new shapes and their
+    times."""
     import numpy as np
 
     from ddl25spring_tpu_torch.data.tinystories import TinyStories
@@ -3705,14 +3758,15 @@ def pipe_phase(dev):
     ds = iter(TinyStories(get_tokenizer(), batch_size=6, seq_l=256, seed=0))
     batches = [np.asarray(next(ds)) for _ in range(PIPE_STEPS)]
     runs = {}
+    t0 = time.perf_counter()
+    ranks = spawn(pipe_comp_rank, 8, exact, batches, dev.type, timeout=SPAWN_TIMEOUT)
+    print(f"  8 ranks, the 6-rank grid on the first 6, backend "
+          f"{sorted({r[n]['backend'] for r in ranks for n in r})}: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     for world in (6, 8):
-        t0 = time.perf_counter()
-        ranks = spawn(pipe_comp_rank, world, world, exact, batches, dev.type,
-                      timeout=SPAWN_TIMEOUT)
-        print(f"  {world} ranks, backend {sorted({r[n]['backend'] for r in ranks for n in r})}:"
-              f" {time.perf_counter() - t0:.1f} s", flush=True)
-        runs.update(pipe_checks(ranks, dev, exact))
-        print(f"  the {world}-rank world took {time.perf_counter() - t0:.1f} s", flush=True)
+        runs.update(pipe_checks([{n: v for n, v in r.items() if PIPE_RUNS[n]["world"] == world}
+                                 for r in ranks[:world]], dev, exact))
+    print(f"  the world of 8 took {time.perf_counter() - t0:.1f} s", flush=True)
     pipe_refusals()
     t0 = time.perf_counter()
     errs = pipe_kernel_checks(dev)
@@ -6496,6 +6550,203 @@ def resilient_phase(tmp, futs, device="cuda") -> tuple[dict, list[str]]:
     return out, lines
 
 
+# ---------------------------------------------------------------- phase 23
+
+TOK_STEPS = 3                   # phase 23 (a): Adam steps per tokenizer
+BPE_MERGES = 512                # phase 23 (a): the in-process BPE's merges
+
+
+def lab_vocab() -> int:
+    """The LLaMA labs' vocabulary: the tokenizer's (bytes: 259), as
+    ``lab/s01_b2_dp_pp.py:117-121`` sizes it."""
+    from ddl25spring_tpu_torch.data.tokenizer import get_tokenizer
+
+    return get_tokenizer().vocab_size
+
+
+def _wait_for_kernels(timeout=600.0):
+    """Block until phase 2's libraries exist (built by the parent)."""
+    from ddl25spring_tpu_torch.ops import _build
+
+    libs = [_build.library_path(_build.CSRC / f) for f in
+            ("flash_attention.cu", "flash_attention_sm90.cu", "flash_attention_tf32x3.cu")]
+    t0 = time.perf_counter()
+    while not all(lib.exists() for lib in libs):
+        check(time.perf_counter() - t0 < timeout, "(a) the kernels were not built in time")
+        time.sleep(0.5)
+
+
+def tokenizer_run() -> None:
+    """Phase 23 (a), in a child process: the SentencePiece model
+    ``data/tinystories.model`` and a BPE trained here (:data:`BPE_MERGES`
+    merges on the synthetic TinyStories text) each feed ``TinyStories`` into
+    the full-width LLaMA sized by the tokenizer (dmodel 288, 6 heads, 6
+    layers, ctx 256, bf16, flash kernels) for :data:`TOK_STEPS` Adam steps
+    on the card: losses finite, the first within 1 of ln(vocab), each flash
+    kernel launched 6 times a step, all on ``wgmma``; the native BPE encoder
+    ran and equals the Python loop on the whole corpus.  The CPU work runs
+    while the parent builds the kernels; the steps wait for them."""
+    import warnings
+
+    from ddl25spring_tpu_torch.data.tinystories import TinyStories, _load_corpus
+    from ddl25spring_tpu_torch.data.tokenizer import BpeTokenizer, SentencePieceTokenizer
+    from ddl25spring_tpu_torch.models import llama
+    from ddl25spring_tpu_torch.ops import flash_attention as fa
+    from ddl25spring_tpu_torch.ops.losses import causal_lm_loss
+    from ddl25spring_tpu_torch.utils.config import LlamaConfig
+
+    t0 = time.perf_counter()
+    corpus = " ".join(_load_corpus(0, 200_000))
+    bpe = BpeTokenizer.train(corpus, BPE_MERGES)
+    t_train = time.perf_counter() - t0
+    check(bpe.native, "(a) the native BPE encoder (native/libddl25_bpe.so) did not load")
+    t1 = time.perf_counter()
+    native_ids = bpe.encode(corpus)
+    t_native = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    py_ids = BpeTokenizer(bpe.merges, native=False).encode(corpus)
+    t_py = time.perf_counter() - t1
+    check(native_ids == py_ids, "(a) the native BPE encoding differs from the Python loop")
+    print(f"  (a) BPE: {len(bpe.merges)} merges (asked {BPE_MERGES}) trained on "
+          f"{len(corpus)} chars in {t_train:.1f} s; native encoder ran, {len(native_ids)} ids "
+          f"equal to the Python loop's ({t_native * 1e3:.1f} ms native, {t_py * 1e3:.1f} ms "
+          "Python)", flush=True)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        sp = SentencePieceTokenizer("data/tinystories.model")
+    _wait_for_kernels()
+    dev = torch.device("cuda", 0)
+    B, L = MAIN_SHAPE[0], MAIN_SHAPE[1]
+    facts = {}
+    for name, tok in (("sentencepiece", sp), ("bpe", bpe)):
+        cfg = LlamaConfig(vocab_size=tok.vocab_size, dtype="bfloat16", use_flash=True)
+        model = llama.Llama(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+        opt = torch.optim.Adam(model.parameters(), lr=8e-4)
+        ds = iter(TinyStories(tok, batch_size=B, seq_l=L, seed=0))
+        losses, per_step = [], []
+        for _ in range(TOK_STEPS):
+            t = torch.as_tensor(next(ds), dtype=torch.long, device=dev)
+            check(int(t.max()) < cfg.vocab_size, f"(a) {name}: an id past the embedding")
+            fa.reset_launches()
+            opt.zero_grad(set_to_none=True)
+            loss = causal_lm_loss(llama.llama_forward(model, t, cfg), t)
+            loss.backward()
+            opt.step()
+            losses.append(float(loss.detach()))
+            per_step.append((dict(fa.LAUNCHES),
+                             {n: dict(c) for n, c in fa.LAUNCHES_BY_VARIANT.items()}))
+        check(all(math.isfinite(x) for x in losses), f"(a) {name}: losses {losses}")
+        check(abs(losses[0] - math.log(cfg.vocab_size)) < 1.0,
+              f"(a) {name}: first loss {losses[0]:.3f} far from ln({cfg.vocab_size})")
+        want = {k: cfg.n_layers for k in ("fwd", "dq", "dkv")}
+        for launches, by_variant in per_step:
+            check(launches == want, f"(a) {name}: launches a step {launches} != {want}")
+            check(all(by_variant[k].get("wgmma", 0) == cfg.n_layers for k in want),
+                  f"(a) {name}: launches by variant {by_variant}, not all on wgmma")
+        print(f"  (a) {name}: vocab {cfg.vocab_size}, loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+              f"over {TOK_STEPS} Adam steps (full width, bf16, ctx {L}, batch {B}); flash "
+              f"launches a step {per_step[-1][0]}, all on wgmma", flush=True)
+        facts[name] = per_step[-1][0]
+    print(f"  (a) in {time.perf_counter() - t0:.1f} s (its process)", flush=True)
+    print("23a " + json.dumps(facts), flush=True)
+
+
+_TOKENIZER = r"""
+import sys, torch
+import chip_smoke
+try:
+    chip_smoke.tokenizer_run()
+except chip_smoke.PhaseError as e:
+    print(f"FAILED: {e}", flush=True)
+    sys.exit(1)
+"""
+
+
+def tokenizer_proc() -> tuple[str, dict]:
+    """Phase 23 (a) (:func:`tokenizer_run`) in a child process; returns what
+    it printed and its flash launches a step by tokenizer, and fails as the
+    child did."""
+    import os
+
+    r = subprocess.run([sys.executable, "-c", _TOKENIZER], capture_output=True, text=True,
+                       timeout=900, cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(r.returncode == 0, f"23 (a) exit {r.returncode}: {r.stdout[-3000:]} "
+                             f"{r.stderr[-3000:]}")
+    lines = r.stdout.splitlines()
+    facts = json.loads(next(x for x in lines if x.startswith("23a "))[4:])
+    return "".join(x + "\n" for x in lines if not x.startswith("23a ")), facts
+
+
+def golden_quick(dev) -> None:
+    """Phase 23 (a)'s last part, in phase 9 (e)'s process: ``golden_tables
+    --quick`` on the card; its header says which data the table stands on."""
+    import contextlib
+    import io
+
+    from ddl25spring_tpu_torch.examples import golden_tables
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rows = golden_tables.main(["--quick", "--device", dev.type])
+    lines = out.getvalue().splitlines()
+    check(lines and lines[0].startswith("# data: "), f"(a) golden_tables header {lines[:1]}")
+    check(len(rows) == 2 and all(0.0 <= r["final_acc"] <= 1.0 for r in rows),
+          f"(a) golden_tables rows {rows}")
+    print(f"  23 (a) golden_tables --quick on the card in {time.perf_counter() - t0:.1f} s: "
+          f"{lines[0]}")
+    for r in rows:
+        print(f"  23 (a)   {r['server']} N={r['N']} C={r['C']}: final acc "
+              f"{r['final_acc']:.4f} (golden {r['golden']})")
+
+
+def registry_run() -> list[str]:
+    """Phase 23 (b): one spawned world of 4 ranks on ``cuda:0`` over gloo runs
+    all 16 training strategies' ``describe()``, each for one step on its
+    default mesh (the ``(1, 2)`` strategies on a 2-rank grid inside the
+    world): every signature holds on every rank, the step's memory peak
+    (``max_memory_allocated`` above the rank's allocation before the
+    describe) is judged and under its budget.  Returns one line per
+    strategy (rank 0's kinds, counts, bytes, peak against budget)."""
+    from ddl25spring_tpu_torch.obs import comm_analytics as ca
+
+    t0 = time.perf_counter()
+    ranks = ca.run_in_world(device="cuda", timeout=SPAWN_TIMEOUT)
+    lines = []
+    for name in ca.STRATEGIES:
+        reps = [r[name] for r in ranks if r[name] is not None]
+        check(reps, f"(b) {name}: no rank ran it")
+        for r in reps:
+            check(r["signature_violations"] == [],
+                  f"(b) {name} rank {r['rank']}: {r['signature_violations']}")
+            peak, budget = r["memory"]["peak_bytes"], r["memory"]["budget_bytes"]
+            check(peak is not None and budget is not None and 0 < peak <= budget,
+                  f"(b) {name} rank {r['rank']}: peak {peak} B against budget {budget} B")
+        peaks = [r["memory"]["peak_bytes"] for r in reps]
+        lines.append(f"  (b) {ca.format_report(reps[0])}; peaks over its ranks "
+                     f"{min(peaks)}-{max(peaks)} B")
+    lines.append(f"  (b) 16 strategies held in one world of {ca.WORLD} ranks in "
+                 f"{time.perf_counter() - t0:.1f} s")
+    return lines
+
+
+def lint_gate() -> str:
+    """Phase 23 (c): the port's tree lints clean, source and host-safety passes
+    (``python -m ddl25spring_tpu_torch.analysis --check --host-safety``),
+    beside the build; touches no card."""
+    import os
+
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "ddl25spring_tpu_torch.analysis", "--check",
+                        "--host-safety"], capture_output=True, text=True, timeout=300,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(r.returncode == 0, f"(c) lint exit {r.returncode}: {r.stderr[-3000:]}")
+    heads = [line for line in r.stdout.splitlines() if line.startswith(("source lint",
+                                                                        "host-safety"))]
+    return (f"  (c) {'; '.join(heads)}; {r.stderr.strip().splitlines()[-1]} "
+            f"({time.perf_counter() - t0:.1f} s, beside the build)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -6524,14 +6775,21 @@ def main() -> int:
     import shutil
     import tempfile
 
-    side = concurrent.futures.ThreadPoolExecutor(4)
+    # phase 23 (a) (the tokenizers: CPU work, then 2 x 3 full-width steps
+    # on the card once the kernels exist) and (c) (the lint gate, no card)
+    # start here too, (a) ending before the primer; 23 (b) (the registry
+    # world) runs beside phase 7; phase 23's lines print after phase 22's
+    side = concurrent.futures.ThreadPoolExecutor(7)
     tmp22 = tempfile.mkdtemp(prefix="phase22-")
     runs22 = resilient_start(side, tmp22, parts="bc")
     binaries = side.submit(stream_inputs)
+    lint23 = side.submit(lint_gate)
+    tok23 = side.submit(tokenizer_proc)
     print("  phase 9 (e), federated learning (cuDNN, cuBLAS), beside the build:", flush=True)
     vertical = side.submit(fl_vertical_generative_proc)
     t_side, ends = time.perf_counter(), {}
-    for name, f in (("9 (e)", vertical), *((f"22 ({k})", f) for k, f in runs22.items())):
+    for name, f in (("9 (e)", vertical), ("23 (a)", tok23), ("23 (c)", lint23),
+                    *((f"22 ({k})", f) for k, f in runs22.items())):
         f.add_done_callback(lambda _, name=name: ends.setdefault(name, time.perf_counter()))
     libs = _build.build(_build.CSRC / "flash_attention.cu", _build.CSRC / "flash_attention_sm90.cu",
                         _build.CSRC / "flash_attention_tf32x3.cu")
@@ -6593,11 +6851,13 @@ def main() -> int:
     t0 = time.perf_counter()
     print(vertical.result(), end="")
     binaries.result()
+    tok_out, tok_launches = tok23.result()
+    lint_out = lint23.result()
     for f in runs22.values():
         f.exception()  # wait; phase 22 checks them after phase 21
-    print(f"  (phase 9 (e) and phase 22 (b), (c) ended {time.perf_counter() - t0:.1f} s after "
-          "phase 3; each ran " + ", ".join(f"{k} {t - t_side:.1f} s" for k, t in ends.items())
-          + ")", flush=True)
+    print(f"  (phase 9 (e), phase 22 (b), (c) and phase 23 (a), (c) ended "
+          f"{time.perf_counter() - t0:.1f} s after phase 3; each ran "
+          + ", ".join(f"{k} {t - t_side:.1f} s" for k, t in ends.items()) + ")", flush=True)
 
     print(f"== the slice: primer, {STEPS} steps, full width, bf16, flash kernels (the card to "
           "itself)")
@@ -6625,10 +6885,11 @@ def main() -> int:
     print(f"  step time median {step_ms:.3f} ms (steps 4..{STEPS - 1}, host clock, "
           f"min {min(steady) * 1e3:.3f} ms), {B * L / (step_ms / 1e3):.1f} tokens/s")
 
-    # phase 22 (a) from here, beside the model check and phase 7
+    # phase 22 (a) and phase 23 (b) from here, beside the model check and phase 7
     t_a = time.perf_counter()
     runs22.update(resilient_start(side, tmp22, parts="a"))
-    print("== full-width model check (beside phase 22 (a))")
+    reg23 = side.submit(registry_run)
+    print("== full-width model check (beside phase 22 (a) and phase 23 (b))")
     model_check(dev)
 
     print(f"== DP x PP on the card: {DP} x {PP} ranks, {MICRO} microbatches, {ROWS} rows "
@@ -6642,9 +6903,12 @@ def main() -> int:
 
     t0 = time.perf_counter()
     runs22["a"].exception()
+    t_22a = time.perf_counter() - t0
+    reg_lines = reg23.result()
     side.shutdown()
-    print(f"  (phase 22 (a) ended {time.perf_counter() - t0:.1f} s after phase 7, "
-          f"{time.perf_counter() - t_a:.1f} s after it began)", flush=True)
+    print(f"  (phase 22 (a) ended {t_22a:.1f} s after phase 7, phase 23 (b) "
+          f"{time.perf_counter() - t0:.1f} s after it; both began {time.perf_counter() - t_a:.1f}"
+          " s ago)", flush=True)
 
     print("== timing at the LLaMA path's shape, bf16 causal")
     timing = time_kernels(fa, gen, dev)
@@ -6771,6 +7035,16 @@ def main() -> int:
     print(f"  phase 22's checks in {time.perf_counter() - t0:.1f} s (its runs beside the build, "
           "9 (e) and phase 3, and beside the model check and phase 7)")
 
+    print("== the tokenizers, the describe() registry and the lint gate on the card: "
+          "SentencePiece and a trained BPE into the full-width LLaMA (bf16, flash), the 16 "
+          "training strategies' collective signatures and memory budgets (4 ranks on cuda:0), "
+          "the port's tree linted (each beside a phase that times nothing)")
+    print(card)
+    print(tok_out, end="")
+    for line in reg_lines:
+        print(line)
+    print(lint_out)
+
     kernels = [
         {"name": f"flash_{name}", "route": "cuda", "source": SOURCE[timing[name]["variant"]],
          "replaces": REPLACES[name], "launches": launches[name],
@@ -6791,6 +7065,7 @@ def main() -> int:
              {run: c[name] for run, c in per_rank.items()} for per_rank in ft["zero3"]["launches"]],
          "launches_serve_per_tick": serve["launches_per_tick"][name],
          "launches_tp_serve": tp["launches"][name],
+         "launches_tokenizer_per_step": {tok: c[name] for tok, c in tok_launches.items()},
          "max_abs_err": main_err[name], "max_abs_err_sp_tp": sptp["max_abs_err"][name],
          "max_abs_err_pipeline_compositions": pipe["max_abs_err"][name],
          **timing[name]}

@@ -245,12 +245,12 @@ def attach_parent_telemetry(record: dict, failures: list | None, compile_report:
     ``bench.py:175-230`` does: ``retry_failures``, ``resume`` merged over the
     child's own cell, and ``health.flight_dump`` (the record's or the last
     failure's) with ``health.reason`` on an error line.  The compile report
-    and its lint cell wait for the analysis item (ROADMAP A12): passing one
+    and its lint cell wait for the analysis item (ROADMAP A12b): passing one
     raises ``NotImplementedError``."""
     if compile_report is not None:
         raise NotImplementedError(
             "the bench's compile report and lint cell need the describe() registry and the "
-            "HLO linter, which wait for the analysis item (ROADMAP A12)")
+            "HLO linter, which wait for the analysis item (ROADMAP A12b)")
     tel = record.get("telemetry")
     if not isinstance(tel, dict):
         tel = {"enabled": False}
@@ -363,7 +363,7 @@ def run_with_retries(argv, attempts: int, child_timeout_s: float,
     from ddl25spring_tpu_torch.obs import goodput as goodput_mod
 
     if compile_report is not None:
-        raise NotImplementedError("the compile report waits for ROADMAP A12")
+        raise NotImplementedError("the compile report waits for ROADMAP A12b")
     backoff = (60.0, 120.0)
     chaos_spec = os.environ.get("DDL25_CHAOS")
     lineage_id = goodput_mod.mint_lineage_id()

@@ -49,7 +49,9 @@ class DpJob:
 def dp_rank(rdv, job: DpJob) -> dict:
     """One replica's training loop; rank 0 prints the loss of every step."""
     with init_mesh(rdv, job.ranks, 1, job.device) as mesh:
-        cfg = LlamaConfig(ctx_size=job.seq_len,
+        # the tokenizer sizes the embedding, as examples/tutorial_1b/intro_dp_ga.py:51-53
+        tok = get_tokenizer()
+        cfg = LlamaConfig(vocab_size=tok.vocab_size, ctx_size=job.seq_len,
                           dtype="bfloat16" if mesh.device.type == "cuda" else "float32")
         model = Llama(cfg, device=mesh.device, generator=torch.Generator().manual_seed(job.seed))
         make = make_dp_weight_avg_step if job.weight_avg else make_dp_train_step
@@ -57,14 +59,15 @@ def dp_rank(rdv, job: DpJob) -> dict:
                     torch.optim.Adam(model.parameters(), lr=job.lr), mesh)
         # one global stream, each replica taking its rows: the counterpart of
         # the reference's disjoint skip=rank*N streams (intro_DP_GA.py:29)
-        ds = iter(TinyStories(get_tokenizer(), batch_size=job.per_replica_batch * job.ranks,
+        ds = iter(TinyStories(tok, batch_size=job.per_replica_batch * job.ranks,
                               seq_l=job.seq_len, seed=job.seed))
         losses = []
         for it in range(job.iters):
             losses.append(float(step(torch.from_numpy(np.asarray(next(ds))).long())))
             if mesh.rank == 0:
                 print(f"iter {it:3d}  loss {losses[-1]:.4f}", flush=True)
-        return {"losses": losses, "device": str(mesh.device), "backend": mesh.backend}
+        return {"losses": losses, "device": str(mesh.device), "backend": mesh.backend,
+                "vocab_size": cfg.vocab_size}
 
 
 def run(argv, weight_avg: bool, doc: str) -> dict:

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import argparse
 
+from ddl25spring_tpu_torch.data.tokenizer import get_tokenizer
 from ddl25spring_tpu_torch.lab import dp_pp
 from ddl25spring_tpu_torch.parallel.launch import spawn
 from ddl25spring_tpu_torch.parallel.pipeline import SCHEDULES
@@ -44,10 +45,13 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
-    cfg = LlamaConfig(ctx_size=args.seq_len,
+    # the tokenizer sizes the embedding, as examples/tutorial_1b/intro_pp_1f1b.py:54-56
+    tok = get_tokenizer()
+    cfg = LlamaConfig(vocab_size=tok.vocab_size, ctx_size=args.seq_len,
                       dtype="bfloat16" if device.type == "cuda" else "float32")
     job = dp_pp.Job(cfg, 1, STAGES, args.microbatches, batch=args.batch, iters=args.iters,
-                    lr=args.lr, seed=args.seed, device=device.type, schedule=args.schedule)
+                    lr=args.lr, seed=args.seed, device=device.type, schedule=args.schedule,
+                    tokenizer=tok)
     print(f"{args.schedule} pipeline: {STAGES} stages, M={args.microbatches} (reference: "
           f"3 ranks, single batch), device={device.type}", flush=True)
     ranks = spawn(dp_pp.run_rank, STAGES, job)

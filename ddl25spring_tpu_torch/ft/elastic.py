@@ -72,9 +72,9 @@ def reshape_state(state: Any, template: Any) -> Any:
     return reshard.reshard_state(state, template)
 
 
-def relower(strategy, mesh, *, model, loss_fn, optimizer, rows=None, **kw):
+def relower(strategy, mesh, *, model=None, loss_fn=None, optimizer=None, rows=None, **kw):
     """Re-lower a strategy onto a new mesh: the step-rebuild half of a
-    reshape.
+    reshape (JAX ``ft/elastic.py:85-118``).
 
     A :class:`~ddl25spring_tpu_torch.parallel.rules.RuleTable` or
     :class:`~ddl25spring_tpu_torch.parallel.rules.RulePartitioner`: the
@@ -82,8 +82,10 @@ def relower(strategy, mesh, *, model, loss_fn, optimizer, rows=None, **kw):
     (``RulePartitioner.with_mesh``) and builds the train step through its
     one lowering path (``make_train_step(model, loss_fn, optimizer, rows,
     **kw)``; the rows and the optimizer over them are the new layout's).  A
-    strategy NAME would rebuild through the ``describe()`` registry, which
-    the port does not have yet: it raises ``NotImplementedError``."""
+    registered strategy NAME rebuilds through the ``describe()`` registry
+    on the new mesh: the describe dict (the canonical workload's step, its
+    inputs, ``meta`` and signature), :func:`~ddl25spring_tpu_torch.obs.
+    comm_analytics.describe_strategy` with ``kw``."""
     from ddl25spring_tpu_torch.parallel.rules import RulePartitioner, RuleTable
 
     if isinstance(strategy, RulePartitioner):
@@ -91,10 +93,9 @@ def relower(strategy, mesh, *, model, loss_fn, optimizer, rows=None, **kw):
     elif isinstance(strategy, RuleTable):
         part = RulePartitioner(mesh, strategy)
     else:
-        raise NotImplementedError(
-            f"relower({strategy!r}): re-lowering a strategy by name goes through the "
-            "describe() registry, which waits for the analysis item (ROADMAP A12); pass "
-            "a RuleTable or a RulePartitioner")
+        from ddl25spring_tpu_torch.obs import comm_analytics
+
+        return comm_analytics.describe_strategy(str(strategy), mesh, **kw)
     return part.make_train_step(model, loss_fn, optimizer, rows=rows, **kw)
 
 

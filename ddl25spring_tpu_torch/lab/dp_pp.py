@@ -8,7 +8,9 @@ BASELINE benchmark config, ``lab/run-b2.sh:7-9``) is described below.
 ``lab/s01_b2_dp_pp.py --workload llama`` (``run_llama``, :90-226): two
 pipelines of three stages, ranks ``0..2`` and ``3..5``, the DP group of each
 stage ``[0, 3] / [1, 4] / [2, 5]``; the workload constants
-(vocab 4096, dmodel 288, 6 heads, 6 layers, ctx 256), 3 rows per replica in
+(vocab = the tokenizer's, as ``lab/s01_b2_dp_pp.py:117-121`` sizes it: 259
+with the byte tokenizer; dmodel 288, 6 heads, 6 layers, ctx 256), 3 rows
+per replica in
 3 microbatches, Adam 8e-4 (``utils/config.py`` ``DpPpConfig``), 200 steps;
 ``--batch`` (global), ``--microbatches``, ``--lr`` and ``--iters`` change
 them with the JAX lab's meanings (:func:`llama_job`).  Each rank holds one
@@ -138,6 +140,7 @@ class Job:
     device: str = "cuda"
     params: dict | None = None  # full or staged numpy pytree; None: Llama(seed)'s
     batches: list | None = None  # global [batch, ctx] token batches; None: TinyStories
+    tokenizer: object = None    # TinyStories' tokenizer (None: get_tokenizer())
     export: bool = False        # return the first step's gradients and the last params
     log: bool = True
     schedule: str = "gpipe"
@@ -267,7 +270,8 @@ def run_rank(rdv, job: Job) -> dict:
         if job.batches is not None:
             batches = iter(job.batches[start:])
         else:
-            batches = iter(TinyStories(get_tokenizer(), batch_size=job.batch,
+            tok = job.tokenizer if job.tokenizer is not None else get_tokenizer()
+            batches = iter(TinyStories(tok, batch_size=job.batch,
                                        seq_l=cfg.ctx_size, seed=job.seed,
                                        skip=start * job.batch))
         out = {"rank": mesh.rank, "coords": (d, s), "device": str(mesh.device),
@@ -444,7 +448,10 @@ def llama_job(args, layout: DpPpConfig) -> tuple[Job, str]:
     if iters * K != asked:
         print(f"note: --iters {asked} adjusted to {iters * K} (a dispatch runs {K} fused "
               "steps; use --scan-steps to change the granularity)", flush=True)
-    cfg = LlamaConfig(ctx_size=args.seq_len,
+    # one tokenizer sizes the embedding and feeds the stream, as in
+    # lab/s01_b2_dp_pp.py:117-121 and lab/s01_b1_microbatches.py:94-100
+    tok = get_tokenizer()
+    cfg = LlamaConfig(vocab_size=tok.vocab_size, ctx_size=args.seq_len,
                       dtype="bfloat16" if device.type == "cuda" else "float32",
                       use_flash=not args.no_flash)
     if cfg.n_layers % (S * V):
@@ -456,7 +463,7 @@ def llama_job(args, layout: DpPpConfig) -> tuple[Job, str]:
     job = Job(cfg, D, S, M, batch=batch, iters=iters, lr=args.lr or layout.learning_rate,
               seed=args.seed, device=device.type, schedule=args.schedule, chunks=V,
               scan_steps=K, trace_dir=args.trace_dir, ckpt_dir=args.ckpt_dir,
-              ckpt_every=args.ckpt_every)
+              ckpt_every=args.ckpt_every, tokenizer=tok)
     return job, why
 
 

@@ -547,10 +547,14 @@ def pool_leak_check(pool: dict[str, Any], *, cache_held_pages: int = 0,
 
 
 def describe_budget_bytes(strategy: str) -> int | None:
-    """The compile-time peak-memory budget a registered strategy declares.
-    The port has no ``describe()`` registry yet (ROADMAP A12), so every
-    workload gates on its static accounting instead: always None."""
-    return None
+    """The peak-memory budget a registered training strategy declares
+    (``describe()['expected']['memory']['max_peak_hbm_bytes']``, from
+    :mod:`~ddl25spring_tpu_torch.obs.comm_analytics`); None for workloads
+    outside the registry (the bench's ResNet, and the serving programs until
+    their describes, ROADMAP A12b): those gate on the static accounting."""
+    from ddl25spring_tpu_torch.obs import comm_analytics
+
+    return comm_analytics.budget_bytes(strategy)
 
 
 def budget_cell(measured_peak_bytes: int, budget_bytes: int | None, *,

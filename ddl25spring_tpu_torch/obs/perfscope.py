@@ -18,7 +18,7 @@ on a card, the calibrated ``cpu-host`` pseudo-chip on the CPU).  FLOPs come
 from :func:`~ddl25spring_tpu_torch.utils.flops.count_flops`, not XLA's
 cost analysis.
 
-Not here yet (ROADMAP A12, which brings the ``describe()`` registry and the
+Not here yet (ROADMAP A12b, which brings the ``describe()`` registry and the
 trace analyzers): the per-collective micro-costs (``micro`` is ``[]``, so
 ``overlap_eff`` is None), the roofline projection (``projected_mfu``,
 ``projected_bound`` and ``projection_err`` are None), and the
@@ -45,7 +45,7 @@ PERF_BASENAME = "perf.json"
 
 #: why the analytics half of a record is empty
 A12_NOTE = ("no roofline projection or collective micro-costs yet: they need the "
-            "describe() registry and the trace analyzers (ROADMAP A12)")
+            "describe() registry and the trace analyzers (ROADMAP A12b)")
 
 
 def host_fingerprint(device=None, kind: str | None = None) -> str:
@@ -130,7 +130,7 @@ def build_record(*, strategy: str, mesh_axes: dict[str, int] | None, n_chips: in
 
     - ``exposed_comms_s = max(0, step_p50 - compute_p50)``;
     - ``overlap_eff = 1 - exposed / micro_total`` capped at 1.0, floor-free,
-      None without costed collectives (always, until A12's micro-costs);
+      None without costed collectives (always, until A12b's micro-costs);
     - ``measured_mfu = flops / (step_p50 * n_chips * peak)``;
     - the projection fields are None (:data:`A12_NOTE`)."""
     import torch
@@ -236,17 +236,17 @@ def measure_strategy(name: str, *args: Any, **kwargs: Any):
 
 
 def build_micro_benches(*args: Any, **kwargs: Any):
-    """Standalone micro-benches of a collective inventory (A12)."""
+    """Standalone micro-benches of a collective inventory (A12b)."""
     raise NotImplementedError(f"build_micro_benches: {A12_NOTE}")
 
 
 def time_micro_benches(*args: Any, **kwargs: Any):
-    """Timing of :func:`build_micro_benches`' benches (A12)."""
+    """Timing of :func:`build_micro_benches`' benches (A12b)."""
     raise NotImplementedError(f"time_micro_benches: {A12_NOTE}")
 
 
 def micro_site_records(*args: Any, **kwargs: Any):
-    """One measured-cost record per inventory site (A12)."""
+    """One measured-cost record per inventory site (A12b)."""
     raise NotImplementedError(f"micro_site_records: {A12_NOTE}")
 
 
@@ -348,7 +348,7 @@ def write_run_perf(record: dict[str, Any], run_dir: str) -> str:
 
 
 def main(argv=None) -> int:
-    """The registry CLI (``--strategy dp,...``) waits for A12."""
+    """The registry CLI (``--strategy dp,...``) waits for A12b."""
     raise NotImplementedError(f"python -m ddl25spring_tpu_torch.obs.perfscope: {A12_NOTE}")
 
 

@@ -20,7 +20,7 @@ The summary derives steps/sec p50/p95 from the per-step ``wall_s``
 distribution (p50, not the mean: one GC pause must not skew a bench line),
 MFU from the header's FLOPs and chip peak, and the GPipe bubble fraction
 from the header's (S, M).  The compile-analytics section of the JAX report
-(``compile_report.json``) has no counterpart until ROADMAP A12, and the
+(``compile_report.json``) has no counterpart until ROADMAP A12b, and the
 report says so.
 
 CLI, with ``tools/obs_report.py``'s flags and exit codes::
@@ -47,7 +47,7 @@ SERVE_BASENAME = "serve.json"
 
 #: what stands in the report for the JAX package's compile analytics
 COMPILE_REPORT_ABSENT = ("not in the port yet: it reads compiled XLA programs "
-                         "(ROADMAP A12)")
+                         "(ROADMAP A12b)")
 
 
 def _pct(xs: list[float], q: float) -> float:

@@ -55,10 +55,27 @@ one node for all ``n - 1`` hops: a block that a rank receives but does not
 use still has its cotangent (zeros) passed on, where a chain of one node
 per hop would let autograd prune that rank's unused hops and leave its
 peers waiting.
+
+The collective inventory (:meth:`Comm.start_recording`, the counterpart of
+what the JAX package reads off the compiled HLO,
+``obs/xla_analytics.parse_hlo_collectives``): while it records, every
+collective appends one record, ``{kind, result_bytes, dtype, group_size,
+ranks, count}``, with JAX's kinds and JAX's byte unit, the bytes of the
+operation's RESULT on this rank: an all-reduce's tensor, an all-gather's
+whole gathered tensor, a reduce-scatter's one shard, an all-to-all's
+tensor.  Each position of an exchange (:meth:`Comm.send_recv`: a send and
+the receive beside it, or one alone) is one ``collective-permute`` of the
+received tensor's bytes (the sent one's when it only sends).  ``ranks``
+are the global ranks the operation spans (the group, or this rank and its
+peers), from which :mod:`~ddl25spring_tpu_torch.obs.comm_analytics` names
+the mesh axes.  The records are made before the transport runs, so they
+are the same on gloo, staged or not, and under NCCL.  Not recording, a
+collective builds no record: one ``is None`` test.
 """
 
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass
 
@@ -66,6 +83,11 @@ import torch
 import torch.distributed as dist
 
 from ddl25spring_tpu_torch.parallel.bucketing import BucketPlan, parts
+
+# torch dtypes by the element-type names of XLA's HLO, which JAX's inventory uses
+_HLO_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16",
+               torch.float64: "f64", torch.int32: "s32", torch.int64: "s64",
+               torch.uint8: "u8", torch.int8: "s8", torch.bool: "pred"}
 
 
 class Comm:
@@ -76,7 +98,29 @@ class Comm:
         self.device = torch.device(device)
         self.staged = backend == "gloo" and self.device.type == "cuda"
         self._host: dict[tuple, torch.Tensor] = {}
+        self.records: list[dict] | None = None  # the inventory while recording
         self.take_stats()
+
+    def start_recording(self):
+        """From now on every collective appends its record to
+        :attr:`records` (see the module docstring)."""
+        self.records = []
+
+    def stop_recording(self) -> list[dict]:
+        """Stop recording; returns the records made since
+        :meth:`start_recording`."""
+        out, self.records = self.records or [], None
+        return out
+
+    def _note(self, kind: str, result_bytes: int, dtype, group=None, peers=()):
+        if group is not None or not peers:
+            ranks = tuple(dist.get_process_group_ranks(group) if group is not None
+                          else range(dist.get_world_size()))
+        else:
+            ranks = tuple(sorted({dist.get_rank(), *peers}))
+        self.records.append({"kind": kind, "result_bytes": int(result_bytes),
+                             "dtype": _HLO_DTYPES.get(dtype, str(dtype)),
+                             "group_size": len(ranks), "ranks": ranks, "count": 1})
 
     def take_stats(self) -> dict:
         """The counts since the last call, which sets them to 0."""
@@ -122,6 +166,16 @@ class Comm:
 
         The wait counts as ``recv_wait_s`` when the exchange receives, else
         as ``send_s``, which also counts the posting."""
+        if self.records is not None:
+            for i in range(max(len(sends), len(recvs))):
+                peers = ([sends[i][1]] if i < len(sends) else []) + \
+                        ([recvs[i][2]] if i < len(recvs) else [])
+                if i < len(recvs):
+                    shape, dtype = recvs[i][0], recvs[i][1]
+                    nbytes = math.prod(shape) * dtype.itemsize
+                else:
+                    dtype, nbytes = sends[i][0].dtype, sends[i][0].nbytes
+                self._note("collective-permute", nbytes, dtype, peers=peers)
         self._settle()
         t0 = time.perf_counter()
         outs = [torch.empty(shape, dtype=dtype, device=self.device)
@@ -182,6 +236,8 @@ class Comm:
         t0 = time.perf_counter()
         n = dist.get_world_size(group)
         for t in tensors:
+            if self.records is not None:
+                self._note("all-reduce", t.nbytes, t.dtype, group)
             if self.staged:
                 buf = self._to_host(t)
                 dist.all_reduce(buf, group=group)
@@ -211,6 +267,8 @@ class Comm:
         sum back into ``t`` (staged) and divides it by the group's size: after
         it ``t`` holds the mean over ``group``, as :meth:`all_reduce_mean_`
         leaves it.  Both halves count in ``allreduce_s``."""
+        if self.records is not None:
+            self._note("all-reduce", t.nbytes, t.dtype, group)
         t0 = time.perf_counter()
         buf = self._to_host(t, ("allreduce", slot)) if self.staged else t
         work = dist.all_reduce(buf, group=group, async_op=True)
@@ -237,6 +295,8 @@ class Comm:
         the ``[n, *t.shape]`` result on this rank's device.  Both halves
         count in ``collective_s``."""
         n = dist.get_world_size(group)
+        if self.records is not None:
+            self._note("all-gather", n * t.nbytes, t.dtype, group)
         self._settle()
         t0 = time.perf_counter()
         out = torch.empty((n, *t.shape), dtype=t.dtype, device=self.device)
@@ -266,6 +326,8 @@ class Comm:
         (``lax.psum_scatter(scatter_dimension=0, tiled=True)`` of ``n`` rows).
         Staged, the whole ``t`` goes to the host and this rank's slot comes
         back."""
+        if self.records is not None:
+            self._note("reduce-scatter", t.nbytes // t.shape[0], t.dtype, group)
         self._settle()
         t0 = time.perf_counter()
         # flat: gloo takes the input as the outputs concatenated along dim 0
@@ -283,6 +345,8 @@ class Comm:
     def all_to_all(self, t: torch.Tensor, group) -> torch.Tensor:
         """``t`` is ``[n, ...]``: slot ``j`` goes to the group's rank ``j``, and
         slot ``j`` of the result is what rank ``j`` sent this rank."""
+        if self.records is not None:
+            self._note("all-to-all", t.nbytes, t.dtype, group)
         self._settle()
         t0 = time.perf_counter()
         out = torch.empty_like(t, memory_format=torch.contiguous_format)

@@ -344,3 +344,76 @@ def tiny_mlp_loss(model: TinyMlp, batch) -> torch.Tensor:
     x, y = batch
     return ((model(x) - y) ** 2).mean()
 
+
+
+# the describes' bucket threshold: JAX's (parallel/dp.py:324), a plan of
+# several buckets over the tiny MLP's 2,688 bytes, and never the env knob,
+# so a signature does not drift with DDL25_BUCKET_BYTES
+DESCRIBE_BUCKET_BYTES = 560
+
+
+def tiny_mlp_workload(mesh, axis: str = "data", params: dict | None = None):
+    """The describes' tiny MLP on ``mesh.device`` (JAX ``_tiny_mlp_workload``,
+    ``parallel/dp.py:327``): ``w1 [16, 32]``, ``b1 [32]``, ``w2 [32, 4]``
+    from ``params`` (numpy, e.g. JAX's) or seeded normal draws, and a seeded
+    global batch of ``8 n`` rows.  Returns ``(model, loss_fn, batch,
+    param_bytes)``."""
+    import numpy as np
+
+    n = mesh.axis(axis).size
+    rng = np.random.default_rng(0)
+    model = TinyMlp(device=mesh.device)
+    with torch.no_grad():
+        for name, p in model.param_tree().items():
+            src = params[name] if params is not None else \
+                rng.standard_normal(tuple(p.shape)).astype(np.float32) * 0.3
+            p.copy_(torch.as_tensor(np.asarray(src)))
+    batch = (torch.from_numpy(rng.standard_normal((8 * n, 16)).astype(np.float32)),
+             torch.from_numpy(rng.standard_normal((8 * n, 4)).astype(np.float32)))
+    param_bytes = sum(p.nbytes for p in model.parameters())
+    return model, tiny_mlp_loss, batch, param_bytes
+
+
+def describe(mesh, axis: str = "data", bucketed: bool = True, overlap: bool = False,
+             bucket_bytes: int | None = None, params: dict | None = None):
+    """The ``describe()`` of ``dp`` and ``dp-overlap`` (JAX ``parallel/dp.py:355``):
+    one DP step of the tiny MLP, its inputs and its collective signature, for
+    :mod:`~ddl25spring_tpu_torch.obs.comm_analytics`.
+
+    Signature, from what :func:`make_dp_train_step` issues: one all-reduce per
+    gradient bucket of the :data:`DESCRIBE_BUCKET_BYTES` plan (the gradients'
+    bytes in all) and one of the 4-byte loss, all over ``axis``; no other
+    kind.  ``overlap=True`` issues the same buckets from the backward.
+
+    Where JAX's compiled inventory differs (``meta["differs_from_jax"]``):
+    all-reduce, count: XLA's combiner fuses the bucket all-reduces and the
+    loss mean into one op (JAX: 1 op of 2,692 B; the port: ``n_buckets +
+    1`` ops of the same 2,692 B)."""
+    if overlap and not bucketed:
+        raise ValueError("overlap describes the bucketed DP path only")
+    from ddl25spring_tpu_torch.obs.comm_analytics import budget_bytes
+
+    model, loss_fn, batch, param_bytes = tiny_mlp_workload(mesh, axis, params)
+    bb = (bucket_bytes or DESCRIBE_BUCKET_BYTES) if bucketed else None
+    opt = torch.optim.SGD(model.parameters(), lr=0.1)
+    step = make_dp_train_step(model, loss_fn, opt, mesh, bucket_bytes=bb, overlap=overlap,
+                              instrument=False, sentinel=False)
+    leaves = param_leaves(model)
+    n_buckets = (plan_buckets(leaves, bb, order="backward" if overlap else "forward").n_buckets
+                 if bucketed else len(leaves))
+    expected = {
+        "scalar_bytes": 64,
+        "all-reduce": {"min_bytes": param_bytes, "max_bytes": param_bytes + 256,
+                       "axes": [axis], "count": n_buckets + 1},
+        "forbidden": ["all-gather", "reduce-scatter", "collective-permute", "all-to-all"],
+        "memory": {"max_peak_hbm_bytes": budget_bytes("dp")},
+    }
+    return {
+        "fn": step, "args": (batch,), "lowered": "train_step",
+        "meta": {"param_bytes": param_bytes, "grad_bytes": param_bytes,
+                 "n_param_leaves": len(leaves),
+                 **({"n_buckets": n_buckets, "bucket_bytes": bb} if bucketed else {}),
+                 **({"overlap": True} if overlap else {}),
+                 "differs_from_jax": {"all-reduce": ("count",)}},
+        "expected": expected,
+    }

@@ -38,7 +38,8 @@ through ``copy_in`` over the data axis, whose backwards make those sums; an
 expert stack's gradient already holds every token of its expert group (the
 all-to-all's backward brings them).
 
-``describe()`` (the XLA compile-report hook) is not ported (ROADMAP A12).
+:func:`describe` is the registry hook of ``ep``
+(:mod:`~ddl25spring_tpu_torch.obs.comm_analytics`).
 """
 
 from __future__ import annotations
@@ -341,3 +342,65 @@ def make_ep_train_step(p: MoeParams, optimizer: torch.optim.Optimizer, mesh,
 
     step.guard = guard
     return step
+
+
+def describe(mesh, axis: str = "expert", params: dict | None = None):
+    """The ``describe()`` of ``ep`` (JAX ``parallel/ep.py:356``): one step of the
+    expert-parallel MoE layer (``E`` = the axis size, one expert a rank,
+    ``D = 16``, ``F = 32``, ``16 E`` tokens), its inputs and its collective
+    signature, for :mod:`~ddl25spring_tpu_torch.obs.comm_analytics`.
+    ``params`` is JAX's ``init_moe_params`` pytree in numpy, else seeded.
+
+    Signature, from what :func:`make_ep_moe_fn` issues, all over the expert
+    axis: the dispatch and the combine all-to-all forward and the combine's
+    inverse backward (3, each of the ``[E, C, D]`` buckets: the tokens need
+    no gradient, so autograd never reaches the dispatch's inverse); the
+    all-gather of the shards' outputs (``[T, D]`` in all); the all-reduce of
+    the aux's mean forward and of the router's ``copy_in`` cotangent
+    backward (4 B and ``[D, E]``); no permute, no reduce-scatter.
+
+    Where JAX's compiled inventory differs (``meta["differs_from_jax"]``):
+
+    - all-gather, present in the port only: the port's layer takes the
+      global tokens and gathers every shard's output, where JAX's
+      ``shard_map`` leaves the outputs sharded in place;
+    - all-reduce, count and bytes: XLA fuses the router's gradient with two
+      4-byte scalars (1 op of 264 B); the port sums the router's gradient and
+      the aux (2 ops, 260 B).
+    The all-to-alls equal JAX's: 3 of 3,840 B in all at ``E = 4``."""
+    import numpy as np
+
+    from ddl25spring_tpu_torch.obs.comm_analytics import budget_bytes
+
+    ax = mesh.axis(axis)
+    E, D, F_, T = ax.size, 16, 32, 16 * ax.size
+    full = params if params is not None else \
+        init_moe_params(torch.Generator().manual_seed(0), D, F_, E)
+    p = shard_moe_params(full, E, ax.index, device=mesh.device)
+    opt = torch.optim.SGD(p.parameters(), lr=0.1)
+    step = make_ep_train_step(p, opt, mesh, axis, sentinel=False)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((T, D)).astype(np.float32))
+    y = torch.from_numpy(rng.standard_normal((T, D)).astype(np.float32))
+    C = capacity(T // E, 1.25, 1, E)
+    bucket_bytes = E * C * D * 4
+    router_bytes = D * E * 4
+    tokens_bytes = T * D * 4
+    return {
+        "fn": step, "args": ((x, y),), "lowered": "train_step",
+        "meta": {"n_experts": E, "tokens": T, "dmodel": D, "router_bytes": router_bytes,
+                 "capacity": C,
+                 "differs_from_jax": {"all-gather": ("absent",),
+                                      "all-reduce": ("count", "bytes")}},
+        "expected": {
+            "scalar_bytes": 64,
+            "all-to-all": {"count": 3, "min_bytes": 3 * bucket_bytes,
+                           "max_bytes": 3 * bucket_bytes, "axes": [axis]},
+            "all-gather": {"count": 1, "min_bytes": tokens_bytes, "max_bytes": tokens_bytes,
+                           "axes": [axis]},
+            "all-reduce": {"count": 2, "min_bytes": router_bytes + 4,
+                           "max_bytes": router_bytes + 4, "axes": [axis]},
+            "forbidden": ["collective-permute", "reduce-scatter"],
+            "memory": {"max_peak_hbm_bytes": budget_bytes("ep")},
+        },
+    }

@@ -102,3 +102,80 @@ def make_het_pipeline_train_step(stage: nn.Module, loss_fn: LossFn, boundary_sha
                                     strategy="het_pipeline", leaf_prefix=(mesh.coords[1],),
                                     **_hops(boundary_shapes, mesh, inject_fn, loss_fn,
                                             compute_dtype))
+
+
+class _Dense(nn.Module):
+    """One stage of :func:`describe`'s pipeline: ``act(x @ w)``."""
+
+    def __init__(self, w, act: bool):
+        super().__init__()
+        self.w = nn.Parameter(torch.as_tensor(w))
+        self.act = act
+
+    def forward(self, x):
+        y = x @ self.w
+        return torch.tanh(y) if self.act else y
+
+
+def describe(mesh, num_microbatches: int = 4, stage_axis: str = "stage",
+             params: tuple | None = None):
+    """The ``describe()`` of ``het_pipeline`` (JAX ``parallel/het_pipeline.py:233``):
+    a 2-stage pipeline of two dense stages of different boundary widths
+    (``tanh(x @ w [8, 16])``, then ``@ w [16, 4]``, ``M = 4`` microbatches of
+    2 rows), its inputs and its collective signature, for
+    :mod:`~ddl25spring_tpu_torch.obs.comm_analytics`.  ``params`` is JAX's
+    ``({"w"}, {"w"})`` in numpy, else seeded draws.
+
+    Signature, from what the executor issues: every microbatch's boundary
+    ``[2, 16]`` goes downstream once and its gradient upstream once, a send
+    and a receive in one exchange counting as one ``collective-permute``
+    (``2 M - 1`` on stage 0, ``2 M`` on stage 1), all over the stage axis; no
+    other kind.
+
+    Where JAX's compiled inventory differs (``meta["differs_from_jax"]``):
+
+    - collective-permute, count and bytes: JAX moves one padded flat buffer
+      ``[mb, max(16, 4)]`` around the ring at every one of the ``M + S - 1``
+      ticks each way; the port sends each real hop in its own shape;
+    - all-reduce, present in JAX only: every JAX device holds both stages'
+      weights and the loss and sums them over the ring; a port rank holds its
+      own stage."""
+    import numpy as np
+
+    from ddl25spring_tpu_torch.obs.comm_analytics import budget_bytes
+
+    S = mesh.axis(stage_axis).size
+    if S != 2:
+        raise ValueError(f"het_pipeline describe() ships 2 stages, got {S}")
+    M, mb, d_in, d_mid, d_out = num_microbatches, 2, 8, 16, 4
+    rng = np.random.default_rng(0)
+    ws = ([np.asarray(p["w"], np.float32) for p in params] if params is not None else
+          [rng.standard_normal((d_in, d_mid)).astype(np.float32) * 0.3,
+           rng.standard_normal((d_mid, d_out)).astype(np.float32) * 0.3])
+    s = mesh.coords[1]
+    stage = _Dense(ws[s], act=s == 0).to(mesh.device)
+    opt = torch.optim.SGD(stage.parameters(), lr=0.1)
+    step = make_het_pipeline_train_step(
+        stage, lambda out, b: ((out - b["y"].to(out.device)) ** 2).mean(),
+        [(d_mid,), (d_out,)], opt, mesh, M, instrument=False, sentinel=False)
+    B = M * mb
+    batch = {"x": torch.from_numpy(rng.standard_normal((B, d_in)).astype(np.float32)),
+             "y": torch.from_numpy(rng.standard_normal((B, d_out)).astype(np.float32))}
+    T = M + S - 1
+    boundary_bytes = mb * d_mid * 4
+    lo, hi = 2 * M - 1, 2 * M
+    return {
+        "fn": step, "args": (batch,), "lowered": "train_step",
+        "meta": {"num_stages": S, "num_microbatches": M, "ticks": T,
+                 "boundary_bytes": boundary_bytes, "bubble_fraction": (S - 1) / T,
+                 "differs_from_jax": {"collective-permute": ("count", "bytes"),
+                                      "all-reduce": ("absent",)}},
+        "expected": {
+            "scalar_bytes": 64,
+            "collective-permute": {"min_count": lo, "max_count": hi,
+                                   "min_bytes": lo * boundary_bytes,
+                                   "max_bytes": hi * boundary_bytes, "axes": [stage_axis]},
+            "forbidden": ["all-to-all", "reduce-scatter", "all-gather", "all-reduce"],
+            "memory": {"max_peak_hbm_bytes": budget_bytes("het_pipeline")},
+        },
+    }

@@ -938,3 +938,61 @@ def fuse_train_steps(step_fn, k: int, *, module: torch.nn.Module,
     On the CPU ``multi`` is a loop of ``k`` calls of ``step_fn``.  Nothing
     on CUDA takes that loop."""
     return FusedSteps(step_fn, k, module, optimizer, device, comm, dump_graph)
+
+
+def describe(mesh, num_microbatches: int = 4, stage_axis: str = "stage",
+             params: dict | None = None):
+    """The ``describe()`` of ``pipeline`` (JAX ``parallel/pipeline.py:1505``):
+    one GPipe step of a 4-layer tiny LLaMA over ``mesh``'s stages (``M = 4``
+    microbatches of 2 rows), its inputs and its collective signature, for
+    :mod:`~ddl25spring_tpu_torch.obs.comm_analytics`.
+
+    Signature, from what the executor issues on each rank of an ``S``-stage
+    pipeline: every microbatch's boundary activation ``[mb, L, dmodel]``
+    travels once downstream in the forward and its gradient once upstream in
+    the backward, each of ``boundary_bytes``, all over the stage axis; no
+    other kind.  A send and a receive posted in one exchange are one
+    ``collective-permute`` (the turn of the schedule on stage 0 pairs the
+    last forward send with the first backward receive), so an end stage
+    counts ``2 M - 1`` or ``2 M``, an interior one between ``2 M`` and
+    ``4 M``.
+
+    Where JAX's compiled inventory differs (``meta["differs_from_jax"]``):
+
+    - collective-permute, count and bytes: the JAX program moves the boundary
+      buffer around the whole stage ring at every one of the ``M + S - 1``
+      ticks, bubbles included, forward and back (``2 (M + S - 1)`` permutes);
+      the port sends only the ``M`` real hops each way;
+    - all-reduce, present in JAX only: every JAX device holds the replicated
+      embedding, final norm and head and the loss, whose gradients and value
+      the program sums over the stage ring; the port's stage 0 alone holds
+      the embedding and the last stage the norm, the head and the loss."""
+    from ddl25spring_tpu_torch.models.llama import export_params
+    from ddl25spring_tpu_torch.obs.comm_analytics import budget_bytes, tiny_llama, tiny_tokens
+
+    S = mesh.axis(stage_axis).size
+    M, mb = num_microbatches, 2
+    cfg, model = tiny_llama(mesh, 4, params)
+    stage = shard_staged_params(export_params(model), cfg, mesh)
+    opt = torch.optim.SGD(stage.parameters(), lr=0.1)
+    step = make_pipeline_train_step(stage, cfg, opt, mesh, M, "gpipe", instrument=False,
+                                    sentinel=False)
+    T = M + S - 1
+    boundary_bytes = mb * cfg.ctx_size * cfg.dmodel * 4
+    s = mesh.coords[1]
+    lo, hi = 2 * M - 1, (2 * M if s in (0, S - 1) else 4 * M)
+    return {
+        "fn": step, "args": (tiny_tokens(M * mb, cfg),), "lowered": "train_step",
+        "meta": {"num_stages": S, "num_microbatches": M, "ticks": T,
+                 "boundary_bytes": boundary_bytes, "bubble_fraction": (S - 1) / T,
+                 "differs_from_jax": {"collective-permute": ("count", "bytes"),
+                                      "all-reduce": ("absent",)}},
+        "expected": {
+            "scalar_bytes": 64,
+            "collective-permute": {"min_count": lo, "max_count": hi,
+                                   "min_bytes": lo * boundary_bytes,
+                                   "max_bytes": hi * boundary_bytes, "axes": [stage_axis]},
+            "forbidden": ["all-to-all", "reduce-scatter", "all-gather", "all-reduce"],
+            "memory": {"max_peak_hbm_bytes": budget_bytes("pipeline")},
+        },
+    }

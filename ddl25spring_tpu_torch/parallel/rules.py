@@ -24,7 +24,8 @@ arrays names its leaves by its keys.  Where JAX returns a pytree of atoms,
 :func:`match_partition_rules` returns a dict from path to atom, in flatten
 order.
 
-The HLO ``describe()`` hook is not ported (ROADMAP A12).
+:func:`describe` is the registry hook of ``dp-rules`` and ``zero3-rules``
+(:mod:`~ddl25spring_tpu_torch.obs.comm_analytics`).
 """
 
 from __future__ import annotations
@@ -250,3 +251,35 @@ TABLES: dict[str, RuleTable] = {
                        rules=(PartitionRule(r"(^|/)w\d+$", "rows"),
                               PartitionRule(r"(^|/)b\d+$", "rows"))),
 }
+
+
+def describe(mesh, table: str | RuleTable = "dp", params: dict | None = None):
+    """The ``describe()`` of ``dp-rules`` and ``zero3-rules`` (JAX
+    ``parallel/rules.py:360``): the workload, inputs and signature of the
+    bespoke strategy the table replaces (:func:`~ddl25spring_tpu_torch.
+    parallel.dp.describe` for an all-``replicated`` table,
+    :func:`~ddl25spring_tpu_torch.parallel.zero.describe` at stage 3 for an
+    all-``rows`` one), with the step built by the :class:`RulePartitioner`;
+    ``meta`` adds the serialized table, the leaf paths, the issue discipline
+    and the layout.  The shard axis is the table's.  Where JAX's inventory
+    differs, it differs as the bespoke strategy's does."""
+    import torch
+
+    from ddl25spring_tpu_torch.parallel import dp as dp_mod
+    from ddl25spring_tpu_torch.parallel import zero as zero_mod
+
+    rt = TABLES[table] if isinstance(table, str) else table
+    part = RulePartitioner(mesh, rt)
+    axis = part.axis
+    model, loss_fn, batch, _ = dp_mod.tiny_mlp_workload(mesh, axis, params)
+    layout = part.layout_of(model)
+    base = (zero_mod.describe(mesh, stage=3, axis=axis, params=params) if layout == "rows"
+            else dp_mod.describe(mesh, axis=axis, params=params))
+    rows = part.shard_params(model) if layout == "rows" else None
+    opt = torch.optim.SGD(rows if rows is not None else model.parameters(), lr=0.1)
+    step = part.make_train_step(model, loss_fn, opt, rows=rows, instrument=False,
+                                bucket_bytes=dp_mod.DESCRIBE_BUCKET_BYTES, sentinel=False)
+    return {**base, "fn": step, "args": (batch,),
+            "meta": {**base["meta"], "rule_table": rt.to_meta(),
+                     "param_paths": leaf_paths(model), "discipline": rt.discipline,
+                     "layout": layout}}

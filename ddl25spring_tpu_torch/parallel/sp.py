@@ -43,7 +43,8 @@ On the CPU ``flash_attention_with_lse`` runs the kernels' plain versions, so
 the flash ring runs there as it does on the card; the JAX package's dense
 stand-in for it (``_dense_attention_with_lse``) has no counterpart here.
 
-``describe()`` (the XLA compile-report hook) is not ported (ROADMAP A12).
+:func:`describe` is the registry hook of ``sp``
+(:mod:`~ddl25spring_tpu_torch.obs.comm_analytics`).
 """
 
 from __future__ import annotations
@@ -287,3 +288,61 @@ def make_sp_train_step(model, cfg: LlamaConfig, optimizer: torch.optim.Optimizer
 
     step.guard = guard
     return step
+
+
+def describe(mesh, seq_axis: str = "seq", mode: str = "ring", params: dict | None = None):
+    """The ``describe()`` of ``sp`` (JAX ``parallel/sp.py:410``): one ring-SP
+    step of a 2-layer tiny LLaMA (4 rows of 16 positions), its inputs and its
+    collective signature, for :mod:`~ddl25spring_tpu_torch.obs.comm_analytics`.
+
+    Signature, from what the step issues on ``n`` seq shards: per layer the
+    ring's ``n - 1`` hops forward, each one exchange moving ``k``, ``v`` and,
+    on the dense ring, the positions (three ``collective-permute``
+    positions; two on the flash ring, which the card takes and which needs
+    no positions), and as many back with the two cotangents; one hop of the
+    boundary targets for the loss; every permute over the seq axis.  Then one all-reduce per gradient
+    bucket (the whole ``param_bytes``: the parameters are replicated; one
+    bucket at the default 4 MiB) and one of the loss; no all-to-all in ring
+    mode.
+
+    Where JAX's compiled inventory differs (``meta["differs_from_jax"]``):
+
+    - collective-permute, count and bytes: JAX rotates ``k``, ``v`` and the
+      positions ``n`` times a layer (its last rotation brings them home) and
+      its backward replays them, 19 ops of 32,848 B at ``n = 2``; the port
+      makes the ``n - 1`` hops the ring needs;
+    - all-reduce, bytes: the same two ops (the gradients, ``param_bytes``,
+      which H011 found, and the loss), but JAX's carry 4 B more (41,288 B
+      against 41,284 B): a second 4-byte scalar XLA combined into them."""
+    from ddl25spring_tpu_torch.obs.comm_analytics import budget_bytes, tiny_llama, tiny_tokens
+
+    ax = mesh.axis(seq_axis)
+    n = ax.size
+    cfg, model = tiny_llama(mesh, 2, params)
+    opt = torch.optim.SGD(model.parameters(), lr=1e-2)
+    step = make_sp_train_step(model, cfg, opt, mesh, seq_axis, mode=mode, sentinel=False)
+    param_bytes = sum(p.nbytes for p in model.parameters())
+    n_buckets = plan_buckets(param_leaves(model), default_bucket_bytes()).n_buckets
+    B, Ll = 4, cfg.ctx_size // n
+    kv_bytes = B * Ll * cfg.dmodel * 4        # one k or v block, all heads
+    hops = cfg.n_layers * (n - 1)
+    pos = 0 if cfg.use_flash else 1
+    # per hop k, v (and the int64 positions) forward, two cotangents back;
+    # one int64 target per row for the loss
+    permute_bytes = hops * (4 * kv_bytes + pos * Ll * 8) + B * 8
+    return {
+        "fn": step, "args": (tiny_tokens(B, cfg),), "lowered": "train_step",
+        "meta": {"n_layers": cfg.n_layers, "seq_shards": n, "mode": mode, "local_len": Ll,
+                 "param_bytes": param_bytes, "n_buckets": n_buckets,
+                 "differs_from_jax": {"collective-permute": ("count", "bytes"),
+                                      "all-reduce": ("bytes",)}},
+        "expected": {
+            "scalar_bytes": 64,
+            "collective-permute": {"count": (4 + pos) * hops + 1, "min_bytes": permute_bytes,
+                                   "max_bytes": permute_bytes, "axes": [seq_axis]},
+            "all-reduce": {"count": n_buckets + 1, "min_bytes": param_bytes + 4,
+                           "max_bytes": param_bytes + 4, "axes": [seq_axis]},
+            **({"forbidden": ["all-to-all"]} if mode == "ring" else {}),
+            "memory": {"max_peak_hbm_bytes": budget_bytes("sp")},
+        },
+    }

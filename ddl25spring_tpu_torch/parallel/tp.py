@@ -45,7 +45,8 @@ place of ``[T, E, C]``, the same gradient).  The tokens the local experts
 take enter through ``copy_in`` too.  The loss adds ``cfg.moe_aux_weight *
 aux``.
 
-``describe()`` is not ported (ROADMAP A12).
+:func:`describe` is the registry hook of ``tp``
+(:mod:`~ddl25spring_tpu_torch.obs.comm_analytics`).
 """
 
 from __future__ import annotations
@@ -297,3 +298,58 @@ def make_tp_train_step(model, cfg: LlamaConfig, optimizer: torch.optim.Optimizer
 
     step.guard = guard
     return step
+
+
+def describe(mesh, model_axis: str = "model", params: dict | None = None):
+    """The ``describe()`` of ``tp`` (JAX ``parallel/tp.py:297``): one Megatron-TP
+    step of a 2-layer tiny LLaMA (vocab-sharded embedding and loss, 4 rows),
+    its inputs and its collective signature, for
+    :mod:`~ddl25spring_tpu_torch.obs.comm_analytics`.
+
+    Signature, from what the step issues, every op over the model axis: the
+    all-reduces of the vocab-sharded embedding's assembly, the two
+    row-parallel sums of each block's forward (attention, FFN), the head's
+    input cotangent (``copy_in``'s backward) and each block's two
+    column-side cotangents (``copy_in``'s backward), and the target pick of
+    the loss: ``4 L + 3`` ops, ``4 L + 2`` of one ``[B, L, D]`` activation
+    and the pick's ``[B, L-1]``; one all-gather of the per-shard
+    log-sum-exps ``[t, B, L-1]``; no permute.
+
+    Where JAX's compiled inventory differs (``meta["differs_from_jax"]``):
+
+    - all-reduce, bytes: the same 11 ops, but XLA's partitioner sums more
+      per op (JAX: 66,020 B; the port: the 41,200 B its code names: ten
+      activations and the pick); which sums XLA widened is not broken down;
+    - reduce-scatter and all-to-all, present in JAX only: the partitioner's
+      transpose of the log-sum-exp gather and its resharding of the combine
+      (H011 found both); the port's gather is an autograd node whose backward
+      takes the rank's own slot, with no collective."""
+    from ddl25spring_tpu_torch.models.llama import export_params
+    from ddl25spring_tpu_torch.obs.comm_analytics import budget_bytes, tiny_llama, tiny_tokens
+
+    ax = mesh.axis(model_axis)
+    cfg, model = tiny_llama(mesh, 2, params)
+    load_tp_params(model, shard_tp_params(export_params(model), ax.size, ax.index))
+    opt = torch.optim.SGD(model.parameters(), lr=1e-2)
+    step = make_tp_train_step(model, cfg, opt, mesh, model_axis, sentinel=False)
+    B = 4
+    act_bytes = B * cfg.ctx_size * cfg.dmodel * 4
+    lse_bytes = ax.size * B * (cfg.ctx_size - 1) * 4
+    n_ar = 4 * cfg.n_layers + 3
+    ar_bytes = (n_ar - 1) * act_bytes + B * (cfg.ctx_size - 1) * 4
+    return {
+        "fn": step, "args": (tiny_tokens(B, cfg),), "lowered": "train_step",
+        "meta": {"n_layers": cfg.n_layers, "block_psum_bytes": act_bytes, "shard_vocab": True,
+                 "differs_from_jax": {"all-reduce": ("bytes",),
+                                      "reduce-scatter": ("absent",),
+                                      "all-to-all": ("absent",)}},
+        "expected": {
+            "scalar_bytes": 64,
+            "all-reduce": {"count": n_ar, "min_bytes": ar_bytes, "max_bytes": ar_bytes,
+                           "axes": [model_axis]},
+            "all-gather": {"count": 1, "min_bytes": lse_bytes, "max_bytes": lse_bytes,
+                           "axes": [model_axis]},
+            "forbidden": ["collective-permute", "reduce-scatter", "all-to-all"],
+            "memory": {"max_peak_hbm_bytes": budget_bytes("tp")},
+        },
+    }

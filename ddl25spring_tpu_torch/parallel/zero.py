@@ -1079,3 +1079,159 @@ def zero_load_optimizer(optimizer: torch.optim.Optimizer, rows, state: dict, mod
                 per_row.setdefault(p, {})[key] = local.to(p.device).clone()
     for p, st in per_row.items():
         optimizer.state[p] = st
+
+
+def describe(mesh, stage: int = 3, axis: str = "data", bucketed: bool = True,
+             workload: str = "mlp", prefetch: bool = False, overlap: bool = False,
+             bucket_bytes: int | None = None, params: dict | None = None):
+    """The ``describe()`` of ``zero1``, ``zero2``, ``zero3``, their ``-overlap``
+    variants and ``zero3-prefetch`` (JAX ``parallel/zero.py:1139``): one ZeRO
+    step, its inputs and its collective signature, for
+    :mod:`~ddl25spring_tpu_torch.obs.comm_analytics`.  ``workload``:
+    ``"mlp"`` (the tiny MLP, :data:`~ddl25spring_tpu_torch.parallel.dp.
+    DESCRIBE_BUCKET_BYTES` buckets) or ``"llama"`` (a 4-layer tiny LLaMA, the
+    runtime default threshold); ``prefetch`` is the LLaMA layer-by-layer
+    stage-3 step.
+
+    Signatures, from what the builders issue, per launch of a bucket of the
+    row plan (``n_buckets``; per leaf when not ``bucketed``), all over
+    ``axis``:
+
+    - stage 1: an all-reduce of the padded gradient rows per bucket (the
+      overlapped step: of the raw gradients per bucket of its flat backward
+      plan), an all-gather of the updated rows per bucket, the 4-byte loss;
+      no reduce-scatter;
+    - stage 2: a reduce-scatter of the padded gradients per bucket (result:
+      one rank's row, ``padded / n`` in all), the same all-gathers, the loss;
+    - stage 3: an all-gather per bucket in the forward (the full padded
+      parameters), a reduce-scatter per bucket out of the backward, the loss;
+    - ``prefetch``: the outer leaves' gathers once, each layer's once (``n_lb
+      * L + n_ob``), one reduce-scatter per gather, the loss.
+
+    Where JAX's compiled inventory differs (``meta["differs_from_jax"]``):
+    stage 1's all-reduce count, which XLA's combiner fuses with the loss mean
+    (JAX: one op); at stage 1 with ``overlap`` no JAX program compiles on
+    jax 0.9.0 to compare with."""
+    from ddl25spring_tpu_torch.obs.comm_analytics import budget_bytes, tiny_llama, tiny_tokens
+    from ddl25spring_tpu_torch.parallel.dp import (
+        DESCRIBE_BUCKET_BYTES,
+        tiny_mlp_workload,
+    )
+
+    if overlap and not bucketed:
+        raise ValueError("overlap describes the bucketed paths only")
+    if overlap and prefetch:
+        raise ValueError("prefetch is already the overlapped LLaMA step; overlap applies "
+                         "to the whole-tree steps")
+    n = mesh.axis(axis).size
+    slack = 256
+    default_bb = (bucketing.DEFAULT_BUCKET_BYTES if (prefetch or workload == "llama")
+                  else DESCRIBE_BUCKET_BYTES)
+    bb = (bucket_bytes or default_bb) if bucketed else None
+    if prefetch:
+        if stage != 3 or not bucketed:
+            raise ValueError("prefetch describes the bucketed stage-3 LLaMA step only")
+        cfg, model = tiny_llama(mesh, 4, params)
+        outer, layers = _llama_leaves(model)
+        param_bytes = sum(p.nbytes for p in model.parameters())
+        n_lb = _row_plan([v for _, v in layers[0]], n, bb).n_buckets
+        n_ob = _row_plan([v for _, v in outer], n, bb).n_buckets
+        rows = zero_shard_llama_params(model, mesh, axis)
+        opt = torch.optim.SGD(rows.parameters(), lr=0.1)
+        step = make_zero3_llama_train_step(model, opt, mesh, rows, axis, bucket_bytes=bb,
+                                           prefetch=True, sentinel=False)
+        L = cfg.n_layers
+        launches = n_lb * L + n_ob
+        return {
+            "fn": step, "args": (tiny_tokens(2 * n, cfg),), "lowered": "train_step",
+            "meta": {"zero_stage": 3, "prefetch": True, "n_layers": L,
+                     "param_bytes": param_bytes, "n_param_leaves": len(outer) + len(layers[0]),
+                     "n_buckets": n_lb + n_ob, "n_layer_buckets": n_lb,
+                     "n_outer_buckets": n_ob, "bucket_bytes": bb, "differs_from_jax": {}},
+            "expected": {
+                "scalar_bytes": 64,
+                "all-gather": {"count": launches, "axes": [axis]},
+                "reduce-scatter": {"count": launches, "axes": [axis]},
+                "all-reduce": {"max_bytes": slack},
+                "forbidden": ["collective-permute", "all-to-all"],
+                "memory": {"max_peak_hbm_bytes": budget_bytes("zero3-prefetch")},
+            },
+        }
+
+    if workload == "llama":
+        cfg, model = tiny_llama(mesh, 4, params)
+        loss_fn = _llama_loss(cfg)
+        batch = tiny_tokens(2 * n, cfg)
+    else:
+        model, loss_fn, batch, _ = tiny_mlp_workload(mesh, axis, params)
+    leaves = param_leaves(model)
+    param_bytes = sum(p.nbytes for p in model.parameters())
+    padded_bytes = sum(n * row_elems(leaf, n) * 4 for leaf in leaves)
+    n_leaves = len(leaves)
+    n_buckets = _row_plan(leaves, n, bb, order="backward" if overlap else "forward").n_buckets \
+        if bucketed else None
+    launches = n_buckets if bucketed else n_leaves
+    rows = zero_shard_params(model, mesh, axis)
+    opt = torch.optim.SGD(rows, lr=0.1)
+    differs: dict = {}
+    meta_extra: dict = {}
+    if stage == 3:
+        step = make_zero_dp_train_step(model, loss_fn, opt, mesh, rows, axis,
+                                       bucket_bytes=bb, overlap=overlap, instrument=False,
+                                       sentinel=False)
+        expected = {
+            "scalar_bytes": 64,
+            "all-gather": {"min_bytes": padded_bytes, "max_bytes": padded_bytes,
+                           "count": launches, "axes": [axis]},
+            "reduce-scatter": {"min_bytes": padded_bytes // n, "max_bytes": padded_bytes // n,
+                               "count": launches, "axes": [axis]},
+            # a parameter-sized all-reduce would mean the sharding collapsed
+            # back to replicated DP
+            "all-reduce": {"max_bytes": slack},
+            "forbidden": ["collective-permute", "all-to-all"],
+        }
+    else:
+        step = make_zero_partitioned_train_step(model, loss_fn, opt, mesh, rows, axis,
+                                                stage=stage, bucket_bytes=bb, overlap=overlap,
+                                                sentinel=False)
+        expected = {
+            "scalar_bytes": 64,
+            "all-gather": {"min_bytes": padded_bytes, "max_bytes": padded_bytes,
+                           "count": launches, "axes": [axis]},
+            "forbidden": ["collective-permute", "all-to-all"],
+        }
+        if stage == 1:
+            grad_launches = (plan_buckets(leaves, bb, order="backward").n_buckets
+                             if overlap else launches)
+            if overlap:
+                meta_extra["n_update_buckets"] = n_buckets
+                n_buckets = grad_launches
+            expected["all-reduce"] = {
+                "min_bytes": (param_bytes if overlap else padded_bytes) + 4,
+                "max_bytes": (param_bytes if overlap else padded_bytes) + 4,
+                "count": grad_launches + 1, "axes": [axis]}
+            expected["forbidden"].append("reduce-scatter")
+            differs["all-reduce"] = ("count",)
+        else:
+            expected["reduce-scatter"] = {
+                "min_bytes": padded_bytes // n, "max_bytes": padded_bytes // n,
+                "count": launches, "axes": [axis]}
+            expected["all-reduce"] = {"max_bytes": slack}
+    expected["memory"] = {"max_peak_hbm_bytes": budget_bytes("zero3")}
+    return {
+        "fn": step, "args": (batch,), "lowered": "train_step",
+        "meta": {"zero_stage": stage, "workload": workload, "param_bytes": param_bytes,
+                 "padded_param_bytes": padded_bytes, "n_param_leaves": n_leaves,
+                 **({"n_buckets": n_buckets, "bucket_bytes": bb} if bucketed else {}),
+                 **meta_extra, **({"overlap": True} if overlap else {}),
+                 "differs_from_jax": differs},
+        "expected": expected,
+    }
+
+
+def _llama_loss(cfg):
+    """The causal-LM loss of a whole LLaMA, ``loss(model, tokens)``."""
+    from ddl25spring_tpu_torch.models import llama
+    from ddl25spring_tpu_torch.ops.losses import causal_lm_loss
+
+    return lambda model, tokens: causal_lm_loss(llama.llama_forward(model, tokens, cfg), tokens)

@@ -53,7 +53,7 @@ The decode sentinel guards each program's logits through
 after its replay), each scheduler iteration lands in the flight ring, and
 the ``serve_*`` timeline events carry each request's life.
 
-``describe()`` waits for A12 (ROADMAP.md).
+``describe()`` waits for A12b (ROADMAP.md).
 """
 
 from __future__ import annotations

@@ -37,7 +37,7 @@ Under tensor parallelism (``tp_axis``) both programs run on the rank's
 Megatron slices and the head-split pools, as the tick does: the drafter is
 built from the unsharded target, then sliced the same way.
 
-``describe()`` (the TP lowering registry hook) waits for A12 and raises.
+``describe()`` (the TP lowering registry hook) waits for A12b and raises.
 """
 
 from __future__ import annotations
@@ -284,7 +284,7 @@ def make_verify(cfg: LlamaConfig, *, k: int, tp_axis=None, sentinel: bool | None
 
 def describe(mesh=None, program: str = "verify", **_kw):
     """The compile-analytics hook of the JAX package's registry entries
-    ``serve-draft`` / ``serve-verify``: waits for A12 of ROADMAP.md."""
+    ``serve-draft`` / ``serve-verify``: waits for A12b of ROADMAP.md."""
     raise NotImplementedError(
-        f"describe() of the speculative {program!r} program waits for A12 of ROADMAP.md "
+        f"describe() of the speculative {program!r} program waits for A12b of ROADMAP.md "
         "(the compile-analytics registry)")

@@ -91,6 +91,9 @@ class Checkpointer:
         world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
         self._pg = dist.new_group(backend="gloo") if world > 1 else None
         self.is_coordinator = self._pg is None or dist.get_rank(self._pg) == 0
+        # the save thread and its failure: written by the caller, the writer
+        # thread and wait_until_finished's helper, always under this lock
+        self._lock = threading.RLock()
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
         self._meshes: dict = {}
@@ -120,9 +123,11 @@ class Checkpointer:
         if not self._async:
             self._write(step, flat)
             return
-        self._thread = threading.Thread(target=self._write_async, args=(step, flat),
-                                        daemon=True, name=f"ckpt-save-{step}")
-        self._thread.start()
+        t = threading.Thread(target=self._write_async, args=(step, flat),
+                             daemon=True, name=f"ckpt-save-{step}")
+        with self._lock:
+            self._thread = t
+        t.start()
 
     def _snapshot(self, state: State) -> dict:
         """``{key: host tensor}``: every leaf copied off the card (one wait
@@ -171,7 +176,8 @@ class Checkpointer:
         try:
             self._write(step, flat)
         except BaseException as e:  # noqa: BLE001 -- surfaced by the next barrier
-            self._error = e
+            with self._lock:
+                self._error = e
 
     def _write(self, step: int, flat: dict) -> None:
         dcp = _dcp()
@@ -212,13 +218,18 @@ class Checkpointer:
 
     def _wait(self) -> None:
         """The unbounded barrier: the in-flight save's thread joined, and its
-        failure raised."""
-        t = self._thread
+        failure raised.  The join runs outside the lock, and only the thread
+        joined is cleared: a helper of :meth:`wait_until_finished` that timed
+        out and joins on must not drop a save started after it."""
+        with self._lock:
+            t = self._thread
         if t is not None:
             t.join()
-            self._thread = None
-        if self._error is not None:
+        with self._lock:
+            if self._thread is t:
+                self._thread = None
             err, self._error = self._error, None
+        if err is not None:
             raise err
 
     def wait_until_finished(self, timeout_s: float | None = None) -> bool:

@@ -239,6 +239,27 @@ class Mesh:
         return _grid_mesh(_grid(data, stages, seq, model, expert, self.grid.world), self.rank,
                           self.device, self.backend, self.comm)
 
+    def sub(self, data: int, stages: int | None = None, *, seq: int | None = None,
+            model: int | None = None, expert: int | None = None) -> "Mesh | None":
+        """The world's first ``data x ...`` ranks as a grid of their own, on
+        the same device and :class:`Comm` (a 2-rank layout inside a world of
+        4): ranks ``0..n-1`` of the grid are global ranks ``0..n-1``.  Every
+        rank of the world must call it, in the same order (each creates
+        every group); the ranks outside get None."""
+        grid = _grid(data, stages, seq, model, expert, None)
+        if grid.world > self.grid.world:
+            raise ValueError(f"a {' x '.join(map(str, grid.shape))} grid needs "
+                             f"{grid.world} ranks, the world has {self.grid.world}")
+        groups = {}
+        for name in grid.names:
+            for line in grid.lines(name):
+                g = dist.new_group(line)
+                if self.rank in line:
+                    groups[name] = g
+        if self.rank >= grid.world:
+            return None
+        return Mesh(grid, self.rank, self.device, self.backend, self.comm, groups)
+
     @property
     def coords(self) -> tuple[int, ...]:
         return self.grid.coords(self.rank)
@@ -274,7 +295,7 @@ def _grid(data, stages, seq, model, expert, world) -> RankGrid:
                          f"then only stages=, seq= or model= beside it; got {dict(given)}")
     (axis, size), *inner = given
     grid = RankGrid(data, size, axis, tuple(inner))
-    if grid.world != world:
+    if world is not None and grid.world != world:
         raise ValueError(f"a {' x '.join(map(str, grid.shape))} grid needs {grid.world} "
                          f"ranks, the world has {world}")
     return grid

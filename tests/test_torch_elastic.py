@@ -360,15 +360,20 @@ def test_zero_sharded_kill_and_resume(world):
 
 def test_rules_relower_with_mesh(world):
     """``relower`` carries the zero3 table onto the n = 2 layout and builds a
-    step that trains; a strategy name waits for the describe() registry."""
+    step that trains; a strategy name rebuilds through the describe()
+    registry on the new mesh (JAX ``ft/elastic.py:116-118``), and a serving
+    program's name waits for its describe (A12b)."""
     ranks, _ = world
     assert np.isfinite(ranks[0]["relower"])
     mesh = Mesh(RankGrid(4, 1), 0, torch.device("cpu"), "gloo", Comm("gloo", torch.device("cpu")),
                 {"data": None, "stage": None})
     part = RulePartitioner(mesh, TABLES["zero3"])
     assert part.with_mesh(mesh).table is part.table
+    d = elastic.relower("zero3-rules", mesh)
+    assert {"fn", "args", "meta", "expected"} <= set(d)
+    assert d["meta"]["layout"] == "rows" and d["expected"]["all-gather"]["axes"] == ["data"]
     with pytest.raises(NotImplementedError, match="A12"):
-        elastic.relower("zero3-rules", mesh, model=None, loss_fn=None, optimizer=None)
+        elastic.relower("serve-decode", mesh)
 
 
 def _abstract_mesh(n):

@@ -51,5 +51,8 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "ft.autosave", "ft.elastic", "ft.demo", "lab.ckpt_overhead",
                 "models.decode", "serve", "serve.traffic", "serve.kv_pages", "serve.prefix",
                 "serve.engine", "serve.spec", "serve.driver", "obs.memscope", "obs.goodput",
-                "obs.perfscope", "obs.report", "data.native_loader"):
+                "obs.perfscope", "obs.report", "data.native_loader", "data.sp_model",
+                "analysis.rules", "analysis.waivers", "analysis.source_lint",
+                "analysis.host_safety", "analysis.__main__", "obs.comm_analytics",
+                "examples.golden_tables"):
         assert f"ddl25spring_tpu_torch.{mod}" in report["modules"]

@@ -457,7 +457,11 @@ def test_budget_cell_band_semantics():
     assert budget_cell(151, 100, tol=0.5)["within_band"] is False
     assert budget_cell(100, None)["available"] is False
     assert budget_cell(100, 0)["available"] is False
-    assert memscope.describe_budget_bytes("dp") is None
+    # a registered training strategy declares its budget (JAX's 4 MiB for
+    # dp); the serving programs and the bench's workloads gate on their
+    # static accounting
+    assert memscope.describe_budget_bytes("dp") == 4 * 1024 * 1024
+    assert memscope.describe_budget_bytes("serve-decode") is None
 
 
 def test_budget_and_mem_cells_are_the_jax_cells():
