@@ -84,17 +84,30 @@ def test_tokenizer_resolution(monkeypatch, tmp_path):
     text = "Lily found a shiny box. é"
     assert tok.encode(text) == ref.encode(text)
     assert tok.decode(tok.encode(text)) == text
+    # the other branches load their artifact as the JAX function does: a
+    # missing or malformed one fails the same way in both packages (the
+    # tokenizers themselves: tests/test_torch_text_data.py)
+    import warnings
+
+    def outcome(fn, *args):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            try:
+                return type(fn(*args)).__name__
+            except Exception as e:  # noqa: BLE001 -- the failure's kind is the outcome
+                return type(e).__name__
+
     (tmp_path / "sp.model").write_bytes(b"")
     for path in ("x.json", "x.model"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            tokenizer.get_tokenizer(path)
+        assert outcome(tokenizer.get_tokenizer, path) == \
+            outcome(jtokenizer.get_tokenizer, path) != "NotImplementedError"
     monkeypatch.setenv("DDL25_SP_MODEL", str(tmp_path / "sp.model"))
-    with pytest.raises(NotImplementedError, match="SentencePiece"):
-        tokenizer.get_tokenizer()
+    assert outcome(tokenizer.get_tokenizer) == outcome(jtokenizer.get_tokenizer) != \
+        "NotImplementedError"
     monkeypatch.setenv("DDL25_SP_MODEL", str(tmp_path / "missing.model"))
     monkeypatch.setenv("DDL25_BPE_MODEL", str(tmp_path / "sp.model"))
-    with pytest.raises(NotImplementedError, match="BPE"):
-        tokenizer.get_tokenizer()
+    assert outcome(tokenizer.get_tokenizer) == outcome(jtokenizer.get_tokenizer) != \
+        "NotImplementedError"
 
 
 def test_resolve_device_never_falls_back_to_cpu():
