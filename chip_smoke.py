@@ -8,12 +8,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``ops/csrc/flash_attention_sm90.cu`` (bf16 tensor-core kernels) and
    ``ops/csrc/flash_attention_tf32x3.cu`` (the fp32 forward, dq and dk/dv on
    the tensor cores, 3xTF32) for sm_90a from the checkout, in parallel, while
-   phase 9 (e) and phase 22 (b), (c) start beside them (they launch none of
-   them and time nothing of the card) and run on through phase 3, ending
-   before the primer (phase 5) is timed; phase 22 (a) runs beside the model
-   check and phase 7; phases 4 and 6, which time the card, run after phase
-   7; the build time and the ``ptxas`` registers and spills of every
-   instantiation are printed;
+   phase 9 (e), phase 22 (a)-(c) and phase 23 (a), (c) start beside them,
+   and 23 (b) once they are built (none of them times anything of the
+   card); they run on through phase 3, the model check and phase 7, and end
+   before the primer (phase 5), which runs after phase 7 with the card to
+   itself; phases 4 and 6, which time the card, run after it; the build
+   time and the ``ptxas`` registers and spills of every instantiation are
+   printed;
 3. kernels: the forward, dq and dk/dv kernels against their plain PyTorch
    versions on the same inputs, on the card, at the LLaMA path's shape
    ``[3, 256, 6, 48]`` (bf16 and fp32), causal and not, ragged L=200 at hd
@@ -34,17 +35,17 @@ Phases, in order; any failure exits non-zero and prints no result:
 5. the slice: ``primer.main`` trains the full-width LLaMA (bf16, flash
    kernels, batch 3, ctx 256) for 24 steps; every loss finite, the loss falls,
    each kernel launched 6 times per step, every launch on the tensor-core
-   variant, its median step time with the card to itself; then full-width
-   fp32 logits through the kernels against dense attention (beside phase
-   22 (a));
+   variant, its median step time with the card to itself; before it,
+   after phase 3, full-width fp32 logits through the kernels against dense
+   attention (the model check, beside phases 9 (e), 22 and 23);
 6. profile: device time by kernel, device busy and idle share of the train
    step, with the flash kernels and with dense attention;
 7. DP x PP on the card: six rank processes on ``cuda:0`` (2 pipelines x 3
    stages, 3 microbatches, 3 rows per replica; gloo through pinned host
    buffers, since NCCL refuses two ranks on one device), spawned after phase
-   2 built the kernels, run after the model check (beside phase 22 (a): the
-   slice's printed step time is no measurement; phase 10 (b) times the same
-   2 x 3 DP x PP LLaMA's gpipe step alone):
+   2 built the kernels, run after the model check (beside phases 9 (e), 22
+   and 23: the slice's printed step time is no measurement; phase 10 (b)
+   times the same 2 x 3 DP x PP LLaMA's gpipe step alone):
    (a) fp32, full width, flash kernels: one step's loss and gradients against
        a single-process step on the batch of 6 from the same weights (loss
        rtol 1e-5; gradients atol 2e-4 + rtol 2e-3), then 2 Adam steps (losses
@@ -117,7 +118,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    (d) where a FedAvg round's time goes: host wall over 3 warm rounds
        against device busy under torch.profiler over 1 more, the idle share,
        the top kernels;
-   (e) (run during step 2's build and step 3, in a process of its own)
+   (e) (run during phases 2, 3 and 7, in a process of its own)
        split-NN VFL and the VAE/TSTR on
        ``data/heart.csv`` at the example's
        defaults (4 parties, 300 epochs, batch 64; VAE 150 epochs): the VFL
@@ -128,7 +129,12 @@ Phases, in order; any failure exits non-zero and prints no result:
     ``1f1b``, ``1f1b-stash``, ``interleaved`` and ``interleaved-1f1b``, 2
     chunks per rank when interleaved), grad accumulation and DP overlap,
     each sub-phase timed; the LLaMA is the labs' (its vocabulary the
-    tokenizer's, 259 bytes):
+    tokenizer's, 259 bytes).  Its worlds, and those of 11 (e), 12, 13 (b)
+    and (c), 14, 15 and 17 (d), run first, one after the other, in ONE
+    spawned world of 8 ranks (``chain_phase``: each job the world's first
+    ranks, meeting in a store of its own), so nine worlds share one
+    start-up; the card runs one of them at a time, and each phase checks
+    its world's results in its place:
     (a) fp32, full width, flash kernels: one Adam step of every schedule on
         a 1 x 3 grid (batch 3, M 3; the first 3 ranks of the 2 x 3 world,
         ``Mesh.sub``) and on the 2 x 3 world (3 rows per replica) against
@@ -226,7 +232,7 @@ Phases, in order; any failure exits non-zero and prints no result:
         plain version on the same inputs, on the tensor cores, and the
         autograd Functions (``flash_attention_with_lse`` with a nonzero lse
         cotangent, and ``flash_attention``) on the card against the CPU's
-        plain path, in the bf16 band below; then, in a process of its own,
+        plain path, in the bf16 band below; then, in phase 10 (f)'s process,
         each kernel's device time beside its bound and SDPA's forward and
         backward.
 
@@ -266,9 +272,9 @@ Phases, in order; any failure exits non-zero and prints no result:
 
 14. the pipeline compositions on the card (``make_pipeline_train_step`` with
     ``ep_axis=``, ``tp_axis=``, ``seq_axis=``; ``pipe_phase``), full width,
-    the flash kernels, ranks on ``cuda:0`` over gloo, one world of 8 spawned
-    after phase 2 built the kernels: its first 6 ranks a grid of their own
-    for (a) (``Mesh.sub``), all 8 regridded into (b)-(d):
+    the flash kernels, ranks on ``cuda:0`` over gloo, one world of 8 (run
+    in phase 10's chain): its first 6 ranks a grid of their own for (a)
+    (``Mesh.sub``), all 8 regridded into (b)-(d):
     (a) EP x DP x PP on the reference's 2 x 3, MoE (2 experts per rank and
         stage), M 3, 3 rows per replica, all five schedules (the interleaved
         ones with 2 chunks of one layer);
@@ -290,13 +296,13 @@ Phases, in order; any failure exits non-zero and prints no result:
     equal to ``pipe_staged_bytes``, the median step (slowest rank) and the
     all-reduce seconds.  (e): the kernels at the new per-rank shapes
     (``PIPE_KERNEL_CASES``) against their plain versions and the autograd
-    Functions against the CPU, then, in a process of their own, their device
+    Functions against the CPU, then, in phase 10 (f)'s process, their device
     times beside their bounds and SDPA's.
 
 15. ZeRO stages 1, 2 and 3 and the partition-rule engine on the card
     (``parallel/zero.py``, ``parallel/rules.py``; ``zero_phase``): one world
-    of 4 ranks on ``cuda:0`` over gloo, spawned after phase 2 built the
-    kernels, regridded to 2 x 2 (two DP lines of 2) for the n = 2 runs:
+    of 4 ranks on ``cuda:0`` over gloo (run in phase 10's chain), regridded
+    to 2 x 2 (two DP lines of 2) for the n = 2 runs:
     (a) ZeRO-3 over the driver entry's workload, the ResNet-18 GroupNorm
         with SGD momentum 0.9: one fp32 step (lr 0.1, TF32 off, 8 rows per
         rank) against one process on the card (each rank's rows forward and
@@ -536,10 +542,11 @@ Phases, in order; any failure exits non-zero and prints no result:
     on cuda:0 reshape 2 -> 1 with 0 steps lost; (c) the bench with
     ``CUDA_VISIBLE_DEVICES=`` and ``--attempts 1``: the ``accelerator
     unreachable`` line, ``health.reason`` ``device_unreachable``, no step
-    trained.  (b) and (c) run beside the kernels' build, phase 9 (e) and
-    phase 3, (a) beside the model check and phase 7 (none times anything of
-    the card, and none overlaps the primer's timed steps; the lines print
-    after phase 21), so their walls include that load.
+    trained.  (a)-(c) run beside the kernels' build, phase 3, the model
+    check and phase 7 ((a) once ``stream_inputs`` has made its secondary's
+    files; none times anything of the card, and none overlaps the primer's
+    timed steps; the lines print after phase 21), so their walls include
+    that load.
 23. the tokenizers, the ``describe()`` registry and the lint gate on the
     card (``tokenizer_run``, ``golden_quick``, ``registry_run``,
     ``lint_gate``): (a) the SentencePiece model ``data/tinystories.model``
@@ -550,16 +557,16 @@ Phases, in order; any failure exits non-zero and prints no result:
     within 1 of ln(vocab), each kernel launched 6 times a step, all on
     ``wgmma``; the native BPE encoder (``native/libddl25_bpe.so``) ran and
     equals the Python loop on the corpus; ``golden_tables --quick`` on the
-    card, in phase 9 (e)'s process, prints its header; (b) one spawned world
+    card, in (a)'s process after the tokenizers, prints its header; (b) one spawned world
     of 4 ranks on ``cuda:0`` over gloo runs the 16 training strategies'
     ``describe()`` one step each (the ``(1, 2)`` ones on 2 ranks of it):
     every collective signature holds on every rank, and each step's
     ``max_memory_allocated`` above what the rank held before it is under its
     budget; (c) ``python -m ddl25spring_tpu_torch.analysis --check
     --host-safety`` exits 0.  (a) runs in a process of its own beside the
-    build and phase 3 (its steps wait for the kernels), (c) beside the
-    build, (b) beside the model check and phase 7; none times anything of
-    the card, and their lines print after phase 22's.
+    build, phase 3, the model check and phase 7 (its steps wait for the
+    kernels), (c) beside the build, (b) from the end of the build; none
+    times anything of the card, and their lines print after phase 22's.
 
 Tolerances (|kernel - plain| <= atol + rtol * |plain|):
   fp32: atol 1e-4, rtol 0 (summation order only);
@@ -1669,7 +1676,6 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 try:
     chip_smoke.fl_vertical_generative(torch.device("cuda", 0))
-    chip_smoke.golden_quick(torch.device("cuda", 0))
 except chip_smoke.PhaseError as e:
     print(f"FAILED: {e}", flush=True)
     sys.exit(1)
@@ -1696,6 +1702,78 @@ def fl_phase(dev, vertical=True):
         t0 = time.perf_counter()
         fn(dev)
         print(f"  {name} took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+# ------------------------------------------- phases 10-17: one world of 8
+
+CHAIN_WORLD = 8                 # ranks of the world that hosts phases 10-17's worlds
+CHAIN_TIMEOUT = 1200            # seconds for all of them
+
+
+def chain_rank(rdv, jobs):
+    """One rank of the world that hosts phases 10-17's worlds one after the
+    other.  For each ``(name, fn, n, args)`` of ``jobs`` the world's first
+    ``n`` ranks run ``fn(rdv_j, *args)`` as a world of ``n`` of their own,
+    which meets in a store of its own beside the spawn's; the other ranks go
+    on to the next job and wait for its peers there.  One start-up (the
+    process, its CUDA context, the kernels' modules, cuBLAS's handles) serves
+    them all, and each job frees what it cached before the next.  Returns
+    ``{name: result}`` of the jobs this rank ran."""
+    import dataclasses
+    import gc
+
+    out = {}
+    for j, (name, fn, n, args) in enumerate(jobs):
+        if rdv.rank >= n:
+            continue
+        sub = dataclasses.replace(rdv, world=n, local_world=n,
+                                  init_method=f"{rdv.init_method}-{j}")
+        out[name] = fn(sub, *args)
+        gc.collect()
+        if torch.cuda.is_initialized():
+            torch.cuda.empty_cache()
+    return out
+
+
+def own_world(fn, n, args):
+    """``fn``'s world of ``n`` ranks spawned on its own, the kernels built
+    first: a phase run alone, outside :func:`chain_phase`."""
+    from ddl25spring_tpu_torch.ops import _build
+    from ddl25spring_tpu_torch.parallel.launch import spawn
+
+    _build.build(_build.CSRC / "flash_attention.cu", _build.CSRC / "flash_attention_sm90.cu",
+                 _build.CSRC / "flash_attention_tf32x3.cu")
+    return spawn(fn, n, *args, timeout=SPAWN_TIMEOUT)
+
+
+def chain_phase(dev, zdir) -> dict:
+    """The worlds of phases 10 (a)-(c) and (e), 11 (e), 12, 13 (b) and (c), 14,
+    15 and 17 (d), each as its phase builds it, run in turn in ONE spawned
+    world of :data:`CHAIN_WORLD` ranks (:func:`chain_rank`) instead of nine:
+    the card runs one of them at a time, as before, and each phase checks
+    its world's results in its place.  17 (d) checkpoints into ``zdir``.
+    Returns each world's ranks' results by name (rank order) and the inputs
+    under ``"inputs"``."""
+    from ddl25spring_tpu_torch.parallel.launch import spawn
+
+    moe_b, moe_c = moe_inputs(dev)
+    jobs = [("10 (a)-(c)", schedules_rank, DP * PP, schedules_inputs(dev)),
+            ("10 (e)", dp_overlap_rank, 2, dp_overlap_inputs(dev)),
+            ("11 (e)", fedavg_axis_rank, 2, (dev.type,)),
+            ("12", sp_tp_rank, 4, sp_tp_inputs(dev)),
+            ("13 (b)", moe_world_rank, 4, moe_b),
+            ("13 (c)", moe_pipe_rank, MOE_PIPE[0] * MOE_PIPE[1], moe_c),
+            ("14", pipe_comp_rank, 8, pipe_inputs(dev)),
+            ("15", zero_rank, ZERO_N, zero_inputs(dev)),
+            ("17 (d)", ft_zero_rank, FT_ZERO_N, ft_zero_inputs(zdir, dev.type))]
+    t0 = time.perf_counter()
+    ranks = spawn(chain_rank, CHAIN_WORLD, jobs, timeout=CHAIN_TIMEOUT)
+    print(f"  one world of {CHAIN_WORLD} ranks ran phases 10-17's {len(jobs)} worlds in turn "
+          f"({', '.join(f'{name}: {n} ranks' for name, _, n, _ in jobs)}) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    worlds = {name: [r[name] for r in ranks[:n]] for name, _, n, _ in jobs}
+    worlds["inputs"] = {name: args for name, _, _, args in jobs}
+    return worlds
 
 
 # ---------------------------------------------------------------- phase 10
@@ -1904,23 +1982,24 @@ def schedules_memory(ranks):
           f"{s0['1f1b']['peak'][-1] / s0['gpipe']['peak'][-1]:.4f}")
 
 
-def schedules_worlds(dev):
-    """Phase 10 (a)-(c): one 2 x 3 world running every schedule's runs in
-    turn, the 1 x 3 runs first on its first 3 ranks (``Mesh.sub``)."""
-    from ddl25spring_tpu_torch.parallel.launch import spawn
+def schedules_inputs(dev) -> tuple:
+    """Phase 10 (a)-(c)'s world of 2 x 3 (:func:`schedules_rank`): every
+    schedule's runs in turn, the 1 x 3 runs first on its first 3 ranks
+    (``Mesh.sub``)."""
+    return (DP, _schedule_runs("a", "float32", MICRO, DP * ROWS, 1)
+            + _schedule_runs("b", "bfloat16", MICRO, DP * ROWS, SCHED_STEPS),
+            dev.type,
+            _schedule_runs("a", "float32", MICRO, MICRO, 1)
+            + _schedule_runs("c", "bfloat16", MEM_MICRO, MEM_MICRO, 2,
+                             ("gpipe", "1f1b", "1f1b-stash", "interleaved-1f1b")))
 
-    t0 = time.perf_counter()
-    two = spawn(schedules_rank, DP * PP, DP,
-                _schedule_runs("a", "float32", MICRO, DP * ROWS, 1)
-                + _schedule_runs("b", "bfloat16", MICRO, DP * ROWS, SCHED_STEPS),
-                dev.type,
-                _schedule_runs("a", "float32", MICRO, MICRO, 1)
-                + _schedule_runs("c", "bfloat16", MEM_MICRO, MEM_MICRO, 2,
-                                 ("gpipe", "1f1b", "1f1b-stash", "interleaved-1f1b")),
-                timeout=SPAWN_TIMEOUT)
+
+def schedules_worlds(dev, two):
+    """Phase 10 (a)-(c)'s checks on the 2 x 3 world's results (the chain's
+    first world, :func:`chain_phase`)."""
     one = [r["sub"] for r in two[:PP]]
-    print(f"  one 2 x 3 world, the 1 x 3 runs on its first 3 ranks: backend "
-          f"{two[0]['backend']}, {time.perf_counter() - t0:.1f} s")
+    print(f"  the 2 x 3 world, the 1 x 3 runs on its first 3 ranks: backend "
+          f"{two[0]['backend']}")
     schedules_exactness("1 x 3", one)
     schedules_exactness("2 x 3", two)
     timing = schedules_launches_and_times(two)
@@ -2018,16 +2097,19 @@ def dp_overlap_rank(rdv, cfg, batches, device):
     return out
 
 
-def dp_overlap(dev):
-    """Phase 10 (e): DP ``overlap=True`` against the sync per-tensor step, 2
-    gloo ranks on the card, fp32, full-width LLaMA, after 2 steps."""
-    from ddl25spring_tpu_torch.parallel.bucketing import flatten
-    from ddl25spring_tpu_torch.parallel.launch import spawn
+def dp_overlap_inputs(dev) -> tuple:
+    """Phase 10 (e)'s world of 2 (:func:`dp_overlap_rank`)."""
     from ddl25spring_tpu_torch.utils.config import LlamaConfig
 
     cfg = LlamaConfig(dtype="float32", use_flash=True)
-    ranks = spawn(dp_overlap_rank, 2, cfg, _token_batches(cfg, 2 * ROWS, 2, seed=19),
-                  dev.type, timeout=SPAWN_TIMEOUT)
+    return cfg, _token_batches(cfg, 2 * ROWS, 2, seed=19), dev.type
+
+
+def dp_overlap(dev, ranks):
+    """Phase 10 (e): DP ``overlap=True`` against the sync per-tensor step, 2
+    gloo ranks on the card, fp32, full-width LLaMA, after 2 steps."""
+    from ddl25spring_tpu_torch.parallel.bucketing import flatten
+
     diff = 0.0
     for r in ranks:
         check(r["device"].startswith("cuda"), f"(e) rank on {r['device']}")
@@ -2138,25 +2220,43 @@ def kernel_times_at(rdv, cases, tag):
     return out, lines
 
 
+def kernel_times_sets(rdv, sets):
+    """:func:`kernel_times_at` for each ``(cases, tag)`` of ``sets``, in one
+    new process: phase 10 (f)'s, 12 (c)'s and 14 (e)'s."""
+    return [kernel_times_at(rdv, cases, tag) for cases, tag in sets]
+
+
 def slice_kernel_times(dev):
     """Phase 10 (f): :func:`kernel_times_at` the schedules' per-microbatch
     shape ``[6, 256, 48]`` bf16 causal, phase 4's ``[18, 256, 48]`` in fp32
     causal and not, and ``[6, 256, 48]`` fp32 causal (phase 7 (a)'s
-    microbatch), in a new process."""
+    microbatch); in the same new process, phase 12 (c)'s and 14 (e)'s cases.
+    Returns each set's ``(times, lines)`` by tag; prints (f)'s."""
     from ddl25spring_tpu_torch.parallel.launch import spawn
 
     cases = [(1, 6, 256, torch.bfloat16, True), (3, 6, 256, torch.float32, True),
              (3, 6, 256, torch.float32, False), (1, 6, 256, torch.float32, True)]
-    (out, lines), = spawn(kernel_times_at, 1, cases, "(f)", timeout=SPAWN_TIMEOUT)
-    for line in lines:
+    sets = [(cases, "(f)"),
+            ([(B, H, L, torch.bfloat16, c) for B, H, L, c in SPTP_KERNEL_CASES], "12 (c)"),
+            ([(B, H, L, torch.bfloat16, c) for B, H, L, c in PIPE_KERNEL_CASES], "14 (e)")]
+    (res,) = spawn(kernel_times_sets, 1, sets, timeout=SPAWN_TIMEOUT)
+    out = {tag: r for (_, tag), r in zip(sets, res)}
+    for line in out["(f)"][1]:
         print(line)
     return out
 
 
-def schedules_phase(dev):
-    """Phase 10, each sub-phase timed; returns (f)'s kernel times."""
-    for name, fn in (("(a)-(c)", schedules_worlds), ("(d)", grad_accum_resnet),
-                     ("(e)", dp_overlap), ("(f)", slice_kernel_times)):
+def schedules_phase(dev, worlds=None):
+    """Phase 10, each sub-phase timed, its worlds' results from
+    :func:`chain_phase` (None: spawned here, the phase run alone); returns
+    the kernel times of (f), 12 (c) and 14 (e) by tag."""
+    if worlds is None:
+        worlds = {"10 (a)-(c)": own_world(schedules_rank, DP * PP, schedules_inputs(dev)),
+                  "10 (e)": own_world(dp_overlap_rank, 2, dp_overlap_inputs(dev))}
+    for name, fn in (("(a)-(c)", lambda d: schedules_worlds(d, worlds["10 (a)-(c)"])),
+                     ("(d)", grad_accum_resnet),
+                     ("(e)", lambda d: dp_overlap(d, worlds["10 (e)"])),
+                     ("(f)", slice_kernel_times)):
         t0 = time.perf_counter()
         out = fn(dev)
         print(f"  {name} took {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2506,17 +2606,15 @@ def fedavg_axis_rank(rdv, device):
                 "counts": server.counts.tolist()}
 
 
-def fedavg_client_axis(dev):
+def fedavg_client_axis(dev, ranks):
     """Phase 11 (e): :func:`fedavg_axis_rank` on two ranks sharing the card.
     The sharded round against the one-process form of its own arithmetic
     within 1e-6 (only where the two blocks' sums meet differs), and against
     the one-process round over the 4 clients within 1e-5, the FedAvg band
     against JAX: that round runs its convolutions at twice the batch, and
     cuDNN picks its algorithms by shape (the difference of the two
-    one-process forms is printed)."""
-    from ddl25spring_tpu_torch.parallel.launch import spawn
-
-    ranks = spawn(fedavg_axis_rank, 2, dev.type, timeout=SPAWN_TIMEOUT)
+    one-process forms is printed).  ``ranks``: the world of 2's results
+    (:func:`chain_phase`)."""
     for r in ranks:
         check(r["device"].startswith(dev.type) and r["backend"] == "gloo",
               f"(e) rank {r['rank']} on {r['device']} over {r['backend']}")
@@ -2553,8 +2651,11 @@ def fused_refusals(dev):
             check(False, f"(f) {name} ran instead of raising")
 
 
-def fused_phase(dev):
-    """Phase 11, each sub-phase timed; returns the LLaMA numbers."""
+def fused_phase(dev, worlds=None):
+    """Phase 11, each sub-phase timed, (e)'s world from :func:`chain_phase`
+    (None: spawned here); returns the LLaMA numbers."""
+    if worlds is None:
+        worlds = {"11 (e)": own_world(fedavg_axis_rank, 2, (dev.type,))}
     from ddl25spring_tpu_torch.parallel.launch import spawn
 
     t0 = time.perf_counter()
@@ -2563,7 +2664,8 @@ def fused_phase(dev):
         print(line)
     print(f"  (a)-(b) LLaMA took {time.perf_counter() - t0:.1f} s", flush=True)
     for name, fn in (("(b) ResNet", resnet_scan_headline), ("(c)", resnet_scan_exactness),
-                     ("(d)", grad_accum_fused), ("(e)", fedavg_client_axis),
+                     ("(d)", grad_accum_fused),
+                     ("(e)", lambda d: fedavg_client_axis(d, worlds["11 (e)"])),
                      ("(f)", fused_refusals)):
         t0 = time.perf_counter()
         fn(dev)
@@ -2776,33 +2878,39 @@ def sp_tp_kernel_checks(dev):
     return errs
 
 
-def sp_tp_phase(dev):
-    """Phase 12: sequence and tensor parallelism on the card, each sub-phase
-    timed; returns each layout's flash launches per rank over the run."""
+def sp_tp_inputs(dev) -> tuple:
+    """Phase 12's world of 4 (:func:`sp_tp_rank`)."""
     import numpy as np
 
     from ddl25spring_tpu_torch.data.tinystories import TinyStories
     from ddl25spring_tpu_torch.data.tokenizer import get_tokenizer
-    from ddl25spring_tpu_torch.ops import _build
-    from ddl25spring_tpu_torch.parallel.launch import spawn
     from ddl25spring_tpu_torch.utils.config import LlamaConfig
 
-    _build.build(_build.CSRC / "flash_attention.cu", _build.CSRC / "flash_attention_sm90.cu")
-    t0 = time.perf_counter()
     exact = _token_batches(LlamaConfig(), 2 * SPTP_ROWS, 1, seed=17)[0]
     ds = iter(TinyStories(get_tokenizer(), batch_size=2 * SPTP_ROWS, seq_l=256, seed=0))
     batches = [np.asarray(next(ds)) for _ in range(SPTP_STEPS)]
-    ranks = spawn(sp_tp_rank, 4, exact, batches, dev.type, timeout=SPAWN_TIMEOUT)
-    print(f"  4 ranks, backend {sorted({r['slice']['tp']['backend'] for r in ranks})}: "
-          f"{time.perf_counter() - t0:.1f} s")
+    return exact, batches, dev.type
+
+
+def sp_tp_phase(dev, ranks=None, kernel_times=None):
+    """Phase 12: sequence and tensor parallelism on the card, each sub-phase
+    timed, the world of 4's results from :func:`chain_phase` and (c)'s
+    kernel times from phase 10 (f)'s process (None: each made here, the
+    phase run alone); returns each layout's flash launches per rank over
+    the run."""
+    if ranks is None:
+        ranks = own_world(sp_tp_rank, 4, sp_tp_inputs(dev))
+    if kernel_times is None:
+        (kernel_times,) = own_world(kernel_times_at, 1, (
+            [(B, H, L, torch.bfloat16, c) for B, H, L, c in SPTP_KERNEL_CASES], "12 (c)"))
+    print(f"  4 ranks, backend {sorted({r['slice']['tp']['backend'] for r in ranks})}")
     t0 = time.perf_counter()
     sp_tp_exactness(ranks, dev)
     launches = sp_tp_slices(ranks)
     print(f"  (a)-(b) checks took {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     errs = sp_tp_kernel_checks(dev)
-    cases = [(B, H, L, torch.bfloat16, causal) for B, H, L, causal in SPTP_KERNEL_CASES]
-    (times, lines), = spawn(kernel_times_at, 1, cases, "(c)", timeout=SPAWN_TIMEOUT)
+    times, lines = kernel_times
     for line in lines:
         print(line)
     print(f"  (c) took {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3289,38 +3397,47 @@ def moe_pipe_checks(ranks, dev, exact_tokens):
     return step_ms
 
 
-def moe_phase(dev):
-    """Phase 13: switch-MoE LLaMA and expert parallelism on the card, each
-    sub-phase timed; returns (a)'s flash launches per step."""
+def moe_inputs(dev) -> tuple[tuple, tuple]:
+    """Phase 13 (b)'s world of 4 (:func:`moe_world_rank`) and (c)'s of 2 x 3
+    (:func:`moe_pipe_rank`)."""
     import numpy as np
 
     from ddl25spring_tpu_torch.data.tinystories import TinyStories
     from ddl25spring_tpu_torch.data.tokenizer import get_tokenizer
-    from ddl25spring_tpu_torch.ops import _build
-    from ddl25spring_tpu_torch.parallel.launch import spawn
 
-    _build.build(_build.CSRC / "flash_attention.cu", _build.CSRC / "flash_attention_sm90.cu")
+    exact = _token_batches(moe_cfg(), 2 * SPTP_ROWS, 1, seed=17)[0]
+    ds = iter(TinyStories(get_tokenizer(), batch_size=2 * SPTP_ROWS, seq_l=256, seed=0))
+    batches = [np.asarray(next(ds)) for _ in range(SPTP_STEPS)]
+    D, S, M = MOE_PIPE
+    pipe_exact = _token_batches(moe_cfg(), D * M, 1, seed=19)[0]
+    pipe_batches = [np.asarray(next(ds))[:D * M] for _ in range(MOE_PIPE_STEPS)]
+    return (exact, batches, dev.type), (pipe_exact, pipe_batches, dev.type)
+
+
+def moe_phase(dev, worlds=None):
+    """Phase 13: switch-MoE LLaMA and expert parallelism on the card, each
+    sub-phase timed, (b)'s and (c)'s worlds from :func:`chain_phase` (None:
+    spawned here, after (a)); returns (a)'s flash launches per step."""
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
     single = moe_single(dev)
     print(f"  (a) took {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    exact = _token_batches(moe_cfg(), 2 * SPTP_ROWS, 1, seed=17)[0]
-    ds = iter(TinyStories(get_tokenizer(), batch_size=2 * SPTP_ROWS, seq_l=256, seed=0))
-    batches = [np.asarray(next(ds)) for _ in range(SPTP_STEPS)]
-    ranks = spawn(moe_world_rank, 4, exact, batches, dev.type, timeout=SPAWN_TIMEOUT)
-    print(f"  (b) 4 ranks, backend {sorted({r['slice']['tp']['backend'] for r in ranks})}: "
-          f"{time.perf_counter() - t0:.1f} s")
+    if worlds is None:
+        b, c = moe_inputs(dev)
+        worlds = {"13 (b)": own_world(moe_world_rank, 4, b),
+                  "13 (c)": own_world(moe_pipe_rank, MOE_PIPE[0] * MOE_PIPE[1], c),
+                  "inputs": {"13 (c)": c}}
+    ranks = worlds["13 (b)"]
+    print(f"  (b) 4 ranks, backend {sorted({r['slice']['tp']['backend'] for r in ranks})}")
     world = moe_world_checks(ranks, dev)
     print(f"  (b) took {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    D, S, M = MOE_PIPE
-    exact = _token_batches(moe_cfg(), D * M, 1, seed=19)[0]
-    pipe_batches = [np.asarray(next(ds))[:D * M] for _ in range(MOE_PIPE_STEPS)]
-    ranks = spawn(moe_pipe_rank, D * S, exact, pipe_batches, dev.type, timeout=SPAWN_TIMEOUT)
-    pipe = moe_pipe_checks(ranks, dev, exact)
+    exact = worlds["inputs"]["13 (c)"][0]
+    pipe = moe_pipe_checks(worlds["13 (c)"], dev, exact)
     print(f"  (c) took {time.perf_counter() - t0:.1f} s", flush=True)
-    print(f"  phase 13 took {time.perf_counter() - t_phase:.1f} s (after the build)")
+    print(f"  phase 13 took {time.perf_counter() - t_phase:.1f} s (its worlds ran in phase "
+          "10)")
     return {"launches": single["launches"], "single": single, "world": world, "pipe": pipe}
 
 
@@ -3740,42 +3857,49 @@ def pipe_kernel_checks(dev):
     return errs
 
 
-def pipe_phase(dev):
-    """Phase 14: the pipeline compositions on the card, one world of 8 ranks
-    ((a) on its first 6, (b)-(d) on all 8), each sub-phase timed; returns
-    the runs' launches, the kernels' errors at the new shapes and their
-    times."""
+def pipe_inputs(dev) -> tuple:
+    """Phase 14's world of 8 (:func:`pipe_comp_rank`)."""
     import numpy as np
 
     from ddl25spring_tpu_torch.data.tinystories import TinyStories
     from ddl25spring_tpu_torch.data.tokenizer import get_tokenizer
-    from ddl25spring_tpu_torch.ops import _build
-    from ddl25spring_tpu_torch.parallel.launch import spawn
 
-    _build.build(_build.CSRC / "flash_attention.cu", _build.CSRC / "flash_attention_sm90.cu")
-    t_phase = time.perf_counter()
     exact = _token_batches(pipe_cfg("dense", "float32"), 6, 1, seed=23)[0]
     ds = iter(TinyStories(get_tokenizer(), batch_size=6, seq_l=256, seed=0))
     batches = [np.asarray(next(ds)) for _ in range(PIPE_STEPS)]
+    return exact, batches, dev.type
+
+
+def pipe_phase(dev, ranks=None, exact=None, kernel_times=None):
+    """Phase 14: the pipeline compositions on the card, one world of 8 ranks
+    ((a) on its first 6, (b)-(d) on all 8) from :func:`chain_phase`, each
+    sub-phase timed, (e)'s kernel times from phase 10 (f)'s process (None:
+    each made here, the phase run alone); returns the runs' launches, the
+    kernels' errors at the new shapes and their times."""
+    if ranks is None:
+        args = pipe_inputs(dev)
+        ranks, exact = own_world(pipe_comp_rank, 8, args), args[0]
+    if kernel_times is None:
+        (kernel_times,) = own_world(kernel_times_at, 1, (
+            [(B, H, L, torch.bfloat16, c) for B, H, L, c in PIPE_KERNEL_CASES], "14 (e)"))
+    t_phase = time.perf_counter()
     runs = {}
     t0 = time.perf_counter()
-    ranks = spawn(pipe_comp_rank, 8, exact, batches, dev.type, timeout=SPAWN_TIMEOUT)
     print(f"  8 ranks, the 6-rank grid on the first 6, backend "
-          f"{sorted({r[n]['backend'] for r in ranks for n in r})}: "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"{sorted({r[n]['backend'] for r in ranks for n in r})}", flush=True)
     for world in (6, 8):
         runs.update(pipe_checks([{n: v for n, v in r.items() if PIPE_RUNS[n]["world"] == world}
                                  for r in ranks[:world]], dev, exact))
-    print(f"  the world of 8 took {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"  the world of 8's checks took {time.perf_counter() - t0:.1f} s", flush=True)
     pipe_refusals()
     t0 = time.perf_counter()
     errs = pipe_kernel_checks(dev)
-    cases = [(B, H, L, torch.bfloat16, causal) for B, H, L, causal in PIPE_KERNEL_CASES]
-    (times, lines), = spawn(kernel_times_at, 1, cases, "(e)", timeout=SPAWN_TIMEOUT)
+    times, lines = kernel_times
     for line in lines:
         print(line)
     print(f"  (e) took {time.perf_counter() - t0:.1f} s", flush=True)
-    print(f"  phase 14 took {time.perf_counter() - t_phase:.1f} s (after the build)")
+    print(f"  phase 14 took {time.perf_counter() - t_phase:.1f} s (its world ran in phase "
+          "10)")
     return {"runs": runs, "max_abs_err": errs, "times": times}
 
 
@@ -4281,19 +4405,14 @@ def zero_checks(ranks, dev, data):
     return out
 
 
-def zero_phase(dev):
-    """Phase 15: ZeRO stages 1, 2 and 3 and the rule tables on the card, one
-    world of 4 ranks; returns the checks' numbers and launches."""
+def zero_inputs(dev) -> tuple:
+    """Phase 15's world of 4 (:func:`zero_rank`)."""
     import numpy as np
 
     from ddl25spring_tpu_torch.data.cifar10 import load_cifar10_u8
     from ddl25spring_tpu_torch.data.tinystories import TinyStories
     from ddl25spring_tpu_torch.data.tokenizer import get_tokenizer
-    from ddl25spring_tpu_torch.ops import _build
-    from ddl25spring_tpu_torch.parallel.launch import spawn
 
-    _build.build(_build.CSRC / "flash_attention.cu", _build.CSRC / "flash_attention_sm90.cu")
-    t0 = time.perf_counter()
     n = ZERO_N
     c = load_cifar10_u8(n_train=n * ZERO_RESNET_ROWS)
     x, y = c["x"], c["y"].astype(np.int64)
@@ -4312,11 +4431,20 @@ def zero_phase(dev):
             "mlp weights": [(0.1 * g.normal(size=s)).astype(np.float32)
                             for s in ((16, 32), (32,), (32, 4))]}
     data["moe"] = [b[:n * ZERO_MOE_M] for b in data["llama"]]
-    ranks = spawn(zero_rank, n, data, dev.type, timeout=SPAWN_TIMEOUT)
-    print(f"  {n} ranks, backend {sorted({r['backend'] for r in ranks})}: "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return data, dev.type
+
+
+def zero_phase(dev, ranks=None, data=None):
+    """Phase 15: ZeRO stages 1, 2 and 3 and the rule tables on the card, one
+    world of 4 ranks (from :func:`chain_phase`; None: spawned here); returns
+    the checks' numbers and launches."""
+    t0 = time.perf_counter()
+    if ranks is None:
+        args = zero_inputs(dev)
+        ranks, data = own_world(zero_rank, ZERO_N, args), args[0]
+    print(f"  {ZERO_N} ranks, backend {sorted({r['backend'] for r in ranks})}", flush=True)
     out = zero_checks(ranks, dev, data)
-    print(f"  phase 15 took {time.perf_counter() - t0:.1f} s (after the build)")
+    print(f"  phase 15 took {time.perf_counter() - t0:.1f} s (its world ran in phase 10)")
     return out
 
 
@@ -5100,6 +5228,12 @@ def ft_zero_rank(rdv, batches, ckpt_dir, device="cuda"):
     return out
 
 
+def ft_zero_inputs(zdir, device) -> tuple:
+    """Phase 17 (d)'s world of 4 (:func:`ft_zero_rank`), checkpointing into
+    ``zdir``."""
+    return _token_batches(pipe_cfg("dense", "float32"), FT_ZERO_ROWS, 4, seed=31), zdir, device
+
+
 def ft_zero_checks(ranks, ckpt_dir) -> tuple[dict, list[str]]:
     """(d)'s checks: the reshaped runs within ``FT_BAND`` of the
     uninterrupted n = 2 run (the rows unsharded over a DP line), the flight
@@ -5180,9 +5314,11 @@ def ft_zero_checks(ranks, ckpt_dir) -> tuple[dict, list[str]]:
             "save_ms": save_ms, "restore_ms": restore_ms}, lines
 
 
-def ft_phase(dev, device="cuda"):
+def ft_phase(dev, device="cuda", zero_world=None):
     """Phase 17, each sub-phase timed; returns the launch counts and walls
-    (``device``: where the spawned processes run, ``"cpu"`` to rehearse)."""
+    (``device``: where the spawned processes run, ``"cpu"`` to rehearse).
+    ``zero_world``: (d)'s ranks and checkpoint directory from
+    :func:`chain_phase`; None runs (d)'s world here."""
     import os
     import tempfile
 
@@ -5199,10 +5335,12 @@ def ft_phase(dev, device="cuda"):
         print(ft_gate_checks(gate))
         print(f"  (c) took {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
-        cfg = pipe_cfg("dense", "float32")
-        batches = _token_batches(cfg, FT_ZERO_ROWS, 4, seed=31)
-        zdir = os.path.join(tmp, "zero")
-        ranks = spawn(ft_zero_rank, FT_ZERO_N, batches, zdir, device, timeout=SPAWN_TIMEOUT)
+        if zero_world is None:
+            zdir = os.path.join(tmp, "zero")
+            ranks = spawn(ft_zero_rank, FT_ZERO_N, *ft_zero_inputs(zdir, device),
+                          timeout=SPAWN_TIMEOUT)
+        else:
+            ranks, zdir = zero_world
         zero3, lines = ft_zero_checks(ranks, zdir)
         for line in lines:
             print(line)
@@ -6421,14 +6559,15 @@ def bench_cli(argv, env, timeout=900):
             time.perf_counter() - t0)
 
 
-def resilient_start(pool, tmp, device="cuda", extra=(), parts="abc") -> dict:
+def resilient_start(pool, tmp, device="cuda", extra=(), parts="abc", ready=None) -> dict:
     """Start phase 22's runs named in ``parts`` on ``pool``, each through the
     bench's command line in ``tmp``: (a) a sigterm lineage resumed from its
     durable step, (b) the elastic 2 -> 1 reshape, (c) the bench on a host
     with no visible GPU; returns their futures by part, for
     :func:`resilient_phase`.  ``device`` and ``extra`` flags for (a) and (b)
     (``"cpu"`` and a small ``--per-chip-batch`` rehearse them on the
-    host)."""
+    host).  ``ready``: a future that (a) waits for before it starts (the
+    inputs of its streamed secondary, :func:`stream_inputs`)."""
     import os
 
     base = ["--device", device, "--no-fedavg", "--perf-reps", "0", *extra]
@@ -6449,11 +6588,18 @@ def resilient_start(pool, tmp, device="cuda", extra=(), parts="abc") -> dict:
             "--obs-dir", os.path.join(tmp, "nogpu"), "--perf-ledger", os.path.join(tmp, "c.jsonl")],
             {"CUDA_VISIBLE_DEVICES": ""}, 300)
     if "a" in parts:
-        futs["a"] = pool.submit(bench_cli, [
+        futs["a"] = pool.submit(_after, ready, bench_cli, [
             "--per-chip-batch", str(RESUME_BATCH), *base, "--scan-steps", "1", "--steps",
             str(RESUME_STEPS), "--obs-dir", os.path.join(tmp, "lineage"), "--perf-ledger",
             os.path.join(tmp, "a.jsonl")], {"DDL25_CHAOS": f"sigterm@{RESUME_KILL}", **rows})
     return futs
+
+
+def _after(ready, fn, *args):
+    """``fn(*args)`` once the future ``ready`` (if any) has its result."""
+    if ready is not None:
+        ready.result()
+    return fn(*args)
 
 
 def stream_inputs() -> None:
@@ -6656,6 +6802,7 @@ import sys, torch
 import chip_smoke
 try:
     chip_smoke.tokenizer_run()
+    chip_smoke.golden_quick(torch.device("cuda", 0))
 except chip_smoke.PhaseError as e:
     print(f"FAILED: {e}", flush=True)
     sys.exit(1)
@@ -6663,9 +6810,9 @@ except chip_smoke.PhaseError as e:
 
 
 def tokenizer_proc() -> tuple[str, dict]:
-    """Phase 23 (a) (:func:`tokenizer_run`) in a child process; returns what
-    it printed and its flash launches a step by tokenizer, and fails as the
-    child did."""
+    """Phase 23 (a) (:func:`tokenizer_run`, then :func:`golden_quick`) in a
+    child process; returns what it printed and its flash launches a step by
+    tokenizer, and fails as the child did."""
     import os
 
     r = subprocess.run([sys.executable, "-c", _TOKENIZER], capture_output=True, text=True,
@@ -6678,8 +6825,9 @@ def tokenizer_proc() -> tuple[str, dict]:
 
 
 def golden_quick(dev) -> None:
-    """Phase 23 (a)'s last part, in phase 9 (e)'s process: ``golden_tables
-    --quick`` on the card; its header says which data the table stands on."""
+    """Phase 23 (a)'s last part, in its process after the tokenizers:
+    ``golden_tables --quick`` on the card; its header says which data the
+    table stands on."""
     import contextlib
     import io
 
@@ -6767,34 +6915,39 @@ def main() -> int:
 
     print("== build")
     t0 = time.perf_counter()
-    # phase 9 (e) and phase 22 build no kernel and time nothing of the card:
-    # 9 (e), 22 (b) and (c) start here, beside the build and phase 3 (whose
-    # checks time nothing), and end before the primer's steps are timed;
-    # 22 (a) runs beside the model check and phase 7.  Phase 22's lines
-    # print after phase 21
+    # phase 9 (e), phase 22 and phase 23 build no kernel and time nothing of
+    # the card: 9 (e), 22 (a)-(c) and 23 (a), (c) start here, 23 (b) (the
+    # registry world, on the kernels) once they are built; all of them run
+    # beside the build, phase 3, the model check and phase 7 (whose checks
+    # time nothing) and end before the primer, which has the card to itself.
+    # Phase 22's and 23's lines print after phase 21
+    import os
     import shutil
     import tempfile
 
-    # phase 23 (a) (the tokenizers: CPU work, then 2 x 3 full-width steps
-    # on the card once the kernels exist) and (c) (the lint gate, no card)
-    # start here too, (a) ending before the primer; 23 (b) (the registry
-    # world) runs beside phase 7; phase 23's lines print after phase 22's
-    side = concurrent.futures.ThreadPoolExecutor(7)
+    side = concurrent.futures.ThreadPoolExecutor(8)
     tmp22 = tempfile.mkdtemp(prefix="phase22-")
-    runs22 = resilient_start(side, tmp22, parts="bc")
     binaries = side.submit(stream_inputs)
+    # (a)'s streamed secondary reads what stream_inputs makes
+    runs22 = resilient_start(side, tmp22, ready=binaries)
     lint23 = side.submit(lint_gate)
     tok23 = side.submit(tokenizer_proc)
     print("  phase 9 (e), federated learning (cuDNN, cuBLAS), beside the build:", flush=True)
     vertical = side.submit(fl_vertical_generative_proc)
     t_side, ends = time.perf_counter(), {}
+
+    def timed(name, f):
+        f.add_done_callback(lambda _: ends.setdefault(name, time.perf_counter()))
+
     for name, f in (("9 (e)", vertical), ("23 (a)", tok23), ("23 (c)", lint23),
                     *((f"22 ({k})", f) for k, f in runs22.items())):
-        f.add_done_callback(lambda _, name=name: ends.setdefault(name, time.perf_counter()))
+        timed(name, f)
     libs = _build.build(_build.CSRC / "flash_attention.cu", _build.CSRC / "flash_attention_sm90.cu",
                         _build.CSRC / "flash_attention_tf32x3.cu")
+    reg23 = side.submit(registry_run)
+    timed("23 (b)", reg23)
     print(f"  {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.1f} s "
-          f"(one nvcc each, in parallel; phase 9 (e) and phase 22 (b), (c) beside them)")
+          f"(one nvcc each, in parallel; phase 9 (e), 22 and 23 (a), (c) beside them)")
     for lib in libs:
         print_ptxas(lib.with_suffix(".log").read_text())
 
@@ -6848,16 +7001,32 @@ def main() -> int:
             autograd_case(fa, gen, dev, MAIN_SHAPE, dtype, causal, with_lse=True)
     autograd_case(fa, gen, dev, (2, 200, 2, 64), torch.float32, True, with_lse=True)
 
+    print("== full-width model check (beside phases 9 (e), 22 and 23)")
+    model_check(dev)
+
+    print(f"== DP x PP on the card: {DP} x {PP} ranks, {MICRO} microbatches, {ROWS} rows "
+          "per replica (beside phases 9 (e), 22 and 23: the slice's step time is no "
+          "measurement; 10 (b) times the gpipe step alone)")
+    t0 = time.perf_counter()
+    fp32_launches = dp_pp_exactness(dev)
+    dp_pp_slice(dev)
+    nccl_dp(dev)
+    print(f"  phase 7 in {time.perf_counter() - t0:.1f} s")
+
     t0 = time.perf_counter()
     print(vertical.result(), end="")
     binaries.result()
     tok_out, tok_launches = tok23.result()
     lint_out = lint23.result()
+    reg_lines = reg23.result()
     for f in runs22.values():
         f.exception()  # wait; phase 22 checks them after phase 21
-    print(f"  (phase 9 (e), phase 22 (b), (c) and phase 23 (a), (c) ended "
-          f"{time.perf_counter() - t0:.1f} s after phase 3; each ran "
-          + ", ".join(f"{k} {t - t_side:.1f} s" for k, t in ends.items()) + ")", flush=True)
+    side.shutdown()
+    print(f"  (phase 9 (e), phase 22 and phase 23 ended {time.perf_counter() - t0:.1f} s "
+          "after phase 7; each ran "
+          + ", ".join(f"{k} {t - t_side:.1f} s" for k, t in sorted(ends.items(),
+                                                                  key=lambda kv: kv[1]))
+          + " from the build's start)", flush=True)
 
     print(f"== the slice: primer, {STEPS} steps, full width, bf16, flash kernels (the card to "
           "itself)")
@@ -6885,31 +7054,6 @@ def main() -> int:
     print(f"  step time median {step_ms:.3f} ms (steps 4..{STEPS - 1}, host clock, "
           f"min {min(steady) * 1e3:.3f} ms), {B * L / (step_ms / 1e3):.1f} tokens/s")
 
-    # phase 22 (a) and phase 23 (b) from here, beside the model check and phase 7
-    t_a = time.perf_counter()
-    runs22.update(resilient_start(side, tmp22, parts="a"))
-    reg23 = side.submit(registry_run)
-    print("== full-width model check (beside phase 22 (a) and phase 23 (b))")
-    model_check(dev)
-
-    print(f"== DP x PP on the card: {DP} x {PP} ranks, {MICRO} microbatches, {ROWS} rows "
-          "per replica (beside phase 22 (a): the slice's step time is no measurement; 10 (b) "
-          "times the gpipe step alone)")
-    t0 = time.perf_counter()
-    fp32_launches = dp_pp_exactness(dev)
-    dp_pp_slice(dev)
-    nccl_dp(dev)
-    print(f"  phase 7 in {time.perf_counter() - t0:.1f} s")
-
-    t0 = time.perf_counter()
-    runs22["a"].exception()
-    t_22a = time.perf_counter() - t0
-    reg_lines = reg23.result()
-    side.shutdown()
-    print(f"  (phase 22 (a) ended {t_22a:.1f} s after phase 7, phase 23 (b) "
-          f"{time.perf_counter() - t0:.1f} s after it; both began {time.perf_counter() - t_a:.1f}"
-          " s ago)", flush=True)
-
     print("== timing at the LLaMA path's shape, bf16 causal")
     timing = time_kernels(fa, gen, dev)
 
@@ -6931,21 +7075,24 @@ def main() -> int:
     print(f"== schedules on the card: {', '.join(SCHED)} ({CHUNKS} chunks per rank when "
           "interleaved); grad accumulation; DP overlap")
     t0 = time.perf_counter()
-    fp32_times = schedules_phase(dev)["[18, 256, 48] float32 causal"]
-    print(f"  phase 10 in {time.perf_counter() - t0:.1f} s")
+    zroot = tempfile.mkdtemp(prefix="phase17d-")
+    worlds = chain_phase(dev, os.path.join(zroot, "zero"))
+    ktimes = schedules_phase(dev, worlds)
+    fp32_times = ktimes["(f)"][0]["[18, 256, 48] float32 causal"]
+    print(f"  phase 10 in {time.perf_counter() - t0:.1f} s (with the world of phases 10-17)")
 
     print(f"== fused dispatch: K train steps per CUDA graph (LLaMA K = {FUSE_K}, ResNet "
           f"hbm-scan K = {FUSE_K}, grad accumulation K = 4); the FedAvg client axis over ranks")
     print(card)
     t0 = time.perf_counter()
-    fused = fused_phase(dev)
+    fused = fused_phase(dev, worlds)
     print(f"  phase 11 in {time.perf_counter() - t0:.1f} s")
 
     print("== sequence and tensor parallelism on the card: the flash ring, Ulysses and "
           "Megatron TP with the vocab-sharded embedding and loss (4 ranks on cuda:0)")
     print(card)
     t0 = time.perf_counter()
-    sptp = sp_tp_phase(dev)
+    sptp = sp_tp_phase(dev, worlds["12"], ktimes["12 (c)"])
     print(f"  phase 12 in {time.perf_counter() - t0:.1f} s")
 
     print("== switch-MoE LLaMA and expert parallelism on the card: MoE in one process "
@@ -6953,14 +7100,14 @@ def main() -> int:
           "schedules (6 ranks)")
     print(card)
     t0 = time.perf_counter()
-    moe = moe_phase(dev)
+    moe = moe_phase(dev, worlds)
     print(f"  phase 13 in {time.perf_counter() - t0:.1f} s")
 
     print("== the pipeline compositions on the card: EP x DP x PP (6 ranks), DP x PP x TP, "
           "DP x PP x SP and PP x SP x TP (8 ranks), all on cuda:0")
     print(card)
     t0 = time.perf_counter()
-    pipe = pipe_phase(dev)
+    pipe = pipe_phase(dev, worlds["14"], worlds["inputs"]["14"][0], ktimes["14 (e)"])
     print(f"  phase 14 in {time.perf_counter() - t0:.1f} s")
 
     print("== ZeRO stages 1, 2 and 3 and the partition-rule engine on the card: ResNet-18 "
@@ -6968,7 +7115,7 @@ def main() -> int:
           "ZeRO-3, the rule tables (4 ranks on cuda:0)")
     print(card)
     t0 = time.perf_counter()
-    zero3 = zero_phase(dev)
+    zero3 = zero_phase(dev, worlds["15"], worlds["inputs"]["15"][0])
     print(f"  phase 15 in {time.perf_counter() - t0:.1f} s")
 
     print("== the observability slice on the card: guarded LLaMA eager and in a CUDA graph "
@@ -6984,7 +7131,10 @@ def main() -> int:
           "-> 4 and restored across meshes (4 ranks on cuda:0)")
     print(card)
     t0 = time.perf_counter()
-    ft = ft_phase(dev)
+    try:
+        ft = ft_phase(dev, zero_world=(worlds["17 (d)"], os.path.join(zroot, "zero")))
+    finally:
+        shutil.rmtree(zroot, ignore_errors=True)
     print(f"  phase 17 in {time.perf_counter() - t0:.1f} s")
 
     print("== decode and the serving engine on the card: the paged engine graphed and eager "
@@ -7033,7 +7183,7 @@ def main() -> int:
     for line in lines22:
         print(line)
     print(f"  phase 22's checks in {time.perf_counter() - t0:.1f} s (its runs beside the build, "
-          "9 (e) and phase 3, and beside the model check and phase 7)")
+          "phase 3, the model check and phase 7)")
 
     print("== the tokenizers, the describe() registry and the lint gate on the card: "
           "SentencePiece and a trained BPE into the full-width LLaMA (bf16, flash), the 16 "

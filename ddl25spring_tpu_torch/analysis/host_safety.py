@@ -24,8 +24,8 @@ S203      error     signal-handler-unsafe operation: non-reentrant lock
 S204      error     host<->device mirror drift: a :data:`MIRRORS`
                     contract method assigns the device page pool from one
                     of its device programs without touching any host-side
-                    mirror in the same method, directly or through a
-                    method of its class that it calls
+                    mirror in the same method (a mirror settled
+                    elsewhere takes a reasoned waiver)
 S205      warn      unbounded blocking call (``join()``/``wait()``/
                     queue ``get()`` without a timeout) on a shutdown or
                     crash-dump path
@@ -818,27 +818,11 @@ def _rule_s203(inv, info, findings):
             )
 
 
-def _settles_mirror(inv, fn) -> bool:
-    """``fn`` writes a host mirror itself, or calls a method of its own
-    class (``self.m(...)``) that does: the port's engine settles the page
-    high-water mark through ``_track_pages()`` right after its tick."""
-    if fn.host_mirror_writes:
-        return True
-    meths = inv.modules[fn.relpath].classes.get(fn.cls, {})
-    for token, _lineno, _held in fn.calls:
-        parts = token.split(".")
-        if len(parts) == 2 and parts[0] == "self":
-            fid = meths.get(parts[1])
-            if fid is not None and inv.funcs[fid].host_mirror_writes:
-                return True
-    return False
-
-
 def _rule_s204(inv, info, findings):
     del info
     for fn in inv.funcs.values():
         for state, op, lineno in fn.device_writes:
-            if _settles_mirror(inv, fn):
+            if fn.host_mirror_writes:
                 continue
             contract = next(
                 (m for m in inv.mirrors if m["cls"] == fn.cls), None

@@ -18,7 +18,9 @@ recording on, names the mesh axes of each record from its ranks (JAX's
 
 Two keys of that schema read the device, not the inventory:
 
-- ``memory.max_peak_hbm_bytes``: on the card, the step's
+- ``memory.max_peak_hbm_bytes``: the strategy's ``budget_bytes`` in
+  :data:`STRATEGIES` (the describes declare none; :func:`run_strategy` adds
+  it to their ``expected``), against, on the card, the step's
   ``torch.cuda.max_memory_allocated`` above what was allocated before the
   describe built its state; on the CPU it is not judged, and the report
   says so (``not_judged``);
@@ -99,33 +101,6 @@ WORLD = max(math.prod(info["default_mesh"]) for info in STRATEGIES.values())
 NOT_APPLICABLE_DONATION = ("donation: not applicable: a torch optimizer updates the "
                            "parameters and its state in place, so no output buffer "
                            "could alias an input")
-
-
-def tiny_llama(mesh, n_layers: int, params: dict | None = None):
-    """The describes' tiny LLaMA on ``mesh.device`` (JAX's: vocab 64, dmodel
-    16, 2 heads, ctx 16, float32; attention through the flash kernels on the
-    card): ``(cfg, model)``, the weights from ``params`` (JAX's numpy
-    pytree) or drawn from seed 0."""
-    import torch
-
-    from ddl25spring_tpu_torch.models import llama
-    from ddl25spring_tpu_torch.utils.config import LlamaConfig
-
-    cfg = LlamaConfig(vocab_size=64, dmodel=16, num_heads=2, n_layers=n_layers, ctx_size=16,
-                      dtype="float32", use_flash=mesh.device.type == "cuda")
-    model = llama.Llama(cfg, device=mesh.device, generator=torch.Generator().manual_seed(0))
-    if params is not None:
-        llama.load_jax_params(model, params)
-    return cfg, model
-
-
-def tiny_tokens(rows: int, cfg):
-    """A seeded ``[rows, ctx]`` int64 token batch for the tiny LLaMA."""
-    import numpy as np
-    import torch
-
-    rng = np.random.default_rng(0)
-    return torch.from_numpy(rng.integers(0, cfg.vocab_size, (rows, cfg.ctx_size)))
 
 
 def _known(name: str):
@@ -333,18 +308,21 @@ def run_strategy(name: str, mesh, **overrides: Any) -> dict[str, Any]:
         not_judged.insert(0, "memory: not judged on the CPU: the budget is judged against "
                              "torch.cuda.max_memory_allocated over the step on the card")
     ops = inventory(records, mesh.grid)
+    # the budget lives in STRATEGIES only: the describes declare no memory
+    budget = budget_bytes(name)
+    expected = dict(d.get("expected", {}))
+    if budget is not None:
+        expected["memory"] = {"max_peak_hbm_bytes": budget}
     report = {
         "strategy": name,
         "rank": mesh.rank,
         "mesh": dict(zip(mesh.grid.names, mesh.grid.shape)),
         "lowered": d.get("lowered", "train_step"),
         "meta": d.get("meta", {}),
-        "expected": d.get("expected", {}),
+        "expected": expected,
         "collectives": {"ops": ops, "totals": collective_totals(ops),
                         "by_axis": totals_by_axis(ops)},
-        "memory": {"peak_bytes": peak,
-                   "budget_bytes": (d.get("expected", {}).get("memory") or {}).get(
-                       "max_peak_hbm_bytes")},
+        "memory": {"peak_bytes": peak, "budget_bytes": budget},
         "not_judged": not_judged,
     }
     report["signature_violations"] = check_signature(report, report["expected"])

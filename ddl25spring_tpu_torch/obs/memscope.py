@@ -547,9 +547,9 @@ def pool_leak_check(pool: dict[str, Any], *, cache_held_pages: int = 0,
 
 
 def describe_budget_bytes(strategy: str) -> int | None:
-    """The peak-memory budget a registered training strategy declares
-    (``describe()['expected']['memory']['max_peak_hbm_bytes']``, from
-    :mod:`~ddl25spring_tpu_torch.obs.comm_analytics`); None for workloads
+    """The peak-memory budget of a registered training strategy (its
+    ``budget_bytes`` in :data:`~ddl25spring_tpu_torch.obs.comm_analytics.
+    STRATEGIES`, which ``run_strategy`` judges the step against); None for workloads
     outside the registry (the bench's ResNet, and the serving programs until
     their describes, ROADMAP A12b): those gate on the static accounting."""
     from ddl25spring_tpu_torch.obs import comm_analytics

@@ -374,6 +374,30 @@ def tiny_mlp_workload(mesh, axis: str = "data", params: dict | None = None):
     return model, tiny_mlp_loss, batch, param_bytes
 
 
+def tiny_llama(mesh, n_layers: int, params: dict | None = None):
+    """The describes' tiny LLaMA on ``mesh.device`` (JAX's: vocab 64, dmodel
+    16, 2 heads, ctx 16, float32; attention through the flash kernels on the
+    card): ``(cfg, model)``, the weights from ``params`` (JAX's numpy
+    pytree) or drawn from seed 0."""
+    from ddl25spring_tpu_torch.models import llama
+    from ddl25spring_tpu_torch.utils.config import LlamaConfig
+
+    cfg = LlamaConfig(vocab_size=64, dmodel=16, num_heads=2, n_layers=n_layers, ctx_size=16,
+                      dtype="float32", use_flash=mesh.device.type == "cuda")
+    model = llama.Llama(cfg, device=mesh.device, generator=torch.Generator().manual_seed(0))
+    if params is not None:
+        llama.load_jax_params(model, params)
+    return cfg, model
+
+
+def tiny_tokens(rows: int, cfg):
+    """A seeded ``[rows, ctx]`` int64 token batch for the tiny LLaMA."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return torch.from_numpy(rng.integers(0, cfg.vocab_size, (rows, cfg.ctx_size)))
+
+
 def describe(mesh, axis: str = "data", bucketed: bool = True, overlap: bool = False,
              bucket_bytes: int | None = None, params: dict | None = None):
     """The ``describe()`` of ``dp`` and ``dp-overlap`` (JAX ``parallel/dp.py:355``):
@@ -391,7 +415,6 @@ def describe(mesh, axis: str = "data", bucketed: bool = True, overlap: bool = Fa
     1`` ops of the same 2,692 B)."""
     if overlap and not bucketed:
         raise ValueError("overlap describes the bucketed DP path only")
-    from ddl25spring_tpu_torch.obs.comm_analytics import budget_bytes
 
     model, loss_fn, batch, param_bytes = tiny_mlp_workload(mesh, axis, params)
     bb = (bucket_bytes or DESCRIBE_BUCKET_BYTES) if bucketed else None
@@ -406,7 +429,6 @@ def describe(mesh, axis: str = "data", bucketed: bool = True, overlap: bool = Fa
         "all-reduce": {"min_bytes": param_bytes, "max_bytes": param_bytes + 256,
                        "axes": [axis], "count": n_buckets + 1},
         "forbidden": ["all-gather", "reduce-scatter", "collective-permute", "all-to-all"],
-        "memory": {"max_peak_hbm_bytes": budget_bytes("dp")},
     }
     return {
         "fn": step, "args": (batch,), "lowered": "train_step",

@@ -370,7 +370,6 @@ def describe(mesh, axis: str = "expert", params: dict | None = None):
     The all-to-alls equal JAX's: 3 of 3,840 B in all at ``E = 4``."""
     import numpy as np
 
-    from ddl25spring_tpu_torch.obs.comm_analytics import budget_bytes
 
     ax = mesh.axis(axis)
     E, D, F_, T = ax.size, 16, 32, 16 * ax.size
@@ -401,6 +400,5 @@ def describe(mesh, axis: str = "expert", params: dict | None = None):
             "all-reduce": {"count": 2, "min_bytes": router_bytes + 4,
                            "max_bytes": router_bytes + 4, "axes": [axis]},
             "forbidden": ["collective-permute", "reduce-scatter"],
-            "memory": {"max_peak_hbm_bytes": budget_bytes("ep")},
         },
     }

@@ -142,7 +142,6 @@ def describe(mesh, num_microbatches: int = 4, stage_axis: str = "stage",
       own stage."""
     import numpy as np
 
-    from ddl25spring_tpu_torch.obs.comm_analytics import budget_bytes
 
     S = mesh.axis(stage_axis).size
     if S != 2:
@@ -176,6 +175,5 @@ def describe(mesh, num_microbatches: int = 4, stage_axis: str = "stage",
                                    "min_bytes": lo * boundary_bytes,
                                    "max_bytes": hi * boundary_bytes, "axes": [stage_axis]},
             "forbidden": ["all-to-all", "reduce-scatter", "all-gather", "all-reduce"],
-            "memory": {"max_peak_hbm_bytes": budget_bytes("het_pipeline")},
         },
     }

@@ -968,7 +968,7 @@ def describe(mesh, num_microbatches: int = 4, stage_axis: str = "stage",
       the program sums over the stage ring; the port's stage 0 alone holds
       the embedding and the last stage the norm, the head and the loss."""
     from ddl25spring_tpu_torch.models.llama import export_params
-    from ddl25spring_tpu_torch.obs.comm_analytics import budget_bytes, tiny_llama, tiny_tokens
+    from ddl25spring_tpu_torch.parallel.dp import tiny_llama, tiny_tokens
 
     S = mesh.axis(stage_axis).size
     M, mb = num_microbatches, 2
@@ -993,6 +993,5 @@ def describe(mesh, num_microbatches: int = 4, stage_axis: str = "stage",
                                    "min_bytes": lo * boundary_bytes,
                                    "max_bytes": hi * boundary_bytes, "axes": [stage_axis]},
             "forbidden": ["all-to-all", "reduce-scatter", "all-gather", "all-reduce"],
-            "memory": {"max_peak_hbm_bytes": budget_bytes("pipeline")},
         },
     }

@@ -314,7 +314,7 @@ def describe(mesh, seq_axis: str = "seq", mode: str = "ring", params: dict | Non
     - all-reduce, bytes: the same two ops (the gradients, ``param_bytes``,
       which H011 found, and the loss), but JAX's carry 4 B more (41,288 B
       against 41,284 B): a second 4-byte scalar XLA combined into them."""
-    from ddl25spring_tpu_torch.obs.comm_analytics import budget_bytes, tiny_llama, tiny_tokens
+    from ddl25spring_tpu_torch.parallel.dp import tiny_llama, tiny_tokens
 
     ax = mesh.axis(seq_axis)
     n = ax.size
@@ -343,6 +343,5 @@ def describe(mesh, seq_axis: str = "seq", mode: str = "ring", params: dict | Non
             "all-reduce": {"count": n_buckets + 1, "min_bytes": param_bytes + 4,
                            "max_bytes": param_bytes + 4, "axes": [seq_axis]},
             **({"forbidden": ["all-to-all"]} if mode == "ring" else {}),
-            "memory": {"max_peak_hbm_bytes": budget_bytes("sp")},
         },
     }

@@ -315,17 +315,40 @@ def describe(mesh, model_axis: str = "model", params: dict | None = None):
     and the pick's ``[B, L-1]``; one all-gather of the per-shard
     log-sum-exps ``[t, B, L-1]``; no permute.
 
-    Where JAX's compiled inventory differs (``meta["differs_from_jax"]``):
+    JAX's compiled all-reduces, op by op (``compile_strategy("tp")``, jax
+    0.9.0; ``a`` one ``[B, L, D]`` activation, 4,096 B here; ``p`` one
+    ``[B, L-1]`` row of picks, 240 B), beside the port's
+    (``meta["all_reduce_ops"]`` lists both; a test pins each to its
+    inventory):
 
-    - all-reduce, bytes: the same 11 ops, but XLA's partitioner sums more
-      per op (JAX: 66,020 B; the port: the 41,200 B its code names: ten
-      activations and the pick); which sums XLA widened is not broken down;
-    - reduce-scatter and all-to-all, present in JAX only: the partitioner's
-      transpose of the log-sum-exp gather and its resharding of the combine
-      (H011 found both); the port's gather is an autograd node whose backward
-      takes the rank's own slot, with no collective."""
+    - the row-parallel forward sums, ``2 L`` ops of ``a``: the same on both
+      sides;
+    - each block's attention-side cotangent: JAX one op of ``3 a`` a layer,
+      the port one of ``a``.  JAX's replicated input enters the q, k and v
+      products separately, and the transpose of each implicit ``pvary`` is
+      a psum: three sums, which XLA's combiner fuses into one op of three
+      operands.  The port's ``copy_in`` comes before the fan-out, so autograd
+      adds the three cotangents first and sums once;
+    - each block's FFN-side cotangent: JAX ``2 a`` (gate and up), the port
+      ``a``, for the same reason;
+    - the embedding's assembly and the target pick: JAX one op of ``a + p``
+      (the combiner fuses the two forward psums), the port two ops;
+    - the head's input cotangent: JAX one op of ``a + p``, the port ``a``.
+      JAX's ``p`` is the transpose of the ``pvary`` that typing inserts where
+      the invariant pick meets the gathered (varying) log-sum-exp; in the
+      port the pick's cotangent is the same on every rank and needs no sum;
+    - the loss's ``pmean``: JAX one op of 4 B; the port computes the same
+      loss on every rank from the gathered log-sum-exps and the summed pick.
+
+    So the kinds that differ (``meta["differs_from_jax"]``): all-reduce
+    bytes (JAX 66,020 B, the port 41,200 B, 11 ops on each side, made of
+    different sums); and the
+    reduce-scatter, present in JAX only: the transpose of the log-sum-exp
+    gather (H011 found it); the port's gather is an autograd node whose
+    backward takes the rank's own slot, with no collective.  JAX's own
+    signature also admits one all-to-all, which jax 0.9.0 does not emit."""
     from ddl25spring_tpu_torch.models.llama import export_params
-    from ddl25spring_tpu_torch.obs.comm_analytics import budget_bytes, tiny_llama, tiny_tokens
+    from ddl25spring_tpu_torch.parallel.dp import tiny_llama, tiny_tokens
 
     ax = mesh.axis(model_axis)
     cfg, model = tiny_llama(mesh, 2, params)
@@ -334,15 +357,29 @@ def describe(mesh, model_axis: str = "model", params: dict | None = None):
     step = make_tp_train_step(model, cfg, opt, mesh, model_axis, sentinel=False)
     B = 4
     act_bytes = B * cfg.ctx_size * cfg.dmodel * 4
-    lse_bytes = ax.size * B * (cfg.ctx_size - 1) * 4
-    n_ar = 4 * cfg.n_layers + 3
-    ar_bytes = (n_ar - 1) * act_bytes + B * (cfg.ctx_size - 1) * 4
+    L, pick = cfg.n_layers, B * (cfg.ctx_size - 1) * 4
+    lse_bytes = ax.size * pick
+    n_ar = 4 * L + 3
+    ar_bytes = (n_ar - 1) * act_bytes + pick
+    # (what, result bytes of one op, executions), in the docstring's order
+    ar_ops = {
+        "port": [("row-parallel forward sums", act_bytes, 2 * L),
+                 ("attention-side cotangent", act_bytes, L),
+                 ("FFN-side cotangent", act_bytes, L),
+                 ("embedding assembly", act_bytes, 1), ("target pick", pick, 1),
+                 ("head input cotangent", act_bytes, 1)],
+        "jax": [("row-parallel forward sums", act_bytes, 2 * L),
+                ("attention-side cotangent (q, k, v fused)", 3 * act_bytes, L),
+                ("FFN-side cotangent (gate, up fused)", 2 * act_bytes, L),
+                ("embedding assembly + target pick", act_bytes + pick, 1),
+                ("head input cotangent + pick's pvary transpose", act_bytes + pick, 1),
+                ("loss pmean", 4, 1)]}
     return {
         "fn": step, "args": (tiny_tokens(B, cfg),), "lowered": "train_step",
         "meta": {"n_layers": cfg.n_layers, "block_psum_bytes": act_bytes, "shard_vocab": True,
+                 "all_reduce_ops": ar_ops,
                  "differs_from_jax": {"all-reduce": ("bytes",),
-                                      "reduce-scatter": ("absent",),
-                                      "all-to-all": ("absent",)}},
+                                      "reduce-scatter": ("absent",)}},
         "expected": {
             "scalar_bytes": 64,
             "all-reduce": {"count": n_ar, "min_bytes": ar_bytes, "max_bytes": ar_bytes,
@@ -350,6 +387,5 @@ def describe(mesh, model_axis: str = "model", params: dict | None = None):
             "all-gather": {"count": 1, "min_bytes": lse_bytes, "max_bytes": lse_bytes,
                            "axes": [model_axis]},
             "forbidden": ["collective-permute", "reduce-scatter", "all-to-all"],
-            "memory": {"max_peak_hbm_bytes": budget_bytes("tp")},
         },
     }

@@ -326,22 +326,39 @@ def test_s204_near_miss_same_method_mirror_write_stays_quiet():
 
             def tick(self, toks):
                 self.pool, new_tok, ok = self._tick(self.params, self.pool, toks)
+                self._release_mask = [False]
+    """
+    assert lint(src, "ddl25spring_tpu_torch/serve/fake_engine.py", mirrors=_S204_MIRRORS) == []
+
+
+def test_s204_mirror_written_only_by_a_helper_still_fires():
+    """JAX's rule is per method: a tick that leaves the mirror to a helper it
+    calls is flagged all the same (such a site takes a reasoned waiver)."""
+    src = """
+        class FakeEngine:
+            def tick(self, toks):
+                self.pool, new_tok, ok = self._tick(self.params, self.pool, toks)
                 self._track()
 
             def _track(self):
                 self._release_mask.clear()
     """
-    assert lint(src, "ddl25spring_tpu_torch/serve/fake_engine.py", mirrors=_S204_MIRRORS) == []
+    (f,) = lint(src, "ddl25spring_tpu_torch/serve/fake_engine.py", mirrors=_S204_MIRRORS,
+                jax_path="ddl25spring_tpu/serve/fake_engine.py")
+    assert f.rule == "S204" and f.op == "FakeEngine.tick"
 
 
 def test_s204_fires_on_a_seeded_drift_in_the_port_engine():
     """The real contract on the real ``ServeEngine``: the engine's own source
-    lints clean, and a method seeded into the class that replaces the pool
+    raises S204 only at the decode tick, which ``waivers.toml`` covers with
+    its reason, and a method seeded into the class that replaces the pool
     through a device program (a tuple target, the port's idiom) without
-    touching a host mirror is an S204."""
+    touching a host mirror is one more S204, which no waiver covers."""
     path = "ddl25spring_tpu_torch/serve/engine.py"
     src = (ROOT / path).read_text()
-    assert [f for f in host_safety.lint_source(src, path) if f.rule == "S204"] == []
+    own = apply_waivers([f for f in host_safety.lint_source(src, path) if f.rule == "S204"],
+                        load_waivers())
+    assert [(f.op, f.waived) for f in own] == [("ServeEngine._run_decode_tick", True)]
     anchor = "    def _flush_releases(self) -> None:\n"
     assert anchor in src
     seeded = src.replace(anchor, (
@@ -349,7 +366,8 @@ def test_s204_fires_on_a_seeded_drift_in_the_port_engine():
         "        self.pool, new_tok, ok = self._tick(self.params, self.pool, toks,\n"
         "                                            self._noise(self.max_slots))\n"
         "        return new_tok, ok\n\n" + anchor), 1)
-    (f,) = [f for f in host_safety.lint_source(seeded, path) if f.rule == "S204"]
+    (f,) = [f for f in apply_waivers(host_safety.lint_source(seeded, path), load_waivers())
+            if f.rule == "S204" and not f.waived]
     assert f.op == "ServeEngine._seeded_drift" and "_tick" in f.message
 
 

@@ -212,6 +212,36 @@ def test_tp_signature_allreduce_over_model_only(world):
                if o["result_bytes"] > 64)
 
 
+def _all_reduce_bytes(ops):
+    """One entry per execution: the result bytes of each all-reduce, sorted."""
+    return sorted(b for o in ops if o["kind"] == "all-reduce" for b in [o["result_bytes"]] * o["count"])
+
+
+def test_tp_all_reduces_pinned_to_jax_op_by_op(world):
+    """tp's all-reduce bytes differ from JAX's in total; op by op, JAX's
+    compiled all-reduces are exactly the describe's breakdown of them and the
+    port's are exactly its own, the forward sums are the same ops on both
+    sides, and each JAX cotangent sum is the port's one summed once per use it
+    fuses (3 on the attention side, 2 on the FFN side)."""
+    ranks, jax = world
+    r = _rank0(ranks, "tp")
+    ops = r["meta"]["all_reduce_ops"]
+
+    def listed(side):
+        return sorted(b for _, b, n in ops[side] for b in [b] * n)
+
+    assert _all_reduce_bytes(r["collectives"]["ops"]) == listed("port")
+    assert _all_reduce_bytes(jax["tp"]["collectives"]["ops"]) == listed("jax")
+    port, theirs = ops["port"], ops["jax"]
+    assert port[0] == theirs[0]  # the row-parallel forward sums
+    act = r["meta"]["block_psum_bytes"]
+    assert port[1][1:] == port[2][1:] == (act, r["meta"]["n_layers"])
+    assert theirs[1][1:] == (3 * act, r["meta"]["n_layers"])
+    assert theirs[2][1:] == (2 * act, r["meta"]["n_layers"])
+    pick = port[4][1]
+    assert theirs[3][1] == port[3][1] + pick and theirs[4][1] == port[5][1] + pick
+
+
 def test_sp_ring_signature_permutes_over_seq(world):
     r = _rank0(world[0], "sp")
     n = r["meta"]["seq_shards"]
