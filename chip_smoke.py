@@ -557,7 +557,7 @@ Phases, in order; any failure exits non-zero and prints no result:
     within 1 of ln(vocab), each kernel launched 6 times a step, all on
     ``wgmma``; the native BPE encoder (``native/libddl25_bpe.so``) ran and
     equals the Python loop on the corpus; ``golden_tables --quick`` on the
-    card, in (a)'s process after the tokenizers, prints its header; (b) one spawned world
+    card, in phase 9 (e)'s process after its runs, prints its header; (b) one spawned world
     of 4 ranks on ``cuda:0`` over gloo runs the 16 training strategies'
     ``describe()`` one step each (the ``(1, 2)`` ones on 2 ranks of it):
     every collective signature holds on every rank, and each step's
@@ -1676,6 +1676,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 try:
     chip_smoke.fl_vertical_generative(torch.device("cuda", 0))
+    chip_smoke.golden_quick(torch.device("cuda", 0))
 except chip_smoke.PhaseError as e:
     print(f"FAILED: {e}", flush=True)
     sys.exit(1)
@@ -1683,8 +1684,9 @@ except chip_smoke.PhaseError as e:
 
 
 def fl_vertical_generative_proc() -> str:
-    """Phase 9 (e) (:func:`fl_vertical_generative`) in a child process;
-    returns what it printed, and fails as the child did."""
+    """Phase 9 (e) (:func:`fl_vertical_generative`), then phase 23 (a)'s
+    :func:`golden_quick`, in a child process; returns what it printed, and
+    fails as the child did."""
     import os
 
     r = subprocess.run([sys.executable, "-c", _FL_VERTICAL], capture_output=True, text=True,
@@ -6802,7 +6804,6 @@ import sys, torch
 import chip_smoke
 try:
     chip_smoke.tokenizer_run()
-    chip_smoke.golden_quick(torch.device("cuda", 0))
 except chip_smoke.PhaseError as e:
     print(f"FAILED: {e}", flush=True)
     sys.exit(1)
@@ -6810,9 +6811,9 @@ except chip_smoke.PhaseError as e:
 
 
 def tokenizer_proc() -> tuple[str, dict]:
-    """Phase 23 (a) (:func:`tokenizer_run`, then :func:`golden_quick`) in a
-    child process; returns what it printed and its flash launches a step by
-    tokenizer, and fails as the child did."""
+    """Phase 23 (a) (:func:`tokenizer_run`) in a child process; returns what
+    it printed and its flash launches a step by tokenizer, and fails as the
+    child did."""
     import os
 
     r = subprocess.run([sys.executable, "-c", _TOKENIZER], capture_output=True, text=True,
@@ -6825,9 +6826,10 @@ def tokenizer_proc() -> tuple[str, dict]:
 
 
 def golden_quick(dev) -> None:
-    """Phase 23 (a)'s last part, in its process after the tokenizers:
-    ``golden_tables --quick`` on the card; its header says which data the
-    table stands on."""
+    """Phase 23 (a)'s last part, in the FL phase's process (9 (e)'s, after
+    the VFL and the VAE; it ends before phase 7 does, off the critical
+    path): ``golden_tables --quick`` on the card; its header says which data
+    the table stands on."""
     import contextlib
     import io
 
